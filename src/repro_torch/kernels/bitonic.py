@@ -1,0 +1,282 @@
+"""Bitonic networks on torch tensors, and the two Hopper kernels that run them.
+
+Counterpart of :mod:`repro.kernels.bitonic`.  Two kernels of that module sit
+on the sort dataplane's main path and are ported here as CUDA C++ for
+``sm_90a`` (sources under ``csrc/``):
+
+* **K1** :func:`sort_rows` -- ascending sort of every row of a ``(rows, B)``
+  int32/int64 matrix (``csrc/row_sort.cu``; replaces ``sort_tiles``);
+* **K2** :func:`merge_tournament` -- merge of ``P`` padded sorted rows into one
+  sorted ``P*B`` row (``csrc/tournament.cu``; replaces ``tournament_tiles``).
+
+Each has a plain torch version in this module (:func:`sort_rows_plain`,
+:func:`tournament_plain`) that runs the same network stage by stage.  The
+wrapper takes the plain version only for a tensor on the CPU; for a CUDA
+tensor it launches the kernel or raises.  Every launch adds one to
+:data:`LAUNCHES`, so a run can show that it went through the kernels.
+
+The kernels are compiled with ``nvcc`` at first use into ``build/kernels/``
+at the root of the checkout (a plain C interface, loaded with ``ctypes``);
+nothing is built or imported from ``triton``/CUDA when this module loads.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+
+import torch
+
+#: Kernel launches since the last :func:`reset_launches` (main-path proof).
+LAUNCHES = {"row_sort": 0, "tournament": 0}
+
+#: Widest row K1 sorts in one shared-memory tile.
+MAX_ROW = 4096
+
+_CSRC = Path(__file__).resolve().parent / "csrc"
+_SOURCES = {"row_sort": "row_sort.cu", "tournament": "tournament.cu"}
+_LIBS: dict[str, ctypes.CDLL] = {}
+_BUILD_LOCK = threading.Lock()
+
+
+def reset_launches() -> None:
+    for key in LAUNCHES:
+        LAUNCHES[key] = 0
+
+
+# ---------------------------------------------------------------------------
+# The network (plain torch)
+# ---------------------------------------------------------------------------
+
+
+def _stages(n: int):
+    """The bitonic network schedule: (k, j) compare-exchange stages."""
+    k = 2
+    while k <= n:
+        j = k // 2
+        while j >= 1:
+            yield k, j
+            j //= 2
+        k *= 2
+
+
+def _is_pow2(n: int) -> bool:
+    return n >= 1 and not n & (n - 1)
+
+
+def compare_exchange(x: torch.Tensor, k: int, j: int) -> torch.Tensor:
+    """One network stage over the last axis (length a power of two).
+
+    Elements ``i`` and ``i ^ j`` are compared; the pair ascends iff
+    ``(i & k) == 0`` -- :func:`repro.kernels.bitonic.compare_exchange`.
+    """
+    *lead, n = x.shape
+    nb = n // (2 * j)
+    a = x.reshape(*lead, nb, 2, j)
+    asc = ((torch.arange(nb, device=x.device) * 2 * j) & k == 0)[:, None]
+    lo, hi = a[..., 0, :], a[..., 1, :]
+    mn = torch.minimum(lo, hi)
+    mx = torch.maximum(lo, hi)
+    out = torch.stack(
+        [torch.where(asc, mn, mx), torch.where(asc, mx, mn)], dim=-2
+    )
+    return out.reshape(*lead, n)
+
+
+def _half_clean(x: torch.Tensor, j: int) -> torch.Tensor:
+    """Ascending half-cleaner of distance ``j`` over the last axis."""
+    *lead, n = x.shape
+    a = x.reshape(*lead, n // (2 * j), 2, j)
+    lo, hi = a[..., 0, :], a[..., 1, :]
+    return torch.stack(
+        [torch.minimum(lo, hi), torch.maximum(lo, hi)], dim=-2
+    ).reshape(*lead, n)
+
+
+def _flip(x: torch.Tensor, w: int) -> torch.Tensor:
+    """First stage of a merge round: position ``i`` of each ``2w`` block
+    against ``2w - 1 - i`` (``concat(a, flip(b))`` without the copy)."""
+    *lead, n = x.shape
+    a = x.reshape(*lead, n // (2 * w), 2, w)
+    lo, hi = a[..., 0, :], a[..., 1, :].flip(-1)
+    return torch.stack(
+        [torch.minimum(lo, hi), torch.maximum(lo, hi).flip(-1)], dim=-2
+    ).reshape(*lead, n)
+
+
+def sort_rows_plain(x: torch.Tensor) -> torch.Tensor:
+    """K1's plain version: the full bitonic network over every row."""
+    n = x.shape[-1]
+    if not _is_pow2(n):
+        raise ValueError(f"bitonic length must be a power of two, got {n}")
+    for k, j in _stages(n):
+        x = compare_exchange(x, k, j)
+    return x
+
+
+def tournament_plain(x: torch.Tensor) -> torch.Tensor:
+    """K2's plain version: merge the ``P`` sorted rows of ``x`` into one.
+
+    Round by round, as the kernel runs it: the flip stage against
+    ``2w-1-i``, then the ascending half-cleaners ``j = w/2 .. 1``.
+    """
+    P, B = x.shape
+    if not (_is_pow2(P) and _is_pow2(B)):
+        raise ValueError(f"tournament shape must be powers of two, got {tuple(x.shape)}")
+    flat = x.reshape(P * B)
+    w = B
+    while w < P * B:
+        flat = _flip(flat, w)
+        j = w // 2
+        while j >= 1:
+            flat = _half_clean(flat, j)
+            j //= 2
+        w *= 2
+    return flat
+
+
+# ---------------------------------------------------------------------------
+# Building and loading the CUDA kernels
+# ---------------------------------------------------------------------------
+
+
+def _repo_root() -> Path:
+    return Path(__file__).resolve().parents[3]
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    cand = Path(cuda_home) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found; the CUDA kernels cannot be built")
+
+
+def _lib_path(name: str) -> Path:
+    src = _CSRC / _SOURCES[name]
+    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:12]
+    return _repo_root() / "build" / "kernels" / f"lib{name}_{digest}.so"
+
+
+def build_kernels(names=None) -> float:
+    """Compile every kernel not built yet, one ``nvcc`` per source, all at
+    once; load them.  Returns the wall seconds spent (0 when all loaded)."""
+    names = list(names or _SOURCES)
+    with _BUILD_LOCK:
+        todo = [n for n in names if n not in _LIBS]
+        if not todo:
+            return 0.0
+        t0 = time.perf_counter()
+        procs = []
+        for name in todo:
+            out = _lib_path(name)
+            if out.exists():
+                continue
+            out.parent.mkdir(parents=True, exist_ok=True)
+            tmp = out.with_suffix(f".{os.getpid()}.tmp")
+            cmd = [
+                _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
+                "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+                "-o", str(tmp), str(_CSRC / _SOURCES[name]),
+            ]
+            procs.append((name, out, tmp, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            )))
+        for name, out, tmp, proc in procs:
+            log, _ = proc.communicate()
+            if proc.returncode:
+                raise RuntimeError(
+                    f"nvcc failed for {_SOURCES[name]}:\n{log.decode()}"
+                )
+            os.replace(tmp, out)
+        for name in todo:
+            lib = ctypes.CDLL(str(_lib_path(name)))
+            for fn in (f"{name}_i32", f"{name}_i64"):
+                f = getattr(lib, fn)
+                f.argtypes = [
+                    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+                    ctypes.c_longlong if name == "tournament" else ctypes.c_int,
+                    ctypes.c_void_p,
+                ]
+                f.restype = ctypes.c_int
+            _LIBS[name] = lib
+        return time.perf_counter() - t0
+
+
+def _kernel(name: str, dtype: torch.dtype):
+    if name not in _LIBS:
+        build_kernels([name])
+    suffix = {torch.int32: "i32", torch.int64: "i64"}[dtype]
+    return getattr(_LIBS[name], f"{name}_{suffix}")
+
+
+def _check_kernel_input(x: torch.Tensor, op: str) -> None:
+    if x.dtype not in (torch.int32, torch.int64):
+        raise TypeError(f"{op} takes int32 or int64 keys, got {x.dtype}")
+    if x.dim() != 2:
+        raise ValueError(f"{op} takes a 2-D matrix, got shape {tuple(x.shape)}")
+    if not x.is_contiguous():
+        raise ValueError(f"{op} takes a contiguous matrix")
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{op}: unsupported device {x.device}")
+
+
+def _check_launch(err: int, op: str) -> None:
+    if err:
+        raise RuntimeError(f"{op} kernel launch failed with CUDA error {err}")
+
+
+# ---------------------------------------------------------------------------
+# The wrappers: the plain version on the CPU, the kernel on the card
+# ---------------------------------------------------------------------------
+
+
+def sort_rows(x: torch.Tensor) -> torch.Tensor:
+    """K1: ascending sort of every row of ``x`` (rows, B); B a power of two
+    up to :data:`MAX_ROW`.  Returns a new tensor."""
+    _check_kernel_input(x, "sort_rows")
+    rows, b = x.shape
+    if not _is_pow2(b) or b > MAX_ROW:
+        raise ValueError(f"row width must be a power of two <= {MAX_ROW}, got {b}")
+    if x.device.type == "cpu":
+        return sort_rows_plain(x)
+    if rows == 0 or b == 1:
+        return x.clone()  # nothing to sort: no launch
+    out = torch.empty_like(x)
+    fn = _kernel("row_sort", x.dtype)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = fn(x.data_ptr(), out.data_ptr(), rows, b, stream)
+    _check_launch(err, "row_sort")
+    LAUNCHES["row_sort"] += 1
+    return out
+
+
+def merge_tournament(x: torch.Tensor) -> torch.Tensor:
+    """K2: merge the ``P`` sorted rows of ``x`` (P, B), padded with the dtype
+    maximum, into one sorted ``(P*B,)`` row.  P and B powers of two."""
+    _check_kernel_input(x, "merge_tournament")
+    P, B = x.shape
+    if not (_is_pow2(P) and _is_pow2(B)):
+        raise ValueError(f"tournament shape must be powers of two, got {tuple(x.shape)}")
+    if x.device.type == "cpu":
+        return tournament_plain(x)
+    if P == 1:
+        return x.reshape(P * B).clone()  # one sorted row: no launch
+    out = torch.empty(P * B, dtype=x.dtype, device=x.device)
+    fn = _kernel("tournament", x.dtype)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = fn(x.data_ptr(), out.data_ptr(), P, B, stream)
+    _check_launch(err, "tournament")
+    LAUNCHES["tournament"] += 1
+    return out

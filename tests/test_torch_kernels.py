@@ -1,0 +1,218 @@
+"""Port kernels K1 (row sort) and K2 (tournament merge): the plain torch
+versions against the reference's Pallas/XLA wrappers and numpy, and the
+wrappers' guards.
+
+Everything here runs on the CPU, where a wrapper takes its kernel's plain
+version because the tensor lies on the CPU; the CUDA kernels themselves are
+held against the same plain versions on the card by ``chip_smoke.py``.
+Every comparison is exact: the networks move integers.
+"""
+
+import os
+import subprocess
+import sys
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ops as ref_ops
+from repro_torch.kernels import bitonic, ops
+
+I32_MAX = np.iinfo(np.int32).max
+I64_MAX = np.iinfo(np.int64).max
+
+
+def _padded_rows(rng, rows, b, dtype, hi):
+    """Random rows whose ragged tails hold the dtype max (the hop's pads)."""
+    x = rng.integers(0, hi, size=(rows, b)).astype(dtype)
+    cut = rng.integers(0, b + 1, size=(rows, 1))
+    return np.where(np.arange(b)[None, :] < cut, x, np.iinfo(dtype).max).astype(dtype)
+
+
+def _sorted_runs(rng, p, b, dtype, hi):
+    """A (p, b) tournament input: sorted runs padded with the dtype max."""
+    mat = np.full((p, b), np.iinfo(dtype).max, dtype=dtype)
+    for i in range(p):
+        ln = int(rng.integers(1, b + 1))
+        mat[i, :ln] = np.sort(rng.integers(0, hi, size=ln)).astype(dtype)
+    return mat
+
+
+@pytest.mark.parametrize("rows,b", [(16, 64), (5, 8)])
+def test_sort_rows_plain_matches_reference_pallas(rows, b):
+    """The reference's hop call (Pallas interpret mode) and the port's plain
+    network agree on an int32 block matrix with ragged pads."""
+    rng = np.random.default_rng(rows * 100 + b)
+    x = _padded_rows(rng, rows, b, np.int32, 1 << 20)
+    want = np.asarray(ref_ops.sort_rows_padded(x))
+    got = ops.sort_rows_padded(torch.from_numpy(x)).numpy()
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("dtype", [np.int32, np.int64])
+@pytest.mark.parametrize("b", [1, 2, 4, 64, 256, 4096])
+@pytest.mark.parametrize("rows", [0, 1, 3])
+def test_sort_rows_plain_matches_numpy(dtype, b, rows):
+    rng = np.random.default_rng(b + rows)
+    x = _padded_rows(rng, rows, b, dtype, 1 << 40 if dtype == np.int64 else 1 << 30)
+    got = bitonic.sort_rows(torch.from_numpy(x)).numpy()
+    np.testing.assert_array_equal(got, np.sort(x, axis=1))
+
+
+def test_sort_rows_plain_negative_and_extreme_keys():
+    x = np.array(
+        [[I64_MAX, -5, 0, np.iinfo(np.int64).min + 1, 7, 7, -5, 3]], dtype=np.int64
+    )
+    got = bitonic.sort_rows_plain(torch.from_numpy(x)).numpy()
+    np.testing.assert_array_equal(got, np.sort(x, axis=1))
+
+
+@pytest.mark.parametrize("p,b", [(2, 2), (8, 32), (4, 128), (64, 4), (2, 512)])
+@pytest.mark.parametrize("dtype", [np.uint16, np.int32, np.int64])
+def test_tournament_plain_matches_reference(dtype, p, b):
+    """``ops.merge_tournament`` of the reference (XLA off the TPU) against
+    the port's plain network.  uint16 keys run as int32 in the port (the
+    kernels take int32/int64): the uint16 pad 65535 stays above every key,
+    so the merged row is the same numbers."""
+    rng = np.random.default_rng(p * 1000 + b)
+    hi = 65535 if dtype == np.uint16 else 1 << 30
+    mat = _sorted_runs(rng, p, b, dtype, hi)
+    if dtype == np.int64:
+        with jax.enable_x64(True):
+            want = np.asarray(ref_ops.merge_tournament(mat))
+    else:
+        want = np.asarray(ref_ops.merge_tournament(mat))
+    port_in = mat.astype(np.int32) if dtype == np.uint16 else mat
+    got = ops.merge_tournament(torch.from_numpy(port_in)).numpy()
+    np.testing.assert_array_equal(got, want.astype(got.dtype))
+    np.testing.assert_array_equal(got, np.sort(port_in.ravel()))
+
+
+@pytest.mark.parametrize("p,b", [(1, 8), (2, 1), (16, 1), (1024, 4), (4, 1024)])
+@pytest.mark.parametrize("dtype", [np.int32, np.int64])
+def test_tournament_plain_matches_numpy(dtype, p, b):
+    rng = np.random.default_rng(p + b)
+    hi = 1 << 40 if dtype == np.int64 else 1 << 30
+    mat = _sorted_runs(rng, p, b, dtype, hi)
+    got = bitonic.merge_tournament(torch.from_numpy(mat)).numpy()
+    np.testing.assert_array_equal(got, np.sort(mat.ravel()))
+
+
+def test_tournament_plain_all_duplicates():
+    mat = np.full((8, 16), 5, dtype=np.int64)
+    mat[:, 10:] = I64_MAX
+    got = bitonic.tournament_plain(torch.from_numpy(mat)).numpy()
+    np.testing.assert_array_equal(got, np.sort(mat.ravel()))
+
+
+def test_compare_exchange_matches_reference_stage():
+    """One (k, j) stage of the port's network is the reference's stage."""
+    from repro.kernels import bitonic as ref_bitonic
+
+    x = np.random.default_rng(3).integers(0, 100, size=(4, 32)).astype(np.int32)
+    for k, j in bitonic._stages(32):
+        want = np.asarray(ref_bitonic.compare_exchange(x, k, j))
+        got = bitonic.compare_exchange(torch.from_numpy(x), k, j).numpy()
+        np.testing.assert_array_equal(got, want)
+        x = np.array(want)
+    assert list(bitonic._stages(64)) == list(ref_bitonic._stages(64))
+
+
+# -- guards ------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_float_keys_rejected_like_reference(dtype):
+    x = np.zeros((2, 4), dtype=dtype)
+    for ref_fn, port_fn in (
+        (ref_ops.sort_rows_padded, ops.sort_rows_padded),
+        (ref_ops.merge_tournament, ops.merge_tournament),
+    ):
+        with pytest.raises(TypeError):
+            ref_fn(x)
+        with pytest.raises(TypeError):
+            port_fn(torch.from_numpy(x))
+
+
+def test_bool_keys_rejected():
+    with pytest.raises(TypeError):
+        ops.sort_rows_padded(torch.zeros((2, 4), dtype=torch.bool))
+
+
+def test_non_pow2_widths_rejected_like_reference():
+    x = np.zeros((2, 6), dtype=np.int32)
+    with pytest.raises(ValueError):
+        ref_ops.sort_rows_padded(x)
+    with pytest.raises(ValueError):
+        ops.sort_rows_padded(torch.from_numpy(x))
+    t = np.zeros((3, 4), dtype=np.int32)
+    with pytest.raises(ValueError):
+        ref_ops.merge_tournament(t)
+    with pytest.raises(ValueError):
+        ops.merge_tournament(torch.from_numpy(t))
+    with pytest.raises(ValueError):
+        ops.merge_tournament(torch.zeros((4, 3), dtype=torch.int32))
+
+
+def test_kernel_wrappers_check_dtype_shape_contiguity():
+    with pytest.raises(TypeError, match="int32 or int64"):
+        bitonic.sort_rows(torch.zeros((2, 4), dtype=torch.int16))
+    with pytest.raises(ValueError, match="2-D"):
+        bitonic.sort_rows(torch.zeros(8, dtype=torch.int32))
+    with pytest.raises(ValueError, match="contiguous"):
+        bitonic.sort_rows(torch.zeros((4, 8), dtype=torch.int32).t())
+    with pytest.raises(ValueError, match="power of two"):
+        bitonic.sort_rows(torch.zeros((2, 8192), dtype=torch.int32))
+    with pytest.raises(TypeError, match="int32 or int64"):
+        bitonic.merge_tournament(torch.zeros((2, 4), dtype=torch.uint8))
+    with pytest.raises(ValueError, match="2-D"):
+        bitonic.merge_tournament(torch.zeros((2, 2, 2), dtype=torch.int64))
+
+
+def test_plain_versions_reject_non_pow2():
+    with pytest.raises(ValueError):
+        bitonic.sort_rows_plain(torch.zeros((1, 3), dtype=torch.int32))
+    with pytest.raises(ValueError):
+        bitonic.tournament_plain(torch.zeros((3, 2), dtype=torch.int32))
+
+
+def test_launch_error_code_raises():
+    bitonic._check_launch(0, "row_sort")
+    with pytest.raises(RuntimeError, match="CUDA error 9"):
+        bitonic._check_launch(9, "row_sort")
+
+
+def test_cpu_calls_never_launch_or_build():
+    bitonic.reset_launches()
+    x = torch.randint(0, 100, (8, 64), dtype=torch.int32)
+    ops.sort_rows_padded(x)
+    ops.merge_tournament(torch.sort(x, dim=1).values)
+    assert bitonic.LAUNCHES == {"row_sort": 0, "tournament": 0}
+    assert bitonic._LIBS == {}
+
+
+def test_missing_nvcc_raises(monkeypatch, tmp_path):
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        bitonic._nvcc()
+
+
+def test_kernel_library_path_is_build_dir_keyed_by_source():
+    p = bitonic._lib_path("row_sort")
+    assert p.parent == bitonic._repo_root() / "build" / "kernels"
+    assert p.name.startswith("librow_sort_") and p.suffix == ".so"
+    assert (bitonic._CSRC / "row_sort.cu").is_file()
+    assert (bitonic._CSRC / "tournament.cu").is_file()
+
+
+def test_kernel_modules_import_without_nvcc_or_card(tmp_path):
+    """Importing the kernel modules builds nothing and needs no toolchain."""
+    code = (
+        "import sys; from repro_torch.kernels import bitonic, ops; "
+        "assert bitonic._LIBS == {}; assert 'triton' not in sys.modules"
+    )
+    env = dict(os.environ, PATH=os.path.dirname(sys.executable), CUDA_HOME=str(tmp_path))
+    subprocess.run([sys.executable, "-c", code], check=True, env=env, timeout=120)

@@ -3,11 +3,13 @@
 
     python3 chip_smoke.py [--n KEYS] [--seed S] [--profile]
 
-Phases, one JSON line each:
+Two main paths: the sort dataplane (``run_pipeline``) and the LM serve path
+(``Engine`` over Mistral-Nemo-12B).  Phases, one JSON line each:
 
 1. ``device``   -- the card (``nvidia-smi`` name and power limit), torch and
-   CUDA versions, and the seconds the hand-written kernels took to build from
-   ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per source, in parallel);
+   CUDA versions, and the seconds the four hand-written kernels took to build
+   from ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per source, in
+   parallel);
 2. ``k1``       -- kernel K1 (row sort) against its plain torch version, for
    exact equality, int32 and int64, widths 2..4096, ragged pads;
 3. ``k2``       -- kernel K2 (tournament merge) the same way, up to shapes
@@ -19,9 +21,25 @@ Phases, one JSON line each:
    (7-hop binary tree, 16 segments of length 64, 256-key packets, 8 flows,
    oracle ranges, 4 arena servers, a 2-column int64 payload).  The launch
    counters are zeroed just before that run and read just after it;
-5. ``kernels``  -- every ported kernel on fresh random rows at the largest
-   shape and dtype the main path gave it: launches, exact agreement with the
-   plain version, and kernel, plain and ``torch.sort`` times (CUDA events,
+5. ``k5``, ``k6`` -- the attention kernels K5 (flash attention) and K6
+   (decode attention) against their plain torch versions: head dims 32, 64,
+   128, GQA groups 1 and 4, causal or not, ragged T, lengths 1..S, float32 and
+   bfloat16, on inputs whose softmax is peaked (limits: ``attn_limit``);
+6. ``serve``    -- first the smoke config of ``mistral-nemo-12b`` in float32
+   on the card against the same weights on the CPU (greedy tokens identical,
+   logits within 1e-4), then the full Mistral-Nemo-12B (40 layers, d_model
+   5120, bf16, weights drawn on the card from ``--seed``) behind an ``Engine``
+   of 4 slots and ``max_len`` 4096: 8 requests, prompt lengths from
+   ``numpy.random.default_rng(seed)`` in 512..2048, 32 greedy tokens each.
+   The launch counters are zeroed just before that run and read just after
+   it: K5 must launch once per layer per prefill and K6 once per layer per
+   decode step.  Prefill and decode tokens/s, ms per decode step, peak
+   device memory; the full-width model's logits on a short prompt through the
+   kernels against the plain versions;
+7. ``kernels``  -- every ported kernel on fresh random inputs at the largest
+   shape and dtype its main path gave it: launches, agreement with the plain
+   version, and kernel, plain and library (``torch.sort``, or
+   ``scaled_dot_product_attention`` with ``enable_gqa``) times (CUDA events,
    median of 10 after a warm-up) beside the bound.
 
 Then the card's name and power limit, then ``{"ok": true, "device": ...}``.
@@ -41,13 +59,16 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 
 #: H100 SXM peaks the bound is computed against.  Bytes: HBM3 at 3.35 TB/s
-#: (NVIDIA's data sheet).  Operations: a compare-exchange runs on the integer
+#: (NVIDIA's data sheet).  Attention flops: the dense bf16 tensor-core rate,
+#: 989e12 flop/s (the same sheet), the peak for the main path's type.
+#: Operations of the sort networks: a compare-exchange runs on the integer
 #: ALUs, not on the float32 pipes: 132 SMs x 64 INT32 lanes x 1.98 GHz boost
 #: (the Hopper architecture whitepaper) is 16.7e12 32-bit integer operations
 #: per second.  A compare-exchange costs 2 of them on int32 keys (min and
 #: max) and 6 on int64 keys (a 64-bit compare is two 32-bit compares, and
 #: min and max each select two 32-bit halves).
 HBM_BYTES_PER_S = 3.35e12
+BF16_FLOP_PER_S = 989e12
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
 OPS_PER_COMPARE_EXCHANGE = {4: 2, 8: 6}
 
@@ -57,6 +78,18 @@ E2E = dict(
     range_mode="oracle", num_servers=4, merge_backend="arena",
 )
 E2E_HOPS = 7
+
+#: The serve run: Mistral-Nemo-12B at full width, as its users serve it.
+SERVE_ARCH = "mistral-nemo-12b"
+SERVE = dict(slots=4, max_len=4096, requests=8, prompt_min=512, prompt_max=2048, new_tokens=32)
+
+#: Inputs of the attention kernels' checks: q and k at 1.5 x a unit normal,
+#: so the scores have a standard deviation of 2.25 at any head dim and the
+#: softmax is peaked (about a dozen cache rows carry most of a 2000-row
+#: row's weight); v a unit normal.  A cache block dropped from the merge or
+#: a missing online-softmax rescale then moves the outputs by far more than
+#: ``attn_limit``.
+QK_SCALE = 1.5
 
 
 def fail(msg: str) -> None:
@@ -331,98 +364,438 @@ def phase_profile(torch, run_pipeline, values_d, payload_d, seed: int) -> None:
           "top_device_ms": [{"name": k[:90], "ms": v[0], "calls": v[1]} for k, v in top]})
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--n", type=int, default=100_000_000, help="keys in the main run")
-    ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--profile", action="store_true",
-                    help="also profile a second main-path run (device busy share, time by kernel)")
-    args = ap.parse_args()
+def attn_bound(flops: float, bytes_: float) -> tuple[float, str]:
+    """Least milliseconds of an attention call: its flops at the bf16
+    tensor-core peak or its bytes at the HBM rate, whichever is larger."""
+    t_ops = flops / BF16_FLOP_PER_S * 1e3
+    t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
-    if not (ROOT / "src" / "repro_torch" / "__init__.py").is_file():
-        print("chip_smoke: the port (src/repro_torch) is not beside this script",
-              file=sys.stderr)
-        return 2
-    sys.path.insert(0, str(ROOT / "src"))
-    import numpy as np
+
+def k5_work(b: int, t: int, h: int, kv: int, d: int, itemsize: int, causal: bool) -> tuple[float, float]:
+    """(flops, bytes) of one K5 call: 2 flops per multiply-add of q.k and
+    of p.v over the visible (row, col) pairs; q, k, v read once, o written."""
+    pairs = t * (t + 1) / 2 if causal else t * t
+    return 4.0 * b * h * d * pairs, (2.0 * b * t * h * d + 2.0 * b * t * kv * d) * itemsize
+
+
+def k6_work(lengths: list[int], h: int, kv: int, d: int, itemsize: int) -> tuple[float, float]:
+    """(flops, bytes) of one K6 call: the visible cache rows of k and v read
+    once, q read, the output written, the lengths read."""
+    vis = float(sum(lengths))
+    return 4.0 * h * d * vis, (2.0 * vis * kv * d + 2.0 * len(lengths) * h * d) * itemsize + 4 * len(lengths)
+
+
+def attn_limit(want):
+    """Elementwise limit on |kernel - plain| for an attention output.
+
+    Both sides sum in float32, in other orders, and round the output once.
+    float32: 2e-5 + 1e-3 |want|.  bfloat16: the two may round one value to
+    neighbouring bf16 numbers, one ulp apart, at most 2^-7 of it: 1e-2
+    |want|, plus 4e-3 of the largest |want| (half to one ulp at the top of
+    the output's range) for the values near zero.
+    """
     import torch
 
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device is available", file=sys.stderr)
-        return 2
+    w = want.float().abs()
+    if want.dtype == torch.bfloat16:
+        return 4e-3 * w.max() + 1e-2 * w
+    return 2e-5 + 1e-3 * w
 
-    from repro_torch.core import mergesort
-    from repro_torch.data.traces import random_trace, trace_max_value
-    from repro_torch.kernels import bitonic as bt
-    from repro_torch.net.pipeline import run_pipeline
 
-    smi = smi_line()
-    t0 = time.perf_counter()
-    build_s = bt.build_kernels()
-    emit({"phase": "device", "nvidia_smi": smi, "torch": torch.__version__,
-          "cuda": torch.version.cuda, "device_name": torch.cuda.get_device_name(0),
-          "kernel_build_s": build_s, "build_wall_s": time.perf_counter() - t0})
+def allclose_err(got, want, what: str) -> float:
+    """Max absolute difference; fails beyond ``attn_limit(want)``."""
+    import torch
 
-    gen = torch.Generator(device="cuda").manual_seed(args.seed)
-    phase_k1(bt, torch, gen)
-    phase_k2(bt, torch, gen)
+    if got.shape != want.shape or got.dtype != want.dtype:
+        fail(f"shape/dtype mismatch {tuple(got.shape)}/{got.dtype} vs {tuple(want.shape)}/{want.dtype}")
+    g, w = got.float(), want.float()
+    if not torch.isfinite(g).all():
+        fail(f"{what}: an output is not finite")
+    diff = (g - w).abs()
+    if (diff > attn_limit(want)).any():
+        fail(f"{what} differs from its plain version by {diff.max().item()} "
+             f"({want.dtype}, shape {tuple(want.shape)}, largest output {w.abs().max().item()})")
+    return diff.max().item()
 
-    # -- pipeline -----------------------------------------------------------
-    parity = parity_small(torch, np, run_pipeline, random_trace)
-    n = args.n
-    t_prep = time.perf_counter()
-    trace = random_trace(n, seed=args.seed)
-    payload = np.empty((n, 2), dtype=np.int64)
-    payload[:, 0] = trace * 7 + 3
-    payload[:, 1] = np.arange(n)
-    values_d = torch.from_numpy(trace).cuda()
-    payload_d = torch.from_numpy(payload).cuda()
-    del payload
+
+def randn(torch, gen, shape, dt, scale: float = 1.0):
+    return (torch.randn(shape, generator=gen, device="cuda") * scale).to(dt)
+
+
+def check_k5(fa, torch, gen, q_shape, kv_shape, dt, causal: bool):
+    """K5 against its plain version on fresh inputs: (max error, (q, k, v))."""
+    q = randn(torch, gen, q_shape, dt, QK_SCALE)
+    k = randn(torch, gen, kv_shape, dt, QK_SCALE)
+    v = randn(torch, gen, kv_shape, dt)
+    err = allclose_err(fa.flash_attention(q, k, v, causal=causal),
+                       fa.flash_attention_plain(q, k, v, causal=causal), "K5")
+    return err, (q, k, v)
+
+
+def check_k6(da, torch, gen, q_shape, cache_shape, dt, lengths, layers: int = 2):
+    """K6 against its plain version on fresh inputs, reading the last layer's
+    slice of stacked ``(layers, *cache_shape)`` caches in place, as the model
+    does: (max error, (q, kc, vc))."""
+    q = randn(torch, gen, q_shape, dt, QK_SCALE)
+    kc = randn(torch, gen, (layers, *cache_shape), dt, QK_SCALE)
+    vc = randn(torch, gen, (layers, *cache_shape), dt)
+    err = allclose_err(da.decode_attention(q, kc[-1], vc[-1], lengths),
+                       da.decode_attention_plain(q, kc[-1], vc[-1], lengths), "K6")
+    return err, (q, kc, vc)
+
+
+def phase_k5(fa, torch, gen) -> None:
+    worst = {"float32": 0.0, "bfloat16": 0.0}
+    cases = 0
+    for name in worst:
+        dt = getattr(torch, name)
+        for d in (32, 64, 128):
+            for g in (1, 4):
+                for t in (1, 7, 64, 130, 1000):
+                    for causal in (True, False):
+                        kv = 2
+                        err, _ = check_k5(fa, torch, gen, (2, t, kv * g, d), (2, t, kv, d), dt, causal)
+                        worst[name] = max(worst[name], err)
+                        cases += 1
     torch.cuda.synchronize()
-    prep_s = time.perf_counter() - t_prep
-    clock = StageClock()
-    torch.cuda.reset_peak_memory_stats()
-    with LargestShape(bt, "sort_rows") as k1_in, LargestShape(bt, "merge_tournament") as k2_in:
-        bt.reset_launches()
-        mergesort.reset_branches()
-        t_run = time.perf_counter()
-        res = run_pipeline(
-            values_d, payload=payload_d, max_value=trace_max_value("random"),
-            seed=args.seed, tracer=clock, device="cuda", **E2E,
-        )
-        torch.cuda.synchronize()
-        run_s = time.perf_counter() - t_run
-        launches = dict(bt.LAUNCHES)
-        branches = dict(mergesort.MERGE_BRANCHES)
-    peak = torch.cuda.max_memory_allocated()
-    want = torch.sort(values_d, stable=True)
-    if not torch.equal(res.output, want.values):
-        fail("pipeline output differs from torch.sort of the input")
-    if not torch.equal(res.payload_row_order, want.indices):
-        fail("payload_row_order differs from the stable argsort")
-    if not torch.equal(res.sorted_payload, payload_d[want.indices]):
-        fail("sorted_payload differs from payload[order]")
-    if launches["row_sort"] != E2E_HOPS:
-        fail(f"K1 launched {launches['row_sort']} times, want one per hop ({E2E_HOPS})")
-    if launches["tournament"] < 1:
-        fail("K2 never launched on the main path")
-    if branches["ladder"] != 0:
-        fail(f"merge_runs_flat took the host ladder {branches['ladder']} times")
-    del want
-    stages = {k: v for k, v in clock.seconds.items()}
-    emit({"phase": "pipeline", "n": n, "config": E2E, "parity_with_cpu_at": parity,
-          "prep_s": prep_s, "run_s": run_s, "keys_per_s": n / run_s,
-          "stage_s": stages, "server_makespan_s": res.server_seconds,
-          "per_server_s": res.per_server_seconds, "pool_merge_s": res.pool_merge_seconds,
-          "server_keys": res.server_keys, "passes": res.passes,
-          "peak_device_bytes": peak, "launches": launches, "merge_branches": branches})
-    del res
-    if args.profile:
-        phase_profile(torch, run_pipeline, values_d, payload_d, args.seed)
-    del values_d, payload_d
+    emit({"phase": "k5", "cases": cases, "max_abs_err": worst})
+
+
+def phase_k6(da, torch, gen) -> None:
+    worst = {"float32": 0.0, "bfloat16": 0.0}
+    cases = 0
+    for name in worst:
+        dt = getattr(torch, name)
+        for d in (32, 64, 128):
+            for g in (1, 4):
+                for b, s in ((1, 1), (3, 300), (4, 4096)):
+                    kv = 8 if s == 4096 else 2
+                    lengths = torch.randint(1, s + 1, (b,), generator=gen, device="cuda", dtype=torch.int32)
+                    lengths[0] = 1
+                    lengths[-1] = s
+                    err, _ = check_k6(da, torch, gen, (b, kv * g, d), (b, s, kv, d), dt, lengths)
+                    worst[name] = max(worst[name], err)
+                    cases += 1
+    torch.cuda.synchronize()
+    emit({"phase": "k6", "cases": cases, "max_abs_err": worst})
+
+
+class AttnRecorder:
+    """Pass-through for an attention wrapper as the model calls it: keeps the
+    largest q shape (K5), or the lengths of each decode step (K6, a (B,)
+    clone per call -- no host sync), and copies no other data."""
+
+    def __init__(self, module, attr: str) -> None:
+        self.module, self.attr = module, attr
+        self.orig = getattr(module, attr)
+        self.q_shape: tuple[int, ...] = ()
+        self.kv_shape: tuple[int, ...] = ()
+        self.dtype = None
+        self.causal = True
+        self.lengths = None
+        self.numel = -1
+
+    def __call__(self, q, k, v, *args, **kwargs):
+        if q.numel() > self.numel:
+            self.q_shape, self.kv_shape, self.dtype = tuple(q.shape), tuple(k.shape), q.dtype
+            self.numel = q.numel()
+        if args:
+            self.lengths = args[0].clone()
+        self.causal = kwargs.get("causal", True)
+        return self.orig(q, k, v, *args, **kwargs)
+
+    def __enter__(self):
+        setattr(self.module, self.attr, self)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.attr, self.orig)
+        return False
+
+
+class SyncTimer:
+    """Wraps a model method: synchronises the card on entry and exit and adds
+    the wall seconds to ``seconds``; ``after`` sees each call's result."""
+
+    def __init__(self, torch, fn, after=None) -> None:
+        self.torch, self.fn, self.after = torch, fn, after
+        self.seconds = 0.0
+        self.calls = 0
+
+    def __call__(self, *args, **kwargs):
+        self.torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = self.fn(*args, **kwargs)
+        self.torch.cuda.synchronize()
+        self.seconds += time.perf_counter() - t0
+        self.calls += 1
+        if self.after is not None:
+            self.after(out)
+        return out
+
+
+def serve_parity_small(torch, np) -> dict:
+    """The smoke config in float32: the card against the CPU, same weights."""
+    import dataclasses
+
+    from repro_torch import configs, models
+    from repro_torch.serve.engine import Engine, Request
+
+    cfg = dataclasses.replace(configs.get_smoke_config(SERVE_ARCH), dtype="float32")
+    host = models.build(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+    card = models.build(cfg, device="cuda")
+    card.load_state_dict(host.state_dict())
+    rng = np.random.default_rng(0)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, size=(2, 9)))
+    errs = []
+    hc, cc = host.init_cache(2, 32), card.init_cache(2, 32)
+    want, hc = host.prefill(toks, hc)
+    got, cc = card.prefill(toks.cuda(), cc)
+    errs.append((got.cpu() - want).abs().max().item())
+    tok = want.argmax(-1)
+    for _ in range(6):
+        want, hc = host.decode_step(hc, tok)
+        got, cc = card.decode_step(cc, tok.cuda())
+        errs.append((got.cpu() - want).abs().max().item())
+        tok = want.argmax(-1)
+    if max(errs) > 1e-4:
+        fail(f"smoke LM on the card differs from the CPU by {max(errs)}")
+    prompts = [rng.integers(0, cfg.vocab_size, size=n).tolist() for n in (3, 5, 2, 7, 4)]
+    outs = []
+    for model, dev in ((host, "cpu"), (card, "cuda")):
+        eng = Engine(model, slots=2, max_len=64, device=dev)
+        for i, p in enumerate(prompts):
+            eng.add(Request(rid=i, prompt=p, max_tokens=6))
+        outs.append(sorted((r.rid, r.out) for r in eng.run()))
+    if outs[0] != outs[1]:
+        fail("smoke Engine on the card gives other greedy tokens than on the CPU")
+    return {"logits_max_abs_err": max(errs), "requests": len(outs[0]),
+            "tokens": sum(len(o[1]) for o in outs[0])}
+
+
+def full_width_parity(torch, model, fa_mod, attn_mod, gen) -> dict:
+    """The full-width model on a short prompt (1 x 64 tokens, 4 decode
+    steps) through the kernels and through their plain versions."""
+    vocab = model.cfg.vocab_size
+    toks = torch.randint(0, vocab, (1, 64), generator=gen, device="cuda")
+    runs = []
+    for plain in (False, True):
+        saved = (attn_mod.flash_attention, attn_mod.decode_attention_kernel)
+        if plain:
+            from repro_torch.kernels.decode_attention import decode_attention_plain
+
+            attn_mod.flash_attention = fa_mod.flash_attention_plain
+            attn_mod.decode_attention_kernel = decode_attention_plain
+        try:
+            cache = model.init_cache(1, 128)
+            logits, cache = model.prefill(toks, cache)
+            seq = [logits.float()]
+            tok = toks[:, -1]
+            for _ in range(4):
+                logits, cache = model.decode_step(cache, tok)
+                seq.append(logits.float())
+                tok = logits.argmax(-1)
+            runs.append(torch.stack(seq))
+        finally:
+            attn_mod.flash_attention, attn_mod.decode_attention_kernel = saved
+        del cache
+    a, b = runs
+    if not (torch.isfinite(a).all() and torch.isfinite(b).all()):
+        fail("full-width logits are not finite")
+    err = (a - b).abs().max().item()
+    scale = b.abs().max().item()
+    # bf16 attention outputs round at one more place on one side; 40 layers
+    # carry that: hold the kernels' logits within 5% of the logits' scale
+    if err > 0.05 * scale:
+        fail(f"full-width logits through the kernels differ from the plain path by {err} (scale {scale})")
+    return {"logits_max_abs_err": err, "logits_max_abs": scale,
+            "argmax_agree": float((a.argmax(-1) == b.argmax(-1)).float().mean().item())}
+
+
+def phase_serve(torch, np, args) -> dict:
+    """The LM serve path at full width; returns what the kernels phase needs."""
+    from repro_torch import configs, models
+    from repro_torch.kernels import build, flash_attention as fa_mod
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.serve.engine import Engine, Request
+
+    parity = serve_parity_small(torch, np)
+
+    cfg = configs.get_config(SERVE_ARCH)
+    t0 = time.perf_counter()
+    model = models.build(cfg, device="cuda")
+    model.init(torch.Generator(device="cuda").manual_seed(args.seed))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    weight_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    gen = torch.Generator(device="cuda").manual_seed(args.seed + 1)
+    width = full_width_parity(torch, model, fa_mod, attn_mod, gen)
     torch.cuda.empty_cache()
 
-    # -- kernels at the main path's largest inputs ----------------------------
+    rng = np.random.default_rng(args.seed)
+    eng = Engine(model, slots=SERVE["slots"], max_len=SERVE["max_len"], device="cuda")
+    prompts = []
+    for rid in range(SERVE["requests"]):
+        plen = int(rng.integers(SERVE["prompt_min"], SERVE["prompt_max"] + 1))
+        prompts.append(rng.integers(0, cfg.vocab_size, size=plen).tolist())
+        eng.add(Request(rid=rid, prompt=prompts[-1], max_tokens=SERVE["new_tokens"]))
+
+    finite = []
+    step_lengths = []
+    with AttnRecorder(attn_mod, "flash_attention") as k5_in, \
+            AttnRecorder(attn_mod, "decode_attention_kernel") as k6_in:
+        prefill = SyncTimer(torch, model.prefill, lambda out: finite.append(torch.isfinite(out[0]).all()))
+        decode = SyncTimer(torch, model.decode_step, lambda out: (
+            finite.append(torch.isfinite(out[0]).all()), step_lengths.append(k6_in.lengths)))
+        model.prefill, model.decode_step = prefill, decode
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        build.reset_launches()
+        t_run = time.perf_counter()
+        finished = eng.run()
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t_run
+        launches = dict(build.LAUNCHES)
+        del model.prefill, model.decode_step
+    peak = torch.cuda.max_memory_allocated()
+    if not torch.stack(finite).all():
+        fail("the serve run produced non-finite logits")
+    if len(finished) != SERVE["requests"]:
+        fail(f"{len(finished)} of {SERVE['requests']} requests finished")
+    for r in finished:
+        if len(r.out) != SERVE["new_tokens"] or not all(0 <= t < cfg.vocab_size for t in r.out):
+            fail(f"request {r.rid} came back with {len(r.out)} tokens or a token out of the vocabulary")
+    if launches["flash_attention"] != cfg.num_layers * prefill.calls:
+        fail(f"K5 launched {launches['flash_attention']} times, want {cfg.num_layers} x {prefill.calls} prefills")
+    if launches["decode_attention"] != cfg.num_layers * decode.calls:
+        fail(f"K6 launched {launches['decode_attention']} times, want {cfg.num_layers} x {decode.calls} steps")
+    if launches["flash_attention"] < 1 or launches["decode_attention"] < 1:
+        fail("an attention kernel never launched on the serve path")
+    prefill_tokens = sum(len(p) - 1 for p in prompts)
+    new_tokens = sum(len(r.out) for r in finished)
+    lens = torch.stack(step_lengths).sum(dim=1)
+    k6_lengths = step_lengths[int(lens.argmax())].tolist()
+    emit({"phase": "serve", "arch": cfg.name, "layers": cfg.num_layers, "d_model": cfg.d_model,
+          "dtype": cfg.dtype, "config": SERVE, "parity_smoke_f32_vs_cpu": parity,
+          "parity_full_width_kernels_vs_plain": width, "init_s": init_s,
+          "weight_bytes": weight_bytes, "prompt_lengths": [len(p) for p in prompts],
+          "run_s": run_s, "prefills": prefill.calls, "prefill_tokens": prefill_tokens,
+          "prefill_s": prefill.seconds, "prefill_tokens_per_s": prefill_tokens / prefill.seconds,
+          "decode_steps": decode.calls, "decode_tokens": new_tokens, "decode_s": decode.seconds,
+          "decode_tokens_per_s": new_tokens / decode.seconds,
+          "ms_per_decode_step": decode.seconds / decode.calls * 1e3,
+          "host_s_outside_model": run_s - prefill.seconds - decode.seconds,
+          "peak_device_bytes": peak, "launches": {k: launches[k] for k in ("flash_attention", "decode_attention")},
+          "first_tokens": [r.out[:4] for r in sorted(finished, key=lambda r: r.rid)]})
+    if args.profile:
+        phase_serve_profile(torch, eng, rng, cfg)
+    del eng, model, finished
+    torch.cuda.empty_cache()
+    return {"launches": launches, "k5": k5_in, "k6": k6_in, "k6_lengths": k6_lengths}
+
+
+def phase_serve_profile(torch, eng, rng, cfg) -> None:
+    """One prefill of up to 1024 tokens and eight decode steps of the serve
+    path under ``torch.profiler``: device busy share and time by kernel."""
+    from repro_torch.serve.engine import Request
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    plen = min(1024, eng.max_len - 8)
+    eng.add(Request(rid=99, prompt=rng.integers(0, cfg.vocab_size, size=plen).tolist(), max_tokens=8))
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        eng.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    by_name: dict[str, list[float]] = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            rec = by_name.setdefault(e.name, [0.0, 0])
+            rec[0] += e.time_range.elapsed_us() / 1e3
+            rec[1] += 1
+    busy_ms = sum(v[0] for v in by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]
+    emit({"phase": "serve_profile", "prompt": plen, "decode_steps": 8, "wall_s": wall,
+          "device_busy_ms": busy_ms, "device_busy_share": busy_ms / 1e3 / wall,
+          "top_device_ms": [{"name": k[:90], "ms": v[0], "calls": v[1]} for k, v in top]})
+
+
+def attention_rows(torch, serve: dict, gen) -> list[dict]:
+    """The kernels-line rows of K5 and K6 at the serve run's largest inputs."""
+    import itertools
+
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+
+    rows = []
+    k5 = serve["k5"]
+    b, t, h, d = k5.q_shape
+    kv = k5.kv_shape[2]
+    dt = k5.dtype
+    err, (q, k, v) = check_k5(fa, torch, gen, k5.q_shape, k5.kv_shape, dt, k5.causal)
+    name = str(dt).replace("torch.", "")
+    flops, bytes_ = k5_work(b, t, h, kv, d, q.element_size(), k5.causal)
+    b_ms, b_by = attn_bound(flops, bytes_)
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    rows.append({
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:85",
+        "launches": serve["launches"]["flash_attention"], "max_abs_err": err,
+        "shape": {"q": list(k5.q_shape), "kv": list(k5.kv_shape), "causal": k5.causal}, "dtype": name,
+        "ms": cuda_ms(lambda: fa.flash_attention(q, k, v, causal=k5.causal)),
+        "plain_ms": cuda_ms(lambda: fa.flash_attention_plain(q, k, v, causal=k5.causal)),
+        "bound_ms": b_ms, "bound_by": b_by, "flops": flops, "bytes": bytes_,
+        "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=k5.causal, enable_gqa=True)),
+    })
+    del q, k, v, qt, kt, vt
+
+    k6 = serve["k6"]
+    b, h, d = k6.q_shape
+    _, s, kv, _ = k6.kv_shape
+    dt = k6.dtype
+    name = str(dt).replace("torch.", "")
+    layers = 8  # cycle over 8 layers' caches so that no launch finds its cache in L2
+    lengths = torch.tensor(serve["k6_lengths"], dtype=torch.int32, device="cuda")
+    err, (q, kc, vc) = check_k6(da, torch, gen, k6.q_shape, k6.kv_shape, dt, lengths, layers)
+    flops, bytes_ = k6_work(serve["k6_lengths"], h, kv, d, q.element_size())
+    b_ms, b_by = attn_bound(flops, bytes_)
+    mask = (torch.arange(s, device="cuda")[None, :] < lengths[:, None])[:, None, None, :]
+    qs = q[:, :, None, :]
+
+    def cycling(fn):
+        it = itertools.cycle(range(layers))
+
+        def run():
+            i = next(it)
+            return fn(kc[i], vc[i])
+        return run
+
+    rows.append({
+        "name": "decode_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
+        "replaces": "src/repro/kernels/decode_attention.py:74",
+        "launches": serve["launches"]["decode_attention"], "max_abs_err": err,
+        "shape": {"q": list(k6.q_shape), "cache": list(k6.kv_shape), "lengths": serve["k6_lengths"]},
+        "dtype": name,
+        "ms": cuda_ms(cycling(lambda kk, vv: da.decode_attention(q, kk, vv, lengths))),
+        "plain_ms": cuda_ms(cycling(lambda kk, vv: da.decode_attention_plain(q, kk, vv, lengths))),
+        "bound_ms": b_ms, "bound_by": b_by, "flops": flops, "bytes": bytes_,
+        "library_ms": cuda_ms(cycling(lambda kk, vv: F.scaled_dot_product_attention(
+            qs, kk.transpose(1, 2), vv.transpose(1, 2), attn_mask=mask, enable_gqa=True))),
+    })
+    del q, kc, vc
+    torch.cuda.empty_cache()
+    return rows
+
+
+def sort_rows_of(torch, bt, gen, launches, k1_in, k2_in) -> list[dict]:
+    """The kernels-line rows of K1 and K2 at the pipeline's largest inputs."""
     rows = []
     x1 = main_path_input(torch, gen, k1_in.shape, k1_in.dtype, sorted_rows=False)
     x2 = main_path_input(torch, gen, k2_in.shape, k2_in.dtype, sorted_rows=True)
@@ -446,6 +819,118 @@ def main() -> int:
             "ms": cuda_ms(lambda: kern(x)), "plain_ms": cuda_ms(lambda: plain(x)),
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": cuda_ms(lambda: lib(x)),
         })
+    del x1, x2
+    torch.cuda.empty_cache()
+    return rows
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--n", type=int, default=100_000_000, help="keys in the sort run")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--profile", action="store_true",
+                    help="also profile a second sort run and a short serve run "
+                         "(device busy share, time by kernel)")
+    args = ap.parse_args()
+
+    if not (ROOT / "src" / "repro_torch" / "__init__.py").is_file():
+        print("chip_smoke: the port (src/repro_torch) is not beside this script",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT / "src"))
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    from repro_torch.core import mergesort
+    from repro_torch.data.traces import random_trace, trace_max_value
+    from repro_torch.kernels import bitonic as bt
+    from repro_torch.kernels import build
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.net.pipeline import run_pipeline
+
+    smi = smi_line()
+    t0 = time.perf_counter()
+    build_s = build.build_kernels()
+    emit({"phase": "device", "nvidia_smi": smi, "torch": torch.__version__,
+          "cuda": torch.version.cuda, "device_name": torch.cuda.get_device_name(0),
+          "kernels_built": sorted(build.BUILD_LOGS), "kernel_build_s": build_s,
+          "build_wall_s": time.perf_counter() - t0})
+
+    gen = torch.Generator(device="cuda").manual_seed(args.seed)
+    phase_k1(bt, torch, gen)
+    phase_k2(bt, torch, gen)
+
+    # -- the sort path ---------------------------------------------------------
+    parity = parity_small(torch, np, run_pipeline, random_trace)
+    n = args.n
+    t_prep = time.perf_counter()
+    trace = random_trace(n, seed=args.seed)
+    payload = np.empty((n, 2), dtype=np.int64)
+    payload[:, 0] = trace * 7 + 3
+    payload[:, 1] = np.arange(n)
+    values_d = torch.from_numpy(trace).cuda()
+    payload_d = torch.from_numpy(payload).cuda()
+    del payload, trace
+    torch.cuda.synchronize()
+    prep_s = time.perf_counter() - t_prep
+    clock = StageClock()
+    torch.cuda.reset_peak_memory_stats()
+    with LargestShape(bt, "sort_rows") as k1_in, LargestShape(bt, "merge_tournament") as k2_in:
+        build.reset_launches()
+        mergesort.reset_branches()
+        t_run = time.perf_counter()
+        res = run_pipeline(
+            values_d, payload=payload_d, max_value=trace_max_value("random"),
+            seed=args.seed, tracer=clock, device="cuda", **E2E,
+        )
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t_run
+        launches = dict(build.LAUNCHES)
+        branches = dict(mergesort.MERGE_BRANCHES)
+    peak = torch.cuda.max_memory_allocated()
+    want = torch.sort(values_d, stable=True)
+    if not torch.equal(res.output, want.values):
+        fail("pipeline output differs from torch.sort of the input")
+    if not torch.equal(res.payload_row_order, want.indices):
+        fail("payload_row_order differs from the stable argsort")
+    if not torch.equal(res.sorted_payload, payload_d[want.indices]):
+        fail("sorted_payload differs from payload[order]")
+    if launches["row_sort"] != E2E_HOPS:
+        fail(f"K1 launched {launches['row_sort']} times, want one per hop ({E2E_HOPS})")
+    if launches["tournament"] < 1:
+        fail("K2 never launched on the main path")
+    if launches["flash_attention"] or launches["decode_attention"]:
+        fail("the sort path launched an attention kernel")
+    if branches["ladder"] != 0:
+        fail(f"merge_runs_flat took the host ladder {branches['ladder']} times")
+    del want
+    emit({"phase": "pipeline", "n": n, "config": E2E, "parity_with_cpu_at": parity,
+          "prep_s": prep_s, "run_s": run_s, "keys_per_s": n / run_s,
+          "stage_s": dict(clock.seconds), "server_makespan_s": res.server_seconds,
+          "per_server_s": res.per_server_seconds, "pool_merge_s": res.pool_merge_seconds,
+          "server_keys": res.server_keys, "passes": res.passes,
+          "peak_device_bytes": peak, "launches": {k: launches[k] for k in ("row_sort", "tournament")},
+          "merge_branches": branches})
+    del res
+    if args.profile:
+        phase_profile(torch, run_pipeline, values_d, payload_d, args.seed)
+    del values_d, payload_d
+    torch.cuda.empty_cache()
+    rows = sort_rows_of(torch, bt, gen, launches, k1_in, k2_in)
+
+    # -- the serve path --------------------------------------------------------
+    phase_k5(fa, torch, gen)
+    phase_k6(da, torch, gen)
+    serve = phase_serve(torch, np, args)
+    rows += attention_rows(torch, serve, gen)
+
     emit({"kernels": rows})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,2 +1,9 @@
 """Hand-written Hopper kernels (CUDA C++ under ``csrc/``) with their plain
-torch versions and the public wrappers (counterpart of ``repro.kernels``)."""
+torch versions and the public wrappers (counterpart of ``repro.kernels``).
+
+Importing the package declares every kernel to :mod:`.build`, so its one
+``LAUNCHES`` record and ``build_kernels()`` cover K1, K2, K5 and K6; nothing
+is compiled until a kernel is first launched or built.
+"""
+
+from . import bitonic, build, decode_attention, flash_attention  # noqa: F401

@@ -13,41 +13,23 @@ Each has a plain torch version in this module (:func:`sort_rows_plain`,
 :func:`tournament_plain`) that runs the same network stage by stage.  The
 wrapper takes the plain version only for a tensor on the CPU; for a CUDA
 tensor it launches the kernel or raises.  Every launch adds one to
-:data:`LAUNCHES`, so a run can show that it went through the kernels.
+:data:`LAUNCHES` (the record of :mod:`.build`, shared by every kernel of the
+port), so a run can show that it went through the kernels.
 
 The kernels are compiled with ``nvcc`` at first use into ``build/kernels/``
-at the root of the checkout (a plain C interface, loaded with ``ctypes``);
-nothing is built or imported from ``triton``/CUDA when this module loads.
+by :mod:`.build` (a plain C interface, loaded with ``ctypes``); nothing is
+built or imported from ``triton``/CUDA when this module loads.
 """
 
 from __future__ import annotations
 
-import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import threading
-import time
-from pathlib import Path
-
 import torch
 
-#: Kernel launches since the last :func:`reset_launches` (main-path proof).
-LAUNCHES = {"row_sort": 0, "tournament": 0}
+from . import build
+from .build import LAUNCHES, reset_launches  # noqa: F401  (the one record of every kernel)
 
 #: Widest row K1 sorts in one shared-memory tile.
 MAX_ROW = 4096
-
-_CSRC = Path(__file__).resolve().parent / "csrc"
-_SOURCES = {"row_sort": "row_sort.cu", "tournament": "tournament.cu"}
-_LIBS: dict[str, ctypes.CDLL] = {}
-_BUILD_LOCK = threading.Lock()
-
-
-def reset_launches() -> None:
-    for key in LAUNCHES:
-        LAUNCHES[key] = 0
 
 
 # ---------------------------------------------------------------------------
@@ -142,81 +124,29 @@ def tournament_plain(x: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# Building and loading the CUDA kernels
+# Building and loading the CUDA kernels (shared helper: ``build.py``)
 # ---------------------------------------------------------------------------
 
-
-def _repo_root() -> Path:
-    return Path(__file__).resolve().parents[3]
-
-
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    cand = Path(cuda_home) / "bin" / "nvcc"
-    if cand.exists():
-        return str(cand)
-    raise RuntimeError("nvcc not found; the CUDA kernels cannot be built")
-
-
-def _lib_path(name: str) -> Path:
-    src = _CSRC / _SOURCES[name]
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:12]
-    return _repo_root() / "build" / "kernels" / f"lib{name}_{digest}.so"
+# (in, out, rows, B, stream) and (in, out, P, B, stream), for int32 and int64
+build.register("row_sort", "row_sort.cu", {
+    f"row_sort_{sfx}": [build.PTR, build.PTR, build.I64, build.INT, build.PTR]
+    for sfx in ("i32", "i64")
+})
+build.register("tournament", "tournament.cu", {
+    f"tournament_{sfx}": [build.PTR, build.PTR, build.I64, build.I64, build.PTR]
+    for sfx in ("i32", "i64")
+})
 
 
 def build_kernels(names=None) -> float:
-    """Compile every kernel not built yet, one ``nvcc`` per source, all at
-    once; load them.  Returns the wall seconds spent (0 when all loaded)."""
-    names = list(names or _SOURCES)
-    with _BUILD_LOCK:
-        todo = [n for n in names if n not in _LIBS]
-        if not todo:
-            return 0.0
-        t0 = time.perf_counter()
-        procs = []
-        for name in todo:
-            out = _lib_path(name)
-            if out.exists():
-                continue
-            out.parent.mkdir(parents=True, exist_ok=True)
-            tmp = out.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [
-                _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-                "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-                "-o", str(tmp), str(_CSRC / _SOURCES[name]),
-            ]
-            procs.append((name, out, tmp, subprocess.Popen(
-                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            )))
-        for name, out, tmp, proc in procs:
-            log, _ = proc.communicate()
-            if proc.returncode:
-                raise RuntimeError(
-                    f"nvcc failed for {_SOURCES[name]}:\n{log.decode()}"
-                )
-            os.replace(tmp, out)
-        for name in todo:
-            lib = ctypes.CDLL(str(_lib_path(name)))
-            for fn in (f"{name}_i32", f"{name}_i64"):
-                f = getattr(lib, fn)
-                f.argtypes = [
-                    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-                    ctypes.c_longlong if name == "tournament" else ctypes.c_int,
-                    ctypes.c_void_p,
-                ]
-                f.restype = ctypes.c_int
-            _LIBS[name] = lib
-        return time.perf_counter() - t0
+    """Compile and load the kernels (default: every kernel of the port, one
+    ``nvcc`` per source, in parallel); see :func:`build.build_kernels`."""
+    return build.build_kernels(names)
 
 
 def _kernel(name: str, dtype: torch.dtype):
-    if name not in _LIBS:
-        build_kernels([name])
     suffix = {torch.int32: "i32", torch.int64: "i64"}[dtype]
-    return getattr(_LIBS[name], f"{name}_{suffix}")
+    return build.function(name, f"{name}_{suffix}")
 
 
 def _check_kernel_input(x: torch.Tensor, op: str) -> None:
@@ -228,11 +158,6 @@ def _check_kernel_input(x: torch.Tensor, op: str) -> None:
         raise ValueError(f"{op} takes a contiguous matrix")
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"{op}: unsupported device {x.device}")
-
-
-def _check_launch(err: int, op: str) -> None:
-    if err:
-        raise RuntimeError(f"{op} kernel launch failed with CUDA error {err}")
 
 
 # ---------------------------------------------------------------------------
@@ -256,7 +181,7 @@ def sort_rows(x: torch.Tensor) -> torch.Tensor:
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(x.data_ptr(), out.data_ptr(), rows, b, stream)
-    _check_launch(err, "row_sort")
+    build.check_launch(err, "row_sort")
     LAUNCHES["row_sort"] += 1
     return out
 
@@ -277,6 +202,6 @@ def merge_tournament(x: torch.Tensor) -> torch.Tensor:
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(x.data_ptr(), out.data_ptr(), P, B, stream)
-    _check_launch(err, "tournament")
+    build.check_launch(err, "tournament")
     LAUNCHES["tournament"] += 1
     return out

@@ -1,0 +1,131 @@
+"""Building and loading the hand-written CUDA kernels, and their launch counts.
+
+Every kernel of the port is one CUDA C++ source under ``csrc/`` with a plain C
+interface.  A kernel module declares its source once with :func:`register`
+(the library name, the file, and the ``ctypes`` argument types of each
+exported C function); :func:`build_kernels` compiles every declared source
+not built yet with ``nvcc`` for ``sm_90a`` -- one process per source, all
+started together -- into ``build/kernels/`` at the root of the checkout
+(git-ignored, named by a hash of the source), and loads each with ``ctypes``.
+Nothing is compiled or loaded when a module is imported.
+
+:data:`LAUNCHES` is the one launch record of every kernel: a wrapper adds one
+to its entry where it launches its kernel on the card, and nowhere else.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+
+#: Kernel launches since the last :func:`reset_launches`, by library name.
+LAUNCHES: dict[str, int] = {}
+
+#: The compiler's output of each library built in this process.
+BUILD_LOGS: dict[str, str] = {}
+
+_CSRC = Path(__file__).resolve().parent / "csrc"
+_SOURCES: dict[str, str] = {}
+_EXPORTS: dict[str, dict[str, list]] = {}
+_LIBS: dict[str, ctypes.CDLL] = {}
+_BUILD_LOCK = threading.Lock()
+
+#: ctypes shorthands for the exported signatures.
+PTR = ctypes.c_void_p
+INT = ctypes.c_int
+I64 = ctypes.c_longlong
+F32 = ctypes.c_float
+
+
+def register(name: str, source: str, exports: dict[str, list]) -> None:
+    """Declare library ``name``: ``csrc/<source>`` exports the C functions in
+    ``exports`` (function name -> ctypes argument types; each returns an
+    ``int``, the CUDA error of its launch)."""
+    _SOURCES[name] = source
+    _EXPORTS[name] = dict(exports)
+    LAUNCHES.setdefault(name, 0)
+
+
+def reset_launches() -> None:
+    for key in LAUNCHES:
+        LAUNCHES[key] = 0
+
+
+def _repo_root() -> Path:
+    return Path(__file__).resolve().parents[3]
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    cand = Path(cuda_home) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found; the CUDA kernels cannot be built")
+
+
+def _lib_path(name: str) -> Path:
+    src = _CSRC / _SOURCES[name]
+    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:12]
+    return _repo_root() / "build" / "kernels" / f"lib{name}_{digest}.so"
+
+
+def build_kernels(names=None) -> float:
+    """Compile every named (default: every declared) library not built yet,
+    one ``nvcc`` per source, all at once; load them.  Returns the wall
+    seconds spent (0 when all were loaded already)."""
+    names = list(names or _SOURCES)
+    with _BUILD_LOCK:
+        todo = [n for n in names if n not in _LIBS]
+        if not todo:
+            return 0.0
+        t0 = time.perf_counter()
+        procs = []
+        for name in todo:
+            out = _lib_path(name)
+            if out.exists():
+                continue
+            out.parent.mkdir(parents=True, exist_ok=True)
+            tmp = out.with_suffix(f".{os.getpid()}.tmp")
+            cmd = [
+                _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
+                "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+                "-Xptxas", "-v", "-o", str(tmp), str(_CSRC / _SOURCES[name]),
+            ]
+            procs.append((name, out, tmp, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            )))
+        for name, out, tmp, proc in procs:
+            log, _ = proc.communicate()
+            BUILD_LOGS[name] = log.decode()
+            if proc.returncode:
+                raise RuntimeError(f"nvcc failed for {_SOURCES[name]}:\n{BUILD_LOGS[name]}")
+            os.replace(tmp, out)
+        for name in todo:
+            lib = ctypes.CDLL(str(_lib_path(name)))
+            for fn, argtypes in _EXPORTS[name].items():
+                f = getattr(lib, fn)
+                f.argtypes = list(argtypes)
+                f.restype = ctypes.c_int
+            _LIBS[name] = lib
+        return time.perf_counter() - t0
+
+
+def function(name: str, fn: str):
+    """The loaded C function ``fn`` of library ``name`` (built on first use)."""
+    if name not in _LIBS:
+        build_kernels([name])
+    return getattr(_LIBS[name], fn)
+
+
+def check_launch(err: int, op: str) -> None:
+    if err:
+        raise RuntimeError(f"{op} kernel launch failed with CUDA error {err}")

@@ -1,0 +1,116 @@
+"""K6: decode attention on the card, and its plain torch version.
+
+Counterpart of :mod:`repro.kernels.decode_attention`: one query token per
+head, q ``(B, H, d)``, against a KV cache ``(B, S, KV, d)`` of which the
+first ``lengths[b]`` positions are visible; the ``G = H // KV`` query heads
+of a kv head share its rows.  The kernel is ``csrc/decode_attention.cu``
+(CUDA C++ for ``sm_90a``): it splits the sequence into ``BLOCK_S`` slices
+and merges their partial softmaxes by log-sum-exp, as the TPU kernel merges
+its cache blocks.  It reads the cache in place through its strides, so a
+layer's slice of the model's stacked cache is passed as it is -- no copy.
+:func:`decode_attention_plain` computes the same function in plain torch.
+:func:`decode_attention` takes the plain version only for a tensor on the
+CPU; for a CUDA tensor it launches the kernel or raises, and adds one to
+``LAUNCHES["decode_attention"]``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import build
+from .build import LAUNCHES
+from .flash_attention import HEAD_DIMS, NEG_INF
+
+#: Cache positions per block of the kernel's first pass.
+BLOCK_S = 256
+
+_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
+
+# (q, kc, vc, lengths, out, part_acc, part_ml, B, S, H, KV, D, block_s,
+#  strides[10], scale, stream)
+build.register("decode_attention", "decode_attention.cu", {
+    f"decode_attention_{sfx}": [build.PTR] * 7 + [build.INT] * 6
+    + [build.PTR, build.F32, build.PTR]
+    for sfx in _SUFFIX.values()
+})
+
+
+def decode_attention_plain(q, kcache, vcache, lengths, *, scale: float | None = None):
+    """K6's plain version: a masked softmax over the whole cache, in f32."""
+    B, H, d = q.shape
+    S, KV = kcache.shape[1], kcache.shape[2]
+    G = H // KV
+    scale = d**-0.5 if scale is None else scale
+    qg = q.reshape(B, KV, G, d).float() * scale
+    s = torch.einsum("bkgd,bskd->bkgs", qg, kcache.float())
+    visible = torch.arange(S, device=q.device)[None, :] < lengths.to(q.device)[:, None]
+    s = s.masked_fill(~visible[:, None, None, :], NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgs,bskd->bkgd", p, vcache.float())
+    return out.reshape(B, H, d).to(q.dtype)
+
+
+def _check(q, kcache, vcache, lengths) -> None:
+    if q.dim() != 3 or kcache.dim() != 4 or kcache.shape != vcache.shape:
+        raise ValueError(
+            f"decode_attention takes q (B,H,d) and caches (B,S,KV,d), got "
+            f"{tuple(q.shape)}, {tuple(kcache.shape)}, {tuple(vcache.shape)}"
+        )
+    B, H, d = q.shape
+    if kcache.shape[0] != B or kcache.shape[3] != d:
+        raise ValueError(f"q {tuple(q.shape)} and cache {tuple(kcache.shape)} disagree on batch or head dim")
+    if kcache.shape[2] == 0 or H % kcache.shape[2]:
+        raise ValueError(f"q heads {H} not a multiple of kv heads {kcache.shape[2]}")
+    if tuple(lengths.shape) != (B,):
+        raise ValueError(f"lengths must be ({B},), got {tuple(lengths.shape)}")
+    if not (q.dtype == kcache.dtype == vcache.dtype) or q.dtype not in _SUFFIX:
+        raise TypeError(f"decode_attention takes float32 or bfloat16 q and caches of one type, "
+                        f"got {q.dtype}, {kcache.dtype}, {vcache.dtype}")
+    if not (q.device == kcache.device == vcache.device == lengths.device):
+        raise ValueError("q, the caches and lengths must lie on one device")
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"decode_attention: unsupported device {q.device}")
+
+
+def decode_attention(q, kcache, vcache, lengths, *, scale: float | None = None):
+    """K6: q (B, H, d); caches (B, S, KV, d); lengths (B,) int32 visible
+    counts.  Returns (B, H, d) in q's type."""
+    _check(q, kcache, vcache, lengths)
+    if q.device.type == "cpu":
+        return decode_attention_plain(q, kcache, vcache, lengths, scale=scale)
+    B, H, d = q.shape
+    S, KV = kcache.shape[1], kcache.shape[2]
+    if d not in HEAD_DIMS:
+        raise ValueError(f"the kernel takes head dims {HEAD_DIMS}, got {d}")
+    if S == 0:
+        raise ValueError("decode_attention needs a cache of at least one position")
+    if lengths.dtype != torch.int32 or not lengths.is_contiguous():
+        raise TypeError("decode_attention takes contiguous int32 lengths")
+    if any(t.stride(-1) != 1 for t in (q, kcache, vcache)):
+        raise ValueError("decode_attention takes tensors whose last axis is contiguous")
+    scale = d**-0.5 if scale is None else scale
+    out = torch.empty((B, H, d), dtype=q.dtype, device=q.device)
+    if B == 0:
+        return out
+    G = H // KV
+    nsplit = -(-S // BLOCK_S)
+    part_acc = torch.empty((B, KV, nsplit, G, d), dtype=torch.float32, device=q.device)
+    part_ml = torch.empty((B, KV, nsplit, G, 2), dtype=torch.float32, device=q.device)
+    strides = (ctypes.c_longlong * 10)(
+        q.stride(0), q.stride(1),
+        kcache.stride(0), kcache.stride(1), kcache.stride(2),
+        vcache.stride(0), vcache.stride(1), vcache.stride(2),
+        out.stride(0), out.stride(1),
+    )
+    fn = build.function("decode_attention", f"decode_attention_{_SUFFIX[q.dtype]}")
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(q.data_ptr(), kcache.data_ptr(), vcache.data_ptr(), lengths.data_ptr(),
+                 out.data_ptr(), part_acc.data_ptr(), part_ml.data_ptr(),
+                 B, S, H, KV, d, BLOCK_S, strides, float(scale), stream)
+    build.check_launch(err, "decode_attention")
+    LAUNCHES["decode_attention"] += 1
+    return out

@@ -1,0 +1,104 @@
+"""K5: FlashAttention forward on the card, and its plain torch version.
+
+Counterpart of :mod:`repro.kernels.flash_attention`, the LM's prefill
+attention: ``softmax(q k^T * scale) v`` for q ``(B, T, H, d)`` against k, v
+``(B, S, KV, d)``, causal (``row >= col``) or not, each q head ``h`` reading
+kv head ``h // (H // KV)`` (GQA, K/V never repeated), f32 softmax with the
+finite mask value -1e30.  The kernel is ``csrc/flash_attention.cu`` (CUDA C++
+for ``sm_90a``); :func:`flash_attention_plain` computes the same function in
+plain torch.  :func:`flash_attention` takes the plain version only for a
+tensor on the CPU; for a CUDA tensor it launches the kernel or raises, and
+adds one to ``LAUNCHES["flash_attention"]``.
+
+Unlike the TPU wrapper, T and S may be any lengths (the kernel checks its
+ragged tails), and no block sizes are taken.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import build
+from .build import LAUNCHES
+
+#: Finite mask value: a masked score's exp() is exactly 0, never NaN.
+NEG_INF = -1e30
+
+#: Head dims the kernel is compiled for.
+HEAD_DIMS = (32, 64, 128)
+
+_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
+
+# (q, k, v, o, B, T, S, H, KV, D, strides[12], scale, causal, stream)
+build.register("flash_attention", "flash_attention.cu", {
+    f"flash_attention_{sfx}": [build.PTR] * 4 + [build.INT] * 6
+    + [build.PTR, build.F32, build.INT, build.PTR]
+    for sfx in _SUFFIX.values()
+})
+
+
+def flash_attention_plain(q, k, v, *, causal: bool = True, scale: float | None = None):
+    """K5's plain version: the whole score matrix at once, in f32."""
+    B, T, H, d = q.shape
+    S, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    scale = d**-0.5 if scale is None else scale
+    qg = q.reshape(B, T, KV, G, d).float() * scale
+    s = torch.einsum("btkgd,bskd->bkgts", qg, k.float())
+    if causal:
+        rows = torch.arange(T, device=q.device)[:, None]
+        cols = torch.arange(S, device=q.device)[None, :]
+        s = s.masked_fill(rows < cols, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgts,bskd->btkgd", p, v.float())
+    return out.reshape(B, T, H, d).to(q.dtype)
+
+
+def _check(q, k, v) -> None:
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
+        raise ValueError(
+            f"flash_attention takes q (B,T,H,d) and k, v (B,S,KV,d), got "
+            f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}"
+        )
+    B, _, H, d = q.shape
+    if k.shape[0] != B or k.shape[3] != d:
+        raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} disagree on batch or head dim")
+    if k.shape[2] == 0 or H % k.shape[2]:
+        raise ValueError(f"q heads {H} not a multiple of kv heads {k.shape[2]}")
+    if not (q.dtype == k.dtype == v.dtype) or q.dtype not in _SUFFIX:
+        raise TypeError(f"flash_attention takes float32 or bfloat16 q, k, v of one type, "
+                        f"got {q.dtype}, {k.dtype}, {v.dtype}")
+    if not (q.device == k.device == v.device):
+        raise ValueError("q, k and v must lie on one device")
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"flash_attention: unsupported device {q.device}")
+
+
+def flash_attention(q, k, v, *, causal: bool = True, scale: float | None = None):
+    """K5: q (B, T, H, d); k, v (B, S, KV, d); returns (B, T, H, d) in q's type."""
+    _check(q, k, v)
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, causal=causal, scale=scale)
+    B, T, H, d = q.shape
+    S, KV = k.shape[1], k.shape[2]
+    if d not in HEAD_DIMS:
+        raise ValueError(f"the kernel takes head dims {HEAD_DIMS}, got {d}")
+    if S == 0:
+        raise ValueError("flash_attention needs at least one key")
+    if any(t.stride(-1) != 1 for t in (q, k, v)):
+        raise ValueError("flash_attention takes tensors whose last axis is contiguous")
+    scale = d**-0.5 if scale is None else scale
+    out = torch.empty_like(q, memory_format=torch.contiguous_format)
+    if B == 0 or T == 0:
+        return out
+    strides = (ctypes.c_longlong * 12)(*(s for t in (q, k, v, out) for s in t.stride()[:3]))
+    fn = build.function("flash_attention", f"flash_attention_{_SUFFIX[q.dtype]}")
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                 B, T, S, H, KV, d, strides, float(scale), int(causal), stream)
+    build.check_launch(err, "flash_attention")
+    LAUNCHES["flash_attention"] += 1
+    return out

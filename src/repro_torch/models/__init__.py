@@ -1,0 +1,14 @@
+"""The LM stack of the port (counterpart of ``repro.models``): the dense
+decoder's serve path, prefill on K5 and decode on K6."""
+
+from .lm import LM
+
+__all__ = ["LM", "build"]
+
+
+def build(cfg, device="cuda"):
+    """Model factory: the decoder-only LM on ``device`` (default ``"cuda"``;
+    raises without a card unless asked for ``"cpu"``)."""
+    if cfg.is_encdec:
+        raise NotImplementedError(f"{cfg.name}: the encoder-decoder model is a later slice of the port")
+    return LM(cfg, device=device)

@@ -1,0 +1,48 @@
+"""Carry the reference's weights across: its ``LM.init`` tree -> this port's
+module state.
+
+The reference keeps layer parameters stacked ``(L, ...)`` under ``layers``;
+the port has one module per layer, so the stack is cut into
+``layers.<i>.<...>``.  Every other leaf keeps its path, joined by dots.  Leaves
+are numpy arrays (``jax.tree.map(numpy.asarray, params)``), bfloat16 ones
+included; values are copied bit for bit.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def _tensor(a) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":  # numpy has no bfloat16: carry the bits
+        return torch.from_numpy(np.ascontiguousarray(a).view(np.int16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(np.array(a))
+
+
+def _flatten(tree, prefix: str, out: dict) -> None:
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            _flatten(v, f"{prefix}{k}.", out)
+    else:
+        out[prefix[:-1]] = _tensor(tree)
+
+
+def params_from_reference(tree: dict) -> dict[str, torch.Tensor]:
+    """A state dict for :class:`repro_torch.models.lm.LM` (``load_state_dict``)
+    from the reference's parameter tree."""
+    state: dict[str, torch.Tensor] = {}
+    for key, sub in tree.items():
+        if key == "layers":
+            flat: dict[str, torch.Tensor] = {}
+            _flatten(sub, "", flat)
+            n = {v.shape[0] for v in flat.values()}
+            if len(n) != 1:
+                raise ValueError(f"stacked layer leaves disagree on depth: {sorted(n)}")
+            for i in range(n.pop()):
+                for name, v in flat.items():
+                    state[f"layers.{i}.{name}"] = v[i].clone()
+        else:
+            _flatten(sub, f"{key}.", state)
+    return state

@@ -1,0 +1,188 @@
+"""Decoder-only LM for serving: the dense family.
+
+Counterpart of :mod:`repro.models.lm` for ``kind == "dense"``: a stack of
+(attention + MLP) blocks, prefill and one-token decode against a KV cache of
+layout ``(L, B, S, KV, hd)``.  Where the reference scans stacked ``(L, ...)``
+parameters, the port keeps one module per layer (``layers.<i>``) and loops;
+:func:`repro_torch.models.convert.params_from_reference` unstacks the
+reference's tree into this module's state.  Prefill attention runs K5 and
+decode attention K6 (see :mod:`.attention`).
+
+The cache is a dict of tensors updated *in place* by ``prefill`` and
+``decode_step`` (the reference returns a new one); both also return it.
+The other families (MoE, SSM, RWKV, hybrid), precomputed-embedding inputs
+and the training ``forward`` raise ``NotImplementedError`` naming the slice
+that ports them.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from .. import resolve_device
+from ..configs.base import ModelConfig
+from . import attention as attn_mod
+from . import mlp as mlp_mod
+from .layers import dense_init, embed_tokens, lm_logits, rms_norm
+
+
+def block_kind(cfg: ModelConfig) -> str:
+    if cfg.rwkv is not None:
+        return "rwkv"
+    if cfg.family == "hybrid":
+        return "hybrid"
+    if cfg.ssm is not None:
+        return "mamba"
+    if cfg.moe is not None:
+        return "moe"
+    return "dense"
+
+
+_LATER = {
+    "moe": "the MoE serve path (sort-based dispatch on K3) is a later slice of the port",
+    "rwkv": "the RWKV6 stack is a later slice of the port",
+    "mamba": "the Mamba2 stack is a later slice of the port",
+    "hybrid": "the hybrid Mamba2 + shared-attention stack is a later slice of the port",
+}
+
+
+class Norm(nn.Module):
+    def __init__(self, d: int, device):
+        super().__init__()
+        self.scale = nn.Parameter(torch.ones(d, dtype=torch.float32, device=device), requires_grad=False)
+
+
+class Embed(nn.Module):
+    def __init__(self, vocab: int, d: int, dtype, device):
+        super().__init__()
+        self.table = nn.Parameter(torch.empty(vocab, d, dtype=dtype, device=device), requires_grad=False)
+
+
+class Head(nn.Module):
+    def __init__(self, d: int, vocab: int, dtype, device):
+        super().__init__()
+        self.w = nn.Parameter(torch.empty(d, vocab, dtype=dtype, device=device), requires_grad=False)
+
+
+class Block(nn.Module):
+    def __init__(self, cfg: ModelConfig, dtype, device):
+        super().__init__()
+        self.ln1 = Norm(cfg.d_model, device)
+        self.ln2 = Norm(cfg.d_model, device)
+        self.attn = attn_mod.Attention(cfg, dtype, device)
+        self.mlp = mlp_mod.MLP(cfg.d_model, cfg.d_ff, cfg.mlp_gated, cfg.use_bias, dtype, device)
+
+
+class LM(nn.Module):
+    """The dense decoder on ``device`` (default ``"cuda"``; raises without a
+    card unless asked for ``"cpu"``).  Parameters are allocated, not drawn:
+    call :meth:`init` or load a state."""
+
+    def __init__(self, cfg: ModelConfig, device="cuda"):
+        super().__init__()
+        kind = block_kind(cfg)
+        if kind != "dense":
+            raise NotImplementedError(f"{cfg.name}: {_LATER[kind]}")
+        if cfg.input_kind != "tokens":
+            raise NotImplementedError(
+                f"{cfg.name}: precomputed-embedding inputs (the vlm/audio stub "
+                "frontends) are a later slice of the port"
+            )
+        dev = resolve_device(device)
+        dt = getattr(torch, cfg.dtype)
+        self.cfg = cfg
+        self.embed = Embed(cfg.padded_vocab, cfg.d_model, dt, dev)
+        self.layers = nn.ModuleList(Block(cfg, dt, dev) for _ in range(cfg.num_layers))
+        self.ln_f = Norm(cfg.d_model, dev)
+        if not cfg.tie_embeddings:
+            self.head = Head(cfg.d_model, cfg.padded_vocab, dt, dev)
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed.table.device
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.embed.table.dtype
+
+    # ------------------------------------------------------------------ init
+    @torch.no_grad()
+    def init(self, generator: torch.Generator) -> "LM":
+        """Draw every weight from ``generator`` with the reference's
+        distributions: embedding N(0,1)*0.02, dense N(0,1)*d_in^-1/2 (``wo``
+        (H*hd)^-1/2, ``w_out`` d_ff^-1/2), norms ones, biases zeros."""
+        draw = torch.randn(self.embed.table.shape, generator=generator,
+                           device=self.device, dtype=torch.float32)
+        self.embed.table.copy_(draw.mul_(0.02))
+        del draw
+        for blk in self.layers:
+            blk.ln1.scale.fill_(1.0)
+            blk.ln2.scale.fill_(1.0)
+            attn_mod.init_attn(blk.attn, self.cfg, generator)
+            mlp_mod.init_mlp(blk.mlp, generator)
+        self.ln_f.scale.fill_(1.0)
+        if not self.cfg.tie_embeddings:
+            dense_init(self.head.w, generator)
+        return self
+
+    def forward(self, *args, **kwargs):
+        raise NotImplementedError("the training forward and loss are a later slice of the port (M21 train/)")
+
+    # ---------------------------------------------------------------- decode
+    def init_cache(self, batch: int, max_len: int) -> dict:
+        """Zeros: ``pos`` (B,) int32 and ``k``/``v`` (L, B, S, KV, hd)."""
+        c = self.cfg
+        shape = (c.num_layers, batch, max_len, c.num_kv_heads, c.resolved_head_dim)
+        return {
+            "pos": torch.zeros(batch, dtype=torch.int32, device=self.device),
+            "k": torch.zeros(shape, dtype=self.dtype, device=self.device),
+            "v": torch.zeros(shape, dtype=self.dtype, device=self.device),
+        }
+
+    def _logits(self, x: torch.Tensor) -> torch.Tensor:
+        """Vocab head; the padded columns are sliced off (one device)."""
+        c = self.cfg
+        if c.tie_embeddings:
+            logits = x @ self.embed.table.T
+        else:
+            logits = lm_logits(self.head.w, x)
+        return logits[..., : c.vocab_size]
+
+    @torch.no_grad()
+    def prefill(self, tokens: torch.Tensor, cache: dict):
+        """Process a whole prompt ``tokens`` (B, T) into an empty ``cache``:
+        k/v of positions [0, T) are written and ``pos`` advances by T.
+        Returns (last-position logits (B, V), cache)."""
+        c = self.cfg
+        x = embed_tokens(self.embed.table, tokens.long())
+        T = x.shape[1]
+        positions = torch.arange(T, device=x.device)[None, :]
+        for i, blk in enumerate(self.layers):
+            h = rms_norm(x, blk.ln1.scale, c.norm_eps)
+            y, (k, v) = attn_mod.attention(blk.attn, c, h, positions, return_kv=True)
+            cache["k"][i, :, :T] = k
+            cache["v"][i, :, :T] = v
+            x = x + y
+            h = rms_norm(x, blk.ln2.scale, c.norm_eps)
+            x = x + mlp_mod.mlp(blk.mlp, c, h)
+        # the norm is per row: normalizing the last position alone is the same
+        x = rms_norm(x[:, -1], self.ln_f.scale, c.norm_eps)
+        cache["pos"] += T
+        return self._logits(x), cache
+
+    @torch.no_grad()
+    def decode_step(self, cache: dict, tokens: torch.Tensor):
+        """One decode step.  tokens: (B,) ints.  Returns (logits (B, V), cache)."""
+        c = self.cfg
+        pos = cache["pos"]
+        x = embed_tokens(self.embed.table, tokens.long())[:, None, :]
+        for i, blk in enumerate(self.layers):
+            h = rms_norm(x, blk.ln1.scale, c.norm_eps)
+            y, _, _ = attn_mod.decode_attention(blk.attn, c, h, cache["k"][i], cache["v"][i], pos)
+            x = x + y
+            h = rms_norm(x, blk.ln2.scale, c.norm_eps)
+            x = x + mlp_mod.mlp(blk.mlp, c, h)
+        x = rms_norm(x, self.ln_f.scale, c.norm_eps)
+        cache["pos"] += 1
+        return self._logits(x)[:, 0, :], cache

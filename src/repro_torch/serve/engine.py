@@ -1,0 +1,121 @@
+"""Batched serving engine: slot-based continuous batching.
+
+Counterpart of :mod:`repro.serve.engine`, with the same slot semantics: a
+fixed number of decode slots share one batched ``decode_step``; a request is
+admitted into a free slot by prefilling ``prompt[:-1]`` in one forward at
+batch 1 into that slot's region of the cache, and its ``prompt[-1]`` is the
+slot's next decode input.  A slot frees as soon as its request reaches EOS
+or ``max_tokens``, and the queue backfills it; every step decodes all slots,
+as the reference's does.
+
+The reference prefills a standalone batch-1 cache and grafts it into the
+slot.  Here the prefill writes straight into the slot's views of the batched
+cache (``cache["k"][:, s:s+1]`` and so on), after the slot is zeroed: the
+same state, without allocating and copying a second cache.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from collections import deque
+
+import numpy as np
+import torch
+
+from .. import resolve_device
+from .sampler import SampleConfig, sample
+
+
+@dataclasses.dataclass
+class Request:
+    rid: int
+    prompt: list[int]
+    max_tokens: int = 16
+    eos: int | None = None
+    out: list[int] = dataclasses.field(default_factory=list)
+    done: bool = False
+
+
+class Engine:
+    """Serve ``model`` (a :class:`repro_torch.models.lm.LM` on ``device``,
+    default ``"cuda"``; raises without a card unless asked for ``"cpu"``)."""
+
+    def __init__(
+        self,
+        model,
+        *,
+        slots: int = 4,
+        max_len: int = 256,
+        sample_cfg: SampleConfig = SampleConfig(temperature=0.0),
+        seed: int = 0,
+        device="cuda",
+    ):
+        self.device = resolve_device(device)
+        if model.device.type != self.device.type:
+            raise ValueError(f"the model lies on {model.device}, the engine runs on {self.device}")
+        self.model = model
+        self.slots = slots
+        self.max_len = max_len
+        self.sample_cfg = sample_cfg
+        self.generator = torch.Generator(device=model.device).manual_seed(seed)
+        self.cache = model.init_cache(slots, max_len)
+        self.active: list[Request | None] = [None] * slots
+        self.queue: deque[Request] = deque()
+        self.finished: list[Request] = []
+        self._next_token = np.zeros((slots,), np.int32)
+
+    # ------------------------------------------------------------- plumbing
+    def add(self, req: Request) -> None:
+        self.queue.append(req)
+
+    def _slot_cache(self, s: int) -> dict:
+        """Views of slot ``s``'s region: batch axis 0 of ``pos``, 1 of k/v."""
+        return {
+            "pos": self.cache["pos"][s : s + 1],
+            "k": self.cache["k"][:, s : s + 1],
+            "v": self.cache["v"][:, s : s + 1],
+        }
+
+    def _reset_slot(self, s: int) -> None:
+        """Zero one slot's cache region (pos and k/v)."""
+        for leaf in self._slot_cache(s).values():
+            leaf.zero_()
+
+    def _admit(self) -> None:
+        for s in range(self.slots):
+            if self.active[s] is None and self.queue:
+                req = self.queue.popleft()
+                self._reset_slot(s)
+                if len(req.prompt) > 1:
+                    tokens = torch.tensor([req.prompt[:-1]], dtype=torch.int64, device=self.model.device)
+                    self.model.prefill(tokens, self._slot_cache(s))
+                self._next_token[s] = req.prompt[-1]
+                self.active[s] = req
+
+    # ----------------------------------------------------------------- step
+    def step(self) -> int:
+        """One decode step for all active slots; returns #active."""
+        self._admit()
+        if not any(r is not None for r in self.active):
+            return 0
+        tokens = torch.from_numpy(self._next_token).to(self.model.device)
+        logits, self.cache = self.model.decode_step(self.cache, tokens)
+        toks = sample(logits, self.generator, self.sample_cfg).tolist()
+        for s, req in enumerate(self.active):
+            if req is None:
+                continue
+            tok = int(toks[s])
+            req.out.append(tok)
+            self._next_token[s] = tok
+            if (req.eos is not None and tok == req.eos) or len(req.out) >= req.max_tokens:
+                req.done = True
+                self.finished.append(req)
+                self.active[s] = None
+        return sum(r is not None for r in self.active)
+
+    def run(self, max_steps: int = 10_000) -> list[Request]:
+        steps = 0
+        while (self.queue or any(self.active)) and steps < max_steps:
+            self.step()
+            steps += 1
+        return self.finished

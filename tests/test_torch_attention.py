@@ -1,0 +1,202 @@
+"""The port's attention kernels K5 and K6, held against the JAX package.
+
+On the CPU each wrapper runs its plain torch version, which is what these
+tests compare with the reference's Pallas kernels (in interpret mode), with
+its ``_sdpa`` where the TPU wrapper cannot take the shape (ragged T), and
+with the reference model's attention functions at the smoke config.  Inputs
+are drawn with numpy from a seed and handed to both packages.  Tolerances are
+those of ``tests/test_kernels.py`` and ``tests/test_decode_kernel.py``:
+float32 atol 2e-5, bfloat16 atol 2e-2, rtol 2e-2 (one bf16 rounding of the
+output, and the reference stores bf16 probabilities in ``_sdpa``).
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_smoke_config
+from repro.distributed.sharding import local_ctx
+from repro.kernels.decode_attention import decode_attention as ref_decode_attention
+from repro.kernels import ops as ref_ops
+from repro.models import attention as ref_attn
+from repro_torch.kernels import build
+from repro_torch.kernels.decode_attention import decode_attention, decode_attention_plain
+from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.models import attention as port_attn
+
+DTYPES = {"float32": (jnp.float32, torch.float32), "bfloat16": (jnp.bfloat16, torch.bfloat16)}
+
+
+def _tol(name):
+    return dict(atol=2e-2 if name == "bfloat16" else 2e-5, rtol=2e-2)
+
+
+def _pair(x: np.ndarray, name: str):
+    jdt, tdt = DTYPES[name]
+    return jnp.asarray(x, jdt), torch.from_numpy(x).to(tdt)
+
+
+def _close(port: torch.Tensor, ref, name: str) -> None:
+    np.testing.assert_allclose(port.float().numpy(), np.asarray(ref, np.float32), **_tol(name))
+
+
+def _qkv(seed, B, T, S, H, KV, d, name):
+    rng = np.random.default_rng(seed)
+    q = (rng.standard_normal((B, T, H, d)) * 0.5).astype(np.float32)
+    k = (rng.standard_normal((B, S, KV, d)) * 0.5).astype(np.float32)
+    v = (rng.standard_normal((B, S, KV, d)) * 0.5).astype(np.float32)
+    return [_pair(a, name) for a in (q, k, v)]
+
+
+# -- K5 ----------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("name", list(DTYPES))
+@pytest.mark.parametrize("B,T,S,H,KV,d", [
+    (1, 128, 128, 2, 2, 64),   # MHA
+    (2, 256, 256, 4, 2, 64),   # GQA 2:1
+    (1, 128, 128, 8, 2, 128),  # GQA 4:1, d=128
+    (1, 256, 256, 4, 1, 64),   # MQA
+])
+def test_k5_plain_matches_pallas_kernel(B, T, S, H, KV, d, name, causal):
+    (jq, tq), (jk, tk), (jv, tv) = _qkv(T + H, B, T, S, H, KV, d, name)
+    want = ref_ops.flash_attention(jq, jk, jv, causal=causal, block_q=64, block_k=64, interpret=True)
+    got = flash_attention(tq, tk, tv, causal=causal)
+    assert got.dtype == tq.dtype and got.shape == tq.shape
+    _close(got, want, name)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("name", list(DTYPES))
+@pytest.mark.parametrize("T,H,KV,d", [(1, 4, 2, 32), (7, 4, 2, 32), (130, 8, 2, 64), (130, 32, 8, 128)])
+def test_k5_plain_matches_sdpa_at_ragged_lengths(T, H, KV, d, name, causal):
+    """T that no block size divides: the reference model's own attention."""
+    (jq, tq), (jk, tk), (jv, tv) = _qkv(T, 1, T, T, H, KV, d, name)
+    want = ref_attn._sdpa(jq, jk, jv, causal)
+    _close(flash_attention(tq, tk, tv, causal=causal), want, name)
+
+
+def test_k5_explicit_scale_and_wrapper_checks():
+    (jq, tq), (jk, tk), (jv, tv) = _qkv(3, 1, 64, 64, 4, 2, 32, "float32")
+    want = ref_ops.flash_attention(jq, jk, jv, causal=True, scale=0.3, block_q=64, block_k=64,
+                                   interpret=True)
+    _close(flash_attention(tq, tk, tv, causal=True, scale=0.3), want, "float32")
+    with pytest.raises(ValueError, match="multiple of kv heads"):
+        flash_attention(tq, tk[:, :, :1].expand(1, 64, 3, 32), tv[:, :, :1].expand(1, 64, 3, 32))
+    with pytest.raises(TypeError, match="one type"):
+        flash_attention(tq, tk.to(torch.bfloat16), tv)
+    with pytest.raises(ValueError, match="q \\(B,T,H,d\\)"):
+        flash_attention(tq[0], tk, tv)
+
+
+# -- K6 ----------------------------------------------------------------------
+
+
+def _decode_inputs(seed, B, S, H, KV, d, name, lengths=None):
+    rng = np.random.default_rng(seed)
+    q = (rng.standard_normal((B, H, d)) * 0.5).astype(np.float32)
+    k = (rng.standard_normal((B, S, KV, d)) * 0.5).astype(np.float32)
+    v = (rng.standard_normal((B, S, KV, d)) * 0.5).astype(np.float32)
+    if lengths is None:
+        lengths = rng.integers(1, S + 1, size=B)
+    lengths = np.asarray(lengths, np.int32)
+    return [_pair(a, name) for a in (q, k, v)] + [(jnp.asarray(lengths), torch.from_numpy(lengths))]
+
+
+@pytest.mark.parametrize("name", list(DTYPES))
+@pytest.mark.parametrize("B,S,H,KV,d,lengths", [
+    (2, 512, 8, 2, 64, None),
+    (1, 1024, 4, 4, 128, None),   # MHA
+    (4, 2048, 16, 8, 64, None),   # GQA 2:1
+    (2, 512, 4, 2, 64, [1, 512]),  # both edges
+    (4, 300, 32, 8, 128, [1, 300, 17, 256]),  # the full config's heads, ragged S
+])
+def test_k6_plain_matches_pallas_kernel(B, S, H, KV, d, lengths, name):
+    (jq, tq), (jk, tk), (jv, tv), (jl, tl) = _decode_inputs(S + H, B, S, H, KV, d, name, lengths)
+    bs = 256 if S % 256 == 0 else S
+    want = ref_decode_attention(jq, jk, jv, jl, block_s=bs, interpret=True)
+    got = decode_attention(tq, tk, tv, tl)
+    assert got.dtype == tq.dtype and got.shape == tq.shape
+    _close(got, want, name)
+
+
+def test_k6_reads_a_strided_cache_view_in_place():
+    """A layer's slice and a slot's slice of the stacked cache are views;
+    the wrapper takes them as they are."""
+    (_, tq), (_, tk), (_, tv), (_, tl) = _decode_inputs(5, 3, 64, 4, 2, 32, "float32", [3, 64, 1])
+    stacked_k = torch.stack([torch.zeros_like(tk), tk])  # (L, B, S, KV, d)
+    stacked_v = torch.stack([torch.zeros_like(tv), tv])
+    want = decode_attention_plain(tq[1:2], tk[1:2], tv[1:2], tl[1:2])
+    got = decode_attention(tq[1:2], stacked_k[1][1:2], stacked_v[1][1:2], tl[1:2])
+    torch.testing.assert_close(got, want, atol=2e-5, rtol=2e-2)
+
+
+def test_k6_wrapper_checks():
+    (_, tq), (_, tk), (_, tv), (_, tl) = _decode_inputs(6, 2, 32, 4, 2, 32, "float32")
+    with pytest.raises(ValueError, match="lengths must be"):
+        decode_attention(tq, tk, tv, tl[:1])
+    with pytest.raises(TypeError, match="one type"):
+        decode_attention(tq.to(torch.bfloat16), tk, tv, tl)
+    with pytest.raises(ValueError, match="caches"):
+        decode_attention(tq, tk[0], tv[0], tl)
+
+
+def test_cpu_calls_never_launch_or_build():
+    build.reset_launches()
+    (_, tq), (_, tk), (_, tv) = _qkv(1, 1, 8, 8, 4, 2, 32, "float32")
+    flash_attention(tq, tk, tv)
+    (_, dq), (_, dk), (_, dv), (_, dl) = _decode_inputs(1, 2, 16, 4, 2, 32, "float32")
+    decode_attention(dq, dk, dv, dl)
+    assert build.LAUNCHES["flash_attention"] == 0 and build.LAUNCHES["decode_attention"] == 0
+    assert set(build.LAUNCHES) >= {"row_sort", "tournament", "flash_attention", "decode_attention"}
+    assert "flash_attention" not in build._LIBS and "decode_attention" not in build._LIBS
+
+
+# -- the model's attention layer, with the reference's weights -----------------
+
+
+@pytest.fixture(scope="module")
+def attn_pair():
+    cfg = dataclasses.replace(get_smoke_config("mistral-nemo-12b"), dtype="float32")
+    params = ref_attn.init_attn(jax.random.PRNGKey(1), cfg, jnp.float32)
+    p = port_attn.Attention(cfg, torch.float32, "cpu")
+    p.load_state_dict({k: torch.from_numpy(np.array(v)) for k, v in params.items()})
+    return cfg, params, p
+
+
+@pytest.mark.parametrize("T", [1, 9, 33])
+def test_prefill_attention_matches_reference(attn_pair, T):
+    cfg, params, p = attn_pair
+    x = (np.random.default_rng(T).standard_normal((2, T, cfg.d_model)) * 0.5).astype(np.float32)
+    pos = np.arange(T)[None, :]
+    want, (wk, wv) = ref_attn.attention(params, cfg, local_ctx(), jnp.asarray(x), jnp.asarray(pos),
+                                        return_kv=True)
+    got, (gk, gv) = port_attn.attention(p, cfg, torch.from_numpy(x), torch.from_numpy(pos),
+                                        return_kv=True)
+    for g, w in ((got, want), (gk, wk), (gv, wv)):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=2e-5, rtol=2e-2)
+
+
+def test_decode_attention_matches_reference(attn_pair):
+    """Writes the token at ``pos`` (a position past the cache is dropped)
+    and attends to positions <= pos."""
+    cfg, params, p = attn_pair
+    B, S, KV, hd = 4, 16, cfg.num_kv_heads, cfg.resolved_head_dim
+    rng = np.random.default_rng(7)
+    x = (rng.standard_normal((B, 1, cfg.d_model)) * 0.5).astype(np.float32)
+    kc = (rng.standard_normal((B, S, KV, hd)) * 0.5).astype(np.float32)
+    vc = (rng.standard_normal((B, S, KV, hd)) * 0.5).astype(np.float32)
+    pos = np.asarray([0, 5, S - 1, S + 3], np.int32)
+    want, wk, wv = ref_attn.decode_attention(params, cfg, local_ctx(), jnp.asarray(x), jnp.asarray(kc),
+                                             jnp.asarray(vc), jnp.asarray(pos))
+    tk, tv = torch.from_numpy(kc.copy()), torch.from_numpy(vc.copy())
+    got, gk, gv = port_attn.decode_attention(p, cfg, torch.from_numpy(x), tk, tv, torch.from_numpy(pos))
+    assert gk is tk and gv is tv  # in place
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5, rtol=2e-2)
+    np.testing.assert_allclose(gk.numpy(), np.asarray(wk), atol=2e-5, rtol=2e-2)
+    np.testing.assert_allclose(gv.numpy(), np.asarray(wv), atol=2e-5, rtol=2e-2)

@@ -1,5 +1,6 @@
-"""The port's CUDA kernels on the card: K1 and K2 against their plain torch
-versions, the launch counters, and a small pipeline against its CPU run.
+"""The port's CUDA kernels on the card: K1, K2, K5 and K6 against their plain
+torch versions, the launch counters, a small pipeline against its CPU run,
+and the smoke LM served on the card against the same weights on the CPU.
 
 Marked ``cuda``; every test skips with a reason where no card is present.
 Run them on a machine with an NVIDIA card with
@@ -12,8 +13,12 @@ import torch
 
 from repro_torch.core import mergesort
 from repro_torch.data.traces import random_trace
+from repro_torch import configs, models
 from repro_torch.kernels import bitonic, ops
+from repro_torch.kernels.decode_attention import decode_attention, decode_attention_plain
+from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
 from repro_torch.net.pipeline import run_pipeline
+from repro_torch.serve.engine import Engine, Request
 
 pytestmark = pytest.mark.cuda
 
@@ -22,7 +27,9 @@ pytestmark = pytest.mark.cuda
 def gen():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
-    bitonic.build_kernels()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    bitonic.build_kernels()  # every kernel of the port
     return torch.Generator(device="cuda").manual_seed(0)
 
 
@@ -54,7 +61,7 @@ def test_wrappers_count_launches_and_check_inputs(gen):
     bitonic.sort_rows(x)
     bitonic.merge_tournament(torch.sort(x, dim=1).values)
     bitonic.sort_rows(x[:, :1].contiguous())  # one-key rows: nothing to launch
-    assert bitonic.LAUNCHES == {"row_sort": 1, "tournament": 1}
+    assert bitonic.LAUNCHES == {"row_sort": 1, "tournament": 1, "flash_attention": 0, "decode_attention": 0}
     with pytest.raises(ValueError, match="contiguous"):
         bitonic.sort_rows(x.t())
     with pytest.raises(TypeError):
@@ -85,3 +92,86 @@ def test_pipeline_on_card_equals_cpu_run(gen, backend, jitter):
     assert card["passes"] == host["passes"]
     assert card["max_reorder_depth"] == host["max_reorder_depth"]
     np.testing.assert_array_equal(card["output"], np.sort(vals))
+
+
+def _randn(gen, shape, dtype, scale=1.0):
+    return (torch.randn(shape, generator=gen, device="cuda") * scale).to(dtype)
+
+
+#: q and k at 1.5 x a unit normal: scores of standard deviation 2.25 at any
+#: head dim, a peaked softmax that a dropped cache block or a missing
+#: online-softmax rescale moves by far more than the limit below.
+QK_SCALE = 1.5
+
+
+def _assert_attention_close(got, want):
+    """Both sides sum in f32, in other orders, and round the output once.
+    float32: 2e-5 + 1e-3 relative.  bfloat16: one ulp of each value (at most
+    2^-7 of it, so 1e-2 relative) plus 4e-3 of the largest output."""
+    torch.cuda.synchronize()
+    if want.dtype == torch.bfloat16:
+        atol, rtol = 4e-3 * want.float().abs().max().item(), 1e-2
+    else:
+        atol, rtol = 2e-5, 1e-3
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("B,T,H,KV,d", [(1, 1, 4, 2, 32), (2, 7, 4, 4, 64), (1, 130, 8, 2, 64),
+                                        (1, 300, 32, 8, 128), (2, 64, 4, 1, 128)])
+def test_flash_attention_kernel_equals_plain(gen, B, T, H, KV, d, causal, dtype):
+    q = _randn(gen, (B, T, H, d), dtype, QK_SCALE)
+    k = _randn(gen, (B, T, KV, d), dtype, QK_SCALE)
+    v = _randn(gen, (B, T, KV, d), dtype)
+    bitonic.reset_launches()
+    got = flash_attention(q, k, v, causal=causal)
+    assert bitonic.LAUNCHES["flash_attention"] == 1
+    _assert_attention_close(got, flash_attention_plain(q, k, v, causal=causal))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,H,KV,d", [(1, 1, 4, 2, 32), (3, 300, 4, 4, 64), (4, 4096, 32, 8, 128),
+                                        (2, 512, 16, 1, 128)])
+def test_decode_attention_kernel_equals_plain(gen, B, S, H, KV, d, dtype):
+    q = _randn(gen, (B, H, d), dtype, QK_SCALE)
+    # the layer-1 slice of a stacked (L, B, S, KV, d) cache, read in place
+    kc = _randn(gen, (2, B, S, KV, d), dtype, QK_SCALE)[1]
+    vc = _randn(gen, (2, B, S, KV, d), dtype)[1]
+    lengths = torch.randint(1, S + 1, (B,), generator=gen, device="cuda", dtype=torch.int32)
+    lengths[0] = 1
+    lengths[-1] = S
+    bitonic.reset_launches()
+    got = decode_attention(q, kc, vc, lengths)
+    assert bitonic.LAUNCHES["decode_attention"] == 1
+    _assert_attention_close(got, decode_attention_plain(q, kc, vc, lengths))
+
+
+def test_smoke_lm_served_on_card_equals_cpu(gen):
+    """The f32 smoke config on the card and on the CPU, same weights: equal
+    greedy tokens, logits within 1e-4; K5 once per layer per prefill, K6
+    once per layer per decode step."""
+    import dataclasses
+
+    cfg = dataclasses.replace(configs.get_smoke_config("mistral-nemo-12b"), dtype="float32")
+    host = models.build(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+    card = models.build(cfg, device="cuda")
+    card.load_state_dict(host.state_dict())
+    toks = torch.randint(0, cfg.vocab_size, (2, 9), generator=torch.Generator().manual_seed(1))
+    want, _ = host.prefill(toks, host.init_cache(2, 32))
+    got, _ = card.prefill(toks.cuda(), card.init_cache(2, 32))
+    torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
+    outs = []
+    for model, dev in ((host, "cpu"), (card, "cuda")):
+        eng = Engine(model, slots=2, max_len=64, device=dev)
+        for i, n in enumerate((3, 5, 2, 7, 4)):
+            eng.add(Request(rid=i, prompt=list(range(10 + i, 10 + i + n)), max_tokens=6))
+        bitonic.reset_launches()
+        steps = 0
+        while eng.queue or any(eng.active):
+            eng.step()
+            steps += 1
+        outs.append(sorted((r.rid, r.out) for r in eng.finished))
+    assert outs[0] == outs[1]
+    assert bitonic.LAUNCHES["flash_attention"] == cfg.num_layers * 5  # one prefill per request
+    assert bitonic.LAUNCHES["decode_attention"] == cfg.num_layers * steps

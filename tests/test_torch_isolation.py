@@ -38,7 +38,10 @@ def _port_modules():
 def test_every_port_module_imports_without_jax_or_reference():
     names = _port_modules()
     assert {"repro_torch.net.pipeline", "repro_torch.kernels.bitonic",
-            "repro_torch.core.mergesort", "repro_torch.data.traces"} <= set(names)
+            "repro_torch.core.mergesort", "repro_torch.data.traces",
+            "repro_torch.models.lm", "repro_torch.serve.engine",
+            "repro_torch.kernels.flash_attention",
+            "repro_torch.kernels.decode_attention"} <= set(names)
     code = (
         "import importlib, sys\n"
         f"for name in {names!r}:\n"
@@ -94,6 +97,28 @@ def test_entry_points_refuse_a_missing_card(monkeypatch):
         wire.empty_batch()
     res = pipeline.run_pipeline(vals, device="cpu", verify=True)
     assert res.output.device.type == "cpu"
+
+
+def test_serve_entry_points_refuse_a_missing_card(monkeypatch):
+    """``build(cfg)``, ``LM`` and ``Engine`` default to the card too."""
+    from repro_torch import configs, models
+    from repro_torch.launch import serve
+    from repro_torch.models.lm import LM
+    from repro_torch.serve.engine import Engine
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = configs.get_smoke_config("mistral-nemo-12b")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        models.build(cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        LM(cfg)
+    model = models.build(cfg, device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Engine(model)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--arch", "mistral-nemo-12b", "--smoke"])
+    eng = Engine(model, device="cpu")
+    assert eng.cache["k"].device.type == "cpu"
 
 
 def test_chip_smoke_fails_without_a_card_or_without_the_port(tmp_path):

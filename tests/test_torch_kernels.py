@@ -18,7 +18,7 @@ import pytest
 import torch
 
 from repro.kernels import ops as ref_ops
-from repro_torch.kernels import bitonic, ops
+from repro_torch.kernels import bitonic, build, ops
 
 I32_MAX = np.iinfo(np.int32).max
 I64_MAX = np.iinfo(np.int64).max
@@ -179,9 +179,9 @@ def test_plain_versions_reject_non_pow2():
 
 
 def test_launch_error_code_raises():
-    bitonic._check_launch(0, "row_sort")
+    build.check_launch(0, "row_sort")
     with pytest.raises(RuntimeError, match="CUDA error 9"):
-        bitonic._check_launch(9, "row_sort")
+        build.check_launch(9, "row_sort")
 
 
 def test_cpu_calls_never_launch_or_build():
@@ -189,30 +189,36 @@ def test_cpu_calls_never_launch_or_build():
     x = torch.randint(0, 100, (8, 64), dtype=torch.int32)
     ops.sort_rows_padded(x)
     ops.merge_tournament(torch.sort(x, dim=1).values)
-    assert bitonic.LAUNCHES == {"row_sort": 0, "tournament": 0}
-    assert bitonic._LIBS == {}
+    assert bitonic.LAUNCHES is build.LAUNCHES
+    assert set(build.LAUNCHES) == {"row_sort", "tournament", "flash_attention", "decode_attention"}
+    assert not any(build.LAUNCHES.values())
+    assert build._LIBS == {}
 
 
 def test_missing_nvcc_raises(monkeypatch, tmp_path):
     monkeypatch.setenv("PATH", str(tmp_path))
     monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))
     with pytest.raises(RuntimeError, match="nvcc not found"):
-        bitonic._nvcc()
+        build._nvcc()
 
 
 def test_kernel_library_path_is_build_dir_keyed_by_source():
-    p = bitonic._lib_path("row_sort")
-    assert p.parent == bitonic._repo_root() / "build" / "kernels"
+    p = build._lib_path("row_sort")
+    assert p.parent == build._repo_root() / "build" / "kernels"
     assert p.name.startswith("librow_sort_") and p.suffix == ".so"
-    assert (bitonic._CSRC / "row_sort.cu").is_file()
-    assert (bitonic._CSRC / "tournament.cu").is_file()
+    for name, source in (("row_sort", "row_sort.cu"), ("tournament", "tournament.cu"),
+                         ("flash_attention", "flash_attention.cu"),
+                         ("decode_attention", "decode_attention.cu")):
+        assert build._SOURCES[name] == source and (build._CSRC / source).is_file()
+        assert build._lib_path(name).name.startswith(f"lib{name}_")
 
 
 def test_kernel_modules_import_without_nvcc_or_card(tmp_path):
     """Importing the kernel modules builds nothing and needs no toolchain."""
     code = (
-        "import sys; from repro_torch.kernels import bitonic, ops; "
-        "assert bitonic._LIBS == {}; assert 'triton' not in sys.modules"
+        "import sys; from repro_torch.kernels import bitonic, build, ops; "
+        "from repro_torch.kernels import decode_attention, flash_attention; "
+        "assert build._LIBS == {}; assert 'triton' not in sys.modules"
     )
     env = dict(os.environ, PATH=os.path.dirname(sys.executable), CUDA_HOME=str(tmp_path))
     subprocess.run([sys.executable, "-c", code], check=True, env=env, timeout=120)

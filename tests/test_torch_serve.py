@@ -1,0 +1,274 @@
+"""The port's serve path (configs, LM, engine, sampler, CLI) against the JAX
+package's, on the CPU.
+
+The reference model is the smoke config of ``mistral-nemo-12b`` built with
+``local_ctx()`` and initialised from ``PRNGKey(0)``; its weights are carried
+into the port with ``params_from_reference``.  At float32 the logits agree
+within atol/rtol 1e-4 and the greedy tokens are identical.  At bfloat16 the
+two frameworks round at other places (matmul accumulation, the reference's
+bf16 attention probabilities against the port's f32 ones), so logits, which
+are O(4) here, are held within atol 0.1 (a few bf16 steps at that size) and
+rtol 2e-2, and tokens are not compared with the reference's.
+"""
+
+import dataclasses
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro import models as ref_models
+from repro.configs import ARCHS as REF_ARCHS
+from repro.configs import get_config as ref_get_config
+from repro.configs import get_smoke_config as ref_get_smoke
+from repro.distributed.sharding import local_ctx
+from repro.serve.engine import Engine as RefEngine
+from repro.serve.engine import Request as RefRequest
+from repro.serve.sampler import SampleConfig as RefSampleConfig
+from repro.serve.sampler import sample as ref_sample
+from repro_torch import configs, models
+from repro_torch.kernels import build as kbuild
+from repro_torch.launch import serve as serve_cli
+from repro_torch.models.convert import params_from_reference
+from repro_torch.serve.engine import Engine, Request
+from repro_torch.serve.sampler import SampleConfig, sample
+
+ARCH = "mistral-nemo-12b"
+TOL = {"float32": dict(atol=1e-4, rtol=1e-4), "bfloat16": dict(atol=0.1, rtol=2e-2)}
+
+
+def _smoke(dtype: str):
+    return dataclasses.replace(ref_get_smoke(ARCH), dtype=dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def _build_pair(dtype: str):
+    """(cfg, reference model, reference params, port model) sharing weights."""
+    cfg = _smoke(dtype)
+    ref = ref_models.build(cfg, local_ctx())
+    params = ref.init(jax.random.PRNGKey(0))
+    port = models.build(dataclasses.replace(configs.get_smoke_config(ARCH), dtype=dtype), device="cpu")
+    port.load_state_dict(params_from_reference(jax.tree.map(np.asarray, params)))
+    return cfg, ref, params, port
+
+
+@pytest.fixture(scope="module", params=["float32", "bfloat16"])
+def pair(request):
+    return _build_pair(request.param)
+
+
+@pytest.fixture(scope="module")
+def pair32():
+    return _build_pair("float32")
+
+
+def _close(port: torch.Tensor, ref, dtype: str) -> None:
+    np.testing.assert_allclose(port.float().numpy(), np.asarray(ref, np.float32), **TOL[dtype])
+
+
+# -- configs ---------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("arch", REF_ARCHS)
+def test_config_copies_equal_the_reference(arch):
+    for ours, theirs in ((configs.get_config(arch), ref_get_config(arch)),
+                         (configs.get_smoke_config(arch), ref_get_smoke(arch))):
+        assert dataclasses.asdict(ours) == dataclasses.asdict(theirs)
+        assert ours.param_count() == theirs.param_count()
+        assert ours.padded_vocab == theirs.padded_vocab
+    assert configs.list_archs() == sorted(configs.ALIASES)
+
+
+# -- weights carried across ----------------------------------------------------------
+
+
+def test_params_from_reference_fills_every_weight_bit_for_bit(pair):
+    cfg, _, params, port = pair
+    state = params_from_reference(jax.tree.map(np.asarray, params))
+    assert set(state) == set(port.state_dict())
+    for i in (0, cfg.num_layers - 1):
+        want = np.asarray(params["layers"]["attn"]["wq"][i]).astype(np.float32)
+        got = port.layers[i].attn.wq.float().numpy()
+        np.testing.assert_array_equal(got, want)
+    assert port.embed.table.dtype == getattr(torch, cfg.dtype)
+
+
+def test_init_draws_the_reference_distributions():
+    cfg = dataclasses.replace(configs.get_smoke_config(ARCH), d_model=256, d_ff=512, vocab_size=1024)
+    m = models.build(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+    H, hd = cfg.num_heads, cfg.resolved_head_dim
+    blk = m.layers[0]
+    for w, std in ((m.embed.table, 0.02), (blk.attn.wq, cfg.d_model**-0.5),
+                   (blk.attn.wo, (H * hd) ** -0.5), (blk.mlp.w_out, cfg.d_ff**-0.5),
+                   (m.head.w, cfg.d_model**-0.5)):
+        assert abs(w.float().std().item() / std - 1) < 0.05
+        assert abs(w.float().mean().item()) < 0.05 * std
+    assert torch.equal(blk.ln1.scale, torch.ones(cfg.d_model))
+    again = models.build(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+    assert torch.equal(again.layers[2].mlp.w_gate, m.layers[2].mlp.w_gate)
+
+
+# -- prefill and decode ------------------------------------------------------------
+
+
+def test_prefill_logits_and_caches_match_reference(pair):
+    cfg, ref, params, port = pair
+    toks = np.random.default_rng(0).integers(0, cfg.vocab_size, size=(2, 9)).astype(np.int32)
+    want, rcache = ref.prefill(params, {"tokens": jnp.asarray(toks)}, ref.init_cache(2, 32))
+    got, pcache = port.prefill(torch.from_numpy(toks), port.init_cache(2, 32))
+    assert got.shape == (2, cfg.vocab_size)
+    _close(got, want, cfg.dtype)
+    for key in ("k", "v"):
+        assert tuple(pcache[key].shape) == rcache[key].shape
+        _close(pcache[key], rcache[key], cfg.dtype)
+    np.testing.assert_array_equal(pcache["pos"].numpy(), np.asarray(rcache["pos"]))
+
+
+def test_six_decode_steps_match_reference(pair):
+    cfg, ref, params, port = pair
+    toks = np.random.default_rng(1).integers(0, cfg.vocab_size, size=(3, 5)).astype(np.int32)
+    _, rcache = ref.prefill(params, {"tokens": jnp.asarray(toks)}, ref.init_cache(3, 16))
+    _, pcache = port.prefill(torch.from_numpy(toks), port.init_cache(3, 16))
+    tok = toks[:, -1]
+    for _ in range(6):
+        want, rcache = ref.decode_step(params, rcache, jnp.asarray(tok))
+        got, pcache = port.decode_step(pcache, torch.from_numpy(tok))
+        _close(got, want, cfg.dtype)
+        tok = np.argmax(np.asarray(want, np.float32), axis=-1).astype(np.int32)
+    np.testing.assert_array_equal(pcache["pos"].numpy(), np.asarray(rcache["pos"]))
+    _close(pcache["k"], rcache["k"], cfg.dtype)
+
+
+# -- the engine --------------------------------------------------------------------
+
+
+def _prompts(cfg):
+    rng = np.random.default_rng(0)
+    return [rng.integers(0, cfg.vocab_size, size=k).tolist() for k in (3, 5, 2, 7, 4)]
+
+
+def _generate_alone(port, prompt, n):
+    cache = port.init_cache(1, 64)
+    if len(prompt) > 1:
+        _, cache = port.prefill(torch.tensor([prompt[:-1]]), cache)
+    tok, out = prompt[-1], []
+    for _ in range(n):
+        logits, cache = port.decode_step(cache, torch.tensor([tok]))
+        tok = int(torch.argmax(logits[0]))
+        out.append(tok)
+    return out
+
+
+def test_engine_greedy_matches_reference_engine_token_for_token(pair32):
+    cfg, ref, params, port = pair32
+    ref_eng = RefEngine(ref, params, slots=2, max_len=64, sample_cfg=RefSampleConfig(temperature=0.0))
+    eng = Engine(port, slots=2, max_len=64, sample_cfg=SampleConfig(temperature=0.0), device="cpu")
+    for i, p in enumerate(_prompts(cfg)):
+        ref_eng.add(RefRequest(rid=i, prompt=p, max_tokens=6))
+        eng.add(Request(rid=i, prompt=p, max_tokens=6))
+    want = [(r.rid, r.out) for r in ref_eng.run()]
+    got = [(r.rid, r.out) for r in eng.run()]
+    assert got == want
+    assert len(got) == 5 and all(len(out) == 6 for _, out in got)
+
+
+def test_engine_batched_equals_alone_in_both_types(pair):
+    """Continuous batching changes no request's greedy output (bf16 too)."""
+    cfg, _, _, port = pair
+    eng = Engine(port, slots=2, max_len=64, device="cpu")
+    prompts = _prompts(cfg)
+    for i, p in enumerate(prompts):
+        eng.add(Request(rid=i, prompt=p, max_tokens=6))
+    finished = {r.rid: r.out for r in eng.run()}
+    for i, p in enumerate(prompts):
+        assert finished[i] == _generate_alone(port, p, 6)
+
+
+def test_engine_eos_frees_slot_and_queue_backfills(pair32):
+    cfg, ref, params, port = pair32
+    first = _generate_alone(port, [5, 7], 1)[0]
+    runs = []
+    for make_eng, make_req in (
+        (lambda: Engine(port, slots=1, max_len=64, device="cpu"), Request),
+        (lambda: RefEngine(ref, params, slots=1, max_len=64,
+                           sample_cfg=RefSampleConfig(temperature=0.0)), RefRequest),
+    ):
+        eng = make_eng()
+        eng.add(make_req(rid=0, prompt=[5, 7], max_tokens=10, eos=first))
+        eng.add(make_req(rid=1, prompt=[3, 2, 1], max_tokens=3))
+        runs.append([(r.rid, r.out, r.done) for r in eng.run()])
+    got, want = runs
+    assert got == want
+    assert got[0] == (0, [first], True)  # stopped at eos, freeing the one slot
+    assert got[1][0] == 1 and len(got[1][1]) == 3  # backfilled from the queue
+
+
+# -- the sampler ---------------------------------------------------------------------
+
+
+def test_sampler_greedy_topk_and_topp():
+    gen = torch.Generator().manual_seed(0)
+    logits = torch.tensor([[1.0, 5.0, 2.0, -1.0]])
+    assert sample(logits, gen, SampleConfig(temperature=0.0)).tolist() == [1]
+    assert sample(logits, gen, SampleConfig(temperature=0.0)).dtype == torch.int32
+    # top-k = 1 is greedy whatever the temperature
+    assert sample(logits, gen, SampleConfig(temperature=1.0, top_k=1)).tolist() == [1]
+    seen = {sample(logits, gen, SampleConfig(temperature=1.0, top_k=2)).item() for _ in range(64)}
+    assert seen == {1, 2}
+    # one dominant logit: top_p = 0.5 keeps only it
+    dom = torch.tensor([[10.0, 0.0, 0.0, 0.0]])
+    assert {sample(dom, gen, SampleConfig(temperature=1.0, top_p=0.5)).item() for _ in range(16)} == {0}
+    # a batch: each row draws from its own head
+    two = torch.tensor([[0.0, 9.0, 9.0, -9.0], [9.0, -9.0, -9.0, 9.0]])
+    for _ in range(16):
+        a, b = sample(two, gen, SampleConfig(temperature=1.0, top_k=2)).tolist()
+        assert a in (1, 2) and b in (0, 3)
+    # the same seed gives the same draws
+    draws = [sample(two, torch.Generator().manual_seed(3), SampleConfig(temperature=2.0)).tolist()
+             for _ in range(2)]
+    assert draws[0] == draws[1]
+
+
+def test_sampler_agrees_with_reference_where_it_is_deterministic():
+    rng = np.random.default_rng(4)
+    logits = rng.standard_normal((5, 300)).astype(np.float32)
+    want = np.asarray(ref_sample(jnp.asarray(logits), jax.random.PRNGKey(0), RefSampleConfig(temperature=0.0)))
+    got = sample(torch.from_numpy(logits), None, SampleConfig(temperature=0.0)).numpy()
+    np.testing.assert_array_equal(got, want)
+    # top-k membership: every draw lies in the reference's top-k set
+    k = 7
+    _, top = jax.lax.top_k(jnp.asarray(logits), k)
+    top = np.asarray(top)
+    gen = torch.Generator().manual_seed(1)
+    for _ in range(8):
+        draw = sample(torch.from_numpy(logits), gen, SampleConfig(temperature=1.5, top_k=k)).numpy()
+        assert all(draw[i] in top[i] for i in range(5))
+
+
+# -- the CLI and what is not ported yet ---------------------------------------------------
+
+
+def test_serve_cli_runs_on_cpu(capsys):
+    kbuild.reset_launches()
+    finished = serve_cli.main(["--arch", ARCH, "--smoke", "--device", "cpu", "--requests", "3",
+                               "--slots", "2", "--max-tokens", "4", "--max-len", "32"])
+    assert sorted(r.rid for r in finished) == [0, 1, 2]
+    assert all(len(r.out) == 4 and r.done for r in finished)
+    out = capsys.readouterr().out
+    assert "served 3 requests, 12 tokens" in out and "on cpu" in out
+    assert kbuild.LAUNCHES["flash_attention"] == 0 and kbuild.LAUNCHES["decode_attention"] == 0
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-3b-a800m", "deepseek-moe-16b", "rwkv6-1.6b",
+                                  "zamba2-1.2b", "llava-next-34b", "whisper-small"])
+def test_other_families_raise_not_implemented(arch):
+    with pytest.raises(NotImplementedError, match="later slice"):
+        models.build(configs.get_smoke_config(arch), device="cpu")
+
+
+def test_training_forward_is_not_ported(pair32):
+    with pytest.raises(NotImplementedError, match="later slice"):
+        pair32[3](torch.zeros((1, 2), dtype=torch.int64))

@@ -3,42 +3,54 @@
 
     python3 chip_smoke.py [--n KEYS] [--seed S] [--profile]
 
-Two main paths: the sort dataplane (``run_pipeline``) and the LM serve path
-(``Engine`` over Mistral-Nemo-12B).  Phases, one JSON line each:
+Three main paths: the sort dataplane (``run_pipeline``), the dense LM serve
+path (``Engine`` over Mistral-Nemo-12B) and the MoE serve path (``Engine``
+over granite-moe-3b-a800m).  Phases, one JSON line each:
 
 1. ``device``   -- the card (``nvidia-smi`` name and power limit), torch and
-   CUDA versions, and the seconds the four hand-written kernels took to build
+   CUDA versions, and the seconds the six hand-written kernels took to build
    from ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per source, in
    parallel);
-2. ``k1``       -- kernel K1 (row sort) against its plain torch version, for
-   exact equality, int32 and int64, widths 2..4096, ragged pads;
-3. ``k2``       -- kernel K2 (tournament merge) the same way, up to shapes
-   above 2^22 keys;
-4. ``pipeline`` -- ``repro_torch.net.pipeline.run_pipeline`` on the card: first
+2. ``k1``, ``k2`` -- kernels K1 (row sort) and K2 (tournament merge) against
+   their plain torch versions, for exact equality, int32 and int64, widths
+   2..4096, ragged pads, K2 up to shapes above 2^22 keys;
+3. ``pipeline`` -- ``repro_torch.net.pipeline.run_pipeline`` on the card: first
    byte-identical to the same call on the CPU (plain versions) at small n,
    then once at the full size (default 100M keys, the paper's §6 trace size)
    with the ``end_to_end`` configuration of ``benchmarks/net_bench.py``
    (7-hop binary tree, 16 segments of length 64, 256-key packets, 8 flows,
    oracle ranges, 4 arena servers, a 2-column int64 payload).  The launch
    counters are zeroed just before that run and read just after it;
+4. ``k3``, ``k4`` -- kernels K3 (key-value row sort, the MoE dispatch) and K4
+   (row merge) against their plain versions, for exact equality (K3's
+   values too, duplicate keys included): the MoE path's shapes, the
+   reference tests' shapes, and rows wide enough for device-memory stages
+   (K3 at 2^16 pairs, K4 at 2^14 and 2^17 elements);
 5. ``k5``, ``k6`` -- the attention kernels K5 (flash attention) and K6
    (decode attention) against their plain torch versions: head dims 32, 64,
-   128, GQA groups 1 and 4, causal or not, ragged T, lengths 1..S, float32 and
-   bfloat16, on inputs whose softmax is peaked (limits: ``attn_limit``);
-6. ``serve``    -- first the smoke config of ``mistral-nemo-12b`` in float32
-   on the card against the same weights on the CPU (greedy tokens identical,
-   logits within 1e-4), then the full Mistral-Nemo-12B (40 layers, d_model
-   5120, bf16, weights drawn on the card from ``--seed``) behind an ``Engine``
-   of 4 slots and ``max_len`` 4096: 8 requests, prompt lengths from
-   ``numpy.random.default_rng(seed)`` in 512..2048, 32 greedy tokens each.
-   The launch counters are zeroed just before that run and read just after
-   it: K5 must launch once per layer per prefill and K6 once per layer per
-   decode step.  Prefill and decode tokens/s, ms per decode step, peak
-   device memory; the full-width model's logits on a short prompt through the
-   kernels against the plain versions;
+   128, GQA groups 1, 3 and 4, causal or not, ragged T, lengths 1..S, float32
+   and bfloat16, on inputs whose softmax is peaked (limits: ``attn_limit``);
+6. ``serve``, ``serve_moe`` -- for Mistral-Nemo-12B and for
+   granite-moe-3b-a800m: first the smoke config(s) in float32 on the card
+   against the same weights on the CPU (greedy tokens identical, logits
+   within 1e-4; for the MoE path both MoE models' smoke configs), then the
+   full model (every layer at full width, bf16, weights drawn on the card
+   from ``--seed``) behind an ``Engine`` of 4 slots and ``max_len`` 4096: 8
+   requests, prompt lengths from ``numpy.random.default_rng(seed)`` in
+   512..2048, 32 greedy tokens each.  The launch counters are zeroed just
+   before that run and read just after it: K5 must launch once per layer per
+   prefill, K6 once per layer per decode step, K3 once per MoE layer per
+   prefill and per decode step.  Prefill and decode tokens/s, ms per decode
+   step, peak device memory, the dropped assignments; the full model's
+   logits on a short prompt through the kernels against the plain versions
+   (Mistral: K5 and K6 plain, every argmax equal; granite: K3 plain, every
+   dispatch and every logit identical).  After the MoE run,
+   ``serve_moe_attention`` holds K5 and K6 to their plain versions at the
+   shapes that run gave them (head_dim 64, 3 query heads per kv head);
 7. ``kernels``  -- every ported kernel on fresh random inputs at the largest
-   shape and dtype its main path gave it: launches, agreement with the plain
-   version, and kernel, plain and library (``torch.sort``, or
+   shape and dtype its main path gave it (K4, on no path, at the shape of
+   one K2 round on the sort path's largest bucket): launches, agreement with
+   the plain version, and kernel, plain and library (``torch.sort``, or
    ``scaled_dot_product_attention`` with ``enable_gqa``) times (CUDA events,
    median of 10 after a warm-up) beside the bound.
 
@@ -66,11 +78,13 @@ ROOT = Path(__file__).resolve().parent
 #: (the Hopper architecture whitepaper) is 16.7e12 32-bit integer operations
 #: per second.  A compare-exchange costs 2 of them on int32 keys (min and
 #: max) and 6 on int64 keys (a 64-bit compare is two 32-bit compares, and
-#: min and max each select two 32-bit halves).
+#: min and max each select two 32-bit halves); K3's key-value one costs 2
+#: more, the two selects of the int32 values.
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOP_PER_S = 989e12
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
 OPS_PER_COMPARE_EXCHANGE = {4: 2, 8: 6}
+OPS_PER_KV_COMPARE_EXCHANGE = {4: 4, 8: 8}
 
 E2E = dict(
     topology="tree", branching=2, height=3, num_segments=16,
@@ -79,8 +93,10 @@ E2E = dict(
 )
 E2E_HOPS = 7
 
-#: The serve run: Mistral-Nemo-12B at full width, as its users serve it.
+#: The serve runs: Mistral-Nemo-12B (dense) and granite-moe-3b-a800m (MoE,
+#: 40 experts top-8) at full width, as their users serve them.
 SERVE_ARCH = "mistral-nemo-12b"
+MOE_ARCH = "granite-moe-3b-a800m"
 SERVE = dict(slots=4, max_len=4096, requests=8, prompt_min=512, prompt_max=2048, new_tokens=32)
 
 #: Inputs of the attention kernels' checks: q and k at 1.5 x a unit normal,
@@ -160,11 +176,25 @@ def k2_work(p: int, b: int, itemsize: int) -> tuple[float, float]:
     return 2.0 * n * itemsize, float(ce)
 
 
-def bound(bytes_: float, ce: float, itemsize: int) -> tuple[float, str]:
+def k3_work(rows: int, n: int, itemsize: int) -> tuple[float, float]:
+    """(bytes, compare-exchanges) of K3 over ``rows`` rows of ``n`` pairs:
+    keys and int32 values read and written once; the full network."""
+    s = log2(n)
+    return 2.0 * rows * n * (itemsize + 4), rows * (n // 2) * s * (s + 1) / 2
+
+
+def k4_work(rows: int, b: int, itemsize: int) -> tuple[float, float]:
+    """(bytes, compare-exchanges) of K4 merging two (rows, b) halves: both
+    read once, the (rows, 2b) output written once; log2(2b) stages of b
+    pairs per row."""
+    return 4.0 * rows * b * itemsize, float(rows * b * log2(2 * b))
+
+
+def bound(bytes_: float, ce: float, itemsize: int, ops_per=OPS_PER_COMPARE_EXCHANGE) -> tuple[float, str]:
     """Least milliseconds on the card, and which of bytes and operations
     sets it."""
     t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
-    t_ops = OPS_PER_COMPARE_EXCHANGE[itemsize] * ce / INT32_OPS_PER_S * 1e3
+    t_ops = ops_per[itemsize] * ce / INT32_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -227,10 +257,10 @@ class LargestShape:
         self.dtype = None
         self.numel = -1
 
-    def __call__(self, x):
+    def __call__(self, x, *rest):
         if x.numel() > self.numel:
             self.shape, self.dtype, self.numel = tuple(x.shape), x.dtype, x.numel()
-        return self.orig(x)
+        return self.orig(x, *rest)
 
     def __enter__(self):
         setattr(self.module, self.attr, self)
@@ -306,6 +336,121 @@ def phase_k2(bt, torch, gen) -> None:
         fail(f"K2 differs from tournament_plain by {worst}")
     emit({"phase": "k2", "cases": checked, "max_abs_err": worst,
           "largest_keys": max(p * b for p, b in shapes)})
+
+
+def dispatch_keys(torch, gen, rows: int, n: int, real: int, dtype, experts: int = 40):
+    """K3's input as the MoE dispatch builds it: the composite keys
+    ``expert * real + index`` of ``real`` assignments, padded to ``n`` with
+    the dtype max; values ``arange(n)``."""
+    eid = torch.randint(0, experts, (rows, real), device="cuda", generator=gen, dtype=dtype)
+    keys = torch.full((rows, n), torch.iinfo(dtype).max, dtype=dtype, device="cuda")
+    keys[:, :real] = eid * real + torch.arange(real, device="cuda", dtype=dtype)
+    vals = torch.arange(n, dtype=torch.int32, device="cuda").repeat(rows, 1)
+    return keys, vals.contiguous()
+
+
+def check_k3(bt, torch, keys, vals) -> int:
+    """K3 against its plain version, keys and values: exact, or fail."""
+    gk, gv = bt.sort_rows_kv(keys, vals)
+    wk, wv = bt.sort_rows_kv_plain(keys, vals)
+    err = max(exact(gk, wk), exact(gv, wv))
+    if err or not torch.equal(gk, torch.sort(keys, dim=1).values):
+        fail(f"K3 differs from its plain version at {keys.dtype} {tuple(keys.shape)}")
+    return err
+
+
+def phase_k3(bt, torch, gen) -> None:
+    """The MoE path's shapes (the 1,963-token prefill's 15,704 assignments
+    padded to 16,384; the decode step's 32), the reference tests' shapes
+    (unique keys; duplicate keys in four rows), int64 keys, and 2^16 pairs,
+    whose stages with j >= 16,384 run in device memory."""
+    cases = []
+    for dtype in (torch.int32, torch.int64):
+        cases += [dispatch_keys(torch, gen, 1, 16_384, 15_704, dtype),
+                  dispatch_keys(torch, gen, 1, 32, 32, dtype),
+                  dispatch_keys(torch, gen, 2, 1 << 16, 60_000, dtype)]
+        for n in (8, 128, 512):
+            perm = torch.randperm(n, device="cuda", generator=gen).to(dtype)[None, :]
+            cases.append((perm, (perm * 7 + 1).to(torch.int32)))
+        for n in (16, 256, 1 << 16):
+            keys = torch.randint(0, 7, (4, n), dtype=dtype, device="cuda", generator=gen)
+            cases.append((keys, torch.arange(4 * n, dtype=torch.int32, device="cuda").reshape(4, n)))
+    worst = max(check_k3(bt, torch, k, v) for k, v in cases)
+    torch.cuda.synchronize()
+    emit({"phase": "k3", "cases": len(cases), "max_abs_err": worst,
+          "widest": max(k.shape[1] for k, _ in cases)})
+
+
+def sorted_halves(torch, gen, rows: int, b: int, dtype):
+    """Two (rows, b) matrices of sorted rows: packed int64 records below 2^42
+    (the K2 bucket's keys), int32 keys, or float32 normals."""
+    def one():
+        if dtype == torch.float32:
+            x = torch.randn((rows, b), device="cuda", generator=gen)
+        else:
+            hi = (1 << 42) if dtype == torch.int64 else (1 << 30)
+            x = torch.randint(0, hi, (rows, b), dtype=dtype, device="cuda", generator=gen)
+        return torch.sort(x, dim=1).values.contiguous()
+    return one(), one()
+
+
+def check_k4(bt, torch, a, b) -> float:
+    """K4 against its plain version: exact, or fail."""
+    got = bt.merge_rows(a, b)
+    want = bt.merge_rows_plain(a, b)
+    err = 0 if torch.equal(got, want) else (got.double() - want.double()).abs().max().item()
+    if err or not torch.equal(got, torch.sort(torch.cat([a, b], dim=1), dim=1).values):
+        fail(f"K4 differs from its plain version at {a.dtype} {tuple(a.shape)}")
+    return err
+
+
+def phase_k4(bt, torch, gen) -> None:
+    """The reference tests' (8, n) shapes, n in 8, 128, 1024; the timed shape
+    (two 65,536 x 64 halves); rows of 2^14 and 2^17 elements, whose stages
+    with j >= 4096 run in device memory."""
+    cases = 0
+    worst = 0
+    for dtype in (torch.int32, torch.int64, torch.float32):
+        for rows, b in ((8, 8), (8, 128), (8, 1024), (3, 16), (65_536, 64), (4, 1 << 13), (2, 1 << 16)):
+            worst = max(worst, check_k4(bt, torch, *sorted_halves(torch, gen, rows, b, dtype)))
+            cases += 1
+    torch.cuda.synchronize()
+    emit({"phase": "k4", "cases": cases, "max_abs_err": worst})
+
+
+def bitonic_rows(torch, bt, gen, k3_shape, k3_dtype, k3_real: int, launches) -> list[dict]:
+    """The kernels-line rows of K3 (at the MoE path's largest row) and K4 (on
+    no path: at the shape of one K2 round on the sort path's largest bucket,
+    two 65,536 x 64 int64 halves)."""
+    rows = []
+    keys, vals = dispatch_keys(torch, gen, k3_shape[0], k3_shape[1], k3_real, k3_dtype)
+    err = check_k3(bt, torch, keys, vals)
+    b_bytes, ce = k3_work(keys.shape[0], keys.shape[1], keys.element_size())
+    b_ms, b_by = bound(b_bytes, ce, keys.element_size(), OPS_PER_KV_COMPARE_EXCHANGE)
+    rows.append({
+        "name": "row_sort_kv", "route": "cuda", "source": "src/repro_torch/kernels/csrc/row_sort_kv.cu",
+        "replaces": "src/repro/kernels/bitonic.py:201", "launches": launches["row_sort_kv"],
+        "max_abs_err": err, "shape": list(keys.shape), "dtype": str(keys.dtype).replace("torch.", ""),
+        "ms": cuda_ms(lambda: bt.sort_rows_kv(keys, vals)),
+        "plain_ms": cuda_ms(lambda: bt.sort_rows_kv_plain(keys, vals)),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": cuda_ms(lambda: torch.sort(keys, dim=1, stable=True)),
+    })
+    a, b = sorted_halves(torch, gen, 65_536, 64, torch.int64)
+    err = check_k4(bt, torch, a, b)
+    b_bytes, ce = k4_work(a.shape[0], a.shape[1], a.element_size())
+    b_ms, b_by = bound(b_bytes, ce, a.element_size())
+    rows.append({
+        "name": "merge_rows", "route": "cuda", "source": "src/repro_torch/kernels/csrc/merge_rows.cu",
+        "replaces": "src/repro/kernels/bitonic.py:230", "launches": launches["merge_rows"],
+        "max_abs_err": err, "shape": [list(a.shape), list(b.shape)], "dtype": "int64",
+        "ms": cuda_ms(lambda: bt.merge_rows(a, b)), "plain_ms": cuda_ms(lambda: bt.merge_rows_plain(a, b)),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": cuda_ms(lambda: torch.sort(torch.cat([a, b], dim=-1), dim=-1)),
+    })
+    del keys, vals, a, b
+    torch.cuda.empty_cache()
+    return rows
 
 
 def parity_small(torch, np, run_pipeline, random_trace) -> list[int]:
@@ -451,7 +596,7 @@ def phase_k5(fa, torch, gen) -> None:
     for name in worst:
         dt = getattr(torch, name)
         for d in (32, 64, 128):
-            for g in (1, 4):
+            for g in (1, 3, 4):
                 for t in (1, 7, 64, 130, 1000):
                     for causal in (True, False):
                         kv = 2
@@ -468,7 +613,7 @@ def phase_k6(da, torch, gen) -> None:
     for name in worst:
         dt = getattr(torch, name)
         for d in (32, 64, 128):
-            for g in (1, 4):
+            for g in (1, 3, 4):
                 for b, s in ((1, 1), (3, 300), (4, 4096)):
                     kv = 8 if s == 4096 else 2
                     lengths = torch.randint(1, s + 1, (b,), generator=gen, device="cuda", dtype=torch.int32)
@@ -483,8 +628,9 @@ def phase_k6(da, torch, gen) -> None:
 
 class AttnRecorder:
     """Pass-through for an attention wrapper as the model calls it: keeps the
-    largest q shape (K5), or the lengths of each decode step (K6, a (B,)
-    clone per call -- no host sync), and copies no other data."""
+    largest q shape (K5), or the lengths tensor of the latest call (K6: the
+    model makes a fresh one per call and never writes it again), and copies
+    no data: no device work and no host sync inside the timed run."""
 
     def __init__(self, module, attr: str) -> None:
         self.module, self.attr = module, attr
@@ -501,7 +647,7 @@ class AttnRecorder:
             self.q_shape, self.kv_shape, self.dtype = tuple(q.shape), tuple(k.shape), q.dtype
             self.numel = q.numel()
         if args:
-            self.lengths = args[0].clone()
+            self.lengths = args[0]
         self.causal = kwargs.get("causal", True)
         return self.orig(q, k, v, *args, **kwargs)
 
@@ -535,14 +681,15 @@ class SyncTimer:
         return out
 
 
-def serve_parity_small(torch, np) -> dict:
-    """The smoke config in float32: the card against the CPU, same weights."""
+def serve_parity_small(torch, np, arch: str) -> dict:
+    """The smoke config of ``arch`` in float32: the card against the CPU,
+    same weights."""
     import dataclasses
 
     from repro_torch import configs, models
     from repro_torch.serve.engine import Engine, Request
 
-    cfg = dataclasses.replace(configs.get_smoke_config(SERVE_ARCH), dtype="float32")
+    cfg = dataclasses.replace(configs.get_smoke_config(arch), dtype="float32")
     host = models.build(cfg, device="cpu").init(torch.Generator().manual_seed(0))
     card = models.build(cfg, device="cuda")
     card.load_state_dict(host.state_dict())
@@ -560,7 +707,7 @@ def serve_parity_small(torch, np) -> dict:
         errs.append((got.cpu() - want).abs().max().item())
         tok = want.argmax(-1)
     if max(errs) > 1e-4:
-        fail(f"smoke LM on the card differs from the CPU by {max(errs)}")
+        fail(f"{arch} smoke LM on the card differs from the CPU by {max(errs)}")
     prompts = [rng.integers(0, cfg.vocab_size, size=n).tolist() for n in (3, 5, 2, 7, 4)]
     outs = []
     for model, dev in ((host, "cpu"), (card, "cuda")):
@@ -569,60 +716,127 @@ def serve_parity_small(torch, np) -> dict:
             eng.add(Request(rid=i, prompt=p, max_tokens=6))
         outs.append(sorted((r.rid, r.out) for r in eng.run()))
     if outs[0] != outs[1]:
-        fail("smoke Engine on the card gives other greedy tokens than on the CPU")
-    return {"logits_max_abs_err": max(errs), "requests": len(outs[0]),
+        fail(f"{arch} smoke Engine on the card gives other greedy tokens than on the CPU")
+    return {"arch": arch, "logits_max_abs_err": max(errs), "requests": len(outs[0]),
             "tokens": sum(len(o[1]) for o in outs[0])}
 
 
-def full_width_parity(torch, model, fa_mod, attn_mod, gen) -> dict:
-    """The full-width model on a short prompt (1 x 64 tokens, 4 decode
-    steps) through the kernels and through their plain versions."""
-    vocab = model.cfg.vocab_size
-    toks = torch.randint(0, vocab, (1, 64), generator=gen, device="cuda")
-    runs = []
-    for plain in (False, True):
-        saved = (attn_mod.flash_attention, attn_mod.decode_attention_kernel)
-        if plain:
-            from repro_torch.kernels.decode_attention import decode_attention_plain
+class MoERecorder:
+    """Pass-through for ``moe.moe_layer`` and ``moe.dispatch`` as the model
+    calls them: keeps each call's dropped count (a 0-d device tensor, summed
+    only after the run, so no host sync and no device launch of its own)
+    and, when ``keep`` is set, each call's dispatch."""
 
+    def __init__(self, moe_mod, keep: bool = False) -> None:
+        self.moe_mod, self.keep = moe_mod, keep
+        self.orig = moe_mod.moe_layer, moe_mod.dispatch
+        self.dropped: list = []
+        self.dispatches: list = []
+
+    def _layer(self, *args):
+        y, aux, dropped = self.orig[0](*args)
+        self.dropped.append(dropped)
+        return y, aux, dropped
+
+    def _dispatch(self, *args):
+        d = self.orig[1](*args)
+        if self.keep:
+            self.dispatches.append(d)
+        return d
+
+    def __enter__(self):
+        self.moe_mod.moe_layer, self.moe_mod.dispatch = self._layer, self._dispatch
+        return self
+
+    def __exit__(self, *exc):
+        self.moe_mod.moe_layer, self.moe_mod.dispatch = self.orig
+        return False
+
+
+def same_dispatch(torch, a, b) -> bool:
+    return (len(a) == len(b) and all(torch.equal(x.order, y.order) and torch.equal(x.slot, y.slot)
+                                     and torch.equal(x.dropped, y.dropped) for x, y in zip(a, b)))
+
+
+def full_width_parity(torch, model, gen) -> dict:
+    """The full-width model on a short prompt (1 x 64 tokens, 4 decode
+    steps) through the kernels and through their plain versions.
+
+    Dense: K5 and K6 plain; the logits within 5% of their scale, every
+    argmax equal.  MoE: K3 plain; every dispatch (order, slots, dropped)
+    and every logit identical.  K5 and K6 stay on their kernels there: the
+    router's strict top-k flips near-ties on a bf16 rounding one place
+    apart, so a plain attention path routes some tokens elsewhere (PERF.md
+    §7).  They are held to their plain versions at the MoE run's own shapes
+    instead (:func:`check_attention_at`)."""
+    from repro_torch.kernels import bitonic as bt
+    from repro_torch.kernels import flash_attention as fa_mod
+    from repro_torch.kernels.decode_attention import decode_attention_plain
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models import moe as moe_mod
+
+    is_moe = model.cfg.moe is not None
+    toks = torch.randint(0, model.cfg.vocab_size, (1, 64), generator=gen, device="cuda")
+
+    def run(plain: bool):
+        saved = (attn_mod.flash_attention, attn_mod.decode_attention_kernel, bt.sort_rows_kv)
+        if plain and is_moe:
+            bt.sort_rows_kv = bt.sort_rows_kv_plain
+        elif plain:
             attn_mod.flash_attention = fa_mod.flash_attention_plain
             attn_mod.decode_attention_kernel = decode_attention_plain
         try:
-            cache = model.init_cache(1, 128)
-            logits, cache = model.prefill(toks, cache)
-            seq = [logits.float()]
-            tok = toks[:, -1]
-            for _ in range(4):
-                logits, cache = model.decode_step(cache, tok)
-                seq.append(logits.float())
-                tok = logits.argmax(-1)
-            runs.append(torch.stack(seq))
+            with MoERecorder(moe_mod, keep=True) as rec:
+                cache = model.init_cache(1, 128)
+                logits, cache = model.prefill(toks, cache)
+                seq = [logits.float()]
+                tok = toks[:, -1]
+                for _ in range(4):
+                    logits, cache = model.decode_step(cache, tok)
+                    seq.append(logits.float())
+                    tok = logits.argmax(-1)
         finally:
-            attn_mod.flash_attention, attn_mod.decode_attention_kernel = saved
-        del cache
-    a, b = runs
-    if not (torch.isfinite(a).all() and torch.isfinite(b).all()):
-        fail("full-width logits are not finite")
-    err = (a - b).abs().max().item()
-    scale = b.abs().max().item()
-    # bf16 attention outputs round at one more place on one side; 40 layers
+            attn_mod.flash_attention, attn_mod.decode_attention_kernel, bt.sort_rows_kv = saved
+        out = torch.stack(seq)
+        if not torch.isfinite(out).all():
+            fail("full-width logits are not finite")
+        return out, rec
+
+    kern, krec = run(False)
+    plain, prec = run(True)
+    err = (kern - plain).abs().max().item()
+    scale = plain.abs().max().item()
+    if is_moe:
+        if not same_dispatch(torch, krec.dispatches, prec.dispatches):
+            fail("with K3 plain, the dispatch differs from the kernel run")
+        if err:
+            fail(f"with K3 plain, the logits differ from the kernel run by {err}")
+        return {"plain": "k3", "dispatch_calls": len(krec.dispatches), "dispatch_identical": True,
+                "dropped": int(sum(d.dropped for d in krec.dispatches)),
+                "assignments": int(sum(d.order.numel() for d in krec.dispatches)),
+                "logits_max_abs_err": err, "logits_max_abs": scale, "argmax_equal": True}
+    # bf16 attention outputs round at one more place on one side; the layers
     # carry that: hold the kernels' logits within 5% of the logits' scale
     if err > 0.05 * scale:
         fail(f"full-width logits through the kernels differ from the plain path by {err} (scale {scale})")
-    return {"logits_max_abs_err": err, "logits_max_abs": scale,
-            "argmax_agree": float((a.argmax(-1) == b.argmax(-1)).float().mean().item())}
+    if not torch.equal(kern.argmax(-1), plain.argmax(-1)):
+        fail("full-width greedy tokens through the kernels differ from the plain path")
+    return {"plain": "k5+k6", "logits_max_abs_err": err, "logits_max_abs": scale, "argmax_equal": True}
 
 
-def phase_serve(torch, np, args) -> dict:
-    """The LM serve path at full width; returns what the kernels phase needs."""
+def phase_serve(torch, np, args, arch: str, phase: str, smoke_archs) -> dict:
+    """One LM serve path at full width; returns what the kernels phase needs."""
     from repro_torch import configs, models
-    from repro_torch.kernels import build, flash_attention as fa_mod
+    from repro_torch.kernels import bitonic as bt
+    from repro_torch.kernels import build
     from repro_torch.models import attention as attn_mod
+    from repro_torch.models import moe as moe_mod
     from repro_torch.serve.engine import Engine, Request
 
-    parity = serve_parity_small(torch, np)
+    parity = [serve_parity_small(torch, np, a) for a in smoke_archs]
 
-    cfg = configs.get_config(SERVE_ARCH)
+    cfg = configs.get_config(arch)
+    moe_layers = cfg.num_layers - cfg.moe.first_dense_layers if cfg.moe else 0
     t0 = time.perf_counter()
     model = models.build(cfg, device="cuda")
     model.init(torch.Generator(device="cuda").manual_seed(args.seed))
@@ -630,7 +844,7 @@ def phase_serve(torch, np, args) -> dict:
     init_s = time.perf_counter() - t0
     weight_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
     gen = torch.Generator(device="cuda").manual_seed(args.seed + 1)
-    width = full_width_parity(torch, model, fa_mod, attn_mod, gen)
+    width = full_width_parity(torch, model, gen)
     torch.cuda.empty_cache()
 
     rng = np.random.default_rng(args.seed)
@@ -644,7 +858,8 @@ def phase_serve(torch, np, args) -> dict:
     finite = []
     step_lengths = []
     with AttnRecorder(attn_mod, "flash_attention") as k5_in, \
-            AttnRecorder(attn_mod, "decode_attention_kernel") as k6_in:
+            AttnRecorder(attn_mod, "decode_attention_kernel") as k6_in, \
+            LargestShape(bt, "sort_rows_kv") as k3_in, MoERecorder(moe_mod) as moe_rec:
         prefill = SyncTimer(torch, model.prefill, lambda out: finite.append(torch.isfinite(out[0]).all()))
         decode = SyncTimer(torch, model.decode_step, lambda out: (
             finite.append(torch.isfinite(out[0]).all()), step_lengths.append(k6_in.lengths)))
@@ -660,39 +875,49 @@ def phase_serve(torch, np, args) -> dict:
         del model.prefill, model.decode_step
     peak = torch.cuda.max_memory_allocated()
     if not torch.stack(finite).all():
-        fail("the serve run produced non-finite logits")
+        fail(f"the {arch} serve run produced non-finite logits")
     if len(finished) != SERVE["requests"]:
         fail(f"{len(finished)} of {SERVE['requests']} requests finished")
     for r in finished:
         if len(r.out) != SERVE["new_tokens"] or not all(0 <= t < cfg.vocab_size for t in r.out):
             fail(f"request {r.rid} came back with {len(r.out)} tokens or a token out of the vocabulary")
-    if launches["flash_attention"] != cfg.num_layers * prefill.calls:
-        fail(f"K5 launched {launches['flash_attention']} times, want {cfg.num_layers} x {prefill.calls} prefills")
-    if launches["decode_attention"] != cfg.num_layers * decode.calls:
-        fail(f"K6 launched {launches['decode_attention']} times, want {cfg.num_layers} x {decode.calls} steps")
-    if launches["flash_attention"] < 1 or launches["decode_attention"] < 1:
-        fail("an attention kernel never launched on the serve path")
+    want = {"flash_attention": cfg.num_layers * prefill.calls,
+            "decode_attention": cfg.num_layers * decode.calls,
+            "row_sort_kv": moe_layers * (prefill.calls + decode.calls),
+            "row_sort": 0, "tournament": 0, "merge_rows": 0}
+    for name, n in want.items():
+        if launches[name] != n:
+            fail(f"{arch}: {name} launched {launches[name]} times, want {n} "
+                 f"({prefill.calls} prefills, {decode.calls} decode steps)")
+    if launches["flash_attention"] < 1 or launches["decode_attention"] < 1 or (moe_layers and launches["row_sort_kv"] < 1):
+        fail(f"a kernel of the {arch} serve path never launched")
     prefill_tokens = sum(len(p) - 1 for p in prompts)
     new_tokens = sum(len(r.out) for r in finished)
     lens = torch.stack(step_lengths).sum(dim=1)
     k6_lengths = step_lengths[int(lens.argmax())].tolist()
-    emit({"phase": "serve", "arch": cfg.name, "layers": cfg.num_layers, "d_model": cfg.d_model,
-          "dtype": cfg.dtype, "config": SERVE, "parity_smoke_f32_vs_cpu": parity,
-          "parity_full_width_kernels_vs_plain": width, "init_s": init_s,
-          "weight_bytes": weight_bytes, "prompt_lengths": [len(p) for p in prompts],
-          "run_s": run_s, "prefills": prefill.calls, "prefill_tokens": prefill_tokens,
-          "prefill_s": prefill.seconds, "prefill_tokens_per_s": prefill_tokens / prefill.seconds,
-          "decode_steps": decode.calls, "decode_tokens": new_tokens, "decode_s": decode.seconds,
-          "decode_tokens_per_s": new_tokens / decode.seconds,
-          "ms_per_decode_step": decode.seconds / decode.calls * 1e3,
-          "host_s_outside_model": run_s - prefill.seconds - decode.seconds,
-          "peak_device_bytes": peak, "launches": {k: launches[k] for k in ("flash_attention", "decode_attention")},
-          "first_tokens": [r.out[:4] for r in sorted(finished, key=lambda r: r.rid)]})
+    names = ["flash_attention", "decode_attention"] + (["row_sort_kv"] if moe_layers else [])
+    line = {"phase": phase, "arch": cfg.name, "layers": cfg.num_layers, "d_model": cfg.d_model,
+            "dtype": cfg.dtype, "config": SERVE, "parity_smoke_f32_vs_cpu": parity,
+            "parity_full_width_kernels_vs_plain": width, "init_s": init_s,
+            "weight_bytes": weight_bytes, "prompt_lengths": [len(p) for p in prompts],
+            "run_s": run_s, "prefills": prefill.calls, "prefill_tokens": prefill_tokens,
+            "prefill_s": prefill.seconds, "prefill_tokens_per_s": prefill_tokens / prefill.seconds,
+            "decode_steps": decode.calls, "decode_tokens": new_tokens, "decode_s": decode.seconds,
+            "decode_tokens_per_s": new_tokens / decode.seconds,
+            "ms_per_decode_step": decode.seconds / decode.calls * 1e3,
+            "host_s_outside_model": run_s - prefill.seconds - decode.seconds,
+            "peak_device_bytes": peak, "launches": {k: launches[k] for k in names},
+            "first_tokens": [r.out[:4] for r in sorted(finished, key=lambda r: r.rid)]}
+    if moe_layers:
+        line["dropped_assignments"] = int(torch.stack(moe_rec.dropped).sum())
+    emit(line)
     if args.profile:
         phase_serve_profile(torch, eng, rng, cfg)
     del eng, model, finished
     torch.cuda.empty_cache()
-    return {"launches": launches, "k5": k5_in, "k6": k6_in, "k6_lengths": k6_lengths}
+    return {"launches": launches, "k5": k5_in, "k6": k6_in, "k6_lengths": k6_lengths,
+            "k3_shape": k3_in.shape, "k3_dtype": k3_in.dtype,
+            "k3_real": (max(len(p) for p in prompts) - 1) * (cfg.moe.top_k if cfg.moe else 0)}
 
 
 def phase_serve_profile(torch, eng, rng, cfg) -> None:
@@ -717,9 +942,29 @@ def phase_serve_profile(torch, eng, rng, cfg) -> None:
             rec[1] += 1
     busy_ms = sum(v[0] for v in by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]
-    emit({"phase": "serve_profile", "prompt": plen, "decode_steps": 8, "wall_s": wall,
+    emit({"phase": "serve_profile", "arch": cfg.name, "prompt": plen, "decode_steps": 8, "wall_s": wall,
           "device_busy_ms": busy_ms, "device_busy_share": busy_ms / 1e3 / wall,
           "top_device_ms": [{"name": k[:90], "ms": v[0], "calls": v[1]} for k, v in top]})
+
+
+def check_attention_at(torch, serve: dict, gen, phase: str) -> None:
+    """K5 and K6 against their plain versions (fresh peaked inputs,
+    ``attn_limit``) at the largest inputs a serve run gave them: the
+    prefill's q and k/v shapes, the decode step with the most cache rows."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+
+    k5, k6 = serve["k5"], serve["k6"]
+    lengths = torch.tensor(serve["k6_lengths"], dtype=torch.int32, device="cuda")
+    e5, _ = check_k5(fa, torch, gen, k5.q_shape, k5.kv_shape, k5.dtype, k5.causal)
+    e6, _ = check_k6(da, torch, gen, k6.q_shape, k6.kv_shape, k6.dtype, lengths)
+    torch.cuda.synchronize()
+    emit({"phase": phase, "dtype": str(k5.dtype).replace("torch.", ""),
+          "flash_attention": {"q": list(k5.q_shape), "kv": list(k5.kv_shape), "causal": k5.causal,
+                              "max_abs_err": e5},
+          "decode_attention": {"q": list(k6.q_shape), "cache": list(k6.kv_shape),
+                               "lengths": serve["k6_lengths"], "max_abs_err": e6}})
+    torch.cuda.empty_cache()
 
 
 def attention_rows(torch, serve: dict, gen) -> list[dict]:
@@ -906,8 +1151,8 @@ def main() -> int:
         fail(f"K1 launched {launches['row_sort']} times, want one per hop ({E2E_HOPS})")
     if launches["tournament"] < 1:
         fail("K2 never launched on the main path")
-    if launches["flash_attention"] or launches["decode_attention"]:
-        fail("the sort path launched an attention kernel")
+    if any(launches[k] for k in ("flash_attention", "decode_attention", "row_sort_kv", "merge_rows")):
+        fail("the sort path launched a kernel of another path")
     if branches["ladder"] != 0:
         fail(f"merge_runs_flat took the host ladder {branches['ladder']} times")
     del want
@@ -925,11 +1170,17 @@ def main() -> int:
     torch.cuda.empty_cache()
     rows = sort_rows_of(torch, bt, gen, launches, k1_in, k2_in)
 
-    # -- the serve path --------------------------------------------------------
+    # -- the serve paths -------------------------------------------------------
+    phase_k3(bt, torch, gen)
+    phase_k4(bt, torch, gen)
     phase_k5(fa, torch, gen)
     phase_k6(da, torch, gen)
-    serve = phase_serve(torch, np, args)
-    rows += attention_rows(torch, serve, gen)
+    serve = phase_serve(torch, np, args, SERVE_ARCH, "serve", [SERVE_ARCH])
+    attn = attention_rows(torch, serve, gen)
+    moe = phase_serve(torch, np, args, MOE_ARCH, "serve_moe", [MOE_ARCH, "deepseek-moe-16b"])
+    check_attention_at(torch, moe, gen, "serve_moe_attention")
+    rows += bitonic_rows(torch, bt, gen, moe["k3_shape"], moe["k3_dtype"], moe["k3_real"], moe["launches"])
+    rows += attn
 
     emit({"kernels": rows})
     print(smi, flush=True)

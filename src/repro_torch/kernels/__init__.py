@@ -2,7 +2,7 @@
 torch versions and the public wrappers (counterpart of ``repro.kernels``).
 
 Importing the package declares every kernel to :mod:`.build`, so its one
-``LAUNCHES`` record and ``build_kernels()`` cover K1, K2, K5 and K6; nothing
+``LAUNCHES`` record and ``build_kernels()`` cover K1-K6; nothing
 is compiled until a kernel is first launched or built.
 """
 

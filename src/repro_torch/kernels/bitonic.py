@@ -1,16 +1,22 @@
 """Bitonic networks on torch tensors, and the two Hopper kernels that run them.
 
-Counterpart of :mod:`repro.kernels.bitonic`.  Two kernels of that module sit
-on the sort dataplane's main path and are ported here as CUDA C++ for
-``sm_90a`` (sources under ``csrc/``):
+Counterpart of :mod:`repro.kernels.bitonic`.  Its four kernels are ported
+here as CUDA C++ for ``sm_90a`` (sources under ``csrc/``):
 
 * **K1** :func:`sort_rows` -- ascending sort of every row of a ``(rows, B)``
   int32/int64 matrix (``csrc/row_sort.cu``; replaces ``sort_tiles``);
 * **K2** :func:`merge_tournament` -- merge of ``P`` padded sorted rows into one
-  sorted ``P*B`` row (``csrc/tournament.cu``; replaces ``tournament_tiles``).
+  sorted ``P*B`` row (``csrc/tournament.cu``; replaces ``tournament_tiles``);
+* **K3** :func:`sort_rows_kv` -- key-value sort of every row, int32 values
+  following int32/int64 keys, not stable (``csrc/row_sort_kv.cu``; replaces
+  ``sort_tiles_kv``): the MoE dispatch's argsort;
+* **K4** :func:`merge_rows` -- row-wise merge of two sorted ``(rows, B)``
+  matrices into ``(rows, 2B)`` (``csrc/merge_rows.cu``; replaces
+  ``merge_tiles``).
 
 Each has a plain torch version in this module (:func:`sort_rows_plain`,
-:func:`tournament_plain`) that runs the same network stage by stage.  The
+:func:`tournament_plain`, :func:`sort_rows_kv_plain`,
+:func:`merge_rows_plain`) that runs the same network stage by stage.  The
 wrapper takes the plain version only for a tensor on the CPU; for a CUDA
 tensor it launches the kernel or raises.  Every launch adds one to
 :data:`LAUNCHES` (the record of :mod:`.build`, shared by every kernel of the
@@ -71,6 +77,23 @@ def compare_exchange(x: torch.Tensor, k: int, j: int) -> torch.Tensor:
     return out.reshape(*lead, n)
 
 
+def compare_exchange_kv(keys: torch.Tensor, vals: torch.Tensor, k: int, j: int):
+    """Key-value stage: values follow their key's swap decision, which is
+    ``asc ? k0 > k1 : k0 < k1`` (strict) -- :func:`repro.kernels.bitonic.
+    compare_exchange_kv`."""
+    *lead, n = keys.shape
+    nb = n // (2 * j)
+    ka = keys.reshape(*lead, nb, 2, j)
+    va = vals.reshape(*lead, nb, 2, j)
+    asc = ((torch.arange(nb, device=keys.device) * 2 * j) & k == 0)[:, None]
+    k0, k1 = ka[..., 0, :], ka[..., 1, :]
+    v0, v1 = va[..., 0, :], va[..., 1, :]
+    swap = torch.where(asc, k0 > k1, k0 < k1)
+    ko = torch.stack([torch.where(swap, k1, k0), torch.where(swap, k0, k1)], dim=-2)
+    vo = torch.stack([torch.where(swap, v1, v0), torch.where(swap, v0, v1)], dim=-2)
+    return ko.reshape(*lead, n), vo.reshape(*lead, n)
+
+
 def _half_clean(x: torch.Tensor, j: int) -> torch.Tensor:
     """Ascending half-cleaner of distance ``j`` over the last axis."""
     *lead, n = x.shape
@@ -99,6 +122,32 @@ def sort_rows_plain(x: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"bitonic length must be a power of two, got {n}")
     for k, j in _stages(n):
         x = compare_exchange(x, k, j)
+    return x
+
+
+def sort_rows_kv_plain(keys: torch.Tensor, vals: torch.Tensor):
+    """K3's plain version: the full key-value network over every row.  Not
+    stable; deterministic, so the kernel equals it exactly, ties included."""
+    n = keys.shape[-1]
+    if not _is_pow2(n):
+        raise ValueError(f"bitonic length must be a power of two, got {n}")
+    for k, j in _stages(n):
+        keys, vals = compare_exchange_kv(keys, vals, k, j)
+    return keys, vals
+
+
+def merge_rows_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """K4's plain version: ``concat(a, flip(b))`` row by row is bitonic; the
+    merge stages ``j = B .. 1`` with ``k = 2B`` (all ascending) sort it --
+    :func:`repro.kernels.bitonic.bitonic_merge_rows`."""
+    x = torch.cat([a, b.flip(-1)], dim=-1)
+    n = x.shape[-1]
+    if not _is_pow2(n):
+        raise ValueError(f"bitonic length must be a power of two, got {n}")
+    j = n // 2
+    while j >= 1:
+        x = _half_clean(x, j)
+        j //= 2
     return x
 
 
@@ -137,6 +186,17 @@ build.register("tournament", "tournament.cu", {
     for sfx in ("i32", "i64")
 })
 
+# (keys in, vals in, keys out, vals out, rows, n, stream), int32/int64 keys
+build.register("row_sort_kv", "row_sort_kv.cu", {
+    f"row_sort_kv_{sfx}": [build.PTR] * 4 + [build.I64, build.I64, build.PTR]
+    for sfx in ("i32", "i64")
+})
+# (a, b, out, rows, B, stream), for int32, int64 and float32
+build.register("merge_rows", "merge_rows.cu", {
+    f"merge_rows_{sfx}": [build.PTR] * 3 + [build.I64, build.I64, build.PTR]
+    for sfx in ("i32", "i64", "f32")
+})
+
 
 def build_kernels(names=None) -> float:
     """Compile and load the kernels (default: every kernel of the port, one
@@ -145,7 +205,7 @@ def build_kernels(names=None) -> float:
 
 
 def _kernel(name: str, dtype: torch.dtype):
-    suffix = {torch.int32: "i32", torch.int64: "i64"}[dtype]
+    suffix = {torch.int32: "i32", torch.int64: "i64", torch.float32: "f32"}[dtype]
     return build.function(name, f"{name}_{suffix}")
 
 
@@ -204,4 +264,65 @@ def merge_tournament(x: torch.Tensor) -> torch.Tensor:
         err = fn(x.data_ptr(), out.data_ptr(), P, B, stream)
     build.check_launch(err, "tournament")
     LAUNCHES["tournament"] += 1
+    return out
+
+
+def _check_same(x: torch.Tensor, y: torch.Tensor, op: str) -> None:
+    if x.shape != y.shape:
+        raise ValueError(f"{op}: shapes {tuple(x.shape)} and {tuple(y.shape)} differ")
+    if x.device != y.device:
+        raise ValueError(f"{op}: inputs lie on {x.device} and {y.device}")
+    if not y.is_contiguous():
+        raise ValueError(f"{op} takes contiguous matrices")
+
+
+def sort_rows_kv(keys: torch.Tensor, vals: torch.Tensor):
+    """K3: sort every row of ``keys`` (rows, n) ascending, the int32 ``vals``
+    following their keys; n a power of two.  Not stable.  Returns new
+    ``(keys, vals)``."""
+    _check_kernel_input(keys, "sort_rows_kv")
+    if vals.dtype != torch.int32:
+        raise TypeError(f"sort_rows_kv takes int32 values, got {vals.dtype}")
+    _check_same(keys, vals, "sort_rows_kv")
+    rows, n = keys.shape
+    if not _is_pow2(n):
+        raise ValueError(f"row width must be a power of two, got {n}")
+    if keys.device.type == "cpu":
+        return sort_rows_kv_plain(keys, vals)
+    if rows == 0 or n == 1:
+        return keys.clone(), vals.clone()  # nothing to sort: no launch
+    ko, vo = torch.empty_like(keys), torch.empty_like(vals)
+    fn = _kernel("row_sort_kv", keys.dtype)
+    with torch.cuda.device(keys.device):
+        stream = torch.cuda.current_stream(keys.device).cuda_stream
+        err = fn(keys.data_ptr(), vals.data_ptr(), ko.data_ptr(), vo.data_ptr(), rows, n, stream)
+    build.check_launch(err, "row_sort_kv")
+    LAUNCHES["row_sort_kv"] += 1
+    return ko, vo
+
+
+def merge_rows(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """K4: merge the sorted rows of ``a`` and ``b`` (rows, B) into sorted
+    rows of ``(rows, 2B)``; B a power of two; int32, int64 or float32."""
+    if a.dtype not in (torch.int32, torch.int64, torch.float32) or b.dtype != a.dtype:
+        raise TypeError(f"merge_rows takes int32, int64 or float32 of one type, got {a.dtype}, {b.dtype}")
+    if a.dim() != 2 or not a.is_contiguous():
+        raise ValueError(f"merge_rows takes contiguous 2-D matrices, got shape {tuple(a.shape)}")
+    if a.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"merge_rows: unsupported device {a.device}")
+    _check_same(a, b, "merge_rows")
+    rows, B = a.shape
+    if not _is_pow2(B):
+        raise ValueError(f"row width must be a power of two, got {B}")
+    if a.device.type == "cpu":
+        return merge_rows_plain(a, b)
+    out = torch.empty((rows, 2 * B), dtype=a.dtype, device=a.device)
+    if rows == 0:
+        return out  # no launch
+    fn = _kernel("merge_rows", a.dtype)
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream(a.device).cuda_stream
+        err = fn(a.data_ptr(), b.data_ptr(), out.data_ptr(), rows, B, stream)
+    build.check_launch(err, "merge_rows")
+    LAUNCHES["merge_rows"] += 1
     return out

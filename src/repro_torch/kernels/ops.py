@@ -1,7 +1,8 @@
-"""Public wrappers around the sort kernels, with the reference's guards.
+"""Public wrappers around the bitonic kernels, with the reference's guards.
 
-Counterpart of :mod:`repro.kernels.ops` for the two kernels of the sort
-dataplane.  The device of the tensor decides what runs: a CUDA tensor
+Counterpart of :mod:`repro.kernels.ops` for the four bitonic kernels: the
+sort dataplane's row sort and tournament (K1, K2), the MoE dispatch's
+key-value sort (K3) and the row merge (K4).  The device of the tensor decides what runs: a CUDA tensor
 launches the Hopper kernel (:mod:`repro_torch.kernels.bitonic`), a CPU
 tensor takes its plain torch version.  There is no ``interpret=`` and no
 x64 scope: torch keeps int64 keys as they are.
@@ -42,3 +43,30 @@ def merge_tournament(x: torch.Tensor) -> torch.Tensor:
     two; no size cap (the TPU's VMEM cap does not apply)."""
     _check_sort_keys(x, "merge_tournament")
     return bitonic.merge_tournament(x)
+
+
+def sort_rows_kv(keys: torch.Tensor, vals: torch.Tensor):
+    """Row-wise key-value sort on K3 (the MoE dispatch: key = expert id,
+    value = assignment index).  Not stable: equal keys come out in the
+    network's order, the same on the CPU and the card."""
+    _check_sort_keys(keys, "sort_rows_kv")
+    return bitonic.sort_rows_kv(keys, vals)
+
+
+def merge_rows(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Row-wise merge of two sorted (rows, B) matrices into (rows, 2B) on K4."""
+    return bitonic.merge_rows(a, b)
+
+
+def argsort_padded(keys: torch.Tensor):
+    """1-D argsort on K3: pad to the next power of two with the dtype max
+    (the pads sort to the tail and are sliced off), values ``arange(m)`` as
+    int32.  Returns the first ``n`` sorted keys and their positions."""
+    _check_sort_keys(keys, "argsort_padded")
+    (n,) = keys.shape
+    m = 1 << (max(n, 2) - 1).bit_length()
+    pad = torch.full((m - n,), torch.iinfo(keys.dtype).max, dtype=keys.dtype, device=keys.device)
+    kp = torch.cat([keys, pad])[None, :]
+    vp = torch.arange(m, dtype=torch.int32, device=keys.device)[None, :]
+    ks, vs = sort_rows_kv(kp, vp)
+    return ks[0, :n], vs[0, :n]

@@ -3,7 +3,9 @@ module state.
 
 The reference keeps layer parameters stacked ``(L, ...)`` under ``layers``;
 the port has one module per layer, so the stack is cut into
-``layers.<i>.<...>``.  Every other leaf keeps its path, joined by dots.  Leaves
+``layers.<i>.<...>``.  Every other leaf keeps its path, joined by dots; a
+list (deepseek-moe's ``dense_layers``, one dict per layer) contributes its
+index, ``dense_layers.<i>.<...>``.  Leaves
 are numpy arrays (``jax.tree.map(numpy.asarray, params)``), bfloat16 ones
 included; values are copied bit for bit.
 """
@@ -22,8 +24,9 @@ def _tensor(a) -> torch.Tensor:
 
 
 def _flatten(tree, prefix: str, out: dict) -> None:
-    if isinstance(tree, dict):
-        for k, v in tree.items():
+    if isinstance(tree, (dict, list, tuple)):
+        items = tree.items() if isinstance(tree, dict) else enumerate(tree)
+        for k, v in items:
             _flatten(v, f"{prefix}{k}.", out)
     else:
         out[prefix[:-1]] = _tensor(tree)

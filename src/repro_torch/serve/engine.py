@@ -69,15 +69,16 @@ class Engine:
         self.queue.append(req)
 
     def _slot_cache(self, s: int) -> dict:
-        """Views of slot ``s``'s region: batch axis 0 of ``pos``, 1 of k/v."""
+        """Views of slot ``s``'s region of every cache leaf: batch axis 0 of
+        ``pos``, axis 1 of the stacked ``(L, B, ...)`` caches (``k``/``v``,
+        and ``k_dense``/``v_dense`` of the leading dense layers)."""
         return {
-            "pos": self.cache["pos"][s : s + 1],
-            "k": self.cache["k"][:, s : s + 1],
-            "v": self.cache["v"][:, s : s + 1],
+            name: leaf[s : s + 1] if name == "pos" else leaf[:, s : s + 1]
+            for name, leaf in self.cache.items()
         }
 
     def _reset_slot(self, s: int) -> None:
-        """Zero one slot's cache region (pos and k/v)."""
+        """Zero one slot's cache region (pos and every stack's k/v)."""
         for leaf in self._slot_cache(s).values():
             leaf.zero_()
 

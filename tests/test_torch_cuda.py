@@ -1,6 +1,7 @@
-"""The port's CUDA kernels on the card: K1, K2, K5 and K6 against their plain
-torch versions, the launch counters, a small pipeline against its CPU run,
-and the smoke LM served on the card against the same weights on the CPU.
+"""The port's CUDA kernels on the card: K1-K6 against their plain torch
+versions, the launch counters, a small pipeline against its CPU run, and the
+smoke LMs (dense and MoE) served on the card against the same weights on the
+CPU.
 
 Marked ``cuda``; every test skips with a reason where no card is present.
 Run them on a machine with an NVIDIA card with
@@ -61,11 +62,57 @@ def test_wrappers_count_launches_and_check_inputs(gen):
     bitonic.sort_rows(x)
     bitonic.merge_tournament(torch.sort(x, dim=1).values)
     bitonic.sort_rows(x[:, :1].contiguous())  # one-key rows: nothing to launch
-    assert bitonic.LAUNCHES == {"row_sort": 1, "tournament": 1, "flash_attention": 0, "decode_attention": 0}
+    assert bitonic.LAUNCHES == {"row_sort": 1, "tournament": 1, "row_sort_kv": 0, "merge_rows": 0,
+                                "flash_attention": 0, "decode_attention": 0}
     with pytest.raises(ValueError, match="contiguous"):
         bitonic.sort_rows(x.t())
     with pytest.raises(TypeError):
         bitonic.sort_rows(x.to(torch.int16))
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("rows,n,hi", [(1, 32, 48), (1, 16_384, 48), (4, 16, 7), (1, 512, 1 << 20),
+                                       (3, 1 << 15, 100), (1, 1 << 16, 1 << 30)])
+def test_row_sort_kv_kernel_equals_plain(gen, dtype, rows, n, hi):
+    """Keys and values equal the plain network exactly, duplicate keys
+    included; widths above 16,384 run device-memory stages."""
+    keys = torch.randint(0, hi, (rows, n), dtype=dtype, device="cuda", generator=gen)
+    vals = torch.arange(rows * n, dtype=torch.int32, device="cuda").reshape(rows, n)
+    bitonic.reset_launches()
+    gk, gv = bitonic.sort_rows_kv(keys, vals)
+    assert bitonic.LAUNCHES["row_sort_kv"] == 1
+    wk, wv = bitonic.sort_rows_kv_plain(keys, vals)
+    assert torch.equal(gk, wk) and torch.equal(gv, wv)
+    assert torch.equal(gk, torch.sort(keys, dim=1).values)
+
+
+def test_dispatch_order_on_card_is_the_stable_argsort(gen):
+    from repro_torch.models import moe
+
+    for nk, key_max in ((32, 48), (15_704, 48), (20_000, 1 << 30)):
+        key = torch.randint(0, 41, (nk,), device="cuda", generator=gen)
+        order = moe.stable_argsort(key, key_max)
+        assert torch.equal(order, torch.sort(key, stable=True).indices)
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64, torch.float32])
+@pytest.mark.parametrize("rows,b", [(8, 4), (8, 64), (8, 1024), (3, 16), (65_536, 64), (4, 1 << 13), (2, 1 << 16)])
+def test_merge_rows_kernel_equals_plain(gen, dtype, rows, b):
+    """Widths up to a 4096-element tile run in shared memory; wider rows
+    (2^14 and 2^17 elements) run their long stages in device memory."""
+    def sorted_rows():
+        if dtype == torch.float32:
+            x = torch.randn((rows, b), device="cuda", generator=gen)
+        else:
+            x = torch.randint(-(1 << 30), 1 << 30, (rows, b), dtype=dtype, device="cuda", generator=gen)
+        return torch.sort(x, dim=1).values.contiguous()
+
+    a, c = sorted_rows(), sorted_rows()
+    bitonic.reset_launches()
+    got = bitonic.merge_rows(a, c)
+    assert bitonic.LAUNCHES["merge_rows"] == 1
+    assert torch.equal(got, bitonic.merge_rows_plain(a, c))
+    assert torch.equal(got, torch.sort(torch.cat([a, c], dim=1), dim=1).values)
 
 
 @pytest.mark.parametrize("backend,jitter", [("arena", 0), ("arena", 8), ("numpy", 8)])
@@ -119,7 +166,7 @@ def _assert_attention_close(got, want):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("B,T,H,KV,d", [(1, 1, 4, 2, 32), (2, 7, 4, 4, 64), (1, 130, 8, 2, 64),
-                                        (1, 300, 32, 8, 128), (2, 64, 4, 1, 128)])
+                                        (1, 300, 32, 8, 128), (2, 64, 4, 1, 128), (1, 1963, 24, 8, 64)])
 def test_flash_attention_kernel_equals_plain(gen, B, T, H, KV, d, causal, dtype):
     q = _randn(gen, (B, T, H, d), dtype, QK_SCALE)
     k = _randn(gen, (B, T, KV, d), dtype, QK_SCALE)
@@ -132,7 +179,7 @@ def test_flash_attention_kernel_equals_plain(gen, B, T, H, KV, d, causal, dtype)
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,S,H,KV,d", [(1, 1, 4, 2, 32), (3, 300, 4, 4, 64), (4, 4096, 32, 8, 128),
-                                        (2, 512, 16, 1, 128)])
+                                        (2, 512, 16, 1, 128), (4, 4096, 24, 8, 64)])
 def test_decode_attention_kernel_equals_plain(gen, B, S, H, KV, d, dtype):
     q = _randn(gen, (B, H, d), dtype, QK_SCALE)
     # the layer-1 slice of a stacked (L, B, S, KV, d) cache, read in place
@@ -147,13 +194,14 @@ def test_decode_attention_kernel_equals_plain(gen, B, S, H, KV, d, dtype):
     _assert_attention_close(got, decode_attention_plain(q, kc, vc, lengths))
 
 
-def test_smoke_lm_served_on_card_equals_cpu(gen):
+@pytest.mark.parametrize("arch", ["mistral-nemo-12b", "granite-moe-3b-a800m", "deepseek-moe-16b"])
+def test_smoke_lm_served_on_card_equals_cpu(gen, arch):
     """The f32 smoke config on the card and on the CPU, same weights: equal
     greedy tokens, logits within 1e-4; K5 once per layer per prefill, K6
-    once per layer per decode step."""
+    once per layer per decode step, K3 once per MoE layer of either."""
     import dataclasses
 
-    cfg = dataclasses.replace(configs.get_smoke_config("mistral-nemo-12b"), dtype="float32")
+    cfg = dataclasses.replace(configs.get_smoke_config(arch), dtype="float32")
     host = models.build(cfg, device="cpu").init(torch.Generator().manual_seed(0))
     card = models.build(cfg, device="cuda")
     card.load_state_dict(host.state_dict())
@@ -175,3 +223,5 @@ def test_smoke_lm_served_on_card_equals_cpu(gen):
     assert outs[0] == outs[1]
     assert bitonic.LAUNCHES["flash_attention"] == cfg.num_layers * 5  # one prefill per request
     assert bitonic.LAUNCHES["decode_attention"] == cfg.num_layers * steps
+    moe_layers = cfg.num_layers - cfg.moe.first_dense_layers if cfg.moe else 0
+    assert bitonic.LAUNCHES["row_sort_kv"] == moe_layers * (5 + steps)

@@ -39,7 +39,7 @@ def test_every_port_module_imports_without_jax_or_reference():
     names = _port_modules()
     assert {"repro_torch.net.pipeline", "repro_torch.kernels.bitonic",
             "repro_torch.core.mergesort", "repro_torch.data.traces",
-            "repro_torch.models.lm", "repro_torch.serve.engine",
+            "repro_torch.models.lm", "repro_torch.models.moe", "repro_torch.serve.engine",
             "repro_torch.kernels.flash_attention",
             "repro_torch.kernels.decode_attention"} <= set(names)
     code = (

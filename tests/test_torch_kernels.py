@@ -190,7 +190,8 @@ def test_cpu_calls_never_launch_or_build():
     ops.sort_rows_padded(x)
     ops.merge_tournament(torch.sort(x, dim=1).values)
     assert bitonic.LAUNCHES is build.LAUNCHES
-    assert set(build.LAUNCHES) == {"row_sort", "tournament", "flash_attention", "decode_attention"}
+    assert set(build.LAUNCHES) == {"row_sort", "tournament", "row_sort_kv", "merge_rows",
+                                   "flash_attention", "decode_attention"}
     assert not any(build.LAUNCHES.values())
     assert build._LIBS == {}
 
@@ -207,6 +208,7 @@ def test_kernel_library_path_is_build_dir_keyed_by_source():
     assert p.parent == build._repo_root() / "build" / "kernels"
     assert p.name.startswith("librow_sort_") and p.suffix == ".so"
     for name, source in (("row_sort", "row_sort.cu"), ("tournament", "tournament.cu"),
+                         ("row_sort_kv", "row_sort_kv.cu"), ("merge_rows", "merge_rows.cu"),
                          ("flash_attention", "flash_attention.cu"),
                          ("decode_attention", "decode_attention.cu")):
         assert build._SOURCES[name] == source and (build._CSRC / source).is_file()

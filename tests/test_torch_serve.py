@@ -1,14 +1,17 @@
 """The port's serve path (configs, LM, engine, sampler, CLI) against the JAX
 package's, on the CPU.
 
-The reference model is the smoke config of ``mistral-nemo-12b`` built with
-``local_ctx()`` and initialised from ``PRNGKey(0)``; its weights are carried
-into the port with ``params_from_reference``.  At float32 the logits agree
-within atol/rtol 1e-4 and the greedy tokens are identical.  At bfloat16 the
-two frameworks round at other places (matmul accumulation, the reference's
-bf16 attention probabilities against the port's f32 ones), so logits, which
-are O(4) here, are held within atol 0.1 (a few bf16 steps at that size) and
-rtol 2e-2, and tokens are not compared with the reference's.
+The reference models are the smoke configs of ``mistral-nemo-12b`` (dense)
+and of the two MoE models, ``granite-moe-3b-a800m`` and ``deepseek-moe-16b``
+(with its leading dense layer), built with ``local_ctx()`` and initialised
+from ``PRNGKey(0)``; their weights are carried into the port with
+``params_from_reference``.  At float32 the logits agree within atol/rtol
+1e-4 and the greedy tokens are identical.  At bfloat16 the two frameworks
+round at other places (matmul accumulation, the reference's bf16 attention
+probabilities against the port's f32 ones, the MoE's f32 sum of expert
+outputs against the reference's bf16 adds), so logits, which are O(4) here,
+are held within atol 0.1 (a few bf16 steps at that size) and rtol 2e-2, and
+tokens are not compared with the reference's.
 """
 
 import dataclasses
@@ -37,32 +40,35 @@ from repro_torch.serve.engine import Engine, Request
 from repro_torch.serve.sampler import SampleConfig, sample
 
 ARCH = "mistral-nemo-12b"
+MOE_ARCHS = ["granite-moe-3b-a800m", "deepseek-moe-16b"]
 TOL = {"float32": dict(atol=1e-4, rtol=1e-4), "bfloat16": dict(atol=0.1, rtol=2e-2)}
 
 
-def _smoke(dtype: str):
-    return dataclasses.replace(ref_get_smoke(ARCH), dtype=dtype)
-
-
 @functools.lru_cache(maxsize=None)
-def _build_pair(dtype: str):
+def _build_pair(arch: str, dtype: str):
     """(cfg, reference model, reference params, port model) sharing weights."""
-    cfg = _smoke(dtype)
+    cfg = dataclasses.replace(ref_get_smoke(arch), dtype=dtype)
     ref = ref_models.build(cfg, local_ctx())
     params = ref.init(jax.random.PRNGKey(0))
-    port = models.build(dataclasses.replace(configs.get_smoke_config(ARCH), dtype=dtype), device="cpu")
+    port = models.build(dataclasses.replace(configs.get_smoke_config(arch), dtype=dtype), device="cpu")
     port.load_state_dict(params_from_reference(jax.tree.map(np.asarray, params)))
     return cfg, ref, params, port
 
 
 @pytest.fixture(scope="module", params=["float32", "bfloat16"])
 def pair(request):
-    return _build_pair(request.param)
+    return _build_pair(ARCH, request.param)
 
 
 @pytest.fixture(scope="module")
 def pair32():
-    return _build_pair("float32")
+    return _build_pair(ARCH, "float32")
+
+
+@pytest.fixture(scope="module", params=[(a, d) for a in MOE_ARCHS for d in ("float32", "bfloat16")],
+                ids=lambda p: f"{p[0]}-{p[1]}")
+def moe_pair(request):
+    return _build_pair(*request.param)
 
 
 def _close(port: torch.Tensor, ref, dtype: str) -> None:
@@ -96,6 +102,27 @@ def test_params_from_reference_fills_every_weight_bit_for_bit(pair):
     assert port.embed.table.dtype == getattr(torch, cfg.dtype)
 
 
+def test_moe_params_from_reference_fill_every_weight_bit_for_bit(moe_pair):
+    """Expert slabs at the padded count, the f32 router, the shared experts
+    and deepseek's leading dense layers (a list in the reference's tree)."""
+    cfg, _, params, port = moe_pair
+    state = params_from_reference(jax.tree.map(np.asarray, params))
+    assert set(state) == set(port.state_dict())
+    last = len(port.layers) - 1
+    for name in ("w_in", "w_out", "router"):
+        want = np.asarray(params["layers"]["moe"][name][last]).astype(np.float32)
+        np.testing.assert_array_equal(getattr(port.layers[last].moe, name).float().numpy(), want)
+    assert port.layers[0].moe.router.dtype == torch.float32
+    n_dense = cfg.moe.first_dense_layers
+    assert len(port.layers) == cfg.num_layers - n_dense
+    if n_dense:
+        want = np.asarray(params["dense_layers"][0]["mlp"]["w_in"]).astype(np.float32)
+        np.testing.assert_array_equal(port.dense_layers[0].mlp.w_in.float().numpy(), want)
+        assert port.dense_layers[0].mlp.w_in.shape[1] == cfg.moe.d_ff_dense
+        np.testing.assert_array_equal(port.layers[0].moe.shared.w_gate.float().numpy(),
+                                      np.asarray(params["layers"]["moe"]["shared"]["w_gate"][0]).astype(np.float32))
+
+
 def test_init_draws_the_reference_distributions():
     cfg = dataclasses.replace(configs.get_smoke_config(ARCH), d_model=256, d_ff=512, vocab_size=1024)
     m = models.build(cfg, device="cpu").init(torch.Generator().manual_seed(0))
@@ -115,19 +142,38 @@ def test_init_draws_the_reference_distributions():
 
 
 def test_prefill_logits_and_caches_match_reference(pair):
+    _check_prefill(pair)
+
+
+def test_moe_prefill_logits_and_caches_match_reference(moe_pair):
+    _check_prefill(moe_pair)
+
+
+def _check_prefill(pair):
     cfg, ref, params, port = pair
     toks = np.random.default_rng(0).integers(0, cfg.vocab_size, size=(2, 9)).astype(np.int32)
     want, rcache = ref.prefill(params, {"tokens": jnp.asarray(toks)}, ref.init_cache(2, 32))
     got, pcache = port.prefill(torch.from_numpy(toks), port.init_cache(2, 32))
     assert got.shape == (2, cfg.vocab_size)
     _close(got, want, cfg.dtype)
-    for key in ("k", "v"):
+    assert set(pcache) == set(rcache)  # k_dense/v_dense for deepseek's dense layer
+    for key in set(rcache) - {"pos"}:
         assert tuple(pcache[key].shape) == rcache[key].shape
         _close(pcache[key], rcache[key], cfg.dtype)
     np.testing.assert_array_equal(pcache["pos"].numpy(), np.asarray(rcache["pos"]))
 
 
 def test_six_decode_steps_match_reference(pair):
+    _check_decode(pair)
+
+
+def test_moe_six_decode_steps_match_reference(moe_pair):
+    """Decode batches of 3 tokens meet a capacity of one slot per expert:
+    the order inside each expert's group decides what is dropped."""
+    _check_decode(moe_pair)
+
+
+def _check_decode(pair):
     cfg, ref, params, port = pair
     toks = np.random.default_rng(1).integers(0, cfg.vocab_size, size=(3, 5)).astype(np.int32)
     _, rcache = ref.prefill(params, {"tokens": jnp.asarray(toks)}, ref.init_cache(3, 16))
@@ -139,7 +185,8 @@ def test_six_decode_steps_match_reference(pair):
         _close(got, want, cfg.dtype)
         tok = np.argmax(np.asarray(want, np.float32), axis=-1).astype(np.int32)
     np.testing.assert_array_equal(pcache["pos"].numpy(), np.asarray(rcache["pos"]))
-    _close(pcache["k"], rcache["k"], cfg.dtype)
+    for key in set(rcache) - {"pos"}:
+        _close(pcache[key], rcache[key], cfg.dtype)
 
 
 # -- the engine --------------------------------------------------------------------
@@ -166,6 +213,26 @@ def test_engine_greedy_matches_reference_engine_token_for_token(pair32):
     cfg, ref, params, port = pair32
     ref_eng = RefEngine(ref, params, slots=2, max_len=64, sample_cfg=RefSampleConfig(temperature=0.0))
     eng = Engine(port, slots=2, max_len=64, sample_cfg=SampleConfig(temperature=0.0), device="cpu")
+    for i, p in enumerate(_prompts(cfg)):
+        ref_eng.add(RefRequest(rid=i, prompt=p, max_tokens=6))
+        eng.add(Request(rid=i, prompt=p, max_tokens=6))
+    want = [(r.rid, r.out) for r in ref_eng.run()]
+    got = [(r.rid, r.out) for r in eng.run()]
+    assert got == want
+    assert len(got) == 5 and all(len(out) == 6 for _, out in got)
+
+
+@pytest.mark.parametrize("arch,slots", [("granite-moe-3b-a800m", 2), ("deepseek-moe-16b", 3)])
+def test_moe_engine_greedy_matches_reference_engine_token_for_token(arch, slots):
+    """Every decode step routes all slots' tokens (idle slots too) into one
+    capacity slot per expert, so drops decide tokens.  The slot count differs
+    from every cache stack's depth (granite 3 layers; deepseek 1 dense + 2
+    MoE): the reference engine's ``_reset_slot``/``_graft`` take axis 0 as
+    the slot axis of any cache leaf whose first dimension equals the slot
+    count (R2 in ROADMAP.md)."""
+    cfg, ref, params, port = _build_pair(arch, "float32")
+    ref_eng = RefEngine(ref, params, slots=slots, max_len=64, sample_cfg=RefSampleConfig(temperature=0.0))
+    eng = Engine(port, slots=slots, max_len=64, sample_cfg=SampleConfig(temperature=0.0), device="cpu")
     for i, p in enumerate(_prompts(cfg)):
         ref_eng.add(RefRequest(rid=i, prompt=p, max_tokens=6))
         eng.add(Request(rid=i, prompt=p, max_tokens=6))
@@ -262,8 +329,19 @@ def test_serve_cli_runs_on_cpu(capsys):
     assert kbuild.LAUNCHES["flash_attention"] == 0 and kbuild.LAUNCHES["decode_attention"] == 0
 
 
-@pytest.mark.parametrize("arch", ["granite-moe-3b-a800m", "deepseek-moe-16b", "rwkv6-1.6b",
-                                  "zamba2-1.2b", "llava-next-34b", "whisper-small"])
+def test_serve_cli_runs_moe_on_cpu(capsys):
+    """The MoE CLI on the CPU: the dispatch runs K3's plain version, so no
+    kernel launches."""
+    kbuild.reset_launches()
+    finished = serve_cli.main(["--arch", "granite-moe-3b-a800m", "--smoke", "--device", "cpu",
+                               "--requests", "3", "--slots", "2", "--max-tokens", "4", "--max-len", "32"])
+    assert sorted(r.rid for r in finished) == [0, 1, 2]
+    assert all(len(r.out) == 4 and r.done for r in finished)
+    assert "served 3 requests, 12 tokens" in capsys.readouterr().out
+    assert not any(kbuild.LAUNCHES.values())
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-1.6b", "zamba2-1.2b", "llava-next-34b", "whisper-small"])
 def test_other_families_raise_not_implemented(arch):
     with pytest.raises(NotImplementedError, match="later slice"):
         models.build(configs.get_smoke_config(arch), device="cpu")

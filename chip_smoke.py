@@ -13,7 +13,9 @@ over granite-moe-3b-a800m).  Phases, one JSON line each:
    parallel);
 2. ``k1``, ``k2`` -- kernels K1 (row sort) and K2 (tournament merge) against
    their plain torch versions, for exact equality, int32 and int64, widths
-   2..4096, ragged pads, K2 up to shapes above 2^22 keys;
+   2..4096, ragged pads; K2 up to 2^23 keys, all-pad rows, all-equal keys,
+   one pair of 2^22-wide rows, rows wider than its tile, with its kernel
+   launches per call (1 + log2(P*B / tile));
 3. ``pipeline`` -- ``repro_torch.net.pipeline.run_pipeline`` on the card: first
    byte-identical to the same call on the CPU (plain versions) at small n,
    then once at the full size (default 100M keys, the paper's §6 trace size)
@@ -28,8 +30,10 @@ over granite-moe-3b-a800m).  Phases, one JSON line each:
    (K3 at 2^16 pairs, K4 at 2^14 and 2^17 elements);
 5. ``k5``, ``k6`` -- the attention kernels K5 (flash attention) and K6
    (decode attention) against their plain torch versions: head dims 32, 64,
-   128, GQA groups 1, 3 and 4, causal or not, ragged T, lengths 1..S, float32
-   and bfloat16, on inputs whose softmax is peaked (limits: ``attn_limit``);
+   128, GQA groups 1, 3 and 4, causal or not, ragged T, S != T, strided
+   q/k/v views, Mistral's 1963-token prefill, lengths 1..S, float32 and
+   bfloat16, on inputs whose softmax is peaked (limits: ``attn_limit``);
+   the bf16 K5 wrapper must raise on rows that are not 16-byte aligned;
 6. ``serve``, ``serve_moe`` -- for Mistral-Nemo-12B and for
    granite-moe-3b-a800m: first the smoke config(s) in float32 on the card
    against the same weights on the CPU (greedy tokens identical, logits
@@ -52,7 +56,9 @@ over granite-moe-3b-a800m).  Phases, one JSON line each:
    one K2 round on the sort path's largest bucket): launches, agreement with
    the plain version, and kernel, plain and library (``torch.sort``, or
    ``scaled_dot_product_attention`` with ``enable_gqa``) times (CUDA events,
-   median of 10 after a warm-up) beside the bound.
+   median of 10 after a warm-up) beside the bound;
+8. ``ptxas`` -- every kernel entry's registers, static shared memory and
+   spills, as the compiler reported them when it built the kernels.
 
 Then the card's name and power limit, then ``{"ok": true, "device": ...}``.
 Any failed check exits non-zero before that line.  Without a CUDA device, or
@@ -85,6 +91,7 @@ BF16_FLOP_PER_S = 989e12
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
 OPS_PER_COMPARE_EXCHANGE = {4: 2, 8: 6}
 OPS_PER_KV_COMPARE_EXCHANGE = {4: 4, 8: 8}
+OPS_PER_MERGE_STEP = {4: 2, 8: 4}
 
 E2E = dict(
     topology="tree", branching=2, height=3, num_segments=16,
@@ -166,14 +173,12 @@ def k1_work(rows: int, b: int, itemsize: int) -> tuple[float, float]:
 
 
 def k2_work(p: int, b: int, itemsize: int) -> tuple[float, float]:
-    """(bytes, compare-exchanges) of the tournament over a (p, b) matrix:
-    round w merges row pairs with log2(2w) stages of n/2 pairs."""
+    """(bytes, merge steps) of the tournament over a (p, b) matrix: the n
+    keys read once and written once; log2(p) rounds of one comparison per
+    output key, n log2(p) in all -- the least a merge of p sorted rows
+    needs, whatever the kernel's design."""
     n = p * b
-    ce, w = 0, b
-    while w < n:
-        ce += (n // 2) * log2(2 * w)
-        w *= 2
-    return 2.0 * n * itemsize, float(ce)
+    return 2.0 * n * itemsize, float(n * log2(p))
 
 
 def k3_work(rows: int, n: int, itemsize: int) -> tuple[float, float]:
@@ -275,8 +280,9 @@ def main_path_input(torch, gen, shape, dtype, *, sorted_rows: bool):
     """Fresh random rows at a main-path kernel shape: keys in the range the
     100M-key run gives the kernel (15-bit trace keys for K1; packed
     ``(key << 27) | row`` records, below 2^42, for K2), each row's ragged
-    tail padded with the dtype max, rows sorted for K2.  Both networks are
-    data-oblivious: their time depends on the shape alone."""
+    tail padded with the dtype max, rows sorted for K2.  K1's network is
+    data-oblivious; K2's merge moves the same bytes whatever the keys, and
+    only its searches depend on them."""
     rows, b = shape
     hi = (1 << 42) if dtype == torch.int64 and sorted_rows else 1 << 15
     x = torch.randint(0, hi, shape, dtype=dtype, device="cuda", generator=gen)
@@ -313,29 +319,52 @@ def phase_k1(bt, torch, gen) -> None:
 
 
 def phase_k2(bt, torch, gen) -> None:
+    """Random sorted rows with ragged pads (duplicate keys and pad runs in
+    every row), all-pad rows and all-equal keys; one pair of 2^22-wide rows;
+    rows at least a tile wide (the first round starts in device memory); the
+    sort path's largest bucket.  Exact against ``tournament_plain`` and
+    ``torch.sort``; each shape's kernel launches per call (1 + log2(P*B /
+    tile) for B under the 16,384-key tile, log2(P) from it), the kernel's
+    own count held to the Python plan."""
+    from repro_torch.kernels import build
+
     checked = 0
     worst = 0
-    shapes = [(2, 2), (2, 4096), (1024, 64), (64, 1024), (4096, 2),
-              (1 << 17, 64), (1 << 16, 128), (2, 1 << 22)]
+    plan = {}
+    count_fn = build.function("tournament", "tournament_launches")
+    cases = [(p, b, "random") for p, b in ((2, 2), (2, 4096), (1024, 64), (64, 1024), (4096, 2),
+                                           (1 << 17, 64), (1 << 16, 128), (2, 1 << 22),
+                                           (8, 1 << 15), (4, 1 << 16))]
+    cases += [(64, 256, "all_pad"), (64, 256, "all_equal"), (1 << 15, 64, "all_equal"), (4, 1 << 16, "all_pad")]
     for dtype in (torch.int32, torch.int64):
         hi = torch.iinfo(dtype).max
-        for p, b in shapes:
-            x = torch.randint(0, 1 << 30, (p, b), dtype=dtype, device="cuda", generator=gen)
-            cut = torch.randint(1, b + 1, (p, 1), device="cuda", generator=gen)
-            x = torch.where(torch.arange(b, device="cuda")[None, :] < cut, x, hi)
-            x = torch.sort(x, dim=1).values.contiguous()
+        for p, b, kind in cases:
+            if kind == "all_pad":
+                x = torch.full((p, b), hi, dtype=dtype, device="cuda")
+            elif kind == "all_equal":
+                x = torch.full((p, b), 5, dtype=dtype, device="cuda")
+            else:
+                x = torch.randint(0, 1 << 30, (p, b), dtype=dtype, device="cuda", generator=gen)
+                cut = torch.randint(1, b + 1, (p, 1), device="cuda", generator=gen)
+                x = torch.where(torch.arange(b, device="cuda")[None, :] < cut, x, hi)
+                x = torch.sort(x, dim=1).values.contiguous()
             got = bt.merge_tournament(x)
             want = bt.tournament_plain(x)
             worst = max(worst, exact(got, want))
             if not torch.equal(got, torch.sort(x.reshape(-1)).values):
-                fail(f"K2 disagrees with torch.sort at {dtype} {p}x{b}")
+                fail(f"K2 disagrees with torch.sort at {dtype} {p}x{b} ({kind})")
+            launches = count_fn(p, b)
+            if launches != bt.tournament_launches(p, b):
+                fail(f"K2 plans {launches} launches at {p}x{b}, the Python plan {bt.tournament_launches(p, b)}")
+            plan[f"{p}x{b}"] = launches
             checked += 1
             del x, got, want
     torch.cuda.synchronize()
     if worst:
         fail(f"K2 differs from tournament_plain by {worst}")
     emit({"phase": "k2", "cases": checked, "max_abs_err": worst,
-          "largest_keys": max(p * b for p, b in shapes)})
+          "largest_keys": max(p * b for p, b, _ in cases), "tile": bt.TOURNAMENT_TILE,
+          "launches_per_call": plan})
 
 
 def dispatch_keys(torch, gen, rows: int, n: int, real: int, dtype, experts: int = 40):
@@ -591,6 +620,11 @@ def check_k6(da, torch, gen, q_shape, cache_shape, dt, lengths, layers: int = 2)
 
 
 def phase_k5(fa, torch, gen) -> None:
+    """Head dims 32, 64, 128 x G 1, 3, 4 x T 1, 7, 64, 130, 1000, causal or
+    not; then Mistral-Nemo-12B's largest prefill (q 1 x 1963 x 32 x 128),
+    S != T non-causal, q/k/v as strided views of one fused projection, and
+    the bf16 wrapper raising on a row stride its 16-byte copies cannot
+    take.  float32 and bfloat16, limits ``attn_limit``."""
     worst = {"float32": 0.0, "bfloat16": 0.0}
     cases = 0
     for name in worst:
@@ -603,8 +637,28 @@ def phase_k5(fa, torch, gen) -> None:
                         err, _ = check_k5(fa, torch, gen, (2, t, kv * g, d), (2, t, kv, d), dt, causal)
                         worst[name] = max(worst[name], err)
                         cases += 1
+        for b, t, s, h, kv, d, causal in ((1, 1963, 1963, 32, 8, 128, True), (1, 1, 300, 4, 1, 32, False),
+                                          (2, 7, 130, 6, 2, 64, False), (1, 130, 1000, 8, 2, 128, False),
+                                          (1, 130, 7, 8, 2, 32, False), (3, 23, 23, 12, 4, 64, True)):
+            err, _ = check_k5(fa, torch, gen, (b, t, h, d), (b, s, kv, d), dt, causal)
+            worst[name] = max(worst[name], err)
+            cases += 1
+        for d in (32, 64, 128):
+            qkv = randn(torch, gen, (2, 150, 12, d), dt, QK_SCALE)  # 8 q heads, 2 + 2 kv heads
+            q, k, v = qkv[:, :, :8], qkv[:, :, 8:10], qkv[:, :, 10:]
+            for causal in (True, False):
+                worst[name] = max(worst[name], allclose_err(
+                    fa.flash_attention(q, k, v, causal=causal),
+                    fa.flash_attention_plain(q, k, v, causal=causal), "K5 on strided views"))
+                cases += 1
+    bad = randn(torch, gen, (1, 64, 4, 33), torch.bfloat16)[..., :32]
+    try:
+        fa.flash_attention(bad, bad, bad)
+        fail("K5 (bfloat16) took rows that are not 16-byte aligned")
+    except ValueError:
+        pass
     torch.cuda.synchronize()
-    emit({"phase": "k5", "cases": cases, "max_abs_err": worst})
+    emit({"phase": "k5", "cases": cases, "max_abs_err": worst, "misaligned_bf16_raises": True})
 
 
 def phase_k6(da, torch, gen) -> None:
@@ -1044,19 +1098,19 @@ def sort_rows_of(torch, bt, gen, launches, k1_in, k2_in) -> list[dict]:
     rows = []
     x1 = main_path_input(torch, gen, k1_in.shape, k1_in.dtype, sorted_rows=False)
     x2 = main_path_input(torch, gen, k2_in.shape, k2_in.dtype, sorted_rows=True)
-    for name, x, kern, plain, lib, work, src, replaces in (
+    for name, x, kern, plain, lib, work, ops_per, src, replaces in (
         ("row_sort", x1, bt.sort_rows, bt.sort_rows_plain,
-         lambda x: torch.sort(x, dim=1).values, k1_work,
+         lambda x: torch.sort(x, dim=1).values, k1_work, OPS_PER_COMPARE_EXCHANGE,
          "src/repro_torch/kernels/csrc/row_sort.cu", "src/repro/kernels/bitonic.py:174"),
         ("tournament", x2, bt.merge_tournament, bt.tournament_plain,
-         lambda x: torch.sort(x.reshape(-1)).values, k2_work,
+         lambda x: torch.sort(x.reshape(-1)).values, k2_work, OPS_PER_MERGE_STEP,
          "src/repro_torch/kernels/csrc/tournament.cu", "src/repro/kernels/bitonic.py:261"),
     ):
         err = exact(kern(x), plain(x))
         if err:
             fail(f"{name} differs from its plain version at the main-path shape")
         b_bytes, ce = work(x.shape[0], x.shape[1], x.element_size())
-        b_ms, b_by = bound(b_bytes, ce, x.element_size())
+        b_ms, b_by = bound(b_bytes, ce, x.element_size(), ops_per)
         rows.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
             "launches": launches[name], "max_abs_err": err,
@@ -1067,6 +1121,43 @@ def sort_rows_of(torch, bt, gen, launches, k1_in, k2_in) -> list[dict]:
     del x1, x2
     torch.cuda.empty_cache()
     return rows
+
+
+def ptxas_line(build) -> dict:
+    """Registers, static shared memory, stack and spills of every kernel entry
+    built in this process, from the compiler's ``-Xptxas -v`` output
+    (``build.BUILD_LOGS``); names demangled with ``c++filt`` where present.
+    Dynamic shared memory is set at launch and is not in these numbers."""
+    import re
+    import shutil
+
+    rows = []
+    for lib, log in sorted(build.BUILD_LOGS.items()):
+        cur = None
+        for line in log.splitlines():
+            m = re.search(r"Compiling entry function '([^']+)'", line)
+            if m:
+                cur = {"library": lib, "kernel": m.group(1)}
+                rows.append(cur)
+                continue
+            if cur is None:
+                continue
+            m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if m:
+                cur.update(stack_bytes=int(m.group(1)), spill_stores=int(m.group(2)),
+                           spill_loads=int(m.group(3)))
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                smem = re.search(r"(\d+) bytes smem", line)
+                cur.update(registers=int(m.group(1)), smem_static_bytes=int(smem.group(1)) if smem else 0)
+    cxxfilt = shutil.which("c++filt")
+    if cxxfilt and rows:
+        names = subprocess.run([cxxfilt], input="\n".join(r["kernel"] for r in rows), capture_output=True,
+                               text=True, timeout=60).stdout.splitlines()
+        if len(names) == len(rows):
+            for r, name in zip(rows, names):
+                r["kernel"] = name.replace("(anonymous namespace)::", "").split("(")[0].removeprefix("void ")
+    return {"ptxas": rows}
 
 
 def main() -> int:
@@ -1183,6 +1274,7 @@ def main() -> int:
     rows += attn
 
     emit({"kernels": rows})
+    emit(ptxas_line(build))
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -6,7 +6,8 @@ here as CUDA C++ for ``sm_90a`` (sources under ``csrc/``):
 * **K1** :func:`sort_rows` -- ascending sort of every row of a ``(rows, B)``
   int32/int64 matrix (``csrc/row_sort.cu``; replaces ``sort_tiles``);
 * **K2** :func:`merge_tournament` -- merge of ``P`` padded sorted rows into one
-  sorted ``P*B`` row (``csrc/tournament.cu``; replaces ``tournament_tiles``);
+  sorted ``P*B`` row by merge-path rounds (``csrc/tournament.cu``; replaces
+  ``tournament_tiles``);
 * **K3** :func:`sort_rows_kv` -- key-value sort of every row, int32 values
   following int32/int64 keys, not stable (``csrc/row_sort_kv.cu``; replaces
   ``sort_tiles_kv``): the MoE dispatch's argsort;
@@ -16,7 +17,8 @@ here as CUDA C++ for ``sm_90a`` (sources under ``csrc/``):
 
 Each has a plain torch version in this module (:func:`sort_rows_plain`,
 :func:`tournament_plain`, :func:`sort_rows_kv_plain`,
-:func:`merge_rows_plain`) that runs the same network stage by stage.  The
+:func:`merge_rows_plain`) that runs the same network stage by stage, or for
+K2 the same merge round by round (:func:`co_rank` is its search).  The
 wrapper takes the plain version only for a tensor on the CPU; for a CUDA
 tensor it launches the kernel or raises.  Every launch adds one to
 :data:`LAUNCHES` (the record of :mod:`.build`, shared by every kernel of the
@@ -104,17 +106,6 @@ def _half_clean(x: torch.Tensor, j: int) -> torch.Tensor:
     ).reshape(*lead, n)
 
 
-def _flip(x: torch.Tensor, w: int) -> torch.Tensor:
-    """First stage of a merge round: position ``i`` of each ``2w`` block
-    against ``2w - 1 - i`` (``concat(a, flip(b))`` without the copy)."""
-    *lead, n = x.shape
-    a = x.reshape(*lead, n // (2 * w), 2, w)
-    lo, hi = a[..., 0, :], a[..., 1, :].flip(-1)
-    return torch.stack(
-        [torch.minimum(lo, hi), torch.maximum(lo, hi).flip(-1)], dim=-2
-    ).reshape(*lead, n)
-
-
 def sort_rows_plain(x: torch.Tensor) -> torch.Tensor:
     """K1's plain version: the full bitonic network over every row."""
     n = x.shape[-1]
@@ -151,23 +142,83 @@ def merge_rows_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return x
 
 
+def co_rank(a: torch.Tensor, b: torch.Tensor, diag: torch.Tensor) -> torch.Tensor:
+    """How many of the first ``diag`` keys of the stable merge of the sorted
+    rows ``a`` (R, na) and ``b`` (R, nb) come from ``a``, for every entry of
+    ``diag`` (R, D): the binary search K2 runs along the cross diagonal.
+
+    The tie rule is the kernel's: a's key comes first when ``a[i] <= b[j]``.
+    The result is the least ``i`` in ``[max(0, d - nb), min(d, na)]`` with
+    ``a[i] > b[d - 1 - i]``.
+    """
+    na, nb = a.shape[-1], b.shape[-1]
+    lo = (diag - nb).clamp(min=0)
+    hi = diag.clamp(max=na)
+    if na == 0 or nb == 0:
+        return lo
+    while True:
+        live = lo < hi
+        if not bool(live.any()):
+            return lo
+        mid = (lo + hi) // 2
+        av = a.gather(-1, mid.clamp(max=na - 1))
+        bv = b.gather(-1, (diag - 1 - mid).clamp(0, nb - 1))
+        right = av <= bv
+        lo = torch.where(live & right, mid + 1, lo)
+        hi = torch.where(live & ~right, mid, hi)
+
+
+def merge_pairs(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Stable merge of the sorted rows of ``a`` and ``b`` (R, w) into (R, 2w):
+    output ``d`` of each row is a's key ``i = co_rank(d)`` or b's key
+    ``d - i``, whichever the tie rule takes first."""
+    w = a.shape[-1]
+    diag = torch.arange(2 * w, device=a.device).expand(a.shape[0], 2 * w)
+    i = co_rank(a, b, diag)
+    j = diag - i
+    av = a.gather(-1, i.clamp(max=w - 1))
+    bv = b.gather(-1, j.clamp(max=w - 1))
+    take_a = (j >= w) | ((i < w) & (av <= bv))
+    return torch.where(take_a, av, bv)
+
+
+#: Keys of K2's shared-memory tile (``csrc/tournament.cu``: ``TILE``).
+TOURNAMENT_TILE = 16384
+
+
+def tournament_launches(P: int, B: int) -> int:
+    """Kernel launches of one K2 call on a (P, B) matrix: one launch for the
+    rounds whose row pairs fit a tile of :data:`TOURNAMENT_TILE` keys (when
+    ``2B`` does), then one per wider round -- ``1 + log2(P*B / tile)`` for
+    ``B < tile``, ``log2(P)`` otherwise; 0 for one row.  The kernel's own
+    count is the C function ``tournament_launches``."""
+    n = P * B
+    if P == 1:
+        return 0
+    tile = min(n, TOURNAMENT_TILE)
+    count, w = 0, B
+    if 2 * w <= tile:
+        count, w = 1, tile
+    while w < n:
+        count, w = count + 1, 2 * w
+    return count
+
+
 def tournament_plain(x: torch.Tensor) -> torch.Tensor:
     """K2's plain version: merge the ``P`` sorted rows of ``x`` into one.
 
-    Round by round, as the kernel runs it: the flip stage against
-    ``2w-1-i``, then the ascending half-cleaners ``j = w/2 .. 1``.
+    Round by round, as the kernel merges: adjacent row pairs of width ``w``
+    become rows of ``2w`` by a merge at every co-rank (:func:`merge_pairs`).
     """
     P, B = x.shape
     if not (_is_pow2(P) and _is_pow2(B)):
         raise ValueError(f"tournament shape must be powers of two, got {tuple(x.shape)}")
-    flat = x.reshape(P * B)
+    n = P * B
+    flat = x.reshape(n)
     w = B
-    while w < P * B:
-        flat = _flip(flat, w)
-        j = w // 2
-        while j >= 1:
-            flat = _half_clean(flat, j)
-            j //= 2
+    while w < n:
+        pairs = flat.reshape(n // (2 * w), 2, w)
+        flat = merge_pairs(pairs[:, 0], pairs[:, 1]).reshape(n)
         w *= 2
     return flat
 
@@ -176,14 +227,16 @@ def tournament_plain(x: torch.Tensor) -> torch.Tensor:
 # Building and loading the CUDA kernels (shared helper: ``build.py``)
 # ---------------------------------------------------------------------------
 
-# (in, out, rows, B, stream) and (in, out, P, B, stream), for int32 and int64
+# (in, out, rows, B, stream), for int32 and int64
 build.register("row_sort", "row_sort.cu", {
     f"row_sort_{sfx}": [build.PTR, build.PTR, build.I64, build.INT, build.PTR]
     for sfx in ("i32", "i64")
 })
+# (in, out, scratch, P, B, stream), and the launch count of a (P, B) call
 build.register("tournament", "tournament.cu", {
-    f"tournament_{sfx}": [build.PTR, build.PTR, build.I64, build.I64, build.PTR]
-    for sfx in ("i32", "i64")
+    **{f"tournament_{sfx}": [build.PTR] * 3 + [build.I64, build.I64, build.PTR]
+       for sfx in ("i32", "i64")},
+    "tournament_launches": [build.I64, build.I64],
 })
 
 # (keys in, vals in, keys out, vals out, rows, n, stream), int32/int64 keys
@@ -258,10 +311,13 @@ def merge_tournament(x: torch.Tensor) -> torch.Tensor:
     if P == 1:
         return x.reshape(P * B).clone()  # one sorted row: no launch
     out = torch.empty(P * B, dtype=x.dtype, device=x.device)
+    # rounds ping-pong between out and scratch; one launch needs no scratch
+    scratch = torch.empty_like(out) if tournament_launches(P, B) > 1 else None
     fn = _kernel("tournament", x.dtype)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(x.data_ptr(), out.data_ptr(), P, B, stream)
+        err = fn(x.data_ptr(), out.data_ptr(), None if scratch is None else scratch.data_ptr(),
+                 P, B, stream)
     build.check_launch(err, "tournament")
     LAUNCHES["tournament"] += 1
     return out

@@ -12,24 +12,55 @@
 // any lengths: the ragged tails are bounds-checked here, where the TPU
 // wrapper demanded T % block_q == 0.
 //
-// What bounds it on an H100: operations.  A causal prefill at T = 2048,
-// D = 128 does 4 * T^2/2 * D = 1.07 GFLOP per head (34 GFLOP for 32 heads)
-// while it reads q, k, v and writes o once (42 MB per layer in bf16 with 8
-// kv heads): about 800 flops per byte, at the tensor cores' 989 TFLOP/s
-// dense bf16 rate 35 us per layer against 13 us for the bytes.  This first
-// kernel does its Q K^T and P V on the CUDA cores in f32 (no tensor cores,
-// no library call), so it sits far above that bound; its times are in
-// PERF.md.  Its design keeps everything but the output out of device
-// memory: one block of 256 threads per (64 query rows, q head, batch)
-// stages its pre-scaled Q tile in shared memory once, then streams 64-row K
-// and V tiles through shared memory; each thread owns a 4 x 4 block of the
-// score tile (float4 reads along D from rows padded to D + 4 floats, so
-// eight rows cover all 32 banks) and a 4 x D/16 block of the output
-// accumulator in registers.  The row max and sum of each tile are taken by
-// one warp per eight rows with shuffles.  Key tiles wholly above the
-// diagonal are never loaded, as _fa_kernel skips them.  Next steps:
-// 16-byte tile loads staged in registers (each thread now loads one element
-// per loop iteration), then mma.sync / wgmma on bf16 tiles.
+// What bounds it on an H100: operations.  A causal prefill at T = 1963,
+// D = 128, 32 q heads does 4 * T(T+1)/2 * D * 32 = 31.6 GFLOP while it reads
+// q, k, v and writes o once (40 MB in bf16 with 8 kv heads): about 800
+// flops per byte, so at the tensor cores' 989 TFLOP/s dense bf16 rate the
+// bound is 32 us against 12 us for the bytes.  The dtype picks one of two
+// hand-written kernels:
+//
+// * bfloat16 (the served models' type): flash_fwd_bf16, both products on
+//   the tensor cores with mma.sync.m16n8k16 (bf16 in, f32 accumulate), the
+//   FlashAttention-2 layout.  One block of 4 warps per (64 query rows, q
+//   head, batch), one warp per 16 rows: 64 rows keep the Q tile, the output
+//   accumulator (D/2 f32 per thread at D = 128) and a 16 x 64 score tile in
+//   registers with no spill (ptxas: 212 registers at D = 128, 160 at 64, 128
+//   at 32), and two blocks fit on an SM (87 KB of shared memory each at
+//   D = 128).  128 rows a block (two 16-row tiles a warp, each K and V
+//   fragment used twice) runs out of registers and spills at D = 128, and
+//   measured slower at D = 64 as well, so the block is 64 rows.  Q is staged once through shared memory and
+//   read into registers as A fragments with ldmatrix.  K and V come in
+//   64-row tiles, double-buffered in shared memory: cp.async of 16 bytes a
+//   thread, tile n+1 in flight while tile n is used; rows are padded to
+//   D + 8 elements so the eight 16-byte rows of an ldmatrix fall in distinct
+//   banks.  Rows at or beyond S (and query rows at or beyond T) load as zeros
+//   (cp.async with src-size 0), never stale shared memory, and their scores
+//   are masked before the max.  S = Q K^T accumulates in f32 registers; the
+//   scale is applied to S in f32 after the product (q is never rounded to
+//   bf16 pre-scaled).  The online softmax stays in registers: the row max is
+//   reduced over the quad of threads that holds a row (__shfl_xor_sync 1
+//   and 2).  P is rounded to bf16 in registers and used directly as the A
+//   fragment of P V: the m16n8 C-fragment layout is the m16n8k16
+//   A-fragment layout, so P never goes to shared memory; V is read with
+//   ldmatrix.trans.  The running sum l adds the rounded P, so the weights
+//   that multiply V sum to l exactly.  The output is divided by l once,
+//   cast, staged through the warp's own rows of the Q tile and stored with
+//   16-byte stores.  Causal key tiles wholly above the diagonal are never
+//   loaded and only tiles that reach the diagonal or the ragged end are
+//   masked; blockIdx.x is reversed so the heaviest query tiles start first.
+//   cp.async needs 16-byte-aligned rows: the wrapper raises on a base
+//   pointer or a row stride that is not (it never falls back).
+// * float32 (only the smoke configs' type; no full-width path runs it):
+//   flash_fwd<float, D>, a kernel on the CUDA cores.  TF32
+//   tensor cores keep 10 mantissa bits and cannot meet the float32 limit of
+//   2e-5 + 1e-3 |want|, so both products stay in f32 on the CUDA cores.
+//   One block of 256 threads per (64 query rows, head, batch) stages its
+//   pre-scaled Q tile in shared memory once, then streams 64-row K and V
+//   tiles through shared memory; each thread owns a 4 x 4 block of the
+//   score tile and a 4 x D/16 block of the output accumulator in registers.
+//
+// Times, bounds and the compiler's register and spill counts are in PERF.md
+// (chip_smoke.py measures them).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -43,16 +74,11 @@ constexpr int THREADS = 256;  // 16 x 16: ty owns 4 query rows; tx 4 key columns
 constexpr float NEG = -1e30f;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
 
 template <typename T>
 __device__ __forceinline__ T from_f32(float x);
 template <>
 __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 // Element strides of a (batch, row, head, D) tensor whose last axis is
 // contiguous.
@@ -211,6 +237,275 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// ---------------------------------------------------------------------------
+// bfloat16: the tensor-core kernel
+// ---------------------------------------------------------------------------
+
+using bf16 = __nv_bfloat16;
+
+constexpr int TC_WARPS = 4;             // one warp per 16 query rows
+constexpr int TC_THREADS = 32 * TC_WARPS;
+constexpr float LOG2E = 1.4426950408889634f;
+
+template <int D>
+constexpr size_t tc_smem_bytes() {
+  return 5 * BQ * (D + 8) * sizeof(bf16);  // Q, two K and two V tiles
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes from global to shared memory; src-size 0 writes 16 zero bytes.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(ok ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// c += a b for a 16 x 16 bf16 A fragment and a 16 x 8 B fragment.
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t as_u32(__nv_bfloat162 v) {
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// Fragment layouts (PTX ISA, mma.m16n8k16 with .bf16): lane = 4 g + t holds
+// C/D elements (g, 2t..2t+1) in c[0..1] and (g + 8, 2t..2t+1) in c[2..3];
+// A elements (g, 2t..), (g + 8, 2t..), (g, 2t + 8..), (g + 8, 2t + 8..) in
+// a[0..3]; B elements (k = 2t.., n = g) in b0 and (k = 2t + 8.., n = g) in b1.
+template <int D>
+__global__ void __launch_bounds__(TC_THREADS, 2)
+flash_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
+               const bf16* __restrict__ v, bf16* __restrict__ o, int T_len,
+               int S, int G, Strides qs, Strides ks, Strides vs, Strides os,
+               float scale, int causal) {
+  constexpr int LD = D + 8;     // padded shared row, elements
+  constexpr int CH = D / 8;     // 16-byte chunks per row
+  constexpr int KS = D / 16;    // k-steps of Q K^T
+  constexpr int NT = BK / 8;    // 8-key n-tiles of a score tile
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);  // BQ x LD, later the output
+  bf16* sK = sQ + BQ * LD;                       // 2 x BK x LD
+  bf16* sV = sK + 2 * BK * LD;                   // 2 x BK x LD
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;  // heaviest tiles first
+  const int h = blockIdx.y, b = blockIdx.z, kvh = h / G;
+  const bf16* qb = q + b * qs.b + h * qs.h;
+  const bf16* kb = k + b * ks.b + kvh * ks.h;
+  const bf16* vb = v + b * vs.b + kvh * vs.h;
+
+  for (int c = tid; c < BQ * CH; c += TC_THREADS) {
+    const int r = c / CH, ch = c % CH, t = q0 + r;
+    const bool ok = t < T_len;
+    cp_async16(smem_u32(sQ + r * LD + ch * 8), ok ? qb + t * qs.t + ch * 8 : qb, ok);
+  }
+  auto load_kv = [&](int k0, int buf) {
+    bf16* dk = sK + buf * BK * LD;
+    bf16* dv = sV + buf * BK * LD;
+    for (int c = tid; c < BK * CH; c += TC_THREADS) {
+      const int r = c / CH, ch = c % CH, s = k0 + r;
+      const bool ok = s < S;
+      cp_async16(smem_u32(dk + r * LD + ch * 8), ok ? kb + s * ks.t + ch * 8 : kb, ok);
+      cp_async16(smem_u32(dv + r * LD + ch * 8), ok ? vb + s * vs.t + ch * 8 : vb, ok);
+    }
+  };
+
+  // Causal: rows below q0 + BQ see no column at or beyond q0 + BQ.
+  const int kend = causal ? min(S, q0 + BQ) : S;
+  const int ntiles = (kend + BK - 1) / BK;
+  load_kv(0, 0);
+  cp_async_commit();
+
+  const int wrow = q0 + warp * 16;        // first query row of this warp
+  const int row_a = wrow + g, row_b = row_a + 8;
+  const float sl2 = scale * LOG2E;        // scores in the log2 domain
+  uint32_t qf[KS][4];
+  float acc[CH][4];
+#pragma unroll
+  for (int j = 0; j < CH; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+  float m_a = NEG, m_b = NEG, l_a = 0.f, l_b = 0.f;
+
+  for (int it = 0; it < ntiles; ++it) {
+    const int k0 = it * BK, buf = it & 1;
+    if (it + 1 < ntiles) {
+      load_kv(k0 + BK, buf ^ 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    if (it == 0) {
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk)
+        ldmatrix_x4(qf[kk], smem_u32(sQ + (warp * 16 + (lane & 15)) * LD +
+                                     kk * 16 + (lane >> 4) * 8));
+    }
+    const bf16* tk = sK + buf * BK * LD;
+    const bf16* tv = sV + buf * BK * LD;
+
+    // S = Q K^T for this warp's 16 rows and the tile's 64 keys.
+    float s[NT][4];
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+#pragma unroll
+      for (int nn = 0; nn < NT / 2; ++nn) {
+        uint32_t bfr[4];
+        const int key = nn * 16 + (lane & 7) + ((lane >> 4) << 3);
+        ldmatrix_x4(bfr, smem_u32(tk + key * LD + kk * 16 + ((lane >> 3) & 1) * 8));
+        mma_bf16(s[2 * nn], qf[kk], bfr[0], bfr[1]);
+        mma_bf16(s[2 * nn + 1], qf[kk], bfr[2], bfr[3]);
+      }
+    }
+
+    // Scale in f32, mask the diagonal tile and the ragged end, row max.
+    const bool masked = k0 + BK > S || (causal && k0 + BK - 1 > wrow);
+    float mx_a = NEG, mx_b = NEG;
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = s[j][e] * sl2;
+        if (masked) {
+          const int col = k0 + j * 8 + 2 * t4 + (e & 1);
+          const int row = e < 2 ? row_a : row_b;
+          if (col >= S || (causal && col > row)) x = NEG;
+        }
+        s[j][e] = x;
+      }
+      mx_a = fmaxf(mx_a, fmaxf(s[j][0], s[j][1]));
+      mx_b = fmaxf(mx_b, fmaxf(s[j][2], s[j][3]));
+    }
+#pragma unroll
+    for (int off = 1; off <= 2; off <<= 1) {
+      mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, off));
+      mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, off));
+    }
+    const float mn_a = fmaxf(m_a, mx_a), mn_b = fmaxf(m_b, mx_b);
+    const float al_a = exp2f(m_a - mn_a), al_b = exp2f(m_b - mn_b);
+    m_a = mn_a;
+    m_b = mn_b;
+    l_a *= al_a;
+    l_b *= al_b;
+#pragma unroll
+    for (int j = 0; j < CH; ++j) {
+      acc[j][0] *= al_a;
+      acc[j][1] *= al_a;
+      acc[j][2] *= al_b;
+      acc[j][3] *= al_b;
+    }
+
+    // P in bf16, straight into the A fragments of P V.
+    uint32_t pf[BK / 16][4];
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const __nv_bfloat162 pa = __floats2bfloat162_rn(exp2f(s[j][0] - mn_a), exp2f(s[j][1] - mn_a));
+      const __nv_bfloat162 pb = __floats2bfloat162_rn(exp2f(s[j][2] - mn_b), exp2f(s[j][3] - mn_b));
+      l_a += __low2float(pa) + __high2float(pa);
+      l_b += __low2float(pb) + __high2float(pb);
+      pf[j >> 1][(j & 1) * 2] = as_u32(pa);
+      pf[j >> 1][(j & 1) * 2 + 1] = as_u32(pb);
+    }
+
+    // acc += P V
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+#pragma unroll
+      for (int dn = 0; dn < CH / 2; ++dn) {
+        uint32_t bfr[4];
+        const int key = kk * 16 + (lane & 7) + (((lane >> 3) & 1) << 3);
+        ldmatrix_x4_trans(bfr, smem_u32(tv + key * LD + dn * 16 + (lane >> 4) * 8));
+        mma_bf16(acc[2 * dn], pf[kk], bfr[0], bfr[1]);
+        mma_bf16(acc[2 * dn + 1], pf[kk], bfr[2], bfr[3]);
+      }
+    }
+    __syncthreads();  // every warp is done with this buffer before its refill
+  }
+
+#pragma unroll
+  for (int off = 1; off <= 2; off <<= 1) {
+    l_a += __shfl_xor_sync(0xffffffffu, l_a, off);
+    l_b += __shfl_xor_sync(0xffffffffu, l_b, off);
+  }
+  const float inv_a = 1.f / (l_a == 0.f ? 1.f : l_a);
+  const float inv_b = 1.f / (l_b == 0.f ? 1.f : l_b);
+  // The warp's own 16 rows of the Q tile (read only by this warp) stage the
+  // output for 16-byte stores.
+  bf16* so = sQ + warp * 16 * LD;
+#pragma unroll
+  for (int j = 0; j < CH; ++j) {
+    const int col = j * 8 + 2 * t4;
+    *reinterpret_cast<__nv_bfloat162*>(so + g * LD + col) =
+        __floats2bfloat162_rn(acc[j][0] * inv_a, acc[j][1] * inv_a);
+    *reinterpret_cast<__nv_bfloat162*>(so + (g + 8) * LD + col) =
+        __floats2bfloat162_rn(acc[j][2] * inv_b, acc[j][3] * inv_b);
+  }
+  __syncwarp();
+  bf16* ob = o + b * os.b + h * os.h;
+  for (int c = lane; c < 16 * CH; c += 32) {
+    const int r = c / CH, ch = c % CH, t = wrow + r;
+    if (t < T_len)
+      *reinterpret_cast<uint4*>(ob + t * os.t + ch * 8) =
+          *reinterpret_cast<const uint4*>(so + r * LD + ch * 8);
+  }
+}
+
+template <int D>
+int launch_bf16_d(const void* q, const void* k, const void* v, void* o, int B,
+                  int T_len, int S, int H, int G, Strides qs, Strides ks,
+                  Strides vs, Strides os, float scale, int causal,
+                  cudaStream_t st) {
+  const size_t smem = tc_smem_bytes<D>();
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_bf16<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((T_len + BQ - 1) / BQ, H, B);
+  flash_fwd_bf16<D><<<grid, TC_THREADS, smem, st>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<bf16*>(o), T_len, S, G, qs, ks,
+      vs, os, scale, causal);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// Launch
+// ---------------------------------------------------------------------------
+
 template <typename T, int D>
 int launch_d(const void* q, const void* k, const void* v, void* o, int B,
              int T_len, int S, int H, int G, Strides qs, Strides ks,
@@ -239,16 +534,22 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
       vs{st6[6], st6[7], st6[8]}, os{st6[9], st6[10], st6[11]};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int G = H / KV;
+#define K5_CASE(DIM)                                                          \
+  case DIM:                                                                   \
+    if constexpr (sizeof(T) == 2)                                             \
+      return launch_bf16_d<DIM>(q, k, v, o, B, T_len, S, H, G, qs, ks, vs, os, \
+                                scale, causal, s);                            \
+    else                                                                      \
+      return launch_d<T, DIM>(q, k, v, o, B, T_len, S, H, G, qs, ks, vs, os,  \
+                              scale, causal, s);
   switch (D) {
-    case 32:
-      return launch_d<T, 32>(q, k, v, o, B, T_len, S, H, G, qs, ks, vs, os, scale, causal, s);
-    case 64:
-      return launch_d<T, 64>(q, k, v, o, B, T_len, S, H, G, qs, ks, vs, os, scale, causal, s);
-    case 128:
-      return launch_d<T, 128>(q, k, v, o, B, T_len, S, H, G, qs, ks, vs, os, scale, causal, s);
+    K5_CASE(32)
+    K5_CASE(64)
+    K5_CASE(128)
     default:
       return (int)cudaErrorInvalidValue;
   }
+#undef K5_CASE
 }
 
 }  // namespace

@@ -11,7 +11,12 @@ tensor on the CPU; for a CUDA tensor it launches the kernel or raises, and
 adds one to ``LAUNCHES["flash_attention"]``.
 
 Unlike the TPU wrapper, T and S may be any lengths (the kernel checks its
-ragged tails), and no block sizes are taken.
+ragged tails), and no block sizes are taken.  The dtype picks the kernel:
+bfloat16 runs both products on the tensor cores and copies its K/V tiles with
+16-byte ``cp.async``, so its q, k and v must start on 16-byte boundaries with
+row strides that are multiples of 8 elements (:func:`flash_attention` raises
+otherwise; the model's projections always are); float32 runs the CUDA-core
+kernel, which takes any stride.
 """
 
 from __future__ import annotations
@@ -76,6 +81,17 @@ def _check(q, k, v) -> None:
         raise ValueError(f"flash_attention: unsupported device {q.device}")
 
 
+def _check_aligned(*tensors) -> None:
+    """The bf16 kernel's 16-byte copies: every row (batch, position, head)
+    starts on a 16-byte boundary.  A stride of an axis of length 1 is never
+    used, so it is not checked."""
+    for t in tensors:
+        if t.data_ptr() % 16 or any(st % 8 for n, st in zip(t.shape[:3], t.stride()[:3]) if n > 1):
+            raise ValueError(
+                "flash_attention (bfloat16) takes rows aligned to 16 bytes: base pointer "
+                f"{t.data_ptr() % 16} bytes off, strides {t.stride()[:3]} (need multiples of 8)")
+
+
 def flash_attention(q, k, v, *, causal: bool = True, scale: float | None = None):
     """K5: q (B, T, H, d); k, v (B, S, KV, d); returns (B, T, H, d) in q's type."""
     _check(q, k, v)
@@ -89,6 +105,8 @@ def flash_attention(q, k, v, *, causal: bool = True, scale: float | None = None)
         raise ValueError("flash_attention needs at least one key")
     if any(t.stride(-1) != 1 for t in (q, k, v)):
         raise ValueError("flash_attention takes tensors whose last axis is contiguous")
+    if q.dtype == torch.bfloat16:
+        _check_aligned(q, k, v)
     scale = d**-0.5 if scale is None else scale
     out = torch.empty_like(q, memory_format=torch.contiguous_format)
     if B == 0 or T == 0:

@@ -25,6 +25,7 @@ from repro.kernels import ops as ref_ops
 from repro.models import attention as ref_attn
 from repro_torch.kernels import build
 from repro_torch.kernels.decode_attention import decode_attention, decode_attention_plain
+from repro_torch.kernels import flash_attention as fa_mod
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models import attention as port_attn
 
@@ -92,6 +93,67 @@ def test_k5_explicit_scale_and_wrapper_checks():
         flash_attention(tq, tk.to(torch.bfloat16), tv)
     with pytest.raises(ValueError, match="q \\(B,T,H,d\\)"):
         flash_attention(tq[0], tk, tv)
+
+
+def _k5_bf16_model(q, k, v, *, causal, tile=64):
+    """The bf16 kernel's numerics in torch, for these tests only: f32 scores
+    of the bf16 q and k with the scale applied after the product, an online
+    softmax over 64-key tiles, P rounded to bf16 before P V (the running sum
+    adds the rounded P), an f32 accumulator, one division by l, one cast."""
+    B, T, H, d = q.shape
+    S, KV = k.shape[1], k.shape[2]
+    qf = q.float().reshape(B, T, KV, H // KV, d)
+    kf, vf = k.float(), v.float()
+    m = torch.full((B, KV, H // KV, T), fa_mod.NEG_INF)
+    l = torch.zeros_like(m)
+    acc = torch.zeros((B, KV, H // KV, T, d))
+    rows = torch.arange(T)[:, None]
+    for k0 in range(0, S, tile):
+        kt, vt = kf[:, k0:k0 + tile], vf[:, k0:k0 + tile]
+        s = torch.einsum("btkgd,bskd->bkgts", qf, kt) * d**-0.5
+        if causal:
+            s = s.masked_fill(rows < torch.arange(k0, k0 + kt.shape[1])[None, :], fa_mod.NEG_INF)
+        m_new = torch.maximum(m, s.amax(-1))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(s - m_new[..., None]).to(torch.bfloat16).float()
+        l = alpha * l + p.sum(-1)
+        acc = alpha[..., None] * acc + torch.einsum("bkgts,bskd->bkgtd", p, vt)
+        m = m_new
+    out = acc / torch.where(l == 0, 1.0, l)[..., None]
+    return out.permute(0, 3, 1, 2, 4).reshape(B, T, H, d).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("T", [1, 7, 130])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("G", [3, 4])
+@pytest.mark.parametrize("d", [64, 128])
+def test_k5_bf16_numerics_model_matches_pallas_kernel(d, G, causal, T):
+    """P in bf16 fits: the model of the tensor-core kernel against the
+    reference Pallas kernel (interpret mode; one block where 64 does not
+    divide T), on a peaked softmax (q, k at 1.5 x a unit normal)."""
+    KV = 2
+    rng = np.random.default_rng(1000 * d + 10 * G + T + causal)
+    q = (rng.standard_normal((1, T, KV * G, d)) * 1.5).astype(np.float32)
+    k = (rng.standard_normal((1, T, KV, d)) * 1.5).astype(np.float32)
+    v = rng.standard_normal((1, T, KV, d)).astype(np.float32)
+    (jq, tq), (jk, tk), (jv, tv) = [_pair(a, "bfloat16") for a in (q, k, v)]
+    blk = 64 if T % 64 == 0 else T
+    want = ref_ops.flash_attention(jq, jk, jv, causal=causal, block_q=blk, block_k=blk, interpret=True)
+    got = _k5_bf16_model(tq, tk, tv, causal=causal)
+    assert got.dtype == torch.bfloat16 and got.shape == tq.shape
+    _close(got, want, "bfloat16")
+
+
+def test_k5_bf16_alignment_check():
+    """The bf16 kernel's 16-byte copies: a misaligned base or a row stride
+    that is not a multiple of 8 elements raises; a stride of a length-1 axis
+    is never used and is not checked."""
+    ok = torch.zeros((2, 4, 2, 32), dtype=torch.bfloat16)
+    fa_mod._check_aligned(ok, ok[:, :, :1], ok.as_strided((1, 4, 2, 32), (999, 64, 32, 1)))
+    with pytest.raises(ValueError, match="aligned to 16 bytes"):
+        fa_mod._check_aligned(torch.zeros((1, 4, 2, 33), dtype=torch.bfloat16)[..., :32])
+    with pytest.raises(ValueError, match="aligned to 16 bytes"):
+        fa_mod._check_aligned(torch.zeros((1, 4, 2, 40), dtype=torch.bfloat16)[..., 1:33])
 
 
 # -- K6 ----------------------------------------------------------------------

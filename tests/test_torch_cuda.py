@@ -15,7 +15,7 @@ import torch
 from repro_torch.core import mergesort
 from repro_torch.data.traces import random_trace
 from repro_torch import configs, models
-from repro_torch.kernels import bitonic, ops
+from repro_torch.kernels import bitonic, build, ops
 from repro_torch.kernels.decode_attention import decode_attention, decode_attention_plain
 from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
 from repro_torch.net.pipeline import run_pipeline
@@ -54,6 +54,39 @@ def test_tournament_kernel_equals_plain(gen, dtype, p, b):
     got = ops.merge_tournament(x)
     assert torch.equal(got, bitonic.tournament_plain(x))
     assert torch.equal(got, torch.sort(x.reshape(-1)).values)
+
+
+def _sorted_rows(gen, dtype, p, b, kind):
+    """(p, b) sorted rows padded with the dtype max: ``random`` keys with
+    ragged pads, ``all_pad`` rows, or ``all_equal`` keys."""
+    hi = torch.iinfo(dtype).max
+    if kind == "all_pad":
+        return torch.full((p, b), hi, dtype=dtype, device="cuda")
+    if kind == "all_equal":
+        return torch.full((p, b), 5, dtype=dtype, device="cuda")
+    x = torch.randint(0, 1 << 30, (p, b), dtype=dtype, device="cuda", generator=gen)
+    cut = torch.randint(1, b + 1, (p, 1), device="cuda", generator=gen)
+    x = torch.where(torch.arange(b, device="cuda")[None, :] < cut, x, hi)
+    return torch.sort(x, dim=1).values.contiguous()
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("p,b,kind", [
+    (64, 256, "all_pad"), (64, 256, "all_equal"), (1 << 15, 64, "all_equal"),
+    (2, 1 << 22, "random"),             # one pair spread over 2,048 blocks
+    (8, 1 << 15, "random"), (4, 1 << 16, "all_pad"),  # B >= the tile: no tile launch
+    (131_072, 64, "random"),            # the sort path's largest bucket
+])
+def test_tournament_merge_path_equals_plain(gen, dtype, p, b, kind):
+    """The merge-path rounds: exactly the plain merge and torch.sort, one
+    count per call, and the kernel's launch plan equal to the Python one."""
+    x = _sorted_rows(gen, dtype, p, b, kind)
+    bitonic.reset_launches()
+    got = bitonic.merge_tournament(x)
+    assert bitonic.LAUNCHES["tournament"] == 1
+    assert torch.equal(got, bitonic.tournament_plain(x))
+    assert torch.equal(got, torch.sort(x.reshape(-1)).values)
+    assert build.function("tournament", "tournament_launches")(p, b) == bitonic.tournament_launches(p, b)
 
 
 def test_wrappers_count_launches_and_check_inputs(gen):
@@ -175,6 +208,50 @@ def test_flash_attention_kernel_equals_plain(gen, B, T, H, KV, d, causal, dtype)
     got = flash_attention(q, k, v, causal=causal)
     assert bitonic.LAUNCHES["flash_attention"] == 1
     _assert_attention_close(got, flash_attention_plain(q, k, v, causal=causal))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,T,S,H,KV,d,causal", [
+    (1, 1963, 1963, 32, 8, 128, True),   # Mistral-Nemo-12B's largest prefill
+    (1, 1, 300, 4, 1, 32, False), (2, 7, 130, 6, 2, 64, False), (1, 130, 1000, 8, 2, 128, False),
+    (1, 130, 7, 6, 2, 32, False), (3, 7, 7, 12, 4, 64, True), (1, 130, 130, 8, 2, 128, True),
+    (2, 71, 71, 9, 3, 32, True),
+])
+def test_flash_attention_ragged_and_cross_lengths(gen, B, T, S, H, KV, d, causal, dtype):
+    """T = 1, T = 7 (mod 16), S != T, G = 3 and 4, every head dim."""
+    q = _randn(gen, (B, T, H, d), dtype, QK_SCALE)
+    k = _randn(gen, (B, S, KV, d), dtype, QK_SCALE)
+    v = _randn(gen, (B, S, KV, d), dtype)
+    bitonic.reset_launches()
+    got = flash_attention(q, k, v, causal=causal)
+    assert bitonic.LAUNCHES["flash_attention"] == 1
+    _assert_attention_close(got, flash_attention_plain(q, k, v, causal=causal))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [32, 64, 128])
+def test_flash_attention_reads_strided_views(gen, dtype, d):
+    """q, k and v as views of one fused (B, T, H + 2 KV, d) projection: last
+    axis contiguous, rows strided, read in place."""
+    B, T, H, KV = 2, 150, 8, 2
+    qkv = _randn(gen, (B, T, H + 2 * KV, d), dtype, QK_SCALE)
+    q, k, v = qkv[:, :, :H], qkv[:, :, H:H + KV], qkv[:, :, H + KV:]
+    for causal in (True, False):
+        got = flash_attention(q, k, v, causal=causal)
+        _assert_attention_close(got, flash_attention_plain(q, k, v, causal=causal))
+
+
+def test_flash_attention_bf16_raises_on_misaligned_rows(gen):
+    """A row stride that is not a multiple of 8 elements: the bf16 kernel's
+    16-byte copies cannot take it, and the wrapper raises (no fallback);
+    the f32 kernel reads the same layout."""
+    x = _randn(gen, (1, 64, 4, 33), torch.float32)[..., :32]
+    xb = _randn(gen, (1, 64, 4, 33), torch.bfloat16)[..., :32]
+    bitonic.reset_launches()
+    with pytest.raises(ValueError, match="aligned to 16 bytes"):
+        flash_attention(xb, xb, xb)
+    assert bitonic.LAUNCHES["flash_attention"] == 0
+    _assert_attention_close(flash_attention(x, x, x), flash_attention_plain(x, x, x))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -107,6 +107,75 @@ def test_tournament_plain_all_duplicates():
     np.testing.assert_array_equal(got, np.sort(mat.ravel()))
 
 
+def _stable_merge_counts(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """For every d in 0..|a|+|b|: how many of the first d keys of the stable
+    merge (a's key first on ties) come from a."""
+    order = np.argsort(np.concatenate([a, b]), kind="stable")
+    return np.concatenate([[0], np.cumsum(order < a.size)])
+
+
+def _co_rank_cases():
+    rng = np.random.default_rng(11)
+    w = 64
+    pads = np.full(w, I64_MAX, np.int64)
+    ramp = np.sort(rng.integers(0, 1000, w)).astype(np.int64)
+    dup_a = np.sort(rng.integers(0, 5, w)).astype(np.int64)
+    dup_b = np.sort(rng.integers(0, 5, w)).astype(np.int64)
+    return {
+        "all_pad_rows": (pads, pads.copy()),
+        "all_equal_keys": (np.full(w, 7, np.int64), np.full(w, 7, np.int64)),
+        "a_below_b": (ramp, ramp + 2000),
+        "a_above_b": (ramp + 2000, ramp),
+        "duplicates_and_pads": (np.where(np.arange(w) < 40, dup_a, I64_MAX),
+                                np.where(np.arange(w) < 9, dup_b, I64_MAX)),
+        "uneven_lengths": (dup_a[:13].copy(), dup_b.copy()),
+    }
+
+
+@pytest.mark.parametrize("case", list(_co_rank_cases()))
+def test_co_rank_partition_neither_overlaps_nor_gaps(case):
+    """K2's search at every diagonal 0..|a|+|b| of one pair: each split
+    takes exactly the keys the stable merge puts first, neighbouring
+    diagonals differ by one key (no overlap, no gap), and the tie rule
+    (a's key first when a[i] <= b[j]) holds at the cut."""
+    a, b = _co_rank_cases()[case]
+    na, nb = a.size, b.size
+    diag = torch.arange(na + nb + 1)[None]
+    i = bitonic.co_rank(torch.from_numpy(a)[None], torch.from_numpy(b)[None], diag)[0].numpy()
+    j = np.arange(na + nb + 1) - i
+    np.testing.assert_array_equal(i, _stable_merge_counts(a, b))
+    assert i[0] == 0 and i[-1] == na  # the diagonals at 0 and at |a| + |b|
+    assert set(np.diff(i)) <= {0, 1} and set(np.diff(j)) <= {0, 1}
+    for ii, jj in zip(i, j):
+        if 0 < ii and jj < nb:
+            assert a[ii - 1] <= b[jj]
+        if 0 < jj and ii < na:
+            assert b[jj - 1] < a[ii]
+    if na == nb:  # the merge that reads these cuts
+        merged = bitonic.merge_pairs(torch.from_numpy(a)[None], torch.from_numpy(b)[None])[0]
+        np.testing.assert_array_equal(merged.numpy(), np.sort(np.concatenate([a, b])))
+
+
+@pytest.mark.parametrize("dtype", [np.int32, np.int64])
+def test_tournament_plain_one_pair_of_wide_rows(dtype):
+    """P = 2: the whole round is one pair (the kernel spreads it over many
+    blocks); duplicates across the pair and ragged pads."""
+    rng = np.random.default_rng(5)
+    mat = _sorted_runs(rng, 2, 1 << 12, dtype, 50)
+    got = bitonic.tournament_plain(torch.from_numpy(mat)).numpy()
+    np.testing.assert_array_equal(got, np.sort(mat.ravel()))
+
+
+@pytest.mark.parametrize("p,b,want", [
+    (1, 8, 0), (2, 1, 1), (2, 2, 1), (4096, 2, 1), (1024, 16, 1),
+    (131_072, 64, 10),  # the sort path's largest bucket: 1 + log2(2^23 / 2^14)
+    (1 << 16, 128, 10), (2, 1 << 22, 1), (8, 1 << 15, 3), (2, 1 << 13, 1), (4, 1 << 13, 2),
+])
+def test_tournament_launch_plan(p, b, want):
+    """One tile launch while row pairs fit 16,384 keys, then one per round."""
+    assert bitonic.tournament_launches(p, b) == want
+
+
 def test_compare_exchange_matches_reference_stage():
     """One (k, j) stage of the port's network is the reference's stage."""
     from repro.kernels import bitonic as ref_bitonic

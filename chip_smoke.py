@@ -26,13 +26,16 @@ over granite-moe-3b-a800m).  Phases, one JSON line each:
 4. ``k3``, ``k4`` -- kernels K3 (key-value row sort, the MoE dispatch) and K4
    (row merge) against their plain versions, for exact equality (K3's
    values too, duplicate keys included): the MoE path's shapes, the
-   reference tests' shapes, and rows wide enough for device-memory stages
-   (K3 at 2^16 pairs, K4 at 2^14 and 2^17 elements);
+   reference tests' shapes, and rows wide enough for every kind of launch
+   (K3 up to 2^20 pairs, with its launches per call at each width, counted
+   as the kernel nodes of a CUDA graph of one call, held to
+   ``row_sort_kv_plan``; K4 at 2^14 and 2^17 elements);
 5. ``k5``, ``k6`` -- the attention kernels K5 (flash attention) and K6
    (decode attention) against their plain torch versions: head dims 32, 64,
    128, GQA groups 1, 3 and 4, causal or not, ragged T, S != T, strided
-   q/k/v views, Mistral's 1963-token prefill, lengths 1..S, float32 and
-   bfloat16, on inputs whose softmax is peaked (limits: ``attn_limit``);
+   q/k/v views, Mistral's 1963-token prefill, lengths 1..S (K6 also G 7
+   and 12, and slots of length 0), float32 and bfloat16, on inputs whose
+   softmax is peaked (limits: ``attn_limit``);
    the bf16 K5 wrapper must raise on rows that are not 16-byte aligned;
 6. ``serve``, ``serve_moe`` -- for Mistral-Nemo-12B and for
    granite-moe-3b-a800m: first the smoke config(s) in float32 on the card
@@ -55,10 +58,15 @@ over granite-moe-3b-a800m).  Phases, one JSON line each:
    shape and dtype its main path gave it (K4, on no path, at the shape of
    one K2 round on the sort path's largest bucket): launches, agreement with
    the plain version, and kernel, plain and library (``torch.sort``, or
-   ``scaled_dot_product_attention`` with ``enable_gqa``) times (CUDA events,
-   median of 10 after a warm-up) beside the bound;
+   ``scaled_dot_product_attention`` with ``enable_gqa``) times of one eager
+   call (CUDA events, median of 10 after a warm-up) beside the bound; then
+   the kernel's and the library call's device time per call of 24 calls
+   replayed as one CUDA graph (``graph_ms``, ``library_graph_ms``), which
+   leaves the host's cost of each call out.  K3's row adds the decode step's
+   1 x 32 and its measured launches per call;
 8. ``ptxas`` -- every kernel entry's registers, static shared memory and
-   spills, as the compiler reported them when it built the kernels.
+   spills, as the compiler reported them when it built the kernels; a
+   spill in any entry fails the run.
 
 Then the card's name and power limit, then ``{"ok": true, "device": ...}``.
 Any failed check exits non-zero before that line.  Without a CUDA device, or
@@ -149,6 +157,49 @@ def cuda_ms(fn, reps: int = 10) -> float:
         times.append(a.elapsed_time(b))
     times.sort()
     return times[len(times) // 2]
+
+
+def graph_ms(fn, calls: int = 24, reps: int = 10) -> float:
+    """Median device milliseconds per call of ``fn()``: ``calls`` calls
+    captured in one CUDA graph, replayed ``reps`` times after a warm-up,
+    CUDA events around each replay.  The host's Python and launch calls are
+    out of the window, the launches' gaps on the card are in it: the time
+    of a function of a few microseconds, which ``cuda_ms`` cannot see under
+    its host cost."""
+    import torch
+
+    fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / calls)
+    del graph
+    times.sort()
+    return times[len(times) // 2]
+
+
+def timings(kern, plain, lib) -> dict:
+    """A kernels-line row's times: one eager call of the kernel, its plain
+    version and the library call, and the kernel's and the library call's
+    time per call of a CUDA graph."""
+    return {"ms": cuda_ms(kern), "plain_ms": cuda_ms(plain), "library_ms": cuda_ms(lib),
+            "graph_ms": graph_ms(kern), "library_graph_ms": graph_ms(lib)}
 
 
 def exact(a, b) -> int:
@@ -388,11 +439,26 @@ def check_k3(bt, torch, keys, vals) -> int:
     return err
 
 
+def k3_launches(bt, keys, vals) -> int:
+    """K3's kernel launches in one call on ``keys``/``vals``: the kernel nodes
+    of a CUDA graph of that call; fails unless they are the Python plan's."""
+    from repro_torch.kernels import build
+
+    n = keys.shape[1]
+    launches = build.graph_kernel_launches(lambda: bt.sort_rows_kv(keys, vals))
+    if launches != len(bt.row_sort_kv_plan(n)):
+        fail(f"K3 launched {launches} kernels at n={n}, the Python plan {len(bt.row_sort_kv_plan(n))}")
+    return launches
+
+
 def phase_k3(bt, torch, gen) -> None:
     """The MoE path's shapes (the 1,963-token prefill's 15,704 assignments
     padded to 16,384; the decode step's 32), the reference tests' shapes
-    (unique keys; duplicate keys in four rows), int64 keys, and 2^16 pairs,
-    whose stages with j >= 16,384 run in device memory."""
+    (unique keys; duplicate keys in four rows), int64 keys, and duplicate
+    keys at every kind of launch: one chunk (64 .. 2,048 pairs), strided
+    launches (4,096 .. 2^15), device-memory passes (2^16 .. 2^20).  Each
+    width's launches per call, measured on its first case and held to
+    ``row_sort_kv_plan``."""
     cases = []
     for dtype in (torch.int32, torch.int64):
         cases += [dispatch_keys(torch, gen, 1, 16_384, 15_704, dtype),
@@ -401,13 +467,19 @@ def phase_k3(bt, torch, gen) -> None:
         for n in (8, 128, 512):
             perm = torch.randperm(n, device="cuda", generator=gen).to(dtype)[None, :]
             cases.append((perm, (perm * 7 + 1).to(torch.int32)))
-        for n in (16, 256, 1 << 16):
-            keys = torch.randint(0, 7, (4, n), dtype=dtype, device="cuda", generator=gen)
-            cases.append((keys, torch.arange(4 * n, dtype=torch.int32, device="cuda").reshape(4, n)))
+        for rows, n in ((4, 16), (4, 256), (4, 1 << 16), (3, 64), (2, 2048), (4, 4096), (1, 1 << 15),
+                        (2, 1 << 17), (1, 1 << 20)):
+            keys = torch.randint(0, 7 if n < 4096 else 1000, (rows, n), dtype=dtype, device="cuda",
+                                 generator=gen)
+            cases.append((keys, torch.arange(rows * n, dtype=torch.int32, device="cuda").reshape(rows, n)))
     worst = max(check_k3(bt, torch, k, v) for k, v in cases)
     torch.cuda.synchronize()
-    emit({"phase": "k3", "cases": len(cases), "max_abs_err": worst,
-          "widest": max(k.shape[1] for k, _ in cases)})
+    by_width = {}
+    for k, v in cases:
+        by_width.setdefault(k.shape[1], (k, v))
+    emit({"phase": "k3", "cases": len(cases), "max_abs_err": worst, "widest": max(by_width),
+          "chunk": bt.ROW_SORT_KV_CHUNK,
+          "launches_per_call": {str(n): k3_launches(bt, *by_width[n]) for n in sorted(by_width)}})
 
 
 def sorted_halves(torch, gen, rows: int, b: int, dtype):
@@ -456,14 +528,23 @@ def bitonic_rows(torch, bt, gen, k3_shape, k3_dtype, k3_real: int, launches) -> 
     err = check_k3(bt, torch, keys, vals)
     b_bytes, ce = k3_work(keys.shape[0], keys.shape[1], keys.element_size())
     b_ms, b_by = bound(b_bytes, ce, keys.element_size(), OPS_PER_KV_COMPARE_EXCHANGE)
+    # the decode step's row (1 x 32): 2,048 of the run's 2,304 launches
+    dk, dv = dispatch_keys(torch, gen, 1, 32, 32, k3_dtype)
+    err = max(err, check_k3(bt, torch, dk, dv))
+    d_bytes, d_ce = k3_work(1, 32, dk.element_size())
+    d_ms, d_by = bound(d_bytes, d_ce, dk.element_size(), OPS_PER_KV_COMPARE_EXCHANGE)
+    def timed(k, v) -> dict:
+        return timings(lambda: bt.sort_rows_kv(k, v), lambda: bt.sort_rows_kv_plain(k, v),
+                       lambda: torch.sort(k, dim=1, stable=True))
+
     rows.append({
         "name": "row_sort_kv", "route": "cuda", "source": "src/repro_torch/kernels/csrc/row_sort_kv.cu",
         "replaces": "src/repro/kernels/bitonic.py:201", "launches": launches["row_sort_kv"],
         "max_abs_err": err, "shape": list(keys.shape), "dtype": str(keys.dtype).replace("torch.", ""),
-        "ms": cuda_ms(lambda: bt.sort_rows_kv(keys, vals)),
-        "plain_ms": cuda_ms(lambda: bt.sort_rows_kv_plain(keys, vals)),
-        "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": cuda_ms(lambda: torch.sort(keys, dim=1, stable=True)),
+        "launches_per_call": k3_launches(bt, keys, vals),
+        **timed(keys, vals), "bound_ms": b_ms, "bound_by": b_by,
+        "decode": {"shape": list(dk.shape), "launches_per_call": k3_launches(bt, dk, dv),
+                   **timed(dk, dv), "bound_ms": d_ms, "bound_by": d_by},
     })
     a, b = sorted_halves(torch, gen, 65_536, 64, torch.int64)
     err = check_k4(bt, torch, a, b)
@@ -473,11 +554,11 @@ def bitonic_rows(torch, bt, gen, k3_shape, k3_dtype, k3_real: int, launches) -> 
         "name": "merge_rows", "route": "cuda", "source": "src/repro_torch/kernels/csrc/merge_rows.cu",
         "replaces": "src/repro/kernels/bitonic.py:230", "launches": launches["merge_rows"],
         "max_abs_err": err, "shape": [list(a.shape), list(b.shape)], "dtype": "int64",
-        "ms": cuda_ms(lambda: bt.merge_rows(a, b)), "plain_ms": cuda_ms(lambda: bt.merge_rows_plain(a, b)),
+        **timings(lambda: bt.merge_rows(a, b), lambda: bt.merge_rows_plain(a, b),
+                  lambda: torch.sort(torch.cat([a, b], dim=-1), dim=-1)),
         "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": cuda_ms(lambda: torch.sort(torch.cat([a, b], dim=-1), dim=-1)),
     })
-    del keys, vals, a, b
+    del keys, vals, dk, dv, a, b
     torch.cuda.empty_cache()
     return rows
 
@@ -662,12 +743,17 @@ def phase_k5(fa, torch, gen) -> None:
 
 
 def phase_k6(da, torch, gen) -> None:
+    """Head dims 32, 64, 128 x G 1, 3, 4, 7, 12 x caches of 1, 300 and 4096
+    positions: lengths 1, S and random between; then slots of length 0
+    (every position masked: the mean of v over the cache) beside a length
+    past S.  float32 and bfloat16, limits ``attn_limit``; the last layer's
+    slice of stacked caches, read in place."""
     worst = {"float32": 0.0, "bfloat16": 0.0}
     cases = 0
     for name in worst:
         dt = getattr(torch, name)
         for d in (32, 64, 128):
-            for g in (1, 3, 4):
+            for g in (1, 3, 4, 7, 12):
                 for b, s in ((1, 1), (3, 300), (4, 4096)):
                     kv = 8 if s == 4096 else 2
                     lengths = torch.randint(1, s + 1, (b,), generator=gen, device="cuda", dtype=torch.int32)
@@ -676,8 +762,13 @@ def phase_k6(da, torch, gen) -> None:
                     err, _ = check_k6(da, torch, gen, (b, kv * g, d), (b, s, kv, d), dt, lengths)
                     worst[name] = max(worst[name], err)
                     cases += 1
+                lengths = torch.tensor([0, 7, 1000, 0], dtype=torch.int32, device="cuda")
+                err, _ = check_k6(da, torch, gen, (4, 2 * g, d), (4, 777, 2, d), dt, lengths)
+                worst[name] = max(worst[name], err)
+                cases += 1
     torch.cuda.synchronize()
-    emit({"phase": "k6", "cases": cases, "max_abs_err": worst})
+    emit({"phase": "k6", "cases": cases, "max_abs_err": worst, "block_s": da.BLOCK_S,
+          "length_zero_slots": True})
 
 
 class AttnRecorder:
@@ -1046,11 +1137,10 @@ def attention_rows(torch, serve: dict, gen) -> list[dict]:
         "replaces": "src/repro/kernels/flash_attention.py:85",
         "launches": serve["launches"]["flash_attention"], "max_abs_err": err,
         "shape": {"q": list(k5.q_shape), "kv": list(k5.kv_shape), "causal": k5.causal}, "dtype": name,
-        "ms": cuda_ms(lambda: fa.flash_attention(q, k, v, causal=k5.causal)),
-        "plain_ms": cuda_ms(lambda: fa.flash_attention_plain(q, k, v, causal=k5.causal)),
+        **timings(lambda: fa.flash_attention(q, k, v, causal=k5.causal),
+                  lambda: fa.flash_attention_plain(q, k, v, causal=k5.causal),
+                  lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=k5.causal, enable_gqa=True)),
         "bound_ms": b_ms, "bound_by": b_by, "flops": flops, "bytes": bytes_,
-        "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=k5.causal, enable_gqa=True)),
     })
     del q, k, v, qt, kt, vt
 
@@ -1081,12 +1171,12 @@ def attention_rows(torch, serve: dict, gen) -> list[dict]:
         "replaces": "src/repro/kernels/decode_attention.py:74",
         "launches": serve["launches"]["decode_attention"], "max_abs_err": err,
         "shape": {"q": list(k6.q_shape), "cache": list(k6.kv_shape), "lengths": serve["k6_lengths"]},
-        "dtype": name,
-        "ms": cuda_ms(cycling(lambda kk, vv: da.decode_attention(q, kk, vv, lengths))),
-        "plain_ms": cuda_ms(cycling(lambda kk, vv: da.decode_attention_plain(q, kk, vv, lengths))),
+        "dtype": name, "block_s": da.BLOCK_S,
+        **timings(cycling(lambda kk, vv: da.decode_attention(q, kk, vv, lengths)),
+                  cycling(lambda kk, vv: da.decode_attention_plain(q, kk, vv, lengths)),
+                  cycling(lambda kk, vv: F.scaled_dot_product_attention(
+                      qs, kk.transpose(1, 2), vv.transpose(1, 2), attn_mask=mask, enable_gqa=True))),
         "bound_ms": b_ms, "bound_by": b_by, "flops": flops, "bytes": bytes_,
-        "library_ms": cuda_ms(cycling(lambda kk, vv: F.scaled_dot_product_attention(
-            qs, kk.transpose(1, 2), vv.transpose(1, 2), attn_mask=mask, enable_gqa=True))),
     })
     del q, kc, vc
     torch.cuda.empty_cache()
@@ -1115,8 +1205,8 @@ def sort_rows_of(torch, bt, gen, launches, k1_in, k2_in) -> list[dict]:
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
             "launches": launches[name], "max_abs_err": err,
             "shape": list(x.shape), "dtype": str(x.dtype).replace("torch.", ""),
-            "ms": cuda_ms(lambda: kern(x)), "plain_ms": cuda_ms(lambda: plain(x)),
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": cuda_ms(lambda: lib(x)),
+            **timings(lambda: kern(x), lambda: plain(x), lambda: lib(x)),
+            "bound_ms": b_ms, "bound_by": b_by,
         })
     del x1, x2
     torch.cuda.empty_cache()
@@ -1150,6 +1240,9 @@ def ptxas_line(build) -> dict:
             if m:
                 smem = re.search(r"(\d+) bytes smem", line)
                 cur.update(registers=int(m.group(1)), smem_static_bytes=int(smem.group(1)) if smem else 0)
+    spilled = [r for r in rows if r.get("spill_stores") or r.get("spill_loads")]
+    if spilled:
+        fail(f"ptxas reports spills in {[(r['library'], r['kernel']) for r in spilled]}")
     cxxfilt = shutil.which("c++filt")
     if cxxfilt and rows:
         names = subprocess.run([cxxfilt], input="\n".join(r["kernel"] for r in rows), capture_output=True,

@@ -10,7 +10,8 @@ here as CUDA C++ for ``sm_90a`` (sources under ``csrc/``):
   ``tournament_tiles``);
 * **K3** :func:`sort_rows_kv` -- key-value sort of every row, int32 values
   following int32/int64 keys, not stable (``csrc/row_sort_kv.cu``; replaces
-  ``sort_tiles_kv``): the MoE dispatch's argsort;
+  ``sort_tiles_kv``): the MoE dispatch's argsort, in the launches of
+  :func:`row_sort_kv_plan`;
 * **K4** :func:`merge_rows` -- row-wise merge of two sorted ``(rows, B)``
   matrices into ``(rows, 2B)`` (``csrc/merge_rows.cu``; replaces
   ``merge_tiles``).
@@ -202,6 +203,59 @@ def tournament_launches(P: int, B: int) -> int:
     while w < n:
         count, w = count + 1, 2 * w
     return count
+
+
+_ITEMS, _THREADS, _GROUP = build.source_constants("row_sort_kv.cu", "ITEMS", "THREADS", "GROUP")
+
+#: Pairs one K3 block holds (``csrc/row_sort_kv.cu``: ``CHUNK``, ``THREADS``
+#: threads x ``ITEMS`` pairs in registers).
+ROW_SORT_KV_CHUNK = _ITEMS * _THREADS
+
+#: Most elements a thread of K3's strided launch holds (``GROUP``): its
+#: stages reach pairs up to ``ROW_SORT_KV_CHUNK * ROW_SORT_KV_GROUP / 2``
+#: apart; wider stages are device-memory passes.
+ROW_SORT_KV_GROUP = _GROUP
+
+
+def row_sort_kv_plan(n: int) -> list[tuple[str, list[tuple[int, int]]]]:
+    """The kernel launches of one K3 call on rows of ``n`` pairs, in order,
+    each ``(kind, stages)`` with the ``(k, j)`` stages it runs; together the
+    stages are :func:`_stages` of ``n``, in order.
+
+    * ``"chunk"``: one block per ``C = min(n, ROW_SORT_KV_CHUNK)`` pairs
+      runs stages with ``j < C`` (first every stage with ``k <= C``, then
+      ``j = C/2 .. 1`` of one ``k``);
+    * ``"strided"``: a thread holds the ``2 j_first / C`` elements
+      ``i + m C`` that stages ``j = j_first .. C`` of one ``k`` connect;
+    * ``"global"``: one device-memory pass of one stage with
+      ``j >= C * ROW_SORT_KV_GROUP``.
+
+    For ``k > C``: the device-memory passes, one strided launch, one chunk
+    launch.  No launch for ``n < 2``.  The kernel's C ``plan`` runs the same
+    loop."""
+    if n < 2:
+        return []
+    c = min(n, ROW_SORT_KV_CHUNK)
+    plan = [("chunk", list(_stages(c)))]
+    k = 2 * c
+    while k <= n:
+        j = k // 2
+        while j >= ROW_SORT_KV_CHUNK * ROW_SORT_KV_GROUP:
+            plan.append(("global", [(k, j)]))
+            j //= 2
+        plan.append(("strided", [(k, jj) for jj in _halvings(j, ROW_SORT_KV_CHUNK)]))
+        plan.append(("chunk", [(k, jj) for jj in _halvings(ROW_SORT_KV_CHUNK // 2, 1)]))
+        k *= 2
+    return plan
+
+
+def _halvings(hi: int, lo: int) -> list[int]:
+    """``hi, hi/2, ..., lo`` (powers of two)."""
+    out = []
+    while hi >= lo:
+        out.append(hi)
+        hi //= 2
+    return out
 
 
 def tournament_plain(x: torch.Tensor) -> torch.Tensor:

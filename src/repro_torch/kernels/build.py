@@ -11,6 +11,7 @@ Nothing is compiled or loaded when a module is imported.
 
 :data:`LAUNCHES` is the one launch record of every kernel: a wrapper adds one
 to its entry where it launches its kernel on the card, and nowhere else.
+:func:`graph_kernel_launches` counts the kernels one call puts on the card.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -50,6 +52,20 @@ def register(name: str, source: str, exports: dict[str, list]) -> None:
     _SOURCES[name] = source
     _EXPORTS[name] = dict(exports)
     LAUNCHES.setdefault(name, 0)
+
+
+def source_constants(source: str, *names: str) -> list[int]:
+    """The integer values of ``constexpr int NAME = <literal>;`` in
+    ``csrc/<source>``, so that Python reads a kernel's layout constants from
+    the one place they are set.  Reads text only: nothing is built."""
+    text = (_CSRC / source).read_text()
+    out = []
+    for name in names:
+        m = re.search(rf"constexpr int {name} = (\d+);", text)
+        if m is None:
+            raise ValueError(f"{source} sets no constexpr int {name}")
+        out.append(int(m.group(1)))
+    return out
 
 
 def reset_launches() -> None:
@@ -129,3 +145,39 @@ def function(name: str, fn: str):
 def check_launch(err: int, op: str) -> None:
     if err:
         raise RuntimeError(f"{op} kernel launch failed with CUDA error {err}")
+
+
+#: ``CU_GRAPH_NODE_TYPE_KERNEL`` of ``cuda.h``.
+_KERNEL_NODE = 0
+
+
+def graph_kernel_launches(fn) -> int:
+    """Kernels that one call of ``fn()`` launches on the card: the call is
+    captured into a CUDA graph and the graph's kernel nodes are counted
+    (``cuGraphGetNodes``, ``cuGraphNodeGetType``).  ``fn`` runs once before
+    the capture so that its libraries are built and loaded outside it."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        fn()
+    libcuda = ctypes.CDLL("libcuda.so.1")
+    handle = ctypes.c_void_p(graph.raw_cuda_graph())
+    count = ctypes.c_size_t(0)
+    _check_cu(libcuda.cuGraphGetNodes(handle, None, ctypes.byref(count)), "cuGraphGetNodes")
+    nodes = (ctypes.c_void_p * count.value)()
+    _check_cu(libcuda.cuGraphGetNodes(handle, nodes, ctypes.byref(count)), "cuGraphGetNodes")
+    kernels = 0
+    kind = ctypes.c_int(0)
+    for node in nodes:
+        _check_cu(libcuda.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)), "cuGraphNodeGetType")
+        kernels += kind.value == _KERNEL_NODE
+    graph.reset()
+    return kernels
+
+
+def _check_cu(err: int, call: str) -> None:
+    if err:
+        raise RuntimeError(f"{call} returned CUresult {err}")

@@ -4,10 +4,14 @@ Counterpart of :mod:`repro.kernels.decode_attention`: one query token per
 head, q ``(B, H, d)``, against a KV cache ``(B, S, KV, d)`` of which the
 first ``lengths[b]`` positions are visible; the ``G = H // KV`` query heads
 of a kv head share its rows.  The kernel is ``csrc/decode_attention.cu``
-(CUDA C++ for ``sm_90a``): it splits the sequence into ``BLOCK_S`` slices
-and merges their partial softmaxes by log-sum-exp, as the TPU kernel merges
-its cache blocks.  It reads the cache in place through its strides, so a
-layer's slice of the model's stacked cache is passed as it is -- no copy.
+(CUDA C++ for ``sm_90a``): it splits the sequence into ``BLOCK_S`` slices,
+streams each slice's rows through registers with 16-byte loads, and merges
+the partial softmaxes by log-sum-exp, as the TPU kernel merges its cache
+blocks.  It reads the cache in place through its strides, so a layer's slice
+of the model's stacked cache is passed as it is -- no copy; every row must
+start on a 16-byte boundary (the wrapper raises otherwise).  A slot of
+length 0 sees every position masked to ``NEG_INF``: a uniform softmax, the
+mean of v over the cache, as in the reference.
 :func:`decode_attention_plain` computes the same function in plain torch.
 :func:`decode_attention` takes the plain version only for a tensor on the
 CPU; for a CUDA tensor it launches the kernel or raises, and adds one to
@@ -22,10 +26,15 @@ import torch
 
 from . import build
 from .build import LAUNCHES
-from .flash_attention import HEAD_DIMS, NEG_INF
+from .flash_attention import HEAD_DIMS, NEG_INF, _check_aligned
 
-#: Cache positions per block of the kernel's first pass.
-BLOCK_S = 256
+#: Cache positions per block of the kernel's first pass.  Mistral-Nemo-12B's
+#: largest smoke step (5,720 visible positions x 8 kv heads) gives 368
+#: blocks of 4 warps, each warp 32 rows at bf16 D = 128: one wave, since 162
+#: registers a thread let three blocks share an SM.  64 (twice the blocks,
+#: twice the partials to merge) and 256 (too few blocks) ran slower on an
+#: H100 (PERF.md has the three times and the card).
+BLOCK_S = 128
 
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
@@ -91,6 +100,7 @@ def decode_attention(q, kcache, vcache, lengths, *, scale: float | None = None):
         raise TypeError("decode_attention takes contiguous int32 lengths")
     if any(t.stride(-1) != 1 for t in (q, kcache, vcache)):
         raise ValueError("decode_attention takes tensors whose last axis is contiguous")
+    _check_aligned(q, kcache, vcache, op="decode_attention")
     scale = d**-0.5 if scale is None else scale
     out = torch.empty((B, H, d), dtype=q.dtype, device=q.device)
     if B == 0:

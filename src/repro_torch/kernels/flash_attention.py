@@ -81,15 +81,16 @@ def _check(q, k, v) -> None:
         raise ValueError(f"flash_attention: unsupported device {q.device}")
 
 
-def _check_aligned(*tensors) -> None:
-    """The bf16 kernel's 16-byte copies: every row (batch, position, head)
-    starts on a 16-byte boundary.  A stride of an axis of length 1 is never
-    used, so it is not checked."""
+def _check_aligned(*tensors, op: str = "flash_attention (bfloat16)") -> None:
+    """16-byte copies of whole rows (K5's bf16 kernel, K6): every row (each
+    index of the axes before the last) starts on a 16-byte boundary.  A
+    stride of an axis of length 1 is never used, so it is not checked."""
     for t in tensors:
-        if t.data_ptr() % 16 or any(st % 8 for n, st in zip(t.shape[:3], t.stride()[:3]) if n > 1):
+        step, lead = 16 // t.element_size(), t.dim() - 1
+        if t.data_ptr() % 16 or any(st % step for n, st in zip(t.shape[:lead], t.stride()[:lead]) if n > 1):
             raise ValueError(
-                "flash_attention (bfloat16) takes rows aligned to 16 bytes: base pointer "
-                f"{t.data_ptr() % 16} bytes off, strides {t.stride()[:3]} (need multiples of 8)")
+                f"{op} takes rows aligned to 16 bytes: base pointer {t.data_ptr() % 16} bytes off, "
+                f"strides {t.stride()[:lead]} (need multiples of {step})")
 
 
 def flash_attention(q, k, v, *, causal: bool = True, scale: float | None = None):

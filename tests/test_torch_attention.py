@@ -24,7 +24,7 @@ from repro.kernels.decode_attention import decode_attention as ref_decode_attent
 from repro.kernels import ops as ref_ops
 from repro.models import attention as ref_attn
 from repro_torch.kernels import build
-from repro_torch.kernels.decode_attention import decode_attention, decode_attention_plain
+from repro_torch.kernels.decode_attention import BLOCK_S, decode_attention, decode_attention_plain
 from repro_torch.kernels import flash_attention as fa_mod
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models import attention as port_attn
@@ -185,6 +185,106 @@ def test_k6_plain_matches_pallas_kernel(B, S, H, KV, d, lengths, name):
     got = decode_attention(tq, tk, tv, tl)
     assert got.dtype == tq.dtype and got.shape == tq.shape
     _close(got, want, name)
+
+
+def _k6_split_model(q, kc, vc, lengths, *, warps=4, unroll=4, gq=4):
+    """K6's split in torch, for these tests only, in f32: ``BLOCK_S``-row
+    blocks; in each, a warp's row groups (``32 / lanes per row`` of them,
+    ``16 / itemsize`` elements a lane) each run an online softmax over their
+    rows, ``unroll`` rows at a time; the row groups merge pairwise as the
+    xor butterfly pairs them, the warps through the block; the visible
+    blocks merge by LSE.  Query heads run in groups of ``gq``.  A slot of
+    length 0 sees every position at the mask value."""
+    B, H, d = q.shape
+    S, KV = kc.shape[1], kc.shape[2]
+    G = H // KV
+    lanes = d // (16 // q.element_size())
+    rpw = 32 // lanes
+    rpi = rpw * unroll * warps
+    qf = q.float().reshape(B, KV, G, d) * d**-0.5
+    kf, vf = kc.float().permute(0, 2, 1, 3), vc.float().permute(0, 2, 1, 3)  # (B, KV, S, d)
+    ln = lengths.long()
+    empty = (ln <= 0)[:, None, None, None]
+    vis = torch.where(ln <= 0, S, ln.clamp(max=S))
+
+    def merge(parts):
+        mm = torch.stack([m for m, _, _ in parts]).amax(0)
+        ws = [torch.exp(m - mm) for m, _, _ in parts]
+        return (mm, sum(l * w for (_, l, _), w in zip(parts, ws)),
+                sum(a * w[..., None] for (_, _, a), w in zip(parts, ws)))
+
+    out = torch.zeros(B, KV, G, d)
+    for g0 in range(0, G, gq):
+        qg = qf[:, :, g0:g0 + gq]
+        blocks = []
+        for s0 in range(0, S, BLOCK_S):
+            s_end = vis.clamp(max=s0 + BLOCK_S)[:, None]
+            per_warp = []
+            for w in range(warps):
+                groups = []
+                for rg in range(rpw):
+                    m = torch.full(qg.shape[:3], fa_mod.NEG_INF)
+                    l = torch.zeros_like(m)
+                    acc = torch.zeros_like(qg)
+                    for it in range(s0, s0 + BLOCK_S, rpi):
+                        rows = torch.tensor([it + (w * unroll + u) * rpw + rg for u in range(unroll)])
+                        ok = (rows[None, :] < s_end)[:, None, None, :]
+                        rc = rows.clamp(max=S - 1)
+                        sc = torch.einsum("bkgd,bkud->bkgu", qg, kf[:, :, rc])
+                        sc = torch.where(empty, fa_mod.NEG_INF, sc)
+                        mx = torch.maximum(m, torch.where(ok, sc, fa_mod.NEG_INF).amax(-1))
+                        p = torch.where(ok, torch.exp(sc - mx[..., None]), 0.0)
+                        alpha = torch.exp(m - mx)
+                        l = l * alpha + p.sum(-1)
+                        acc = acc * alpha[..., None] + torch.einsum("bkgu,bkud->bkgd", p, vf[:, :, rc])
+                        m = mx
+                    groups.append((m, l, acc))
+                while len(groups) > 1:  # the xor butterfly: partners 1, 2, 4 apart
+                    groups = [merge(groups[i:i + 2]) for i in range(0, len(groups), 2)]
+                per_warp.append(groups[0])
+            blk = merge(per_warp)
+            seen = (s0 < vis)[:, None, None]
+            blocks.append((torch.where(seen, blk[0], fa_mod.NEG_INF), torch.where(seen, blk[1], 0.0),
+                           torch.where(seen[..., None], blk[2], 0.0)))
+        _, l, acc = merge(blocks)
+        out[:, :, g0:g0 + gq] = acc / torch.where(l == 0, 1.0, l)[..., None]
+    return out.reshape(B, H, d).to(q.dtype)
+
+
+@pytest.mark.parametrize("name", list(DTYPES))
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("G", [1, 3, 4, 7, 12, 16])
+def test_k6_split_model_matches_reference_and_plain(G, d, name):
+    """The kernel's split (row groups, warps, ``BLOCK_S`` blocks, heads in
+    fours) against the reference's Pallas kernel (interpret mode) and the
+    plain version, at lengths 0 (every position masked: the mean of v), 1,
+    S and ragged, over three blocks of ``BLOCK_S``."""
+    B, S, KV = 4, 3 * BLOCK_S, 2
+    (jq, tq), (jk, tk), (jv, tv), (jl, tl) = _decode_inputs(
+        100 * G + d, B, S, KV * G, KV, d, name, [0, 1, S, BLOCK_S + 37])
+    want = ref_decode_attention(jq, jk, jv, jl, block_s=BLOCK_S, interpret=True)
+    got = _k6_split_model(tq, tk, tv, tl)
+    assert got.dtype == tq.dtype and got.shape == tq.shape
+    _close(got, want, name)
+    _close(got, decode_attention_plain(tq, tk, tv, tl).float(), name)
+    np.testing.assert_allclose(got[0].float().numpy(), tv[0].float().mean(0).repeat_interleave(G, 0).numpy(),
+                               **_tol(name))
+
+
+def test_k6_alignment_check():
+    """K6's 16-byte loads, by element size: a misaligned base or a row
+    stride that is not a multiple of 16 bytes raises (8 bf16 or 4 f32
+    elements), on q (B, H, d) and caches (B, S, KV, d) alike; a stride of a
+    length-1 axis is not used."""
+    ok = torch.zeros((2, 4, 3, 32), dtype=torch.bfloat16)
+    fa_mod._check_aligned(ok, ok[:, :, :1], ok.float(), ok.as_strided((1, 4, 3, 32), (999, 96, 32, 1)),
+                          torch.zeros((3, 4, 36))[..., :32], op="decode_attention")
+    with pytest.raises(ValueError, match="decode_attention takes rows aligned to 16 bytes"):
+        fa_mod._check_aligned(torch.zeros((1, 4, 2, 33), dtype=torch.bfloat16)[..., :32], op="decode_attention")
+    with pytest.raises(ValueError, match="aligned to 16 bytes"):
+        fa_mod._check_aligned(torch.zeros((1, 4, 2, 34))[..., 1:33], op="decode_attention")
+    with pytest.raises(ValueError, match="multiples of 4"):
+        fa_mod._check_aligned(torch.zeros((3, 4, 34))[..., :32], op="decode_attention")
 
 
 def test_k6_reads_a_strided_cache_view_in_place():

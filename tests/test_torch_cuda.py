@@ -105,10 +105,15 @@ def test_wrappers_count_launches_and_check_inputs(gen):
 
 @pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
 @pytest.mark.parametrize("rows,n,hi", [(1, 32, 48), (1, 16_384, 48), (4, 16, 7), (1, 512, 1 << 20),
-                                       (3, 1 << 15, 100), (1, 1 << 16, 1 << 30)])
+                                       (3, 1 << 15, 100), (1, 1 << 16, 1 << 30),
+                                       (3, 2, 2), (2, 64, 5), (4, 256, 9), (1, 2048, 40), (2, 4096, 40),
+                                       (4, 1 << 15, 1 << 12), (2, 1 << 17, 1000), (1, 1 << 20, 40),
+                                       (3, 1 << 20, 1 << 30)])
 def test_row_sort_kv_kernel_equals_plain(gen, dtype, rows, n, hi):
     """Keys and values equal the plain network exactly, duplicate keys
-    included; widths above 16,384 run device-memory stages."""
+    included: one chunk launch up to 2,048 pairs, strided launches above,
+    device-memory passes from 2^16; the kernels one call puts on the card
+    (the kernel nodes of a CUDA graph of the call) are the plan's launches."""
     keys = torch.randint(0, hi, (rows, n), dtype=dtype, device="cuda", generator=gen)
     vals = torch.arange(rows * n, dtype=torch.int32, device="cuda").reshape(rows, n)
     bitonic.reset_launches()
@@ -117,6 +122,8 @@ def test_row_sort_kv_kernel_equals_plain(gen, dtype, rows, n, hi):
     wk, wv = bitonic.sort_rows_kv_plain(keys, vals)
     assert torch.equal(gk, wk) and torch.equal(gv, wv)
     assert torch.equal(gk, torch.sort(keys, dim=1).values)
+    launches = build.graph_kernel_launches(lambda: bitonic.sort_rows_kv(keys, vals))
+    assert launches == len(bitonic.row_sort_kv_plan(n))
 
 
 def test_dispatch_order_on_card_is_the_stable_argsort(gen):
@@ -256,8 +263,10 @@ def test_flash_attention_bf16_raises_on_misaligned_rows(gen):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,S,H,KV,d", [(1, 1, 4, 2, 32), (3, 300, 4, 4, 64), (4, 4096, 32, 8, 128),
-                                        (2, 512, 16, 1, 128), (4, 4096, 24, 8, 64)])
+                                        (2, 512, 16, 1, 128), (4, 4096, 24, 8, 64),
+                                        (3, 700, 24, 2, 128), (4, 1000, 96, 8, 64), (2, 333, 28, 4, 32)])
 def test_decode_attention_kernel_equals_plain(gen, B, S, H, KV, d, dtype):
+    """Slot 0 at length 1, the last at S; G = 1, 2, 3, 4, 7 and 12."""
     q = _randn(gen, (B, H, d), dtype, QK_SCALE)
     # the layer-1 slice of a stacked (L, B, S, KV, d) cache, read in place
     kc = _randn(gen, (2, B, S, KV, d), dtype, QK_SCALE)[1]
@@ -269,6 +278,27 @@ def test_decode_attention_kernel_equals_plain(gen, B, S, H, KV, d, dtype):
     got = decode_attention(q, kc, vc, lengths)
     assert bitonic.LAUNCHES["decode_attention"] == 1
     _assert_attention_close(got, decode_attention_plain(q, kc, vc, lengths))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d,G", [(64, 1), (64, 12), (128, 4), (128, 12)])
+def test_decode_attention_length_zero_and_strided_views(gen, d, G, dtype):
+    """Length-0 slots (every position masked: the mean of v over the cache),
+    a length past S, and q and the caches as strided views: q a slice of a
+    fused projection, the caches one slot's and one layer's slice of a
+    stacked cache with the kv heads of two caches interleaved."""
+    B, S, KV = 4, 777, 2
+    H = KV * G
+    qkv = _randn(gen, (B, H + 8, d), dtype, QK_SCALE)
+    q = qkv[:, 4:4 + H]
+    stacked = _randn(gen, (3, B + 1, S, 2 * KV, d), dtype, QK_SCALE)
+    kc, vc = stacked[1, 1:, :, :KV], stacked[2, 1:, :, KV:]
+    lengths = torch.tensor([0, 5, S + 9, 0], dtype=torch.int32, device="cuda")
+    got = decode_attention(q, kc, vc, lengths)
+    want = decode_attention_plain(q, kc, vc, lengths)
+    _assert_attention_close(got, want)
+    mean_v = vc[0].float().mean(0).repeat_interleave(G, 0)
+    _assert_attention_close(got[0], mean_v.to(dtype))
 
 
 @pytest.mark.parametrize("arch", ["mistral-nemo-12b", "granite-moe-3b-a800m", "deepseek-moe-16b"])

@@ -284,6 +284,19 @@ def test_kernel_library_path_is_build_dir_keyed_by_source():
         assert build._lib_path(name).name.startswith(f"lib{name}_")
 
 
+def test_k3_plan_constants_come_from_the_kernel_source(tmp_path, monkeypatch):
+    """K3's chunk and group in Python are the ``constexpr`` values of
+    ``row_sort_kv.cu``; a name the source does not set raises."""
+    items, threads, group = build.source_constants("row_sort_kv.cu", "ITEMS", "THREADS", "GROUP")
+    assert bitonic.ROW_SORT_KV_CHUNK == items * threads == 2048
+    assert bitonic.ROW_SORT_KV_GROUP == group == 16
+    (tmp_path / "k.cu").write_text("constexpr int A = 12;\nconstexpr int B = 3 * A;\n")
+    monkeypatch.setattr(build, "_CSRC", tmp_path)
+    assert build.source_constants("k.cu", "A") == [12]
+    with pytest.raises(ValueError, match="no constexpr int B"):
+        build.source_constants("k.cu", "B")
+
+
 def test_kernel_modules_import_without_nvcc_or_card(tmp_path):
     """Importing the kernel modules builds nothing and needs no toolchain."""
     code = (

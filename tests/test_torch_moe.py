@@ -71,6 +71,120 @@ def test_sort_rows_kv_int64_keys():
     np.testing.assert_array_equal(np.take_along_axis(keys, gv.numpy() % 64, axis=1), gk.numpy())
 
 
+# -- K3's launch plan: which stages each launch of the kernel runs ---------------
+
+
+@pytest.mark.parametrize("n", [1 << e for e in range(1, 21)])
+def test_k3_plan_runs_the_network_in_order(n):
+    """Concatenated, the launches' stages are the network's, in order; every
+    chunk stage pairs two positions of one chunk, every strided stage two of
+    one group {i + m C}, and only stages at least C * GROUP apart are
+    device-memory passes."""
+    C, GROUP = bitonic.ROW_SORT_KV_CHUNK, bitonic.ROW_SORT_KV_GROUP
+    plan = bitonic.row_sort_kv_plan(n)
+    assert [st for _, stages in plan for st in stages] == list(bitonic._stages(n))
+    c = min(n, C)
+    assert plan[0] == ("chunk", list(bitonic._stages(c)))
+    lower = np.arange(n)
+    for kind, stages in plan:
+        assert stages
+        if kind == "global":
+            assert len(stages) == 1 and stages[0][1] >= C * GROUP
+            continue
+        span = c if kind == "chunk" else 2 * stages[0][1]
+        assert kind == "chunk" or 2 <= span // C <= GROUP
+        for _, j in stages:
+            i = lower[(lower & j) == 0]
+            assert np.array_equal(i // span, (i + j) // span)  # one chunk / one group
+            if kind == "strided":
+                assert j % C == 0 and np.array_equal(i % C, (i + j) % C)
+
+
+@pytest.mark.parametrize("n,launches", [(2, 1), (32, 1), (2048, 1), (4096, 3), (16_384, 7),
+                                        (1 << 15, 9), (1 << 16, 12), (1 << 20, 34)])
+def test_k3_plan_launch_counts(n, launches):
+    """1 x 16,384 (the MoE prefill's row): 1 + 2 * 3 launches; the stages
+    split 66 + (1 + 11) + (2 + 11) + (3 + 11)."""
+    plan = bitonic.row_sort_kv_plan(n)
+    assert len(plan) == launches
+    if n == 16_384:
+        assert [len(stages) for _, stages in plan] == [66, 1, 11, 2, 11, 3, 11]
+    assert bitonic.row_sort_kv_plan(1) == []
+
+
+def _k3_plan_model(keys: torch.Tensor, vals: torch.Tensor):
+    """K3's launches in torch, launch by launch as the kernel cuts the row: a
+    chunk launch works on (rows, n/c, c) chunks, a strided launch on the
+    groups {i + m C} laid out as (rows, n/span, C, span/C), a device-memory
+    pass on the whole row; each stage through ``compare_exchange_kv`` on the
+    local axis.  A chunk or group whose position has bit k set runs
+    descending: on ``~keys`` (order-reversing), which is the kernel's
+    ``asc ? a > b : a < b`` with ties kept."""
+    rows, n = keys.shape
+    C = bitonic.ROW_SORT_KV_CHUNK
+    for kind, stages in bitonic.row_sort_kv_plan(n):
+        if kind == "global":
+            ((k, j),) = stages
+            keys, vals = bitonic.compare_exchange_kv(keys, vals, k, j)
+            continue
+        if kind == "chunk":
+            span, dist = min(n, C), 1
+            view = lambda x: x.reshape(rows, n // span, span)
+            unview = lambda x: x.reshape(rows, n)
+            offs = (torch.arange(n // span) * span)[None, :, None]
+        else:
+            span, dist = 2 * stages[0][1], C
+            view = lambda x: x.reshape(rows, n // span, span // C, C).transpose(-1, -2)
+            unview = lambda x: x.transpose(-1, -2).reshape(rows, n)
+            offs = (torch.arange(n // span) * span)[None, :, None, None]
+        kk, vv = view(keys), view(vals)
+        width = kk.shape[-1]
+        for k, j in stages:
+            if k >= span:  # one direction for the whole chunk or group
+                desc = (offs & k) != 0
+                kk = torch.where(desc, ~kk, kk)
+                kk, vv = bitonic.compare_exchange_kv(kk, vv, width, j // dist)
+                kk = torch.where(desc, ~kk, kk)
+            else:
+                kk, vv = bitonic.compare_exchange_kv(kk, vv, k, j)
+        keys, vals = unview(kk).contiguous(), unview(vv).contiguous()
+    return keys, vals
+
+
+@pytest.mark.parametrize("dtype", [np.int32, np.int64])
+@pytest.mark.parametrize("rows,n,hi", [(3, 8, 3), (2, 512, 7), (1, 4096, 5), (2, 16_384, 40),
+                                       (1, 1 << 16, 9), (2, 1 << 17, 1 << 20)])
+def test_k3_plan_model_equals_plain(rows, n, hi, dtype):
+    """Duplicate keys: launch by launch, the kernel's cut of the row gives
+    the plain network's keys and values exactly."""
+    rng = np.random.default_rng(n + rows)
+    keys = torch.from_numpy(rng.integers(0, hi, size=(rows, n)).astype(dtype))
+    vals = torch.from_numpy(rng.permutation(rows * n).astype(np.int32).reshape(rows, n))
+    gk, gv = _k3_plan_model(keys, vals)
+    wk, wv = bitonic.sort_rows_kv_plain(keys, vals)
+    assert torch.equal(gk, wk) and torch.equal(gv, wv)
+    assert torch.equal(gk, torch.sort(keys, dim=1).values)
+
+
+@pytest.mark.parametrize("dtype", [np.int32, np.int64])
+@pytest.mark.parametrize("rows,n", [(4, 256), (1, 4096), (1, 1 << 16)])
+def test_k3_plan_model_equals_reference_kernel(rows, n, dtype):
+    """Duplicate keys: the plan's model against the reference's Pallas
+    ``sort_tiles_kv`` (interpret mode), keys and values."""
+    rng = np.random.default_rng(7 * n + rows)
+    keys = rng.integers(0, 40, size=(rows, n)).astype(dtype)
+    if dtype == np.int64:
+        keys = keys * (1 << 33) - (1 << 35)
+    vals = np.arange(rows * n, dtype=np.int32).reshape(rows, n)
+    with jax.enable_x64(dtype == np.int64):
+        wk, wv = ref_ops.sort_rows_kv(jnp.asarray(keys), jnp.asarray(vals))
+        wk, wv = np.asarray(wk), np.asarray(wv)
+    assert wk.dtype == dtype
+    gk, gv = _k3_plan_model(torch.from_numpy(keys), torch.from_numpy(vals))
+    np.testing.assert_array_equal(gk.numpy(), wk)
+    np.testing.assert_array_equal(gv.numpy(), wv)
+
+
 @pytest.mark.parametrize("n", [1, 5, 32, 100, 1000])
 @pytest.mark.parametrize("dtype", [np.int32, np.int64])
 def test_argsort_padded_matches_reference(n, dtype):

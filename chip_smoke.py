@@ -12,8 +12,10 @@ over granite-moe-3b-a800m).  Phases, one JSON line each:
    from ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per source, in
    parallel);
 2. ``k1``, ``k2`` -- kernels K1 (row sort) and K2 (tournament merge) against
-   their plain torch versions, for exact equality, int32 and int64, widths
-   2..4096, ragged pads; K2 up to 2^23 keys, all-pad rows, all-equal keys,
+   their plain torch versions, for exact equality, int32 and int64; K1 at
+   every width 2..4096, row counts that leave a warp or a block part-filled,
+   ragged pads, all-equal rows, the dtype's extreme keys and a view that is
+   not 16-byte aligned; K2 up to 2^23 keys, all-pad rows, all-equal keys,
    one pair of 2^22-wide rows, rows wider than its tile, with its kernel
    launches per call (1 + log2(P*B / tile));
 3. ``pipeline`` -- ``repro_torch.net.pipeline.run_pipeline`` on the card: first
@@ -346,22 +348,46 @@ def main_path_input(torch, gen, shape, dtype, *, sorted_rows: bool):
     return x.contiguous()
 
 
+def k1_rows(torch, gen, rows: int, b: int, dtype, kind: str):
+    """A K1 input: ``ragged`` keys with many ties and a random tail of each
+    row padded with the dtype max, ``all_equal`` rows, or ``extremes``
+    (a quarter each of the dtype's min and max among the ties)."""
+    info = torch.iinfo(dtype)
+    if kind == "all_equal":
+        return torch.full((rows, b), -7, dtype=dtype, device="cuda")
+    x = torch.randint(-3, 4, (rows, b), dtype=dtype, device="cuda", generator=gen)
+    if kind == "extremes":
+        pick = torch.randint(0, 4, (rows, b), device="cuda", generator=gen)
+        return torch.where(pick == 0, info.min, torch.where(pick == 1, info.max, x))
+    cut = torch.randint(0, b + 1, (rows, 1), device="cuda", generator=gen)
+    return torch.where(torch.arange(b, device="cuda")[None, :] < cut, x, info.max)
+
+
 def phase_k1(bt, torch, gen) -> None:
+    """K1 at every width 2..4096, int32 and int64: row counts that leave a
+    warp or a block part-filled (1, 3, 5, 1000, and one that ends inside the
+    third block where a block holds more than a row), the three key kinds of
+    ``k1_rows``, and a contiguous view one key past a 16-byte boundary (the
+    kernel's key-by-key path); each against the plain network and
+    ``torch.sort``."""
     checked = 0
     worst = 0
     for dtype in (torch.int32, torch.int64):
-        hi = torch.iinfo(dtype).max
-        for b in (2, 64, 128, 1024, 4096):
-            for rows in (1, 7, 1000):
-                x = torch.randint(-1000, 1000, (rows, b), dtype=dtype, device="cuda", generator=gen)
-                # ragged pads: a random tail of each row is the sentinel
-                cut = torch.randint(0, b + 1, (rows, 1), device="cuda", generator=gen)
-                x = torch.where(torch.arange(b, device="cuda")[None, :] < cut, x, hi).contiguous()
+        for b in (1 << e for e in range(1, 13)):
+            tile = bt.row_sort_items(b) * bt.ROW_SORT_THREADS
+            cases = [(rows, kind, False) for rows in (1, 3, 5, 1000, (2 * tile + tile // 2) // b + 1)
+                     for kind in ("ragged", "all_equal", "extremes")]
+            for rows, kind, shifted in cases + [(37, "ragged", True)]:
+                x = k1_rows(torch, gen, rows, b, dtype, kind).contiguous()
+                if shifted:
+                    x = torch.cat([x.new_zeros(1), x.reshape(-1)])[1:].view(rows, b)
+                    if x.data_ptr() % 16 == 0 or not x.is_contiguous():
+                        fail("K1's shifted view is 16-byte aligned")
                 got = bt.sort_rows(x)
                 want = bt.sort_rows_plain(x)
                 worst = max(worst, exact(got, want))
                 if not torch.equal(got, torch.sort(x, dim=1).values):
-                    fail(f"K1 disagrees with torch.sort at {dtype} {rows}x{b}")
+                    fail(f"K1 disagrees with torch.sort at {dtype} {rows}x{b} {kind} shifted={shifted}")
                 checked += 1
     torch.cuda.synchronize()
     if worst:
@@ -593,11 +619,64 @@ def parity_small(torch, np, run_pipeline, random_trace) -> list[int]:
     return sizes
 
 
-def phase_profile(torch, run_pipeline, values_d, payload_d, seed: int) -> None:
-    """A second main-path run under ``torch.profiler``: device busy share
-    (kernel and copy time over wall time) and the device time by kernel."""
-    from repro_torch.data.traces import trace_max_value
+class CallClock:
+    """Times every call of ``module.attr`` during a run: the wall
+    milliseconds between a synchronisation before the call and one after it
+    (``sync``), or the device milliseconds between CUDA events recorded
+    around it (read by :meth:`ms` after the run)."""
 
+    def __init__(self, torch, module, attr: str, sync: bool) -> None:
+        self.torch, self.module, self.attr, self.sync = torch, module, attr, sync
+        self.orig = getattr(module, attr)
+        self.wall_ms = 0.0
+        self.events = []
+
+    def __call__(self, *args, **kwargs):
+        cuda = self.torch.cuda
+        if self.sync:
+            cuda.synchronize()
+            t0 = time.perf_counter()
+            out = self.orig(*args, **kwargs)
+            cuda.synchronize()
+            self.wall_ms += (time.perf_counter() - t0) * 1e3
+            return out
+        a, b = cuda.Event(enable_timing=True), cuda.Event(enable_timing=True)
+        a.record()
+        out = self.orig(*args, **kwargs)
+        b.record()
+        self.events.append((a, b))
+        return out
+
+    def ms(self) -> float:
+        return self.wall_ms if self.sync else sum(a.elapsed_time(b) for a, b in self.events)
+
+    def __enter__(self):
+        setattr(self.module, self.attr, self)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.attr, self.orig)
+        return False
+
+
+def phase_profile(torch, run_pipeline, values_d, payload_d, seed: int) -> None:
+    """Two more main-path runs.  The first times the hop's row sort:
+    ``row_sort_device`` between two synchronisations, and inside it K1's
+    call between CUDA events; the difference is the glue around K1 (the two
+    host reads of the key range, the mask, narrowing, widening).  The
+    second runs under ``torch.profiler``: device busy share (kernel and copy
+    time over wall time), the device time by kernel, and K1's."""
+    from repro_torch.data.traces import trace_max_value
+    from repro_torch.kernels import ops
+    from repro_torch.net import engine
+
+    with CallClock(torch, engine, "row_sort_device", sync=True) as hop_sort, \
+            CallClock(torch, ops, "sort_rows_padded", sync=False) as k1:
+        run_pipeline(values_d, payload=payload_d, max_value=trace_max_value("random"),
+                     seed=seed, device="cuda", **E2E)
+        torch.cuda.synchronize()
+    row_sort = {"calls": len(k1.events), "row_sort_device_ms": hop_sort.ms(), "k1_ms": k1.ms(),
+                "glue_ms": hop_sort.ms() - k1.ms()}
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=acts) as prof:
@@ -614,8 +693,11 @@ def phase_profile(torch, run_pipeline, values_d, payload_d, seed: int) -> None:
             rec[1] += 1
     busy_ms = sum(v[0] for v in by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]
+    k1_prof = [v for k, v in by_name.items() if "row_sort_kernel" in k]
     emit({"phase": "profile", "wall_s": wall, "device_busy_ms": busy_ms,
           "device_busy_share": busy_ms / 1e3 / wall,
+          "k1_device_ms": sum(v[0] for v in k1_prof), "k1_launches": sum(v[1] for v in k1_prof),
+          "row_sort": row_sort,
           "top_device_ms": [{"name": k[:90], "ms": v[0], "calls": v[1]} for k, v in top]})
 
 
@@ -1258,7 +1340,8 @@ def main() -> int:
     ap.add_argument("--n", type=int, default=100_000_000, help="keys in the sort run")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true",
-                    help="also profile a second sort run and a short serve run "
+                    help="also time the hop's row sort and the glue around K1 in a "
+                         "second sort run, profile a third and a short serve run "
                          "(device busy share, time by kernel)")
     args = ap.parse_args()
 

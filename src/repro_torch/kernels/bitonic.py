@@ -4,7 +4,9 @@ Counterpart of :mod:`repro.kernels.bitonic`.  Its four kernels are ported
 here as CUDA C++ for ``sm_90a`` (sources under ``csrc/``):
 
 * **K1** :func:`sort_rows` -- ascending sort of every row of a ``(rows, B)``
-  int32/int64 matrix (``csrc/row_sort.cu``; replaces ``sort_tiles``);
+  int32/int64 matrix (``csrc/row_sort.cu``; replaces ``sort_tiles``): rows
+  in registers, a thread holding ``ITEMS`` consecutive keys loaded as
+  16-byte vectors, each stage in the tier of :func:`row_sort_tiers`;
 * **K2** :func:`merge_tournament` -- merge of ``P`` padded sorted rows into one
   sorted ``P*B`` row by merge-path rounds (``csrc/tournament.cu``; replaces
   ``tournament_tiles``);
@@ -37,8 +39,10 @@ import torch
 from . import build
 from .build import LAUNCHES, reset_launches  # noqa: F401  (the one record of every kernel)
 
-#: Widest row K1 sorts in one shared-memory tile.
-MAX_ROW = 4096
+#: Widest row K1 sorts, consecutive keys a K1 thread holds, and the threads
+#: of a K1 block (``csrc/row_sort.cu``: ``MAX_ROW``, ``ITEMS``, ``THREADS``).
+MAX_ROW, ROW_SORT_ITEMS, ROW_SORT_THREADS = build.source_constants(
+    "row_sort.cu", "MAX_ROW", "ITEMS", "THREADS")
 
 
 # ---------------------------------------------------------------------------
@@ -203,6 +207,27 @@ def tournament_launches(P: int, B: int) -> int:
     while w < n:
         count, w = count + 1, 2 * w
     return count
+
+
+def row_sort_items(b: int) -> int:
+    """Keys a K1 thread holds at row width ``b``: :data:`ROW_SORT_ITEMS`, or
+    ``b / ROW_SORT_THREADS`` where a block of that many would hold less than
+    a row (``b = 4096``)."""
+    if b > ROW_SORT_ITEMS * ROW_SORT_THREADS:
+        return b // ROW_SORT_THREADS
+    return ROW_SORT_ITEMS
+
+
+def row_sort_tiers(b: int) -> list[tuple[str, int, int]]:
+    """K1's stages at row width ``b`` in order, each ``(tier, k, j)``: the
+    tier is ``"register"`` for ``j < n`` (inside a thread's ``n =
+    row_sort_items(b)`` registers), ``"shuffle"`` for ``n <= j <
+    ROW_SORT_THREADS`` (by warp shuffle with lane ``^ j / n``) and
+    ``"shared"`` above (after a transpose through shared memory, in
+    registers again); the kernel's ``network`` takes the same rule."""
+    n = row_sort_items(b)
+    return [("register" if j < n else "shuffle" if j < ROW_SORT_THREADS else "shared", k, j)
+            for k, j in _stages(b)]
 
 
 _ITEMS, _THREADS, _GROUP = build.source_constants("row_sort_kv.cu", "ITEMS", "THREADS", "GROUP")

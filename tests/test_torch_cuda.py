@@ -43,6 +43,57 @@ def test_row_sort_kernel_equals_plain(gen, dtype, rows, b):
     assert torch.equal(got, torch.sort(x, dim=1).values)
 
 
+def _k1_rows(gen, dtype, rows, b, kind):
+    """``ragged`` keys with many ties and a random tail of each row padded
+    with the dtype max, ``all_equal`` rows, or ``extremes`` (a quarter each
+    of the dtype's min and max among the ties)."""
+    info = torch.iinfo(dtype)
+    if kind == "all_equal":
+        return torch.full((rows, b), -7, dtype=dtype, device="cuda")
+    x = torch.randint(-3, 4, (rows, b), dtype=dtype, device="cuda", generator=gen)
+    if kind == "extremes":
+        pick = torch.randint(0, 4, (rows, b), device="cuda", generator=gen)
+        return torch.where(pick == 0, info.min, torch.where(pick == 1, info.max, x))
+    cut = torch.randint(0, b + 1, (rows, 1), device="cuda", generator=gen)
+    return torch.where(torch.arange(b, device="cuda")[None, :] < cut, x, info.max)
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("b", [1 << e for e in range(1, 13)])
+def test_row_sort_every_width_row_count_and_key_kind(gen, dtype, b):
+    """Every width 2..4096: row counts that leave a warp or a block
+    part-filled (1, 3, 5, 1000, and one that ends inside the third block
+    where a block holds more than a row), ragged pads of the maximum with
+    many ties, all-equal rows and the dtype's extremes; one launch a call,
+    equal to the plain network and to torch.sort."""
+    tile = bitonic.row_sort_items(b) * bitonic.ROW_SORT_THREADS
+    for rows in (1, 3, 5, 1000, (2 * tile + tile // 2) // b + 1):
+        for kind in ("ragged", "all_equal", "extremes"):
+            x = _k1_rows(gen, dtype, rows, b, kind).contiguous()
+            bitonic.reset_launches()
+            got = bitonic.sort_rows(x)
+            assert bitonic.LAUNCHES["row_sort"] == 1
+            assert torch.equal(got, bitonic.sort_rows_plain(x)), (rows, kind)
+            assert torch.equal(got, torch.sort(x, dim=1).values), (rows, kind)
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("b", [1 << e for e in range(1, 13)])
+def test_row_sort_reads_a_view_not_16_byte_aligned(gen, dtype, b):
+    """A contiguous view one key past a 16-byte boundary: the kernel loads
+    and stores it key by key (no 16-byte vectors), in one launch, equal to
+    the plain network."""
+    rows = 37
+    flat = _k1_rows(gen, dtype, rows * b + 1, 1, "extremes").reshape(-1)
+    x = flat[1:].view(rows, b)
+    assert x.is_contiguous() and x.data_ptr() % 16
+    bitonic.reset_launches()
+    got = bitonic.sort_rows(x)
+    assert bitonic.LAUNCHES["row_sort"] == 1
+    assert torch.equal(got, bitonic.sort_rows_plain(x))
+    assert torch.equal(got, torch.sort(x, dim=1).values)
+
+
 @pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
 @pytest.mark.parametrize("p,b", [(2, 1), (2, 2), (8, 512), (1024, 64), (4096, 2), (2, 1 << 14), (1 << 15, 128)])
 def test_tournament_kernel_equals_plain(gen, dtype, p, b):

@@ -297,6 +297,98 @@ def test_k3_plan_constants_come_from_the_kernel_source(tmp_path, monkeypatch):
         build.source_constants("k.cu", "B")
 
 
+def test_k1_layout_constants_come_from_the_kernel_source(tmp_path, monkeypatch):
+    """K1's widest row, keys per thread and block size in Python are the
+    ``constexpr`` values of ``row_sort.cu``; a source that does not set one
+    raises."""
+    max_row, items, threads = build.source_constants("row_sort.cu", "MAX_ROW", "ITEMS", "THREADS")
+    assert (bitonic.MAX_ROW, bitonic.ROW_SORT_ITEMS, bitonic.ROW_SORT_THREADS) == (max_row, items, threads)
+    assert (max_row, items, threads) == (4096, 8, 256)
+    assert threads <= 32 * items  # every stage with j < THREADS is a shuffle inside a warp
+    assert [bitonic.row_sort_items(1 << e) for e in range(1, 13)] == [8] * 11 + [16]
+    text = (build._CSRC / "row_sort.cu").read_text()
+    (tmp_path / "row_sort.cu").write_text(text.replace("constexpr int ITEMS", "constexpr int KEYS"))
+    monkeypatch.setattr(build, "_CSRC", tmp_path)
+    assert build.source_constants("row_sort.cu", "THREADS") == [threads]
+    with pytest.raises(ValueError, match="no constexpr int ITEMS"):
+        build.source_constants("row_sort.cu", "ITEMS")
+
+
+def _k1_tier_model(x: torch.Tensor) -> torch.Tensor:
+    """K1 as the kernel cuts the matrix, in torch: tiles of ``n * T`` keys
+    (``T`` threads of ``n = row_sort_items(B)`` keys), each thread's keys in
+    layout A (thread t holds tile positions n t .. n t + n - 1) or, for the
+    shared tier, layout B (register r of thread t holds r T + t), and each
+    stage of ``row_sort_tiers(B)`` in its tier.  Positions past the matrix
+    hold the dtype max, as in the kernel's last block.  The asserts pin
+    what the kernel relies on: a shuffle partner lies in the warp and holds
+    position p ^ j for every register, a shuffle stage's direction is the
+    thread's, and a register pair is (p, p + j)."""
+    rows, B = x.shape
+    n, T = bitonic.row_sort_items(B), bitonic.ROW_SORT_THREADS
+    tile = n * T
+    assert tile % B == 0
+    blocks = -(-rows * B // tile)
+    flat = torch.full((blocks * tile,), torch.iinfo(x.dtype).max, dtype=x.dtype)
+    flat[: rows * B] = x.reshape(-1)
+    t = torch.arange(T)[:, None]
+    r = torch.arange(n)[None, :]
+    layouts = {False: n * t + r, True: r * T + t}  # (T, n) tile positions
+    regs = flat.reshape(blocks, T, n)
+    wide = False
+    tiers = bitonic.row_sort_tiers(B)
+    assert [(k, j) for _, k, j in tiers] == list(bitonic._stages(B))
+    for tier, k, j in tiers:
+        assert tier == ("register" if j < n else "shuffle" if j < T else "shared")
+        if (tier == "shared") != wide:  # a transpose through shared memory
+            keys = torch.empty(blocks, tile, dtype=x.dtype)
+            keys[:, layouts[wide].reshape(-1)] = regs.reshape(blocks, -1)
+            wide = not wide
+            regs = keys[:, layouts[wide]]
+        pos = layouts[wide]
+        asc = (pos & (B - 1) & k) == 0
+        if tier == "shuffle":
+            assert j // n < 32
+            partner = torch.arange(T) ^ (j // n)
+            assert torch.equal(pos[partner], pos ^ j)
+            keep_min = asc == ((pos & j) == 0)
+            assert torch.equal(keep_min, keep_min[:, :1].expand(T, n))
+            other = regs[:, partner]
+            regs = torch.where(keep_min, torch.minimum(regs, other), torch.maximum(regs, other))
+        else:
+            m = j if tier == "register" else j // T
+            lo = [q for q in range(n) if not q & m]
+            hi = [q | m for q in lo]
+            assert torch.equal(pos[:, hi], pos[:, lo] + j)
+            a, b = regs[..., lo], regs[..., hi]
+            mn, mx, up = torch.minimum(a, b), torch.maximum(a, b), asc[:, lo]
+            regs = regs.clone()
+            regs[..., lo] = torch.where(up, mn, mx)
+            regs[..., hi] = torch.where(up, mx, mn)
+    assert not wide
+    return regs.reshape(-1)[: rows * B].reshape(rows, B)
+
+
+@pytest.mark.parametrize("dtype", [np.int32, np.int64])
+@pytest.mark.parametrize("b", [1 << e for e in range(1, 13)])
+def test_k1_tier_model_equals_plain(dtype, b):
+    """The kernel's partition -- ``ITEMS``-key lanes, register, shuffle and
+    shared-memory tiers, a part-filled last block -- sorts every row as the
+    plain network and ``torch.sort`` do: keys with many ties, and the
+    dtype's extremes."""
+    rng = np.random.default_rng(b)
+    tile = bitonic.row_sort_items(b) * bitonic.ROW_SORT_THREADS
+    rows = (tile + tile // 2) // b + 1
+    info = np.iinfo(dtype)
+    x = rng.integers(-3, 4, size=(rows, b)).astype(dtype)
+    pick = rng.integers(0, 8, size=(rows, b))
+    x = np.where(pick == 0, info.min, np.where(pick == 1, info.max, x)).astype(dtype)
+    xt = torch.from_numpy(x)
+    got = _k1_tier_model(xt)
+    assert torch.equal(got, bitonic.sort_rows_plain(xt))
+    assert torch.equal(got, torch.sort(xt, dim=1).values)
+
+
 def test_kernel_modules_import_without_nvcc_or_card(tmp_path):
     """Importing the kernel modules builds nothing and needs no toolchain."""
     code = (

@@ -25,38 +25,55 @@ over granite-moe-3b-a800m).  Phases, one JSON line each:
    (7-hop binary tree, 16 segments of length 64, 256-key packets, 8 flows,
    oracle ranges, 4 arena servers, a 2-column int64 payload).  The launch
    counters are zeroed just before that run and read just after it;
-4. ``k3``, ``k4`` -- kernels K3 (key-value row sort, the MoE dispatch) and K4
+4. ``pipeline_device`` -- ``run_pipeline(engine="device")``: the whole
+   epoch as one program, captured into a CUDA graph on the card.  At small
+   n, on the single, leaf-spine and tree graphs, with and without a
+   payload, byte-identical to ``engine="fused"`` on the card and to
+   ``engine="device"`` on the CPU; then the ``end_to_end`` configuration at
+   the full size: the first call (warm-up and capture included) and at
+   least three replays timed apart, keys/s from the replays' median, the
+   output equal to the ``pipeline`` phase's and to ``torch.sort``'s with
+   the payload following, one device-to-host read and no host-to-device
+   copy per epoch, and K1 counted as the kernel nodes of the captured
+   graph (one per hop).  The program cache is emptied after it;
+5. ``k3``, ``k4`` -- kernels K3 (key-value row sort, the MoE dispatch) and K4
    (row merge) against their plain versions, for exact equality (K3's
    values too, duplicate keys included): the MoE path's shapes, the
    reference tests' shapes, and rows wide enough for every kind of launch
    (K3 up to 2^20 pairs, with its launches per call at each width, counted
    as the kernel nodes of a CUDA graph of one call, held to
    ``row_sort_kv_plan``; K4 at 2^14 and 2^17 elements);
-5. ``k5``, ``k6`` -- the attention kernels K5 (flash attention) and K6
+6. ``k5``, ``k6`` -- the attention kernels K5 (flash attention) and K6
    (decode attention) against their plain torch versions: head dims 32, 64,
    128, GQA groups 1, 3 and 4, causal or not, ragged T, S != T, strided
    q/k/v views, Mistral's 1963-token prefill, lengths 1..S (K6 also G 7
    and 12, and slots of length 0), float32 and bfloat16, on inputs whose
    softmax is peaked (limits: ``attn_limit``);
    the bf16 K5 wrapper must raise on rows that are not 16-byte aligned;
-6. ``serve``, ``serve_moe`` -- for Mistral-Nemo-12B and for
+7. ``serve``, ``serve_moe`` -- for Mistral-Nemo-12B and for
    granite-moe-3b-a800m: first the smoke config(s) in float32 on the card
    against the same weights on the CPU (greedy tokens identical, logits
    within 1e-4; for the MoE path both MoE models' smoke configs), then the
    full model (every layer at full width, bf16, weights drawn on the card
    from ``--seed``) behind an ``Engine`` of 4 slots and ``max_len`` 4096: 8
    requests, prompt lengths from ``numpy.random.default_rng(seed)`` in
-   512..2048, 32 greedy tokens each.  The launch counters are zeroed just
-   before that run and read just after it: K5 must launch once per layer per
-   prefill, K6 once per layer per decode step, K3 once per MoE layer per
-   prefill and per decode step.  Prefill and decode tokens/s, ms per decode
-   step, peak device memory, the dropped assignments; the full model's
+   512..2048, 32 greedy tokens each.  The engine replays its decode step as
+   one CUDA graph (and the smoke configs' engines too: their tokens must
+   equal an eager engine's on the card and the CPU's); the same requests
+   then run on an eager engine, whose tokens must equal the graph's.  The
+   launch counters are zeroed just before the graph run and read just after
+   it; the decode step's launches are the captured graph's kernel nodes
+   times its replays: K5 must launch once per layer per prefill, K6 once
+   per layer per decode step, K3 once per MoE layer per prefill and per
+   decode step, in the graph run and in the eager one.  Prefill and decode
+   tokens/s and ms per decode step of both runs, peak device memory, the
+   dropped assignments; the full model's
    logits on a short prompt through the kernels against the plain versions
    (Mistral: K5 and K6 plain, every argmax equal; granite: K3 plain, every
    dispatch and every logit identical).  After the MoE run,
    ``serve_moe_attention`` holds K5 and K6 to their plain versions at the
    shapes that run gave them (head_dim 64, 3 query heads per kv head);
-7. ``kernels``  -- every ported kernel on fresh random inputs at the largest
+8. ``kernels``  -- every ported kernel on fresh random inputs at the largest
    shape and dtype its main path gave it (K4, on no path, at the shape of
    one K2 round on the sort path's largest bucket): launches, agreement with
    the plain version, and kernel, plain and library (``torch.sort``, or
@@ -66,7 +83,7 @@ over granite-moe-3b-a800m).  Phases, one JSON line each:
    replayed as one CUDA graph (``graph_ms``, ``library_graph_ms``), which
    leaves the host's cost of each call out.  K3's row adds the decode step's
    1 x 32 and its measured launches per call;
-8. ``ptxas`` -- every kernel entry's registers, static shared memory and
+9. ``ptxas`` -- every kernel entry's registers, static shared memory and
    spills, as the compiler reported them when it built the kernels; a
    spill in any entry fails the run.
 
@@ -170,16 +187,9 @@ def graph_ms(fn, calls: int = 24, reps: int = 10) -> float:
     its host cost."""
     import torch
 
-    fn()
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(calls):
-            fn()
+    from repro_torch.kernels import build
+
+    graph, _ = build.capture(lambda: [fn() for _ in range(calls)])
     graph.replay()
     torch.cuda.synchronize()
     times = []
@@ -619,6 +629,147 @@ def parity_small(torch, np, run_pipeline, random_trace) -> list[int]:
     return sizes
 
 
+GRAPHS = {"single": {}, "leaf_spine": {"num_leaves": 4}, "tree": {"branching": 2, "height": 3}}
+
+
+def same_run(np, a: dict, b: dict) -> str | None:
+    """The first field in which two ``PipelineResult.to_numpy()`` differ:
+    output, passes, payload, the delivered wire and every hop stat's
+    scalars and segment loads (the device engine, like the reference's,
+    leaves the per-run arrays of ``HopStats`` out)."""
+    for key in ("output", "payload_row_order", "sorted_payload"):
+        if (a[key] is None) != (b[key] is None) or (a[key] is not None and not np.array_equal(a[key], b[key])):
+            return key
+    if a["passes"] != b["passes"] or a["server_keys"] != b["server_keys"]:
+        return "passes"
+    for c in ("values", "flow_id", "seq", "segment_id", "row_index"):
+        x, y = a["delivered"][c], b["delivered"][c]
+        if (x is None) != (y is None) or (x is not None and not np.array_equal(x, y)):
+            return f"delivered {c}"
+    if len(a["hop_stats"]) != len(b["hop_stats"]):
+        return "hop count"
+    for sa, sb in zip(a["hop_stats"], b["hop_stats"]):
+        for f in ("name", "arrivals", "load_imbalance", "emitted_runs", "mean_run_len", "recirculations"):
+            if sa[f] != sb[f]:
+                return f"hop stat {f}"
+        if not np.array_equal(sa["segment_loads"], sb["segment_loads"]):
+            return "hop stat segment_loads"
+    return None
+
+
+def parity_device_small(torch, np, run_pipeline, random_trace) -> list[dict]:
+    """``engine="device"`` on the card against ``engine="fused"`` on the card
+    and ``engine="device"`` on the CPU, on every graph kind, with and
+    without a payload."""
+    n = 20_000
+    vals = random_trace(n, seed=2)
+    payload = np.stack([vals * 7 + 3, np.arange(n)], axis=1).astype(np.int64)
+    cells = []
+    for graph, kw in GRAPHS.items():
+        for with_payload in (False, True):
+            cfg = dict(E2E, topology=graph, **kw)
+            if graph != "tree":
+                cfg.pop("branching"), cfg.pop("height")
+            runs = {}
+            for engine, dev in (("device", "cuda"), ("fused", "cuda"), ("device", "cpu")):
+                r = run_pipeline(vals, payload=payload if with_payload else None, seed=2,
+                                 engine=engine, device=dev, **cfg)
+                runs[(engine, dev)] = r.to_numpy()
+            card = runs[("device", "cuda")]
+            for other in (("fused", "cuda"), ("device", "cpu")):
+                diff = same_run(np, card, runs[other])
+                if diff:
+                    fail(f"device engine on the card and {other} disagree on {diff} ({graph}, payload {with_payload})")
+            if not np.array_equal(card["output"], np.sort(vals)):
+                fail(f"device engine output is not the sorted input ({graph})")
+            cells.append({"graph": graph, "payload": with_payload, "n": n, "hops": len(card["hop_stats"])})
+    return cells
+
+
+def phase_pipeline_device(torch, np, args, run_pipeline, random_trace, values_d, payload_d,
+                          fused_out, fused_payload) -> dict:
+    """The device epoch at the full size: first call, then replays."""
+    from repro_torch.data.traces import trace_max_value
+    from repro_torch.kernels import bitonic as bt
+    from repro_torch.kernels import build
+    from repro_torch.net import device_epoch as de
+
+    parity = parity_device_small(torch, np, run_pipeline, random_trace)
+    de.clear_program_cache()
+    torch.cuda.empty_cache()
+    n = int(values_d.numel())
+    want = torch.sort(values_d, stable=True)
+
+    def run():
+        clock = StageClock()
+        de.reset_transfer_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = run_pipeline(values_d, payload=payload_d, max_value=trace_max_value("random"),
+                           seed=args.seed, tracer=clock, engine="device", device="cuda", **E2E)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        if not torch.equal(res.output, want.values) or not torch.equal(res.output, fused_out):
+            fail("device engine output differs from torch.sort / the fused run")
+        if not torch.equal(res.payload_row_order, want.indices) or not torch.equal(res.sorted_payload, fused_payload):
+            fail("device engine payload does not follow its keys")
+        transfers = dict(de.TRANSFER_COUNTS)
+        if transfers != {"to_device": 0, "to_host": 1}:
+            fail(f"device epoch transfers {transfers}, want no copy in and one read back")
+        stages = dict(clock.seconds, server_makespan=res.server_seconds, per_server=res.per_server_seconds,
+                      pool_merge=res.pool_merge_seconds)
+        return sec, stages, res
+
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launches()
+    with LargestShape(bt, "sort_rows") as k1_in:
+        first_s, first_stages, res = run()
+    first_launches = dict(build.LAUNCHES)
+    reserved = torch.cuda.memory_reserved()
+    peak_first = torch.cuda.max_memory_allocated()
+    passes = res.passes
+    del res
+    (prog,) = de._PROGRAM_CACHE.values()
+    nodes = build.graph_kernel_nodes(prog.graph, ["row_sort_kernel", "tile_merge", "merge_round"])
+    if nodes["row_sort_kernel"] != E2E_HOPS:
+        fail(f"the captured epoch holds {nodes['row_sort_kernel']} K1 nodes, want one per hop ({E2E_HOPS})")
+    if nodes["tile_merge"] or nodes["merge_round"]:
+        fail("the captured epoch holds K2 nodes")
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launches()
+    replays = []
+    for _ in range(3):
+        sec, stages, res = run()
+        replays.append({"s": sec, "stages": stages})
+        del res
+    replay_launches = dict(build.LAUNCHES)
+    if replay_launches["row_sort"]:
+        fail("a replay launched K1 outside the graph")
+    if replay_launches["tournament"] < 1:
+        fail("K2 never launched at the device run's egress")
+    peak = torch.cuda.max_memory_allocated()
+    med = sorted(r["s"] for r in replays)[len(replays) // 2]
+    if args.profile:
+        emit({"phase": "pipeline_device_profile", **profiled(torch, lambda: run()[2])[0]})
+    emit({"phase": "pipeline_device", "n": n, "config": E2E, "parity_small": parity,
+          "first_call_s": first_s, "first_call_stage_s": first_stages,
+          "replay_s": [r["s"] for r in replays], "replay_stage_s": [r["stages"] for r in replays],
+          "keys_per_s": n / med, "passes": passes,
+          "peak_device_bytes_first_call": peak_first, "peak_device_bytes_replays": peak,
+          "memory_reserved_after_capture": reserved,
+          "transfers_per_epoch": {"to_device": 0, "to_host": 1},
+          "k1_graph_nodes_per_epoch": nodes["row_sort_kernel"], "graph_kernel_nodes": nodes["all"],
+          "k1_input": {"shape": list(k1_in.shape), "dtype": str(k1_in.dtype).replace("torch.", "")},
+          "launches_first_call": {k: first_launches[k] for k in ("row_sort", "tournament")},
+          "launches_replays": {k: replay_launches[k] for k in ("row_sort", "tournament")},
+          "epochs_replayed": len(replays)})
+    del want, prog
+    de.clear_program_cache()
+    torch.cuda.empty_cache()
+    return {"k1_shape": k1_in.shape, "k1_dtype": k1_in.dtype, "k1_nodes": nodes["row_sort_kernel"],
+            "epochs": 1 + len(replays)}
+
+
 class CallClock:
     """Times every call of ``module.attr`` during a run: the wall
     milliseconds between a synchronisation before the call and one after it
@@ -659,6 +810,30 @@ class CallClock:
         return False
 
 
+def profiled(torch, fn) -> tuple[dict, dict]:
+    """One call of ``fn`` under ``torch.profiler``: the wall time, the device
+    busy share (kernel and copy time over wall time) and the top 15 kernels
+    by device time, as line fields; and the device time and calls by
+    kernel name."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    by_name: dict[str, list[float]] = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            rec = by_name.setdefault(e.name, [0.0, 0])
+            rec[0] += e.time_range.elapsed_us() / 1e3
+            rec[1] += 1
+    busy_ms = sum(v[0] for v in by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]
+    return ({"wall_s": wall, "device_busy_ms": busy_ms, "device_busy_share": busy_ms / 1e3 / wall,
+             "top_device_ms": [{"name": k[:90], "ms": v[0], "calls": v[1]} for k, v in top]}, by_name)
+
+
 def phase_profile(torch, run_pipeline, values_d, payload_d, seed: int) -> None:
     """Two more main-path runs.  The first times the hop's row sort:
     ``row_sort_device`` between two synchronisations, and inside it K1's
@@ -677,28 +852,11 @@ def phase_profile(torch, run_pipeline, values_d, payload_d, seed: int) -> None:
         torch.cuda.synchronize()
     row_sort = {"calls": len(k1.events), "row_sort_device_ms": hop_sort.ms(), "k1_ms": k1.ms(),
                 "glue_ms": hop_sort.ms() - k1.ms()}
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        run_pipeline(values_d, payload=payload_d, max_value=trace_max_value("random"),
-                     seed=seed, device="cuda", **E2E)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    by_name: dict[str, list[float]] = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            rec = by_name.setdefault(e.name, [0.0, 0])
-            rec[0] += e.time_range.elapsed_us() / 1e3
-            rec[1] += 1
-    busy_ms = sum(v[0] for v in by_name.values())
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]
+    fields, by_name = profiled(torch, lambda: run_pipeline(
+        values_d, payload=payload_d, max_value=trace_max_value("random"), seed=seed, device="cuda", **E2E))
     k1_prof = [v for k, v in by_name.items() if "row_sort_kernel" in k]
-    emit({"phase": "profile", "wall_s": wall, "device_busy_ms": busy_ms,
-          "device_busy_share": busy_ms / 1e3 / wall,
-          "k1_device_ms": sum(v[0] for v in k1_prof), "k1_launches": sum(v[1] for v in k1_prof),
-          "row_sort": row_sort,
-          "top_device_ms": [{"name": k[:90], "ms": v[0], "calls": v[1]} for k, v in top]})
+    emit({"phase": "profile", **fields, "k1_device_ms": sum(v[0] for v in k1_prof),
+          "k1_launches": sum(v[1] for v in k1_prof), "row_sort": row_sort})
 
 
 def attn_bound(flops: float, bytes_: float) -> tuple[float, str]:
@@ -937,15 +1095,19 @@ def serve_parity_small(torch, np, arch: str) -> dict:
         fail(f"{arch} smoke LM on the card differs from the CPU by {max(errs)}")
     prompts = [rng.integers(0, cfg.vocab_size, size=n).tolist() for n in (3, 5, 2, 7, 4)]
     outs = []
-    for model, dev in ((host, "cpu"), (card, "cuda")):
-        eng = Engine(model, slots=2, max_len=64, device=dev)
+    for model, dev, eager in ((host, "cpu", False), (card, "cuda", False), (card, "cuda", True)):
+        eng = Engine(model, slots=2, max_len=64, device=dev, _eager=eager)
+        if (eng.decode_graph is None) != (dev == "cpu" or eager):
+            fail(f"{arch} smoke Engine on {dev} (eager {eager}) has the wrong decode path")
         for i, p in enumerate(prompts):
             eng.add(Request(rid=i, prompt=p, max_tokens=6))
         outs.append(sorted((r.rid, r.out) for r in eng.run()))
+    if outs[1] != outs[2]:
+        fail(f"{arch} smoke Engine's decode graph gives other greedy tokens than its eager step")
     if outs[0] != outs[1]:
         fail(f"{arch} smoke Engine on the card gives other greedy tokens than on the CPU")
     return {"arch": arch, "logits_max_abs_err": max(errs), "requests": len(outs[0]),
-            "tokens": sum(len(o[1]) for o in outs[0])}
+            "tokens": sum(len(o[1]) for o in outs[0]), "graph_tokens_equal_eager": True}
 
 
 class MoERecorder:
@@ -1075,51 +1237,100 @@ def phase_serve(torch, np, args, arch: str, phase: str, smoke_archs) -> dict:
     torch.cuda.empty_cache()
 
     rng = np.random.default_rng(args.seed)
-    eng = Engine(model, slots=SERVE["slots"], max_len=SERVE["max_len"], device="cuda")
     prompts = []
     for rid in range(SERVE["requests"]):
         plen = int(rng.integers(SERVE["prompt_min"], SERVE["prompt_max"] + 1))
         prompts.append(rng.integers(0, cfg.vocab_size, size=plen).tolist())
-        eng.add(Request(rid=rid, prompt=prompts[-1], max_tokens=SERVE["new_tokens"]))
+    want = {"flash_attention": cfg.num_layers, "decode_attention": cfg.num_layers,
+            "row_sort_kv": moe_layers, "row_sort": 0, "tournament": 0, "merge_rows": 0}
 
-    finite = []
+    def engine_run(eager: bool, after_step=None):
+        """One Engine over the 8 requests; the counters zeroed just before
+        ``run`` and read just after; ``after_step`` runs after each decode
+        step.  Returns the engine, its timers, the finished requests, the
+        run's seconds, launches and peak memory."""
+        eng = Engine(model, slots=SERVE["slots"], max_len=SERVE["max_len"], device="cuda", _eager=eager)
+        for rid, p in enumerate(prompts):
+            eng.add(Request(rid=rid, prompt=p, max_tokens=SERVE["new_tokens"]))
+        finite = []
+        prefill = SyncTimer(torch, model.prefill, lambda out: finite.append(torch.isfinite(out[0]).all()))
+        decode = SyncTimer(torch, eng._decode, lambda out: (
+            finite.append(torch.isfinite(out).all()), after_step and after_step()))
+        model.prefill, eng._decode = prefill, decode
+        try:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            build.reset_launches()
+            t_run = time.perf_counter()
+            finished = eng.run()
+            torch.cuda.synchronize()
+            run_s = time.perf_counter() - t_run
+            launches = dict(build.LAUNCHES)
+        finally:
+            del model.prefill, eng._decode
+        if not torch.stack(finite).all():
+            fail(f"the {arch} serve run produced non-finite logits")
+        if len(finished) != SERVE["requests"]:
+            fail(f"{len(finished)} of {SERVE['requests']} requests finished")
+        for r in finished:
+            if len(r.out) != SERVE["new_tokens"] or not all(0 <= t < cfg.vocab_size for t in r.out):
+                fail(f"request {r.rid} came back with {len(r.out)} tokens or a token out of the vocabulary")
+        return eng, prefill, decode, finished, run_s, launches, torch.cuda.max_memory_allocated()
+
+    def rates(prefill, decode, finished, run_s) -> dict:
+        new_tokens = sum(len(r.out) for r in finished)
+        return {"run_s": run_s, "prefills": prefill.calls, "prefill_s": prefill.seconds,
+                "prefill_tokens_per_s": sum(len(p) - 1 for p in prompts) / prefill.seconds,
+                "decode_steps": decode.calls, "decode_tokens": new_tokens, "decode_s": decode.seconds,
+                "decode_tokens_per_s": new_tokens / decode.seconds,
+                "ms_per_decode_step": decode.seconds / decode.calls * 1e3,
+                "host_s_outside_model": run_s - prefill.seconds - decode.seconds}
+
+    def hold(launches: dict, prefills: int, steps: int, what: str) -> None:
+        for name, per in want.items():
+            n = per * (prefills + steps) if name == "row_sort_kv" else (
+                per * prefills if name == "flash_attention" else per * steps)
+            if launches[name] != n:
+                fail(f"{arch} {what}: {name} launched {launches[name]} times, want {n} "
+                     f"({prefills} prefills, {steps} decode steps)")
+
+    # -- the main path: the decode step replayed as one CUDA graph -------------
+    eng, prefill, decode, finished, run_s, g_launches, peak = engine_run(False)
+    entries = ["flash_fwd", "flash_fwd_bf16", "decode_partial", "decode_merge", "chunk_stages",
+               "strided_stages", "global_stage", "row_sort_kernel", "tile_merge", "merge_round",
+               "merge_tile", "global_first", "global_cleaner"]
+    nodes = build.graph_kernel_nodes(eng.decode_graph, entries)
+    per_replay = {"flash_attention": nodes["flash_fwd"] + nodes["flash_fwd_bf16"],
+                  "decode_attention": nodes["decode_partial"],
+                  "row_sort_kv": nodes["chunk_stages"] + nodes["strided_stages"] + nodes["global_stage"],
+                  "row_sort": nodes["row_sort_kernel"], "tournament": nodes["tile_merge"] + nodes["merge_round"],
+                  "merge_rows": nodes["merge_tile"] + nodes["global_first"] + nodes["global_cleaner"]}
+    if eng.decode_steps != decode.calls:
+        fail(f"{arch}: the engine counted {eng.decode_steps} replays, the timer {decode.calls}")
+    if g_launches["decode_attention"] or (moe_layers and g_launches["row_sort_kv"] != moe_layers * prefill.calls):
+        fail(f"{arch}: a decode-step kernel launched outside the graph")
+    launches = {k: g_launches[k] + per_replay[k] * decode.calls for k in want}
+    hold(launches, prefill.calls, decode.calls, "graph run")
+    if launches["flash_attention"] < 1 or launches["decode_attention"] < 1 or (moe_layers and launches["row_sort_kv"] < 1):
+        fail(f"a kernel of the {arch} serve path never launched")
+    graph_line = rates(prefill, decode, finished, run_s)
+    graph_tokens = sorted((r.rid, r.out) for r in finished)
+    first_tokens = [r.out[:4] for r in sorted(finished, key=lambda r: r.rid)]
+    if args.profile:
+        phase_serve_profile(torch, eng, rng, cfg)
+    del eng, finished
+    torch.cuda.empty_cache()
+
+    # -- the same requests on the eager step: tokens, times, kernel shapes -----
     step_lengths = []
     with AttnRecorder(attn_mod, "flash_attention") as k5_in, \
             AttnRecorder(attn_mod, "decode_attention_kernel") as k6_in, \
             LargestShape(bt, "sort_rows_kv") as k3_in, MoERecorder(moe_mod) as moe_rec:
-        prefill = SyncTimer(torch, model.prefill, lambda out: finite.append(torch.isfinite(out[0]).all()))
-        decode = SyncTimer(torch, model.decode_step, lambda out: (
-            finite.append(torch.isfinite(out[0]).all()), step_lengths.append(k6_in.lengths)))
-        model.prefill, model.decode_step = prefill, decode
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        build.reset_launches()
-        t_run = time.perf_counter()
-        finished = eng.run()
-        torch.cuda.synchronize()
-        run_s = time.perf_counter() - t_run
-        launches = dict(build.LAUNCHES)
-        del model.prefill, model.decode_step
-    peak = torch.cuda.max_memory_allocated()
-    if not torch.stack(finite).all():
-        fail(f"the {arch} serve run produced non-finite logits")
-    if len(finished) != SERVE["requests"]:
-        fail(f"{len(finished)} of {SERVE['requests']} requests finished")
-    for r in finished:
-        if len(r.out) != SERVE["new_tokens"] or not all(0 <= t < cfg.vocab_size for t in r.out):
-            fail(f"request {r.rid} came back with {len(r.out)} tokens or a token out of the vocabulary")
-    want = {"flash_attention": cfg.num_layers * prefill.calls,
-            "decode_attention": cfg.num_layers * decode.calls,
-            "row_sort_kv": moe_layers * (prefill.calls + decode.calls),
-            "row_sort": 0, "tournament": 0, "merge_rows": 0}
-    for name, n in want.items():
-        if launches[name] != n:
-            fail(f"{arch}: {name} launched {launches[name]} times, want {n} "
-                 f"({prefill.calls} prefills, {decode.calls} decode steps)")
-    if launches["flash_attention"] < 1 or launches["decode_attention"] < 1 or (moe_layers and launches["row_sort_kv"] < 1):
-        fail(f"a kernel of the {arch} serve path never launched")
-    prefill_tokens = sum(len(p) - 1 for p in prompts)
-    new_tokens = sum(len(r.out) for r in finished)
+        eng, eprefill, edecode, efinished, erun_s, e_launches, epeak = engine_run(
+            True, lambda: step_lengths.append(k6_in.lengths))
+    if sorted((r.rid, r.out) for r in efinished) != graph_tokens:
+        fail(f"{arch}: the decode graph's tokens differ from the eager step's")
+    hold(e_launches, eprefill.calls, edecode.calls, "eager run")
     lens = torch.stack(step_lengths).sum(dim=1)
     k6_lengths = step_lengths[int(lens.argmax())].tolist()
     names = ["flash_attention", "decode_attention"] + (["row_sort_kv"] if moe_layers else [])
@@ -1127,20 +1338,17 @@ def phase_serve(torch, np, args, arch: str, phase: str, smoke_archs) -> dict:
             "dtype": cfg.dtype, "config": SERVE, "parity_smoke_f32_vs_cpu": parity,
             "parity_full_width_kernels_vs_plain": width, "init_s": init_s,
             "weight_bytes": weight_bytes, "prompt_lengths": [len(p) for p in prompts],
-            "run_s": run_s, "prefills": prefill.calls, "prefill_tokens": prefill_tokens,
-            "prefill_s": prefill.seconds, "prefill_tokens_per_s": prefill_tokens / prefill.seconds,
-            "decode_steps": decode.calls, "decode_tokens": new_tokens, "decode_s": decode.seconds,
-            "decode_tokens_per_s": new_tokens / decode.seconds,
-            "ms_per_decode_step": decode.seconds / decode.calls * 1e3,
-            "host_s_outside_model": run_s - prefill.seconds - decode.seconds,
+            "decode": "cuda_graph", **graph_line, "prefill_tokens": sum(len(p) - 1 for p in prompts),
             "peak_device_bytes": peak, "launches": {k: launches[k] for k in names},
-            "first_tokens": [r.out[:4] for r in sorted(finished, key=lambda r: r.rid)]}
+            "decode_graph": {"kernel_nodes": nodes["all"], "per_replay": {k: per_replay[k] for k in names},
+                             "decode_merge_nodes": nodes["decode_merge"], "replays": decode.calls},
+            "eager": {**rates(eprefill, edecode, efinished, erun_s), "peak_device_bytes": epeak,
+                      "launches": {k: e_launches[k] for k in names}},
+            "graph_tokens_equal_eager": True, "first_tokens": first_tokens}
     if moe_layers:
-        line["dropped_assignments"] = int(torch.stack(moe_rec.dropped).sum())
+        line["dropped_assignments_eager_run"] = int(torch.stack(moe_rec.dropped).sum())
     emit(line)
-    if args.profile:
-        phase_serve_profile(torch, eng, rng, cfg)
-    del eng, model, finished
+    del eng, efinished, model
     torch.cuda.empty_cache()
     return {"launches": launches, "k5": k5_in, "k6": k6_in, "k6_lengths": k6_lengths,
             "k3_shape": k3_in.shape, "k3_dtype": k3_in.dtype,
@@ -1152,26 +1360,10 @@ def phase_serve_profile(torch, eng, rng, cfg) -> None:
     path under ``torch.profiler``: device busy share and time by kernel."""
     from repro_torch.serve.engine import Request
 
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     plen = min(1024, eng.max_len - 8)
     eng.add(Request(rid=99, prompt=rng.integers(0, cfg.vocab_size, size=plen).tolist(), max_tokens=8))
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        eng.run()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    by_name: dict[str, list[float]] = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            rec = by_name.setdefault(e.name, [0.0, 0])
-            rec[0] += e.time_range.elapsed_us() / 1e3
-            rec[1] += 1
-    busy_ms = sum(v[0] for v in by_name.values())
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]
-    emit({"phase": "serve_profile", "arch": cfg.name, "prompt": plen, "decode_steps": 8, "wall_s": wall,
-          "device_busy_ms": busy_ms, "device_busy_share": busy_ms / 1e3 / wall,
-          "top_device_ms": [{"name": k[:90], "ms": v[0], "calls": v[1]} for k, v in top]})
+    emit({"phase": "serve_profile", "arch": cfg.name, "prompt": plen, "decode_steps": 8,
+          **profiled(torch, eng.run)[0]})
 
 
 def check_attention_at(torch, serve: dict, gen, phase: str) -> None:
@@ -1263,6 +1455,26 @@ def attention_rows(torch, serve: dict, gen) -> list[dict]:
     del q, kc, vc
     torch.cuda.empty_cache()
     return rows
+
+
+def k1_device_epoch(torch, bt, gen, dev: dict) -> dict:
+    """K1 at the device epoch's largest input (the root hop's packed int64
+    record cells), for the K1 row of the kernels line: its kernel nodes per
+    captured epoch, and an eager and a graph call's time at that shape."""
+    x = main_path_input(torch, gen, dev["k1_shape"], dev["k1_dtype"], sorted_rows=False)
+    err = exact(bt.sort_rows(x), bt.sort_rows_plain(x))
+    if err:
+        fail("K1 differs from its plain version at the device epoch's shape")
+    b_bytes, ce = k1_work(x.shape[0], x.shape[1], x.element_size())
+    b_ms, b_by = bound(b_bytes, ce, x.element_size())
+    out = {"shape": list(x.shape), "dtype": str(x.dtype).replace("torch.", ""),
+           "graph_nodes_per_epoch": dev["k1_nodes"], "epochs": dev["epochs"], "max_abs_err": err,
+           **timings(lambda: bt.sort_rows(x), lambda: bt.sort_rows_plain(x),
+                     lambda: torch.sort(x, dim=1).values),
+           "bound_ms": b_ms, "bound_by": b_by}
+    del x
+    torch.cuda.empty_cache()
+    return out
 
 
 def sort_rows_of(torch, bt, gen, launches, k1_in, k2_in) -> list[dict]:
@@ -1422,6 +1634,7 @@ def main() -> int:
         fail("the sort path launched a kernel of another path")
     if branches["ladder"] != 0:
         fail(f"merge_runs_flat took the host ladder {branches['ladder']} times")
+    fused_out, fused_payload = res.output, res.sorted_payload
     del want
     emit({"phase": "pipeline", "n": n, "config": E2E, "parity_with_cpu_at": parity,
           "prep_s": prep_s, "run_s": run_s, "keys_per_s": n / run_s,
@@ -1433,9 +1646,12 @@ def main() -> int:
     del res
     if args.profile:
         phase_profile(torch, run_pipeline, values_d, payload_d, args.seed)
-    del values_d, payload_d
+    dev_epoch = phase_pipeline_device(torch, np, args, run_pipeline, random_trace, values_d, payload_d,
+                                      fused_out, fused_payload)
+    del values_d, payload_d, fused_out, fused_payload
     torch.cuda.empty_cache()
     rows = sort_rows_of(torch, bt, gen, launches, k1_in, k2_in)
+    rows[0]["device_epoch"] = k1_device_epoch(torch, bt, gen, dev_epoch)
 
     # -- the serve paths -------------------------------------------------------
     phase_k3(bt, torch, gen)

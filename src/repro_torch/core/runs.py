@@ -101,10 +101,9 @@ class RunArena:
         == 0``) are already known; identical to :meth:`feed` of ``arr``."""
         if arr.numel() == 0:
             return
-        starts = starts.to(device=self.device, dtype=torch.int64)
         if starts.numel() == 0 or int(starts[0]) != 0:
             raise ValueError("run starts must begin at payload position 0")
-        new_starts = starts + self._n
+        new_starts = starts.to(device=self.device, dtype=torch.int64) + self._n
         if not self._opens_new(arr):
             new_starts = new_starts[1:]
         self._append(arr, new_starts)

@@ -11,7 +11,9 @@ Nothing is compiled or loaded when a module is imported.
 
 :data:`LAUNCHES` is the one launch record of every kernel: a wrapper adds one
 to its entry where it launches its kernel on the card, and nowhere else.
-:func:`graph_kernel_launches` counts the kernels one call puts on the card.
+:func:`graph_kernel_launches` counts the kernels one call puts on the card,
+and :func:`graph_kernel_nodes` the kernels of a captured CUDA graph by entry
+name, which is how a replayed program's launches are counted.
 """
 
 from __future__ import annotations
@@ -151,29 +153,95 @@ def check_launch(err: int, op: str) -> None:
 _KERNEL_NODE = 0
 
 
-def graph_kernel_launches(fn) -> int:
-    """Kernels that one call of ``fn()`` launches on the card: the call is
-    captured into a CUDA graph and the graph's kernel nodes are counted
-    (``cuGraphGetNodes``, ``cuGraphNodeGetType``).  ``fn`` runs once before
-    the capture so that its libraries are built and loaded outside it."""
-    import torch
+class _KernelNodeParams(ctypes.Structure):
+    """``CUDA_KERNEL_NODE_PARAMS_v2`` of ``cuda.h``."""
 
-    fn()
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph(keep_graph=True)
-    with torch.cuda.graph(graph):
-        fn()
-    libcuda = ctypes.CDLL("libcuda.so.1")
+    _fields_ = [("func", ctypes.c_void_p), ("grid", ctypes.c_uint * 3), ("block", ctypes.c_uint * 3),
+                ("shared_mem_bytes", ctypes.c_uint), ("kernel_params", ctypes.c_void_p),
+                ("extra", ctypes.c_void_p), ("kern", ctypes.c_void_p), ("ctx", ctypes.c_void_p)]
+
+
+def _kernel_nodes(libcuda, graph) -> list[ctypes.c_void_p]:
+    """The kernel nodes of ``graph``, a ``torch.cuda.CUDAGraph`` captured
+    with ``keep_graph=True`` (``cuGraphGetNodes``, ``cuGraphNodeGetType``)."""
     handle = ctypes.c_void_p(graph.raw_cuda_graph())
     count = ctypes.c_size_t(0)
     _check_cu(libcuda.cuGraphGetNodes(handle, None, ctypes.byref(count)), "cuGraphGetNodes")
     nodes = (ctypes.c_void_p * count.value)()
     _check_cu(libcuda.cuGraphGetNodes(handle, nodes, ctypes.byref(count)), "cuGraphGetNodes")
-    kernels = 0
+    out = []
     kind = ctypes.c_int(0)
     for node in nodes:
-        _check_cu(libcuda.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)), "cuGraphNodeGetType")
-        kernels += kind.value == _KERNEL_NODE
+        node = ctypes.c_void_p(node)
+        _check_cu(libcuda.cuGraphNodeGetType(node, ctypes.byref(kind)), "cuGraphNodeGetType")
+        if kind.value == _KERNEL_NODE:
+            out.append(node)
+    return out
+
+
+def _function_name(libcuda, node: ctypes.c_void_p) -> str:
+    """The mangled name of a kernel node's function (``cuFuncGetName``)."""
+    params = _KernelNodeParams()
+    _check_cu(libcuda.cuGraphKernelNodeGetParams_v2(node, ctypes.byref(params)),
+              "cuGraphKernelNodeGetParams_v2")
+    func = ctypes.c_void_p(params.func)
+    if not func.value:
+        _check_cu(libcuda.cuKernelGetFunction(ctypes.byref(func), ctypes.c_void_p(params.kern)),
+                  "cuKernelGetFunction")
+    name = ctypes.c_char_p()
+    _check_cu(libcuda.cuFuncGetName(ctypes.byref(name), func), "cuFuncGetName")
+    return name.value.decode()
+
+
+def graph_kernel_nodes(graph, entries) -> dict[str, int]:
+    """Kernel nodes of a captured CUDA graph (``torch.cuda.CUDAGraph`` made
+    with ``keep_graph=True``) whose function is each of ``entries`` (kernel
+    entry names of ``csrc/``, such as ``"row_sort_kernel"``), and under
+    ``"all"`` every kernel node.  A replay of the graph launches exactly
+    these, so replays times this count is what the card ran; the Python
+    counts of :data:`LAUNCHES` tick only while the graph is captured."""
+    libcuda = ctypes.CDLL("libcuda.so.1")
+    return count_entries([_function_name(libcuda, node) for node in _kernel_nodes(libcuda, graph)], entries)
+
+
+def count_entries(names: list[str], entries) -> dict[str, int]:
+    """How many of the mangled kernel ``names`` are each of ``entries``, and
+    under ``"all"`` how many names there are.  Itanium mangling writes an
+    identifier as its length, then its letters, so ``flash_fwd`` is
+    ``9flash_fwd`` and never matches ``14flash_fwd_bf16``."""
+    out = {e: sum(f"{len(e)}{e}" in n for n in names) for e in entries}
+    out["all"] = len(names)
+    return out
+
+
+def capture(fn, device=None):
+    """Capture one call of ``fn()`` into a CUDA graph: torch's recipe runs
+    ``fn`` once on a side stream first (a real call: the kernels it uses are
+    built and loaded, and cuBLAS and the allocator set up, outside the
+    capture), then captures a second call (which runs nothing) and
+    instantiates the graph.  Returns ``(graph, outputs of the captured
+    call)``; the graph keeps its ``cudaGraph_t`` for
+    :func:`graph_kernel_nodes`.  A failed capture raises."""
+    import torch
+
+    side = torch.cuda.Stream(device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream(device).wait_stream(side)
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        out = fn()
+    graph.instantiate()
+    return graph, out
+
+
+def graph_kernel_launches(fn) -> int:
+    """Kernels that one call of ``fn()`` launches on the card: the call is
+    captured into a CUDA graph (:func:`capture`) and the graph's kernel
+    nodes are counted (``cuGraphGetNodes``, ``cuGraphNodeGetType``)."""
+    graph, _ = capture(fn)
+    kernels = len(_kernel_nodes(ctypes.CDLL("libcuda.so.1"), graph))
     graph.reset()
     return kernels
 

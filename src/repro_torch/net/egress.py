@@ -211,6 +211,46 @@ class ServerPool:
             self._timed_ingest(s, sub)
             del sub
 
+    def ingest_grouped(self, values: torch.Tensor, seg_counts, run_flags: torch.Tensor) -> None:
+        """Segment-grouped handoff from the device epoch.
+
+        ``values`` holds every segment's complete emission-order stream
+        contiguously, segment-ascending (the program's grouped layout),
+        ``seg_counts`` the per-segment key counts, and ``run_flags`` marks
+        the maximal-ascending-run starts within ``values``.  Each server
+        receives its segments as whole in-order streams through
+        :meth:`StreamingServer.ingest_segment`: byte-identical to demuxing
+        and reassembling the equivalent packet wire, without touching
+        packet headers.  The run starts of all segments come from one
+        ``nonzero`` over the flags, split by the segment bounds on the host.
+        Single-epoch pools only: the multi-epoch handoff interleaves epochs
+        on the wire, which this layout cannot express."""
+        if self.num_epochs != 1:
+            raise ValueError("grouped handoff supports single-epoch pools only")
+        n = int(values.numel())
+        if n == 0:
+            return
+        seg_counts = torch.as_tensor(seg_counts).cpu().numpy().astype(np.int64)
+        if seg_counts.size != self.eff_segments:
+            raise ValueError(
+                f"seg_counts length {seg_counts.size} != {self.eff_segments} segments"
+            )
+        if int(seg_counts.sum()) != n:
+            raise ValueError("seg_counts do not sum to the stream length")
+        bounds = np.concatenate([[0], np.cumsum(seg_counts)])
+        flat = torch.nonzero(run_flags.to(torch.bool)).reshape(-1).cpu().numpy()
+        cuts = np.searchsorted(flat, bounds)
+        for v in range(self.eff_segments):
+            a, b = int(bounds[v]), int(bounds[v + 1])
+            if a == b:
+                continue
+            s = int(self._affinity[v])
+            starts = torch.from_numpy(flat[cuts[v] : cuts[v + 1]] - a)
+            with self._tr.timed(f"server{s}:wall", cat="egress", tid=1 + s) as t:
+                self.servers[s].ingest_segment(int(self._local_of[v]), values[a:b], starts)
+                _sync(self.device)
+            self.per_server_seconds[s] += t.seconds
+
     # -- completion -----------------------------------------------------
     def finish(self) -> tuple[torch.Tensor, list[int]]:
         """Drain every server; merge the shard outputs.  Passes come back

@@ -13,8 +13,9 @@ Counterpart of :mod:`repro.net.engine` for ``engine="fused"``.  A hop takes a
 
 The reference's ``backend="numpy"|"pallas"`` switch has no counterpart: the
 tensors' device decides (a CUDA tensor launches K1, a CPU tensor takes its
-plain version).  The ``segment``/``faithful``/``device`` engines and INT
-telemetry are later slices and raise ``NotImplementedError``.
+plain version).  ``engine="device"`` is the whole-epoch program of
+:mod:`repro_torch.net.device_epoch`; the ``segment``/``faithful`` engines
+and INT telemetry are later slices and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -29,7 +30,7 @@ from ..obs.trace import NULL_TRACER
 from .packet import DEFAULT_PAYLOAD
 from .wire import WireBatch, empty_batch, ragged_arange, ragged_gather
 
-#: Engine names of the reference; only "fused" is ported in this slice.
+#: Engine names of the reference; "segment" and "faithful" are not ported yet.
 ENGINES = ("fused", "segment", "faithful", "device")
 
 _I32_MAX = torch.iinfo(torch.int32).max
@@ -314,12 +315,20 @@ def run_hop(
     hop_id: int = 0,
     int_telemetry: bool = False,
 ) -> tuple[WireBatch, HopStats]:
-    """Dispatch one hop through the named engine (``"fused"`` only here)."""
+    """Dispatch one hop through the named engine (``"fused"`` or
+    ``"device"``)."""
     if engine not in ENGINES:
         raise ValueError(f"unknown hop engine {engine!r}; options: {sorted(ENGINES)}")
+    if engine == "device":
+        from .device_epoch import device_hop
+
+        return device_hop(
+            batch, spec, name, tracer=tracer, hop_id=hop_id, int_telemetry=int_telemetry
+        )
     if engine != "fused":
         raise NotImplementedError(
-            f"hop engine {engine!r} is not ported yet (later slice); use 'fused'"
+            f"hop engine {engine!r} is not ported yet (later slice: M18, the "
+            "baseline engines); use 'fused' or 'device'"
         )
     return fused_hop(
         batch, spec, name, tracer=tracer, hop_id=hop_id, int_telemetry=int_telemetry

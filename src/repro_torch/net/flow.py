@@ -166,4 +166,5 @@ def interleave_batch(
         torch.repeat_interleave(_t(ids[F]), pkt_sizes_t, output_size=n),
         torch.repeat_interleave(_t(J), pkt_sizes_t, output_size=n),
         torch.full((n,), UNTAGGED, dtype=torch.int64, device=dev),
+        flow_sizes=tuple(zip(ids.tolist(), sizes.tolist())),
     )

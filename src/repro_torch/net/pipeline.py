@@ -13,10 +13,15 @@ schedule, jitter) is drawn on the host with numpy's ``default_rng`` exactly
 as the reference draws it, and only the resulting index arrays move to the
 device, so the port is byte-identical to the reference for every seed.
 
-Not ported in this slice (each raises ``NotImplementedError``): the timing
-model (``network``), ``fault_plan``, a recording ``tracer`` or ``metrics``,
-``int_telemetry``, hop engines other than ``"fused"``, and the adaptive
-``range_mode="sampled"`` plane.
+``engine="device"`` runs each epoch as one program
+(:mod:`repro_torch.net.device_epoch`, captured into a CUDA graph on the
+card); its delivery carries each segment's emission stream and run breaks,
+which feed the server arenas directly (:meth:`ServerPool.ingest_grouped`).
+
+Not ported yet (each raises ``NotImplementedError``): the timing model
+(``network``), ``fault_plan``, a recording ``tracer`` or ``metrics``,
+``int_telemetry``, the ``"segment"``/``"faithful"`` engines, and the
+adaptive ``range_mode="sampled"`` plane.
 """
 
 from __future__ import annotations
@@ -203,8 +208,8 @@ def run_pipeline(
     if faithful and engine is not None and engine != "faithful":
         raise ValueError(f"faithful=True conflicts with engine={engine!r}; pass one")
     engine = engine or ("faithful" if faithful else "fused")
-    if engine != "fused":
-        raise _not_ported(f"engine={engine!r}", "the baseline and compiled hop engines")
+    if engine in ("segment", "faithful"):
+        raise _not_ported(f"engine={engine!r}", "M18, the baseline hop engines")
     if recovery:
         raise _not_ported("recovery=True", "net/server recovery")
     recovery = False
@@ -251,6 +256,10 @@ def run_pipeline(
             plane = control or ControlPlane()
             ranges = plane.ranges(values, num_segments, max_value)
             mode_str = plane.mode
+        if engine == "device":
+            # The host programs the range table; the device epoch builds
+            # its program from it without reading the card.
+            ranges = ranges.cpu()
         topo = make_topology(
             topology,
             num_segments=num_segments,
@@ -282,9 +291,25 @@ def run_pipeline(
                 tracer=tracer,
                 device=dev,
             )
-            if payload is not None:
-                if delivered.row_index is None:
-                    raise ValueError(f"engine {engine!r} dropped the payload row column")
+            if payload is not None and delivered.row_index is None:
+                raise ValueError(f"engine {engine!r} dropped the payload row column")
+            grouped = getattr(delivered, "grouped_values", None)
+            if grouped is not None and (reorder_capacity is None or reorder_capacity >= 1):
+                # Device-epoch fast path: the delivery already carries each
+                # segment's emission stream and its run breaks -- feed the
+                # arenas directly instead of re-deriving packet boundaries.
+                flags = delivered.run_flags
+                if payload is not None:
+                    grouped = (grouped << nbits) | delivered.grouped_rows
+                    # Row tie-breaks can split runs the key-only flags did
+                    # not see; one vectorized compare re-detects them.
+                    counts = delivered.seg_counts.numpy()
+                    heads = np.concatenate([[0], np.cumsum(counts)[:-1]])[counts > 0]
+                    flags = torch.zeros(grouped.numel(), dtype=torch.bool, device=dev)
+                    flags[torch.from_numpy(heads).to(dev)] = True
+                    flags[1:] |= grouped[1:] < grouped[:-1]
+                pool.ingest_grouped(grouped, delivered.seg_counts, flags)
+            elif payload is not None:
                 # (key << rowbits) | row: key order is kept and ties resolve
                 # by input row, so the servers' merge is a stable record sort.
                 pool.ingest_batch(

@@ -209,6 +209,37 @@ class StreamingServer:
                 if int(s) in slow_set:
                     self._ingest_payload(int(s), int(q), batch.values[int(a) : int(b)])
 
+    def ingest_segment(self, sid: int, values: torch.Tensor, run_starts=None) -> None:
+        """Whole-segment in-order handoff from the device epoch.
+
+        ``values`` is the segment's complete emission-order stream for the
+        epoch -- what the reorder buffer would have reassembled from the
+        segment's packets -- so the packet machinery is skipped.
+        ``run_starts`` (payload-relative, ``run_starts[0] == 0``, best on the
+        host) carries the run boundaries the device already detected; the
+        arena backend takes them through
+        :meth:`~repro_torch.core.runs.RunArena.feed_runs`, the ladder
+        re-detects them.  Byte-identical to ingesting the same stream packet
+        by packet in order."""
+        m = int(values.numel())
+        if m == 0:
+            return
+        if sid < 0 or sid >= self.num_segments:
+            raise ValueError(f"packet with invalid segment id {sid}")
+        if self._pending[sid]:
+            raise ValueError(
+                f"segment {sid} has buffered packets; the grouped handoff "
+                "requires a clean in-order stream"
+            )
+        with self._tr.span(f"{self.name}:ingest", cat="server", tid=self.lane, keys=m):
+            # The packet path would have held one packet at a time.
+            self.max_reorder_depth = max(self.max_reorder_depth, 1)
+            if run_starts is not None and self._arenas is not None:
+                self._ingested += m
+                self._arenas[sid].feed_runs(values, run_starts)
+            else:
+                self._feed(sid, values)
+
     def _feed(self, sid: int, arr: torch.Tensor) -> None:
         """Continue natural-run detection over one in-order payload."""
         if arr.numel() == 0:

@@ -6,8 +6,10 @@ group of storage flows (``flow_id % num_groups``), interior nodes fed by the
 round-robin merge of their parents' uplinks -- and :func:`run_graph` runs
 each node through the fused hop engine on device-resident wire batches.
 Each hop's output is dropped as soon as its one consumer has merged it, so a
-fabric holds at most one level of uplinks at a time.  The timing overlay,
-fault reroutes and the compiled-epoch engine are later slices.
+fabric holds at most one level of uplinks at a time.  ``engine="device"``
+runs the whole graph as one program
+(:func:`repro_torch.net.device_epoch.run_graph_device`).  The timing
+overlay and fault reroutes are later slices.
 """
 
 from __future__ import annotations
@@ -93,10 +95,18 @@ def run_graph(
 ):
     """Execute a fabric over an arrival batch; return the egress node's wire
     batch and the per-hop stats in node order."""
+    if faults is not None:
+        raise NotImplementedError("run_graph(faults=...) is not ported yet (later slice: net/faults)")
+    if engine == "device":
+        from .device_epoch import run_graph_device
+
+        return run_graph_device(
+            graph, batch, spec,
+            tracer=tracer, metrics=metrics, int_telemetry=int_telemetry, network=network,
+        )
     for opt, val, later in (
         ("metrics", metrics, "obs/metrics"),
         ("network", network, "net/timing"),
-        ("faults", faults, "net/faults"),
     ):
         if val is not None:
             raise NotImplementedError(

@@ -60,6 +60,10 @@ class WireBatch:
     # Payload provenance: the input row of each key; the payload table is
     # gathered once at egress with it.
     row_index: torch.Tensor | None = None
+    # Host-side ``(flow_id, keys)`` pairs of the flows that built the batch
+    # (set by ``interleave_batch``; any row gather drops them): the device
+    # epoch sizes its ingress groups from them without reading the card.
+    flow_sizes: tuple[tuple[int, int], ...] | None = None
 
     def __post_init__(self) -> None:
         for name in _COLUMNS:

@@ -12,6 +12,16 @@ The reference prefills a standalone batch-1 cache and grafts it into the
 slot.  Here the prefill writes straight into the slot's views of the batched
 cache (``cache["k"][:, s:s+1]`` and so on), after the slot is zeroed: the
 same state, without allocating and copying a second cache.
+
+The reference compiles its decode step once (``jax.jit(model.decode_step)``).
+On the card the engine captures ``model.decode_step`` once, when it is
+built, into a CUDA graph over static buffers -- a ``(slots,)`` token buffer,
+the cache tensors (allocated once by ``init_cache``, written in place by the
+step, by prefill and by the slot reset) and the logits -- and every step
+copies the next tokens in, replays the graph and samples the logits outside
+it.  A failed capture raises; nothing falls back to the eager step.  On the
+CPU the step runs eagerly.  Prefill stays eager: a graph per prompt length
+would be one capture per request.
 """
 
 from __future__ import annotations
@@ -23,6 +33,7 @@ import numpy as np
 import torch
 
 from .. import resolve_device
+from ..kernels import build
 from .sampler import SampleConfig, sample
 
 
@@ -38,7 +49,10 @@ class Request:
 
 class Engine:
     """Serve ``model`` (a :class:`repro_torch.models.lm.LM` on ``device``,
-    default ``"cuda"``; raises without a card unless asked for ``"cpu"``)."""
+    default ``"cuda"``; raises without a card unless asked for ``"cpu"``).
+    On the card the decode step is captured when the engine is built
+    (:attr:`decode_graph`); ``_eager`` keeps it eager there, for the checks
+    that hold the graph to the eager step."""
 
     def __init__(
         self,
@@ -49,6 +63,7 @@ class Engine:
         sample_cfg: SampleConfig = SampleConfig(temperature=0.0),
         seed: int = 0,
         device="cuda",
+        _eager: bool = False,
     ):
         self.device = resolve_device(device)
         if model.device.type != self.device.type:
@@ -63,6 +78,11 @@ class Engine:
         self.queue: deque[Request] = deque()
         self.finished: list[Request] = []
         self._next_token = np.zeros((slots,), np.int32)
+        #: Decode steps run (graph replays on the card).
+        self.decode_steps = 0
+        self.decode_graph = None
+        if self.device.type == "cuda" and not _eager:
+            self._capture_decode()
 
     # ------------------------------------------------------------- plumbing
     def add(self, req: Request) -> None:
@@ -76,6 +96,37 @@ class Engine:
             name: leaf[s : s + 1] if name == "pos" else leaf[:, s : s + 1]
             for name, leaf in self.cache.items()
         }
+
+    def _reset_cache(self) -> None:
+        """Zero every cache leaf in place (the tensors are never rebound)."""
+        for leaf in self.cache.values():
+            leaf.zero_()
+
+    def _capture_decode(self) -> None:
+        """Capture one batched ``decode_step`` into :attr:`decode_graph`.
+
+        The capture recipe (:func:`~repro_torch.kernels.build.capture`) runs
+        the step once before capturing it.  That warm-up is a real step --
+        ``pos`` advances and a k/v row is written in every slot -- so it runs
+        before any request is admitted and the cache is zeroed after it."""
+        self._tokens = torch.zeros(self.slots, dtype=torch.int64, device=self.device)
+        self.decode_graph, (self._logits, _) = build.capture(
+            lambda: self.model.decode_step(self.cache, self._tokens), self.device
+        )
+        self._reset_cache()
+
+    def _decode(self) -> torch.Tensor:
+        """One batched decode step over every slot from ``_next_token``:
+        the graph's replay on the card, the eager step on the CPU.  Returns
+        the logits ``(slots, V)``."""
+        self.decode_steps += 1
+        tokens = torch.from_numpy(self._next_token)
+        if self.decode_graph is None:
+            logits, self.cache = self.model.decode_step(self.cache, tokens.to(self.model.device))
+            return logits
+        self._tokens.copy_(tokens)
+        self.decode_graph.replay()
+        return self._logits
 
     def _reset_slot(self, s: int) -> None:
         """Zero one slot's cache region (pos and every stack's k/v)."""
@@ -99,9 +150,7 @@ class Engine:
         self._admit()
         if not any(r is not None for r in self.active):
             return 0
-        tokens = torch.from_numpy(self._next_token).to(self.model.device)
-        logits, self.cache = self.model.decode_step(self.cache, tokens)
-        toks = sample(logits, self.generator, self.sample_cfg).tolist()
+        toks = sample(self._decode(), self.generator, self.sample_cfg).tolist()
         for s, req in enumerate(self.active):
             if req is None:
                 continue

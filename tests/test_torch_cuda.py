@@ -356,7 +356,9 @@ def test_decode_attention_length_zero_and_strided_views(gen, d, G, dtype):
 def test_smoke_lm_served_on_card_equals_cpu(gen, arch):
     """The f32 smoke config on the card and on the CPU, same weights: equal
     greedy tokens, logits within 1e-4; K5 once per layer per prefill, K6
-    once per layer per decode step, K3 once per MoE layer of either."""
+    once per layer per decode step, K3 once per MoE layer of either.  The
+    card's engine replays its decode step as a CUDA graph, so its decode
+    launches are the graph's kernel nodes times its replays."""
     import dataclasses
 
     cfg = dataclasses.replace(configs.get_smoke_config(arch), dtype="float32")
@@ -379,7 +381,159 @@ def test_smoke_lm_served_on_card_equals_cpu(gen, arch):
             steps += 1
         outs.append(sorted((r.rid, r.out) for r in eng.finished))
     assert outs[0] == outs[1]
+    assert eng.decode_steps == steps
+    nodes = build.graph_kernel_nodes(eng.decode_graph, ["decode_partial", "chunk_stages", "flash_fwd"])
+    assert nodes["flash_fwd"] == 0
     assert bitonic.LAUNCHES["flash_attention"] == cfg.num_layers * 5  # one prefill per request
-    assert bitonic.LAUNCHES["decode_attention"] == cfg.num_layers * steps
+    assert bitonic.LAUNCHES["decode_attention"] == 0
+    assert nodes["decode_partial"] * steps == cfg.num_layers * steps
     moe_layers = cfg.num_layers - cfg.moe.first_dense_layers if cfg.moe else 0
-    assert bitonic.LAUNCHES["row_sort_kv"] == moe_layers * (5 + steps)
+    assert bitonic.LAUNCHES["row_sort_kv"] + nodes["chunk_stages"] * steps == moe_layers * (5 + steps)
+
+
+# -- the compiled programs: the decode step and the device epoch -----------------
+
+
+def _smoke_pair(arch):
+    import dataclasses
+
+    cfg = dataclasses.replace(configs.get_smoke_config(arch), dtype="float32")
+    host = models.build(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+    card = models.build(cfg, device="cuda")
+    card.load_state_dict(host.state_dict())
+    return cfg, host, card
+
+
+@pytest.mark.parametrize("arch", ["mistral-nemo-12b", "granite-moe-3b-a800m"])
+def test_decode_graph_tokens_equal_eager_step(gen, arch):
+    """The engine's captured decode step against the eager step on the card,
+    token for token -- the first request included, so the capture's warm-up
+    step is undone -- and the cache tensors are never rebound."""
+    cfg, _, card = _smoke_pair(arch)
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n).tolist() for n in (6, 3, 9, 2, 5)]
+    outs = []
+    for eager in (False, True):
+        eng = Engine(card, slots=3, max_len=64, device="cuda", _eager=eager)
+        assert (eng.decode_graph is None) == eager
+        if not eager:
+            assert not any(leaf.any() for leaf in eng.cache.values())
+            ptrs = {k: v.data_ptr() for k, v in eng.cache.items()}
+        for i, p in enumerate(prompts):
+            eng.add(Request(rid=i, prompt=p, max_tokens=7))
+        outs.append(sorted((r.rid, r.out) for r in eng.run()))
+        if not eager:
+            assert {k: v.data_ptr() for k, v in eng.cache.items()} == ptrs
+    assert outs[0] == outs[1]
+
+
+def test_decode_capture_failure_raises(gen, monkeypatch):
+    """A step that reads the device on the host cannot be captured: building
+    the engine raises; it does not fall back to the eager step."""
+    _, _, card = _smoke_pair("mistral-nemo-12b")
+    step = card.decode_step
+
+    def reads_host(cache, tokens):
+        logits, cache = step(cache, tokens)
+        if int(logits.argmax()) < 0:
+            pass
+        return logits, cache
+
+    monkeypatch.setattr(card, "decode_step", reads_host)
+    with pytest.raises(RuntimeError):
+        Engine(card, slots=2, max_len=32, device="cuda")
+
+
+def _epoch_batch(n=6000, rows=True, seed=0):
+    from repro_torch.net import flow
+
+    vals = torch.from_numpy(np.random.default_rng(seed).integers(0, 1 << 15, n)).cuda()
+    b = flow.interleave_batch(flow.split_flows(vals, 8, 256), "round_robin")
+    if rows:
+        r = flow.interleave_batch(flow.split_flows(torch.arange(n, device="cuda"), 8, 256), "round_robin")
+        b = b.with_row_index(r.values)
+    return b
+
+
+@pytest.mark.parametrize("rows", [False, True])
+@pytest.mark.parametrize("graph", ["single", "leaf_spine", "tree"])
+def test_device_epoch_replay_equals_eager_and_fused(gen, graph, rows):
+    """The captured epoch (first call and a replay) against the same program
+    run eagerly on the card and against the fused engine on the card: wire
+    columns, grouped view and stats; one read back per epoch; K1 one kernel
+    node per hop of the captured graph."""
+    import dataclasses
+
+    from repro_torch.core.partition import set_ranges
+    from repro_torch.net import device_epoch as de
+    from repro_torch.net import topology
+    from repro_torch.net.engine import HopSpec
+
+    g = {"single": topology.single_graph(), "leaf_spine": topology.leaf_spine_graph(4),
+         "tree": topology.tree_graph(2, 3)}[graph]
+    batch = _epoch_batch(rows=rows)
+    spec = HopSpec(16, 64, (1 << 15) - 1, set_ranges((1 << 15) - 1, 16, device="cpu"), payload_size=256)
+    de.clear_program_cache()
+    outs = []
+    for _ in range(2):
+        de.reset_transfer_counts()
+        outs.append(de.run_graph_device(g, batch, spec))
+        assert de.TRANSFER_COUNTS == {"to_device": 0, "to_host": 1}
+    (prog,) = de._PROGRAM_CACHE.values()
+    assert build.graph_kernel_nodes(prog.graph, ["row_sort_kernel"])["row_sort_kernel"] == len(g.nodes)
+    cols = [batch.values] + ([batch.flow_id] if g.num_groups > 1 else []) + ([batch.row_index] if rows else [])
+    eager = prog.fn(*cols)
+    fused, fstats = topology.run_graph(g, batch, dataclasses.replace(spec, ranges=spec.ranges.cuda()), "fused")
+    for out, stats in outs:
+        assert torch.equal(out.values, eager["vals"]) and torch.equal(out.values, fused.values)
+        assert torch.equal(out.seq, fused.seq) and torch.equal(out.segment_id, fused.segment_id)
+        assert torch.equal(out.grouped_values, eager["stream"]) and torch.equal(out.run_flags, eager["brk"])
+        if rows:
+            assert torch.equal(out.row_index, fused.row_index)
+        assert stats == fstats
+        assert all(torch.equal(a.segment_loads, b.segment_loads.cpu()) for a, b in zip(stats, fstats))
+    de.clear_program_cache()
+
+
+def test_programs_do_not_synchronise(gen):
+    """The epoch program and both smoke decode steps, run eagerly on the card
+    under ``torch.cuda.set_sync_debug_mode("error")``: no op synchronises."""
+    from repro_torch.core.partition import set_ranges
+    from repro_torch.net import device_epoch as de
+    from repro_torch.net import topology
+    from repro_torch.net.engine import HopSpec
+
+    g = topology.tree_graph(2, 3)
+    batch = _epoch_batch()
+    spec = HopSpec(16, 24, (1 << 15) - 1, set_ranges((1 << 15) - 1, 16, device="cpu"), payload_size=256)
+    ns = de._group_sizes(batch, g.num_groups)
+    prog = de._epoch_program(g, spec, spec.ranges.numpy(), ns, True, torch.device("cuda"))
+    models_ = [_smoke_pair(a)[2] for a in ("mistral-nemo-12b", "granite-moe-3b-a800m")]
+    caches = [m.init_cache(2, 16) for m in models_]
+    prog.fn(batch.values, batch.flow_id, batch.row_index)  # builds K1 outside the check
+    toks = torch.tensor([1, 2], device="cuda")
+    for m, c in zip(models_, caches):
+        m.decode_step(c, toks)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        prog.fn(batch.values, batch.flow_id, batch.row_index)
+        for m, c in zip(models_, caches):
+            m.decode_step(c, toks)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    de.clear_program_cache()
+
+
+def test_epoch_capture_failure_raises(gen):
+    """A program that reads the device on the host cannot be captured: the
+    call raises, and nothing runs the eager function in its place."""
+    from repro_torch.net import device_epoch as de
+
+    def reads_host(x):
+        return {"y": x * int(x.sum())}
+
+    prog = de._Program(reads_host, torch.device("cuda"))
+    with pytest.raises(RuntimeError):
+        prog(torch.arange(8, device="cuda"))
+    assert prog.graph is None

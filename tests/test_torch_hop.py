@@ -267,7 +267,9 @@ def test_run_hop_dispatch_and_unported_options():
     assert len(out) == 200
     with pytest.raises(ValueError):
         engine.run_hop(pb, spec, "h", "warp")
-    for eng in ("segment", "faithful", "device"):
+    dout, _ = engine.run_hop(pb, spec, "h", "device")
+    assert torch.equal(dout.values, out.values)
+    for eng in ("segment", "faithful"):
         with pytest.raises(NotImplementedError):
             engine.run_hop(pb, spec, "h", eng)
     with pytest.raises(NotImplementedError):

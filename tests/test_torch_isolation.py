@@ -41,7 +41,8 @@ def test_every_port_module_imports_without_jax_or_reference():
             "repro_torch.core.mergesort", "repro_torch.data.traces",
             "repro_torch.models.lm", "repro_torch.models.moe", "repro_torch.serve.engine",
             "repro_torch.kernels.flash_attention",
-            "repro_torch.kernels.decode_attention"} <= set(names)
+            "repro_torch.kernels.decode_attention",
+            "repro_torch.net.device_epoch"} <= set(names)
     code = (
         "import importlib, sys\n"
         f"for name in {names!r}:\n"

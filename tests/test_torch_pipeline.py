@@ -342,7 +342,7 @@ def test_unported_pipeline_options_raise():
     vals = random_trace(100, seed=0)
     for kw in (
         {"network": object()}, {"fault_plan": "crash:switch@0"}, {"int_telemetry": True},
-        {"metrics": object()}, {"range_mode": "sampled"}, {"engine": "device"},
+        {"metrics": object()}, {"range_mode": "sampled"},
         {"engine": "segment"}, {"faithful": True}, {"recovery": True}, {"replay_packets": 3},
         {"pool_backend": "shard_map", "num_servers": 2},
     ):

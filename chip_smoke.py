@@ -270,8 +270,12 @@ class StageClock:
     """Duck-typed null tracer that times the pipeline's top-level stages.
 
     It records nothing into the run (``enabled`` is False, as for the null
-    tracer); spans of the ``pipeline`` and ``hop`` categories synchronise the
-    card on entry and exit so that their wall seconds are device time.
+    tracer); spans of the ``pipeline``, ``hop`` and ``control`` categories
+    synchronise the card on entry and exit so that their wall seconds are
+    device time.  Two stages have no span of their own (the reference has
+    none): ``pre_epoch``, from the start of the pipeline to its first epoch
+    (flows, interleave, payload rows, the range table), and ``egress``, from
+    the end of its last epoch to its end (the server pool).
     """
 
     enabled = False
@@ -284,21 +288,34 @@ class StageClock:
         self._null = NULL_TRACER
         self._torch = torch
         self.seconds: dict[str, float] = {}
+        self._marks: dict[str, float] = {}
+
+    def _now(self) -> float:
+        if self._torch.cuda.is_available():
+            self._torch.cuda.synchronize()
+        return time.perf_counter()
 
     def span(self, name: str, cat: str = "", tid: int = 0, **args):
-        if cat not in ("pipeline", "hop"):
+        if cat not in ("pipeline", "hop", "control"):
             return self._null.span(name, cat, tid, **args)
         clock = self
 
         class _Span:
             def __enter__(self):
-                clock._torch.cuda.synchronize()
-                self.t0 = time.perf_counter()
+                self.t0 = clock._now()
+                if name == "pipeline":
+                    clock._marks = {"start": self.t0}
+                elif name.startswith("epoch:") and "pre_epoch" not in clock.seconds:
+                    clock.seconds["pre_epoch"] = self.t0 - clock._marks.get("start", self.t0)
                 return self
 
             def __exit__(self, *exc):
-                clock._torch.cuda.synchronize()
-                clock.seconds[name] = time.perf_counter() - self.t0
+                t1 = clock._now()
+                clock.seconds[name] = t1 - self.t0
+                if name.startswith("epoch:"):
+                    clock._marks["epoch_end"] = t1
+                elif name == "pipeline":
+                    clock.seconds["egress"] = t1 - clock._marks.get("epoch_end", t1)
                 return False
 
             def set(self, **kw):
@@ -768,6 +785,326 @@ def phase_pipeline_device(torch, np, args, run_pipeline, random_trace, values_d,
     torch.cuda.empty_cache()
     return {"k1_shape": k1_in.shape, "k1_dtype": k1_in.dtype, "k1_nodes": nodes["row_sort_kernel"],
             "epochs": 1 + len(replays)}
+
+
+#: The reference's ``--scenarios`` rows (``net_bench.py`` ``BENCH_SCENARIOS``)
+#: on the ``E2E`` fabric with sampled ranges, as ``(scenario, keys, flows)``:
+#: ``drifting`` at the paper's trace size, ``adversarial_skew`` at the
+#: reference's end-to-end size (a cut for the control plane's per-packet
+#: host loop).  Eight flows are eight contiguous shards of the trace, so the
+#: wire carries every drift phase at once; one more row feeds ``drifting``
+#: through a single flow, whose wire does drift, at the end-to-end size.
+#: Then ``drifting`` on the device engine at that size, whose sampled epochs
+#: each build and capture a program of their own.
+SCENARIO_ROWS = (("drifting", 100_000_000, 8), ("adversarial_skew", 10_000_000, 8),
+                 ("drifting", 10_000_000, 1))
+SCENARIO_DEVICE_N = 10_000_000
+
+#: The reference's network sweep (``net_bench.py`` ``NETWORK_BENCH``,
+#: ``NETWORK_RATES`` x ``NETWORK_BUFFERS``): one switch, 16 x 64, 256-key
+#: packets, 8 flows, oracle ranges, 2% wire loss under the drop policy, at
+#: its ``--network-n`` default of 1M keys (a cut: the timing model is a
+#: per-packet host event loop).  Rate (0, 1) is unthrottled, buffer 0
+#: unbounded.  One more cell runs the backpressure policy on a lossless,
+#: slow, one-slot link.
+NETWORK_N = 1_000_000
+NETWORK = dict(topology="single", num_segments=16, segment_length=64, payload_size=256,
+               num_flows=8, k=10, range_mode="oracle")
+NETWORK_RATES = ((0, 1), (8, 1), (2, 1), (1, 1), (1, 4), (1, 16), (1, 64))
+NETWORK_BUFFERS = (0, 4, 1)
+NETWORK_LOSS = 0.02
+
+
+def _sync(torch) -> None:
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+
+
+def _reset_peak(torch) -> None:
+    if torch.cuda.is_available():
+        torch.cuda.reset_peak_memory_stats()
+
+
+def _peak(torch):
+    return torch.cuda.max_memory_allocated() if torch.cuda.is_available() else None
+
+
+def _reserved(torch):
+    return torch.cuda.memory_reserved() if torch.cuda.is_available() else None
+
+
+def timed_run(torch, run_pipeline, values, **kw):
+    """One ``run_pipeline`` call between two synchronisations: the result
+    and its wall seconds."""
+    _sync(torch)
+    t0 = time.perf_counter()
+    res = run_pipeline(values, **kw)
+    _sync(torch)
+    return res, time.perf_counter() - t0
+
+
+def phase_pipeline_sampled(torch, np, run_pipeline, dev: str, rows_in, device_n: int,
+                           seed: int) -> None:
+    """The adaptive control plane on the card: each scenario row with
+    sampled, static and oracle ranges on the same keys (fused engine), then
+    ``drifting`` with sampled ranges on the device engine against the fused
+    run at that size."""
+    from repro_torch.data.scenarios import SCENARIOS, scenario_max_value
+    from repro_torch.kernels import build
+    from repro_torch.net import device_epoch as de
+
+    cfg = {k: v for k, v in E2E.items() if k != "range_mode"}
+    rows = []
+    for name, n, flows in rows_in:
+        values = torch.from_numpy(SCENARIOS[name](n, seed=seed)).to(dev)
+        maxv = scenario_max_value(name)
+        want = torch.sort(values).values
+        row = {"scenario": name, "n": n, "num_flows": flows}
+        for mode in ("sampled", "static", "oracle"):
+            clock = StageClock()
+            build.reset_launches()
+            _reset_peak(torch)
+            res, sec = timed_run(torch, run_pipeline, values, max_value=maxv, seed=seed,
+                                 tracer=clock, range_mode=mode, device=dev,
+                                 **dict(cfg, num_flows=flows))
+            launches = dict(build.LAUNCHES)
+            if not torch.equal(res.output, want):
+                fail(f"{name} with {mode} ranges: output differs from torch.sort")
+            # K1 once per hop of every epoch that received keys (through one
+            # flow, the leaves of the other three ingress groups get none).
+            fed = sum(1 for st in res.hop_stats if st.arrivals)
+            if dev == "cuda" and (launches["row_sort"] != fed or launches["tournament"] < 1):
+                fail(f"{name} with {mode} ranges: launches {launches}, want K1 once per "
+                     f"hop with keys ({fed} over {res.num_epochs} epochs) and K2 at least once")
+            entry = {"run_pipeline_s": sec, "keys_per_s": n / sec, "num_epochs": res.num_epochs,
+                     "peak_device_bytes": _peak(torch), "server_imbalance": res.server_imbalance,
+                     "server_keys": res.server_keys, "server_makespan_s": res.server_seconds,
+                     "passes_total": sum(res.passes), "stage_s": dict(clock.seconds),
+                     "hops_with_keys": fed,
+                     "launches": {k: launches[k] for k in ("row_sort", "tournament")}}
+            if mode == "sampled":
+                entry["split_epochs_s"] = clock.seconds["control:split_epochs"]
+                entry["ranges_history"] = [r.cpu().tolist() for r in res.ranges_history]
+                if name == "drifting" and res.num_epochs < (2 if flows > 1 else 3):
+                    fail(f"drifting keys through {flows} flow(s) gave {res.num_epochs} epochs")
+            row[mode] = entry
+            del res
+        rows.append(row)
+        del values, want
+
+    # drifting on the device engine, through 8 flows and through one: each
+    # epoch's range table is a new program key, so each epoch warms up and
+    # captures a program of its own.
+    values = torch.from_numpy(SCENARIOS["drifting"](device_n, seed=seed)).to(dev)
+    maxv = scenario_max_value("drifting")
+    device_rows = []
+    for flows in (8, 1):
+        kw = dict(cfg, num_flows=flows, range_mode="sampled", max_value=maxv, seed=seed, device=dev)
+        fused, fused_s = timed_run(torch, run_pipeline, values, engine="fused", **kw)
+        fused_np = fused.to_numpy()
+        del fused
+        de.clear_program_cache()
+        if torch.cuda.is_available():
+            torch.cuda.empty_cache()
+        reserved = []
+        orig = de.run_graph_device
+
+        def per_epoch(*a, **k):
+            out = orig(*a, **k)
+            reserved.append(_reserved(torch))
+            return out
+
+        de.run_graph_device = per_epoch
+        try:
+            first, first_s = timed_run(torch, run_pipeline, values, engine="device", **kw)
+            first_np = first.to_numpy()
+            del first
+            again, again_s = timed_run(torch, run_pipeline, values, engine="device", **kw)
+            again_np = again.to_numpy()
+            del again
+        finally:
+            de.run_graph_device = orig
+        programs = len(de._PROGRAM_CACHE)
+        for what, got in (("first call", first_np), ("replay", again_np)):
+            diff = same_run(np, got, fused_np)
+            if diff:
+                fail(f"sampled device engine ({what}, {flows} flows) and fused engine disagree on {diff}")
+            if got["num_epochs"] != fused_np["num_epochs"] or any(
+                    not np.array_equal(a, b) for a, b in zip(got["ranges_history"], fused_np["ranges_history"])):
+                fail(f"sampled device engine ({what}, {flows} flows) epochs differ from the fused run's")
+        epochs = first_np["num_epochs"]
+        device_rows.append({"scenario": "drifting", "n": device_n, "num_flows": flows,
+                            "num_epochs": epochs, "epoch_keys": [int(c) for c in np.bincount(
+                                first_np["delivered"]["segment_id"] // cfg["num_segments"])],
+                            "programs_cached": programs, "fused_s": fused_s,
+                            "first_call_s": first_s, "replay_s": again_s,
+                            "memory_reserved_after_each_epoch": reserved[:epochs],
+                            "memory_reserved_after_replays": reserved[epochs:]})
+        del first_np, again_np, fused_np
+        de.clear_program_cache()
+        if torch.cuda.is_available():
+            torch.cuda.empty_cache()
+    del values
+    emit({"phase": "pipeline_sampled", "config": cfg, "scenarios": rows, "device_engine": device_rows})
+
+
+def phase_pipeline_observed(torch, np, run_pipeline, dev: str, values_d, payload_d, fused_out,
+                            fused_payload, seed: int, rounds: int = 2) -> None:
+    """The reference's telemetry modes (off, a recording Tracer with a
+    MetricsRegistry, and INT stamps on top) on the E2E cell, interleaved:
+    every mode's output, passes, hop stat scalars and delivered wire must
+    equal the unobserved run's.  Then the device engine traced."""
+    import os
+    import tempfile
+
+    from repro_torch.data.traces import trace_max_value
+    from repro_torch.kernels import build
+    from repro_torch.net import device_epoch as de
+    from repro_torch.obs import MetricsRegistry, Tracer
+
+    n = int(values_d.numel())
+    kw = dict(payload=payload_d, max_value=trace_max_value("random"), seed=seed, device=dev, **E2E)
+    cols = ("values", "flow_id", "seq", "segment_id", "row_index")
+    base = None
+    times: dict[str, list[float]] = {"off": [], "traced": [], "int": []}
+    info: dict[str, dict] = {}
+    for _ in range(rounds):
+        for mode in times:
+            tracer = None if mode == "off" else Tracer()
+            metrics = None if mode == "off" else MetricsRegistry()
+            build.reset_launches()
+            _reset_peak(torch)
+            res, sec = timed_run(torch, run_pipeline, values_d, tracer=tracer, metrics=metrics,
+                                 int_telemetry=mode == "int", **kw)
+            launches = dict(build.LAUNCHES)
+            times[mode].append(sec)
+            if dev == "cuda" and (launches["row_sort"] != E2E_HOPS or launches["tournament"] < 1):
+                fail(f"observed mode {mode}: launches {launches}")
+            if not torch.equal(res.output, fused_out) or not torch.equal(res.sorted_payload, fused_payload):
+                fail(f"observed mode {mode}: output differs from the pipeline phase's")
+            stats = [(st.name, st.arrivals, st.load_imbalance, st.emitted_runs, st.mean_run_len,
+                      st.recirculations) for st in res.hop_stats]
+            if base is None:
+                base = {"passes": res.passes, "stats": stats,
+                        "delivered": {c: getattr(res.delivered, c) for c in cols}}
+            else:
+                if res.passes != base["passes"] or stats != base["stats"]:
+                    fail(f"observed mode {mode}: passes or hop stats differ from the unobserved run")
+                for c in cols:
+                    if not torch.equal(getattr(res.delivered, c), base["delivered"][c]):
+                        fail(f"observed mode {mode}: delivered {c} differs from the unobserved run")
+            if mode != "off" and mode not in info:
+                with tempfile.TemporaryDirectory() as tmp:
+                    path = os.path.join(tmp, "trace.json")
+                    t0 = time.perf_counter()
+                    tracer.dump(path)
+                    dump_s = time.perf_counter() - t0
+                    size = os.path.getsize(path)
+                entry = {"spans": len(tracer.spans), "instants": len(tracer.instants),
+                         "chrome_trace_bytes": size, "chrome_trace_dump_s": dump_s,
+                         "metrics": sum(len(v) for kind in res.telemetry.values()
+                                        if isinstance(kind, dict) for v in kind.values())}
+                if mode == "int":
+                    meta = res.delivered.int_meta
+                    if meta is None or meta.depth != 3:
+                        fail("INT run: the delivered wire lacks its 3-deep INT stack")
+                    entry["int_depth"] = meta.depth
+                    entry["int_summary_rows"] = len(res.telemetry["int"])
+                    entry["peak_device_bytes"] = _peak(torch)
+                    entry["int_stack_bytes"] = 3 * n * meta.depth * 8
+                info[mode] = entry
+            del res, tracer, metrics
+    del base
+    best = {m: min(v) for m, v in times.items()}
+
+    # The device engine, traced: the program with taps (its own key).
+    de.clear_program_cache()
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+    tracer = Tracer()
+    de.reset_transfer_counts()
+    _reset_peak(torch)
+    res, dev_s = timed_run(torch, run_pipeline, values_d, tracer=tracer, engine="device", **kw)
+    transfers = dict(de.TRANSFER_COUNTS)
+    if not torch.equal(res.output, fused_out) or not torch.equal(res.sorted_payload, fused_payload):
+        fail("traced device engine: output differs from the unobserved runs")
+    if len(tracer.find(cat="hop")) != E2E_HOPS or any(st.ship_emission is None for st in res.hop_stats):
+        fail("traced device engine: the taps did not replay every hop")
+    device = {"s": dev_s, "transfers": transfers, "spans": len(tracer.spans),
+              "peak_device_bytes": _peak(torch), "memory_reserved": _reserved(torch),
+              "metrics": sum(len(v) for kind in res.telemetry.values() for v in kind.values())}
+    del res, tracer
+    de.clear_program_cache()
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+    emit({"phase": "pipeline_observed", "n": n, "config": E2E, "payload_cols": 2, "rounds": rounds,
+          "seconds": times, "best_s": best,
+          "traced_over_off": best["traced"] / best["off"], "int_over_off": best["int"] / best["off"],
+          "traced": info["traced"], "int": info["int"], "device_traced": device})
+
+
+def phase_pipeline_network(torch, np, run_pipeline, dev: str, n: int, seed: int) -> None:
+    """The reference's network sweep: every (rate, buffer) cell under 2%
+    wire loss (drop policy) and one backpressure cell, each byte-identical
+    to the timeless lossless run; the timing model's host seconds beside
+    the pipeline's."""
+    from repro_torch.data.traces import random_trace, trace_max_value
+    from repro_torch.net import timing
+    from repro_torch.net.timing import LinkSpec, NetworkConfig
+
+    values = torch.from_numpy(random_trace(n, seed=seed)).to(dev)
+    kw = dict(NETWORK, max_value=trace_max_value("random"), seed=seed, device=dev)
+    ref, ref_s = timed_run(torch, run_pipeline, values, **kw)
+    if not torch.equal(ref.output, torch.sort(values).values):
+        fail("network phase: the timeless run is not sorted")
+    model_s = [0.0]
+    orig = timing.simulate_link
+
+    def clocked(*a, **k):
+        t0 = time.perf_counter()
+        out = orig(*a, **k)
+        model_s[0] += time.perf_counter() - t0
+        return out
+
+    cells = [(numer, denom, buf, "drop", NETWORK_LOSS) for numer, denom in NETWORK_RATES
+             for buf in NETWORK_BUFFERS] + [(1, 4, 1, "backpressure", 0.0)]
+    rows = []
+    timing.simulate_link = clocked
+    try:
+        for numer, denom, buf, policy, loss in cells:
+            net = NetworkConfig(
+                link=LinkSpec(latency=2, rate_numer=numer or None, rate_denom=denom,
+                              buffer_packets=buf or None, policy=policy, loss_rate=loss),
+                switch_latency=1, seed=seed)
+            model_s[0] = 0.0
+            res, sec = timed_run(torch, run_pipeline, values, network=net, **kw)
+            rep = res.network
+            if not torch.equal(res.output, ref.output) or res.passes != ref.passes:
+                fail(f"network cell rate {numer}/{denom} buffer {buf} {policy}: output differs "
+                     "from the lossless run")
+            if policy == "drop" and rep.drops != rep.retransmits:
+                fail(f"network cell rate {numer}/{denom} buffer {buf}: drops {rep.drops} != "
+                     f"retransmits {rep.retransmits}")
+            if policy == "backpressure" and (rep.drops or not rep.stall_ticks):
+                fail(f"backpressure cell: {rep.drops} drops, {rep.stall_ticks} stall ticks")
+            rows.append({
+                "rate_numer": numer, "rate_denom": denom, "buffer_packets": buf, "policy": policy,
+                "loss_rate": loss, "makespan_ticks": rep.makespan_ticks,
+                "network_seconds": rep.seconds, "server_seconds": res.server_seconds,
+                "bottleneck": "network" if rep.seconds >= res.server_seconds else "compute",
+                "drops": rep.drops, "retransmits": rep.retransmits, "duplicates": rep.duplicates,
+                "stall_ticks": rep.stall_ticks,
+                "coalesced": sum(s.coalesced for s in rep.links),
+                "forced": sum(s.forced for s in rep.links),
+                "buffer_high_water": max(s.buffer_high_water for s in rep.links),
+                "server_dup_packets": res.dup_packets_dropped, "spilled_packets": res.spilled_packets,
+                "spilled_keys": res.spilled_keys, "pipeline_s": sec, "timing_model_s": model_s[0],
+                "lossless_identical": True})
+            del res
+    finally:
+        timing.simulate_link = orig
+    emit({"phase": "pipeline_network", "n": n, "config": dict(NETWORK, loss_rate=NETWORK_LOSS),
+          "timeless_s": ref_s, "cells": rows, "all_lossless_identical": True})
 
 
 class CallClock:
@@ -1648,8 +1985,14 @@ def main() -> int:
         phase_profile(torch, run_pipeline, values_d, payload_d, args.seed)
     dev_epoch = phase_pipeline_device(torch, np, args, run_pipeline, random_trace, values_d, payload_d,
                                       fused_out, fused_payload)
+    phase_pipeline_observed(torch, np, run_pipeline, "cuda", values_d, payload_d, fused_out,
+                            fused_payload, args.seed)
     del values_d, payload_d, fused_out, fused_payload
     torch.cuda.empty_cache()
+    phase_pipeline_sampled(torch, np, run_pipeline, "cuda",
+                           [(name, min(n, args.n), flows) for name, n, flows in SCENARIO_ROWS],
+                           min(SCENARIO_DEVICE_N, args.n), args.seed)
+    phase_pipeline_network(torch, np, run_pipeline, "cuda", min(NETWORK_N, args.n), args.seed)
     rows = sort_rows_of(torch, bt, gen, launches, k1_in, k2_in)
     rows[0]["device_epoch"] = k1_device_epoch(torch, bt, gen, dev_epoch)
 

@@ -49,10 +49,16 @@ batch that :func:`~repro_torch.net.flow.interleave_batch` built carries as
 (once per cache key) uploads its range bounds, as the reference's compile
 embeds them.
 
-Observed runs (a recording tracer, ``metrics=``, ``network=``) need the
-per-hop taps of the reference, whose planes are not ported yet: they raise.
-INT telemetry raises the reference's ``ValueError``.  An empty batch goes
-through the fused engine, as the reference's does.
+Observed runs (a recording tracer, ``metrics=``, ``network=``) build the
+program with *taps* (``taps`` joins the cache key, so the unobserved program
+is untouched): every hop also returns its output's packet-start flags, the
+ship index of each output row (int32 below 2^31 keys) and its emitted-run
+flags.  After the program, one more read brings every hop's packet starts,
+ship indices and run starts to the host, from which the host replays the
+reference's per-hop bookkeeping: the ``hop:<name>`` spans, the per-hop
+metrics, ``HopStats.ship_emission`` and the timing overlay.  INT telemetry
+raises the reference's ``ValueError``.  An empty batch goes through the
+fused engine, as the reference's does.
 """
 
 from __future__ import annotations
@@ -64,6 +70,7 @@ import torch
 
 from ..core.partition import set_ranges
 from ..kernels import build, ops
+from ..obs.trace import NULL_TRACER
 from .engine import HopSpec, HopStats
 from .wire import WireBatch, empty_batch
 
@@ -137,7 +144,8 @@ def _scatter_junk(n: int, tgt: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
     return torch.zeros(n + 1, dtype=_I64, device=src.device).scatter_(0, tgt, src)[:n]
 
 
-def _device_hop(vals, rows, bounds, S: int, L: int, P: int, vbits: int, key_dtype):
+def _device_hop(vals, rows, bounds, S: int, L: int, P: int, vbits: int, key_dtype,
+                taps: bool = False):
     """One hop: the hop's wire columns and stat reductions.
 
     ``vals``/``rows`` are the arrival stream (``rows`` None outside record
@@ -145,7 +153,10 @@ def _device_hop(vals, rows, bounds, S: int, L: int, P: int, vbits: int, key_dtyp
     fit: the stable-argsort forms, byte-identical); ``key_dtype`` the row
     sort's type for bare keys (int32 where the installed ranges fit).  The
     math is the reference's ``_device_hop``, which mirrors
-    ``marathon_emission`` and the fused engine's packetization exactly."""
+    ``marathon_emission`` and the fused engine's packetization exactly.
+    With ``taps`` the hop also returns its observed-run taps under
+    ``"tap"``: packet-start flags and ship indices in wire order, emitted-run
+    flags in grouped order."""
     dev = vals.device
     n = int(vals.numel())
     ar = torch.arange(n, dtype=_I64, device=dev)
@@ -238,9 +249,9 @@ def _device_hop(vals, rows, bounds, S: int, L: int, P: int, vbits: int, key_dtyp
     ship_key = eidx[(starts[seg_g] + last_q).clamp_(0, max(n - 1, 0))]
     del eidx, last_q
     if vbits:
-        out_perm, _ = _stable_perm(ship_key, n)  # ship index < n: fits
+        out_perm, ship_wire = _stable_perm(ship_key, n)  # ship index < n: fits
     else:
-        out_perm = torch.sort(ship_key, stable=True).indices
+        ship_wire, out_perm = torch.sort(ship_key, stable=True)
     vals_out = stream[out_perm]
     sid_out = seg_g[out_perm]
     seq_out = pkt_j[out_perm]
@@ -254,6 +265,7 @@ def _device_hop(vals, rows, bounds, S: int, L: int, P: int, vbits: int, key_dtyp
         desc = torch.cat([~one, stream[1:] < stream[:-1]])
         brk = seg_chg | desc
     else:
+        chg = torch.zeros(0, dtype=torch.bool, device=dev)
         turn = torch.zeros(0, dtype=_I64, device=dev)
         brk = torch.zeros(0, dtype=torch.bool, device=dev)
 
@@ -270,6 +282,12 @@ def _device_hop(vals, rows, bounds, S: int, L: int, P: int, vbits: int, key_dtyp
     if stream_rows is not None:
         hop["rows"] = stream_rows[out_perm]
         hop["stream_rows"] = stream_rows
+    if taps:
+        hop["tap"] = {
+            "ship": ship_wire.to(torch.int32 if n < 1 << 31 else _I64),
+            "pstart": chg,
+            "brk": brk,
+        }
     return hop
 
 
@@ -348,7 +366,7 @@ def _vbits(ranges: np.ndarray, n_total: int) -> int:
 
 
 def _epoch_program(graph, spec: HopSpec, ranges: np.ndarray, group_ns: tuple,
-                   carry_rows: bool, device: torch.device) -> _Program:
+                   carry_rows: bool, device: torch.device, taps: bool = False) -> _Program:
     """Build (or fetch from the cache) the whole-epoch program.
 
     The key is the reference's: the graph, the spec's shape fields, the
@@ -358,9 +376,10 @@ def _epoch_program(graph, spec: HopSpec, ranges: np.ndarray, group_ns: tuple,
     ``row_index`` in record mode -- to the egress columns and
     one int64 ``stats`` vector: every hop's segment counts, then every
     hop's emitted runs, then the ingress group sizes, then the ingress
-    minimum and maximum."""
+    minimum and maximum.  With ``taps`` it also returns every hop's taps
+    under ``"taps"``."""
     key = (graph, spec.num_segments, spec.segment_length, spec.payload_size,
-           ranges.tobytes(), group_ns, carry_rows, str(device))
+           ranges.tobytes(), group_ns, carry_rows, str(device), taps)
     prog = _PROGRAM_CACHE.get(key)
     if prog is not None:
         return prog
@@ -413,14 +432,14 @@ def _epoch_program(graph, spec: HopSpec, ranges: np.ndarray, group_ns: tuple,
             if node.parents:
                 vals, rows = _rr_merge([hops[p] for p in node.parents], carry_rows, vbits > 0)
                 for p in node.parents:  # one consumer per uplink: keep only its stats
-                    hops[p] = {"counts": hops[p]["counts"], "runs": hops[p]["runs"]}
+                    hops[p] = {k: hops[p][k] for k in ("counts", "runs", "tap") if k in hops[p]}
             else:
                 vals, rows = groups[node.group], row_groups[node.group]
                 groups[node.group] = row_groups[node.group] = None
-            hop = _device_hop(vals, rows, bounds, S, L, P, vbits, key_dtype)
+            hop = _device_hop(vals, rows, bounds, S, L, P, vbits, key_dtype, taps)
             del vals, rows
             if i != last:
-                hop = {k: hop[k] for k in ("vals", "rows", "turn", "counts", "runs") if k in hop}
+                hop = {k: hop[k] for k in ("vals", "rows", "turn", "counts", "runs", "tap") if k in hop}
             hops.append(hop)
         eg = hops[-1]
         stats = torch.cat([
@@ -434,6 +453,8 @@ def _epoch_program(graph, spec: HopSpec, ranges: np.ndarray, group_ns: tuple,
         if carry_rows:
             res["rows"] = eg["rows"]
             res["stream_rows"] = eg["stream_rows"]
+        if taps:
+            res["taps"] = [h["tap"] for h in hops]
         return res
 
     prog = _Program(epoch_fn, device)
@@ -508,39 +529,32 @@ def run_graph_device(
     """Run a fabric epoch as one program: the contract of
     :func:`~repro_torch.net.topology.run_graph` -- the egress batch (a
     :class:`DeviceDelivery`) and the per-hop stats, byte-identical to the
-    fused engine's wire, output and stat scalars.  The epoch runs on the
-    batch's device; it reads one tensor back per call (see
-    :data:`TRANSFER_COUNTS`)."""
+    fused engine's wire, output and stat scalars; with ``network`` also the
+    :class:`~repro_torch.net.timing.NetworkReport`, the delivered batch then
+    being the egress link's raw wire.  The epoch runs on the batch's device;
+    unobserved, it reads one tensor back per call (see
+    :data:`TRANSFER_COUNTS`), observed, one more: the taps."""
     if int_telemetry or getattr(batch, "int_meta", None) is not None:
         raise ValueError(
             "engine 'device' does not support INT telemetry -- the compiled "
             "epoch never materializes the per-hop streams the stamp needs; "
             "use the 'fused' engine for INT runs"
         )
-    for opt, val, later in (("metrics", metrics, "M14 obs/metrics"),
-                            ("network", network, "M15 net/timing")):
-        if val is not None:
-            raise NotImplementedError(
-                f"engine 'device' with {opt}= replays per-hop taps into a plane "
-                f"that is not ported yet (later slice: {later})"
-            )
-    if tracer is not None and getattr(tracer, "enabled", False):
-        raise NotImplementedError(
-            "engine 'device' with a recording tracer replays per-hop taps into "
-            "spans that are not ported yet (later slice: M14 obs/trace Tracer)"
-        )
+    tr = tracer or NULL_TRACER
     if len(batch) == 0:
         # Nothing to run for a drained epoch; the per-hop loop on an empty
         # stream is already output- and stats-identical.
         from .topology import run_graph
 
-        return run_graph(graph, batch, spec, "fused", tracer=tracer)
+        return run_graph(graph, batch, spec, "fused", tracer=tracer, metrics=metrics,
+                         network=network)
+    collect = network is not None or metrics is not None or tr.enabled
 
     dev = batch.device
     carry_rows = batch.row_index is not None
     ranges = _host_ranges(spec)
     group_ns = _group_sizes(batch, graph.num_groups)
-    prog = _epoch_program(graph, spec, ranges, group_ns, carry_rows, dev)
+    prog = _epoch_program(graph, spec, ranges, group_ns, carry_rows, dev, collect)
     cols = [batch.values]
     if graph.num_groups > 1:
         cols.append(batch.flow_id)
@@ -559,9 +573,10 @@ def run_graph_device(
     if tuple(int(s) for s in sizes) != group_ns:
         raise AssertionError(f"ingress group sizes {sizes.tolist()} != the batch's {list(group_ns)}")
     stats = [_stats_from_device(node.name, counts[i], runs[i], L) for i, node in enumerate(graph.nodes)]
+    taps = res.get("taps")  # read below, before any other replay
     if prog.graph is not None:
         # The graph's static outputs are overwritten by its next replay.
-        res = {k: v.clone() for k, v in res.items()}
+        res = {k: v.clone() for k, v in res.items() if k != "taps"}
     n_out = int(res["vals"].numel())
     delivery = DeviceDelivery(
         res["vals"],
@@ -575,6 +590,46 @@ def run_graph_device(
         seg_counts=torch.from_numpy(counts[-1].copy()),
         run_flags=res["brk"],
     )
+    if not collect:
+        return delivery, stats
+    return _replay_taps(graph, batch, taps, stats, delivery, tr, metrics, network)
+
+
+def _replay_taps(graph, batch, taps, stats, delivery, tr, metrics, network):
+    """The observed run's per-hop bookkeeping, replayed from the taps.
+
+    Every hop's packet starts, ship indices (at the starts) and run starts
+    come to the host in one read; from them the host sets each hop's
+    ``ship_emission`` and replays the reference's hop spans, per-hop
+    metrics and the timing overlay, hop by hop in node order."""
+    from .topology import record_hop
+
+    parts = []
+    for tap in taps:
+        starts = torch.nonzero(tap["pstart"]).reshape(-1)
+        parts += [starts, tap["ship"][starts].to(_I64), torch.nonzero(tap["brk"]).reshape(-1)]
+    lens = np.cumsum([int(t.numel()) for t in parts])[:-1]
+    host = np.split(_fetch(torch.cat(parts)), lens)
+    del parts
+    timer = None
+    if network is not None:
+        from .timing import GraphTimer
+
+        timer = GraphTimer(graph, batch, network, tracer=tr, metrics=metrics)
+    for i, node in enumerate(graph.nodes):
+        starts, ship, run_starts = host[3 * i : 3 * i + 3]
+        keys = stats[i].arrivals
+        stats[i] = dataclasses.replace(stats[i], ship_emission=torch.from_numpy(ship))
+        with tr.span(f"hop:{node.name}", cat="hop", keys=keys) as hop_sp:
+            hop_sp.set(keys_out=keys)
+        if metrics is not None:
+            record_hop(metrics, node.name, keys, keys, starts.size, stats[i],
+                       np.diff(np.append(run_starts, keys)))
+        if timer is not None:
+            timer.after_hop(i, node, np.diff(np.append(starts, keys)), ship)
+    if timer is not None:
+        delivered, report = timer.egress_deliver(delivery)
+        return delivered, stats, report
     return delivery, stats
 
 

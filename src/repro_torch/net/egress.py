@@ -11,8 +11,11 @@ The demux is packet-granular: the per-packet headers are read on the host
 once per batch, and each server's rows move in one device gather.  The pool's
 wall-clock is the makespan (slowest server plus the merge); on a CUDA device
 each timed region ends with a synchronise, so the seconds are device time,
-not enqueue time.  Shard failover (``crash_schedule``), replay buffers,
-loss recovery and the ``"shard_map"`` pool merge are later slices.
+not enqueue time.  ``recovery`` turns on every member server's loss-recovery
+mode (for the raw egress link of :mod:`repro_torch.net.timing`), and
+``metrics`` reaches every server and the pool's own gauges.  Shard failover
+(``crash_schedule``, replay buffers) and the ``"shard_map"`` pool merge are
+later slices (M16, M19).
 """
 
 from __future__ import annotations
@@ -22,7 +25,7 @@ import torch
 
 from .. import resolve_device
 from ..core.mergesort import merge_runs
-from ..obs.trace import NULL_TRACER, check_tracer
+from ..obs.trace import NULL_TRACER
 from .server import StreamingServer
 from .wire import WireBatch, ragged_gather
 
@@ -99,14 +102,13 @@ class ServerPool:
         if pool_backend == "shard_map":
             raise NotImplementedError(
                 'pool_backend="shard_map" is not ported yet (later slice: '
-                "the multi-card pool merge)"
+                "M19, the multi-card pool merge)"
             )
         if crash_schedule or replay_packets is not None:
             raise NotImplementedError(
                 "shard failover (crash_schedule, replay_packets) is not ported "
-                "yet (later slice: net/faults)"
+                "yet (later slice: M16, net/faults)"
             )
-        check_tracer(tracer)
         self.device = resolve_device(device)
         base = segment_affinity(num_segments, num_servers)
         if affinity is not None:
@@ -136,6 +138,7 @@ class ServerPool:
         self.eff_segments = num_segments * num_epochs
         self.merge_backend = merge_backend
         self.pool_backend = pool_backend
+        self.recovery = recovery
         counts = np.bincount(self._affinity, minlength=num_servers)
         local = np.zeros(self.eff_segments, dtype=np.int64)
         for s in range(num_servers):
@@ -143,6 +146,7 @@ class ServerPool:
         self._local_of = local
         self._local_of_dev = torch.from_numpy(local).to(self.device)
         self._tr = tracer or NULL_TRACER
+        self._metrics = metrics
         self.servers = [
             StreamingServer(
                 int(counts[s]) if counts[s] else 1,  # idle server: 1 port
@@ -174,7 +178,12 @@ class ServerPool:
         its shard with segment ids renumbered into its local space.
 
         Masking whole packets preserves each segment's packet order, so every
-        server sees exactly the sub-sequence of the wire its NIC would."""
+        server sees exactly the sub-sequence of the wire its NIC would.  In
+        recovery mode a retransmit copy separated from its original only by
+        other servers' packets would land next to it after the demux and
+        fuse into one double-length packet (boundaries are header runs): the
+        demux applies the egress link's rule first, adjacent identical copies
+        deliver once."""
         n = len(batch)
         if n == 0:
             return
@@ -187,27 +196,43 @@ class ServerPool:
         starts_d = batch.packet_starts()
         starts = starts_d.cpu().numpy()
         sizes = np.diff(np.concatenate([starts, [n]]))
-        pserv = self._affinity[batch.segment_id[starts_d].cpu().numpy()]
+        pseg = batch.segment_id[starts_d].cpu().numpy()
+        pserv = self._affinity[pseg]
+        if self.recovery:
+            pflow = batch.flow_id[starts_d].cpu().numpy()
+            pseq = batch.seq[starts_d].cpu().numpy()
         dev = batch.device
         for s in range(self.num_servers):
             sel = np.flatnonzero(pserv == s)
             if not sel.size:
                 continue
-            sel_sizes = sizes[sel]
-            sub = batch.take(
-                ragged_gather(
-                    torch.from_numpy(starts[sel]).to(dev),
-                    torch.from_numpy(sel_sizes).to(dev),
-                    int(sel_sizes.sum()),
+            if self.recovery and sel.size > 1:
+                dup = (
+                    (pflow[sel][1:] == pflow[sel][:-1])
+                    & (pseq[sel][1:] == pseq[sel][:-1])
+                    & (pseg[sel][1:] == pseg[sel][:-1])
                 )
+                if dup.any():
+                    keep = np.ones(sel.size, dtype=bool)
+                    keep[1:] = ~dup
+                    self.servers[s].dup_packets_dropped += int(dup.sum())
+                    sel = sel[keep]
+            sel_sizes = sizes[sel]
+            idx = ragged_gather(
+                torch.from_numpy(starts[sel]).to(dev),
+                torch.from_numpy(sel_sizes).to(dev),
+                int(sel_sizes.sum()),
             )
+            # Only the columns a server reads move: the INT stack and the
+            # row column stay behind.
             sub = WireBatch(
-                sub.values,
-                sub.flow_id,
-                sub.seq,
-                self._local_of_dev[sub.segment_id],
-                epoch=sub.epoch,
+                batch.values[idx],
+                batch.flow_id[idx],
+                batch.seq[idx],
+                self._local_of_dev[batch.segment_id[idx]],
+                epoch=batch.epoch,
             )
+            del idx
             self._timed_ingest(s, sub)
             del sub
 
@@ -278,12 +303,30 @@ class ServerPool:
             output = pool_concat(outs, disjoint=self.num_epochs == 1)
             _sync(self.device)
         self.merge_seconds = t.seconds
+        if self._metrics is not None:
+            self._metrics.gauge("pool_server_keys").set(self.server_keys)
+            self._metrics.gauge("pool_imbalance").set(self.server_imbalance)
         return output, passes
 
     # -- observability --------------------------------------------------
     @property
     def max_reorder_depth(self) -> int:
         return max((s.max_reorder_depth for s in self.servers), default=0)
+
+    @property
+    def dup_packets_dropped(self) -> int:
+        """Retransmit duplicates dropped across the pool (recovery mode)."""
+        return sum(s.dup_packets_dropped for s in self.servers)
+
+    @property
+    def spilled_packets(self) -> int:
+        """Packets fed out of band on reorder overflow, pool-wide."""
+        return sum(s.spilled_packets for s in self.servers)
+
+    @property
+    def spilled_keys(self) -> int:
+        """Keys carried by spilled packets, pool-wide."""
+        return sum(s.spilled_keys for s in self.servers)
 
     @property
     def server_keys(self) -> list[int]:

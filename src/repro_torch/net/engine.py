@@ -13,9 +13,11 @@ Counterpart of :mod:`repro.net.engine` for ``engine="fused"``.  A hop takes a
 
 The reference's ``backend="numpy"|"pallas"`` switch has no counterpart: the
 tensors' device decides (a CUDA tensor launches K1, a CPU tensor takes its
-plain version).  ``engine="device"`` is the whole-epoch program of
+plain version).  With ``int_telemetry`` a hop stamps the INT columns
+(:mod:`repro_torch.obs.telemetry`) onto its output by each key's exact
+provenance.  ``engine="device"`` is the whole-epoch program of
 :mod:`repro_torch.net.device_epoch`; the ``segment``/``faithful`` engines
-and INT telemetry are later slices and raise ``NotImplementedError``.
+are a later slice (M18) and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ import torch
 
 from ..core.marathon import MarathonEmission, marathon_emission
 from ..kernels import ops
+from ..obs.telemetry import IntColumns
 from ..obs.trace import NULL_TRACER
 from .packet import DEFAULT_PAYLOAD
 from .wire import WireBatch, empty_batch, ragged_arange, ragged_gather
@@ -220,13 +223,6 @@ def emission_to_wire(values, sids, num_segments, payload_size, epoch=0) -> WireB
 # ---------------------------------------------------------------------------
 
 
-def _reject_int(batch, int_telemetry: bool) -> None:
-    if int_telemetry or getattr(batch, "int_meta", None) is not None:
-        raise NotImplementedError(
-            "INT telemetry is not ported yet (later slice: obs/telemetry)"
-        )
-
-
 def fused_hop(
     batch: WireBatch,
     spec: HopSpec,
@@ -238,9 +234,13 @@ def fused_hop(
 ) -> tuple[WireBatch, HopStats]:
     """The batched engine: route -> rank -> row sort (K1) -> emit ->
     packetize, every stage over all segments at once.  A ``row_index``
-    column follows its keys through the hop by their exact provenance."""
-    del hop_id
-    _reject_int(batch, int_telemetry)
+    column follows its keys through the hop by their exact provenance.
+
+    With ``int_telemetry`` (or an arrival batch already carrying telemetry)
+    the hop stamps INT columns onto the output: for every emitted key this
+    hop's id, the count of its segment-mates still resident at emission
+    (capped at the 2·L pipeline size) and its insertion rank within its
+    segment, carried by the same provenance rows as the payload column."""
     tr = tracer or NULL_TRACER
     dev = batch.device
     em: MarathonEmission = marathon_emission(
@@ -254,8 +254,12 @@ def fused_hop(
     )
     with tr.span("stats", cat="stage"):
         stats = HopStats._from_grouped(name, em.streams, em.counts, spec.segment_length)
+    want_int = int_telemetry or batch.int_meta is not None
     if len(batch) == 0:
         out = empty_batch(batch.epoch, device=dev)
+        if want_int:
+            depth = 0 if batch.int_meta is None else batch.int_meta.depth
+            out = out.with_int_meta(IntColumns.empty(0, depth + 1, device=dev))
         if batch.row_index is not None:
             out = out.with_row_index(torch.zeros(0, dtype=torch.int64, device=dev))
         stats = dataclasses.replace(
@@ -271,10 +275,30 @@ def fused_hop(
         )
         del eidx
     stats = dataclasses.replace(stats, ship_emission=ship)
-    if batch.row_index is not None:
+    if want_int or batch.row_index is not None:
         in_rows = _provenance_rows(batch, em, idx, spec.segment_length)
-        out = out.with_row_index(batch.row_index[in_rows])
+        if batch.row_index is not None:
+            out = out.with_row_index(batch.row_index[in_rows])
+        if want_int:
+            with tr.span("int_stamp", cat="stage"):
+                out = _stamp_int(batch, em, out, idx, spec, hop_id, in_rows)
     return out, stats
+
+
+def _stamp_int(batch, em, out, idx, spec: HopSpec, hop_id: int, in_rows) -> WireBatch:
+    """Append this hop's INT column, carrying the arrival stack forward.
+
+    ``out.segment_id`` is each wire row's segment, so the occupancy at
+    emission -- the segment's keys not yet emitted, capped at 2·L -- is
+    column arithmetic over the grouped positions ``idx``."""
+    L = spec.segment_length
+    sid_out = out.segment_id
+    queue_depth = torch.clamp(em.counts[sid_out] - (idx - em.starts[sid_out]), max=2 * L)
+    prev = batch.int_meta
+    if prev is None:
+        prev = IntColumns.empty(len(batch), device=batch.device)
+    stack = prev.take(in_rows).stamp(hop_id, queue_depth, em.ranks[in_rows])
+    return out.with_int_meta(stack)
 
 
 def _provenance_rows(batch, em, idx, L) -> torch.Tensor:

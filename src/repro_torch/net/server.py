@@ -17,8 +17,17 @@ Keys stay on the device.  :meth:`StreamingServer.ingest_batch` copies the
 per-packet header arrays (one entry per packet) to the host once per batch
 for the reorder logic; the keys of every in-order segment move in one
 device gather.  Output and pass counts are byte-identical to the reference.
-Loss recovery (``recovery=True``: duplicate drop, reorder-overflow spill)
-and the metrics registry are a later slice.
+
+With ``recovery=True`` the server heals a lossy wire (the raw egress link of
+:mod:`repro_torch.net.timing`) instead of refusing it: duplicate sequence
+numbers are counted and dropped, and when the bounded reorder buffer
+overflows the youngest buffered packet is *spilled* -- fed out of band to the
+run detector -- with its seq remembered so the in-order cursor steps over it
+and late copies still dedupe.  A segment that sees a duplicate, a spill or
+any reordering leaves the columnar fast path for the per-packet one.
+``metrics`` (a :class:`~repro_torch.obs.metrics.MetricsRegistry`) receives
+the reference's server counters, gauges, run-length histogram and the
+``reorder_depth`` series.
 """
 
 from __future__ import annotations
@@ -29,7 +38,7 @@ import torch
 from .. import resolve_device
 from ..core.mergesort import merge_runs, merge_runs_batched, merge_runs_flat
 from ..core.runs import RunArena, merge_passes
-from ..obs.trace import NULL_TRACER, check_tracer
+from ..obs.trace import NULL_TRACER
 from .packet import Packet
 from .wire import WireBatch, ragged_gather
 
@@ -66,25 +75,20 @@ class StreamingServer:
                 f"unknown merge_backend {merge_backend!r}; "
                 f"options: {', '.join(MERGE_BACKENDS)}"
             )
-        if recovery:
-            raise NotImplementedError(
-                "server loss recovery (recovery=True) is not ported yet "
-                "(later slice: net/server recovery and spill)"
-            )
-        if metrics is not None:
-            raise NotImplementedError(
-                "the metrics registry is not ported yet (later slice: obs/metrics)"
-            )
-        check_tracer(tracer)
         self.device = resolve_device(device)
         self.num_segments = num_segments
         self.k = k
         self.reorder_capacity = reorder_capacity
         self.final_merge = final_merge
         self.merge_backend = merge_backend
+        self.recovery = recovery
         self.name = name
         self.lane = lane
         self._tr = tracer or NULL_TRACER
+        self._metrics = metrics
+        # Run lengths buffer here as plain ints; one histogram observe at
+        # finish() keeps the per-run path free of registry lookups.
+        self._run_len_buf: list[int] = []
         S = num_segments
         self._pending: list[dict[int, torch.Tensor]] = [{} for _ in range(S)]
         self._next_seq = [0] * S
@@ -99,6 +103,12 @@ class StreamingServer:
         )
         self._ingested = 0
         self.max_reorder_depth = 0
+        # Recovery state: seqs spilled out of band, kept until the in-order
+        # cursor passes them so that late duplicates still dedupe.
+        self._spilled: list[set[int]] = [set() for _ in range(S)]
+        self.dup_packets_dropped = 0
+        self.spilled_packets = 0
+        self.spilled_keys = 0
 
     @property
     def keys_ingested(self) -> int:
@@ -116,6 +126,7 @@ class StreamingServer:
         self._tail.extend([None] * m)
         self._levels.extend([] for _ in range(m))
         self._run_count.extend([0] * m)
+        self._spilled.extend(set() for _ in range(m))
         if self._arenas is not None:
             self._arenas.extend(RunArena(device=self.device) for _ in range(m))
 
@@ -129,25 +140,63 @@ class StreamingServer:
         if not 0 <= sid < self.num_segments:
             raise ValueError(f"packet with invalid segment id {sid}")
         buf = self._pending[sid]
-        if seq < self._next_seq[sid] or seq in buf:
+        if seq < self._next_seq[sid] or seq in buf or seq in self._spilled[sid]:
+            if self.recovery:
+                # A retransmit whose original also made it: count and drop.
+                self.dup_packets_dropped += 1
+                if self._metrics is not None:
+                    self._metrics.counter("server_dup_packets", self.name).inc()
+                return
             raise ValueError(f"duplicate packet seg={sid} seq={seq}")
         buf[seq] = payload
         depth = len(buf)
         self.max_reorder_depth = max(self.max_reorder_depth, depth)
+        if self._metrics is not None:
+            # Timeline of buffer occupancy, x = keys ingested so far.
+            self._metrics.series("reorder_depth", self.name).append(self._ingested, depth)
         if self.reorder_capacity is not None and depth > self.reorder_capacity:
-            raise ValueError(
-                f"reorder buffer overflow on segment {sid}: {depth} "
-                f"packets buffered, capacity {self.reorder_capacity}"
-            )
+            if not self.recovery:
+                raise ValueError(
+                    f"reorder buffer overflow on segment {sid}: {depth} "
+                    f"packets buffered, capacity {self.reorder_capacity}"
+                )
+            # In-order progress may relieve the pressure before any spill.
+            self._drain(sid)
+            while len(buf) > self.reorder_capacity:
+                self._spill(sid)
         self._drain(sid)
 
     def _drain(self, sid: int) -> None:
-        """Advance the in-order cursor over the buffered packets."""
+        """Advance the in-order cursor: feed buffered packets, step over
+        spilled seqs (their keys are already in the run detector)."""
         buf = self._pending[sid]
-        while self._next_seq[sid] in buf:
+        spilled = self._spilled[sid]
+        while True:
             nxt = self._next_seq[sid]
-            self._next_seq[sid] = nxt + 1
-            self._feed(sid, buf.pop(nxt))
+            if nxt in buf:
+                self._next_seq[sid] = nxt + 1
+                self._feed(sid, buf.pop(nxt))
+            elif spilled and nxt in spilled:
+                spilled.discard(nxt)
+                self._next_seq[sid] = nxt + 1
+            else:
+                return
+
+    def _spill(self, sid: int) -> None:
+        """Evict the youngest buffered packet out of band (recovery mode):
+        its keys go straight to the run detector, whose run-break rule keeps
+        the merge's inputs sorted -- the cost is shorter runs, never a
+        different output."""
+        buf = self._pending[sid]
+        seq = max(buf)
+        arr = buf.pop(seq)
+        self._spilled[sid].add(seq)
+        self.spilled_packets += 1
+        self.spilled_keys += int(arr.numel())
+        if self._metrics is not None:
+            self._metrics.counter("server_spilled_packets", self.name).inc()
+            self._metrics.counter("server_spilled_keys", self.name).inc(int(arr.numel()))
+        self._feed(sid, arr)
 
     def ingest_batch(self, batch: WireBatch) -> None:
         """Consume a columnar wire batch.
@@ -186,6 +235,7 @@ class StreamingServer:
             in_order = (
                 (self.reorder_capacity is None or self.reorder_capacity >= 1)
                 and not self._pending[s]
+                and not self._spilled[s]
                 and np.array_equal(
                     seqs,
                     np.arange(self._next_seq[s], self._next_seq[s] + seqs.size),
@@ -226,7 +276,7 @@ class StreamingServer:
             return
         if sid < 0 or sid >= self.num_segments:
             raise ValueError(f"packet with invalid segment id {sid}")
-        if self._pending[sid]:
+        if self._pending[sid] or self._spilled[sid]:
             raise ValueError(
                 f"segment {sid} has buffered packets; the grouped handoff "
                 "requires a clean in-order stream"
@@ -267,6 +317,8 @@ class StreamingServer:
         self._cur[sid] = []
         self._tail[sid] = None
         self._run_count[sid] += 1
+        if self._metrics is not None:
+            self._run_len_buf.append(int(run.numel()))
         self._push_run(sid, run, 0)
 
     def _push_run(self, sid: int, run: torch.Tensor, depth: int) -> None:
@@ -286,8 +338,11 @@ class StreamingServer:
     def finish(self) -> tuple[torch.Tensor, list[int]]:
         """Drain state; return ``(globally sorted stream, passes/segment)``."""
         for sid in range(self.num_segments):
-            if self._pending[sid]:
-                have = set(self._pending[sid])
+            # A spilled seq the cursor never passed means an earlier packet
+            # never arrived: recovery dedupes and reorders, it never invents
+            # keys, so a genuine loss still fails here.
+            if self._pending[sid] or self._spilled[sid]:
+                have = set(self._pending[sid]) | self._spilled[sid]
                 missing = [
                     q for q in range(self._next_seq[sid], max(have) + 1)
                     if q not in have
@@ -296,10 +351,27 @@ class StreamingServer:
                     f"{self.name}: segment {sid}: stream incomplete — "
                     f"missing seqs {_format_seq_ranges(missing)} "
                     f"(next expected {self._next_seq[sid]}, "
-                    f"{len(self._pending[sid])} buffered)"
+                    f"{len(self._pending[sid])} buffered, "
+                    f"{len(self._spilled[sid])} spilled out of band)"
                 )
         with self._tr.span(f"{self.name}:finish", cat="server", tid=self.lane):
-            return self._finish_body()
+            out, passes = self._finish_body()
+        m = self._metrics
+        if m is not None:
+            if self._run_len_buf:
+                m.histogram("server_run_length", self.name).observe_many(
+                    np.asarray(self._run_len_buf, dtype=np.int64)
+                )
+                self._run_len_buf = []
+            m.gauge("server_keys_ingested", self.name).set(self._ingested)
+            m.gauge("server_max_reorder_depth", self.name).set(self.max_reorder_depth)
+            m.gauge("server_merge_passes", self.name).set(list(passes))
+            m.counter("server_runs_detected", self.name).inc(
+                sum(a.num_runs for a in self._arenas)
+                if self._arenas is not None
+                else sum(self._run_count)
+            )
+        return out, passes
 
     def _finish_body(self) -> tuple[torch.Tensor, list[int]]:
         tr = self._tr
@@ -310,12 +382,18 @@ class StreamingServer:
                 arena = self._arenas[sid]
                 if len(arena):
                     starts, lengths = arena.run_offsets()
+                    if self._metrics is not None:
+                        self._metrics.histogram("server_run_length", self.name).observe_many(lengths)
+                        self._metrics.gauge("server_arena_fill", self.name).high_water(len(arena))
                     with tr.span(
                         f"merge:seg{sid}", cat="server", tid=self.lane,
                         keys=len(arena), runs=int(lengths.numel()),
                     ):
                         outs.append(
-                            merge_runs_flat(arena.keys, starts, lengths, tid=self.lane)
+                            merge_runs_flat(
+                                arena.keys, starts, lengths,
+                                tracer=tr if tr.enabled else None, tid=self.lane,
+                            )
                         )
                 passes.append(merge_passes(arena.num_runs, self.k))
         else:
@@ -334,7 +412,7 @@ class StreamingServer:
         elif self.final_merge:
             with tr.span("merge:final", cat="server", tid=self.lane, runs=len(outs)):
                 out = (
-                    merge_runs_batched(outs, tid=self.lane)
+                    merge_runs_batched(outs, tracer=tr if tr.enabled else None, tid=self.lane)
                     if self._arenas is not None
                     else merge_runs(outs)
                 )

@@ -8,8 +8,14 @@ each node through the fused hop engine on device-resident wire batches.
 Each hop's output is dropped as soon as its one consumer has merged it, so a
 fabric holds at most one level of uplinks at a time.  ``engine="device"``
 runs the whole graph as one program
-(:func:`repro_torch.net.device_epoch.run_graph_device`).  The timing
-overlay and fault reroutes are later slices.
+(:func:`repro_torch.net.device_epoch.run_graph_device`).
+
+Observability is opt-in and output-transparent: ``tracer`` wraps every node
+in a ``hop:<name>`` span, ``metrics`` accumulates per-hop key counters,
+segment-load gauges and the emitted run-length histogram, and
+``int_telemetry`` has each hop stamp INT columns.  ``network`` (a
+:class:`~repro_torch.net.timing.NetworkConfig`) runs the per-link timing
+overlay beside the hops.  Fault reroutes are a later slice (M16).
 """
 
 from __future__ import annotations
@@ -94,9 +100,15 @@ def run_graph(
     faults=None,
 ):
     """Execute a fabric over an arrival batch; return the egress node's wire
-    batch and the per-hop stats in node order."""
+    batch and the per-hop stats in node order.
+
+    With ``network`` the return is ``(delivered, stats, NetworkReport)``:
+    the delivered batch is the egress link's raw wire (reordered, with
+    retransmit duplicates), which a pool in recovery mode heals."""
     if faults is not None:
-        raise NotImplementedError("run_graph(faults=...) is not ported yet (later slice: net/faults)")
+        raise NotImplementedError(
+            "run_graph(faults=...) is not ported yet (later slice: M16, net/faults)"
+        )
     if engine == "device":
         from .device_epoch import run_graph_device
 
@@ -104,16 +116,13 @@ def run_graph(
             graph, batch, spec,
             tracer=tracer, metrics=metrics, int_telemetry=int_telemetry, network=network,
         )
-    for opt, val, later in (
-        ("metrics", metrics, "obs/metrics"),
-        ("network", network, "net/timing"),
-    ):
-        if val is not None:
-            raise NotImplementedError(
-                f"run_graph({opt}=...) is not ported yet (later slice: {later})"
-            )
     tr = tracer or NULL_TRACER
     dev = batch.device
+    timer = None
+    if network is not None:
+        from .timing import GraphTimer, packets
+
+        timer = GraphTimer(graph, batch, network, tracer=tracer, metrics=metrics)
     ingress: list[WireBatch | None] = list(split_by_flow(batch, graph.num_groups))
     outs: list[WireBatch | None] = []
     stats: list[HopStats] = []
@@ -131,6 +140,10 @@ def run_graph(
                 tracer=tracer, hop_id=i, int_telemetry=int_telemetry,
             )
             hop_sp.set(keys_out=len(out))
+        if metrics is not None:
+            # The fused hop's stats carry its emitted run lengths.
+            record_hop(metrics, node.name, len(inp), len(out), out.num_packets, st,
+                       st.emitted_run_lengths)
         del inp
         # Stamp the emitting hop into flow_id so sibling uplinks keep unique
         # packet headers when they interleave at the next hop.
@@ -141,10 +154,31 @@ def run_graph(
             out.segment_id,
             epoch=out.epoch,
             row_index=out.row_index,
+            int_meta=out.int_meta,
         )
+        if timer is not None:
+            # Restamping the flow ids moves no packet boundary, so the
+            # overlay sees the packets the next hop will.
+            timer.after_hop(i, node, packets(out)[1], st.ship_emission)
         outs.append(out)
         stats.append(st)
+    if timer is not None:
+        delivered, report = timer.egress_deliver(outs[-1])
+        return delivered, stats, report
     return outs[-1], stats
+
+
+def record_hop(metrics, name: str, keys_in: int, keys_out: int, packets_out: int,
+               st: HopStats, run_lengths) -> None:
+    """One hop's counters, gauges and emitted run-length histogram, as the
+    reference's ``run_graph`` records them."""
+    metrics.counter("hop_keys_in", name).inc(keys_in)
+    metrics.counter("hop_keys_out", name).inc(keys_out)
+    metrics.counter("hop_packets_out", name).inc(packets_out)
+    metrics.counter("hop_recirculations", name).inc(st.recirculations)
+    metrics.gauge("hop_segment_loads", name).set(st.segment_loads)
+    metrics.gauge("hop_load_imbalance", name).set(st.load_imbalance)
+    metrics.histogram("hop_emitted_run_length", name).observe_many(run_lengths)
 
 
 def single_graph() -> HopGraph:

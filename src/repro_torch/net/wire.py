@@ -1,9 +1,11 @@
 """Columnar wire format: the dataplane's struct-of-tensors packet stream.
 
 Counterpart of :mod:`repro.net.wire`.  A :class:`WireBatch` holds one row per
-key -- ``values``, ``flow_id``, ``seq``, ``segment_id`` and the optional
-payload provenance ``row_index`` -- as int64 tensors on one device, plus an
-``epoch`` tag.  Packet boundaries are the runs of consecutive rows sharing
+key -- ``values``, ``flow_id``, ``seq``, ``segment_id``, the optional
+payload provenance ``row_index`` and the optional INT telemetry stack
+``int_meta`` (:class:`~repro_torch.obs.telemetry.IntColumns`) -- as int64
+tensors on one device, plus an ``epoch`` tag.  Every row gather applies to
+the optional columns too, so they never detach from their keys.  Packet boundaries are the runs of consecutive rows sharing
 one ``(flow_id, seq, segment_id)`` header, exactly as in the reference.
 
 :func:`from_reference` and :meth:`WireBatch.to_numpy` carry a batch across
@@ -19,6 +21,7 @@ import numpy as np
 import torch
 
 from .. import resolve_device
+from ..obs.telemetry import INT_FIELDS, IntColumns
 from .packet import DEFAULT_PAYLOAD, UNTAGGED, Packet
 
 _COLUMNS = ("values", "flow_id", "seq", "segment_id")
@@ -64,6 +67,8 @@ class WireBatch:
     # (set by ``interleave_batch``; any row gather drops them): the device
     # epoch sizes its ingress groups from them without reading the card.
     flow_sizes: tuple[tuple[int, int], ...] | None = None
+    # INT per-hop telemetry stack (opt-in; stamped by the fused engine).
+    int_meta: IntColumns | None = None
 
     def __post_init__(self) -> None:
         for name in _COLUMNS:
@@ -82,6 +87,8 @@ class WireBatch:
                 raise ValueError(
                     f"row_index length {self.row_index.numel()} != values length {n}"
                 )
+        if self.int_meta is not None and len(self.int_meta) != n:
+            raise ValueError(f"int_meta rows {len(self.int_meta)} != values length {n}")
 
     def __len__(self) -> int:
         return int(self.values.numel())
@@ -120,7 +127,8 @@ class WireBatch:
 
     # -- reshaping ------------------------------------------------------
     def take(self, idx: torch.Tensor) -> "WireBatch":
-        """Row gather (boolean mask or index tensor), order-preserving."""
+        """Row gather (boolean mask or index tensor), order-preserving; the
+        row column and the INT stack follow their keys."""
         return WireBatch(
             self.values[idx],
             self.flow_id[idx],
@@ -128,6 +136,7 @@ class WireBatch:
             self.segment_id[idx],
             epoch=self.epoch,
             row_index=None if self.row_index is None else self.row_index[idx],
+            int_meta=None if self.int_meta is None else self.int_meta.take(idx),
         )
 
     def slice_keys(self, lo: int, hi: int) -> "WireBatch":
@@ -138,6 +147,7 @@ class WireBatch:
             self.segment_id[lo:hi],
             epoch=self.epoch,
             row_index=None if self.row_index is None else self.row_index[lo:hi],
+            int_meta=None if self.int_meta is None else self.int_meta.slice(lo, hi),
         )
 
     def with_epoch(self, epoch: int, num_segments: int) -> "WireBatch":
@@ -149,11 +159,16 @@ class WireBatch:
             self.segment_id + epoch * num_segments,
             epoch=epoch,
             row_index=self.row_index,
+            int_meta=self.int_meta,
         )
 
     def with_row_index(self, row_index: torch.Tensor | None) -> "WireBatch":
         """The same wire rows carrying a (different) payload row column."""
         return dataclasses.replace(self, row_index=row_index)
+
+    def with_int_meta(self, int_meta: IntColumns | None) -> "WireBatch":
+        """The same wire rows carrying a different telemetry stack."""
+        return dataclasses.replace(self, int_meta=int_meta)
 
     # -- Packet interop -------------------------------------------------
     @classmethod
@@ -196,6 +211,10 @@ class WireBatch:
         out = {name: getattr(self, name).cpu().numpy() for name in _COLUMNS}
         out["epoch"] = self.epoch
         out["row_index"] = None if self.row_index is None else self.row_index.cpu().numpy()
+        out["int_meta"] = (
+            None if self.int_meta is None
+            else {name: getattr(self.int_meta, name).cpu().numpy() for name in INT_FIELDS}
+        )
         return out
 
 
@@ -203,20 +222,23 @@ def from_reference(batch, device="cuda") -> WireBatch:
     """The port's :class:`WireBatch` for a reference batch (any object with
     the reference's numpy columns), on ``device``."""
     dev = resolve_device(device)
-    for extra in ("int_meta", "tenant"):
-        if getattr(batch, extra, None) is not None:
-            raise NotImplementedError(
-                f"the {extra} column is not ported yet (later slice)"
-            )
+    if getattr(batch, "tenant", None) is not None:
+        raise NotImplementedError(
+            "the tenant column is not ported yet (later slice: M17, net/scheduler)"
+        )
 
-    def _t(a):
-        return torch.from_numpy(np.ascontiguousarray(a, dtype=np.int64)).to(dev)
+    def _t(a):  # a copy: the reference freezes some of its arrays
+        return torch.from_numpy(np.array(a, dtype=np.int64, order="C")).to(dev)
 
     row_index = getattr(batch, "row_index", None)
+    meta = getattr(batch, "int_meta", None)
     return WireBatch(
         *(_t(getattr(batch, name)) for name in _COLUMNS),
         epoch=int(batch.epoch),
         row_index=None if row_index is None else _t(row_index),
+        int_meta=None if meta is None else IntColumns(
+            **{name: _t(getattr(meta, name)) for name in INT_FIELDS}
+        ),
     )
 
 
@@ -250,8 +272,8 @@ def packetize_batch(
 
 def concat_batches(batches: list[WireBatch], device="cuda") -> WireBatch:
     """Concatenate in list order.  The epoch tag survives only if uniform;
-    the row column only if every key-carrying part has it.  ``device`` is
-    used only for an empty list."""
+    the row column and the INT stack only if every key-carrying part has
+    them.  ``device`` is used only for an empty list."""
     if not batches:
         return empty_batch(device=device)
     epochs = {b.epoch for b in batches}
@@ -259,10 +281,14 @@ def concat_batches(batches: list[WireBatch], device="cuda") -> WireBatch:
     row_index = None
     if carrying and all(b.row_index is not None for b in carrying):
         row_index = torch.cat([b.row_index for b in carrying])
+    int_meta = None
+    if carrying and all(b.int_meta is not None for b in carrying):
+        int_meta = IntColumns.concat([b.int_meta for b in carrying])
     return WireBatch(
         *(torch.cat([getattr(b, name) for b in batches]) for name in _COLUMNS),
         epoch=epochs.pop() if len(epochs) == 1 else 0,
         row_index=row_index,
+        int_meta=int_meta,
     )
 
 

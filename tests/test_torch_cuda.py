@@ -232,6 +232,88 @@ def test_pipeline_on_card_equals_cpu_run(gen, backend, jitter):
     np.testing.assert_array_equal(card["output"], np.sort(vals))
 
 
+def _slice8_kw(engine):
+    return dict(topology="tree", branching=2, height=3, num_segments=8, segment_length=64,
+                payload_size=256, num_flows=8, num_servers=2, merge_backend="arena", engine=engine)
+
+
+def _same_on_card_and_cpu(card, host):
+    a, b = card.to_numpy(), host.to_numpy()
+    np.testing.assert_array_equal(a["output"], b["output"])
+    assert a["passes"] == b["passes"] and a["num_epochs"] == b["num_epochs"]
+    for c in ("values", "flow_id", "seq", "segment_id"):
+        np.testing.assert_array_equal(a["delivered"][c], b["delivered"][c])
+    for x, y in zip(a["ranges_history"], b["ranges_history"]):
+        np.testing.assert_array_equal(x, y)
+    assert (a["dup_packets_dropped"], a["spilled_packets"]) == (b["dup_packets_dropped"], b["spilled_packets"])
+    assert a["telemetry"] == b["telemetry"]
+
+
+@pytest.mark.parametrize("engine", ["fused", "device"])
+def test_sampled_pipeline_on_card_equals_cpu_run(gen, engine):
+    """``range_mode="sampled"`` on the card: the epochs, ranges and output
+    of the same call on the CPU, K1 launched on every epoch's hops."""
+    from repro_torch.data.scenarios import drifting
+    from repro_torch.net.control import AdaptiveControlPlane
+
+    vals = drifting(80_000, seed=1)
+    plane = dict(warmup=2048, recent_window=2048, check_every=2048, seed=3)
+    kw = dict(_slice8_kw(engine), range_mode="sampled", max_value=65535)
+    bitonic.reset_launches()
+    card = run_pipeline(vals, adaptive=AdaptiveControlPlane(8, 65535, **plane), device="cuda", **kw)
+    if engine == "fused":
+        assert bitonic.LAUNCHES["row_sort"] == 7 * card.num_epochs
+    host = run_pipeline(vals, adaptive=AdaptiveControlPlane(8, 65535, **plane), device="cpu", **kw)
+    assert card.num_epochs > 1
+    _same_on_card_and_cpu(card, host)
+    np.testing.assert_array_equal(card.output.cpu().numpy(), np.sort(vals))
+
+
+@pytest.mark.parametrize("engine", ["fused", "device"])
+def test_observed_pipeline_on_card_equals_cpu_run(gen, engine):
+    """A recording tracer, metrics and (fused) INT telemetry on the card:
+    the same spans (not times), snapshot and INT summary as on the CPU, and
+    the same output as the unobserved run on the card."""
+    from repro_torch.obs import Tracer
+
+    vals = random_trace(50_000, seed=2)
+    kw = dict(_slice8_kw(engine), range_mode="oracle", int_telemetry=engine == "fused")
+    runs = []
+    for dev in ("cuda", "cpu"):
+        tr = Tracer()
+        runs.append((run_pipeline(vals, tracer=tr, device=dev, **kw), tr))
+    (card, ctr), (host, htr) = runs
+    _same_on_card_and_cpu(card, host)
+    shape = lambda t: [(s.name, s.cat, s.tid, sorted(s.args)) for s in t.spans]  # noqa: E731
+    assert shape(ctr) == shape(htr)
+    plain = run_pipeline(vals, device="cuda", **dict(kw, int_telemetry=False))
+    assert torch.equal(plain.output, card.output) and plain.passes == card.passes
+
+
+@pytest.mark.parametrize("engine", ["fused", "device"])
+def test_timed_pipeline_on_card_equals_cpu_run(gen, engine):
+    """``network=`` on the card: the lossy egress healed by recovery, the
+    same NetworkReport and recovery counters as on the CPU, the output
+    equal to the timeless run's."""
+    import dataclasses
+
+    from repro_torch.net.timing import LinkSpec, NetworkConfig
+
+    vals = random_trace(40_000, seed=4)
+    net = NetworkConfig(link=LinkSpec(latency=2, rate_numer=4, buffer_packets=4, loss_rate=0.02),
+                        egress=LinkSpec(latency=3, loss_rate=0.05, dup_rate=0.05, buffer_packets=8),
+                        seed=1)
+    kw = dict(_slice8_kw(engine), range_mode="oracle")
+    card = run_pipeline(vals, network=net, device="cuda", **kw)
+    host = run_pipeline(vals, network=net, device="cpu", **kw)
+    _same_on_card_and_cpu(card, host)
+    assert card.network.makespan_ticks == host.network.makespan_ticks
+    assert [dataclasses.asdict(x) for x in card.network.links] == [
+        dataclasses.asdict(x) for x in host.network.links]
+    timeless = run_pipeline(vals, device="cuda", **kw)
+    assert torch.equal(timeless.output, card.output) and timeless.passes == card.passes
+
+
 def _randn(gen, shape, dtype, scale=1.0):
     return (torch.randn(shape, generator=gen, device="cuda") * scale).to(dtype)
 

@@ -246,6 +246,12 @@ def test_device_hop_empty_batch():
 
 
 def test_device_rejects_int_telemetry_and_observed_runs():
+    """INT telemetry still raises the reference's ``ValueError``; the
+    observed runs it once refused (``metrics=``, ``network=``, a recording
+    tracer) now run, equal to the fused engine's observed run."""
+    from repro_torch.net import timing
+    from repro_torch.obs import MetricsRegistry, Tracer
+
     vals = SCENARIOS["adversarial_skew"](512, seed=0)
     batch = _batch(vals)
     spec = HopSpec(SEGS, LENGTH, max_value=scenario_max_value("adversarial_skew"))
@@ -254,14 +260,25 @@ def test_device_rejects_int_telemetry_and_observed_runs():
         topology.run_graph(g, batch, spec, "device", int_telemetry=True)
     with pytest.raises(ValueError, match="telemetry"):
         engine.run_hop(batch, spec, "sw", engine="device", int_telemetry=True)
-
-    class Recording:
-        enabled = True
-
-    for kw, name in (({"metrics": object()}, "M14"), ({"network": object()}, "M15"),
-                     ({"tracer": Recording()}, "M14")):
-        with pytest.raises(NotImplementedError, match=name):
-            de.run_graph_device(g, batch, spec, **kw)
+    net = timing.NetworkConfig(link=timing.LinkSpec(latency=1, rate_numer=3, rate_denom=2, buffer_packets=2))
+    for kw in ({"metrics": MetricsRegistry}, {"network": net}, {"tracer": Tracer}):
+        key, val = next(iter(kw.items()))
+        runs = []
+        for eng in ("device", "fused"):
+            obs = val() if callable(val) else val
+            runs.append((topology.run_graph(g, batch, spec, eng, **{key: obs}), obs))
+        (dres, dobs), (fres, fobs) = runs
+        for col in ("values", "seq", "segment_id"):
+            assert torch.equal(getattr(dres[0], col), getattr(fres[0], col)), (key, col)
+        for a, b in zip(dres[1], fres[1]):
+            assert torch.equal(a.ship_emission, b.ship_emission)
+        if key == "metrics":
+            assert dobs.snapshot() == fobs.snapshot()
+        elif key == "network":
+            assert [vars(s) for s in dres[2].links] == [vars(s) for s in fres[2].links]
+        else:
+            assert [(s.name, sorted(s.args)) for s in dobs.find(cat="hop")] == [
+                (s.name, sorted(s.args)) for s in fobs.find(cat="hop")]
 
 
 @pytest.mark.parametrize("bad", [[5, 500], [-1, 5]])
@@ -449,6 +466,40 @@ def test_epoch_program_reads_nothing_on_the_host(graph, rows, length):
         res = prog.fn(*cols)
     assert guard.seen["sort"] >= 1 and "_local_scalar_dense" not in guard.seen
     assert res["stats"].numel() == len(g.nodes) * (SEGS + 1) + g.num_groups + 2
+
+
+@pytest.mark.parametrize("rows", [False, True])
+def test_observed_program_reads_nothing_on_the_host(rows):
+    """The program with taps (an observed run's) is a program key of its
+    own, reads nothing on the host either, and returns one tap per hop; the
+    run around it reads one tensor more than an unobserved run."""
+    from repro_torch.obs import MetricsRegistry
+
+    g = topology.tree_graph(2, 3)
+    vals = np.random.default_rng(0).integers(0, 1000, 3000)
+    b = _batch(vals, rows=rows)
+    spec = HopSpec(SEGS, 16, 999, set_ranges(999, SEGS, device="cpu"), payload_size=32)
+    ns = de._group_sizes(b, g.num_groups)
+    de.clear_program_cache()
+    plain = de._epoch_program(g, spec, spec.ranges.numpy(), ns, rows, torch.device("cpu"))
+    taps = de._epoch_program(g, spec, spec.ranges.numpy(), ns, rows, torch.device("cpu"), True)
+    assert taps is not plain and len(de._PROGRAM_CACHE) == 2
+    cols = [b.values, b.flow_id] + ([b.row_index] if rows else [])
+    with NoHostReads():
+        res = taps.fn(*cols)
+    assert "taps" not in plain.fn(*cols)
+    assert len(res["taps"]) == len(g.nodes)
+    for tap in res["taps"]:
+        assert tap["ship"].dtype == torch.int32
+        assert tap["ship"].numel() == tap["pstart"].numel() == tap["brk"].numel()
+    assert res["taps"][-1]["ship"].numel() == 3000  # the egress hop sees every key
+    de.reset_transfer_counts()
+    topology.run_graph(g, b, spec, "device", metrics=MetricsRegistry())
+    assert de.TRANSFER_COUNTS == {"to_device": 0, "to_host": 2}
+    de.reset_transfer_counts()
+    topology.run_graph(g, b, spec, "device")
+    assert de.TRANSFER_COUNTS == {"to_device": 0, "to_host": 1}
+    de.clear_program_cache()
 
 
 @pytest.mark.parametrize("wide", [False, True])

@@ -270,10 +270,16 @@ def test_run_hop_dispatch_and_unported_options():
     dout, _ = engine.run_hop(pb, spec, "h", "device")
     assert torch.equal(dout.values, out.values)
     for eng in ("segment", "faithful"):
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(NotImplementedError, match="M18"):
             engine.run_hop(pb, spec, "h", eng)
-    with pytest.raises(NotImplementedError):
-        engine.fused_hop(pb, spec, "h", int_telemetry=True)
+    # INT telemetry, once refused, stamps the reference's columns
+    rout, _ = ref_engine.fused_hop(rb, ref_engine.HopSpec(4, 8, 32767, ref_part.set_ranges(32767, 4),
+                                                          payload_size=16), "h", hop_id=3,
+                                   int_telemetry=True)
+    iout, _ = engine.fused_hop(pb, spec, "h", hop_id=3, int_telemetry=True)
+    assert_batch_equal(iout, rout)
+    for name in ("hop_id", "queue_depth", "rank_ticks"):
+        np.testing.assert_array_equal(iout.to_numpy()["int_meta"][name], getattr(rout.int_meta, name))
 
 
 # -- fabrics -------------------------------------------------------------------
@@ -329,9 +335,29 @@ def test_graph_builders_and_validation():
     g = topology.single_graph()
     spec = engine.HopSpec(2, 2, 9, T(ref_part.set_ranges(9, 2)))
     batch = wire.packetize_batch(torch.arange(5))
-    for kw in ({"metrics": object()}, {"network": object()}, {"faults": object()}):
-        with pytest.raises(NotImplementedError):
-            topology.run_graph(g, batch, spec, **kw)
+    with pytest.raises(NotImplementedError, match="M16"):
+        topology.run_graph(g, batch, spec, faults=object())
+    # metrics= and network=, once refused, run as the reference's
+    from repro.net import timing as ref_timing
+    from repro.obs import MetricsRegistry as RefMetrics
+    from repro_torch.net import timing
+    from repro_torch.obs import MetricsRegistry
+
+    rbatch = ref_wire.packetize_batch(np.arange(5))
+    rspec = ref_engine.HopSpec(2, 2, 9, ref_part.set_ranges(9, 2))
+    rm, pm = RefMetrics(), MetricsRegistry()
+    rout, _ = ref_topo.run_graph(ref_topo.single_graph(), rbatch, rspec, metrics=rm)
+    pout, _ = topology.run_graph(g, batch, spec, metrics=pm)
+    assert_batch_equal(pout, rout)
+    assert pm.snapshot() == rm.snapshot()
+    link = dict(latency=2, rate_numer=1, rate_denom=3)
+    rout, _, rrep = ref_topo.run_graph(ref_topo.single_graph(), rbatch, rspec,
+                                       network=ref_timing.NetworkConfig(link=ref_timing.LinkSpec(**link)))
+    pout, _, prep = topology.run_graph(g, batch, spec,
+                                       network=timing.NetworkConfig(link=timing.LinkSpec(**link)))
+    assert_batch_equal(pout, rout)
+    assert prep.makespan_ticks == rrep.makespan_ticks > 0
+    assert [vars(s) for s in prep.links] == [vars(s) for s in rrep.links]
 
 
 # -- control plane -------------------------------------------------------------

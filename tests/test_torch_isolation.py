@@ -42,7 +42,10 @@ def test_every_port_module_imports_without_jax_or_reference():
             "repro_torch.models.lm", "repro_torch.models.moe", "repro_torch.serve.engine",
             "repro_torch.kernels.flash_attention",
             "repro_torch.kernels.decode_attention",
-            "repro_torch.net.device_epoch"} <= set(names)
+            "repro_torch.net.device_epoch", "repro_torch.net.timing",
+            "repro_torch.net.control", "repro_torch.obs.metrics",
+            "repro_torch.obs.telemetry", "repro_torch.obs.trace",
+            "repro_torch.data.scenarios"} <= set(names)
     code = (
         "import importlib, sys\n"
         f"for name in {names!r}:\n"

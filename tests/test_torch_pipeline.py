@@ -234,10 +234,25 @@ def test_streaming_server_errors_match_reference():
         server.StreamingServer(0, device="cpu")
     with pytest.raises(ValueError):
         server.StreamingServer(2, merge_backend="gpu", device="cpu")
-    with pytest.raises(NotImplementedError):
-        server.StreamingServer(2, recovery=True, device="cpu")
-    with pytest.raises(NotImplementedError):
-        server.StreamingServer(2, metrics=object(), device="cpu")
+    # recovery mode, once refused: a duplicate is dropped and counted, a
+    # reorder overflow spills, and the metrics match the reference's
+    from repro.obs import MetricsRegistry as RefMetrics
+    from repro_torch.obs import MetricsRegistry
+
+    rm, pm = RefMetrics(), MetricsRegistry()
+    rsrv = ref_server.StreamingServer(4, reorder_capacity=1, recovery=True, metrics=rm)
+    psrv = server.StreamingServer(4, reorder_capacity=1, recovery=True, metrics=pm, device="cpu")
+    for q in pk[::-1] + pk[:5]:
+        rsrv.ingest(q)
+        psrv.ingest(packet.Packet(torch.from_numpy(q.payload), q.flow_id, q.seq, q.segment_id))
+    want, rpasses = rsrv.finish()
+    got, ppasses = psrv.finish()
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert ppasses == rpasses
+    assert (psrv.dup_packets_dropped, psrv.spilled_packets, psrv.spilled_keys) == (
+        rsrv.dup_packets_dropped, rsrv.spilled_packets, rsrv.spilled_keys)
+    assert psrv.dup_packets_dropped == 5 and psrv.spilled_packets > 0
+    assert pm.snapshot() == rm.snapshot()
 
 
 @pytest.mark.parametrize("backend", ["numpy", "arena"])
@@ -339,14 +354,17 @@ def test_pool_guards_and_concat():
 
 
 def test_unported_pipeline_options_raise():
+    """The options of later slices raise, naming them; the options this
+    slice ported (``network``, ``int_telemetry``, ``metrics``,
+    ``range_mode="sampled"``, ``recovery``) are held to the reference by
+    :func:`test_ported_pipeline_options_match_reference`."""
     vals = random_trace(100, seed=0)
-    for kw in (
-        {"network": object()}, {"fault_plan": "crash:switch@0"}, {"int_telemetry": True},
-        {"metrics": object()}, {"range_mode": "sampled"},
-        {"engine": "segment"}, {"faithful": True}, {"recovery": True}, {"replay_packets": 3},
-        {"pool_backend": "shard_map", "num_servers": 2},
+    for kw, later in (
+        ({"fault_plan": "crash:switch@0"}, "M16"), ({"replay_packets": 3}, "M16"),
+        ({"engine": "segment"}, "M18"), ({"faithful": True}, "M18"),
+        ({"pool_backend": "shard_map", "num_servers": 2}, "M19"),
     ):
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(NotImplementedError, match=later):
             pipeline.run_pipeline(vals, device="cpu", **kw)
     with pytest.raises(ValueError):
         pipeline.run_pipeline(vals, range_mode="bogus", device="cpu")
@@ -358,16 +376,79 @@ def test_unported_pipeline_options_raise():
         pipeline.run_pipeline(vals, payload=np.zeros((3, 2)), device="cpu")
     with pytest.raises(ValueError, match="63 bits"):
         pipeline.run_pipeline(np.array([1 << 62, 2]), payload=np.zeros((2, 1)), device="cpu")
+    with pytest.raises(ValueError, match="telemetry"):
+        pipeline.run_pipeline(vals, engine="device", int_telemetry=True, device="cpu")
+
+
+def _network(timing):
+    return timing.NetworkConfig(
+        link=timing.LinkSpec(latency=3, rate_numer=1, rate_denom=2, buffer_packets=4, loss_rate=0.05),
+        egress=timing.LinkSpec(latency=2, buffer_packets=2, loss_rate=0.05, dup_rate=0.05),
+        seed=5,
+    )
+
+
+@pytest.mark.parametrize("option", ["network", "int_telemetry", "metrics", "sampled", "recovery"])
+def test_ported_pipeline_options_match_reference(option):
+    """Each option this slice ported, on the same input as the reference:
+    the run itself (output, passes, wire, stats) and what the option adds
+    (telemetry snapshot, network report, recovery counters) are equal."""
+    from repro.net import timing as ref_timing
+    from repro.obs import MetricsRegistry as RefMetrics
+    from repro_torch.net import timing
+    from repro_torch.obs import MetricsRegistry
+
+    vals = random_trace(6000, seed=4)
+    kw = dict(BASE, topology="tree", range_mode="oracle", num_servers=2, seed=2, **TOPOS["tree"])
+    extra_ref, extra_port = {}, {}
+    if option == "network":
+        extra_ref["network"], extra_port["network"] = _network(ref_timing), _network(timing)
+    elif option == "int_telemetry":
+        extra_ref["int_telemetry"] = extra_port["int_telemetry"] = True
+    elif option == "metrics":
+        extra_ref["metrics"], extra_port["metrics"] = RefMetrics(), MetricsRegistry()
+    elif option == "sampled":
+        kw["range_mode"] = "sampled"
+    else:  # recovery on a jittered wire, under a reorder bound that spills
+        kw.update(payload_size=16, jitter_window=8, reorder_capacity=1)
+        extra_ref["recovery"] = extra_port["recovery"] = True
+    ref = ref_pipeline.run_pipeline(vals, **kw, **extra_ref)
+    port = pipeline.run_pipeline(vals, device="cpu", **kw, **extra_port)
+    assert_same_run(port, ref, vals, False)
+    assert port.telemetry == ref.telemetry
+    assert (port.dup_packets_dropped, port.spilled_packets, port.spilled_keys) == (
+        ref.dup_packets_dropped, ref.spilled_packets, ref.spilled_keys)
+    if option == "network":
+        assert port.network.makespan_ticks == ref.network.makespan_ticks
+        assert [vars(s) for s in port.network.links] == [vars(s) for s in ref.network.links]
+        assert port.dup_packets_dropped > 0
+    if option == "sampled":
+        assert port.num_epochs == ref.num_epochs > 1
+    if option == "recovery":
+        assert port.spilled_packets > 0
+    if option in ("int_telemetry", "metrics"):
+        assert port.telemetry
 
 
 def test_recording_tracer_refused_null_tracer_accepted():
+    """A recording tracer, once refused, now records the reference's span
+    hierarchy (names, categories, lanes and argument keys; not times) and
+    brings the reference's metrics snapshot; the null tracer records
+    nothing and changes nothing."""
+    from repro.obs import Tracer as RefTracer
+    from repro_torch.obs import Tracer
     from repro_torch.obs.trace import NULL_TRACER
 
-    class Recording:
-        enabled = True
-
-    vals = random_trace(300, seed=0)
-    with pytest.raises(NotImplementedError):
-        pipeline.run_pipeline(vals, tracer=Recording(), device="cpu")
+    vals = random_trace(3000, seed=0)
+    kw = dict(BASE, topology="leaf_spine", range_mode="sampled", num_servers=2,
+              merge_backend="arena", **TOPOS["leaf_spine"])
+    rt, pt = RefTracer(), Tracer()
+    ref = ref_pipeline.run_pipeline(vals, tracer=rt, **kw)
+    port = pipeline.run_pipeline(vals, tracer=pt, device="cpu", **kw)
+    assert_same_run(port, ref, vals, False)
+    assert port.telemetry == ref.telemetry and port.telemetry
+    shape = lambda spans: [(s.name, s.cat, s.tid, s.depth, sorted(s.args)) for s in spans]  # noqa: E731
+    assert shape(pt.spans) == shape(rt.spans)
+    assert shape(pt.instants) == shape(rt.instants)
     res = pipeline.run_pipeline(vals, tracer=NULL_TRACER, verify=True, device="cpu")
-    assert res.output.device.type == "cpu"
+    assert res.output.device.type == "cpu" and res.telemetry is None

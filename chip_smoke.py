@@ -35,7 +35,20 @@ over granite-moe-3b-a800m).  Phases, one JSON line each:
    output equal to the ``pipeline`` phase's and to ``torch.sort``'s with
    the payload following, one device-to-host read and no host-to-device
    copy per epoch, and K1 counted as the kernel nodes of the captured
-   graph (one per hop).  The program cache is emptied after it;
+   graph (one per hop).  The program cache is emptied after it; then the
+   rest of the dataplane, each line with its own launch counts:
+   ``pipeline_observed`` (the telemetry modes), ``pipeline_sampled`` (the
+   adaptive control plane), ``pipeline_network`` (the link timing model),
+   ``pipeline_faults`` (the reference's fault ladder: every plan on the
+   three fabrics at small n against the fault-free run, ``torch.sort``, the
+   CPU and the device engine's fused fallback; then the ladder at 1M on
+   numpy-ladder servers and at the full size on the E2E fabric's arena
+   servers, every output equal to the fault-free one, K1 once per sorting
+   hop), ``pipeline_tenants`` (``run_jobs`` at J = 1, 2, 4 and J = 4 at 10M
+   keys a tenant, every tenant equal to its solo run and to the
+   ``pack=False`` twin; J = 4 on the device engine with its captures) and
+   ``hop_engines`` (one hop, fused against the segment engine, K1 once per
+   non-empty segment, the wires equal; ``faithful=True`` equal to fused);
 5. ``k3``, ``k4`` -- kernels K3 (key-value row sort, the MoE dispatch) and K4
    (row merge) against their plain versions, for exact equality (K3's
    values too, duplicate keys included): the MoE path's shapes, the
@@ -1107,6 +1120,304 @@ def phase_pipeline_network(torch, np, run_pipeline, dev: str, n: int, seed: int)
           "timeless_s": ref_s, "cells": rows, "all_lossless_identical": True})
 
 
+#: The reference's fault ladder (``net_bench.py`` ``FAULT_PLANS``) and its
+#: configuration (``FAULT_BENCH`` = ``SCALING_BENCH`` + 4 servers: the 7-hop
+#: tree, 16 x 64, 256-key packets, 8 flows, k = 10, oracle ranges,
+#: ``random_trace``, numpy-ladder servers) at its ``--fault-n`` default of 1M;
+#: then the same ladder on the E2E fabric with its 4 arena servers (no
+#: payload, as the reference's ladder) at the paper's trace size.
+FAULT_PLANS = (
+    ("fault_free", ""),
+    ("one_hop_degraded", "degrade:l1n0@0"),
+    ("half_degraded", "degrade:l1n0@0;degrade:l0n0@0;degrade:l0n1@0"),
+    ("all_degraded", "degrade:all@0"),
+    ("dead_interior", "crash:l1n0@0"),
+    ("dead_leaf", "crash:l0n3@0"),
+    ("shard_failover", "server_crash:1@0.5"),
+    ("kitchen_sink", "crash:l1n0@0;degrade:l0n0@0;server_crash:2@0.3;corrupt_ranges@0"),
+)
+FAULT_BENCH = dict(topology="tree", branching=2, height=3, num_segments=16, segment_length=64,
+                   payload_size=256, num_flows=8, k=10, range_mode="oracle", num_servers=4)
+FAULT_N = 1_000_000
+FAULT_E2E_N = 100_000_000
+
+#: The reference's multi-tenant sweep (``net_bench.py`` ``MT_*``): J jobs,
+#: scenario-cycled with their range modes, one switch, 16 x 64, 64-key
+#: packets, the fused engine, 4 in flight, numpy-ladder servers, at its
+#: ``--mt-n`` of 200k keys per tenant; then J = 4 at 10M keys per tenant (a
+#: cut from 25M for the sampled tenants' host loop) on the arena servers.
+MT_JOBS = (1, 2, 4)
+MT_SCENARIOS = ("adversarial_skew", "drifting", "sorted50", "duplicate_heavy")
+MT_MODES = ("sampled", "sampled", "oracle", "static")
+MT_FABRIC = dict(topology="single", num_segments=16, segment_length=64, payload_size=64,
+                 engine="fused", max_inflight=4)
+MT_N = 200_000
+MT_BIG_N = 10_000_000
+
+#: The reference's hop-throughput bench (``net_bench.py`` ``HOP_BENCH``): one
+#: hop, 64 x 64, 64-key packets, 8 flows round-robin, ``random_trace`` at its
+#: ``--hop-n`` of 1M; and its faithful check on 4,000 keys.
+HOP_BENCH = dict(segments=64, length=64, payload=64, flows=8)
+HOP_N = 1_000_000
+FAITHFUL_N = 4000
+
+
+def _sorting_hops(plan: str, hop_stats) -> int:
+    """Hops of a run that sorted keys: neither dead nor degraded, with
+    arrivals (each launches K1 once)."""
+    from repro_torch.net.faults import parse_fault_plan
+
+    ef = parse_fault_plan(plan).at_epoch(0)
+    return sum(1 for st in hop_stats if st.arrivals and ef.hop_state(st.name) == "healthy")
+
+
+def _fault_row(torch, run_pipeline, values, want, name: str, spec: str, base_s, **kw) -> dict:
+    from repro_torch.kernels import build
+
+    build.reset_launches()
+    _reset_peak(torch)
+    res, sec = timed_run(torch, run_pipeline, values, fault_plan=spec or None, **kw)
+    launches = dict(build.LAUNCHES)
+    if not torch.equal(res.output, want):
+        fail(f"fault plan {name}: output differs from the fault-free run and torch.sort")
+    hops = _sorting_hops(spec, res.hop_stats)
+    if values.is_cuda and launches["row_sort"] != hops:
+        fail(f"fault plan {name}: K1 launched {launches['row_sort']} times, want {hops} (one per sorting hop)")
+    if values.is_cuda and kw.get("merge_backend") == "arena" and launches["tournament"] < 1:
+        fail(f"fault plan {name}: K2 never launched in the arena servers")
+    base_s = sec if base_s is None else base_s
+    return {"plan": name, "spec": spec, "seconds": sec, "keys_per_s": values.numel() / sec,
+            "throughput_ratio": base_s / sec, "identical": True,
+            "hops_dead": res.fault_hops_dead, "hops_degraded": res.fault_hops_degraded,
+            "servers_failed_over": res.servers_failed_over, "range_fallbacks": res.range_fallbacks,
+            "passes_total": sum(res.passes), "server_keys": res.server_keys,
+            "server_makespan_s": res.server_seconds, "peak_device_bytes": _peak(torch),
+            "launches": {k: launches[k] for k in ("row_sort", "tournament")}}
+
+
+def phase_pipeline_faults(torch, np, run_pipeline, dev: str, seed: int, small_n: int,
+                          big_n: int) -> None:
+    """The fault plane on the card: every plan of the ladder on the three
+    fabrics at small n (card against the fault-free run, torch.sort and the
+    CPU; ``engine="device"`` and its fused fallback), then the ladder at the
+    reference's configuration and on the E2E fabric at the paper's size."""
+    from repro_torch.data.traces import random_trace, trace_max_value
+    from repro_torch.net import device_epoch as de
+    from repro_torch.net.faults import parse_fault_plan
+    from repro_torch.obs import MetricsRegistry
+
+    maxv = trace_max_value("random")
+    n = 20_000
+    vals = random_trace(n, seed=3)
+    cells = 0
+    for graph, gkw in GRAPHS.items():
+        cfg = {k: v for k, v in FAULT_BENCH.items() if k not in ("branching", "height")}
+        cfg.update(topology=graph, max_value=maxv, seed=seed, **gkw)
+        free = None
+        for name, spec in FAULT_PLANS:
+            runs = {}
+            for engine, where in (("fused", dev), ("fused", "cpu"), ("device", dev)):
+                metrics = MetricsRegistry()
+                r = run_pipeline(vals, fault_plan=spec or None, engine=engine, device=where,
+                                 metrics=metrics, **cfg)
+                runs[(engine, where)] = (r.to_numpy(), metrics.snapshot()["counters"])
+            card, _ = runs[("fused", dev)]
+            diff = same_run(np, card, runs[("fused", "cpu")][0])
+            if diff:
+                fail(f"faults {name} on {graph}: the card and the CPU disagree on {diff}")
+            devrun, counters = runs[("device", dev)]
+            if not np.array_equal(devrun["output"], card["output"]) or devrun["passes"] != card["passes"]:
+                fail(f"faults {name} on {graph}: the device engine and the fused engine disagree")
+            fell_back = bool(counters.get("fault_device_fallbacks"))
+            if fell_back != (spec != "" and parse_fault_plan(spec).at_epoch(0).any_dataplane):
+                fail(f"faults {name} on {graph}: device fallback {fell_back}")
+            if not np.array_equal(card["output"], np.sort(vals)):
+                fail(f"faults {name} on {graph}: output is not the sorted input")
+            if free is None:
+                free = card
+            elif not np.array_equal(card["output"], free["output"]):
+                fail(f"faults {name} on {graph}: output differs from the fault-free run")
+            cells += 1
+    de.clear_program_cache()
+    torch.cuda.empty_cache()
+
+    ladders = []
+    for size, servers, extra in ((small_n, "numpy", {}), (big_n, "arena", {"merge_backend": "arena"})):
+        values = torch.from_numpy(random_trace(size, seed=seed)).to(dev)
+        want = torch.sort(values).values
+        kw = dict(FAULT_BENCH, max_value=maxv, seed=seed, device=dev, **extra)
+        # An untimed fault-free run first: the allocator's growth and the
+        # first calls' costs belong to no plan.
+        run_pipeline(values, **kw)
+        _sync(torch)
+        rows = []
+        for name, spec in FAULT_PLANS:
+            rows.append(_fault_row(torch, run_pipeline, values, want, name, spec,
+                                   rows[0]["seconds"] if rows else None, **kw))
+        by = {r["plan"]: r for r in rows}
+        ladders.append({"n": size, "servers": servers, "rows": rows,
+                        "fault_free_s": by["fault_free"]["seconds"],
+                        "one_hop_degraded_ratio": by["one_hop_degraded"]["throughput_ratio"],
+                        "all_degraded_ratio": by["all_degraded"]["throughput_ratio"],
+                        "all_degraded_over_fault_free_s": by["all_degraded"]["seconds"]
+                        / by["fault_free"]["seconds"]})
+        del values, want
+        torch.cuda.empty_cache()
+    emit({"phase": "pipeline_faults", "config": FAULT_BENCH, "parity_small": {"n": n, "cells": cells},
+          "ladders": ladders, "all_identical": True})
+
+
+def _mt_jobs(np, Job, J: int, n: int, seed: int):
+    from repro_torch.data.scenarios import SCENARIOS, scenario_max_value
+
+    jobs = []
+    for t in range(J):
+        name = MT_SCENARIOS[t % len(MT_SCENARIOS)]
+        jobs.append(Job(t, SCENARIOS[name](n, seed=seed + t), seed=seed + t,
+                        range_mode=MT_MODES[t % len(MT_MODES)], max_value=scenario_max_value(name)))
+    return jobs
+
+
+def _mt_row(torch, np, J: int, n: int, seed: int, dev: str, **over) -> dict:
+    from repro_torch.kernels import build
+    from repro_torch.net.scheduler import Job, run_job_solo, run_jobs
+
+    fabric = dict(MT_FABRIC, **over)
+    build.reset_launches()
+    _reset_peak(torch)
+    res = run_jobs(_mt_jobs(np, Job, J, n, seed), device=dev, **fabric)
+    launches = dict(build.LAUNCHES)
+    if dev == "cuda" and launches["row_sort"] != res.fabric_calls:
+        fail(f"tenants J={J}: K1 launched {launches['row_sort']} times for {res.fabric_calls} fabric calls")
+    if dev == "cuda" and fabric.get("merge_backend") == "arena" and launches["tournament"] < 1:
+        fail(f"tenants J={J}: K2 never launched in the arena servers")
+    peak = _peak(torch)
+    twin = run_jobs(_mt_jobs(np, Job, J, n, seed), device=dev, pack=False, **fabric)
+    for job in _mt_jobs(np, Job, J, n, seed):
+        jr = res.by_tenant(job.tenant_id)
+        if not torch.equal(jr.output, torch.sort(job.values.to(dev)).values):
+            fail(f"tenants J={J}: tenant {job.tenant_id}'s output is not its sorted keys")
+        solo = run_job_solo(job, device=dev, **fabric)
+        if not torch.equal(jr.output, solo.output) or jr.passes != solo.passes:
+            fail(f"tenants J={J}: tenant {job.tenant_id} differs from its solo run")
+        tw = twin.by_tenant(job.tenant_id)
+        if not torch.equal(jr.output, tw.output) or jr.passes != tw.passes:
+            fail(f"tenants J={J}: tenant {job.tenant_id} differs from the pack=False twin")
+        del solo
+    if J > 1 and fabric["engine"] in ("fused", "device") and res.packed_calls < 1:
+        fail(f"tenants J={J}: no round was packed")
+    return {"num_jobs": J, "n_per_tenant": n, "elapsed_seconds": res.elapsed_seconds,
+            "jobs_per_sec": res.jobs_per_sec, "p50_latency_s": res.p50_latency_s,
+            "p99_latency_s": res.p99_latency_s, "fairness": res.fairness, "rounds": res.rounds,
+            "fabric_calls": res.fabric_calls, "packed_calls": res.packed_calls,
+            "epochs": [jr.num_epochs for jr in res.jobs], "isolation_ok": True,
+            "pack_false_equal": True, "pack_false_elapsed_s": twin.elapsed_seconds,
+            "peak_device_bytes": peak, "launches": {k: launches[k] for k in ("row_sort", "tournament")}}
+
+
+def phase_pipeline_tenants(torch, np, dev: str, seed: int, small_n: int, big_n: int) -> None:
+    """The multi-tenant scheduler on the card: the reference's sweep, J = 4
+    at a larger size, and J = 4 packed on the device engine."""
+    from repro_torch.net import device_epoch as de
+    from repro_torch.net.scheduler import Job, run_jobs
+
+    rows = [_mt_row(torch, np, J, small_n, seed, dev) for J in MT_JOBS]
+    rows.append(_mt_row(torch, np, 4, big_n, seed, dev, merge_backend="arena"))
+    # J = 4 packed on the device engine: each packed round's range table is
+    # a new program key (a warm-up and a capture each).
+    de.clear_program_cache()
+    torch.cuda.empty_cache()
+    fused = run_jobs(_mt_jobs(np, Job, 4, small_n, seed), device=dev, **MT_FABRIC)
+    reserved = []
+    orig = de.run_graph_device
+
+    def per_round(*a, **k):
+        out = orig(*a, **k)
+        reserved.append(_reserved(torch))
+        return out
+
+    de.run_graph_device = per_round
+    try:
+        _sync(torch)
+        t0 = time.perf_counter()
+        devres = run_jobs(_mt_jobs(np, Job, 4, small_n, seed), device=dev,
+                          **dict(MT_FABRIC, engine="device"))
+        dev_s = time.perf_counter() - t0
+    finally:
+        de.run_graph_device = orig
+    captures = len(de._PROGRAM_CACHE)
+    for jr in fused.jobs:
+        d = devres.by_tenant(jr.tenant_id)
+        if not torch.equal(d.output, jr.output) or d.passes != jr.passes:
+            fail(f"tenants on the device engine: tenant {jr.tenant_id} differs from the fused engine")
+    device = {"num_jobs": 4, "n_per_tenant": small_n, "elapsed_seconds": dev_s,
+              "fused_elapsed_seconds": fused.elapsed_seconds, "rounds": devres.rounds,
+              "packed_calls": devres.packed_calls, "fabric_calls": devres.fabric_calls,
+              "captures": captures, "memory_reserved_after_each_call": reserved,
+              "jobs_per_sec": devres.jobs_per_sec, "p99_latency_s": devres.p99_latency_s}
+    de.clear_program_cache()
+    torch.cuda.empty_cache()
+    emit({"phase": "pipeline_tenants", "config": MT_FABRIC, "scenarios": MT_SCENARIOS, "modes": MT_MODES,
+          "rows": rows, "device_engine": device, "all_isolated": True})
+
+
+def phase_hop_engines(torch, np, run_pipeline, dev: str, seed: int, n: int) -> None:
+    """The reference's hop bench on the card (fused against the segment
+    engine, K1 once per non-empty segment, the wires byte-identical), then
+    ``faithful=True`` through ``run_pipeline`` against the fused engine."""
+    from repro_torch.core.partition import set_ranges
+    from repro_torch.data.traces import random_trace, trace_max_value
+    from repro_torch.kernels import build
+    from repro_torch.net.engine import HopSpec, run_hop
+    from repro_torch.net.flow import interleave_batch, split_flows
+
+    trace = random_trace(n, seed=seed)
+    maxv = trace_max_value("random")
+    values = torch.from_numpy(trace).to(dev)
+    batch = interleave_batch(split_flows(values, HOP_BENCH["flows"], HOP_BENCH["payload"]), "round_robin")
+    spec = HopSpec(HOP_BENCH["segments"], HOP_BENCH["length"], maxv,
+                   set_ranges(maxv, HOP_BENCH["segments"], device=dev), payload_size=HOP_BENCH["payload"])
+    rows, outs = {}, {}
+    for engine, reps in (("fused", 5), ("segment", 3)):
+        times = []
+        for _ in range(reps):
+            build.reset_launches()
+            _sync(torch)
+            t0 = time.perf_counter()
+            out, st = run_hop(batch, spec, "hop", engine)
+            _sync(torch)
+            times.append(time.perf_counter() - t0)
+            launches = dict(build.LAUNCHES)
+        nonempty = int((st.segment_loads > 0).sum())
+        want = 1 if engine == "fused" else nonempty
+        if dev == "cuda" and launches["row_sort"] != want:
+            fail(f"hop engine {engine}: K1 launched {launches['row_sort']} times, want {want}")
+        outs[engine] = (out, st)
+        rows[engine] = {"engine": engine, "seconds": min(times), "keys_per_s": n / min(times),
+                        "k1_launches": launches["row_sort"], "nonempty_segments": nonempty}
+    (fo, fs), (so, ss) = outs["fused"], outs["segment"]
+    for col in ("values", "flow_id", "seq", "segment_id"):
+        if not torch.equal(getattr(fo, col), getattr(so, col)):
+            fail(f"hop engines: the segment engine's {col} differs from the fused engine's")
+    if not torch.equal(fs.ship_emission, ss.ship_emission) or fs != ss:
+        fail("hop engines: the segment engine's stats differ from the fused engine's")
+    if not torch.equal(torch.sort(fo.values).values, torch.sort(values).values):
+        fail("hop engines: the hop lost or invented keys")
+    del outs, fo, so, batch
+    small = trace[:FAITHFUL_N]
+    kw = dict(topology="single", num_segments=16, segment_length=64, max_value=maxv,
+              payload_size=256, device=dev, verify=True)
+    faithful, faithful_s = timed_run(torch, run_pipeline, small, faithful=True, **kw)
+    fused = run_pipeline(small, **kw)
+    diff = same_run(np, faithful.to_numpy(), fused.to_numpy())
+    if diff:
+        fail(f"faithful and fused pipelines disagree on {diff}")
+    emit({"phase": "hop_engines", "config": dict(HOP_BENCH, n=n), "rows": list(rows.values()),
+          "speedup_fused_vs_segment": rows["segment"]["seconds"] / rows["fused"]["seconds"],
+          "identical": True, "faithful": {"n": FAITHFUL_N, "seconds": faithful_s,
+                                          "passes_max": max(faithful.passes), "equal_to_fused": True}})
+
+
 class CallClock:
     """Times every call of ``module.attr`` during a run: the wall
     milliseconds between a synchronisation before the call and one after it
@@ -1993,6 +2304,10 @@ def main() -> int:
                            [(name, min(n, args.n), flows) for name, n, flows in SCENARIO_ROWS],
                            min(SCENARIO_DEVICE_N, args.n), args.seed)
     phase_pipeline_network(torch, np, run_pipeline, "cuda", min(NETWORK_N, args.n), args.seed)
+    phase_pipeline_faults(torch, np, run_pipeline, "cuda", args.seed, min(FAULT_N, args.n),
+                          min(FAULT_E2E_N, args.n))
+    phase_pipeline_tenants(torch, np, "cuda", args.seed, min(MT_N, args.n), min(MT_BIG_N, args.n))
+    phase_hop_engines(torch, np, run_pipeline, "cuda", args.seed, min(HOP_N, args.n))
     rows = sort_rows_of(torch, bt, gen, launches, k1_in, k2_in)
     rows[0]["device_epoch"] = k1_device_epoch(torch, bt, gen, dev_epoch)
 

@@ -6,7 +6,9 @@ Counterpart of :mod:`repro.core.marathon`.  The stream a segment of length
 rank it within its segment (one stable sort), lay every segment's blocks out
 as the rows of one padded matrix, sort the rows (``row_sort`` -- the hop
 engine passes kernel K1), and rebuild the exact emission interleave with
-gathers.  Every step is a tensor op on the keys' device.
+gathers.  Every step is a tensor op on the keys' device.  The pre-fusion
+per-segment path (:func:`marathon_streams`, ``marathon_flat(block_sort=)``)
+is kept as the baseline engine's, one ``block_sort`` call per segment.
 """
 
 from __future__ import annotations
@@ -206,6 +208,27 @@ def marathon_emission(
     )
 
 
+def marathon_streams(
+    values: torch.Tensor,
+    num_segments: int,
+    segment_length: int,
+    max_value: int,
+    ranges: torch.Tensor | None = None,
+    block_sort=None,
+) -> tuple[list[torch.Tensor], torch.Tensor]:
+    """Per-segment emitted streams, one segment at a time: ``(streams,
+    ranges)`` with ``streams[s]`` segment ``s``'s emission-order stream
+    (``block_sort(values, L)``, default :func:`blockwise_sort`)."""
+    values = values.to(torch.int64)
+    if ranges is None:
+        ranges = set_ranges(max_value, num_segments, device=values.device)
+    if block_sort is None:
+        block_sort = blockwise_sort
+    seg = segment_of(values, ranges)
+    streams = [block_sort(values[seg == s], segment_length) for s in range(num_segments)]
+    return streams, ranges
+
+
 def marathon_flat(
     values: torch.Tensor,
     num_segments: int,
@@ -215,14 +238,48 @@ def marathon_flat(
     block_sort=None,
     row_sort=None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Emission-ordered ``(value, segment_id)`` stream of the fused pass."""
+    """Emission-ordered ``(value, segment_id)`` stream.  The fused pass by
+    default; an explicit per-segment ``block_sort`` takes the pre-fusion
+    path (:func:`_marathon_flat_persegment`)."""
     if block_sort is not None:
-        raise NotImplementedError(
-            "the per-segment block_sort= path is not ported yet (later "
-            "slice: baseline engines)"
+        return _marathon_flat_persegment(
+            values, num_segments, segment_length, max_value, ranges, block_sort
         )
     em = marathon_emission(
         values, num_segments, segment_length, max_value,
         ranges=ranges, row_sort=row_sort,
     )
     return em.values, em.segment_ids
+
+
+def _marathon_flat_persegment(
+    values: torch.Tensor,
+    num_segments: int,
+    segment_length: int,
+    max_value: int,
+    ranges: torch.Tensor | None,
+    block_sort,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The pre-fusion reference: one Python iteration per segment, each
+    segment's stream from its own ``block_sort`` call."""
+    values = values.to(torch.int64)
+    dev = values.device
+    if ranges is None:
+        ranges = set_ranges(max_value, num_segments, device=dev)
+    seg = segment_of(values, ranges)
+    L = segment_length
+    streams = [block_sort(values[seg == s], L) for s in range(num_segments)]
+    _order, counts, _starts, ranks = rank_within_segment(seg, num_segments)
+    emit_mask = ranks >= L
+    emit_sids = seg[emit_mask]
+    emit_idx = ranks[emit_mask] - L
+    out_v = torch.empty(emit_sids.numel(), dtype=torch.int64, device=dev)
+    for s in range(num_segments):
+        m = emit_sids == s
+        out_v[m] = streams[s][emit_idx[m]]
+    flush_v, flush_s = [], []
+    for s, c in enumerate(counts.tolist()):
+        tail = streams[s][max(c - L, 0):]
+        flush_v.append(tail)
+        flush_s.append(torch.full((tail.numel(),), s, dtype=torch.int64, device=dev))
+    return torch.cat([out_v, *flush_v]), torch.cat([emit_sids, *flush_s])

@@ -217,6 +217,42 @@ def merge_sort(a: torch.Tensor, k: int = 10) -> tuple[torch.Tensor, int]:
     return cur, passes
 
 
+def merge_sort_reference(a, k: int = 10) -> torch.Tensor:
+    """Pure-Python Alg. 1 with an explicit k-ary minimum selection (Fig. 6):
+    the slow, obviously correct twin of :func:`merge_sort`, on host ints."""
+    vals = torch.as_tensor(a).tolist()
+    runs: list[list[int]] = []
+    cur: list[int] = []
+    prev = None
+    for v in vals:
+        if prev is not None and v < prev:
+            runs.append(cur)
+            cur = []
+        cur.append(int(v))
+        prev = v
+    if cur:
+        runs.append(cur)
+    while len(runs) > 1:
+        nxt = []
+        for g in range(0, len(runs), k):
+            group = runs[g : g + k]
+            merged: list[int] = []
+            idx = [0] * len(group)
+            while True:
+                # "the minimum among the first element of each Run"
+                best, bv = -1, None
+                for j, r in enumerate(group):
+                    if idx[j] < len(r) and (bv is None or r[idx[j]] < bv):
+                        best, bv = j, r[idx[j]]
+                if best < 0:
+                    break
+                merged.append(bv)
+                idx[best] += 1
+            nxt.append(merged)
+        runs = nxt
+    return torch.tensor(runs[0] if runs else [], dtype=torch.int64)
+
+
 def server_sort(
     streams: list[torch.Tensor], k: int = 10
 ) -> tuple[torch.Tensor, list[int]]:

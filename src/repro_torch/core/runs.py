@@ -8,6 +8,8 @@ does with numpy.
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
 from .. import resolve_device
@@ -28,6 +30,38 @@ def run_lengths(a: torch.Tensor) -> torch.Tensor:
         return starts
     end = torch.tensor([a.numel()], dtype=torch.int64, device=a.device)
     return torch.diff(torch.cat([starts, end]))
+
+
+@dataclasses.dataclass(frozen=True)
+class RunStats:
+    """Run statistics of a stream (the paper's §6.3 table)."""
+
+    n: int
+    num_runs: int
+    mean_len: float
+    median_len: float
+    min_len: int
+    max_len: int
+
+    @classmethod
+    def of(cls, a: torch.Tensor) -> "RunStats":
+        a = torch.as_tensor(a)
+        lens = run_lengths(a)
+        if lens.numel() == 0:
+            return cls(0, 0, 0.0, 0.0, 0, 0)
+        # The mean and median of numpy (float64; the median of an even
+        # count is the mean of the two middle lengths).
+        srt = torch.sort(lens).values.tolist()
+        m = len(srt)
+        median = float(srt[m // 2]) if m % 2 else (srt[m // 2 - 1] + srt[m // 2]) / 2
+        return cls(
+            n=int(a.numel()),
+            num_runs=m,
+            mean_len=int(lens.sum()) / m,
+            median_len=float(median),
+            min_len=srt[0],
+            max_len=srt[-1],
+        )
 
 
 class RunArena:

@@ -13,9 +13,16 @@ wall-clock is the makespan (slowest server plus the merge); on a CUDA device
 each timed region ends with a synchronise, so the seconds are device time,
 not enqueue time.  ``recovery`` turns on every member server's loss-recovery
 mode (for the raw egress link of :mod:`repro_torch.net.timing`), and
-``metrics`` reaches every server and the pool's own gauges.  Shard failover
-(``crash_schedule``, replay buffers) and the ``"shard_map"`` pool merge are
-later slices (M16, M19).
+``metrics`` reaches every server and the pool's own gauges.
+
+Shard failover (the fault plane's ``server_crash``): ``crash_schedule``
+kills shard ``s`` after the pool has ingested a given number of packets.
+Until then the shard's sub-batches (on the device, virtual segment ids)
+are kept in a replay buffer bounded by ``replay_packets``; at the crash the
+nearest alive shard grows ports for the dead shard's segments and
+re-ingests that history in its original order, which rebuilds the dead
+shard's state exactly, so the output stays byte-identical.  The
+``"shard_map"`` pool merge is a later slice (M19).
 """
 
 from __future__ import annotations
@@ -104,11 +111,6 @@ class ServerPool:
                 'pool_backend="shard_map" is not ported yet (later slice: '
                 "M19, the multi-card pool merge)"
             )
-        if crash_schedule or replay_packets is not None:
-            raise NotImplementedError(
-                "shard failover (crash_schedule, replay_packets) is not ported "
-                "yet (later slice: M16, net/faults)"
-            )
         self.device = resolve_device(device)
         base = segment_affinity(num_segments, num_servers)
         if affinity is not None:
@@ -165,6 +167,27 @@ class ServerPool:
         ]
         self.per_server_seconds = [0.0] * num_servers
         self.merge_seconds = 0.0
+        # -- shard failover: [(server, at_packets)]; shard s dies once the
+        # pool has ingested at_packets packets (pending crashes fire at
+        # finish()).  A doomed shard's sub-batches are retained for replay.
+        self._crash_at: dict[int, int] = {}
+        for s, at in crash_schedule or []:
+            s = int(s)
+            if not 0 <= s < num_servers:
+                raise ValueError(f"crash_schedule names server {s}; pool has {num_servers}")
+            if num_servers == 1:
+                raise ValueError(
+                    "cannot schedule a crash on a single-server pool — there is "
+                    "no shard to fail over to"
+                )
+            self._crash_at[s] = int(at)
+        self._replay_cap = replay_packets
+        self._replay: dict[int, list[WireBatch]] = {s: [] for s in self._crash_at}
+        self._replay_len: dict[int, int] = {s: 0 for s in self._crash_at}
+        self._replay_lost: dict[int, int] = {s: 0 for s in self._crash_at}
+        self._dead: set[int] = set()
+        self._packets_seen = 0
+        self.servers_failed_over = 0
 
     # -- ingestion ------------------------------------------------------
     def _timed_ingest(self, s: int, batch: WireBatch) -> None:
@@ -190,23 +213,49 @@ class ServerPool:
         lo, hi = int(batch.segment_id.min()), int(batch.segment_id.max())
         if lo < 0 or hi >= self.eff_segments:
             raise ValueError(f"packet with invalid segment id {lo if lo < 0 else hi}")
-        if self.num_servers == 1:
+        if self.num_servers == 1 and not self._crash_at:
             self._timed_ingest(0, batch)
             return
         starts_d = batch.packet_starts()
         starts = starts_d.cpu().numpy()
         sizes = np.diff(np.concatenate([starts, [n]]))
-        pseg = batch.segment_id[starts_d].cpu().numpy()
-        pserv = self._affinity[pseg]
+        heads = {"seg": batch.segment_id[starts_d].cpu().numpy()}
         if self.recovery:
-            pflow = batch.flow_id[starts_d].cpu().numpy()
-            pseq = batch.seq[starts_d].cpu().numpy()
+            heads["flow"] = batch.flow_id[starts_d].cpu().numpy()
+            heads["seq"] = batch.seq[starts_d].cpu().numpy()
+        P = int(starts.size)
+        # Shard crashes trigger at global packet ordinals: split this
+        # batch's packet window at every pending cut, failing the shard over
+        # between the chunks.
+        cuts = sorted(
+            (max(at - self._packets_seen, 0), s)
+            for s, at in self._crash_at.items()
+            if s not in self._dead and at < self._packets_seen + P
+        )
+        lo = 0
+        for cut, s in cuts:
+            cut = max(cut, lo)
+            if cut > lo:
+                self._ingest_packets(batch, starts, sizes, heads, lo, cut)
+            self._crash(s)
+            lo = cut
+        if lo < P:
+            self._ingest_packets(batch, starts, sizes, heads, lo, P)
+        self._packets_seen += P
+
+    def _ingest_packets(self, batch: WireBatch, starts, sizes, heads: dict, plo: int,
+                        phi: int) -> None:
+        """Demux the contiguous packet window ``[plo, phi)`` of ``batch``."""
+        pseg = heads["seg"]
+        window = np.arange(plo, phi, dtype=np.int64)
+        pserv = self._affinity[pseg[window]]
         dev = batch.device
         for s in range(self.num_servers):
-            sel = np.flatnonzero(pserv == s)
+            sel = window[pserv == s]
             if not sel.size:
                 continue
             if self.recovery and sel.size > 1:
+                pflow, pseq = heads["flow"], heads["seq"]
                 dup = (
                     (pflow[sel][1:] == pflow[sel][:-1])
                     & (pseq[sel][1:] == pseq[sel][:-1])
@@ -223,18 +272,95 @@ class ServerPool:
                 torch.from_numpy(sel_sizes).to(dev),
                 int(sel_sizes.sum()),
             )
-            # Only the columns a server reads move: the INT stack and the
-            # row column stay behind.
+            # Only the columns a server reads move: the INT stack, the row
+            # column and the tenant stay behind.
             sub = WireBatch(
-                batch.values[idx],
-                batch.flow_id[idx],
-                batch.seq[idx],
-                self._local_of_dev[batch.segment_id[idx]],
-                epoch=batch.epoch,
+                batch.values[idx], batch.flow_id[idx], batch.seq[idx],
+                batch.segment_id[idx], epoch=batch.epoch,
             )
             del idx
-            self._timed_ingest(s, sub)
+            if s in self._crash_at and s not in self._dead:
+                # A doomed shard's history (virtual segment ids: the local
+                # numbering changes at failover), up to the replay bound.
+                self._retain_replay(s, sub)
+            self._timed_ingest(s, self._localize(sub))
             del sub
+
+    def _localize(self, sub: WireBatch) -> WireBatch:
+        """``sub`` with its virtual segment ids renumbered into the owning
+        server's local ports."""
+        return WireBatch(
+            sub.values, sub.flow_id, sub.seq, self._local_of_dev[sub.segment_id],
+            epoch=sub.epoch,
+        )
+
+    def _retain_replay(self, s: int, sub: WireBatch) -> None:
+        """Append ``sub`` (whole packets, virtual segment ids) to shard
+        ``s``'s bounded replay buffer.  Packets beyond the bound are counted
+        as lost, and that shard's crash then refuses the failover."""
+        starts = sub.packet_starts()
+        n = int(starts.numel())
+        if self._replay_cap is not None:
+            room = max(self._replay_cap - self._replay_len[s], 0)
+            if n > room:
+                self._replay_lost[s] += n - room
+                if not room:
+                    return
+                sub = sub.slice_keys(0, int(starts[room]))
+                n = room
+        self._replay[s].append(sub)
+        self._replay_len[s] += n
+
+    def _crash(self, s: int) -> None:
+        """Kill shard ``s``: the nearest alive shard adopts its segments and
+        re-ingests its history from the replay buffer, in the original
+        order, which rebuilds the dead shard's per-segment state exactly."""
+        if s in self._dead:
+            return
+        alive = [t for t in range(self.num_servers) if t != s and t not in self._dead]
+        if not alive:
+            raise ValueError(
+                f"server{s} crashed with no alive server left to adopt its "
+                "shard — an unsurvivable fault plan"
+            )
+        if self._replay_lost.get(s, 0):
+            raise ValueError(
+                f"server{s} crashed but its replay buffer (capacity "
+                f"{self._replay_cap} packets) had dropped "
+                f"{self._replay_lost[s]} packets — shard unrecoverable; "
+                "raise replay_packets"
+            )
+        t = min(alive, key=lambda a: (abs(a - s), a))
+        self._dead.add(s)
+        self.servers_failed_over += 1
+        vsegs = np.flatnonzero(self._affinity == s)
+        self._tr.instant(
+            f"fault:server{s}", cat="fault", packets_seen=self._packets_seen,
+            virtual_segments=[int(v) for v in vsegs],
+        )
+        self._tr.instant(f"reroute:server{s}->server{t}", cat="fault")
+        if self._metrics is not None:
+            self._metrics.counter("pool_failovers", f"server{s}").inc()
+        if vsegs.size:
+            # The adopted segments get fresh ports after the adopter's own;
+            # its outputs are no longer one key range: it k-way merges.
+            base = self.servers[t].num_segments
+            self.servers[t].grow(int(vsegs.size))
+            self._local_of[vsegs] = base + np.arange(vsegs.size, dtype=np.int64)
+            self._local_of_dev = torch.from_numpy(self._local_of).to(self.device)
+            self._affinity[vsegs] = t
+            self.servers[t].final_merge = True
+        history = self._replay.pop(s, [])
+        self._replay_len.pop(s, None)
+        self._crash_at.pop(s, None)
+        # Cascade: an adopter that is itself doomed keeps the victim's
+        # history in its own replay buffer, so a second failover rebuilds
+        # the first victim's segments too.
+        adopter_doomed = t in self._crash_at
+        for sub in history:
+            if adopter_doomed:
+                self._retain_replay(t, sub)
+            self._timed_ingest(t, self._localize(sub))
 
     def ingest_grouped(self, values: torch.Tensor, seg_counts, run_flags: torch.Tensor) -> None:
         """Segment-grouped handoff from the device epoch.
@@ -279,10 +405,19 @@ class ServerPool:
     # -- completion -----------------------------------------------------
     def finish(self) -> tuple[torch.Tensor, list[int]]:
         """Drain every server; merge the shard outputs.  Passes come back
-        in virtual-segment order, as from a single server."""
+        in virtual-segment order, as from a single server.  Crashes
+        scheduled past the end of the stream fire first."""
+        for _at, s in sorted(
+            (at, s) for s, at in self._crash_at.items() if s not in self._dead
+        ):
+            self._crash(s)
         outs: list[torch.Tensor] = []
         per_server_passes: list[list[int]] = []
         for s, server in enumerate(self.servers):
+            if s in self._dead:
+                outs.append(torch.zeros(0, dtype=torch.int64, device=self.device))
+                per_server_passes.append([])
+                continue
             try:
                 with self._tr.timed(f"server{s}:wall", cat="egress", tid=1 + s) as t:
                     out, passes = server.finish()
@@ -300,7 +435,7 @@ class ServerPool:
             for v in range(self.eff_segments)
         ]
         with self._tr.timed("pool:merge", cat="egress", servers=self.num_servers) as t:
-            output = pool_concat(outs, disjoint=self.num_epochs == 1)
+            output = pool_concat(outs, disjoint=self.num_epochs == 1 and not self._dead)
             _sync(self.device)
         self.merge_seconds = t.seconds
         if self._metrics is not None:
@@ -330,8 +465,10 @@ class ServerPool:
 
     @property
     def server_keys(self) -> list[int]:
-        """Keys ingested per server (the pool's load distribution)."""
-        return [srv.keys_ingested for srv in self.servers]
+        """Keys ingested per server (the pool's load distribution); a dead
+        shard reports 0, its load moved to the adopter."""
+        return [0 if s in self._dead else srv.keys_ingested
+                for s, srv in enumerate(self.servers)]
 
     @property
     def server_imbalance(self) -> float:

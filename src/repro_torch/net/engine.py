@@ -16,8 +16,18 @@ tensors' device decides (a CUDA tensor launches K1, a CPU tensor takes its
 plain version).  With ``int_telemetry`` a hop stamps the INT columns
 (:mod:`repro_torch.obs.telemetry`) onto its output by each key's exact
 provenance.  ``engine="device"`` is the whole-epoch program of
-:mod:`repro_torch.net.device_epoch`; the ``segment``/``faithful`` engines
-are a later slice (M18) and raise ``NotImplementedError``.
+:mod:`repro_torch.net.device_epoch`.
+
+The paper's baselines share the wire contract, byte for byte:
+
+* ``segment`` (:func:`segment_hop`) -- the pre-fusion dataplane, kept with
+  all its per-object costs: packets at the boundary, a Python loop over
+  segments whose block sort is one K1 launch per non-empty segment
+  (:func:`k1_block_sort`), and per-packet repacketization;
+* ``faithful`` (:func:`faithful_hop`) -- element-at-a-time Alg. 3
+  (:class:`repro_torch.core.switchsim.Switch`) on the host;
+* :func:`passthrough_hop` -- a degraded hop (the fault plane's
+  ``hop_degrade``): routes and packetizes in arrival order, never sorts.
 """
 
 from __future__ import annotations
@@ -26,14 +36,17 @@ import dataclasses
 
 import torch
 
-from ..core.marathon import MarathonEmission, marathon_emission
+from ..core.marathon import MarathonEmission, blockwise_sort, marathon_emission
+from ..core.partition import segment_of
+from ..core.switchsim import Switch
 from ..kernels import ops
 from ..obs.telemetry import IntColumns
 from ..obs.trace import NULL_TRACER
-from .packet import DEFAULT_PAYLOAD
+from .packet import DEFAULT_PAYLOAD, Packet
 from .wire import WireBatch, empty_batch, ragged_arange, ragged_gather
 
-#: Engine names of the reference; "segment" and "faithful" are not ported yet.
+#: Engine registry: how a hop turns an arrival batch into a wire batch.
+#: "device" runs whole epochs as one program (:mod:`.device_epoch`).
 ENGINES = ("fused", "segment", "faithful", "device")
 
 _I32_MAX = torch.iinfo(torch.int32).max
@@ -71,6 +84,14 @@ class HopStats:
     ship_emission: torch.Tensor | None = dataclasses.field(
         default=None, compare=False, repr=False
     )
+
+    @classmethod
+    def collect(cls, name, values, sids, num_segments, segment_length) -> "HopStats":
+        """Stats of an emission-ordered ``(values, sids)`` stream: one stable
+        sort groups it by segment, emission order kept within each."""
+        order = torch.sort(sids, stable=True).indices
+        counts = torch.bincount(sids, minlength=num_segments)
+        return cls._from_grouped(name, values[order], counts, segment_length)
 
     @classmethod
     def _from_grouped(cls, name, grouped, counts, segment_length) -> "HopStats":
@@ -256,16 +277,7 @@ def fused_hop(
         stats = HopStats._from_grouped(name, em.streams, em.counts, spec.segment_length)
     want_int = int_telemetry or batch.int_meta is not None
     if len(batch) == 0:
-        out = empty_batch(batch.epoch, device=dev)
-        if want_int:
-            depth = 0 if batch.int_meta is None else batch.int_meta.depth
-            out = out.with_int_meta(IntColumns.empty(0, depth + 1, device=dev))
-        if batch.row_index is not None:
-            out = out.with_row_index(torch.zeros(0, dtype=torch.int64, device=dev))
-        stats = dataclasses.replace(
-            stats, ship_emission=torch.zeros(0, dtype=torch.int64, device=dev)
-        )
-        return out, stats
+        return _empty_hop(batch, stats, want_int)
     with tr.span("packetize", cat="stage"):
         n = len(batch)
         eidx = torch.empty(n, dtype=torch.int64, device=dev)
@@ -329,6 +341,255 @@ def _provenance_rows(batch, em, idx, L) -> torch.Tensor:
     return em.order[src[idx]]
 
 
+def _empty_hop(batch: WireBatch, stats: HopStats, want_int: bool):
+    """The output of a hop over an empty batch, with the optional columns
+    the arrivals carried."""
+    dev = batch.device
+    out = empty_batch(batch.epoch, device=dev)
+    if want_int:
+        depth = 0 if batch.int_meta is None else batch.int_meta.depth
+        out = out.with_int_meta(IntColumns.empty(0, depth + 1, device=dev))
+    if batch.row_index is not None:
+        out = out.with_row_index(torch.zeros(0, dtype=torch.int64, device=dev))
+    stats = dataclasses.replace(
+        stats, ship_emission=torch.zeros(0, dtype=torch.int64, device=dev)
+    )
+    return out, stats
+
+
+def passthrough_hop(
+    batch: WireBatch,
+    spec: HopSpec,
+    name: str,
+    *,
+    tracer=None,
+    hop_id: int = 0,
+    int_telemetry: bool = False,
+) -> tuple[WireBatch, HopStats]:
+    """Degraded-mode hop: route and packetize, never sort (fail-open).
+
+    The paper's plain-sort baseline per hop: ``segment_of`` still routes
+    (segment multisets are the invariant even a degraded fabric keeps), but
+    MergeMarathon is bypassed, so each segment's keys leave in arrival
+    order, grouped by one stable sort.  A key's emission index is its
+    arrival index (nothing is held back), so a packet ships when its last
+    key arrives; no flush pass runs (``recirculations=0``).  The row column
+    and the INT stamp (occupancy 1, the arrival rank within the segment)
+    follow each key."""
+    tr = tracer or NULL_TRACER
+    n = len(batch)
+    dev = batch.device
+    S, L = spec.num_segments, spec.segment_length
+    want_int = int_telemetry or batch.int_meta is not None
+    if n == 0:
+        stats = HopStats._from_grouped(
+            name, torch.zeros(0, dtype=torch.int64, device=dev),
+            torch.zeros(S, dtype=torch.int64, device=dev), L,
+        )
+        return _empty_hop(batch, dataclasses.replace(stats, recirculations=0), want_int)
+    with tr.span("route", cat="stage"):
+        sids = segment_of(batch.values, spec.ranges)
+        order = torch.sort(sids.to(torch.int32), stable=True).indices
+        grouped = batch.values[order]
+        counts = torch.bincount(sids, minlength=S)
+        del sids
+    with tr.span("stats", cat="stage"):
+        stats = HopStats._from_grouped(name, grouped, counts, L)
+        stats = dataclasses.replace(stats, recirculations=0)
+    with tr.span("packetize", cat="stage"):
+        # For a stable grouping permutation the slot -> emission-index map
+        # is the permutation itself.
+        out, idx, ship = _wire_from_grouped(
+            grouped, order, counts, spec.payload_size, batch.epoch
+        )
+    stats = dataclasses.replace(stats, ship_emission=ship)
+    if want_int or batch.row_index is not None:
+        in_rows = order[idx]
+        if batch.row_index is not None:
+            out = out.with_row_index(batch.row_index[in_rows])
+        if want_int:
+            with tr.span("int_stamp", cat="stage"):
+                starts = torch.zeros_like(counts)
+                starts[1:] = torch.cumsum(counts[:-1], 0)
+                # Arrival rank within the segment of each wire row; a
+                # pass-through key leaves the moment it lands: occupancy 1.
+                rank = idx - starts[out.segment_id]
+                prev = batch.int_meta
+                if prev is None:
+                    prev = IntColumns.empty(n, device=dev)
+                stack = prev.take(in_rows).stamp(
+                    hop_id, torch.ones(n, dtype=torch.int64, device=dev), rank
+                )
+                out = out.with_int_meta(stack)
+    return out, stats
+
+
+def k1_block_sort(values: torch.Tensor, block: int) -> torch.Tensor:
+    """One segment's MergeMarathon emission on kernel K1: every consecutive
+    ``block``-chunk sorted, one launch for the segment.
+
+    The reference's legacy per-segment device round trip
+    (``engine.py _pallas_block_sort``).  The chunks are the rows of a
+    ``(ceil(n / block), W)`` matrix, ``W`` the next power of two, padded with
+    the dtype max (pads sort to the row tails and are sliced off).  Keys in
+    ``[0, int32 max)`` sort as int32, others as int64, where the reference
+    fell back to numpy; a width that is not a power of two is padded, where
+    the reference fell back too."""
+    n = values.numel()
+    if n == 0 or block <= 1:
+        return blockwise_sort(values, block)
+    lo, hi = int(values.min()), int(values.max())
+    dtype = torch.int32 if 0 <= lo and hi < _I32_MAX else torch.int64
+    pad = torch.iinfo(dtype).max
+    rows = -(-n // block)
+    width = 1 << (block - 1).bit_length()
+    flat = torch.full((rows * block,), pad, dtype=dtype, device=values.device)
+    flat[:n] = values.to(dtype)
+    mat = torch.full((rows, width), pad, dtype=dtype, device=values.device)
+    mat[:, :block] = flat.view(rows, block)
+    out = ops.sort_rows_padded(mat)
+    return out[:, :block].reshape(-1)[:n].to(torch.int64)
+
+
+def _reject_int(batch: WireBatch, int_telemetry: bool, engine: str) -> None:
+    """Baseline engines have no emission provenance to stamp with."""
+    if int_telemetry or batch.int_meta is not None:
+        raise ValueError(
+            f"engine {engine!r} does not support INT telemetry — only the "
+            "'fused' engine exposes the exact emission permutation the "
+            "stamp needs"
+        )
+    if batch.row_index is not None:
+        raise ValueError(
+            f"engine {engine!r} cannot carry payload row indices — only the "
+            "'fused' and 'device' engines track per-key provenance through "
+            "the hop"
+        )
+
+
+def segment_hop(
+    batch: WireBatch,
+    spec: HopSpec,
+    name: str,
+    *,
+    tracer=None,
+    hop_id: int = 0,
+    int_telemetry: bool = False,
+) -> tuple[WireBatch, HopStats]:
+    """The pre-fusion dataplane, kept as the baseline with all its
+    per-object costs: the hop takes and gives ``list[Packet]`` (converted
+    at this boundary), loops over segments in the block sort (one K1 launch
+    per non-empty segment) and in the run statistics, and repacketizes
+    packet by packet.  Byte-identical wire to :func:`fused_hop`."""
+    from ..core.marathon import _marathon_flat_persegment
+    from ..core.runs import run_lengths
+
+    _reject_int(batch, int_telemetry, "segment")
+    del tracer, hop_id  # baseline engine: no stage spans, no stamping
+    dev = batch.device
+    packets = batch.to_packets()
+    stream = (
+        torch.cat([p.payload for p in packets])
+        if packets
+        else torch.zeros(0, dtype=torch.int64, device=dev)
+    )
+    values, sids = _marathon_flat_persegment(
+        stream, spec.num_segments, spec.segment_length, spec.max_value,
+        spec.ranges, k1_block_sort,
+    )
+    # -- per-segment stats loop (the pre-fusion HopStats.collect) --------
+    S, L = spec.num_segments, spec.segment_length
+    loads = torch.bincount(sids, minlength=S)
+    total = int(values.numel())
+    imbalance = int(loads.max()) / (total / S) if total else 1.0
+    runs = 0
+    total_len = 0
+    recirc = 0
+    for s in range(S):
+        sub = values[sids == s]
+        if not sub.numel():
+            continue
+        runs += int(run_lengths(sub).numel())
+        n_s = int(sub.numel())
+        total_len += n_s
+        if n_s <= L:
+            recirc += 1
+        else:
+            recirc += 1 if (n_s % L) == 0 else 2
+    stats = HopStats(
+        name=name,
+        arrivals=total,
+        segment_loads=loads,
+        load_imbalance=imbalance,
+        emitted_runs=runs,
+        mean_run_len=(total_len / runs) if runs else 0.0,
+        recirculations=recirc,
+    )
+    # -- per-packet repacketization (the pre-fusion SwitchHop) -----------
+    P = spec.payload_size
+    out: list[tuple[int, Packet]] = []
+    for s in range(S):
+        pos = torch.nonzero(sids == s).reshape(-1)
+        if not pos.numel():
+            continue
+        sub = values[pos]
+        pos_h = pos.tolist()
+        for seq, i in enumerate(range(0, len(pos_h), P)):
+            chunk = sub[i : i + P]
+            ship_at = pos_h[i + chunk.numel() - 1]  # wire index of the last key
+            out.append((ship_at, Packet(chunk, 0, seq, segment_id=s)))
+    out.sort(key=lambda t: t[0])  # ship order; wire indices are unique
+    stats = dataclasses.replace(
+        stats,
+        ship_emission=torch.tensor([at for at, _ in out], dtype=torch.int64, device=dev),
+    )
+    return (
+        WireBatch.from_packets([p for _, p in out], epoch=batch.epoch, device=dev),
+        stats,
+    )
+
+
+def faithful_hop(
+    batch: WireBatch,
+    spec: HopSpec,
+    name: str,
+    *,
+    tracer=None,
+    hop_id: int = 0,
+    int_telemetry: bool = False,
+) -> tuple[WireBatch, HopStats]:
+    """Element-at-a-time Alg. 3 (:class:`~repro_torch.core.switchsim.Switch`):
+    the batch's keys are read to the host once, the switch runs there, and
+    the wire is built on the batch's device."""
+    _reject_int(batch, int_telemetry, "faithful")
+    del tracer, hop_id  # reference engine: no stage spans, no stamping
+    dev = batch.device
+    sw = Switch(spec.num_segments, spec.segment_length, spec.max_value, ranges=spec.ranges)
+    vals_h, sids_h = sw.apply(batch.values.cpu().numpy())
+    values = torch.from_numpy(vals_h).to(dev)
+    sids = torch.from_numpy(sids_h).to(dev)
+    stats = HopStats.collect(name, values, sids, spec.num_segments, spec.segment_length)
+    out, ship = _emission_wire(values, sids, spec.num_segments, spec.payload_size, epoch=batch.epoch)
+    return out, dataclasses.replace(stats, ship_emission=ship)
+
+
+def _device_hop(batch, spec, name, *, tracer=None, hop_id=0, int_telemetry=False):
+    """Single-hop view of the whole-epoch program."""
+    from .device_epoch import device_hop
+
+    return device_hop(
+        batch, spec, name, tracer=tracer, hop_id=hop_id, int_telemetry=int_telemetry
+    )
+
+
+HOP_ENGINES = {
+    "fused": fused_hop,
+    "segment": segment_hop,
+    "faithful": faithful_hop,
+    "device": _device_hop,
+}
+
+
 def run_hop(
     batch: WireBatch,
     spec: HopSpec,
@@ -339,22 +600,14 @@ def run_hop(
     hop_id: int = 0,
     int_telemetry: bool = False,
 ) -> tuple[WireBatch, HopStats]:
-    """Dispatch one hop through the named engine (``"fused"`` or
-    ``"device"``)."""
-    if engine not in ENGINES:
-        raise ValueError(f"unknown hop engine {engine!r}; options: {sorted(ENGINES)}")
-    if engine == "device":
-        from .device_epoch import device_hop
-
-        return device_hop(
-            batch, spec, name, tracer=tracer, hop_id=hop_id, int_telemetry=int_telemetry
-        )
-    if engine != "fused":
-        raise NotImplementedError(
-            f"hop engine {engine!r} is not ported yet (later slice: M18, the "
-            "baseline engines); use 'fused' or 'device'"
-        )
-    return fused_hop(
-        batch, spec, name, tracer=tracer, hop_id=hop_id, int_telemetry=int_telemetry
-    )
-
+    """Dispatch one hop through the named engine.  ``tracer`` records the
+    fused engine's stage spans; the INT stamp and the row column are the
+    fused and device engines' (the baselines raise rather than drop
+    provenance)."""
+    try:
+        fn = HOP_ENGINES[engine]
+    except KeyError:
+        raise ValueError(
+            f"unknown hop engine {engine!r}; options: {sorted(HOP_ENGINES)}"
+        ) from None
+    return fn(batch, spec, name, tracer=tracer, hop_id=hop_id, int_telemetry=int_telemetry)

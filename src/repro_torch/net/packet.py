@@ -1,7 +1,7 @@
 """Packetized key streams -- the paper's wire format (§4.1, Fig. 2).
 
 Counterpart of :mod:`repro.net.packet`: a ``Packet`` is (payload, flow_id,
-seq, segment_id), its payload an int64 tensor.  The dataplane proper moves
+seq, segment_id, tenant_id), its payload an int64 tensor.  The dataplane proper moves
 columnar :class:`repro_torch.net.wire.WireBatch` tensors; packets are the
 boundary view.
 """
@@ -28,6 +28,7 @@ class Packet:
     flow_id: int  # originating storage server / emitting hop
     seq: int  # per-(flow, segment) emission sequence number
     segment_id: int = UNTAGGED  # the paper's port number; set by the switch
+    tenant_id: int = 0  # owning job; the per-tenant demux key at egress
 
     def __post_init__(self) -> None:
         object.__setattr__(

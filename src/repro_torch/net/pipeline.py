@@ -25,11 +25,13 @@ and the pool k-way merges the per-(epoch, segment) outputs.  ``tracer``,
 ``metrics`` and ``int_telemetry`` observe a run without changing a byte of
 it; ``network`` (a :class:`~repro_torch.net.timing.NetworkConfig`) runs the
 per-link timing model, whose raw egress wire the pool heals in recovery
-mode.
+mode.  ``fault_plan`` injects the fault plane's deterministic faults
+(:mod:`repro_torch.net.faults`) and exercises every fail-open recovery
+path; ``engine="segment"`` and ``engine="faithful"`` run the paper's
+baseline hop engines (:mod:`repro_torch.net.engine`).
 
-Not ported yet (each raises ``NotImplementedError`` naming its slice):
-``fault_plan`` and ``replay_packets`` (M16), the ``"segment"`` and
-``"faithful"`` engines (M18) and ``pool_backend="shard_map"`` (M19).
+Not ported yet: ``pool_backend="shard_map"`` (M19) raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -44,9 +46,10 @@ from ..core.partition import quantile_ranges, set_ranges
 from ..obs.metrics import MetricsRegistry
 from ..obs.telemetry import int_summary
 from ..obs.trace import NULL_TRACER
-from .control import RANGE_MODES, AdaptiveControlPlane, ControlPlane
+from .control import RANGE_MODES, AdaptiveControlPlane, ControlPlane, ranges_valid
 from .egress import ServerPool
 from .engine import HopStats
+from .faults import FaultPlan, parse_fault_plan
 from .flow import interleave_batch, split_flows
 from .packet import DEFAULT_PAYLOAD
 from .server import StreamingServer
@@ -104,6 +107,13 @@ class PipelineResult:
     dup_packets_dropped: int = 0
     spilled_packets: int = 0
     spilled_keys: int = 0
+    # Fail-open counters (non-zero only under a fault plan): hops killed
+    # and degraded (summed over epochs), shard failovers, and corrupted
+    # range tables replaced by the static table.
+    fault_hops_dead: int = 0
+    fault_hops_degraded: int = 0
+    servers_failed_over: int = 0
+    range_fallbacks: int = 0
 
     def to_numpy(self) -> dict:
         """The result as plain Python and numpy values, under the
@@ -124,12 +134,6 @@ class PipelineResult:
                 v = _to_numpy(v)
             out[f.name] = v
         return out
-
-
-def _not_ported(option: str, later: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"run_pipeline({option}) is not ported yet (later slice: {later})"
-    )
 
 
 def jitter_delivery_batch(batch: WireBatch, window: int, seed: int = 0) -> WireBatch:
@@ -184,7 +188,7 @@ def run_pipeline(
     num_servers: int = 1,
     merge_backend: str = "numpy",
     pool_backend: str = "numpy",
-    fault_plan=None,
+    fault_plan: "FaultPlan | str | None" = None,
     replay_packets: int | None = None,
     payload=None,
     verify: bool = False,
@@ -219,12 +223,19 @@ def run_pipeline(
     row`` (a stable sort of the records), and the table is gathered once at
     egress into :attr:`PipelineResult.sorted_payload`.  The key domain must
     leave room for the row bits: ``max_value < 2**(63 - ceil(log2(n)))``.
+
+    ``fault_plan`` (a :class:`~repro_torch.net.faults.FaultPlan` or its CLI
+    string, e.g. ``"crash:leaf0@0;server_crash:1@0.5"``) injects
+    deterministic faults: dead hops are rerouted around, degraded hops
+    forward in arrival order (the paper's plain-sort baseline), flapped
+    links take extra latency and loss through the timing model, crashed
+    egress shards fail over to the nearest alive one (which replays the dead
+    shard's history from a buffer bounded by ``replay_packets``; ``None``
+    is unbounded), and a corrupted range table falls back to the static
+    one.  Every survivable plan gives output byte-identical to the
+    fault-free run; the counters land on the result.
     """
     dev = resolve_device(device)
-    if fault_plan is not None:
-        raise _not_ported("fault_plan=", "M16, net/faults")
-    if replay_packets is not None:
-        raise _not_ported("replay_packets=", "M16, net/faults")
     values = _as_tensor(values, dev).to(torch.int64).reshape(-1)
     n = int(values.numel())
     if max_value is None:
@@ -239,12 +250,15 @@ def run_pipeline(
     if faithful and engine is not None and engine != "faithful":
         raise ValueError(f"faithful=True conflicts with engine={engine!r}; pass one")
     engine = engine or ("faithful" if faithful else "fused")
-    if engine in ("segment", "faithful"):
-        raise _not_ported(f"engine={engine!r}", "M18, the baseline hop engines")
     if recovery is None:
         # A timed network's egress link is raw (duplicates, late
         # retransmits): the pool must heal it by default.
         recovery = network is not None
+    if isinstance(fault_plan, str):
+        fault_plan = parse_fault_plan(fault_plan, seed=seed)
+    if fault_plan is not None and not fault_plan:
+        fault_plan = None  # an empty plan is no plan
+    fault_counters = {"dead": 0, "degraded": 0, "range_fallbacks": 0}
 
     tr = tracer or NULL_TRACER
     if metrics is None and tr.enabled:
@@ -287,7 +301,21 @@ def run_pipeline(
             # without reading the card; the fused hops route on the card.
             return ranges.cpu() if engine == "device" else ranges.to(dev)
 
-        def _run_topology(ranges: torch.Tensor, batch: WireBatch):
+        def _run_topology(ranges: torch.Tensor, batch: WireBatch, epoch: int = 0):
+            ef = fault_plan.at_epoch(epoch) if fault_plan is not None else None
+            if ef is not None and ef.range_corrupt:
+                bad = torch.from_numpy(ef.corrupt_ranges(ranges.cpu().numpy()))
+                if not ranges_valid(bad, num_segments, max_value):
+                    # Fail-open control plane: a table that fails the check
+                    # is never programmed; the static Alg. 2 table serves
+                    # the epoch (balance degrades, the sort does not).
+                    ranges = _install(set_ranges(max_value, num_segments, device="cpu"))
+                    fault_counters["range_fallbacks"] += 1
+                    tr.instant("fault:range_table", cat="fault", epoch=epoch)
+                    if metrics is not None:
+                        metrics.counter("fault_range_fallbacks").inc()
+                else:  # the corruption is always detectable
+                    ranges = _install(bad)
             topo = make_topology(
                 topology,
                 num_segments=num_segments,
@@ -299,9 +327,14 @@ def run_pipeline(
                 payload_size=payload_size,
                 **topo_kw,
             )
+            if ef is not None and ef.any_dataplane:
+                for node in topo.graph().nodes:
+                    state = ef.hop_state(node.name)
+                    if state in ("dead", "degraded"):
+                        fault_counters[state] += 1
             res = topo.run_batch(
                 batch, tracer=tracer, metrics=metrics,
-                int_telemetry=int_telemetry, network=network,
+                int_telemetry=int_telemetry, network=network, faults=ef,
             )
             if network is None:
                 out, stats = res
@@ -322,7 +355,7 @@ def run_pipeline(
             for e, (ranges_e, sub) in enumerate(epochs):
                 ranges_e = _install(ranges_e)
                 with tr.span(f"epoch:{e}", cat="pipeline", keys=len(sub)):
-                    out, stats, rep = _run_topology(ranges_e, sub)
+                    out, stats, rep = _run_topology(ranges_e, sub, epoch=e)
                 del sub
                 delivered_epochs.append(out.with_epoch(e, num_segments))
                 hop_stats.extend(
@@ -368,6 +401,12 @@ def run_pipeline(
         if jitter_window:
             delivered = jitter_delivery_batch(delivered, jitter_window, seed=seed + 1)
 
+        # Shard crashes resolve against the delivered packet count:
+        # at_fraction 0.5 kills the shard after half the wire's packets.
+        crash_sched = fault_plan.server_crashes(num_servers) if fault_plan is not None else []
+        if crash_sched:
+            total_pkts = delivered.num_packets
+            crash_sched = [(s, int(round(frac * total_pkts))) for s, frac in crash_sched]
         pool = ServerPool(
             num_segments,
             num_servers,
@@ -378,6 +417,8 @@ def run_pipeline(
             merge_backend=merge_backend,
             pool_backend=pool_backend,
             recovery=recovery,
+            crash_schedule=crash_sched or None,
+            replay_packets=replay_packets,
             tracer=tracer,
             metrics=metrics,
             device=dev,
@@ -388,6 +429,7 @@ def run_pipeline(
         if (
             grouped is not None
             and not recovery
+            and not crash_sched
             and (reorder_capacity is None or reorder_capacity >= 1)
             and eff_segments == num_segments
         ):
@@ -466,6 +508,10 @@ def run_pipeline(
         dup_packets_dropped=pool.dup_packets_dropped,
         spilled_packets=pool.spilled_packets,
         spilled_keys=pool.spilled_keys,
+        fault_hops_dead=fault_counters["dead"],
+        fault_hops_degraded=fault_counters["degraded"],
+        servers_failed_over=pool.servers_failed_over,
+        range_fallbacks=fault_counters["range_fallbacks"],
     )
 
 

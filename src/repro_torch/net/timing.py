@@ -21,7 +21,10 @@ retransmits included -- which the servers' recovery mode heals.
 each hop's packet sizes and ship indices to the host once per hop, keeps
 them itself (the fabric frees a hop's output once its consumer merged it),
 and applies the egress link's order to the egress batch with one device
-gather.  It returns the delivered batch and a :class:`NetworkReport`.
+gather.  It returns the delivered batch and a :class:`NetworkReport`.  Under
+the fault plane it applies the epoch's link flaps (``link_override``), takes
+the rehashed ingress groups of a dead ingress hop (``ingress_group``) and
+follows the effective parents of a rerouted hop (``after_hop(parents=)``).
 """
 
 from __future__ import annotations
@@ -410,12 +413,15 @@ class GraphTimer:
     """
 
     def __init__(self, graph, batch: WireBatch, network: NetworkConfig, *,
-                 tracer=None, metrics=None) -> None:
+                 tracer=None, metrics=None, link_override=None, ingress_group=None) -> None:
         self._graph = graph
         self._net = network
         self._rng = np.random.default_rng(network.seed)
         self._tr = tracer or NULL_TRACER
         self._metrics = metrics
+        # The fault plane's hook: ``link_override(name, spec) -> LinkSpec``
+        # applies the epoch's live link flaps to the named link.
+        self._override = link_override
         self.links: list[LinkStats] = []
         H = len(graph.nodes)
         self._out_ticks: list[np.ndarray | None] = [None] * H
@@ -429,10 +435,22 @@ class GraphTimer:
         self._arr_sizes = sizes
         if not starts.size:
             grp = np.zeros(0, dtype=np.int64)
+        elif ingress_group is not None:
+            # A fault reroute: the rehashed group of each row (constant
+            # within a packet: the rehash keys on the flow).
+            grp = _host(ingress_group[starts_d]).astype(np.int64)
         else:
             grp = _host(batch.flow_id[starts_d]) % graph.num_groups
         self._arr_ready = np.cumsum(sizes) - 1 if sizes.size else sizes
         self._arr_group = grp
+
+    def _link(self, kind: str, name: str) -> LinkSpec:
+        """The spec of one named link: the class default with any link
+        flap of the fault plane applied on top."""
+        spec = self._net.link_for(kind)
+        if self._override is not None:
+            spec = self._override(name, spec)
+        return spec
 
     def _record(self, res: LinkResult) -> None:
         st = res.stats
@@ -454,19 +472,22 @@ class GraphTimer:
                 stall_ticks=st.stall_ticks, last_arrival=st.last_arrival,
             )
 
-    def after_hop(self, i: int, node, out_sizes: np.ndarray, ship) -> None:
+    def after_hop(self, i: int, node, out_sizes: np.ndarray, ship, *, parents=None) -> None:
         """Carry ticks through node ``i``: input-link delivery, emission
         pacing, and (for every node but the egress) the uplink to its
         consumer.  ``out_sizes`` are the hop's output packet sizes in wire
         order (host), ``ship`` their ship-emission indices
         (``HopStats.ship_emission``, read to the host here if it is not
-        there)."""
+        there).  ``parents`` replaces the node's declared parents with the
+        effective ones when the fault plane rerouted around a dead hop: the
+        tick interleave follows the dataflow the merge followed."""
         out_sizes = np.asarray(out_sizes, dtype=np.int64)
         if node.parents:
             # The round-robin merge interleaves parents one packet per turn:
             # rebuild it at packet granularity to carry each parent packet's
             # delivery tick (and size) to its merged position.
-            par = [p for p in node.parents if self._out_sizes[p].size]
+            plist = node.parents if parents is None else parents
+            par = [p for p in plist if self._out_sizes[p].size]
             if not par:
                 in_ticks = in_sizes = np.zeros(0, dtype=np.int64)
             elif len(par) == 1:
@@ -482,7 +503,7 @@ class GraphTimer:
             pmask = self._arr_group == node.group
             res = simulate_link(
                 self._arr_sizes[pmask], self._arr_ready[pmask],
-                self._net.link_for("ingress"), rng=self._rng,
+                self._link("ingress", f"ingress:{node.name}"), rng=self._rng,
                 name=f"ingress:{node.name}",
             )
             self._record(res)
@@ -506,7 +527,7 @@ class GraphTimer:
         self._out_sizes[i] = out_sizes
         if i < len(self._graph.nodes) - 1:
             res = simulate_link(
-                out_sizes, ready_out, self._net.link_for("fabric"),
+                out_sizes, ready_out, self._link("fabric", f"uplink:{node.name}"),
                 rng=self._rng, name=f"uplink:{node.name}",
             )
             self._record(res)
@@ -524,7 +545,7 @@ class GraphTimer:
             if self._egress_ready is not None
             else np.zeros(0, dtype=np.int64)
         )
-        res = simulate_link(sizes, ready, self._net.link_for("egress"),
+        res = simulate_link(sizes, ready, self._link("egress", "egress"),
                             rng=self._rng, name="egress")
         order, ticks = res.order, res.ticks
         if order.size:

@@ -15,7 +15,11 @@ in a ``hop:<name>`` span, ``metrics`` accumulates per-hop key counters,
 segment-load gauges and the emitted run-length histogram, and
 ``int_telemetry`` has each hop stamp INT columns.  ``network`` (a
 :class:`~repro_torch.net.timing.NetworkConfig`) runs the per-link timing
-overlay beside the hops.  Fault reroutes are a later slice (M16).
+overlay beside the hops.  ``faults`` (a
+:class:`~repro_torch.net.faults.EpochFaults`) runs the fail-open state
+machine: dead hops are rerouted around, degraded hops forward in arrival
+order (:func:`~repro_torch.net.engine.passthrough_hop`), flapped links take
+the fault's loss and latency.
 """
 
 from __future__ import annotations
@@ -25,7 +29,7 @@ import dataclasses
 import torch
 
 from ..obs.trace import NULL_TRACER
-from .engine import HopSpec, HopStats, run_hop
+from .engine import HopSpec, HopStats, passthrough_hop, run_hop
 from .packet import DEFAULT_PAYLOAD
 from .wire import WireBatch, merge_round_robin_batches, split_by_flow
 
@@ -104,11 +108,31 @@ def run_graph(
 
     With ``network`` the return is ``(delivered, stats, NetworkReport)``:
     the delivered batch is the egress link's raw wire (reordered, with
-    retransmit duplicates), which a pool in recovery mode heals."""
-    if faults is not None:
-        raise NotImplementedError(
-            "run_graph(faults=...) is not ported yet (later slice: M16, net/faults)"
-        )
+    retransmit duplicates), which a pool in recovery mode heals.
+
+    ``faults`` (an :class:`~repro_torch.net.faults.EpochFaults`): a dead
+    ingress hop's flows rehash onto the alive ingress hops (``flow_id %
+    alive``), a dead interior hop's parents hoist into its consumer's
+    parent list (round-robin turn order kept), a degraded hop forwards in
+    arrival order, and the timing overlay follows the rerouted dataflow.
+    Every hop permutes keys only within a segment, so the sorted output is
+    byte-identical to the fault-free run.  A dead egress hop, or a plan
+    that kills every ingress hop, raises.  ``engine="device"`` under a
+    dataplane fault runs the fused engine on the batch's device (the
+    program has no health states), traced as ``fault:device_fallback``
+    and counted as ``fault_device_fallbacks``."""
+    if faults is not None and not faults.any_dataplane:
+        faults = None
+    tr = tracer or NULL_TRACER
+    dev = batch.device
+    if engine == "device" and faults is not None:
+        engine = "fused"
+        # The device engine's table lives on the host; the fused hops route
+        # on the batch's device.
+        spec = dataclasses.replace(spec, ranges=spec.ranges.to(dev))
+        tr.instant("fault:device_fallback", cat="fault", epoch=faults.epoch)
+        if metrics is not None:
+            metrics.counter("fault_device_fallbacks").inc()
     if engine == "device":
         from .device_epoch import run_graph_device
 
@@ -116,34 +140,65 @@ def run_graph(
             graph, batch, spec,
             tracer=tracer, metrics=metrics, int_telemetry=int_telemetry, network=network,
         )
-    tr = tracer or NULL_TRACER
-    dev = batch.device
+    states = [
+        "healthy" if faults is None else faults.hop_state(node.name) for node in graph.nodes
+    ]
+    if states[-1] == "dead":
+        raise ValueError(
+            f"fault plan kills the egress hop {graph.nodes[-1].name!r}; the "
+            "delivered stream has no sibling to reroute to — a key-destroying plan"
+        )
+    parents_of = [node.parents for node in graph.nodes]
+    if faults is not None:
+        parents_of = _reroute(graph, states, faults, tr, metrics)
+    ingress, arr_group = _ingress(graph, batch, states, tr, metrics)
     timer = None
     if network is not None:
         from .timing import GraphTimer, packets
 
-        timer = GraphTimer(graph, batch, network, tracer=tracer, metrics=metrics)
-    ingress: list[WireBatch | None] = list(split_by_flow(batch, graph.num_groups))
+        timer = GraphTimer(
+            graph, batch, network, tracer=tracer, metrics=metrics,
+            link_override=faults.link_spec if faults is not None and faults.link_faults else None,
+            ingress_group=arr_group,
+        )
     outs: list[WireBatch | None] = []
     stats: list[HopStats] = []
     for i, node in enumerate(graph.nodes):
+        if states[i] == "dead":
+            # Its flows entered elsewhere or its parents hoisted to its
+            # consumer: it sees nothing, and the overlay never visits it.
+            outs.append(None)
+            stats.append(_dead_hop_stats(node.name, spec, dev))
+            continue
         if node.parents:
-            inp = merge_round_robin_batches([outs[p] for p in node.parents], device=dev)
-            for p in node.parents:
-                outs[p] = None  # one consumer per uplink: free it
+            parents = parents_of[i]
+            inp = merge_round_robin_batches([outs[p] for p in parents], device=dev)
+            for p in parents:
+                outs[p] = None  # one consumer per (effective) uplink: free it
         else:
             inp = ingress[node.group]
             ingress[node.group] = None
-        with tr.span(f"hop:{node.name}", cat="hop", keys=len(inp)) as hop_sp:
-            out, st = run_hop(
-                inp, spec, node.name, engine,
-                tracer=tracer, hop_id=i, int_telemetry=int_telemetry,
-            )
+        degraded = states[i] == "degraded"
+        with tr.span(
+            f"hop:{node.name}", cat="hop", keys=len(inp),
+            **({"degraded": True} if degraded else {}),
+        ) as hop_sp:
+            if degraded:
+                out, st = passthrough_hop(
+                    inp, spec, node.name,
+                    tracer=tracer, hop_id=i, int_telemetry=int_telemetry,
+                )
+            else:
+                out, st = run_hop(
+                    inp, spec, node.name, engine,
+                    tracer=tracer, hop_id=i, int_telemetry=int_telemetry,
+                )
             hop_sp.set(keys_out=len(out))
         if metrics is not None:
-            # The fused hop's stats carry its emitted run lengths.
-            record_hop(metrics, node.name, len(inp), len(out), out.num_packets, st,
-                       st.emitted_run_lengths)
+            runs = st.emitted_run_lengths
+            if runs is None:  # the segment engine only counts
+                runs = _emitted_run_lengths(out)
+            record_hop(metrics, node.name, len(inp), len(out), out.num_packets, st, runs)
         del inp
         # Stamp the emitting hop into flow_id so sibling uplinks keep unique
         # packet headers when they interleave at the next hop.
@@ -158,14 +213,92 @@ def run_graph(
         )
         if timer is not None:
             # Restamping the flow ids moves no packet boundary, so the
-            # overlay sees the packets the next hop will.
-            timer.after_hop(i, node, packets(out)[1], st.ship_emission)
+            # overlay sees the packets the next hop will; its tick
+            # interleave follows the effective parents.
+            timer.after_hop(i, node, packets(out)[1], st.ship_emission,
+                            parents=parents_of[i] if node.parents else None)
         outs.append(out)
         stats.append(st)
     if timer is not None:
         delivered, report = timer.egress_deliver(outs[-1])
         return delivered, stats, report
     return outs[-1], stats
+
+
+def _reroute(graph: HopGraph, states: list[str], faults, tr, metrics) -> list[tuple[int, ...]]:
+    """Trace and count the epoch's sick hops; return each node's effective
+    parents (a dead parent's own effective parents hoisted in its place)."""
+    for node, state in zip(graph.nodes, states):
+        if state != "healthy":
+            tr.instant(f"fault:{node.name}", cat="fault", state=state, epoch=faults.epoch)
+            if metrics is not None:
+                kind = "fault_hops_dead" if state == "dead" else "fault_hops_degraded"
+                metrics.counter(kind, node.name).inc()
+    eff: list[tuple[int, ...]] = []
+    for node in graph.nodes:
+        mine: list[int] = []
+        for p in node.parents:
+            if states[p] == "dead":
+                mine.extend(eff[p])
+                tr.instant(f"reroute:{graph.nodes[p].name}->{node.name}", cat="fault",
+                           epoch=faults.epoch)
+                if metrics is not None:
+                    metrics.counter("fault_reroutes", graph.nodes[p].name).inc()
+            else:
+                mine.append(p)
+        eff.append(tuple(mine))
+    return eff
+
+
+def _ingress(graph: HopGraph, batch: WireBatch, states: list[str], tr, metrics):
+    """Each ingress group's arrivals, and the per-row group under a reroute
+    (``None`` without one): a dead ingress hop's flows rehash onto the
+    alive ingress groups, ``alive[flow_id % len(alive)]``."""
+    ingress_nodes = [(node.group, state) for node, state in zip(graph.nodes, states)
+                     if not node.parents]
+    dead = sorted(g for g, state in ingress_nodes if state == "dead")
+    if not dead:
+        return list(split_by_flow(batch, graph.num_groups)), None
+    alive = sorted(g for g, state in ingress_nodes if state != "dead")
+    if not alive:
+        raise ValueError(
+            "fault plan kills every ingress hop; the arrival flows have "
+            "nowhere to enter the fabric — a key-destroying plan"
+        )
+    dev = batch.device
+    grp = batch.flow_id % graph.num_groups
+    dead_mask = torch.isin(grp, torch.tensor(dead, dtype=torch.int64, device=dev))
+    alive_t = torch.tensor(alive, dtype=torch.int64, device=dev)
+    grp = torch.where(dead_mask, alive_t[batch.flow_id % len(alive)], grp)
+    ingress = [batch.take(grp == g) for g in range(graph.num_groups)]
+    tr.instant("reroute:ingress", cat="fault", dead=dead, alive=alive)
+    if metrics is not None:
+        metrics.counter("fault_reroutes", "ingress").inc(len(dead))
+    return ingress, grp
+
+
+def _dead_hop_stats(name: str, spec: HopSpec, dev) -> HopStats:
+    """Zero stats of a crashed hop: it saw nothing and emitted nothing."""
+    zero = torch.zeros(0, dtype=torch.int64, device=dev)
+    stats = HopStats._from_grouped(
+        name, zero, torch.zeros(spec.num_segments, dtype=torch.int64, device=dev),
+        spec.segment_length,
+    )
+    return dataclasses.replace(stats, ship_emission=zero)
+
+
+def _emitted_run_lengths(out: WireBatch) -> torch.Tensor:
+    """Lengths of the maximal ascending runs of each segment's emitted
+    sub-stream (for engines whose stats carry none)."""
+    n = len(out)
+    if n == 0:
+        return torch.zeros(0, dtype=torch.int64, device=out.device)
+    order = torch.sort(out.segment_id, stable=True).indices
+    vals, segs = out.values[order], out.segment_id[order]
+    brk = torch.ones(n, dtype=torch.bool, device=out.device)
+    brk[1:] = (vals[1:] < vals[:-1]) | (segs[1:] != segs[:-1])
+    starts = torch.nonzero(brk).reshape(-1)
+    return torch.diff(starts, append=torch.tensor([n], device=out.device))
 
 
 def record_hop(metrics, name: str, keys_in: int, keys_out: int, packets_out: int,

@@ -2,11 +2,13 @@
 
 Counterpart of :mod:`repro.net.wire`.  A :class:`WireBatch` holds one row per
 key -- ``values``, ``flow_id``, ``seq``, ``segment_id``, the optional
-payload provenance ``row_index`` and the optional INT telemetry stack
-``int_meta`` (:class:`~repro_torch.obs.telemetry.IntColumns`) -- as int64
-tensors on one device, plus an ``epoch`` tag.  Every row gather applies to
-the optional columns too, so they never detach from their keys.  Packet boundaries are the runs of consecutive rows sharing
-one ``(flow_id, seq, segment_id)`` header, exactly as in the reference.
+payload provenance ``row_index``, the optional INT telemetry stack
+``int_meta`` (:class:`~repro_torch.obs.telemetry.IntColumns`) and the
+optional owning job ``tenant`` -- as int64 tensors on one device, plus an
+``epoch`` tag.  Every row gather applies to the optional columns too, so
+they never detach from their keys.  Packet boundaries are the runs of
+consecutive rows sharing one ``(flow_id, seq, segment_id)`` header (and one
+tenant, where the column is there), exactly as in the reference.
 
 :func:`from_reference` and :meth:`WireBatch.to_numpy` carry a batch across
 from the reference's numpy columns and back (duck-typed: nothing of the
@@ -69,6 +71,10 @@ class WireBatch:
     flow_sizes: tuple[tuple[int, int], ...] | None = None
     # INT per-hop telemetry stack (opt-in; stamped by the fused engine).
     int_meta: IntColumns | None = None
+    # Owning job of each key (the multi-tenant plane's demux key), carried
+    # at ingress and egress; the hop engines drop it inside the fabric,
+    # where tenancy lives in per-tenant segment-id blocks.
+    tenant: torch.Tensor | None = None
 
     def __post_init__(self) -> None:
         for name in _COLUMNS:
@@ -89,6 +95,10 @@ class WireBatch:
                 )
         if self.int_meta is not None and len(self.int_meta) != n:
             raise ValueError(f"int_meta rows {len(self.int_meta)} != values length {n}")
+        if self.tenant is not None:
+            object.__setattr__(self, "tenant", self.tenant.to(torch.int64))
+            if self.tenant.numel() != n:
+                raise ValueError(f"tenant length {self.tenant.numel()} != values length {n}")
 
     def __len__(self) -> int:
         return int(self.values.numel())
@@ -108,6 +118,10 @@ class WireBatch:
             | (self.seq[1:] != self.seq[:-1])
             | (self.segment_id[1:] != self.segment_id[:-1])
         )
+        if self.tenant is not None:
+            # Adjacent packets of different jobs may share a header tuple
+            # (raw storage traffic is all UNTAGGED) and would fuse.
+            change = change | (self.tenant[1:] != self.tenant[:-1])
         zero = torch.zeros(1, dtype=torch.int64, device=self.device)
         return torch.cat([zero, torch.nonzero(change).reshape(-1) + 1])
 
@@ -137,6 +151,7 @@ class WireBatch:
             epoch=self.epoch,
             row_index=None if self.row_index is None else self.row_index[idx],
             int_meta=None if self.int_meta is None else self.int_meta.take(idx),
+            tenant=None if self.tenant is None else self.tenant[idx],
         )
 
     def slice_keys(self, lo: int, hi: int) -> "WireBatch":
@@ -148,6 +163,7 @@ class WireBatch:
             epoch=self.epoch,
             row_index=None if self.row_index is None else self.row_index[lo:hi],
             int_meta=None if self.int_meta is None else self.int_meta.slice(lo, hi),
+            tenant=None if self.tenant is None else self.tenant[lo:hi],
         )
 
     def with_epoch(self, epoch: int, num_segments: int) -> "WireBatch":
@@ -160,6 +176,7 @@ class WireBatch:
             epoch=epoch,
             row_index=self.row_index,
             int_meta=self.int_meta,
+            tenant=self.tenant,
         )
 
     def with_row_index(self, row_index: torch.Tensor | None) -> "WireBatch":
@@ -169,6 +186,14 @@ class WireBatch:
     def with_int_meta(self, int_meta: IntColumns | None) -> "WireBatch":
         """The same wire rows carrying a different telemetry stack."""
         return dataclasses.replace(self, int_meta=int_meta)
+
+    def with_tenant(self, tenant) -> "WireBatch":
+        """The same wire rows stamped with a tenant column: a scalar job id
+        (broadcast down the rows), a per-row tensor, or ``None`` to strip
+        it."""
+        if tenant is not None and (not isinstance(tenant, torch.Tensor) or tenant.dim() == 0):
+            tenant = torch.full((len(self),), int(tenant), dtype=torch.int64, device=self.device)
+        return dataclasses.replace(self, tenant=tenant)
 
     # -- Packet interop -------------------------------------------------
     @classmethod
@@ -183,12 +208,16 @@ class WireBatch:
                 torch.tensor(vals, dtype=torch.int64, device=dev), sizes
             )
 
+        tenant = None
+        if any(p.tenant_id for p in packets):
+            tenant = _rep([p.tenant_id for p in packets])
         return cls(
             torch.cat([p.payload for p in packets]),
             _rep([p.flow_id for p in packets]),
             _rep([p.seq for p in packets]),
             _rep([p.segment_id for p in packets]),
             epoch=epoch,
+            tenant=tenant,
         )
 
     def to_packets(self) -> list[Packet]:
@@ -200,9 +229,10 @@ class WireBatch:
         flows = self.flow_id[heads].tolist()
         seqs = self.seq[heads].tolist()
         segs = self.segment_id[heads].tolist()
+        tens = [0] * len(segs) if self.tenant is None else self.tenant[heads].tolist()
         return [
-            Packet(self.values[a:b], f, q, s)
-            for a, b, f, q, s in zip(bounds[:-1], bounds[1:], flows, seqs, segs)
+            Packet(self.values[a:b], f, q, s, tenant_id=t)
+            for a, b, f, q, s, t in zip(bounds[:-1], bounds[1:], flows, seqs, segs, tens)
         ]
 
     # -- crossing from/to the reference's numpy columns -----------------
@@ -215,6 +245,7 @@ class WireBatch:
             None if self.int_meta is None
             else {name: getattr(self.int_meta, name).cpu().numpy() for name in INT_FIELDS}
         )
+        out["tenant"] = None if self.tenant is None else self.tenant.cpu().numpy()
         return out
 
 
@@ -222,16 +253,13 @@ def from_reference(batch, device="cuda") -> WireBatch:
     """The port's :class:`WireBatch` for a reference batch (any object with
     the reference's numpy columns), on ``device``."""
     dev = resolve_device(device)
-    if getattr(batch, "tenant", None) is not None:
-        raise NotImplementedError(
-            "the tenant column is not ported yet (later slice: M17, net/scheduler)"
-        )
 
     def _t(a):  # a copy: the reference freezes some of its arrays
         return torch.from_numpy(np.array(a, dtype=np.int64, order="C")).to(dev)
 
     row_index = getattr(batch, "row_index", None)
     meta = getattr(batch, "int_meta", None)
+    tenant = getattr(batch, "tenant", None)
     return WireBatch(
         *(_t(getattr(batch, name)) for name in _COLUMNS),
         epoch=int(batch.epoch),
@@ -239,6 +267,7 @@ def from_reference(batch, device="cuda") -> WireBatch:
         int_meta=None if meta is None else IntColumns(
             **{name: _t(getattr(meta, name)) for name in INT_FIELDS}
         ),
+        tenant=None if tenant is None else _t(tenant),
     )
 
 
@@ -272,8 +301,9 @@ def packetize_batch(
 
 def concat_batches(batches: list[WireBatch], device="cuda") -> WireBatch:
     """Concatenate in list order.  The epoch tag survives only if uniform;
-    the row column and the INT stack only if every key-carrying part has
-    them.  ``device`` is used only for an empty list."""
+    the row column, the INT stack and the tenant column only if every
+    key-carrying part has them.  ``device`` is used only for an empty
+    list."""
     if not batches:
         return empty_batch(device=device)
     epochs = {b.epoch for b in batches}
@@ -284,11 +314,15 @@ def concat_batches(batches: list[WireBatch], device="cuda") -> WireBatch:
     int_meta = None
     if carrying and all(b.int_meta is not None for b in carrying):
         int_meta = IntColumns.concat([b.int_meta for b in carrying])
+    tenant = None
+    if carrying and all(b.tenant is not None for b in carrying):
+        tenant = torch.cat([b.tenant for b in carrying])
     return WireBatch(
         *(torch.cat([getattr(b, name) for b in batches]) for name in _COLUMNS),
         epoch=epochs.pop() if len(epochs) == 1 else 0,
         row_index=row_index,
         int_meta=int_meta,
+        tenant=tenant,
     )
 
 

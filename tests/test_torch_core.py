@@ -253,8 +253,11 @@ def test_marathon_flat_and_default_ranges():
     want = ref_marathon.marathon_flat(v, 8, 16, 999)
     for g, w in zip(got, want):
         np.testing.assert_array_equal(N(g), w)
-    with pytest.raises(NotImplementedError):
-        marathon.marathon_flat(T(v), 8, 16, 999, block_sort=marathon.blockwise_sort)
+    # the per-segment block_sort= path, once refused, is the reference's
+    got = marathon.marathon_flat(T(v), 8, 16, 999, block_sort=marathon.blockwise_sort)
+    want = ref_marathon.marathon_flat(v, 8, 16, 999, block_sort=ref_marathon.blockwise_sort)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(N(g), w)
 
 
 def test_all_duplicate_keys_through_marathon():

@@ -619,3 +619,90 @@ def test_epoch_capture_failure_raises(gen):
     with pytest.raises(RuntimeError):
         prog(torch.arange(8, device="cuda"))
     assert prog.graph is None
+
+
+def test_faulted_tree_equals_fault_free_and_torch_sort(gen):
+    """A dead interior hop, a degraded leaf and a mid-stream shard failover
+    on the 7-hop tree with arena servers, on the card: the output equals the
+    fault-free run's, torch.sort's and the same plan on the CPU; K1 runs on
+    the five sorting hops and K2 in the arena merges, the adopter's
+    re-ingest included."""
+    vals = torch.from_numpy(random_trace(60_000, seed=4)).cuda()
+    kw = dict(topology="tree", branching=2, height=3, num_segments=16, segment_length=64,
+              payload_size=256, num_flows=8, range_mode="oracle", num_servers=4,
+              merge_backend="arena", max_value=int(vals.max()))
+    free = run_pipeline(vals, device="cuda", **kw)
+    plan = "crash:l1n0@0;degrade:l0n2@0;server_crash:1@0.5"
+    bitonic.reset_launches()
+    res = run_pipeline(vals, fault_plan=plan, device="cuda", **kw)
+    launches = dict(bitonic.LAUNCHES)
+    host = run_pipeline(vals.cpu(), fault_plan=plan, device="cpu", **kw)
+    assert torch.equal(res.output, torch.sort(vals).values)
+    assert torch.equal(res.output, free.output) and torch.equal(res.output.cpu(), host.output)
+    assert res.passes == host.passes
+    assert (res.fault_hops_dead, res.fault_hops_degraded, res.servers_failed_over) == (1, 1, 1)
+    assert launches["row_sort"] == 5 and launches["tournament"] >= 1
+    assert res.server_keys[1] == 0 and sum(res.server_keys) == vals.numel()
+
+
+def test_device_engine_fault_fallback_stays_on_the_card(gen):
+    vals = torch.from_numpy(random_trace(40_000, seed=5)).cuda()
+    kw = dict(topology="tree", branching=2, height=3, num_segments=16, segment_length=64,
+              payload_size=256, num_flows=8, range_mode="oracle", max_value=int(vals.max()),
+              engine="device")
+    from repro_torch.obs import MetricsRegistry
+
+    metrics = MetricsRegistry()
+    res = run_pipeline(vals, fault_plan="degrade:l1n1@0", metrics=metrics, device="cuda", **kw)
+    assert res.output.device.type == "cuda"
+    assert torch.equal(res.output, torch.sort(vals).values)
+    assert metrics.counter("fault_device_fallbacks").value == 1
+
+
+def test_segment_engine_launches_k1_once_per_nonempty_segment(gen):
+    """The segment engine's per-segment block sort: one K1 launch for every
+    segment that received keys, a non-power-of-two width padded; its wire
+    equals the fused engine's byte for byte."""
+    from repro_torch.core.partition import set_ranges
+    from repro_torch.net import engine, flow
+
+    vals = torch.from_numpy(random_trace(100_000, seed=6)).cuda()
+    batch = flow.interleave_batch(flow.split_flows(vals, 8, 64), "round_robin")
+    maxv = int(vals.max())
+    for length in (64, 48):
+        spec = engine.HopSpec(64, length, maxv, set_ranges(maxv, 64, device="cuda"), payload_size=64)
+        fused, fst = engine.run_hop(batch, spec, "hop", "fused")
+        bitonic.reset_launches()
+        seg, sst = engine.run_hop(batch, spec, "hop", "segment")
+        nonempty = int((sst.segment_loads > 0).sum())
+        assert bitonic.LAUNCHES["row_sort"] == nonempty > 0
+        for col in ("values", "seq", "segment_id"):
+            assert torch.equal(getattr(seg, col), getattr(fused, col)), (length, col)
+        assert torch.equal(sst.ship_emission, fst.ship_emission)
+
+
+def test_packed_tenants_beyond_int32_sort_on_the_int64_path(gen, monkeypatch):
+    """A packed round of four tenants whose shifted keys pass int32: one K1
+    launch, on int64 keys, and every tenant equals its solo run."""
+    from repro_torch.net import scheduler
+
+    seen = []
+    orig = bitonic.sort_rows
+
+    def spy(x):
+        seen.append(x.dtype)
+        return orig(x)
+
+    monkeypatch.setattr(bitonic, "sort_rows", spy)
+    maxv = (1 << 30) - 1
+    jobs = [scheduler.Job(t, np.random.default_rng(t).integers(0, maxv + 1, 50_000), seed=t,
+                          range_mode="oracle", max_value=maxv) for t in range(4)]
+    fabric = dict(num_segments=16, segment_length=64, payload_size=64)
+    bitonic.reset_launches()
+    res = scheduler.run_jobs([scheduler.Job(**vars(j)) for j in jobs], device="cuda", **fabric)
+    assert res.packed_calls == 1 and seen == [torch.int64] and bitonic.LAUNCHES["row_sort"] == 1
+    for j in jobs:
+        solo = scheduler.run_job_solo(j, device="cuda", **fabric)
+        jr = res.by_tenant(j.tenant_id)
+        assert torch.equal(jr.output, solo.output) and jr.passes == solo.passes
+        assert torch.equal(jr.output, torch.sort(j.values.cuda()).values)

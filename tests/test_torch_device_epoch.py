@@ -523,12 +523,27 @@ def test_device_hop_and_rr_merge_read_nothing_on_the_host(wide):
 
 
 def test_unported_engines_still_raise():
+    """The baseline engines, once refused, give the fused engine's wire;
+    the device engine under a dataplane fault falls back to the fused
+    engine (the reference's semantics), counted and traced."""
+    from repro_torch.net.faults import parse_fault_plan
+    from repro_torch.obs import MetricsRegistry, Tracer
+
     batch = _batch(np.arange(100))
-    spec = HopSpec(4, 8, max_value=100)
+    spec = HopSpec(4, 8, max_value=100, ranges=set_ranges(100, 4, device="cpu"))
+    fused, _ = engine.run_hop(batch, spec, "h", "fused")
+    want = pipeline.run_pipeline(np.arange(100), device="cpu")
     for name in ("segment", "faithful"):
-        with pytest.raises(NotImplementedError, match="M18"):
-            engine.run_hop(batch, spec, "h", name)
-        with pytest.raises(NotImplementedError, match="M18"):
-            pipeline.run_pipeline(np.arange(100), engine=name, device="cpu")
-    with pytest.raises(NotImplementedError):
-        topology.run_graph(topology.single_graph(), batch, spec, "device", faults=object())
+        out, _ = engine.run_hop(batch, spec, "h", name)
+        for col in ("values", "seq", "segment_id"):
+            assert torch.equal(getattr(out, col), getattr(fused, col)), (name, col)
+        got = pipeline.run_pipeline(np.arange(100), engine=name, device="cpu")
+        assert torch.equal(got.output, want.output) and got.passes == want.passes
+    faults = parse_fault_plan("degrade:switch@0").at_epoch(0)
+    tracer, metrics = Tracer(), MetricsRegistry()
+    out, stats = topology.run_graph(topology.single_graph(), batch, spec, "device", faults=faults,
+                                    tracer=tracer, metrics=metrics)
+    plain, _ = engine.passthrough_hop(batch, spec, "switch")
+    assert torch.equal(out.values, plain.values) and stats[0].recirculations == 0
+    assert metrics.counter("fault_device_fallbacks").value == 1
+    assert [i.name for i in tracer.instants][:1] == ["fault:device_fallback"]

@@ -269,9 +269,12 @@ def test_run_hop_dispatch_and_unported_options():
         engine.run_hop(pb, spec, "h", "warp")
     dout, _ = engine.run_hop(pb, spec, "h", "device")
     assert torch.equal(dout.values, out.values)
-    for eng in ("segment", "faithful"):
-        with pytest.raises(NotImplementedError, match="M18"):
-            engine.run_hop(pb, spec, "h", eng)
+    rspec = ref_engine.HopSpec(4, 8, 32767, ref_part.set_ranges(32767, 4), payload_size=16)
+    for eng in ("segment", "faithful"):  # once refused: the reference's baselines
+        got, gst = engine.run_hop(pb, spec, "h", eng)
+        want, wst = ref_engine.run_hop(rb, rspec, "h", eng)
+        assert_batch_equal(got, want)
+        assert gst.emitted_runs == wst.emitted_runs and gst.recirculations == wst.recirculations
     # INT telemetry, once refused, stamps the reference's columns
     rout, _ = ref_engine.fused_hop(rb, ref_engine.HopSpec(4, 8, 32767, ref_part.set_ranges(32767, 4),
                                                           payload_size=16), "h", hop_id=3,
@@ -335,8 +338,13 @@ def test_graph_builders_and_validation():
     g = topology.single_graph()
     spec = engine.HopSpec(2, 2, 9, T(ref_part.set_ranges(9, 2)))
     batch = wire.packetize_batch(torch.arange(5))
-    with pytest.raises(NotImplementedError, match="M16"):
-        topology.run_graph(g, batch, spec, faults=object())
+    from repro_torch.net.faults import parse_fault_plan
+
+    # faults=, once refused, degrades the hop: arrival order within segments
+    out, st = topology.run_graph(g, batch, spec, faults=parse_fault_plan("degrade:all").at_epoch(0))
+    assert out.values.tolist() == [0, 1, 2, 3, 4] and st[0].recirculations == 0
+    with pytest.raises(ValueError, match="egress"):
+        topology.run_graph(g, batch, spec, faults=parse_fault_plan("crash:switch").at_epoch(0))
     # metrics= and network=, once refused, run as the reference's
     from repro.net import timing as ref_timing
     from repro.obs import MetricsRegistry as RefMetrics
@@ -394,6 +402,8 @@ def test_from_reference_to_numpy_round_trip():
 
 
 def test_from_reference_refuses_unported_columns():
+    """The tenant column, once refused, crosses over and back."""
     _, rb = _arrivals(50, 2, 16, "round_robin", seed=0)
-    with pytest.raises(NotImplementedError):
-        wire.from_reference(rb.with_tenant(3), device="cpu")
+    pb = wire.from_reference(rb.with_tenant(3), device="cpu")
+    assert pb.tenant.tolist() == [3] * 50
+    np.testing.assert_array_equal(pb.to_numpy()["tenant"], rb.with_tenant(3).tenant)

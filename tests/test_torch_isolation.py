@@ -45,7 +45,8 @@ def test_every_port_module_imports_without_jax_or_reference():
             "repro_torch.net.device_epoch", "repro_torch.net.timing",
             "repro_torch.net.control", "repro_torch.obs.metrics",
             "repro_torch.obs.telemetry", "repro_torch.obs.trace",
-            "repro_torch.data.scenarios"} <= set(names)
+            "repro_torch.data.scenarios", "repro_torch.net.faults",
+            "repro_torch.net.scheduler", "repro_torch.core.switchsim"} <= set(names)
     code = (
         "import importlib, sys\n"
         f"for name in {names!r}:\n"

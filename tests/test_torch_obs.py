@@ -237,8 +237,9 @@ def test_wire_batch_carries_int_meta_like_the_reference():
     assert pb.with_int_meta(None).int_meta is None and plain.to_numpy()["int_meta"] is None
     with pytest.raises(ValueError, match="int_meta rows"):
         wire.WireBatch(T(vals), T(z), T(z), T(z), int_meta=IntColumns.empty(2))
-    with pytest.raises(NotImplementedError, match="M17"):
-        wire.from_reference(rb.with_tenant(1), device="cpu")
+    # the tenant column, once refused, rides beside the INT stack
+    tb = wire.from_reference(rb.with_tenant(1), device="cpu")
+    assert_int_equal(tb.int_meta, rmeta) and tb.tenant.tolist() == [1] * len(tb)
 
 
 @pytest.mark.parametrize("stacked", [False, True])

@@ -326,9 +326,13 @@ def test_pool_guards_and_concat():
         egress.ServerPool(4, 2, affinity=np.array([1, 0, 0, 1]), device="cpu")
     with pytest.raises(ValueError):
         egress.ServerPool(4, 2, affinity=np.array([0, 1]), device="cpu")
-    for kw in ({"pool_backend": "shard_map"}, {"crash_schedule": [(0, 1)]}, {"replay_packets": 4}):
-        with pytest.raises(NotImplementedError):
-            egress.ServerPool(4, 2, device="cpu", **kw)
+    with pytest.raises(NotImplementedError):
+        egress.ServerPool(4, 2, device="cpu", pool_backend="shard_map")
+    # shard failover, once refused, is configured as in the reference
+    for kw in ({"crash_schedule": [(0, 1)]}, {"replay_packets": 4}):
+        assert egress.ServerPool(4, 2, device="cpu", **kw).servers_failed_over == 0
+    with pytest.raises(ValueError, match="single-server"):
+        egress.ServerPool(4, 1, device="cpu", crash_schedule=[(0, 1)])
     pool = egress.ServerPool(4, 2, device="cpu")
     bad = wire.packetize_batch(torch.arange(4), segment_id=7)
     with pytest.raises(ValueError, match="invalid segment"):
@@ -354,18 +358,20 @@ def test_pool_guards_and_concat():
 
 
 def test_unported_pipeline_options_raise():
-    """The options of later slices raise, naming them; the options this
-    slice ported (``network``, ``int_telemetry``, ``metrics``,
-    ``range_mode="sampled"``, ``recovery``) are held to the reference by
-    :func:`test_ported_pipeline_options_match_reference`."""
+    """The option of a later slice (``pool_backend="shard_map"``, M19)
+    raises, naming it; the fault plane's and the baseline engines' options,
+    once refused, run as the reference's (and are held to it by
+    ``tests/test_torch_faults.py`` and ``tests/test_torch_baselines.py``)."""
     vals = random_trace(100, seed=0)
-    for kw, later in (
-        ({"fault_plan": "crash:switch@0"}, "M16"), ({"replay_packets": 3}, "M16"),
-        ({"engine": "segment"}, "M18"), ({"faithful": True}, "M18"),
-        ({"pool_backend": "shard_map", "num_servers": 2}, "M19"),
-    ):
-        with pytest.raises(NotImplementedError, match=later):
-            pipeline.run_pipeline(vals, device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match="M19"):
+        pipeline.run_pipeline(vals, device="cpu", pool_backend="shard_map", num_servers=2)
+    with pytest.raises(ValueError, match="egress"):
+        pipeline.run_pipeline(vals, device="cpu", fault_plan="crash:switch@0")
+    want = ref_pipeline.run_pipeline(vals)
+    for kw in ({"replay_packets": 3}, {"engine": "segment"}, {"faithful": True},
+               {"fault_plan": "degrade:switch@0"}):
+        got = pipeline.run_pipeline(vals, device="cpu", **kw)
+        np.testing.assert_array_equal(got.output.numpy(), want.output)
     with pytest.raises(ValueError):
         pipeline.run_pipeline(vals, range_mode="bogus", device="cpu")
     with pytest.raises(ValueError):

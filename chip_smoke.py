@@ -3,12 +3,13 @@
 
     python3 chip_smoke.py [--n KEYS] [--seed S] [--profile]
 
-Three main paths: the sort dataplane (``run_pipeline``), the dense LM serve
-path (``Engine`` over Mistral-Nemo-12B) and the MoE serve path (``Engine``
-over granite-moe-3b-a800m).  Phases, one JSON line each:
+Five main paths: the sort dataplane (``run_pipeline``), the dense LM serve
+path (``Engine`` over Mistral-Nemo-12B), the MoE serve path (``Engine`` over
+granite-moe-3b-a800m) and training (AdamW steps of granite-moe-3b-a800m and
+of Mistral-Nemo-12B cut to 8 layers).  Phases, one JSON line each:
 
 1. ``device``   -- the card (``nvidia-smi`` name and power limit), torch and
-   CUDA versions, and the seconds the six hand-written kernels took to build
+   CUDA versions, and the seconds the seven hand-written kernels took to build
    from ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per source, in
    parallel);
 2. ``k1``, ``k2`` -- kernels K1 (row sort) and K2 (tournament merge) against
@@ -96,7 +97,24 @@ over granite-moe-3b-a800m).  Phases, one JSON line each:
    replayed as one CUDA graph (``graph_ms``, ``library_graph_ms``), which
    leaves the host's cost of each call out.  K3's row adds the decode step's
    1 x 32 and its measured launches per call;
-9. ``ptxas`` -- every kernel entry's registers, static shared memory and
+9. ``k5b``, ``train``, ``train_dense``, ``train_resume`` (before the
+   ``kernels`` line) -- the attention backward K5b and K5's lse against
+   their plain versions (head dims 32, 64, 128 x G 1, 3, 4, causal or not,
+   T and S of 1, 63, 130 and mixed, f32 and bf16; the training shapes,
+   a transposed dO, a non-causal T != S; limits ``grad_limit`` and
+   ``lse_limit``); granite-moe-3b-a800m at full width and depth and
+   Mistral-Nemo-12B at 8 of 40 layers (``TRAIN``, ``TRAIN_DENSE``) trained
+   on ``TokenPipeline`` batches: tokens/s, ms per step (the first apart),
+   peak memory, loss, gradient norm and lr per step, dropped assignments,
+   K5 / K5b / K3 launches held exactly per step, one step cut into forward,
+   backward and AdamW (with ``--profile`` also profiled), and granite's
+   first step again with every kernel plain (loss and gradient norm within
+   a stated bf16 limit); the training CLI at granite's smoke config in f32
+   on the card, run, interrupted and resumed from its step-3 checkpoint
+   (steps 4-6 within 1e-5).  The ``kernels`` line then gains K5b's row
+   (granite's shape; Mistral's under ``dense``): eager and graph ms, its
+   plain twin's, the backward of SDPA timed on its own, the bound;
+10. ``ptxas`` -- every kernel entry's registers, static shared memory and
    spills, as the compiler reported them when it built the kernels; a
    spill in any entry fails the run.
 
@@ -145,6 +163,18 @@ E2E_HOPS = 7
 SERVE_ARCH = "mistral-nemo-12b"
 MOE_ARCH = "granite-moe-3b-a800m"
 SERVE = dict(slots=4, max_len=4096, requests=8, prompt_min=512, prompt_max=2048, new_tokens=32)
+
+#: The training runs, bf16 from ``--seed``, AdamW at lr 3e-4 with
+#: ``AdamWConfig``'s other defaults (f32 moments), one microbatch:
+#: granite-moe-3b-a800m at full width and depth, and Mistral-Nemo-12B at full
+#: width with 8 of its 40 layers (its 12.25B parameters with AdamW's f32
+#: moments, 12 bytes each, need about 147 GB).  ``TRAIN_RESUME`` drives the
+#: training CLI at granite's smoke config.
+TRAIN = dict(arch=MOE_ARCH, batch=4, seq=2048, steps=6, lr=3e-4)
+TRAIN_DENSE = dict(arch=SERVE_ARCH, layers=8, batch=2, seq=2048, steps=4, lr=3e-4)
+TRAIN_RESUME = dict(arch=MOE_ARCH)
+#: K5b's training shapes: (B, T, S, H, KV, d, causal).
+TRAIN_K5B = {"granite": (4, 2048, 2048, 24, 8, 64, True), "mistral": (2, 2048, 2048, 32, 8, 128, True)}
 
 #: Inputs of the attention kernels' checks: q and k at 1.5 x a unit normal,
 #: so the scores have a standard deviation of 2.25 at any head dim and the
@@ -2105,6 +2135,398 @@ def attention_rows(torch, serve: dict, gen) -> list[dict]:
     return rows
 
 
+# -- the training paths -----------------------------------------------------------
+
+
+def grad_limit(want):
+    """Elementwise limit on |K5b - plain| for a gradient.
+
+    Both sides multiply the same inputs in float32 and sum in other orders
+    (dk and dv over every query row of G heads), then round once to the
+    input's type.  float32: 2e-5 of the tensor's largest |want| plus 1e-3
+    |want|; bfloat16: one or two ulps, 4e-3 of the largest plus 1e-2 |want|.
+    Both add 1e-5: a gradient that is exactly 0 (one visible key: the
+    softmax is constant) is f32 rounding noise of order 1e-7 on each side."""
+    import torch
+
+    w = want.float().abs()
+    if want.dtype == torch.bfloat16:
+        return 1e-5 + 4e-3 * w.max() + 1e-2 * w
+    return 1e-5 + 2e-5 * w.max() + 1e-3 * w
+
+
+def lse_limit(dt) -> float:
+    """Limit on |K5's lse - the plain logsumexp|: float32 online sums in
+    other orders, 2e-5; the bf16 kernel sums its probabilities as rounded to
+    bf16 (2^-9 relative each), so log l moves by up to 2^-9: 2^-8."""
+    import torch
+
+    return 2.0**-8 if dt == torch.bfloat16 else 2e-5
+
+
+def check_k5b(fa, fb, torch, gen, q_shape, kv_shape, dt, causal: bool, strided_do: bool = False):
+    """K5 with its lse and K5b against their plain versions on fresh peaked
+    inputs: (max error of dq, dk, dv, lse error, the inputs).  K5's output
+    must be the same bytes with and without the lse."""
+    q = randn(torch, gen, q_shape, dt, QK_SCALE)
+    k = randn(torch, gen, kv_shape, dt, QK_SCALE)
+    v = randn(torch, gen, kv_shape, dt)
+    o, lse = fa.flash_attention(q, k, v, causal=causal, return_lse=True)
+    if not torch.equal(o, fa.flash_attention(q, k, v, causal=causal)):
+        fail("K5's output changes when it also writes the lse")
+    _, plse = fa.flash_attention_plain(q, k, v, causal=causal, return_lse=True)
+    e_lse = (lse - plse).abs().max().item()
+    if not e_lse <= lse_limit(dt):
+        fail(f"K5's lse differs from the plain logsumexp by {e_lse} ({dt}, q {q_shape})")
+    b, t, h, d = q_shape
+    do = randn(torch, gen, (b, h, t, d), dt).transpose(1, 2) if strided_do else randn(torch, gen, q_shape, dt)
+    got = fb.flash_attention_bwd(q, k, v, o, do, lse, causal=causal)
+    want = fb.flash_attention_bwd_plain(q, k, v, o, do, lse, causal=causal)
+    errs = []
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        if g.shape != w.shape or g.dtype != w.dtype or not torch.isfinite(g).all():
+            fail(f"K5b {name}: shape, type or a non-finite value ({dt}, q {q_shape}, kv {kv_shape})")
+        diff = (g.float() - w.float()).abs()
+        if (diff > grad_limit(w)).any():
+            fail(f"K5b {name} differs from its plain version by {diff.max().item()} ({dt}, q {q_shape}, "
+                 f"kv {kv_shape}, causal {causal}, largest {w.float().abs().max().item()})")
+        errs.append(diff.max().item())
+    return errs, e_lse, (q, k, v, o, do, lse)
+
+
+def phase_k5b(fa, fb, torch, gen) -> None:
+    """K5b (and K5's lse) against their plain versions: head dims 32, 64,
+    128 x G 1, 3, 4 x (T, S) in (1, 1), (63, 63), (130, 130), (7, 130),
+    (130, 7), causal or not, B 2, float32 and bfloat16; then the training
+    shapes in bf16, causal (granite-moe-3b-a800m: B 4, T = S 2048, H 24,
+    KV 8, d 64; Mistral-Nemo-12B: B 2, T = S 2048, H 32, KV 8, d 128), the
+    granite shape in float32 and with a dO that is a transposed view, and a
+    non-causal T != S with ragged tails.  Limits: ``grad_limit``,
+    ``lse_limit``."""
+    worst = {"float32": [0.0, 0.0, 0.0, 0.0], "bfloat16": [0.0, 0.0, 0.0, 0.0]}
+    cases = 0
+
+    def note(name, errs, e_lse):
+        nonlocal cases
+        worst[name] = [max(a, b) for a, b in zip(worst[name], errs + [e_lse])]
+        cases += 1
+
+    for name in worst:
+        dt = getattr(torch, name)
+        for d in (32, 64, 128):
+            for g in (1, 3, 4):
+                for t, s in ((1, 1), (63, 63), (130, 130), (7, 130), (130, 7)):
+                    for causal in (True, False):
+                        errs, e_lse, _ = check_k5b(fa, fb, torch, gen, (2, t, 2 * g, d), (2, s, 2, d), dt, causal)
+                        note(name, errs, e_lse)
+    big = {}
+    for label, (b, t, s, h, kv, d, causal), dt, strided in (
+            ("granite_bf16", TRAIN_K5B["granite"], torch.bfloat16, False),
+            ("mistral_bf16", TRAIN_K5B["mistral"], torch.bfloat16, False),
+            ("granite_f32", TRAIN_K5B["granite"], torch.float32, False),
+            ("granite_bf16_strided_dout", TRAIN_K5B["granite"], torch.bfloat16, True),
+            ("noncausal_ragged_bf16", (2, 1000, 2100, 8, 2, 64, False), torch.bfloat16, False),
+            ("noncausal_ragged_f32", (2, 1000, 2100, 8, 2, 64, False), torch.float32, False)):
+        errs, e_lse, _ = check_k5b(fa, fb, torch, gen, (b, t, h, d), (b, s, kv, d), dt, causal, strided)
+        note(str(dt).replace("torch.", ""), errs, e_lse)
+        big[label] = {"q": [b, t, h, d], "kv": [b, s, kv, d], "causal": causal,
+                      "max_abs_err": dict(zip(("dq", "dk", "dv", "lse"), errs + [e_lse]))}
+        torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    emit({"phase": "k5b", "cases": cases,
+          "max_abs_err": {k: dict(zip(("dq", "dk", "dv", "lse"), v)) for k, v in worst.items()},
+          "limits": {"grad": "1e-5 + 2e-5 max|w| + 1e-3 |w| (f32), 1e-5 + 4e-3 max|w| + 1e-2 |w| (bf16)",
+                     "lse": {"float32": lse_limit(torch.float32), "bfloat16": lse_limit(torch.bfloat16)}},
+          "training_shapes": big, "k5_output_unchanged_by_lse": True})
+
+
+def k5b_work(b: int, t: int, h: int, kv: int, d: int, itemsize: int, causal: bool) -> tuple[float, float]:
+    """(flops, bytes) of one K5b call: five products (s, dp, dv, dq, dk) of
+    2 flops per multiply-add over the visible (row, col) pairs; q, k, v, o,
+    dO and the lse read once, dq, dk, dv written once."""
+    pairs = t * (t + 1) / 2 if causal else t * t
+    return (10.0 * b * h * d * pairs,
+            (4.0 * b * t * h * d + 4.0 * b * t * kv * d) * itemsize + 4.0 * b * h * t)
+
+
+def k5b_row(fa, fb, torch, gen, shape, launches: int, per_step: int) -> dict:
+    """A K5b kernels-line row at a training shape: eager ms, graph ms, the
+    plain twin's ms, and the backward of ``scaled_dot_product_attention``
+    (``enable_gqa``) timed on its own (its forward is outside the window)."""
+    import torch.nn.functional as F
+
+    b, t, s, h, kv, d, causal = shape
+    errs, _, (q, k, v, o, do, lse) = check_k5b(fa, fb, torch, gen, (b, t, h, d), (b, s, kv, d),
+                                               torch.bfloat16, causal)
+    flops, bytes_ = k5b_work(b, t, h, kv, d, q.element_size(), causal)
+    b_ms, b_by = attn_bound(flops, bytes_)
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
+    ot = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal, enable_gqa=True)
+    dot = do.transpose(1, 2)
+    kern = lambda: fb.flash_attention_bwd(q, k, v, o, do, lse, causal=causal)  # noqa: E731
+    row = {"shape": {"q": [b, t, h, d], "kv": [b, s, kv, d], "causal": causal}, "dtype": "bfloat16",
+           "launches": launches, "launches_per_train_step": per_step, "max_abs_err": max(errs),
+           "ms": cuda_ms(kern), "graph_ms": graph_ms(kern),
+           "plain_ms": cuda_ms(lambda: fb.flash_attention_bwd_plain(q, k, v, o, do, lse, causal=causal), 3),
+           "library_ms": cuda_ms(lambda: torch.autograd.grad(ot, (qt, kt, vt), dot, retain_graph=True)),
+           "bound_ms": b_ms, "bound_by": b_by, "flops": flops, "bytes": bytes_}
+    del q, k, v, o, do, lse, qt, kt, vt, ot
+    torch.cuda.empty_cache()
+    return row
+
+
+class PlainKernels:
+    """Swaps every kernel of the training path for its plain version (K5 and
+    K5b in ``models.attention``, K3 in ``kernels.bitonic``): a check-only
+    route for one step, never a fallback."""
+
+    def __init__(self) -> None:
+        from repro_torch.kernels import bitonic as bt
+        from repro_torch.kernels import flash_attention as fa_mod
+        from repro_torch.kernels import flash_attention_bwd as fb_mod
+        from repro_torch.models import attention as attn_mod
+
+        self.swaps = [(attn_mod, "flash_attention", fa_mod.flash_attention_plain),
+                      (attn_mod, "flash_attention_bwd", fb_mod.flash_attention_bwd_plain),
+                      (bt, "sort_rows_kv", bt.sort_rows_kv_plain)]
+        self.saved = [getattr(m, a) for m, a, _ in self.swaps]
+
+    def __enter__(self):
+        for m, a, plain in self.swaps:
+            setattr(m, a, plain)
+        return self
+
+    def __exit__(self, *exc):
+        for (m, a, _), orig in zip(self.swaps, self.saved):
+            setattr(m, a, orig)
+        return False
+
+
+def train_stages(torch, model, opt_state, opt_cfg, batch) -> dict:
+    """One more step cut into its stages, each between two synchronisations:
+    the forward (loss), the backward (the per-block recompute, K5b and every
+    gradient) and AdamW."""
+    from repro_torch.train.optimizer import apply_updates
+
+    params = dict(model.named_parameters())
+    _sync(torch)
+    t0 = time.perf_counter()
+    loss, _ = model.loss(batch)
+    _sync(torch)
+    t1 = time.perf_counter()
+    grads = dict(zip(params, torch.autograd.grad(loss, list(params.values()))))
+    _sync(torch)
+    t2 = time.perf_counter()
+    apply_updates(params, grads, opt_state, opt_cfg)
+    _sync(torch)
+    t3 = time.perf_counter()
+    return {"forward_s": t1 - t0, "backward_s": t2 - t1, "optimizer_s": t3 - t2}
+
+
+def step_profile(torch, step, opt_state, batch) -> dict:
+    """One train step under ``torch.profiler``: busy share, the top kernels,
+    and the device time of the step's parts by kernel name: K5b, K5, K3, the
+    GEMMs (cuBLAS's ``nvjet`` kernels), the gathers and scatters, torch's
+    elementwise passes and copies (AdamW's f32 passes, casts, norms,
+    activations) and the rest."""
+    fields, by_name = profiled(torch, lambda: step(opt_state, batch))
+    groups = {"k5b": ("bwd_dkdv", "bwd_dq", "bwd_delta"), "k5": ("flash_fwd",),
+              "k3": ("chunk_stages", "strided_stages", "global_stage"),
+              "gemm": ("nvjet", "gemm", "sm90_xmma", "cutlass"),
+              "gather_scatter": ("index", "scatter", "gather", "Indexing"),
+              "elementwise_copy": ("elementwise", "Memcpy", "copy")}
+    parts = {g: 0.0 for g in groups}
+    parts["other"] = 0.0
+    for name, (ms, _) in by_name.items():
+        for g, keys in groups.items():
+            if any(key in name for key in keys):
+                parts[g] += ms
+                break
+        else:
+            parts["other"] += ms
+    return {**fields, "device_ms_by_part": parts}
+
+
+def train_flops(cfg, batch: int, seq: int) -> float:
+    """Model flops of one train step (recompute not counted): 6 per weight of
+    every matrix a token passes through (the MoE's router and its top_k
+    experts, not every slab; the head; no embedding lookup) per token, and
+    attention's q.k and p.v at 12 per visible causal (row, col) pair per
+    head dim (4 forward, 8 backward)."""
+    L, D = cfg.num_layers, cfg.d_model
+    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    attn = 2 * D * H * hd + 2 * D * KV * hd
+    ffn = lambda f: D * f * (3 if cfg.mlp_gated else 2)  # noqa: E731
+    if cfg.moe:
+        m = cfg.moe
+        moe = D * m.num_experts + m.top_k * ffn(m.d_expert) + (ffn(m.num_shared * m.d_expert) if m.num_shared else 0)
+        mats = m.first_dense_layers * (attn + ffn(m.d_ff_dense or cfg.d_ff)) + (L - m.first_dense_layers) * (attn + moe)
+    else:
+        mats = L * (attn + ffn(cfg.d_ff))
+    mats += D * cfg.vocab_size
+    return 6.0 * mats * batch * seq + 12.0 * L * batch * H * hd * seq * (seq + 1) / 2
+
+
+def phase_train(torch, np, args, run: dict, phase: str, plain_check: bool, dev: str = "cuda") -> dict:
+    """One training path at full width: ``run["steps"]`` AdamW steps of the
+    model from ``--seed`` on ``TokenPipeline`` batches, the first timed
+    apart.  Each step's launches are counted (zeroed just before the step,
+    read just after) and held exactly to K5 2 x layers (the forward and the
+    block's recompute), K5b 1 x layers, K3 2 x MoE layers.  Then one step cut
+    into stages (and with ``--profile`` one profiled), and with
+    ``plain_check`` the first step again from the same seed with every
+    kernel swapped for its plain version: its loss within 1e-2 relative and
+    its gradient norm within 5e-2 of the kernels' (bf16: K5 rounds its
+    probabilities to bf16 where the plain one keeps f32, and the router's
+    top-k flips near-ties on such a difference)."""
+    import dataclasses
+
+    from repro_torch import configs, models
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.kernels import build
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.train.optimizer import AdamWConfig, init_opt_state
+    from repro_torch.train.train_step import build_train_step
+
+    cfg = configs.get_config(run["arch"])
+    reduced = {}
+    if run.get("layers"):
+        reduced = {"num_layers": f"{cfg.num_layers} -> {run['layers']} (AdamW's f32 moments of every layer do "
+                                 "not fit one card)"}
+        cfg = dataclasses.replace(cfg, num_layers=run["layers"])
+    moe_layers = cfg.num_layers - cfg.moe.first_dense_layers if cfg.moe else 0
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+    _reset_peak(torch)
+    t0 = time.perf_counter()
+    model = models.build(cfg, device=dev).requires_grad_(True)
+    model.init(torch.Generator(device=dev).manual_seed(args.seed))
+    opt_cfg = AdamWConfig(lr=run["lr"])
+    opt_state = init_opt_state(dict(model.named_parameters()), opt_cfg)
+    step = build_train_step(model, opt_cfg)
+    _sync(torch)
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    pipe = TokenPipeline(cfg.vocab_size, run["batch"], run["seq"], seed=args.seed)
+    want = {"flash_attention": 2 * cfg.num_layers, "flash_attention_bwd": cfg.num_layers,
+            "row_sort_kv": 2 * moe_layers, "row_sort": 0, "tournament": 0, "merge_rows": 0,
+            "decode_attention": 0}
+    steps, first_batch = [], None
+    with AttnRecorder(attn_mod, "flash_attention_bwd") as k5b_in, MoERecorder(moe_mod) as moe_rec:
+        for i in range(run["steps"]):
+            batch = {k: torch.from_numpy(v).to(dev) for k, v in pipe.next_batch().items()}
+            first_batch = first_batch or batch
+            n_moe = len(moe_rec.dropped)
+            _sync(torch)
+            build.reset_launches()
+            t_step = time.perf_counter()
+            opt_state, met = step(opt_state, batch)
+            _sync(torch)
+            dt = time.perf_counter() - t_step
+            launches = dict(build.LAUNCHES)
+            for name, n in want.items():
+                if launches[name] != n:
+                    fail(f"{phase} step {i}: {name} launched {launches[name]} times, want {n}")
+            rec = {"step": i, "s": dt, "loss": float(met["loss"]), "grad_norm": float(met["grad_norm"]),
+                   "lr": float(met["lr"])}
+            if moe_layers:  # the forward's calls; the recompute repeats them
+                rec["dropped_assignments"] = int(torch.stack(moe_rec.dropped[n_moe:n_moe + moe_layers]).sum())
+            if not all(np.isfinite([rec["loss"], rec["grad_norm"]])):
+                fail(f"{phase} step {i}: loss {rec['loss']} or grad norm {rec['grad_norm']} is not finite")
+            steps.append(rec)
+    peak, reserved = _peak(torch), _reserved(torch)
+    rest = [r["s"] for r in steps[1:]]
+    tokens = run["batch"] * run["seq"]
+    line = {"phase": phase, "arch": cfg.name, "layers": cfg.num_layers, "d_model": cfg.d_model,
+            "dtype": cfg.dtype, "reduced": reduced, "params": n_params, "config": run,
+            "optimizer": dataclasses.asdict(opt_cfg), "init_s": init_s, "first_step_s": steps[0]["s"],
+            "step_s_median": float(np.median(rest)), "step_s_min": min(rest), "step_s_max": max(rest),
+            "tokens_per_step": tokens, "tokens_per_s": tokens / float(np.median(rest)),
+            "model_flops_per_step": train_flops(cfg, run["batch"], run["seq"]),
+            "model_flops_utilization": train_flops(cfg, run["batch"], run["seq"]) / float(np.median(rest))
+            / BF16_FLOP_PER_S,
+            "peak_allocated_bytes": peak, "reserved_bytes": reserved, "launches_per_step": want,
+            "steps": steps, "stages": train_stages(torch, model, opt_state, opt_cfg, first_batch)}
+    if args.profile:
+        line["profile"] = step_profile(torch, step, opt_state, first_batch)
+    if plain_check:
+        with torch.no_grad():
+            model.init(torch.Generator(device=dev).manual_seed(args.seed))
+            for part in ("m", "v"):
+                for t in opt_state[part].values():
+                    t.zero_()
+            opt_state["step"].zero_()
+        build.reset_launches()
+        with PlainKernels():
+            _, met = step(opt_state, first_batch)
+            _sync(torch)
+        if any(build.LAUNCHES[k] for k in ("flash_attention", "flash_attention_bwd", "row_sort_kv")):
+            fail(f"{phase}: the plain-kernel step launched a kernel")
+        loss, gnorm = float(met["loss"]), float(met["grad_norm"])
+        d_loss = abs(loss - steps[0]["loss"]) / abs(steps[0]["loss"])
+        d_gnorm = abs(gnorm - steps[0]["grad_norm"]) / steps[0]["grad_norm"]
+        if not (d_loss <= 1e-2 and d_gnorm <= 5e-2):
+            fail(f"{phase}: the plain-kernel step gives loss {loss} / grad norm {gnorm}, the kernels "
+                 f"{steps[0]['loss']} / {steps[0]['grad_norm']}")
+        line["plain_kernels_first_step"] = {"loss": loss, "grad_norm": gnorm, "loss_rel_diff": d_loss,
+                                            "grad_norm_rel_diff": d_gnorm, "limits": {"loss": 1e-2,
+                                                                                     "grad_norm": 5e-2}}
+    emit(line)
+    del model, opt_state, step, first_batch, moe_rec
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+    b, t, h, d = k5b_in.q_shape
+    return {"k5b_shape": (b, t, k5b_in.kv_shape[1], h, k5b_in.kv_shape[2], d, k5b_in.causal),
+            "k5b_launches": want["flash_attention_bwd"] * run["steps"],
+            "k5b_per_step": want["flash_attention_bwd"], "k5_per_step": want["flash_attention"]}
+
+
+def phase_train_resume(torch, args, dev: str = "cuda") -> None:
+    """``python -m repro_torch.launch.train`` (in process, its stdout kept) at
+    granite-moe-3b-a800m's smoke config in float32 on the card: 6 steps with
+    a checkpoint every 3, then the step-6 checkpoint is deleted and the same
+    command resumes from step 3.  Steps 3-5 of the resumed run must equal the
+    uninterrupted run's loss and gradient norm within 1e-5 relative (the
+    card's atomic adds are not bit-reproducible from run to run)."""
+    import contextlib
+    import io
+    import shutil
+
+    import numpy as np
+
+    from repro_torch.launch import train as train_cli
+
+    ckpt = ROOT / "build" / "train_resume"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    argv = ["--arch", TRAIN_RESUME["arch"], "--smoke", "--device", dev, "--dtype", "float32",
+            "--steps", "6", "--batch", "4", "--seq", "64", "--ckpt-dir", str(ckpt), "--ckpt-every", "3",
+            "--log-every", "1", "--seed", str(args.seed)]
+    logs = []
+    runs = []
+    for _ in range(2):
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            runs.append(train_cli.main(argv))
+        logs.append(out.getvalue())
+        shutil.rmtree(ckpt / "step_0000000006", ignore_errors=True)
+    first, second = runs
+    if "resumed from step 3" not in logs[1] or [r["step"] for r in second] != [3, 4, 5]:
+        fail(f"train_resume: the second run did not resume from step 3: {[r['step'] for r in second]}")
+    worst = 0.0
+    for a, b in zip(first[3:], second):
+        for key in ("loss", "grad_norm", "lr"):
+            rel = abs(a[key] - b[key]) / max(abs(a[key]), 1e-30)
+            worst = max(worst, rel)
+            if rel > 1e-5:
+                fail(f"train_resume step {a['step']}: {key} {b[key]} resumed, {a[key]} uninterrupted")
+    if not all(np.isfinite(r["loss"]) for r in first):
+        fail("train_resume: a loss is not finite")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    emit({"phase": "train_resume", "argv": argv, "steps": first, "resumed": second,
+          "max_rel_diff": worst, "limit": 1e-5, "log_lines": sum(len(s.splitlines()) for s in logs)})
+
+
 def k1_device_epoch(torch, bt, gen, dev: dict) -> dict:
     """K1 at the device epoch's largest input (the root hop's packed int64
     record cells), for the K1 row of the kernels line: its kernel nodes per
@@ -2225,6 +2647,7 @@ def main() -> int:
     from repro_torch.kernels import build
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_attention_bwd as fb
     from repro_torch.net.pipeline import run_pipeline
 
     smi = smi_line()
@@ -2322,6 +2745,19 @@ def main() -> int:
     check_attention_at(torch, moe, gen, "serve_moe_attention")
     rows += bitonic_rows(torch, bt, gen, moe["k3_shape"], moe["k3_dtype"], moe["k3_real"], moe["launches"])
     rows += attn
+
+    # -- the training paths ----------------------------------------------------
+    phase_k5b(fa, fb, torch, gen)
+    train = phase_train(torch, np, args, TRAIN, "train", plain_check=True)
+    dense = phase_train(torch, np, args, TRAIN_DENSE, "train_dense", plain_check=False)
+    phase_train_resume(torch, args)
+    k5_row = next(r for r in rows if r["name"] == "flash_attention")
+    k5_row["train_launches_per_step"] = {"granite": train["k5_per_step"], "mistral_8_layers": dense["k5_per_step"]}
+    k5b = k5b_row(fa, fb, torch, gen, train["k5b_shape"], train["k5b_launches"], train["k5b_per_step"])
+    k5b["dense"] = k5b_row(fa, fb, torch, gen, dense["k5b_shape"], dense["k5b_launches"], dense["k5b_per_step"])
+    rows.append({"name": "flash_attention_bwd", "route": "cuda",
+                 "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+                 "replaces": "src/repro/models/attention.py:181", "tpu_kernel": False, **k5b})
 
     emit({"kernels": rows})
     emit(ptxas_line(build))

@@ -5,7 +5,8 @@ The subpackages mirror the reference's layout: ``core`` (partitioning,
 MergeMarathon, runs, merge sort), ``net`` (wire, flows, hop engine,
 topologies, control plane, streaming servers, egress pool, pipeline),
 ``kernels`` (the hand-written Hopper kernels and their plain versions),
-``obs`` and ``data``.  Entry points take ``device=`` and default to
+``obs``, ``data``, and the LM stack: ``configs``, ``models``, ``serve``,
+``train``, ``distributed`` (its one-device part) and ``launch``.  Entry points take ``device=`` and default to
 ``"cuda"``; with no card present they raise unless the caller asks for
 ``device="cpu"``.
 """

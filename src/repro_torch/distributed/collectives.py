@@ -1,0 +1,90 @@
+"""int8 error-feedback gradient compression and the straggler-aware step
+monitor, on one device.
+
+Counterpart of :mod:`repro.distributed.collectives`: each gradient leaf is
+quantized to int8 with a per-leaf scale and the quantization error is
+carried into the next step (error feedback, which keeps SGD/Adam
+convergence).  ``torch.round`` and ``jnp.round`` both round half to even, so
+``q`` and the scale equal the reference's.  Here the compressor is a
+gradient hook on one device: the cross-replica reduce of the int8 values
+(the reference's dp all-reduce) is the sharded slice of the port (M19).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+
+import numpy as np
+import torch
+
+
+def quantize_int8(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    scale = x.abs().max() / 127.0 + 1e-12
+    q = torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
+    return q, scale
+
+
+def dequantize_int8(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    return q.float() * scale
+
+
+def compress_decompress(x: torch.Tensor, residual: torch.Tensor):
+    """One error-feedback round: returns (decompressed, new_residual)."""
+    xe = x + residual
+    q, s = quantize_int8(xe)
+    deq = dequantize_int8(q, s)
+    return deq, xe - deq
+
+
+def make_int8_compressor():
+    """Returns (compressor_fn, init_residual_fn) over dicts of gradient
+    tensors.  ``compressor_fn(grads, residuals) -> (grads, residuals)``
+    quantizes and dequantizes each leaf in float32 with error feedback and
+    casts back to the leaf's type; the caller runs it before the optimizer."""
+
+    def init_residual(grads: dict) -> dict:
+        return {k: torch.zeros(g.shape, dtype=torch.float32, device=g.device) for k, g in grads.items()}
+
+    def compress(grads: dict, residuals: dict):
+        out_g, out_r = {}, {}
+        for k, g in grads.items():
+            dg, out_r[k] = compress_decompress(g.float(), residuals[k])
+            out_g[k] = dg.to(g.dtype)
+        return out_g, out_r
+
+    return compress, init_residual
+
+
+@dataclasses.dataclass
+class StragglerMonitor:
+    """Per-step wall-time tracker with MAD outlier detection (host clock;
+    the caller synchronises the card before ``stop`` where device time
+    matters)."""
+
+    window: int = 50
+    threshold: float = 4.0  # MAD multiples
+    times: list = dataclasses.field(default_factory=list)
+    _t0: float | None = None
+
+    def start(self) -> None:
+        self._t0 = time.perf_counter()
+
+    def stop(self) -> bool:
+        """Record one step; True if this step is a straggler outlier."""
+        dt = time.perf_counter() - self._t0
+        self.times.append(dt)
+        self.times = self.times[-self.window :]
+        if len(self.times) < 8:
+            return False
+        med = float(np.median(self.times))
+        mad = float(np.median(np.abs(np.asarray(self.times) - med))) + 1e-9
+        return dt > med + self.threshold * mad
+
+    def summary(self) -> dict:
+        arr = np.asarray(self.times) if self.times else np.zeros(1)
+        return {
+            "median_s": float(np.median(arr)),
+            "p95_s": float(np.percentile(arr, 95)),
+            "max_s": float(arr.max()),
+        }

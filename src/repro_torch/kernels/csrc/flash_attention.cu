@@ -10,7 +10,10 @@
 // Inputs are float32 or bfloat16, accumulation is float32, the output has
 // the input's type.  D is 32, 64 or 128 (a template argument); T and S are
 // any lengths: the ragged tails are bounds-checked here, where the TPU
-// wrapper demanded T % block_q == 0.
+// wrapper demanded T % block_q == 0.  On request (a non-null lse pointer, the
+// training forward) each row's natural-log logsumexp of its scaled, masked
+// scores goes to a (B, H, T) float32 tensor for the backward (K5b,
+// flash_attention_bwd.cu); without it nothing more is written or read.
 //
 // What bounds it on an H100: operations.  A causal prefill at T = 1963,
 // D = 128, 32 q heads does 4 * T(T+1)/2 * D * 32 = 31.6 GFLOP while it reads
@@ -94,9 +97,9 @@ constexpr size_t smem_bytes() {
 template <typename T, int D>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
-          const T* __restrict__ v, T* __restrict__ o, int T_len, int S, int G,
-          Strides qs, Strides ks, Strides vs, Strides os, float scale,
-          int causal) {
+          const T* __restrict__ v, T* __restrict__ o, float* __restrict__ lse,
+          int T_len, int S, int G, Strides qs, Strides ks, Strides vs,
+          Strides os, float scale, int causal) {
   constexpr int DP = D + 4;     // padded row of the Q and K tiles
   constexpr int DPT = D / 16;   // output columns per thread: tx + 16 j
   extern __shared__ __align__(16) float smem[];
@@ -234,6 +237,8 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
     T* ob = o + b * os.b + t * os.t + h * os.h;
 #pragma unroll
     for (int j = 0; j < DPT; ++j) ob[tx + 16 * j] = from_f32<T>(acc[i][j] * inv);
+    if (lse != nullptr && tx == 0)
+      lse[((long long)b * gridDim.y + h) * T_len + t] = sM[r] + logf(fmaxf(l, 1e-30f));
   }
 }
 
@@ -246,6 +251,7 @@ using bf16 = __nv_bfloat16;
 constexpr int TC_WARPS = 4;             // one warp per 16 query rows
 constexpr int TC_THREADS = 32 * TC_WARPS;
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
 template <int D>
 constexpr size_t tc_smem_bytes() {
@@ -303,9 +309,9 @@ __device__ __forceinline__ uint32_t as_u32(__nv_bfloat162 v) {
 template <int D>
 __global__ void __launch_bounds__(TC_THREADS, 2)
 flash_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
-               const bf16* __restrict__ v, bf16* __restrict__ o, int T_len,
-               int S, int G, Strides qs, Strides ks, Strides vs, Strides os,
-               float scale, int causal) {
+               const bf16* __restrict__ v, bf16* __restrict__ o,
+               float* __restrict__ lse, int T_len, int S, int G, Strides qs,
+               Strides ks, Strides vs, Strides os, float scale, int causal) {
   constexpr int LD = D + 8;     // padded shared row, elements
   constexpr int CH = D / 8;     // 16-byte chunks per row
   constexpr int KS = D / 16;    // k-steps of Q K^T
@@ -464,6 +470,12 @@ flash_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
   const float inv_a = 1.f / (l_a == 0.f ? 1.f : l_a);
   const float inv_b = 1.f / (l_b == 0.f ? 1.f : l_b);
+  if (lse != nullptr && t4 == 0) {
+    // m is in the log2 domain: lse = (m + log2 l) ln 2.
+    float* lb = lse + ((long long)b * gridDim.y + h) * T_len;
+    if (row_a < T_len) lb[row_a] = (m_a + log2f(fmaxf(l_a, 1e-30f))) * LN2;
+    if (row_b < T_len) lb[row_b] = (m_b + log2f(fmaxf(l_b, 1e-30f))) * LN2;
+  }
   // The warp's own 16 rows of the Q tile (read only by this warp) stage the
   // output for 16-byte stores.
   bf16* so = sQ + warp * 16 * LD;
@@ -486,8 +498,8 @@ flash_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 template <int D>
-int launch_bf16_d(const void* q, const void* k, const void* v, void* o, int B,
-                  int T_len, int S, int H, int G, Strides qs, Strides ks,
+int launch_bf16_d(const void* q, const void* k, const void* v, void* o,
+                  float* lse, int B, int T_len, int S, int H, int G, Strides qs, Strides ks,
                   Strides vs, Strides os, float scale, int causal,
                   cudaStream_t st) {
   const size_t smem = tc_smem_bytes<D>();
@@ -497,8 +509,8 @@ int launch_bf16_d(const void* q, const void* k, const void* v, void* o, int B,
   dim3 grid((T_len + BQ - 1) / BQ, H, B);
   flash_fwd_bf16<D><<<grid, TC_THREADS, smem, st>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(o), T_len, S, G, qs, ks,
-      vs, os, scale, causal);
+      static_cast<const bf16*>(v), static_cast<bf16*>(o), lse, T_len, S, G,
+      qs, ks, vs, os, scale, causal);
   return (int)cudaGetLastError();
 }
 
@@ -507,8 +519,8 @@ int launch_bf16_d(const void* q, const void* k, const void* v, void* o, int B,
 // ---------------------------------------------------------------------------
 
 template <typename T, int D>
-int launch_d(const void* q, const void* k, const void* v, void* o, int B,
-             int T_len, int S, int H, int G, Strides qs, Strides ks,
+int launch_d(const void* q, const void* k, const void* v, void* o, float* lse,
+             int B, int T_len, int S, int H, int G, Strides qs, Strides ks,
              Strides vs, Strides os, float scale, int causal,
              cudaStream_t st) {
   const size_t smem = smem_bytes<D>();
@@ -518,14 +530,14 @@ int launch_d(const void* q, const void* k, const void* v, void* o, int B,
   dim3 grid((T_len + BQ - 1) / BQ, H, B);
   flash_fwd<T, D><<<grid, THREADS, smem, st>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), T_len, S, G, qs, ks, vs,
-      os, scale, causal);
+      static_cast<const T*>(v), static_cast<T*>(o), lse, T_len, S, G, qs, ks,
+      vs, os, scale, causal);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
-int launch(const void* q, const void* k, const void* v, void* o, int B,
-           int T_len, int S, int H, int KV, int D, const long long* st6,
+int launch(const void* q, const void* k, const void* v, void* o, void* lse,
+           int B, int T_len, int S, int H, int KV, int D, const long long* st6,
            float scale, int causal, void* stream) {
   if (B <= 0 || T_len <= 0) return 0;
   if (S <= 0 || KV <= 0 || H % KV) return (int)cudaErrorInvalidValue;
@@ -533,15 +545,16 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
   const Strides qs{st6[0], st6[1], st6[2]}, ks{st6[3], st6[4], st6[5]},
       vs{st6[6], st6[7], st6[8]}, os{st6[9], st6[10], st6[11]};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* lf = static_cast<float*>(lse);
   const int G = H / KV;
 #define K5_CASE(DIM)                                                          \
   case DIM:                                                                   \
     if constexpr (sizeof(T) == 2)                                             \
-      return launch_bf16_d<DIM>(q, k, v, o, B, T_len, S, H, G, qs, ks, vs, os, \
-                                scale, causal, s);                            \
+      return launch_bf16_d<DIM>(q, k, v, o, lf, B, T_len, S, H, G, qs, ks, vs, \
+                                os, scale, causal, s);                        \
     else                                                                      \
-      return launch_d<T, DIM>(q, k, v, o, B, T_len, S, H, G, qs, ks, vs, os,  \
-                              scale, causal, s);
+      return launch_d<T, DIM>(q, k, v, o, lf, B, T_len, S, H, G, qs, ks, vs,  \
+                              os, scale, causal, s);
   switch (D) {
     K5_CASE(32)
     K5_CASE(64)
@@ -557,20 +570,23 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
 extern "C" {
 
 // strides: 12 element strides, (batch, row, head) of q, k, v and o in turn.
+// lse: null, or a contiguous (B, H, T) float32 tensor that receives each
+// row's natural-log logsumexp of its scaled, masked scores (the backward's
+// input, K5b); serve passes null and writes nothing more.
 int flash_attention_f32(const void* q, const void* k, const void* v, void* o,
-                        int B, int T, int S, int H, int KV, int D,
+                        void* lse, int B, int T, int S, int H, int KV, int D,
                         const long long* strides, float scale, int causal,
                         void* stream) {
-  return launch<float>(q, k, v, o, B, T, S, H, KV, D, strides, scale, causal,
-                       stream);
+  return launch<float>(q, k, v, o, lse, B, T, S, H, KV, D, strides, scale,
+                       causal, stream);
 }
 
 int flash_attention_bf16(const void* q, const void* k, const void* v, void* o,
-                         int B, int T, int S, int H, int KV, int D,
+                         void* lse, int B, int T, int S, int H, int KV, int D,
                          const long long* strides, float scale, int causal,
                          void* stream) {
-  return launch<__nv_bfloat16>(q, k, v, o, B, T, S, H, KV, D, strides, scale,
-                               causal, stream);
+  return launch<__nv_bfloat16>(q, k, v, o, lse, B, T, S, H, KV, D, strides,
+                               scale, causal, stream);
 }
 
 }  // extern "C"

@@ -8,7 +8,10 @@ finite mask value -1e30.  The kernel is ``csrc/flash_attention.cu`` (CUDA C++
 for ``sm_90a``); :func:`flash_attention_plain` computes the same function in
 plain torch.  :func:`flash_attention` takes the plain version only for a
 tensor on the CPU; for a CUDA tensor it launches the kernel or raises, and
-adds one to ``LAUNCHES["flash_attention"]``.
+adds one to ``LAUNCHES["flash_attention"]``.  With ``return_lse=True`` (the
+training forward) it also returns each row's logsumexp of its scaled, masked
+scores, float32 ``(B, H, T)``, which the backward (K5b,
+:mod:`.flash_attention_bwd`) reads; without it the kernel writes nothing more.
 
 Unlike the TPU wrapper, T and S may be any lengths (the kernel checks its
 ragged tails), and no block sizes are taken.  The dtype picks the kernel:
@@ -36,16 +39,18 @@ HEAD_DIMS = (32, 64, 128)
 
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
-# (q, k, v, o, B, T, S, H, KV, D, strides[12], scale, causal, stream)
+# (q, k, v, o, lse or null, B, T, S, H, KV, D, strides[12], scale, causal, stream)
 build.register("flash_attention", "flash_attention.cu", {
-    f"flash_attention_{sfx}": [build.PTR] * 4 + [build.INT] * 6
+    f"flash_attention_{sfx}": [build.PTR] * 5 + [build.INT] * 6
     + [build.PTR, build.F32, build.INT, build.PTR]
     for sfx in _SUFFIX.values()
 })
 
 
-def flash_attention_plain(q, k, v, *, causal: bool = True, scale: float | None = None):
-    """K5's plain version: the whole score matrix at once, in f32."""
+def flash_attention_plain(q, k, v, *, causal: bool = True, scale: float | None = None,
+                          return_lse: bool = False):
+    """K5's plain version: the whole score matrix at once, in f32; with
+    ``return_lse`` also each row's logsumexp, float32 ``(B, H, T)``."""
     B, T, H, d = q.shape
     S, KV = k.shape[1], k.shape[2]
     G = H // KV
@@ -58,7 +63,10 @@ def flash_attention_plain(q, k, v, *, causal: bool = True, scale: float | None =
         s = s.masked_fill(rows < cols, NEG_INF)
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bkgts,bskd->btkgd", p, v.float())
-    return out.reshape(B, T, H, d).to(q.dtype)
+    out = out.reshape(B, T, H, d).to(q.dtype)
+    if return_lse:
+        return out, torch.logsumexp(s, dim=-1).reshape(B, H, T)
+    return out
 
 
 def _check(q, k, v) -> None:
@@ -93,11 +101,13 @@ def _check_aligned(*tensors, op: str = "flash_attention (bfloat16)") -> None:
                 f"strides {t.stride()[:lead]} (need multiples of {step})")
 
 
-def flash_attention(q, k, v, *, causal: bool = True, scale: float | None = None):
-    """K5: q (B, T, H, d); k, v (B, S, KV, d); returns (B, T, H, d) in q's type."""
+def flash_attention(q, k, v, *, causal: bool = True, scale: float | None = None,
+                    return_lse: bool = False):
+    """K5: q (B, T, H, d); k, v (B, S, KV, d); returns (B, T, H, d) in q's
+    type, and with ``return_lse`` also the rows' logsumexp (B, H, T) f32."""
     _check(q, k, v)
     if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal=causal, scale=scale)
+        return flash_attention_plain(q, k, v, causal=causal, scale=scale, return_lse=return_lse)
     B, T, H, d = q.shape
     S, KV = k.shape[1], k.shape[2]
     if d not in HEAD_DIMS:
@@ -110,14 +120,16 @@ def flash_attention(q, k, v, *, causal: bool = True, scale: float | None = None)
         _check_aligned(q, k, v)
     scale = d**-0.5 if scale is None else scale
     out = torch.empty_like(q, memory_format=torch.contiguous_format)
+    lse = torch.empty((B, H, T), dtype=torch.float32, device=q.device) if return_lse else None
     if B == 0 or T == 0:
-        return out
+        return (out, lse) if return_lse else out
     strides = (ctypes.c_longlong * 12)(*(s for t in (q, k, v, out) for s in t.stride()[:3]))
     fn = build.function("flash_attention", f"flash_attention_{_SUFFIX[q.dtype]}")
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                 None if lse is None else lse.data_ptr(),
                  B, T, S, H, KV, d, strides, float(scale), int(causal), stream)
     build.check_launch(err, "flash_attention")
     LAUNCHES["flash_attention"] += 1
-    return out
+    return (out, lse) if return_lse else out

@@ -1,0 +1,124 @@
+"""K5b: FlashAttention backward on the card, and its plain torch version.
+
+Not a TPU kernel: the counterpart of the reference's jnp custom-VJP backward
+(:func:`repro.models.attention._flash_bwd`), the gradient the training
+attention takes through K5.  Given q ``(B, T, H, d)``, k, v ``(B, S, KV, d)``,
+the forward's output ``o`` and its gradient ``dout`` ``(B, T, H, d)``, and
+K5's per-row logsumexp ``lse`` (float32 ``(B, H, T)``,
+``flash_attention(..., return_lse=True)``), it returns ``(dq, dk, dv)`` in
+the inputs' type; GQA's dk and dv sum over the q heads of a kv head.  K5's
+causal convention (``row >= col``) and mask value.
+
+The kernel is ``csrc/flash_attention_bwd.cu`` (CUDA C++ for ``sm_90a``: a
+delta pass, a dk/dv pass over key tiles and a dq pass over query tiles, no
+float atomics); :func:`flash_attention_bwd_plain` is the port of
+``_flash_bwd``, chunked over S in torch ops, with any S (the reference
+reshapes S into chunks of 1024 and needs S to divide).
+:func:`flash_attention_bwd` takes the plain version only for tensors on the
+CPU; for CUDA tensors it launches the kernel or raises, and adds one to
+``LAUNCHES["flash_attention_bwd"]`` per call (three kernels a call).  Any
+strides whose last axis is contiguous are taken; the caller makes ``dout``
+contiguous if it is not.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import build
+from .build import LAUNCHES
+from .flash_attention import HEAD_DIMS, NEG_INF, _check
+
+#: Keys per chunk of the plain version (the reference's ``_FLASH_CHUNK``).
+CHUNK = 1024
+
+_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
+
+# (q, k, v, o, dout, lse, delta, dq, dk, dv, B, T, S, H, KV, D, strides[24],
+#  scale, causal, stream)
+build.register("flash_attention_bwd", "flash_attention_bwd.cu", {
+    f"flash_attention_bwd_{sfx}": [build.PTR] * 10 + [build.INT] * 6
+    + [build.PTR, build.F32, build.INT, build.PTR]
+    for sfx in _SUFFIX.values()
+})
+
+
+def flash_attention_bwd_plain(q, k, v, o, dout, lse, *, causal: bool = True, scale: float | None = None):
+    """K5b's plain version, the reference's ``_flash_bwd`` in torch: keys in
+    chunks of :data:`CHUNK` (the last one ragged), f32 throughout."""
+    B, T, H, d = q.shape
+    S, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    scale = d**-0.5 if scale is None else scale
+
+    def heads(x):  # (B, T, H, d) -> (B, KV, G, T, d) f32
+        return x.reshape(B, T, KV, G, d).permute(0, 2, 3, 1, 4).float()
+
+    qg = heads(q) * scale
+    do = heads(dout)
+    delta = (do * heads(o)).sum(-1)  # (B, KV, G, T)
+    lse = lse.reshape(B, KV, G, T)
+    kf = k.permute(0, 2, 1, 3).float()  # (B, KV, S, d)
+    vf = v.permute(0, 2, 1, 3).float()
+    dq = torch.zeros_like(qg)
+    dk = torch.empty_like(kf)
+    dv = torch.empty_like(vf)
+    rows = torch.arange(T, device=q.device)[:, None]
+    for s0 in range(0, S, CHUNK):
+        kc, vc = kf[:, :, s0:s0 + CHUNK], vf[:, :, s0:s0 + CHUNK]
+        s = torch.einsum("bkgtd,bksd->bkgts", qg, kc)
+        if causal:
+            cols = s0 + torch.arange(kc.shape[2], device=q.device)[None, :]
+            s = s.masked_fill(rows < cols, NEG_INF)
+        p = torch.exp(s - lse[..., None])
+        dv[:, :, s0:s0 + CHUNK] = torch.einsum("bkgts,bkgtd->bksd", p, do)
+        dp = torch.einsum("bkgtd,bksd->bkgts", do, vc)
+        ds = p * (dp - delta[..., None])
+        dq += torch.einsum("bkgts,bksd->bkgtd", ds, kc)
+        dk[:, :, s0:s0 + CHUNK] = torch.einsum("bkgts,bkgtd->bksd", ds, qg)
+    dq = (dq * scale).permute(0, 3, 1, 2, 4).reshape(B, T, H, d)
+    return (dq.to(q.dtype), dk.permute(0, 2, 1, 3).to(k.dtype), dv.permute(0, 2, 1, 3).to(v.dtype))
+
+
+def flash_attention_bwd(q, k, v, o, dout, lse, *, causal: bool = True, scale: float | None = None):
+    """K5b: returns ``(dq, dk, dv)``, each contiguous, in the inputs' type."""
+    _check(q, k, v)
+    if o.shape != q.shape or dout.shape != q.shape:
+        raise ValueError(f"o {tuple(o.shape)} and dout {tuple(dout.shape)} must match q {tuple(q.shape)}")
+    B, T, H, d = q.shape
+    S, KV = k.shape[1], k.shape[2]
+    if lse.shape != (B, H, T) or lse.dtype != torch.float32:
+        raise ValueError(f"lse must be float32 {(B, H, T)}, got {lse.dtype} {tuple(lse.shape)}")
+    if not (o.dtype == dout.dtype == q.dtype):
+        raise TypeError(f"o and dout must have q's type {q.dtype}, got {o.dtype}, {dout.dtype}")
+    if not (o.device == dout.device == lse.device == q.device):
+        raise ValueError("every input must lie on one device")
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(q, k, v, o, dout, lse, causal=causal, scale=scale)
+    if d not in HEAD_DIMS:
+        raise ValueError(f"the kernel takes head dims {HEAD_DIMS}, got {d}")
+    if S == 0:
+        raise ValueError("flash_attention_bwd needs at least one key")
+    if any(t.stride(-1) != 1 for t in (q, k, v, o, dout)):
+        raise ValueError("flash_attention_bwd takes tensors whose last axis is contiguous")
+    if not lse.is_contiguous():
+        raise ValueError("flash_attention_bwd takes a contiguous lse")
+    scale = d**-0.5 if scale is None else scale
+    dq = torch.empty_like(q, memory_format=torch.contiguous_format)
+    dk = torch.empty_like(k, memory_format=torch.contiguous_format)
+    dv = torch.empty_like(v, memory_format=torch.contiguous_format)
+    if B == 0 or T == 0:
+        return dq, dk.zero_(), dv.zero_()
+    delta = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
+    strides = (ctypes.c_longlong * 24)(*(s for t in (q, k, v, o, dout, dq, dk, dv) for s in t.stride()[:3]))
+    fn = build.function("flash_attention_bwd", f"flash_attention_bwd_{_SUFFIX[q.dtype]}")
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+                 delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                 B, T, S, H, KV, d, strides, float(scale), int(causal), stream)
+    build.check_launch(err, "flash_attention_bwd")
+    LAUNCHES["flash_attention_bwd"] += 1
+    return dq, dk, dv

@@ -1,0 +1,125 @@
+"""Training CLI: config -> model -> token pipeline -> fault-tolerant train loop.
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch granite-moe-3b-a800m \
+        --smoke [--device cuda|cpu] [--dtype float32] --steps 100 --batch 8 \
+        --seq 128 --ckpt-dir /tmp/ckpt
+
+``--arch`` takes the dense ``mistral-nemo-12b`` and the MoE
+``granite-moe-3b-a800m`` and ``deepseek-moe-16b``.
+
+Counterpart of ``repro.launch.train`` on one device: the reference's flags
+without ``--mesh``, plus ``--device`` (default ``cuda``; it raises without a
+card unless asked for ``cpu``) and ``--dtype`` (default the config's).  It
+resumes from the newest checkpoint in ``--ckpt-dir`` (parameters, optimizer
+state and data cursor), writes checkpoints asynchronously every
+``--ckpt-every`` steps and at the end, logs loss, gradient norm and learning
+rate every ``--log-every`` steps and flags straggler steps.  The weights are
+drawn from ``--seed`` on the device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+
+import torch
+
+from .. import models, resolve_device
+from ..configs import get_config, get_smoke_config
+from ..data.tokens import TokenPipeline
+from ..distributed.collectives import StragglerMonitor, make_int8_compressor
+from ..train.checkpoint import AsyncCheckpointer, CheckpointManager
+from ..train.optimizer import AdamWConfig, init_opt_state
+from ..train.train_step import build_train_step
+
+
+def main(argv=None) -> list[dict]:
+    """Runs the loop; returns one record per step run here: ``step``,
+    ``loss``, ``grad_norm``, ``lr`` and ``straggler``."""
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--smoke", action="store_true", help="use the reduced same-family config")
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--dtype", choices=["float32", "bfloat16"], default=None)
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--microbatches", type=int, default=1)
+    ap.add_argument("--compress-grads", action="store_true")
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--ckpt-every", type=int, default=50)
+    ap.add_argument("--log-every", type=int, default=10)
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args(argv)
+
+    cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    if args.dtype:
+        cfg = dataclasses.replace(cfg, dtype=args.dtype)
+    dev = resolve_device(args.device)
+    model = models.build(cfg, device=dev).requires_grad_(True)
+
+    opt_cfg = AdamWConfig(lr=args.lr, warmup_steps=min(100, args.steps // 10 + 1), total_steps=args.steps)
+    pipe = TokenPipeline(cfg.vocab_size, args.batch, args.seq, seed=args.seed)
+
+    start_step = 0
+    ckpt = None
+    if args.ckpt_dir:
+        mgr = CheckpointManager(args.ckpt_dir, keep=3)
+        ckpt = AsyncCheckpointer(mgr)
+        if mgr.latest_step() is not None:
+            state, manifest = mgr.restore()
+            model.load_state_dict(state["params"])
+            opt_state = {"m": {k: v.to(dev) for k, v in state["opt"]["m"].items()},
+                         "v": {k: v.to(dev) for k, v in state["opt"]["v"].items()},
+                         "step": state["opt"]["step"].to(device=dev, dtype=torch.int32)}
+            pipe = TokenPipeline.restore(cfg.vocab_size, args.batch, args.seq, state["data"])
+            start_step = manifest["step"]
+            print(f"resumed from step {start_step}")
+    if start_step == 0:
+        model.init(torch.Generator(device=dev).manual_seed(args.seed))
+        opt_state = init_opt_state(dict(model.named_parameters()), opt_cfg)
+
+    hook = None
+    if args.compress_grads:
+        compress, init_res = make_int8_compressor()
+        res_holder = {"r": None}
+
+        def hook(grads):
+            if res_holder["r"] is None:
+                res_holder["r"] = init_res(grads)
+            g, res_holder["r"] = compress(grads, res_holder["r"])
+            return g
+
+    step_fn = build_train_step(model, opt_cfg, microbatches=args.microbatches, grad_compressor=hook)
+    mon = StragglerMonitor()
+
+    def snapshot():
+        return {"params": model.state_dict(), "opt": opt_state, "data": pipe.state()}
+
+    records = []
+    for step in range(start_step, args.steps):
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in pipe.next_batch().items()}
+        mon.start()
+        opt_state, metrics = step_fn(opt_state, batch)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        straggler = mon.stop()
+        rec = {"step": step, "loss": float(metrics["loss"]), "grad_norm": float(metrics["grad_norm"]),
+               "lr": float(metrics["lr"]), "straggler": straggler}
+        records.append(rec)
+        if step % args.log_every == 0 or step == args.steps - 1:
+            print(f"step {step:5d} loss {rec['loss']:.4f} gnorm {rec['grad_norm']:.3f} "
+                  f"lr {rec['lr']:.2e}" + ("  [straggler]" if straggler else ""), flush=True)
+        if ckpt and (step + 1) % args.ckpt_every == 0:
+            ckpt.save(step + 1, snapshot())
+    if ckpt:
+        if args.steps % args.ckpt_every:  # not already saved by the loop
+            ckpt.save(args.steps, snapshot())
+        ckpt.close()
+    print("timing:", mon.summary())
+    return records
+
+
+if __name__ == "__main__":
+    main()

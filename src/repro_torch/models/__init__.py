@@ -1,5 +1,6 @@
 """The LM stack of the port (counterpart of ``repro.models``): the dense
-decoder's serve path, prefill on K5 and decode on K6."""
+and MoE decoders, served (prefill on K5, decode on K6, the MoE dispatch on
+K3) and trained (attention backward on K5b)."""
 
 from .lm import LM
 

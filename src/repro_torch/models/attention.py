@@ -1,13 +1,19 @@
-"""GQA attention of the LM: prefill on K5, decode on K6.
+"""GQA attention of the LM: training and prefill on K5 (backward on K5b),
+decode on K6.
 
-Counterpart of :mod:`repro.models.attention` on one device: the prefill
+Counterpart of :mod:`repro.models.attention` on one device: the full-sequence
 attention (``attention``) runs the FlashAttention kernel K5
 (:mod:`repro_torch.kernels.flash_attention`) and one decode step
 (``decode_attention``) the decode kernel K6
-(:mod:`repro_torch.kernels.decode_attention`).  The reference's sharding
-(context parallelism, the sequence-sharded decode's psum merge) has no
-counterpart here: K6 does that LSE merge inside the kernel.  The training
-backward (the reference's custom-VJP ``_flash_bwd``) is not ported.
+(:mod:`repro_torch.kernels.decode_attention`).  Where gradients are wanted
+(training), ``attention`` goes through :class:`FlashAttentionFn`, the
+reference's custom-VJP ``_sdpa_flash``: its forward is K5 with the rows'
+logsumexp, its backward the kernel K5b
+(:mod:`repro_torch.kernels.flash_attention_bwd`); on the CPU both run their
+plain versions.  Serve runs under ``no_grad`` and calls K5 without the
+logsumexp.  The reference's sharding (context parallelism, the
+sequence-sharded decode's psum merge) has no counterpart here: K6 does that
+LSE merge inside the kernel.
 """
 
 from __future__ import annotations
@@ -18,7 +24,29 @@ from torch import nn
 from ..configs.base import ModelConfig
 from ..kernels.decode_attention import decode_attention as decode_attention_kernel
 from ..kernels.flash_attention import flash_attention
+from ..kernels.flash_attention_bwd import flash_attention_bwd
 from .layers import apply_rope, dense_init
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """Differentiable K5: the forward keeps q, k, v, the output and the rows'
+    logsumexp; the backward is K5b.  Autograd may hand the backward a
+    gradient that is expanded (stride 0) or transposed, where K5b reads rows
+    whose last axis is contiguous: it is made contiguous here, not in the
+    kernel."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool):
+        out, lse = flash_attention(q, k, v, causal=causal, return_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal = causal
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, dout.contiguous(), lse, causal=ctx.causal)
+        return dq, dk, dv, None
 
 
 class Attention(nn.Module):
@@ -73,14 +101,18 @@ def _project_qkv(p: Attention, cfg: ModelConfig, x: torch.Tensor, positions: tor
 
 def attention(p: Attention, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor, *,
               causal: bool = True, kv=None, return_kv: bool = False):
-    """Full-sequence attention (prefill) on K5.  ``kv`` overrides K/V
-    (already projected, (B,S,KV,hd)); ``return_kv`` also returns the
+    """Full-sequence attention (training, prefill) on K5; under autograd
+    through :class:`FlashAttentionFn` (backward on K5b).  ``kv`` overrides
+    K/V (already projected, (B,S,KV,hd)); ``return_kv`` also returns the
     projected K/V for the cache."""
     B, T, _ = x.shape
     q, k, v = _project_qkv(p, cfg, x, positions)
     if kv is not None:
         k, v = kv
-    out = flash_attention(q, k, v, causal=causal)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        out = FlashAttentionFn.apply(q, k, v, causal)
+    else:
+        out = flash_attention(q, k, v, causal=causal)
     out = out.reshape(B, T, -1) @ p.wo
     if cfg.use_bias:
         out = out + p.bo

@@ -1,5 +1,6 @@
-"""Carry the reference's weights across: its ``LM.init`` tree -> this port's
-module state.
+"""Carry the reference's weights and AdamW state across: its ``LM.init``
+tree -> this port's module state, its ``init_opt_state`` tree -> the port's
+optimizer state.
 
 The reference keeps layer parameters stacked ``(L, ...)`` under ``layers``;
 the port has one module per layer, so the stack is cut into
@@ -7,7 +8,9 @@ the port has one module per layer, so the stack is cut into
 list (deepseek-moe's ``dense_layers``, one dict per layer) contributes its
 index, ``dense_layers.<i>.<...>``.  Leaves
 are numpy arrays (``jax.tree.map(numpy.asarray, params)``), bfloat16 ones
-included; values are copied bit for bit.
+included, or CPU tensors (a reference checkpoint restored by
+:class:`repro_torch.train.checkpoint.CheckpointManager`); values are copied
+bit for bit.
 """
 
 from __future__ import annotations
@@ -17,6 +20,8 @@ import torch
 
 
 def _tensor(a) -> torch.Tensor:
+    if isinstance(a, torch.Tensor):
+        return a.detach().clone()
     a = np.asarray(a)
     if a.dtype.name == "bfloat16":  # numpy has no bfloat16: carry the bits
         return torch.from_numpy(np.ascontiguousarray(a).view(np.int16).copy()).view(torch.bfloat16)
@@ -49,3 +54,11 @@ def params_from_reference(tree: dict) -> dict[str, torch.Tensor]:
         else:
             _flatten(sub, f"{key}.", state)
     return state
+
+
+def opt_state_from_reference(state: dict) -> dict:
+    """The port's AdamW state (:func:`repro_torch.train.optimizer.init_opt_state`
+    layout: ``m`` and ``v`` keyed by state-dict name, ``step`` an int32
+    scalar) from the reference's ``{"m", "v", "step"}`` tree."""
+    return {"m": params_from_reference(state["m"]), "v": params_from_reference(state["v"]),
+            "step": _tensor(state["step"]).to(torch.int32).reshape(())}

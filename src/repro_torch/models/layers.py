@@ -61,6 +61,18 @@ def lm_logits(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return x @ w
 
 
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, z_loss: float = 0.0) -> torch.Tensor:
+    """Mean over every position of ``logsumexp - gold``, in float32; with
+    ``z_loss`` also ``z_loss * mean(logsumexp^2)``."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    loss = (lse - gold).mean()
+    if z_loss:
+        loss = loss + z_loss * (lse**2).mean()
+    return loss
+
+
 def activation(name: str):
     if name == "silu":
         return F.silu

@@ -1,8 +1,10 @@
-"""Decoder-only LM for serving: the dense and MoE families.
+"""Decoder-only LM for training and serving: the dense and MoE families.
 
 Counterpart of :mod:`repro.models.lm` for ``kind == "dense"`` and ``"moe"``:
-a stack of (attention + MLP) or (attention + MoE) blocks, prefill and
-one-token decode against a KV cache of layout ``(L, B, S, KV, hd)``.  An MoE
+a stack of (attention + MLP) or (attention + MoE) blocks; the training
+``forward``/``loss`` with one activation checkpoint per block (the
+reference's per-layer ``jax.checkpoint``), prefill and one-token decode
+against a KV cache of layout ``(L, B, S, KV, hd)``.  An MoE
 model may lead with dense layers (deepseek-moe: ``dense_layers.<i>``, an MLP
 of width ``d_ff_dense``, their own ``k_dense``/``v_dense`` cache), which run
 before the MoE stack.  Where the reference scans stacked ``(L, ...)``
@@ -12,24 +14,30 @@ reference's tree into this module's state.  Prefill attention runs K5,
 decode attention K6 (see :mod:`.attention`) and the MoE dispatch K3 (see
 :mod:`.moe`).
 
+The parameters are built frozen (``requires_grad=False``), as serving wants
+them; ``model.requires_grad_(True)`` is the one switch that makes a model
+trainable.  ``prefill`` and ``decode_step`` run under ``no_grad`` either way.
+Under autograd the attention runs K5 forward and K5b backward, and each
+block's recompute runs K5 and the MoE dispatch (K3) a second time.
+
 The cache is a dict of tensors updated *in place* by ``prefill`` and
 ``decode_step`` (the reference returns a new one); both also return it.
-The other families (SSM, RWKV, hybrid), precomputed-embedding inputs and the
-training ``forward`` raise ``NotImplementedError`` naming the slice that
-ports them.
+The other families (SSM, RWKV, hybrid) and precomputed-embedding inputs raise
+``NotImplementedError`` naming the slice that ports them.
 """
 
 from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from .. import resolve_device
 from ..configs.base import ModelConfig
 from . import attention as attn_mod
 from . import mlp as mlp_mod
 from . import moe as moe_mod
-from .layers import dense_init, embed_tokens, lm_logits, rms_norm
+from .layers import cross_entropy, dense_init, embed_tokens, lm_logits, rms_norm
 
 
 def block_kind(cfg: ModelConfig) -> str:
@@ -157,8 +165,39 @@ class LM(nn.Module):
             dense_init(self.head.w, generator)
         return self
 
-    def forward(self, *args, **kwargs):
-        raise NotImplementedError("the training forward and loss are a later slice of the port (M21 train/)")
+    # --------------------------------------------------------------- forward
+    def _block(self, blk: Block, x: torch.Tensor, positions: torch.Tensor):
+        """One block, as the reference's ``_attn_mlp_body``: (x, aux)."""
+        c = self.cfg
+        x = x + attn_mod.attention(blk.attn, c, rms_norm(x, blk.ln1.scale, c.norm_eps), positions)
+        h = rms_norm(x, blk.ln2.scale, c.norm_eps)
+        if hasattr(blk, "moe"):
+            y, aux, _ = moe_mod.moe_layer(blk.moe, c, h)
+            return x + y, aux
+        return x + mlp_mod.mlp(blk.mlp, c, h), torch.zeros((), dtype=torch.float32, device=x.device)
+
+    def forward(self, tokens: torch.Tensor):
+        """Training/scoring forward over ``tokens`` (B, T): (logits (B, T, V)
+        with the padded vocab sliced off, the MoE stack's summed load-balance
+        aux).  The leading dense layers run first; each block is one
+        activation checkpoint (non-reentrant), recomputed in the backward."""
+        c = self.cfg
+        x = embed_tokens(self.embed.table, tokens.long())
+        positions = torch.arange(x.shape[1], device=x.device)[None, :]
+        aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+        for blocks, _, _ in self._stacks():
+            for blk in blocks:
+                x, aux = checkpoint(self._block, blk, x, positions, use_reentrant=False)
+                aux_total = aux_total + aux
+        x = rms_norm(x, self.ln_f.scale, c.norm_eps)
+        return self._logits(x), aux_total
+
+    def loss(self, batch: dict, aux_weight: float = 0.01):
+        """``ce + aux_weight * aux`` over ``batch`` ({"tokens", "labels"},
+        (B, T) each): (loss, {"ce", "aux"})."""
+        logits, aux = self(batch["tokens"])
+        ce = cross_entropy(logits, batch["labels"])
+        return ce + aux_weight * aux, {"ce": ce, "aux": aux}
 
     # ---------------------------------------------------------------- decode
     def init_cache(self, batch: int, max_len: int) -> dict:

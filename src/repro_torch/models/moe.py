@@ -17,7 +17,10 @@ keys, for which every correct sort gives the stable permutation of ``key``.
 The expert outputs come back to their tokens by a gather of each token's
 ``k`` slots summed in float32, then cast: no atomics, so the sum is the same
 on every run and device (the reference adds them in the activation's type,
-in expert order, with a scatter-add).  The expert-parallel all_to_all
+in expert order, with a scatter-add).  Under autograd the integer dispatch
+carries no gradient; the weights reach ``topk_p`` through the ``slot_p``
+index write, the tokens through the gathers, whose backward adds rows with
+atomics (so a training step on the card is not bit-reproducible).  The expert-parallel all_to_all
 dispatch (``moe_layer_a2a``) and every tp > 1 path belong to the sharded
 slice of the port.
 """
@@ -162,12 +165,19 @@ def moe_layer(p: MoE, cfg: ModelConfig, x: torch.Tensor):
     C = max(int(n * m.top_k / m.num_experts * m.capacity_factor), 1)
     d = dispatch(topk_idx.reshape(n * k), E, C)
 
-    # gather token vectors into (E, C, D) buffers; empty slots read a zero row
+    # gather token vectors into (E, C, D) buffers; an empty slot reads token
+    # (slot mod n) times 0.  Each gather's backward adds rows with index_add
+    # where indexing would group equal indices and add each group in
+    # sequence: every empty slot (or dropped assignment) on one junk row made
+    # that backward take most of a training step.
     slot_tok = torch.full((E * C + 1,), n, dtype=torch.long, device=x.device)
     slot_tok[d.slot] = d.order // k  # only the junk entry E*C sees repeats
     slot_p = torch.zeros(E * C + 1, dtype=torch.float32, device=x.device)
     slot_p[d.slot] = topk_p.reshape(n * k)[d.order]
-    buf = torch.cat([xf, xf.new_zeros(1, D)])[slot_tok[:-1]].view(E, C, D)
+    slot_tok = slot_tok[:-1]
+    filled = slot_tok < n
+    src = torch.where(filled, slot_tok, torch.arange(E * C, device=x.device) % n)
+    buf = (xf.index_select(0, src) * filled[:, None].to(xf.dtype)).view(E, C, D)
 
     act = activation(cfg.mlp_act)
     h = torch.bmm(buf, p.w_in)
@@ -178,8 +188,10 @@ def moe_layer(p: MoE, cfg: ModelConfig, x: torch.Tensor):
     # each token's k slots (a zero row where dropped), summed in f32
     pos = torch.empty_like(d.order)
     pos[d.order] = torch.arange(n * k, device=x.device)
-    y_rows = torch.cat([y.reshape(E * C, D), y.new_zeros(1, D)])
-    out = y_rows[d.slot[pos]].view(n, k, D).float().sum(1)
+    slot_of = d.slot[pos]
+    kept = slot_of < E * C
+    src = torch.where(kept, slot_of, torch.arange(n * k, device=x.device) % (E * C))
+    out = (y.reshape(E * C, D).index_select(0, src) * kept[:, None].to(y.dtype)).view(n, k, D).float().sum(1)
 
     out = out.reshape(B, T, D).to(x.dtype)
     if m.num_shared:

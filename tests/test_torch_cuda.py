@@ -1,7 +1,7 @@
-"""The port's CUDA kernels on the card: K1-K6 against their plain torch
-versions, the launch counters, a small pipeline against its CPU run, and the
-smoke LMs (dense and MoE) served on the card against the same weights on the
-CPU.
+"""The port's CUDA kernels on the card: K1-K6 and the attention backward K5b
+against their plain torch versions, the launch counters, a small pipeline
+against its CPU run, and the smoke LMs (dense and MoE) served and trained on
+the card against the same weights on the CPU.
 
 Marked ``cuda``; every test skips with a reason where no card is present.
 Run them on a machine with an NVIDIA card with
@@ -147,7 +147,7 @@ def test_wrappers_count_launches_and_check_inputs(gen):
     bitonic.merge_tournament(torch.sort(x, dim=1).values)
     bitonic.sort_rows(x[:, :1].contiguous())  # one-key rows: nothing to launch
     assert bitonic.LAUNCHES == {"row_sort": 1, "tournament": 1, "row_sort_kv": 0, "merge_rows": 0,
-                                "flash_attention": 0, "decode_attention": 0}
+                                "flash_attention": 0, "decode_attention": 0, "flash_attention_bwd": 0}
     with pytest.raises(ValueError, match="contiguous"):
         bitonic.sort_rows(x.t())
     with pytest.raises(TypeError):
@@ -706,3 +706,113 @@ def test_packed_tenants_beyond_int32_sort_on_the_int64_path(gen, monkeypatch):
         jr = res.by_tenant(j.tenant_id)
         assert torch.equal(jr.output, solo.output) and jr.passes == solo.passes
         assert torch.equal(jr.output, torch.sort(j.values.cuda()).values)
+
+
+# -- training: K5's lse, K5b, a smoke train step ---------------------------------------
+
+
+def _grad_limit(want):
+    """|K5b - plain| per element: both multiply in f32 and sum in other
+    orders, then round once to the input's type.  f32: 2e-5 of the largest
+    |want| + 1e-3 |want|; bf16: 4e-3 of the largest + 1e-2 |want|; both plus
+    1e-5, since a gradient that is exactly 0 (one visible key) is rounding
+    noise of order 1e-7 on each side (chip_smoke.grad_limit)."""
+    w = want.float().abs()
+    if want.dtype == torch.bfloat16:
+        return 1e-5 + 4e-3 * w.max() + 1e-2 * w
+    return 1e-5 + 2e-5 * w.max() + 1e-3 * w
+
+
+def _check_k5b(gen, B, T, S, H, KV, d, dtype, causal, strided_do=False):
+    from repro_torch.kernels.flash_attention_bwd import flash_attention_bwd, flash_attention_bwd_plain
+
+    q = _randn(gen, (B, T, H, d), dtype, QK_SCALE)
+    k = _randn(gen, (B, S, KV, d), dtype, QK_SCALE)
+    v = _randn(gen, (B, S, KV, d), dtype)
+    o, lse = flash_attention(q, k, v, causal=causal, return_lse=True)
+    do = _randn(gen, (B, H, T, d), dtype).transpose(1, 2) if strided_do else _randn(gen, (B, T, H, d), dtype)
+    bitonic.reset_launches()
+    got = flash_attention_bwd(q, k, v, o, do, lse, causal=causal)
+    assert bitonic.LAUNCHES["flash_attention_bwd"] == 1
+    want = flash_attention_bwd_plain(q, k, v, o, do, lse, causal=causal)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape and g.is_contiguous(), name
+        diff = (g.float() - w.float()).abs()
+        assert (diff <= _grad_limit(w)).all(), (name, diff.max().item(), w.float().abs().max().item())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("T,S", [(1, 1), (63, 63), (130, 130), (2048, 2048), (63, 130), (130, 63), (1, 2048)])
+def test_flash_attention_bwd_kernel_equals_plain(gen, T, S, causal, d, dtype):
+    """K5b against its plain twin at G = 1, 3 and 4, B = 2."""
+    for G in (1, 3, 4):
+        _check_k5b(gen, 2, T, S, 2 * G, 2, d, dtype, causal)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_bwd_takes_a_strided_dout(gen, dtype):
+    """dO as a transposed (B, H, T, d) view: rows strided, last axis
+    contiguous, read in place."""
+    _check_k5b(gen, 2, 300, 300, 6, 2, 64, dtype, True, strided_do=True)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,T,S,H,KV,d,causal", [
+    (4, 2048, 2048, 24, 8, 64, True), (1, 130, 7, 6, 2, 32, False), (2, 63, 2048, 8, 2, 128, False),
+    (3, 1, 1, 4, 4, 64, True)])
+def test_flash_attention_lse_and_unchanged_output(gen, B, T, S, H, KV, d, causal, dtype):
+    """K5 with ``return_lse``: the output is the same bytes as without it,
+    and the lse is the plain logsumexp (f32 within 2e-5; bf16 within 2^-8:
+    the kernel sums its probabilities as rounded to bf16)."""
+    q = _randn(gen, (B, T, H, d), dtype, QK_SCALE)
+    k = _randn(gen, (B, S, KV, d), dtype, QK_SCALE)
+    v = _randn(gen, (B, S, KV, d), dtype)
+    out, lse = flash_attention(q, k, v, causal=causal, return_lse=True)
+    assert torch.equal(out, flash_attention(q, k, v, causal=causal))
+    _, want = flash_attention_plain(q, k, v, causal=causal, return_lse=True)
+    assert lse.dtype == torch.float32 and lse.shape == (B, H, T)
+    assert (lse - want).abs().max().item() <= (2.0**-8 if dtype == torch.bfloat16 else 2e-5)
+
+
+@pytest.mark.parametrize("arch", ["mistral-nemo-12b", "granite-moe-3b-a800m", "deepseek-moe-16b"])
+def test_smoke_train_steps_on_card_equal_cpu(gen, arch):
+    """Three AdamW steps of the float32 smoke LM on the card and on the CPU
+    from the same weights and batches: losses and gradient norms within
+    1e-5 relative (the card's atomic adds and its own GEMM orders); each
+    parameter within 2 lr per step, the most an element can move apart when
+    a gradient that is zero to rounding takes the other sign on one side
+    (AdamW's first steps move every element by about lr, whatever its
+    gradient's size); K5, K5b and K3 launch as the step implies."""
+    import dataclasses
+
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.train.optimizer import AdamWConfig, init_opt_state
+    from repro_torch.train.train_step import build_train_step
+
+    cfg = dataclasses.replace(configs.get_smoke_config(arch), dtype="float32")
+    host = models.build(cfg, device="cpu").init(torch.Generator().manual_seed(0)).requires_grad_(True)
+    card = models.build(cfg, device="cuda").requires_grad_(True)
+    card.load_state_dict(host.state_dict())
+    opt_cfg = AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=100)
+    n_moe = cfg.num_layers - (cfg.moe.first_dense_layers if cfg.moe else cfg.num_layers)
+    runs = []
+    for model in (host, card):
+        step = build_train_step(model, opt_cfg)
+        state = init_opt_state(dict(model.named_parameters()), opt_cfg)
+        pipe, out = TokenPipeline(cfg.vocab_size, 4, 64, seed=0), []
+        for _ in range(3):
+            batch = {k: torch.from_numpy(v).to(model.device) for k, v in pipe.next_batch().items()}
+            bitonic.reset_launches()
+            state, met = step(state, batch)
+            out.append((float(met["loss"]), float(met["grad_norm"])))
+            if model is card:
+                assert bitonic.LAUNCHES["flash_attention"] == 2 * cfg.num_layers
+                assert bitonic.LAUNCHES["flash_attention_bwd"] == cfg.num_layers
+                assert bitonic.LAUNCHES["row_sort_kv"] == 2 * n_moe
+        runs.append(out)
+    np.testing.assert_allclose(np.array(runs[1]), np.array(runs[0]), rtol=1e-5)
+    for (name, a), b in zip(card.named_parameters(), host.parameters()):
+        diff = (a.detach().cpu() - b.detach()).abs().max().item()
+        assert diff <= 2 * opt_cfg.lr * 3, (name, diff)

@@ -260,7 +260,7 @@ def test_cpu_calls_never_launch_or_build():
     ops.merge_tournament(torch.sort(x, dim=1).values)
     assert bitonic.LAUNCHES is build.LAUNCHES
     assert set(build.LAUNCHES) == {"row_sort", "tournament", "row_sort_kv", "merge_rows",
-                                   "flash_attention", "decode_attention"}
+                                   "flash_attention", "decode_attention", "flash_attention_bwd"}
     assert not any(build.LAUNCHES.values())
     assert build._LIBS == {}
 
@@ -279,7 +279,8 @@ def test_kernel_library_path_is_build_dir_keyed_by_source():
     for name, source in (("row_sort", "row_sort.cu"), ("tournament", "tournament.cu"),
                          ("row_sort_kv", "row_sort_kv.cu"), ("merge_rows", "merge_rows.cu"),
                          ("flash_attention", "flash_attention.cu"),
-                         ("decode_attention", "decode_attention.cu")):
+                         ("decode_attention", "decode_attention.cu"),
+                         ("flash_attention_bwd", "flash_attention_bwd.cu")):
         assert build._SOURCES[name] == source and (build._CSRC / source).is_file()
         assert build._lib_path(name).name.startswith(f"lib{name}_")
 

@@ -348,5 +348,12 @@ def test_other_families_raise_not_implemented(arch):
 
 
 def test_training_forward_is_not_ported(pair32):
-    with pytest.raises(NotImplementedError, match="later slice"):
-        pair32[3](torch.zeros((1, 2), dtype=torch.int64))
+    """The name is older than the training slice: the forward now exists and
+    gives the reference's ``LM.forward`` logits and aux (f32, 1e-4)."""
+    cfg, ref, params, port = pair32
+    toks = np.random.default_rng(3).integers(0, cfg.vocab_size, size=(2, 9)).astype(np.int32)
+    want, want_aux = ref.forward(params, {"tokens": jnp.asarray(toks)})
+    with torch.no_grad():
+        got, aux = port(torch.from_numpy(toks))
+    _close(got, want, "float32")
+    np.testing.assert_allclose(aux.item(), float(want_aux), atol=1e-6)

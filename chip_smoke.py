@@ -113,7 +113,9 @@ of Mistral-Nemo-12B cut to 8 layers).  Phases, one JSON line each:
    on the card, run, interrupted and resumed from its step-3 checkpoint
    (steps 4-6 within 1e-5).  The ``kernels`` line then gains K5b's row
    (granite's shape; Mistral's under ``dense``): eager and graph ms, its
-   plain twin's, the backward of SDPA timed on its own, the bound;
+   plain twin's, the backward of SDPA timed on its own, the bound, its
+   design and the kernel nodes of one call captured in a CUDA graph (held
+   to the wrapper's ``KERNELS_PER_CALL``);
 10. ``ptxas`` -- every kernel entry's registers, static shared memory and
    spills, as the compiler reported them when it built the kernels; a
    spill in any entry fails the run.
@@ -2255,6 +2257,8 @@ def k5b_row(fa, fb, torch, gen, shape, launches: int, per_step: int) -> dict:
     (``enable_gqa``) timed on its own (its forward is outside the window)."""
     import torch.nn.functional as F
 
+    from repro_torch.kernels import build
+
     b, t, s, h, kv, d, causal = shape
     errs, _, (q, k, v, o, do, lse) = check_k5b(fa, fb, torch, gen, (b, t, h, d), (b, s, kv, d),
                                                torch.bfloat16, causal)
@@ -2264,7 +2268,11 @@ def k5b_row(fa, fb, torch, gen, shape, launches: int, per_step: int) -> dict:
     ot = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal, enable_gqa=True)
     dot = do.transpose(1, 2)
     kern = lambda: fb.flash_attention_bwd(q, k, v, o, do, lse, causal=causal)  # noqa: E731
+    nodes = build.graph_kernel_launches(kern)
+    if nodes != fb.KERNELS_PER_CALL:
+        fail(f"a K5b call put {nodes} kernels on the card, want {fb.KERNELS_PER_CALL}")
     row = {"shape": {"q": [b, t, h, d], "kv": [b, s, kv, d], "causal": causal}, "dtype": "bfloat16",
+           "design": "mma.sync bf16", "kernels_per_call": nodes,
            "launches": launches, "launches_per_train_step": per_step, "max_abs_err": max(errs),
            "ms": cuda_ms(kern), "graph_ms": graph_ms(kern),
            "plain_ms": cuda_ms(lambda: fb.flash_attention_bwd_plain(q, k, v, o, do, lse, causal=causal), 3),

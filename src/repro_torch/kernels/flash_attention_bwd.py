@@ -11,14 +11,21 @@ causal convention (``row >= col``) and mask value.
 
 The kernel is ``csrc/flash_attention_bwd.cu`` (CUDA C++ for ``sm_90a``: a
 delta pass, a dk/dv pass over key tiles and a dq pass over query tiles, no
-float atomics); :func:`flash_attention_bwd_plain` is the port of
+float atomics, :data:`KERNELS_PER_CALL` launches a call).  The dtype picks
+the design: bfloat16 runs every product on the tensor cores
+(``mma.sync.m16n8k16``, bf16 in and f32 accumulate, K5's bf16 layout; p and
+ds are rounded to bf16 before the products that take them) and copies its
+q, k, v and dout tiles with 16-byte ``cp.async``, so those four must start
+on 16-byte boundaries with row strides that are multiples of 8 elements
+(the wrapper raises otherwise, as K5's bf16 path does; a transposed
+``(B, H, T, d)`` view is aligned and read in place); float32 runs the
+CUDA-core kernels in f32, which take any strides whose last axis is
+contiguous.  :func:`flash_attention_bwd_plain` is the port of
 ``_flash_bwd``, chunked over S in torch ops, with any S (the reference
 reshapes S into chunks of 1024 and needs S to divide).
 :func:`flash_attention_bwd` takes the plain version only for tensors on the
 CPU; for CUDA tensors it launches the kernel or raises, and adds one to
-``LAUNCHES["flash_attention_bwd"]`` per call (three kernels a call).  Any
-strides whose last axis is contiguous are taken; the caller makes ``dout``
-contiguous if it is not.
+``LAUNCHES["flash_attention_bwd"]`` per call.
 """
 
 from __future__ import annotations
@@ -29,10 +36,13 @@ import torch
 
 from . import build
 from .build import LAUNCHES
-from .flash_attention import HEAD_DIMS, NEG_INF, _check
+from .flash_attention import HEAD_DIMS, NEG_INF, _check, _check_aligned
 
 #: Keys per chunk of the plain version (the reference's ``_FLASH_CHUNK``).
 CHUNK = 1024
+
+#: Kernels one call launches: the delta, dk/dv and dq passes.
+KERNELS_PER_CALL = 3
 
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
@@ -105,6 +115,8 @@ def flash_attention_bwd(q, k, v, o, dout, lse, *, causal: bool = True, scale: fl
         raise ValueError("flash_attention_bwd takes tensors whose last axis is contiguous")
     if not lse.is_contiguous():
         raise ValueError("flash_attention_bwd takes a contiguous lse")
+    if q.dtype == torch.bfloat16:
+        _check_aligned(q, k, v, dout, op="flash_attention_bwd (bfloat16)")
     scale = d**-0.5 if scale is None else scale
     dq = torch.empty_like(q, memory_format=torch.contiguous_format)
     dk = torch.empty_like(k, memory_format=torch.contiguous_format)

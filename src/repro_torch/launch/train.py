@@ -15,6 +15,11 @@ state and data cursor), writes checkpoints asynchronously every
 ``--ckpt-every`` steps and at the end, logs loss, gradient norm and learning
 rate every ``--log-every`` steps and flags straggler steps.  The weights are
 drawn from ``--seed`` on the device.
+
+Checkpoints hold the reference's trees (parameters stacked under ``layers``,
+:func:`~repro_torch.models.convert.params_to_reference`), so each CLI
+resumes from the other's directory.  A directory written before the port
+saved that tree (flat ``layers.<i>.`` state-dict names) resumes as well.
 """
 
 from __future__ import annotations
@@ -28,6 +33,7 @@ from .. import models, resolve_device
 from ..configs import get_config, get_smoke_config
 from ..data.tokens import TokenPipeline
 from ..distributed.collectives import StragglerMonitor, make_int8_compressor
+from ..models.convert import opt_state_from_reference, opt_state_to_reference, params_from_reference, params_to_reference
 from ..train.checkpoint import AsyncCheckpointer, CheckpointManager
 from ..train.optimizer import AdamWConfig, init_opt_state
 from ..train.train_step import build_train_step
@@ -69,10 +75,13 @@ def main(argv=None) -> list[dict]:
         ckpt = AsyncCheckpointer(mgr)
         if mgr.latest_step() is not None:
             state, manifest = mgr.restore()
-            model.load_state_dict(state["params"])
-            opt_state = {"m": {k: v.to(dev) for k, v in state["opt"]["m"].items()},
-                         "v": {k: v.to(dev) for k, v in state["opt"]["v"].items()},
-                         "step": state["opt"]["step"].to(device=dev, dtype=torch.int32)}
+            params, opt = state["params"], state["opt"]
+            if isinstance(params.get("layers"), dict):  # the reference's stacked tree
+                params, opt = params_from_reference(params), opt_state_from_reference(opt)
+            model.load_state_dict(params)
+            opt_state = {"m": {k: v.to(dev) for k, v in opt["m"].items()},
+                         "v": {k: v.to(dev) for k, v in opt["v"].items()},
+                         "step": opt["step"].to(device=dev, dtype=torch.int32)}
             pipe = TokenPipeline.restore(cfg.vocab_size, args.batch, args.seq, state["data"])
             start_step = manifest["step"]
             print(f"resumed from step {start_step}")
@@ -95,7 +104,8 @@ def main(argv=None) -> list[dict]:
     mon = StragglerMonitor()
 
     def snapshot():
-        return {"params": model.state_dict(), "opt": opt_state, "data": pipe.state()}
+        return {"params": params_to_reference(model.state_dict()), "opt": opt_state_to_reference(opt_state),
+                "data": pipe.state()}
 
     records = []
     for step in range(start_step, args.steps):

@@ -1,6 +1,6 @@
 """Carry the reference's weights and AdamW state across: its ``LM.init``
-tree -> this port's module state, its ``init_opt_state`` tree -> the port's
-optimizer state.
+tree <-> this port's module state, its ``init_opt_state`` tree <-> the
+port's optimizer state.
 
 The reference keeps layer parameters stacked ``(L, ...)`` under ``layers``;
 the port has one module per layer, so the stack is cut into
@@ -10,7 +10,9 @@ index, ``dense_layers.<i>.<...>``.  Leaves
 are numpy arrays (``jax.tree.map(numpy.asarray, params)``), bfloat16 ones
 included, or CPU tensors (a reference checkpoint restored by
 :class:`repro_torch.train.checkpoint.CheckpointManager`); values are copied
-bit for bit.
+bit for bit.  :func:`params_to_reference` and :func:`opt_state_to_reference`
+go the other way (tensors stacked back into ``layers``), which is the tree
+the training CLI checkpoints, so either package's CLI resumes the other's.
 """
 
 from __future__ import annotations
@@ -62,3 +64,45 @@ def opt_state_from_reference(state: dict) -> dict:
     scalar) from the reference's ``{"m", "v", "step"}`` tree."""
     return {"m": params_from_reference(state["m"]), "v": params_from_reference(state["v"]),
             "step": _tensor(state["step"]).to(torch.int32).reshape(())}
+
+
+def _nest(flat: dict[str, torch.Tensor]) -> dict:
+    """Dotted names -> nested dicts; the items of ``dense_layers`` a list."""
+    root: dict = {}
+    for name, v in flat.items():
+        *path, leaf = name.split(".")
+        node = root
+        for p in path:
+            node = node.setdefault(p, {})
+        node[leaf] = v
+    if "dense_layers" in root:
+        layers = root["dense_layers"]
+        root["dense_layers"] = [layers[str(i)] for i in range(len(layers))]
+    return root
+
+
+def params_to_reference(state: dict[str, torch.Tensor]) -> dict:
+    """The reference's parameter tree from a state dict of
+    :class:`repro_torch.models.lm.LM`: ``layers.<i>.<name>`` stacked into
+    ``layers.<name>`` of depth L.  The stacked leaves are new tensors; the
+    others are the state dict's own, detached."""
+    per_layer: dict[str, dict[int, torch.Tensor]] = {}
+    rest: dict[str, torch.Tensor] = {}
+    for name, v in state.items():
+        head, _, tail = name.partition(".")
+        if head == "layers":
+            i, _, leaf = tail.partition(".")
+            per_layer.setdefault(leaf, {})[int(i)] = v.detach()
+        else:
+            rest[name] = v.detach()
+    tree = _nest(rest)
+    if per_layer:
+        stacked = {leaf: torch.stack([by_i[i] for i in range(len(by_i))]) for leaf, by_i in per_layer.items()}
+        tree["layers"] = _nest(stacked)
+    return tree
+
+
+def opt_state_to_reference(state: dict) -> dict:
+    """The reference's ``{"m", "v", "step"}`` AdamW tree from the port's."""
+    return {"m": params_to_reference(state["m"]), "v": params_to_reference(state["v"]),
+            "step": state["step"].detach().clone()}

@@ -1,12 +1,16 @@
 """Fault-tolerant checkpointing: atomic, device-agnostic, keep-last-k, async.
 
 Counterpart of :mod:`repro.train.checkpoint`, with the same on-disk layout,
-so each package reads the other's checkpoints: ``<dir>/step_<10 digits>/``
+so each package's manager reads the other's files: ``<dir>/step_<10 digits>/``
 holds ``state.npz`` (the flattened tree: dict keys joined by ``/``, list
 items as ``#<i>``; bfloat16 leaves stored as a ``uint16`` bit view) and
 ``manifest.json`` (the step, a ``dtypes`` sidecar naming each bit-viewed
 leaf's type, and the caller's extras).  Leaves are host copies, so a
-checkpoint written on the card restores on the CPU.
+checkpoint written on the card restores on the CPU.  A tree comes back as it
+was saved: the reference's training state is its stacked parameter tree, so
+the port's training CLI saves and resumes that tree
+(:func:`repro_torch.models.convert.params_to_reference`), and each CLI
+resumes from the other's directory.
 
 Crash safety: writes go to ``<dir>/tmp.<step>.<uuid>`` and are renamed into
 place (atomic on POSIX); partial checkpoints are never visible and are

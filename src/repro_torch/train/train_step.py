@@ -8,8 +8,10 @@ must be trainable (``model.requires_grad_(True)``).  The batch is split into
 ``microbatches`` slices along its first axis, run one after the other, each
 with the model's per-block recompute, so live activations are one
 microbatch deep; their gradients accumulate in ``accum_dtype`` and are
-averaged.  With one microbatch the gradients keep the parameters' type, as
-the reference's ``jax.value_and_grad`` gives them.  ``grad_compressor`` is
+averaged.  A batch that ``microbatches`` does not divide raises, as the
+reference's reshape into ``(microbatches, B // microbatches, ...)`` does.
+With one microbatch the gradients keep the parameters' type, as the
+reference's ``jax.value_and_grad`` gives them.  ``grad_compressor`` is
 an optional ``grads -> grads`` hook applied before the optimizer (the int8
 error-feedback compressor plugs in here).
 """
@@ -45,7 +47,10 @@ def build_train_step(
         if microbatches == 1:
             loss, metrics, grads = loss_and_grads(batch)
         else:
-            size = next(iter(batch.values())).shape[0] // microbatches
+            B = next(iter(batch.values())).shape[0]
+            if B % microbatches:
+                raise ValueError(f"microbatches={microbatches} does not divide the batch of B={B} rows")
+            size = B // microbatches
             grads = {k: torch.zeros(p.shape, dtype=accum_dtype, device=p.device) for k, p in params.items()}
             loss = 0.0
             for i in range(microbatches):

@@ -350,6 +350,37 @@ def test_flash_attention_kernel_equals_plain(gen, B, T, H, KV, d, causal, dtype)
     _assert_attention_close(got, flash_attention_plain(q, k, v, causal=causal))
 
 
+def test_flash_attention_bwd_bf16_refuses_unaligned_rows(gen):
+    """The bf16 kernel copies 16-byte rows: a q, k, v or dO view whose rows
+    start off a 16-byte boundary raises instead of running; f32 takes it."""
+    from repro_torch.kernels.flash_attention_bwd import flash_attention_bwd
+
+    lse = torch.zeros(1, 2, 8, device="cuda")
+    for dtype in (torch.bfloat16, torch.float32):
+        base = _randn(gen, (1, 8, 2, 65), dtype)
+        good = _randn(gen, (1, 8, 2, 64), dtype)
+        for i in range(5):  # q, k, v, o, dout: o is read element by element
+            args = [good] * 5
+            args[i] = base[..., 1:]
+            if dtype == torch.bfloat16 and i != 3:
+                with pytest.raises(ValueError, match="aligned to 16 bytes"):
+                    flash_attention_bwd(*args, lse)
+            else:
+                flash_attention_bwd(*args, lse)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_bwd_kernel_nodes_per_call(gen, dtype):
+    """One K5b call captured in a CUDA graph is the number of kernels the
+    wrapper states."""
+    from repro_torch.kernels import flash_attention_bwd as fb
+
+    xs = [_randn(gen, (2, 130, 6, 64), dtype) for _ in range(5)]
+    lse = torch.zeros(2, 6, 130, device="cuda")
+    assert build.graph_kernel_launches(lambda: fb.flash_attention_bwd(*xs, lse)) == fb.KERNELS_PER_CALL == 3
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,T,S,H,KV,d,causal", [
     (1, 1963, 1963, 32, 8, 128, True),   # Mistral-Nemo-12B's largest prefill

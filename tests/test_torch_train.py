@@ -23,7 +23,13 @@ Tolerances, all float32 with the two frameworks summing in other orders:
   relative size);
 - the learning-rate schedule: rtol 1e-6 at every step;
 - the data pipeline, packing, int8 values and scales, straggler flags and
-  checkpoint restarts: exact.
+  checkpoint restarts: exact;
+- one CLI resuming from the other's checkpoint: the resumed step's loss,
+  gradient norm and learning rate, and every leaf of the checkpoint it
+  writes, within 1e-5 (rtol and atol) of the uninterrupted run's (one step
+  in the other framework);
+- the reference's tree through ``params_from_reference`` and back: bit for
+  bit.
 """
 
 import dataclasses
@@ -36,12 +42,14 @@ import numpy as np
 import pytest
 import torch
 
+from repro import models as ref_models
 from repro.configs import get_smoke_config as ref_get_smoke
 from repro.data import packing as ref_packing
 from repro.data import synthetic as ref_synthetic
 from repro.data.tokens import TokenPipeline as RefTokenPipeline
 from repro.distributed import collectives as ref_coll
 from repro.distributed.sharding import local_ctx
+from repro.launch import train as ref_train_cli
 from repro.models import layers as ref_layers
 from repro.train import optimizer as ref_opt
 from repro.train.checkpoint import CheckpointManager as RefCheckpointManager
@@ -52,7 +60,8 @@ from repro_torch.data.tokens import TokenPipeline
 from repro_torch.distributed import collectives as coll
 from repro_torch.launch import train as train_cli
 from repro_torch.models import layers
-from repro_torch.models.convert import opt_state_from_reference, params_from_reference
+from repro_torch.models.convert import (opt_state_from_reference, opt_state_to_reference, params_from_reference,
+                                       params_to_reference)
 from repro_torch.train import optimizer as opt
 from repro_torch.train.checkpoint import AsyncCheckpointer, CheckpointManager
 from repro_torch.train.train_step import build_train_step
@@ -422,3 +431,89 @@ def test_train_cli_runs_and_resumes(tmp_path, capsys):
     if not torch.cuda.is_available():  # the default device is the card: no silent CPU run
         with pytest.raises(RuntimeError, match="no CUDA device"):
             train_cli.main(["--arch", "granite-moe-3b-a800m", "--smoke", "--steps", "1"])
+
+
+def _bits(x) -> np.ndarray:
+    """The raw bits of a tensor or numpy leaf (numpy has no bfloat16)."""
+    if isinstance(x, torch.Tensor):
+        return (x.view(torch.int16) if x.dtype == torch.bfloat16 else x).numpy()
+    return x.view(np.int16) if x.dtype.name == "bfloat16" else x
+
+
+@pytest.mark.parametrize("arch", ["mistral-nemo-12b", "deepseek-moe-16b"])
+def test_reference_tree_round_trip_is_bit_exact(arch):
+    """``params_to_reference`` after ``params_from_reference`` gives the
+    reference's bfloat16 tree back, structure and bits (the dense LM, and the
+    MoE LM with its list of leading dense layers); the AdamW state too.  The
+    leaves are random draws of the reference's shapes and types."""
+    rng = np.random.default_rng(1)
+    shapes = jax.eval_shape(ref_models.build(ref_get_smoke(arch), local_ctx()).init, jax.random.PRNGKey(1))
+    draw = lambda dtype: lambda s: rng.standard_normal(s.shape).astype(dtype or s.dtype)
+    tree = jax.tree.map(draw(None), shapes)
+    rstate = {"m": jax.tree.map(draw(jnp.bfloat16), shapes), "v": jax.tree.map(draw(np.float32), shapes),
+              "step": np.asarray(5, np.int32)}
+    for want, got in ((tree, params_to_reference(params_from_reference(tree))),
+                      (rstate, opt_state_to_reference(opt_state_from_reference(rstate)))):
+        assert jax.tree.structure(got) == jax.tree.structure(want)
+        for g, w in zip(jax.tree.leaves(got), jax.tree.leaves(want)):
+            assert g.dtype == getattr(torch, w.dtype.name) and g.shape == w.shape
+            assert np.array_equal(_bits(g), _bits(w))
+    assert any(w.dtype.name == "bfloat16" for w in jax.tree.leaves(tree))
+
+
+def _ref_cli(monkeypatch, argv: list[str]) -> list[dict]:
+    """The reference's training CLI on the float32 smoke config; returns one
+    record per step it ran (its own log rounds them)."""
+    records = []
+
+    def recording_jit(fn, **kw):
+        step = jax.jit(fn, **kw)
+
+        def call(params, opt_state, batch):
+            out = step(params, opt_state, batch)
+            records.append({k: float(out[2][k]) for k in ("loss", "grad_norm", "lr")})
+            return out
+        return call
+
+    class _Jax:  # the module's view of jax, with the step's jit recording
+        jit = staticmethod(recording_jit)
+
+        def __getattr__(self, name):
+            return getattr(jax, name)
+
+    monkeypatch.setattr(ref_train_cli, "jax", _Jax())
+    monkeypatch.setattr(ref_train_cli, "get_smoke_config",
+                        lambda arch: dataclasses.replace(ref_get_smoke(arch), dtype="float32"))
+    monkeypatch.setattr("sys.argv", ["train", *argv])
+    ref_train_cli.main()
+    return records
+
+
+@pytest.mark.parametrize("writer", ["reference", "port"])
+def test_each_cli_resumes_from_the_others_checkpoints(writer, tmp_path, monkeypatch):
+    """One CLI trains granite's float32 smoke LM 3 steps, checkpointing at 2
+    and at the end; the step-3 checkpoint is set aside and the other CLI
+    resumes from step 2.  Its step's record and its step-3 checkpoint
+    (parameters, AdamW moments and step, data cursor) equal the
+    uninterrupted run's within 1e-5."""
+    argv = ["--arch", "granite-moe-3b-a800m", "--smoke", "--steps", "3", "--batch", "2", "--seq", "8",
+            "--ckpt-dir", str(tmp_path), "--ckpt-every", "2", "--log-every", "1"]
+    port = ["--device", "cpu", "--dtype", "float32"]
+    runs = {"reference": lambda: _ref_cli(monkeypatch, argv),
+            "port": lambda: [{k: r[k] for k in ("loss", "grad_norm", "lr")} for r in train_cli.main(argv + port)]}
+    first, resume = runs[writer], runs["port" if writer == "reference" else "reference"]
+    want = first()
+    assert len(want) == 3 and CheckpointManager(tmp_path).all_steps() == [2, 3]
+    aside = tmp_path / "uninterrupted"  # not a step_* name: the managers ignore it
+    aside.mkdir()
+    (tmp_path / "step_0000000003").rename(aside / "step_0000000003")
+    got = resume()
+    assert len(got) == 1 and CheckpointManager(tmp_path).all_steps() == [2, 3]
+    for k in got[0]:
+        np.testing.assert_allclose(got[0][k], want[2][k], rtol=1e-5, atol=1e-5, err_msg=k)
+    end, _ = CheckpointManager(tmp_path).restore(3)
+    ref_end, _ = CheckpointManager(aside).restore(3)
+    assert jax.tree.structure(end) == jax.tree.structure(ref_end) and end["data"] == ref_end["data"]
+    assert int(end["opt"]["step"]) == int(ref_end["opt"]["step"]) == 3
+    for a, b in zip(jax.tree.leaves(end), jax.tree.leaves(ref_end)):
+        np.testing.assert_allclose(a.float().numpy(), b.float().numpy(), rtol=1e-5, atol=1e-5)

@@ -8,18 +8,28 @@ convergence run of the reference's tests.
 Tolerances (float32 on both sides, other summation orders): loss rtol 1e-5,
 the MoE aux rtol 1e-5, every gradient leaf atol 1e-5 + rtol 1e-4;
 microbatched against full batch: loss rtol 1e-5, parameters atol 1e-5 +
-rtol 1e-4 (the gradients are summed in another grouping).
+rtol 1e-4 (the gradients are summed in another grouping); the microbatched
+step against the reference's: the train tests' tolerances (loss and
+gradient norm rtol 1e-4, parameters atol 1e-4), moments atol 1e-6 and,
+where the gradients accumulate in bfloat16, the bound of each element's
+bf16 rounding besides (a partial sum may round to its neighbouring bf16
+value in one framework and not in the other, or cancel to 0 in one of them;
+the test states the bound).
 """
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from repro.train import optimizer as ref_opt
+from repro.train.train_step import build_train_step as ref_build_train_step
 from repro_torch import configs, models
 from repro_torch.data.tokens import TokenPipeline
 from repro_torch.distributed import collectives as coll
 from repro_torch.models import attention as attn_mod
+from repro_torch.models.convert import params_from_reference
 from repro_torch.models import moe as moe_mod
 from repro_torch.train import optimizer as opt
 from repro_torch.train.train_step import build_train_step
@@ -109,6 +119,65 @@ def test_microbatched_equals_full_batch():
     for (k, a), b in zip(m1.named_parameters(), m4.parameters()):
         _close(a, b.detach(), atol=1e-5, rtol=1e-4, err_msg=k)
     assert s4["m"]["embed.table"].dtype == torch.float32
+
+
+@pytest.mark.parametrize("accum", ["float32", "bfloat16"])
+@pytest.mark.parametrize("microbatches", [2, 4])
+def test_microbatched_step_matches_reference(microbatches, accum):
+    """One step of the port's microbatched train step against the
+    reference's with the same split and accumulation type, from the same
+    weights on the same batch of 4 rows (no warmup, so the step moves every
+    parameter).  In bfloat16 each framework rounds each partial sum of the
+    microbatches' f32 gradients g_j within 2^-9 of it, so the averaged
+    gradients differ by at most dg = 2^-7 sum_j |g_j| (the final division
+    included; times the clip's scale), the moments by b1's and b2's share of
+    that, and an update only where dg reaches the gradient's size."""
+    cfg, ref, params, _ = _ref("mistral-nemo-12b")
+    ocfg = dict(lr=1e-3, warmup_steps=0, total_steps=100)
+    rcfg = ref_opt.AdamWConfig(**ocfg)
+    rstep = jax.jit(ref_build_train_step(ref, rcfg, microbatches=microbatches, accum_dtype=getattr(jnp, accum)))
+    b = _batch_np(cfg.vocab_size, 5, batch=4, seq=32)
+    params, rstate, rmet = rstep(params, ref_opt.init_opt_state(params, rcfg), _jb(b))
+    model = _port("mistral-nemo-12b")
+    pcfg = opt.AdamWConfig(**ocfg)
+    names, leaves = zip(*model.named_parameters())
+    size = 4 // microbatches
+    spread = [sum(g.abs() for g in gs) for gs in zip(*(
+        torch.autograd.grad(model.loss({k: x[i:i + size] for k, x in _tb(b).items()})[0], leaves)
+        for i in range(0, 4, size)))]
+    state, met = build_train_step(model, pcfg, microbatches=microbatches, accum_dtype=getattr(torch, accum))(
+        opt.init_opt_state(dict(model.named_parameters()), pcfg), _tb(b))
+    np.testing.assert_allclose([float(met["loss"]), float(met["grad_norm"])],
+                               [float(rmet["loss"]), float(rmet["grad_norm"])], rtol=1e-4)
+    rp, rm, rv = (params_from_reference(jax.tree.map(np.asarray, t)) for t in (params, rstate["m"], rstate["v"]))
+    clip = min(1.0, pcfg.grad_clip / float(met["grad_norm"]))
+    for name, leaf, sp in zip(names, leaves, spread):
+        dg = 2**-7 * clip * sp.numpy() if accum == "bfloat16" else 0.0
+        g = np.abs(rm[name].numpy()) / (1 - pcfg.b1)
+        # The first update is lr g / (|g| + eps): it may only flip where the
+        # gradient's bound reaches its size.
+        for got, want, tol in ((leaf, rp[name], 1e-4 + 2 * pcfg.lr * (dg >= g)),
+                               (state["m"][name], rm[name], 1e-6 + (1 - pcfg.b1) * dg),
+                               (state["v"][name], rv[name], 1e-6 + (1 - pcfg.b2) * 2 * (g + dg) * dg)):
+            diff = np.abs(got.detach().numpy() - want.numpy())
+            assert (diff <= tol).all(), (name, float((diff - tol).max()))
+    assert int(state["step"]) == int(rstate["step"]) == 1
+
+
+def test_microbatches_must_divide_the_batch():
+    """B = 8 in 3 microbatches: the port raises, and the reference's reshape
+    refuses it too."""
+    cfg, ref, params, _ = _ref("mistral-nemo-12b")
+    b = _batch_np(cfg.vocab_size, 0, batch=8, seq=8)
+    rcfg = ref_opt.AdamWConfig()
+    with pytest.raises((TypeError, ValueError)):
+        ref_build_train_step(ref, rcfg, microbatches=3)(params, ref_opt.init_opt_state(params, rcfg), _jb(b))
+    model = _port("mistral-nemo-12b")
+    step = build_train_step(model, opt.AdamWConfig(), microbatches=3)
+    before = {k: p.detach().clone() for k, p in model.named_parameters()}
+    with pytest.raises(ValueError, match=r"microbatches=3 .* B=8"):
+        step(opt.init_opt_state(dict(model.named_parameters()), opt.AdamWConfig()), _tb(b))
+    assert all(torch.equal(p, before[k]) for k, p in model.named_parameters())
 
 
 def test_thirty_step_smoke_loss_drops():

@@ -3,10 +3,12 @@
 
     python3 chip_smoke.py [--n KEYS] [--seed S] [--profile]
 
-Five main paths: the sort dataplane (``run_pipeline``), the dense LM serve
+Six main paths: the sort dataplane (``run_pipeline``), the dense LM serve
 path (``Engine`` over Mistral-Nemo-12B), the MoE serve path (``Engine`` over
-granite-moe-3b-a800m) and training (AdamW steps of granite-moe-3b-a800m and
-of Mistral-Nemo-12B cut to 8 layers).  Phases, one JSON line each:
+granite-moe-3b-a800m), training (AdamW steps of granite-moe-3b-a800m and
+of Mistral-Nemo-12B cut to 8 layers) and the sharded fabric at one rank
+(``sort_sharded``, the pool's ``shard_map`` backend, ``moe_layer_a2a``).
+Phases, one JSON line each:
 
 1. ``device``   -- the card (``nvidia-smi`` name and power limit), torch and
    CUDA versions, and the seconds the seven hand-written kernels took to build
@@ -116,7 +118,26 @@ of Mistral-Nemo-12B cut to 8 layers).  Phases, one JSON line each:
    plain twin's, the backward of SDPA timed on its own, the bound, its
    design and the kernel nodes of one call captured in a CUDA graph (held
    to the wrapper's ``KERNELS_PER_CALL``);
-10. ``ptxas`` -- every kernel entry's registers, static shared memory and
+10. ``sharded`` (after ``train_resume``, before the ``kernels`` line) -- the
+   sharded fabric (M19) on a one-rank NCCL process group (a ``file://``
+   rendezvous in a temporary directory, destroyed after the phase; no CPU
+   stand-in): ``sort_sharded`` on the pipeline phase's 100M int64 keys with
+   the presort block 256 and capacity factor 2.0, equal to ``torch.sort``,
+   nothing dropped, every key valid, K1 launched once (the presort), the
+   median of three timed calls, keys/s and peak memory; ``run_pipeline``
+   with ``pool_backend="shard_map"`` on the ``end_to_end`` configuration at
+   200k keys and at the full size, byte-identical in output and passes to
+   ``pool_backend="numpy"`` (``pool_mesh(4)`` is None at one rank: the pool
+   concatenates), K1 once per hop and K2 counted; ``moe_layer_a2a`` at tp = 1
+   on granite-moe-3b-a800m's MoE layer at full width (bf16, 1 x 2,048
+   tokens) against ``moe_layer`` on the same weights: dropped equal, aux
+   within 1e-5, the output and every gradient of ``sum(y^2) + aux`` within
+   ``MOE_A2A_LIMIT``, K3 twice a call; ``gpipe`` at one stage against
+   ``sequential_reference`` and ``fsdp_gather`` at one rank against the
+   identity, forward and backward.  The ``kernels`` line's K1, K2 and K3 rows
+   gain ``sharded``: their launches there, and K1 and K3 at the sharded
+   path's shapes against their plain versions, timed, with their bounds;
+11. ``ptxas`` -- every kernel entry's registers, static shared memory and
    spills, as the compiler reported them when it built the kernels; a
    spill in any entry fails the run.
 
@@ -177,6 +198,23 @@ TRAIN_DENSE = dict(arch=SERVE_ARCH, layers=8, batch=2, seq=2048, steps=4, lr=3e-
 TRAIN_RESUME = dict(arch=MOE_ARCH)
 #: K5b's training shapes: (B, T, S, H, KV, d, causal).
 TRAIN_K5B = {"granite": (4, 2048, 2048, 24, 8, 64, True), "mistral": (2, 2048, 2048, 32, 8, 128, True)}
+
+#: The sharded phase (M19) on one card, a one-rank NCCL process group: the
+#: range sort at the pipeline phase's input with the reference example's
+#: presort block (``examples/distributed_sort.py``) and capacity factor; the
+#: pool's ``shard_map`` backend on the E2E configuration at ``small_n`` and at
+#: ``--n``; the all_to_all MoE layer at granite-moe-3b-a800m's full width on
+#: one 2,048-token sequence; ``gpipe`` and ``fsdp_gather`` at one rank.
+SHARDED = dict(presort_block=256, capacity_factor=2.0, small_n=200_000)
+SHARDED_MOE = dict(arch=MOE_ARCH, batch=1, seq=2048)
+SHARDED_PP = dict(M=6, mb=8, d=1024)
+#: The all_to_all MoE layer against ``moe_layer`` on the same bf16 weights:
+#: the same dispatch and the same expert products, but a token's k = 8
+#: returned rows (forward) and its k gradient rows (backward, in bf16) are
+#: added in another order.  Each output and gradient leaf within k bf16
+#: roundings (8 x 2^-8) of its largest magnitude; the CPU gives 0 for every
+#: leaf but x's gradient (7.5e-3) at this shape.
+MOE_A2A_LIMIT = 8 * 2**-8
 
 #: Inputs of the attention kernels' checks: q and k at 1.5 x a unit normal,
 #: so the scores have a standard deviation of 2.25 at any head dim and the
@@ -2585,6 +2623,249 @@ def sort_rows_of(torch, bt, gen, launches, k1_in, k2_in) -> list[dict]:
     return rows
 
 
+def eager_timings(kern, plain, lib, reps: int = 3) -> dict:
+    """One eager call each of the kernel, its plain version and the library
+    call, at a shape too large for ``timings``' graph of 24 calls."""
+    return {"ms": cuda_ms(kern, reps), "plain_ms": cuda_ms(plain, reps), "library_ms": cuda_ms(lib, reps)}
+
+
+def sharded_sort(torch, args, bt, build, cd, mesh, random_trace) -> tuple[dict, dict]:
+    """``sort_sharded`` at one rank on the pipeline phase's input: equal to
+    ``torch.sort``, nothing dropped, every key valid, K1 once (the presort);
+    then the median of three timed calls.  Returns the line's entry and K1's
+    kernels-line entry at the presort's shape."""
+    n = args.n
+    x = torch.from_numpy(random_trace(n, seed=args.seed)).cuda()
+    splitters = cd.make_splitters(x[:: max(1, n // 4096)].cpu().numpy(), 1)
+    kw = dict(capacity_factor=SHARDED["capacity_factor"], presort_block=SHARDED["presort_block"])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with LargestShape(bt, "sort_rows") as k1_in:
+        build.reset_launches()
+        t0 = time.perf_counter()
+        padded, valid, overflow = cd.sort_sharded(x, mesh, "segment", splitters, **kw)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        launches = dict(build.LAUNCHES)
+    if launches["row_sort"] != 1:
+        fail(f"sort_sharded launched K1 {launches['row_sort']} times, want once (the presort)")
+    if any(v for k, v in launches.items() if k != "row_sort"):
+        fail(f"sort_sharded launched another kernel: {launches}")
+    if int(overflow) or int(valid) != n:
+        fail(f"sort_sharded: overflow {int(overflow)}, valid {int(valid)} of {n}")
+    if not torch.equal(padded[:n], torch.sort(x).values):
+        fail("sort_sharded differs from torch.sort")
+    if not bool((padded[n:] == torch.iinfo(torch.int64).max).all()):
+        fail("sort_sharded's padding is not the int64 max")
+    capacity = padded.numel()
+    del padded
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        res = cd.sort_sharded(x, mesh, "segment", splitters, **kw)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        del res
+    peak = torch.cuda.max_memory_allocated()
+    median = sorted(times)[1]
+    entry = {"n": n, "dtype": "int64", **kw, "capacity": capacity, "first_s": first_s,
+             "seconds": times, "median_s": median, "keys_per_s": n / median,
+             "peak_device_bytes": peak, "launches": {"row_sort": launches["row_sort"]}}
+    del x
+    torch.cuda.empty_cache()
+    # K1 at the presort's shape, fresh rows against its plain version
+    k1 = main_path_input(torch, torch.Generator(device="cuda").manual_seed(args.seed), k1_in.shape,
+                         k1_in.dtype, sorted_rows=False)
+    err = exact(bt.sort_rows(k1), bt.sort_rows_plain(k1))
+    if err:
+        fail("K1 differs from its plain version at the presort's shape")
+    b_bytes, ce = k1_work(k1.shape[0], k1.shape[1], k1.element_size())
+    b_ms, b_by = bound(b_bytes, ce, k1.element_size())
+    k1_row = {"site": "core/distributed.py blockwise_sort (sort_sharded's presort)",
+              "shape": list(k1.shape), "dtype": str(k1.dtype).replace("torch.", ""),
+              "launches": launches["row_sort"], "max_abs_err": err,
+              **eager_timings(lambda: bt.sort_rows(k1), lambda: bt.sort_rows_plain(k1),
+                              lambda: torch.sort(k1, dim=1).values),
+              "bound_ms": b_ms, "bound_by": b_by}
+    del k1
+    torch.cuda.empty_cache()
+    return entry, k1_row
+
+
+def sharded_pool(torch, args, build, sharding, run_pipeline, random_trace, trace_max_value) -> dict:
+    """``run_pipeline(pool_backend="shard_map")`` on the E2E configuration
+    at ``small_n`` and at ``--n`` against ``pool_backend="numpy"``: output and
+    passes byte-identical, K1 once per hop and K2 in the shard_map run."""
+    out = {"pool_mesh_4": sharding.pool_mesh(E2E["num_servers"]),
+           "merge": "concatenation: pool_mesh(4) is None at one rank (fewer ranks than servers)"}
+    if out["pool_mesh_4"] is not None:
+        fail("pool_mesh(4) is not None at one rank")
+    for n in sorted({min(SHARDED["small_n"], args.n), args.n}):
+        values = torch.from_numpy(random_trace(n, seed=args.seed)).cuda()
+        runs = {}
+        for backend in ("numpy", "shard_map"):
+            build.reset_launches()
+            t0 = time.perf_counter()
+            res = run_pipeline(values, max_value=trace_max_value("random"), seed=args.seed,
+                               device="cuda", pool_backend=backend, **E2E)
+            torch.cuda.synchronize()
+            runs[backend] = (res, time.perf_counter() - t0, dict(build.LAUNCHES))
+        (a, a_s, _), (b, b_s, launches) = runs["numpy"], runs["shard_map"]
+        if not torch.equal(a.output, b.output) or a.passes != b.passes:
+            fail(f"the shard_map pool differs from the numpy pool at n={n}")
+        if launches["row_sort"] != E2E_HOPS or launches["tournament"] < 1:
+            fail(f"the shard_map pipeline's launches at n={n}: {launches}")
+        out[str(n)] = {"numpy_s": a_s, "shard_map_s": b_s, "pool_merge_s": b.pool_merge_seconds,
+                       "launches": {k: launches[k] for k in ("row_sort", "tournament")}}
+        del a, b, runs, values
+        torch.cuda.empty_cache()
+    return out
+
+
+def sharded_moe(torch, bt, build, moe, sharding, configs, gen) -> tuple[dict, dict]:
+    """``moe_layer_a2a`` at tp = 1 on granite-moe-3b-a800m's MoE layer at full
+    width (bf16, 1 x 2,048 tokens) against ``moe_layer`` on the same weights:
+    the output, aux, dropped and every gradient of ``sum(y^2) + aux``; K3
+    twice a call (the two grouping sorts).  Returns the line's entry and
+    K3's kernels-line entry at the a2a's largest sort."""
+    import dataclasses
+
+    cfg = configs.get_config(SHARDED_MOE["arch"])
+    p = moe.init_moe(moe.MoE(cfg, torch.bfloat16, "cuda"), gen)
+    p.requires_grad_(True)
+    ctx = dataclasses.replace(sharding.local_ctx("cuda"), sp=True)
+    x = torch.randn((SHARDED_MOE["batch"], SHARDED_MOE["seq"], cfg.d_model), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+
+    def step(fn):
+        p.zero_grad(set_to_none=True)
+        xi = x.clone().requires_grad_(True)
+        y, aux, dropped = fn(xi)
+        (y.float().square().sum() + aux).backward()
+        torch.cuda.synchronize()
+        return y.detach(), aux.detach(), int(dropped), {"x": xi.grad, **{k: v.grad for k, v in p.named_parameters()}}
+
+    a2a = lambda xi: moe.moe_layer_a2a(p, cfg, ctx, xi)  # noqa: E731
+    with LargestShape(bt, "sort_rows_kv") as k3_in:
+        build.reset_launches()
+        ya, auxa, da, ga = step(a2a)
+        launches = dict(build.LAUNCHES)
+    if launches["row_sort_kv"] != 2:
+        fail(f"moe_layer_a2a launched K3 {launches['row_sort_kv']} times, want 2 (its two sorts)")
+    yb, auxb, db, gb = step(lambda xi: moe.moe_layer(p, cfg, xi))
+    if da != db:
+        fail(f"moe_layer_a2a dropped {da}, moe_layer {db}")
+    if abs(float(auxa) - float(auxb)) > 1e-5 * abs(float(auxb)):
+        fail(f"moe_layer_a2a's aux {float(auxa)} against moe_layer's {float(auxb)}")
+
+    def rel(u, v) -> float:
+        return float((u.float() - v.float()).abs().max() / v.float().abs().max())
+
+    errs = {"y": rel(ya, yb), **{f"grad_{k}": rel(ga[k], gb[k]) for k in gb}}
+    bad = {k: e for k, e in errs.items() if not e <= MOE_A2A_LIMIT}
+    if bad:
+        fail(f"moe_layer_a2a against moe_layer beyond {MOE_A2A_LIMIT}: {bad}")
+    times = {}
+    for name, fn in (("a2a", a2a), ("moe_layer", lambda xi: moe.moe_layer(p, cfg, xi))):
+        ts = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            step(fn)
+            ts.append(time.perf_counter() - t0)
+        times[f"{name}_fwd_bwd_ms"] = sorted(ts)[1] * 1e3
+    entry = {"arch": cfg.name, "shape": [SHARDED_MOE["batch"], SHARDED_MOE["seq"], cfg.d_model],
+             "dtype": "bfloat16", "tp": 1, "dropped": da, "aux": float(auxa), "limit": MOE_A2A_LIMIT,
+             "rel_err": errs, **times, "launches": {"row_sort_kv": launches["row_sort_kv"]}}
+    del ya, yb, ga, gb, p, x
+    torch.cuda.empty_cache()
+    g = torch.Generator(device="cuda").manual_seed(1)
+    real = k3_in.shape[1]
+    keys, vals = dispatch_keys(torch, g, 1, real, real, k3_in.dtype, experts=moe.padded_experts(cfg.moe.num_experts) + 1)
+    err = check_k3(bt, torch, keys, vals)
+    b_bytes, ce = k3_work(1, real, keys.element_size())
+    b_ms, b_by = bound(b_bytes, ce, keys.element_size(), OPS_PER_KV_COMPARE_EXCHANGE)
+    k3_row = {"site": "models/moe.py moe_layer_a2a (its two stable_argsort calls)",
+              "shape": list(keys.shape), "dtype": str(keys.dtype).replace("torch.", ""),
+              "launches": launches["row_sort_kv"], "max_abs_err": err,
+              "launches_per_call": k3_launches(bt, keys, vals),
+              **timings(lambda: bt.sort_rows_kv(keys, vals), lambda: bt.sort_rows_kv_plain(keys, vals),
+                        lambda: torch.sort(keys, dim=1, stable=True)),
+              "bound_ms": b_ms, "bound_by": b_by}
+    return entry, k3_row
+
+
+def sharded_pp_fsdp(torch, pp, sharding, make_mesh, gen) -> dict:
+    """``gpipe`` at one stage against ``sequential_reference`` (outputs and
+    gradients), ``fsdp_gather`` at one rank against the identity (the
+    gather and its reduce-scatter backward)."""
+    M, mb, d = SHARDED_PP["M"], SHARDED_PP["mb"], SHARDED_PP["d"]
+    mesh = make_mesh((1,), ("pipe",))
+    w = torch.randn((1, d, d), generator=gen, device="cuda") * d**-0.5
+    b = torch.randn((1, d), generator=gen, device="cuda") * 0.1
+    xs = torch.randn((M, mb, d), generator=gen, device="cuda")
+
+    def stage(p, x):
+        return torch.tanh(x @ p["w"] + p["b"])
+
+    res = []
+    for fn in (lambda p: pp.gpipe(stage, p, xs, mesh, "pipe"), lambda p: pp.sequential_reference(stage, p, xs)):
+        p = {"w": w.clone().requires_grad_(True), "b": b.clone().requires_grad_(True)}
+        out = fn(p)
+        out.square().sum().backward()
+        res.append((out.detach(), p["w"].grad, p["b"].grad))
+    errs = [float((u - v).abs().max()) for u, v in zip(*res)]
+    if max(errs) > 1e-5:
+        fail(f"gpipe at one stage against sequential_reference: {errs}")
+    ctx = sharding.ShardCtx(mesh=make_mesh((1,), ("data",)), tp=None, fsdp="data")
+    leaf = torch.randn((d, d // 2), generator=gen, device="cuda").requires_grad_(True)
+    coef = torch.randn((d, d // 2), generator=gen, device="cuda")
+    g = sharding.fsdp_gather(ctx, {"w": leaf}, {"w": 0})["w"]
+    (g * coef).sum().backward()
+    if not (torch.equal(g, leaf) and torch.equal(leaf.grad, coef)):
+        fail("fsdp_gather at one rank is not the identity")
+    return {"gpipe": {"S": 1, "M": M, "mb": mb, "d": d, "max_abs_err": {"out": errs[0], "grad_w": errs[1],
+                                                                         "grad_b": errs[2]}},
+            "fsdp_gather": {"shape": [d, d // 2], "identity": True}}
+
+
+def phase_sharded(torch, args, bt, gen, run_pipeline, random_trace, trace_max_value) -> dict:
+    """The sharded fabric (M19) at one rank: a one-rank NCCL process group
+    through a ``file://`` rendezvous, destroyed at the end (a failure to
+    start it fails the run: no gloo or CPU stand-in).  Emits the ``sharded``
+    line; returns K1's and K3's entries for the kernels line and the pool
+    run's K2 launches."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch import configs
+    from repro_torch.core import distributed as cd
+    from repro_torch.distributed import pp, sharding
+    from repro_torch.distributed.compat import make_mesh
+    from repro_torch.kernels import build
+    from repro_torch.models import moe
+
+    t0 = time.perf_counter()
+    torch.cuda.set_device(0)
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/rendezvous", rank=0, world_size=1)
+        try:
+            line = {"phase": "sharded", "backend": dist.get_backend(), "world_size": dist.get_world_size()}
+            line["sort"], k1 = sharded_sort(torch, args, bt, build, cd, make_mesh((1,), ("segment",)),
+                                            random_trace)
+            line["pool"] = sharded_pool(torch, args, build, sharding, run_pipeline, random_trace,
+                                        trace_max_value)
+            line["moe_a2a"], k3 = sharded_moe(torch, bt, build, moe, sharding, configs, gen)
+            line.update(sharded_pp_fsdp(torch, pp, sharding, make_mesh, gen))
+        finally:
+            dist.destroy_process_group()
+    line["phase_s"] = time.perf_counter() - t0
+    emit(line)
+    pool_k2 = line["pool"][str(args.n)]["launches"]
+    return {"k1": {**k1, "pipeline_shard_map_launches": pool_k2["row_sort"]}, "k3": k3,
+            "k2_pipeline_shard_map_launches": pool_k2["tournament"]}
+
+
 def ptxas_line(build) -> dict:
     """Registers, static shared memory, stack and spills of every kernel entry
     built in this process, from the compiler's ``-Xptxas -v`` output
@@ -2759,6 +3040,11 @@ def main() -> int:
     train = phase_train(torch, np, args, TRAIN, "train", plain_check=True)
     dense = phase_train(torch, np, args, TRAIN_DENSE, "train_dense", plain_check=False)
     phase_train_resume(torch, args)
+    sharded = phase_sharded(torch, args, bt, gen, run_pipeline, random_trace, trace_max_value)
+    rows[0]["sharded"] = sharded["k1"]
+    rows[1]["sharded"] = {"site": "core/mergesort.py merge_runs_flat (pipeline, pool_backend=shard_map)",
+                          "launches": sharded["k2_pipeline_shard_map_launches"]}
+    next(r for r in rows if r["name"] == "row_sort_kv")["sharded"] = sharded["k3"]
     k5_row = next(r for r in rows if r["name"] == "flash_attention")
     k5_row["train_launches_per_step"] = {"granite": train["k5_per_step"], "mistral_8_layers": dense["k5_per_step"]}
     k5b = k5b_row(fa, fb, torch, gen, train["k5b_shape"], train["k5b_launches"], train["k5b_per_step"])

@@ -1,0 +1,235 @@
+#!/usr/bin/env python3
+"""The sharded fabric across the cards of one host, one process per card.
+
+    python3 scripts/sharded_cards.py [--ranks 4] [--n KEYS] [--seq TOKENS] [--seed S] [--device cuda|cpu]
+
+Starts ``--ranks`` processes (``torch.multiprocessing.spawn``, a ``file://``
+rendezvous in a temporary directory): NCCL, one card each, or gloo with
+``--device cpu`` (a rehearsal on the host).  Rank 0 prints one JSON line a
+phase, then the cards' names and power limit, then ``{"ok": true, ...}``;
+a failed check exits non-zero before that.
+
+1. ``sort`` -- ``sort_sharded`` on ``random_trace(n, seed)`` as int64 (rank
+   ``r`` holds keys ``[r n / R, (r + 1) n / R)``), presort block 256,
+   capacity factor 2.0: every rank's valid chunk equals its slice of
+   ``torch.sort`` of the whole input, nothing dropped, K1 once a rank; the
+   median of three calls (a barrier and a synchronise around each), keys/s
+   over all ranks, each rank's peak memory;
+2. ``pool`` -- ``run_pipeline`` on ``chip_smoke.py``'s ``end_to_end``
+   configuration with one server a rank and ``pool_backend="shard_map"``
+   at ``n`` keys on every rank: output and passes equal to the numpy pool's,
+   the gather called once, its seconds;
+3. ``moe_a2a`` -- granite-moe-3b-a800m's MoE layer at full width, bf16, tp
+   = R with sequence parallelism: 1 x (R * seq) tokens, rank ``r`` its T
+   chunk, expert slabs ``r``; against ``moe_layer`` on the whole input on
+   every rank: dropped equal, aux within 1e-5, the output chunk and every
+   gradient of ``sum(y^2) + aux`` within ``chip_smoke.MOE_A2A_LIMIT``; forward
+   and backward ms (median of three) beside ``moe_layer``'s on ``seq``
+   tokens on one card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+import tempfile
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def _check(ok: bool, msg: str) -> None:
+    if not ok:
+        raise RuntimeError(f"sharded_cards: FAILED: {msg}")
+
+
+def _median_s(torch, dist, fn, reps: int = 3) -> tuple[float, list]:
+    times = []
+    for _ in range(reps):
+        dist.barrier()
+        t0 = time.perf_counter()
+        fn()
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        dist.barrier()
+        times.append(time.perf_counter() - t0)
+    return sorted(times)[len(times) // 2], times
+
+
+def phase_sort(torch, dist, args, dev, rank: int, world: int) -> dict:
+    from repro_torch.core import distributed as cd
+    from repro_torch.data.traces import random_trace
+    from repro_torch.distributed.compat import make_mesh
+    from repro_torch.kernels import build
+
+    mesh = make_mesh((world,), ("segment",), dev.type)
+    full = random_trace(args.n, seed=args.seed)
+    n_loc = args.n // world
+    x = torch.from_numpy(full[rank * n_loc : (rank + 1) * n_loc]).to(dev)
+    splitters = cd.make_splitters(full[:: max(1, args.n // 4096)], world)
+    kw = dict(capacity_factor=2.0, presort_block=256)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    build.reset_launches()
+    padded, valid, overflow = cd.sort_sharded(x, mesh, "segment", splitters, **kw)
+    k1 = build.LAUNCHES["row_sort"]
+    counts = torch.zeros(world, dtype=torch.int64, device=dev)
+    counts[rank] = valid[0]
+    dist.all_reduce(counts)
+    drops = overflow.clone()
+    dist.all_reduce(drops)
+    start = int(counts[:rank].sum())
+    want = torch.sort(torch.from_numpy(full[: n_loc * world]).to(dev)).values[start : start + int(valid)]
+    _check(int(drops) == 0 and int(counts.sum()) == n_loc * world, f"dropped {int(drops)}, valid {counts.tolist()}")
+    _check(torch.equal(padded[: int(valid)], want), f"rank {rank}'s range differs from torch.sort")
+    _check(k1 == (1 if dev.type == "cuda" else 0), f"K1 launched {k1} times")
+    del padded, want
+    med, times = _median_s(torch, dist, lambda: cd.sort_sharded(x, mesh, "segment", splitters, **kw))
+    peak = torch.tensor([torch.cuda.max_memory_allocated() if dev.type == "cuda" else 0], device=dev)
+    peaks = [torch.zeros_like(peak) for _ in range(world)]
+    dist.all_gather(peaks, peak)
+    return {"phase": "sort", "n": n_loc * world, "ranks": world, "dtype": "int64", **kw,
+            "capacity_per_rank": n_loc * 2, "valid_per_rank": counts.tolist(), "seconds": times,
+            "median_s": med, "keys_per_s": n_loc * world / med,
+            "peak_device_bytes_per_rank": [int(p) for p in peaks], "k1_launches_per_rank": k1}
+
+
+def phase_pool(torch, dist, args, dev, world: int) -> dict:
+    import chip_smoke
+    from repro_torch.core import distributed as cd
+    from repro_torch.data.traces import random_trace, trace_max_value
+    from repro_torch.net.pipeline import run_pipeline
+
+    cfg = dict(chip_smoke.E2E, num_servers=world)
+    values = torch.from_numpy(random_trace(args.n, seed=args.seed)).to(dev)
+    calls = []
+    inner = cd.pool_concat_sharded
+    cd.pool_concat_sharded = lambda *a, **k: calls.append(1) or inner(*a, **k)
+    try:
+        runs = {}
+        for backend in ("numpy", "shard_map"):
+            dist.barrier()
+            t0 = time.perf_counter()
+            res = run_pipeline(values, max_value=trace_max_value("random"), seed=args.seed,
+                               device=dev, pool_backend=backend, **cfg)
+            runs[backend] = (res, time.perf_counter() - t0)
+    finally:
+        cd.pool_concat_sharded = inner
+    (a, a_s), (b, b_s) = runs["numpy"], runs["shard_map"]
+    _check(torch.equal(a.output, b.output) and a.passes == b.passes, "the shard_map pool differs from numpy's")
+    _check(len(calls) == 1, f"the gather ran {len(calls)} times")
+    return {"phase": "pool", "n": args.n, "num_servers": world, "numpy_s": a_s, "shard_map_s": b_s,
+            "pool_merge_s": {"numpy": a.pool_merge_seconds, "shard_map": b.pool_merge_seconds}}
+
+
+def phase_moe(torch, dist, args, dev, rank: int, world: int) -> dict:
+    import chip_smoke
+    from repro_torch import configs
+    from repro_torch.distributed import sharding
+    from repro_torch.distributed.compat import make_mesh
+    from repro_torch.models import moe
+    from repro_torch.models.convert import params_from_reference
+
+    cfg = configs.get_config(chip_smoke.SHARDED_MOE["arch"])
+    dt = torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    full = moe.init_moe(moe.MoE(cfg, dt, dev), gen).requires_grad_(True)
+    part = moe.MoE(cfg, dt, dev, tp_size=world)
+    part.load_state_dict(params_from_reference(full.state_dict(), tp_rank=rank, tp_size=world))
+    part.requires_grad_(True)
+    ctx = sharding.ShardCtx(mesh=make_mesh((1, world), ("data", "model"), dev.type), tp="model",
+                            fsdp=None, dp=("data",), sp=True)
+    x = torch.randn((1, world * args.seq, cfg.d_model), generator=gen, device=dev).to(dt)
+    t = slice(rank * args.seq, (rank + 1) * args.seq)
+
+    def step(p, fn, xi):
+        p.zero_grad(set_to_none=True)
+        xi = xi.clone().requires_grad_(True)
+        y, aux, dropped = fn(xi)
+        (y.float().square().sum() + aux).backward()
+        return y.detach(), float(aux.detach()), int(dropped), xi.grad, {k: v.grad for k, v in p.named_parameters()}
+
+    a2a = lambda xi: moe.moe_layer_a2a(part, cfg, ctx, xi)  # noqa: E731
+    ya, auxa, da, gxa, ga = step(part, a2a, x[:, t])
+    yb, auxb, db, gxb, gb = step(full, lambda xi: moe.moe_layer(full, cfg, xi), x)
+    dist.all_reduce(ga["router"])
+
+    def rel(u, v) -> float:
+        return float((u.float() - v.float()).abs().max() / v.float().abs().max())
+
+    e = full.w_in.shape[0] // world
+    errs = {"y": rel(ya, yb[:, t]), "grad_x": rel(gxa, gxb[:, t]), "grad_router": rel(ga["router"], gb["router"]),
+            **{f"grad_{k}": rel(ga[k], gb[k][rank * e : (rank + 1) * e]) for k in ("w_in", "w_gate", "w_out")}}
+    _check(da == db, f"dropped {da} against moe_layer's {db}")
+    _check(abs(auxa - auxb) <= 1e-5 * abs(auxb), f"aux {auxa} against {auxb}")
+    _check(all(v <= chip_smoke.MOE_A2A_LIMIT for v in errs.values()), f"beyond the limit: {errs}")
+    a2a_s, _ = _median_s(torch, dist, lambda: step(part, a2a, x[:, t]))
+    one = x[:, : args.seq]
+    local_s, _ = _median_s(torch, dist, lambda: step(full, lambda xi: moe.moe_layer(full, cfg, xi), one))
+    errs_all = [None] * world
+    dist.all_gather_object(errs_all, errs)
+    return {"phase": "moe_a2a", "arch": cfg.name, "tp": world, "tokens": world * args.seq,
+            "tokens_per_rank": args.seq, "dtype": "bfloat16", "dropped": da, "aux": auxa,
+            "limit": chip_smoke.MOE_A2A_LIMIT, "rel_err_per_rank": errs_all,
+            "a2a_fwd_bwd_ms": a2a_s * 1e3, "moe_layer_one_card_fwd_bwd_ms": local_s * 1e3}
+
+
+def run_rank(rank: int, world: int, rdv: str, args) -> None:
+    sys.path[:0] = [str(ROOT / "src"), str(ROOT)]
+    import torch
+    import torch.distributed as dist
+
+    dev = torch.device(args.device, rank) if args.device == "cuda" else torch.device("cpu")
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+        torch.backends.cuda.matmul.allow_tf32 = False
+    else:
+        torch.set_num_threads(1)
+    dist.init_process_group("nccl" if dev.type == "cuda" else "gloo", init_method=f"file://{rdv}",
+                            rank=rank, world_size=world)
+    try:
+        lines = [phase_sort(torch, dist, args, dev, rank, world), phase_pool(torch, dist, args, dev, world),
+                 phase_moe(torch, dist, args, dev, rank, world)]
+        if rank == 0:
+            for line in lines:
+                print(json.dumps(line), flush=True)
+    finally:
+        dist.destroy_process_group()
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--ranks", type=int, default=4)
+    ap.add_argument("--n", type=int, default=100_000_000, help="keys in the sort and the pool run")
+    ap.add_argument("--seq", type=int, default=2048, help="MoE tokens a rank")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
+    args = ap.parse_args()
+    import torch
+    import torch.multiprocessing as mp
+
+    if args.device == "cuda" and torch.cuda.device_count() < args.ranks:
+        print(f"sharded_cards: {args.ranks} ranks need {args.ranks} cards, found "
+              f"{torch.cuda.device_count()}", file=sys.stderr)
+        return 2
+    sys.path[:0] = [str(ROOT / "src"), str(ROOT)]
+    if args.device == "cuda":
+        import chip_smoke
+        from repro_torch.kernels import build
+
+        smi = chip_smoke.smi_line()
+        build.build_kernels(["row_sort", "tournament", "row_sort_kv"])  # once, before the ranks load them
+    with tempfile.TemporaryDirectory() as tmp:
+        mp.spawn(run_rank, args=(args.ranks, f"{tmp}/rendezvous", args), nprocs=args.ranks, join=True)
+    if args.device == "cuda":
+        print(smi, flush=True)
+    print(json.dumps({"ok": True, "device": {"platform": args.device if args.device == "cpu" else "gpu",
+                                             "kind": torch.cuda.get_device_name(0) if args.device == "cuda" else "cpu",
+                                             "count": args.ranks}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

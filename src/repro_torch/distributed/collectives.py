@@ -1,13 +1,15 @@
 """int8 error-feedback gradient compression and the straggler-aware step
-monitor, on one device.
+monitor.
 
 Counterpart of :mod:`repro.distributed.collectives`: each gradient leaf is
 quantized to int8 with a per-leaf scale and the quantization error is
 carried into the next step (error feedback, which keeps SGD/Adam
 convergence).  ``torch.round`` and ``jnp.round`` both round half to even, so
-``q`` and the scale equal the reference's.  Here the compressor is a
-gradient hook on one device: the cross-replica reduce of the int8 values
-(the reference's dp all-reduce) is the sharded slice of the port (M19).
+``q`` and the scale equal the reference's.  The compressor is a gradient
+hook that the caller runs before the optimizer; like the reference's, it
+does no cross-replica reduce itself, so its values are the same with or
+without a sharding context.  The dp mean of the compressed gradients comes
+with the sharded train step.
 """
 
 from __future__ import annotations
@@ -37,11 +39,13 @@ def compress_decompress(x: torch.Tensor, residual: torch.Tensor):
     return deq, xe - deq
 
 
-def make_int8_compressor():
+def make_int8_compressor(ctx=None):
     """Returns (compressor_fn, init_residual_fn) over dicts of gradient
     tensors.  ``compressor_fn(grads, residuals) -> (grads, residuals)``
     quantizes and dequantizes each leaf in float32 with error feedback and
-    casts back to the leaf's type; the caller runs it before the optimizer."""
+    casts back to the leaf's type; the caller runs it before the optimizer.
+    ``ctx`` is the reference's :class:`ShardCtx` argument; the values do not
+    depend on it."""
 
     def init_residual(grads: dict) -> dict:
         return {k: torch.zeros(g.shape, dtype=torch.float32, device=g.device) for k, g in grads.items()}

@@ -1,0 +1,220 @@
+"""Sharding vocabulary on ``torch.distributed``: axis roles, the per-layer
+FSDP gather, the egress pool's mesh, and the collectives the sharded paths
+differentiate through.
+
+Counterpart of :mod:`repro.distributed.sharding`.  Axis roles are the
+reference's: ``tp`` (tensor parallel, "model": heads, FFN hidden, experts),
+``fsdp`` (the ZeRO-3 parameter shard, "data") and ``dp`` (the batch axes).
+The port is SPMD, one rank per device (:mod:`.compat`): a
+:class:`ShardCtx` names the axes of a
+:class:`~torch.distributed.device_mesh.DeviceMesh`, and a collective over an
+axis is a ``torch.distributed`` call on that axis's process group
+(:meth:`ShardCtx.group`).  The ``spec_*`` and ``constraint`` helpers, which
+place activations for XLA's partitioner, come with the LM's sharded layers.
+
+Gradients.  Every rank calls ``backward`` on its own loss.  A sharded output
+enters each rank's loss with that rank's part, a replicated one (a
+:func:`psum`, gpipe's outputs, the MoE's aux) with the whole value, which the
+backward then counts once; a parameter replicated over ranks gets the sum of
+the ranks' gradients.  That is what the reference's ``jax.grad`` of the whole
+program gives, and each collective's backward below is the transpose that
+makes it so.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import DeviceMesh
+
+from .compat import make_mesh
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardCtx:
+    mesh: DeviceMesh | None = None
+    tp: str | None = "model"
+    fsdp: str | None = "data"
+    dp: tuple[str, ...] = ("data",)
+    sp: bool = False  # sequence parallelism: residuals T-sharded over tp
+
+    def axis_size(self, name: str | None) -> int:
+        if self.mesh is None or name is None or name not in (self.mesh.mesh_dim_names or ()):
+            return 1
+        return self.mesh.size(self.mesh.mesh_dim_names.index(name))
+
+    @property
+    def tp_size(self) -> int:
+        return self.axis_size(self.tp)
+
+    @property
+    def dp_axis(self):
+        """The batch-dim entry: None (replicated), one axis name, or a tuple
+        of axis names."""
+        if not self.dp:
+            return None
+        return self.dp if len(self.dp) > 1 else self.dp[0]
+
+    def group(self, name: str) -> dist.ProcessGroup:
+        """The process group of the mesh axis ``name`` (this rank's row)."""
+        return self.mesh.get_group(name)
+
+    def axis_index(self, name: str | None) -> int:
+        """This rank's coordinate along ``name`` (``jax.lax.axis_index``);
+        0 off the mesh."""
+        if self.axis_size(name) == 1:
+            return 0
+        return self.mesh.get_local_rank(name)
+
+
+# ---------------------------------------------------------------------------
+# Collectives with their transposes
+# ---------------------------------------------------------------------------
+
+
+def _reduce(x: torch.Tensor, groups) -> torch.Tensor:
+    x = x.contiguous().clone()
+    for g in groups:
+        dist.all_reduce(x, group=g)
+    return x
+
+
+class _Psum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, groups):
+        return _reduce(x, groups)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _AllReduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, groups):
+        ctx.groups = groups
+        return _reduce(x, groups)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _reduce(g, ctx.groups), None
+
+
+def _groups(groups) -> tuple:
+    return tuple(groups) if isinstance(groups, (list, tuple)) else (groups,)
+
+
+def psum(x: torch.Tensor, groups) -> torch.Tensor:
+    """Sum ``x`` over the ranks of each process group in ``groups`` (one, or
+    a sequence: their product): every rank returns the whole, replicated
+    sum.  The backward passes each rank's cotangent through, since every
+    rank holds the whole cotangent of a replicated value (the reference's
+    ``psum``, whose transpose is a broadcast)."""
+    return _Psum.apply(x, _groups(groups))
+
+
+def all_reduce_sum(x: torch.Tensor, groups) -> torch.Tensor:
+    """The same sum, for a result that each rank goes on to use in its own
+    part of the loss (the reference's ``pmean`` of ``me`` feeding each
+    shard's aux): the backward sums the ranks' cotangents."""
+    return _AllReduce.apply(x, _groups(groups))
+
+
+def _all_gather_dim0(x: torch.Tensor, group) -> torch.Tensor:
+    world = dist.get_world_size(group)
+    out = torch.empty((world * x.shape[0], *x.shape[1:]), dtype=x.dtype, device=x.device)
+    gather = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
+    gather(out, x.contiguous(), group=group)
+    return out
+
+
+def _reduce_scatter_dim0(x: torch.Tensor, group) -> torch.Tensor:
+    world = dist.get_world_size(group)
+    out = torch.empty((x.shape[0] // world, *x.shape[1:]), dtype=x.dtype, device=x.device)
+    scatter = getattr(dist, "reduce_scatter_single", None) or dist.reduce_scatter_tensor
+    scatter(out, x.contiguous(), group=group)
+    return out
+
+
+class _GatherDim(torch.autograd.Function):
+    """Tiled all_gather along ``dim``; backward the reduce-scatter (sum)."""
+
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return _all_gather_dim0(x.movedim(dim, 0), group).movedim(0, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _reduce_scatter_dim0(g.movedim(ctx.dim, 0), ctx.group).movedim(0, ctx.dim), None, None
+
+
+def _map(fn, tree, dims):
+    if isinstance(tree, dict):
+        return {k: _map(fn, v, dims[k]) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map(fn, v, d) for v, d in zip(tree, dims))
+    return fn(tree, dims)
+
+
+def fsdp_gather(ctx: ShardCtx, tree, dims):
+    """Explicit per-layer ZeRO-3 all-gather (the reference's
+    ``fsdp_gather``, which ``shard_map`` keeps inside the layer scan so that
+    gathered weights stay bounded to one layer).
+
+    ``dims`` has ``tree``'s structure, each leaf's fsdp dimension or None
+    (the reference's PartitionSpec with ``ctx.fsdp`` at that position, or
+    without it).  Each sharded leaf is all-gathered, tiled, over the fsdp
+    axis; the backward is the reduce-scatter (sum), which is ZeRO's gradient
+    sharding.  Returns ``tree`` unchanged off a mesh or without an fsdp
+    axis."""
+    if ctx.mesh is None or ctx.fsdp is None:
+        return tree
+    group = ctx.group(ctx.fsdp)
+    return _map(lambda x, d: x if d is None else _GatherDim.apply(x, group, d), tree, dims)
+
+
+# ---------------------------------------------------------------------------
+# Meshes
+# ---------------------------------------------------------------------------
+
+
+def pool_mesh(num_servers: int, axis_name: str = "server", device_type: str = "cuda"):
+    """The egress pool's one-axis mesh for its distributed merge
+    (:func:`repro_torch.core.distributed.pool_concat_sharded`): rank ``s`` of
+    the axis plays compute server ``s``.
+
+    Returns None, and the caller concatenates, when the pool is trivial
+    (``num_servers < 2``), no process group is initialized, or the world
+    does not split into pools of ``num_servers`` ranks (fewer ranks than
+    servers, as on one card, or a world it does not divide).  A world of
+    ``R * num_servers`` ranks holds ``R`` pools, each gathering among its own
+    ranks.  A world of exactly ``num_servers`` ranks uses the default
+    process group; a larger one creates its pools' groups on each call,
+    which every rank makes (each runs the same pool).  The mesh is not kept
+    past the caller: a process group that outlives
+    ``destroy_process_group`` aborts the process at exit."""
+    if num_servers < 2 or not dist.is_initialized():
+        return None
+    world = dist.get_world_size()
+    if world < num_servers or world % num_servers:
+        return None
+    if world == num_servers:
+        return make_mesh((num_servers,), (axis_name,), device_type)
+    return make_mesh((world // num_servers, num_servers), ("pool_replica", axis_name), device_type)[axis_name]
+
+
+def local_ctx(device_type: str = "cuda") -> ShardCtx:
+    """A (1, 1) mesh for one-rank runs: the same code paths (the
+    collectives, the all_to_all) as a production mesh, trivially sized.
+    Needs an initialized one-rank process group."""
+    mesh = make_mesh((1, 1), ("data", "model"), device_type)
+    return ShardCtx(mesh=mesh, tp="model", fsdp=None, dp=("data",))
+
+
+def pod_ctx(mesh: DeviceMesh) -> ShardCtx:
+    """The production context of a mesh (a ``pod`` axis optional)."""
+    dp = ("pod", "data") if "pod" in (mesh.mesh_dim_names or ()) else ("data",)
+    return ShardCtx(mesh=mesh, tp="model", fsdp="data", dp=dp)

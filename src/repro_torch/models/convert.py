@@ -39,9 +39,21 @@ def _flatten(tree, prefix: str, out: dict) -> None:
         out[prefix[:-1]] = _tensor(tree)
 
 
-def params_from_reference(tree: dict) -> dict[str, torch.Tensor]:
+_EXPERT_SLABS = ("w_in", "w_gate", "w_out")
+
+
+def params_from_reference(tree: dict, *, tp_rank: int = 0, tp_size: int = 1,
+                          stage: int | None = None) -> dict[str, torch.Tensor]:
     """A state dict for :class:`repro_torch.models.lm.LM` (``load_state_dict``)
-    from the reference's parameter tree."""
+    from the reference's parameter tree.
+
+    One rank's shard of it, for the sharded paths: ``tp_size > 1`` keeps tp
+    rank ``tp_rank``'s expert slabs (the 3-D ``w_in``, ``w_gate`` and
+    ``w_out`` of an MoE, ``padded_experts / tp_size`` of them, the
+    reference's ``P(tp, ...)`` shard; an MLP's weights are 2-D and stay
+    whole); ``stage`` keeps pipeline stage ``stage``'s slice ``[stage :
+    stage + 1]`` of every leaf of a stacked stage tree (the ``P(axis)``
+    shard ``distributed.pp.gpipe`` takes)."""
     state: dict[str, torch.Tensor] = {}
     for key, sub in tree.items():
         if key == "layers":
@@ -55,7 +67,20 @@ def params_from_reference(tree: dict) -> dict[str, torch.Tensor]:
                     state[f"layers.{i}.{name}"] = v[i].clone()
         else:
             _flatten(sub, f"{key}.", state)
-    return state
+    if stage is None and tp_size == 1:
+        return state
+    return {name: _shard(name, v, tp_rank, tp_size, stage) for name, v in state.items()}
+
+
+def _shard(name: str, v: torch.Tensor, tp_rank: int, tp_size: int, stage: int | None) -> torch.Tensor:
+    if stage is not None:
+        v = v[stage : stage + 1]
+    if tp_size > 1 and name.rsplit(".", 1)[-1] in _EXPERT_SLABS and v.dim() == 3:
+        if v.shape[0] % tp_size:
+            raise ValueError(f"{name}: {v.shape[0]} expert slabs not divisible by tp={tp_size}")
+        e = v.shape[0] // tp_size
+        v = v[tp_rank * e : (tp_rank + 1) * e]
+    return v.clone()
 
 
 def opt_state_from_reference(state: dict) -> dict:

@@ -20,19 +20,28 @@ on every run and device (the reference adds them in the activation's type,
 in expert order, with a scatter-add).  Under autograd the integer dispatch
 carries no gradient; the weights reach ``topk_p`` through the ``slot_p``
 index write, the tokens through the gathers, whose backward adds rows with
-atomics (so a training step on the card is not bit-reproducible).  The expert-parallel all_to_all
-dispatch (``moe_layer_a2a``) and every tp > 1 path belong to the sharded
-slice of the port.
+atomics (so a training step on the card is not bit-reproducible).
+
+:func:`moe_layer_a2a` is the expert-parallel dispatch over tp ranks (the
+reference's, with sequence parallelism): each rank routes its own tokens,
+sends each assignment to the rank owning its expert over an all_to_all,
+groups what it receives into its experts' capacity slots, and returns the
+outputs by the reverse exchange.  Its two grouping sorts run on K3 through
+:func:`stable_argsort`, where the reference calls ``jnp.argsort``.  The psum
+dispatch at tp > 1 comes with the LM's sharded layers.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from ..configs.base import ModelConfig
+from ..distributed.sharding import ShardCtx, all_reduce_sum, psum
 from ..kernels import ops
 from .layers import activation, dense_init
 from .mlp import MLP, init_mlp, mlp
@@ -48,13 +57,19 @@ def padded_experts(num_experts: int, multiple: int = 16) -> int:
 class MoE(nn.Module):
     """Router (f32, ``(D, num_experts)``) and expert slabs ``(E, ...)`` at
     the padded expert count, in the reference's layout; ``shared`` is the
-    always-on MLP of width ``num_shared * d_expert``."""
+    always-on MLP of width ``num_shared * d_expert``.  With ``tp_size > 1``
+    the module holds one tp rank's ``E / tp_size`` slabs
+    (:func:`moe_layer_a2a`; ``convert.params_from_reference(tree,
+    tp_rank=r, tp_size=tp)``)."""
 
-    def __init__(self, cfg: ModelConfig, dtype, device):
+    def __init__(self, cfg: ModelConfig, dtype, device, tp_size: int = 1):
         super().__init__()
         require_full_f32(device)
         m = cfg.moe
         D, Fe, E = cfg.d_model, m.d_expert, padded_experts(m.num_experts)
+        if E % tp_size:
+            raise ValueError(f"{E} padded experts not divisible by tp={tp_size}")
+        E //= tp_size
 
         def param(*shape, dt=dtype):
             return nn.Parameter(torch.empty(shape, dtype=dt, device=device), requires_grad=False)
@@ -117,6 +132,12 @@ def stable_argsort(key: torch.Tensor, key_max: int) -> torch.Tensor:
     return order.long()
 
 
+def _rank_in_group(sorted_key: torch.Tensor) -> torch.Tensor:
+    """Each position's rank within its run of equal sorted keys."""
+    first = torch.searchsorted(sorted_key, sorted_key, side="left")
+    return torch.arange(sorted_key.numel(), device=sorted_key.device) - first
+
+
 @dataclasses.dataclass
 class Dispatch:
     """Where each assignment goes, indexed by its position in expert order."""
@@ -131,11 +152,9 @@ def dispatch(eid: torch.Tensor, num_slabs: int, capacity: int) -> Dispatch:
     expert buffers of ``capacity`` slots: sort by expert id (stable), rank
     within the expert's group, keep ranks below the capacity.  At tp = 1
     every expert is local, so the key is the expert id itself."""
-    nk = eid.numel()
     order = stable_argsort(eid, num_slabs)
     sk = eid[order]
-    first = torch.searchsorted(sk, sk, side="left")
-    rank = torch.arange(nk, device=eid.device) - first
+    rank = _rank_in_group(sk)
     live = rank < capacity
     slot = torch.where(live, sk * capacity + rank, num_slabs * capacity)
     return Dispatch(order=order, slot=slot, dropped=(~live).sum())
@@ -199,8 +218,173 @@ def moe_layer(p: MoE, cfg: ModelConfig, x: torch.Tensor):
     return out, aux, d.dropped
 
 
-def moe_layer_a2a(*args, **kwargs):
-    raise NotImplementedError(
-        "the all_to_all expert-parallel dispatch runs over tp > 1 shards: it is "
-        "the sharded slice of the port (M19)"
-    )
+class _A2A(torch.autograd.Function):
+    """Tiled all_to_all over the first axis on ``group``; the backward
+    exchanges the cotangent back, in bf16 and cast back when ``bf16_grad``
+    (the reference's ``_a2a_bf16``, whose cotangent crosses the fabric in
+    bf16; the gradients' parity depends on it)."""
+
+    @staticmethod
+    def forward(ctx, x, group, bf16_grad):
+        ctx.group, ctx.bf16_grad = group, bf16_grad
+        return _a2a(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.bf16_grad:
+            return _a2a(g.to(torch.bfloat16), ctx.group).to(g.dtype), None, None
+        return _a2a(g, ctx.group), None, None
+
+
+def _a2a(x: torch.Tensor, group) -> torch.Tensor:
+    x = x.contiguous()
+    out = torch.empty_like(x)
+    dist.all_to_all_single(out, x, group=group)
+    return out
+
+
+def _a2a_bf16(x: torch.Tensor, group) -> torch.Tensor:
+    return _A2A.apply(x, group, True)
+
+
+def _dispatch_a2a_body(x, w_in, w_gate, w_out, router, *, cfg: ModelConfig, capacity: int,
+                       send_cap: int, ctx: ShardCtx):
+    """all_to_all expert dispatch on this rank (the reference's
+    ``_dispatch_a2a_body`` step for step).  x: (n_loc, D), this rank's own
+    tokens; w_*: (E_local, ...), its expert slabs.  Assignments are
+    range-partitioned by owning rank, sent over the fabric, grouped into
+    per-expert capacity slots by the same sort-rank primitive, processed and
+    returned by the reverse exchange.  Row ``tp_size`` of the send matrix
+    and slab ``e_local`` of the expert buffers collect what is dropped."""
+    m = cfg.moe
+    n_loc, D = x.shape
+    k, E = m.top_k, m.num_experts
+    e_local = w_in.shape[0]
+    tp_size, tp = ctx.tp_size, ctx.group(ctx.tp)
+    dev = ctx.axis_index(ctx.tp)
+    device = x.device
+
+    logits = x.float() @ router  # full f32: see require_full_f32
+    probs = torch.softmax(logits, dim=-1)
+    topk_p, topk_idx = route(probs, k)
+    # load-balance aux from local stats, averaged over the tp shards
+    me = all_reduce_sum(probs.mean(0), tp) / tp_size
+    ce = torch.zeros(E, dtype=torch.float32, device=device)
+    ce.index_add_(0, topk_idx.reshape(-1), torch.ones(n_loc * k, device=device))
+    ce = psum(ce / (n_loc * k), tp) / tp_size
+    aux = E * (me * ce).sum()
+
+    eid = topk_idx.reshape(n_loc * k)
+    tok = torch.arange(n_loc, device=device).repeat_interleave(k)
+    prob = topk_p.reshape(n_loc * k)
+    dst = eid // e_local  # owning rank: the range partition
+
+    # rank within destination (the sort-rank primitive of core.distributed)
+    order = stable_argsort(dst, tp_size - 1)
+    sd = dst[order]
+    rank = _rank_in_group(sd)
+    live = rank < send_cap
+    slot = torch.where(live, sd * send_cap + rank, tp_size * send_cap)
+    overflow = (~live).sum()
+
+    nsend = (tp_size + 1) * send_cap
+    send_x = torch.zeros(nsend, D, dtype=x.dtype, device=device).index_add(
+        0, slot, x[tok[order]] * live[:, None].to(x.dtype))
+    send_e = torch.full((nsend,), E, dtype=torch.int32, device=device)
+    send_e[slot] = eid[order].to(torch.int32)
+    send_t = torch.full((nsend,), n_loc, dtype=torch.int64, device=device)
+    send_t[slot] = tok[order]
+    send_p = torch.zeros(nsend, dtype=torch.float32, device=device).index_add(0, slot, prob[order] * live)
+
+    # the fabric (bf16 cotangents for the big payload)
+    nr = tp_size * send_cap
+    rx = _a2a_bf16(send_x[:nr].view(tp_size, send_cap, D), tp)
+    re = _a2a(send_e[:nr], tp)
+    rp = _A2A.apply(send_p[:nr], tp, False)
+
+    # group received assignments into per-expert capacity slots
+    rxf = rx.reshape(nr, D)
+    lkey = torch.where(re < E, re - dev * e_local, e_local)
+    lkey = torch.where((lkey >= 0) & (lkey < e_local), lkey, e_local)
+    order2 = stable_argsort(lkey, e_local)
+    sk = lkey[order2]
+    rank2 = _rank_in_group(sk)
+    live2 = (sk < e_local) & (rank2 < capacity)
+    slot2 = torch.where(live2, sk * capacity + rank2, e_local * capacity)
+    overflow = overflow + ((~live2) & (sk < e_local)).sum()
+
+    nbuf = (e_local + 1) * capacity
+    buf = torch.zeros(nbuf, D, dtype=x.dtype, device=device).index_add(
+        0, slot2, rxf[order2] * live2[:, None].to(x.dtype))
+    slot_src = torch.full((nbuf,), nr, dtype=torch.int64, device=device)
+    slot_src[slot2] = order2
+    slot_p = torch.zeros(nbuf, dtype=torch.float32, device=device).index_add(0, slot2, rp[order2] * live2)
+
+    act = activation(cfg.mlp_act)
+    b = buf[: e_local * capacity].view(e_local, capacity, D)
+    h = torch.bmm(b, w_in)
+    h = act(h) * torch.bmm(b, w_gate) if w_gate is not None else act(h)
+    y = torch.bmm(h, w_out)
+    y = y * slot_p[: e_local * capacity].view(e_local, capacity, 1).to(y.dtype)
+
+    # return by the reverse exchange: scatter back to receive order, a2a
+    back = torch.zeros(nr + 1, D, dtype=y.dtype, device=device).index_add(
+        0, slot_src[: e_local * capacity], y.reshape(-1, D))
+    ry = _a2a_bf16(back[:nr].view(tp_size, send_cap, D), tp)
+
+    # each token's k returned rows, summed in f32 (as moe_layer sums them)
+    out = torch.zeros(n_loc + 1, D, dtype=torch.float32, device=device).index_add(
+        0, send_t[:nr], ry.reshape(nr, D).float())
+    return out[:n_loc], aux, overflow
+
+
+def use_a2a(cfg: ModelConfig, ctx: ShardCtx) -> bool:
+    return ctx.sp and ctx.tp_size > 1
+
+
+def moe_layer_a2a(p: MoE, cfg: ModelConfig, ctx: ShardCtx, x: torch.Tensor,
+                  x_full: torch.Tensor | None = None):
+    """all_to_all expert-parallel MoE over T-sharded tokens (SP), on this rank.
+
+    x: (B_loc, T_loc, D), this rank's tokens: B sharded over the dp axes, T
+    over tp, as the reference's ``P(dp, tp, None)``; ``p`` holds this tp
+    rank's expert slabs (``MoE(..., tp_size=tp)``).  The capacities are the
+    reference's, from the global token count ``B * T``.  ``x_full`` (B_loc,
+    T, D), the full-T activation, feeds the shared experts, which each rank
+    runs with the whole shared MLP on its own T chunk.  Returns (this rank's
+    output (B_loc, T_loc, D), aux as the mean over every dp x tp shard,
+    dropped as their sum), the last two replicated.  The token payloads'
+    cotangents cross the fabric in bf16, as the reference's do, so an f32
+    layer's gradients are within bf16 rounding of ``moe_layer``'s.  On the
+    card, TF32 must stay off (:func:`require_full_f32`)."""
+    m = cfg.moe
+    require_full_f32(x.device)
+    if ctx.mesh is None:
+        raise ValueError("moe_layer_a2a runs on a mesh: give the ShardCtx a DeviceMesh (make_mesh)")
+    B, T, D = x.shape
+    tp_size = ctx.tp_size
+    if p.w_in.shape[0] * tp_size != padded_experts(m.num_experts):
+        raise ValueError(
+            f"{p.w_in.shape[0]} expert slabs on a rank of tp={tp_size}; want "
+            f"{padded_experts(m.num_experts)} / {tp_size}"
+        )
+    dp_size = math.prod(ctx.axis_size(a) for a in ctx.dp)
+    n = B * dp_size * T * tp_size  # the reference's global B * T
+    n_loc = n // tp_size
+    capacity = max(int(n * m.top_k / m.num_experts * m.capacity_factor), 1)
+    send_cap = max(int(n_loc * m.top_k / tp_size * 2.0), 8)  # 2x slack
+    out, aux, dropped = _dispatch_a2a_body(
+        x.reshape(-1, D), p.w_in, getattr(p, "w_gate", None), p.w_out, p.router,
+        cfg=cfg, capacity=capacity, send_cap=send_cap, ctx=ctx)
+    # the scalars vary over dp and tp: the mean and the sum over all of them
+    groups = [ctx.group(a) for a in (*ctx.dp, ctx.tp) if ctx.axis_size(a) > 1]
+    if groups:
+        aux = psum(aux, groups) / (dp_size * tp_size)
+        dropped = psum(dropped, groups)
+    y = out.reshape(x.shape).to(x.dtype)
+    if m.num_shared:
+        if x_full is not None:
+            t0 = ctx.axis_index(ctx.tp) * T
+            x = x_full[:, t0 : t0 + T]
+        y = y + mlp(p.shared, cfg, x)
+    return y, aux, dropped

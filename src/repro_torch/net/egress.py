@@ -4,8 +4,8 @@ Counterpart of :mod:`repro.net.egress`.  The delivered wire batch is
 demultiplexed by segment affinity -- server ``s`` owns a contiguous block of
 base segments -- onto ``S`` independent
 :class:`~repro_torch.net.server.StreamingServer` instances, and the shard
-outputs are reassembled by :func:`pool_concat` (a concatenation within one
-control-plane epoch, a k-way merge otherwise).
+outputs are reassembled by :func:`repro_torch.core.distributed.pool_concat`
+(a concatenation within one control-plane epoch, a k-way merge otherwise).
 
 The demux is packet-granular: the per-packet headers are read on the host
 once per batch, and each server's rows move in one device gather.  The pool's
@@ -21,8 +21,12 @@ Until then the shard's sub-batches (on the device, virtual segment ids)
 are kept in a replay buffer bounded by ``replay_packets``; at the crash the
 nearest alive shard grows ports for the dead shard's segments and
 re-ingests that history in its original order, which rebuilds the dead
-shard's state exactly, so the output stays byte-identical.  The
-``"shard_map"`` pool merge is a later slice (M19).
+shard's state exactly, so the output stays byte-identical.
+
+``pool_backend="shard_map"`` (the reference's name, kept so that its callers
+work unchanged) concatenates the shards with a ``torch.distributed``
+all_gather over a mesh of ``S`` ranks (``sharding.pool_mesh``); with fewer
+ranks than servers, as on one card, the pool concatenates on its device.
 """
 
 from __future__ import annotations
@@ -31,7 +35,7 @@ import numpy as np
 import torch
 
 from .. import resolve_device
-from ..core.mergesort import merge_runs
+from ..core.distributed import pool_concat
 from ..obs.trace import NULL_TRACER
 from .server import StreamingServer
 from .wire import WireBatch, ragged_gather
@@ -49,24 +53,6 @@ def segment_affinity(num_segments: int, num_servers: int) -> np.ndarray:
         )
     base = np.arange(num_segments, dtype=np.int64)
     return base * num_servers // num_segments
-
-
-def pool_concat(outs: list[torch.Tensor], *, disjoint: bool) -> torch.Tensor:
-    """Merge per-server outputs into the global sorted stream: the host
-    branch of the reference's ``core/distributed.py::pool_concat``.
-
-    ``disjoint=True`` (one epoch: server order is key-range order)
-    concatenates; otherwise the sorted server streams are k-way merged.
-    """
-    if not outs:
-        raise ValueError("pool_concat needs at least one server output")
-    outs = [o.to(torch.int64) for o in outs]
-    if len(outs) == 1:
-        return outs[0]
-    if not disjoint:
-        nonempty = [o for o in outs if o.numel()]
-        return merge_runs(nonempty) if nonempty else outs[0][:0]
-    return torch.cat(outs)
 
 
 def _sync(device: torch.device) -> None:
@@ -105,11 +91,6 @@ class ServerPool:
         if pool_backend not in ("numpy", "shard_map"):
             raise ValueError(
                 f"unknown pool_backend {pool_backend!r}; options: numpy, shard_map"
-            )
-        if pool_backend == "shard_map":
-            raise NotImplementedError(
-                'pool_backend="shard_map" is not ported yet (later slice: '
-                "M19, the multi-card pool merge)"
             )
         self.device = resolve_device(device)
         base = segment_affinity(num_segments, num_servers)
@@ -435,7 +416,8 @@ class ServerPool:
             for v in range(self.eff_segments)
         ]
         with self._tr.timed("pool:merge", cat="egress", servers=self.num_servers) as t:
-            output = pool_concat(outs, disjoint=self.num_epochs == 1 and not self._dead)
+            output = pool_concat(outs, disjoint=self.num_epochs == 1 and not self._dead,
+                                 backend=self.pool_backend)
             _sync(self.device)
         self.merge_seconds = t.seconds
         if self._metrics is not None:

@@ -29,9 +29,9 @@ mode.  ``fault_plan`` injects the fault plane's deterministic faults
 (:mod:`repro_torch.net.faults`) and exercises every fail-open recovery
 path; ``engine="segment"`` and ``engine="faithful"`` run the paper's
 baseline hop engines (:mod:`repro_torch.net.engine`).
-
-Not ported yet: ``pool_backend="shard_map"`` (M19) raises
-``NotImplementedError``.
+``pool_backend="shard_map"`` concatenates the pool's shards with a
+``torch.distributed`` all_gather when the process group holds a rank per
+server (:func:`repro_torch.core.distributed.pool_concat`).
 """
 
 from __future__ import annotations

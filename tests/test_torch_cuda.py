@@ -847,3 +847,73 @@ def test_smoke_train_steps_on_card_equal_cpu(gen, arch):
     for (name, a), b in zip(card.named_parameters(), host.parameters()):
         diff = (a.detach().cpu() - b.detach()).abs().max().item()
         assert diff <= 2 * opt_cfg.lr * 3, (name, diff)
+
+
+@pytest.fixture
+def nccl(gen, tmp_path):
+    """A one-rank NCCL process group (a ``file://`` rendezvous), destroyed
+    after the test."""
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/rendezvous", rank=0, world_size=1)
+    yield
+    dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("n,block", [(1_000_003, 256), (100_001, 96), (65_537, 100), (300_007, 4096),
+                                     (20_011, 5000), (77_777, None)])
+def test_sort_sharded_one_rank_nccl_equals_torch_sort(gen, nccl, n, block, dtype):
+    """``sort_sharded`` at one NCCL rank: lengths and presort blocks that do
+    not divide evenly (a width that is not a power of two is padded on K1;
+    one past ``MAX_ROW`` goes to ``torch.sort``) give ``torch.sort``, every
+    key valid, nothing dropped, K1 launched once where the block is its."""
+    from repro_torch.core import distributed as cd
+    from repro_torch.distributed.compat import make_mesh
+
+    mesh = make_mesh((1,), ("segment",))
+    x = torch.randint(-(1 << 30), 1 << 30, (n,), dtype=dtype, device="cuda", generator=gen)
+    bitonic.reset_launches()
+    padded, valid, overflow = cd.sort_sharded(x, mesh, "segment", [], capacity_factor=1.5, presort_block=block)
+    assert bitonic.LAUNCHES["row_sort"] == (1 if block is not None and block <= bitonic.MAX_ROW else 0)
+    assert int(valid) == n and int(overflow) == 0
+    assert torch.equal(padded[:n], torch.sort(x).values)
+    assert bool((padded[n:] == torch.iinfo(dtype).max).all())
+    if block is not None:
+        assert padded.numel() % block == 0
+
+
+def test_moe_layer_a2a_at_tp1_equals_moe_layer(nccl):
+    """``moe_layer_a2a`` on a one-rank (1, 1) NCCL mesh against ``moe_layer``
+    on the same f32 smoke weights: output, aux and dropped within 1e-5 (the
+    returned rows are added in another order); every gradient of
+    ``sum(y^2) + aux`` within 2^-7 of its largest magnitude, since the a2a's
+    cotangents cross the fabric in bf16 as the reference's do (``_a2a_bf16``;
+    2^-9 on the CPU); K3 twice a call."""
+    import dataclasses
+
+    from repro_torch.distributed import sharding
+    from repro_torch.models import moe
+
+    for arch in ("granite-moe-3b-a800m", "deepseek-moe-16b"):
+        cfg = configs.get_smoke_config(arch)
+        p = moe.init_moe(moe.MoE(cfg, torch.float32, "cuda"), torch.Generator(device="cuda").manual_seed(0))
+        p.requires_grad_(True)
+        ctx = dataclasses.replace(sharding.local_ctx("cuda"), sp=True)
+        x = torch.randn((2, 64, cfg.d_model), device="cuda", generator=torch.Generator(device="cuda").manual_seed(1))
+        runs = []
+        for fn in (lambda xi: moe.moe_layer_a2a(p, cfg, ctx, xi), lambda xi: moe.moe_layer(p, cfg, xi)):
+            p.zero_grad(set_to_none=True)
+            xi = x.clone().requires_grad_(True)
+            bitonic.reset_launches()
+            y, aux, dropped = fn(xi)
+            runs.append((bitonic.LAUNCHES["row_sort_kv"], y.detach(), float(aux.detach()), int(dropped)))
+            (y.square().sum() + aux).backward()
+            runs[-1] += ({"x": xi.grad, **{k: v.grad for k, v in p.named_parameters()}},)
+        (ka, ya, auxa, da, ga), (kb, yb, auxb, db, gb) = runs
+        assert (ka, kb) == (2, 1)
+        assert da == db and abs(auxa - auxb) <= 1e-6 * abs(auxb)
+        torch.testing.assert_close(ya, yb, atol=1e-5, rtol=1e-5)
+        for k in gb:
+            assert (ga[k] - gb[k]).abs().max() <= 2**-7 * gb[k].abs().max(), (arch, k)

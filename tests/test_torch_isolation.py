@@ -46,7 +46,9 @@ def test_every_port_module_imports_without_jax_or_reference():
             "repro_torch.net.control", "repro_torch.obs.metrics",
             "repro_torch.obs.telemetry", "repro_torch.obs.trace",
             "repro_torch.data.scenarios", "repro_torch.net.faults",
-            "repro_torch.net.scheduler", "repro_torch.core.switchsim"} <= set(names)
+            "repro_torch.net.scheduler", "repro_torch.core.switchsim",
+            "repro_torch.core.distributed", "repro_torch.distributed.compat",
+            "repro_torch.distributed.sharding", "repro_torch.distributed.pp"} <= set(names)
     code = (
         "import importlib, sys\n"
         f"for name in {names!r}:\n"

@@ -336,8 +336,15 @@ def test_moe_layer_routes_through_k3_and_counts_drops():
 
 
 def test_moe_a2a_is_not_ported():
-    with pytest.raises(NotImplementedError, match="M19"):
-        moe.moe_layer_a2a()
+    """The all_to_all dispatch is ported (M19; held to the reference at 8
+    gloo ranks by ``tests/test_torch_distributed.py``): it runs on a mesh
+    and refuses a context without one."""
+    from repro_torch.distributed.sharding import ShardCtx
+
+    cfg = configs.get_smoke_config("granite-moe-3b-a800m")
+    port = moe.MoE(cfg, torch.float32, "cpu")
+    with pytest.raises(ValueError, match="mesh"):
+        moe.moe_layer_a2a(port, cfg, ShardCtx(sp=True), torch.zeros(1, 4, cfg.d_model))
 
 
 def test_router_refuses_tf32_on_the_card(monkeypatch):

@@ -326,8 +326,8 @@ def test_pool_guards_and_concat():
         egress.ServerPool(4, 2, affinity=np.array([1, 0, 0, 1]), device="cpu")
     with pytest.raises(ValueError):
         egress.ServerPool(4, 2, affinity=np.array([0, 1]), device="cpu")
-    with pytest.raises(NotImplementedError):
-        egress.ServerPool(4, 2, device="cpu", pool_backend="shard_map")
+    # the sharded merge (M19) is ported: with no process group it concatenates
+    assert egress.ServerPool(4, 2, device="cpu", pool_backend="shard_map").pool_backend == "shard_map"
     # shard failover, once refused, is configured as in the reference
     for kw in ({"crash_schedule": [(0, 1)]}, {"replay_packets": 4}):
         assert egress.ServerPool(4, 2, device="cpu", **kw).servers_failed_over == 0
@@ -358,18 +358,18 @@ def test_pool_guards_and_concat():
 
 
 def test_unported_pipeline_options_raise():
-    """The option of a later slice (``pool_backend="shard_map"``, M19)
-    raises, naming it; the fault plane's and the baseline engines' options,
-    once refused, run as the reference's (and are held to it by
-    ``tests/test_torch_faults.py`` and ``tests/test_torch_baselines.py``)."""
+    """Every option of the reference's pipeline is ported: the fault plane's
+    and the baseline engines' options (held to the reference by
+    ``tests/test_torch_faults.py`` and ``tests/test_torch_baselines.py``)
+    and, since the sharded slice (M19), ``pool_backend="shard_map"`` (which
+    concatenates without a process group; ``tests/test_torch_sharded_sort.py``
+    runs its gather on gloo ranks) run as the reference's."""
     vals = random_trace(100, seed=0)
-    with pytest.raises(NotImplementedError, match="M19"):
-        pipeline.run_pipeline(vals, device="cpu", pool_backend="shard_map", num_servers=2)
     with pytest.raises(ValueError, match="egress"):
         pipeline.run_pipeline(vals, device="cpu", fault_plan="crash:switch@0")
     want = ref_pipeline.run_pipeline(vals)
     for kw in ({"replay_packets": 3}, {"engine": "segment"}, {"faithful": True},
-               {"fault_plan": "degrade:switch@0"}):
+               {"fault_plan": "degrade:switch@0"}, {"pool_backend": "shard_map", "num_servers": 2}):
         got = pipeline.run_pipeline(vals, device="cpu", **kw)
         np.testing.assert_array_equal(got.output.numpy(), want.output)
     with pytest.raises(ValueError):

@@ -3,11 +3,12 @@
 
     python3 chip_smoke.py [--n KEYS] [--seed S] [--profile]
 
-Six main paths: the sort dataplane (``run_pipeline``), the dense LM serve
+Seven main paths: the sort dataplane (``run_pipeline``), the dense LM serve
 path (``Engine`` over Mistral-Nemo-12B), the MoE serve path (``Engine`` over
 granite-moe-3b-a800m), training (AdamW steps of granite-moe-3b-a800m and
-of Mistral-Nemo-12B cut to 8 layers) and the sharded fabric at one rank
-(``sort_sharded``, the pool's ``shard_map`` backend, ``moe_layer_a2a``).
+of Mistral-Nemo-12B cut to 8 layers), the sharded fabric at one rank
+(``sort_sharded``, the pool's ``shard_map`` backend, ``moe_layer_a2a``) and
+the LM on a (data, model) mesh at one rank (training and the serve CLI).
 Phases, one JSON line each:
 
 1. ``device``   -- the card (``nvidia-smi`` name and power limit), torch and
@@ -137,7 +138,25 @@ Phases, one JSON line each:
    identity, forward and backward.  The ``kernels`` line's K1, K2 and K3 rows
    gain ``sharded``: their launches there, and K1 and K3 at the sharded
    path's shapes against their plain versions, timed, with their bounds;
-11. ``ptxas`` -- every kernel entry's registers, static shared memory and
+11. ``lm_mesh`` (after ``sharded``, before the ``kernels`` line) -- the LM
+   on a (data, model) mesh at one rank (a one-rank NCCL process group
+   through a ``file://`` rendezvous, destroyed after the runs; no CPU
+   stand-in): granite-moe-3b-a800m's train step at full width and depth on
+   the (1, 1) mesh against the step without a mesh, 3 AdamW steps each on
+   the same batches (loss and gradient norm within ``LM_MESH_TRAIN_LIMIT``,
+   step ms and peak memory of both, K5 / K5b / K3 held to their launches
+   per step); Mistral-Nemo-12B at full width and depth through
+   ``python -m repro_torch.launch.serve --mesh 1x1`` against the CLI without
+   a mesh, each capturing its decode graph (greedy tokens equal, ms per
+   decode step, K5 and K6 counted); K6 with its lse at Mistral's decode
+   shape against its plain version, and the sequence-sharded decode's math
+   at tp = 4 on one card (the cache in four chunks with chunk-local
+   lengths, some 0, K6 with lse on each, ``merge_partials``) against
+   whole-cache K6, with K6's graph ms without and with the lse and at the
+   chunk shape; the vocab-parallel cross entropy at 131,072 columns over
+   four shards against one shard's and the library's.  The ``kernels``
+   line's K6 row gains ``lse``, K5's, K5b's and K3's their launches there;
+12. ``ptxas`` -- every kernel entry's registers, static shared memory and
    spills, as the compiler reported them when it built the kernels; a
    spill in any entry fails the run.
 
@@ -215,6 +234,30 @@ SHARDED_PP = dict(M=6, mb=8, d=1024)
 #: roundings (8 x 2^-8) of its largest magnitude; the CPU gives 0 for every
 #: leaf but x's gradient (7.5e-3) at this shape.
 MOE_A2A_LIMIT = 8 * 2**-8
+
+#: The LM on a (data, model) mesh at one rank (the driver's machine has one
+#: card, so a one-rank NCCL group): granite-moe-3b-a800m's train step at full
+#: width and depth on the (1, 1) mesh against the step without a mesh;
+#: Mistral-Nemo-12B at full width and depth through ``launch.serve --mesh
+#: 1x1`` (its default prompts of 2-11 tokens); K6 with its lse at Mistral's
+#: decode shape (``attention_rows``'s largest step) and the sequence-sharded
+#: decode's math at tp = 4 on that cache; the vocab-parallel cross entropy at
+#: Mistral's 131,072 vocabulary over four shards.
+LM_MESH = dict(
+    train=dict(arch=MOE_ARCH, batch=4, seq=2048, steps=3, lr=3e-4),
+    serve_arch=SERVE_ARCH, serve=dict(requests=8, slots=4, max_len=256, max_tokens=16),
+    k6=dict(q=(4, 32, 128), cache=(4, 4096, 8, 128), lengths=[1850, 1995, 1015, 860], chunks=4),
+    ce=dict(vocab=131_072, batch=2, seq=2048, shards=4),
+)
+#: The (1, 1) mesh runs the same operations as no mesh (no collective at one
+#: rank).  The card's atomic adds (the MoE gathers' and the embedding's
+#: backward) are not reproducible from run to run (they moved a first step's
+#: gradient norm by 1.7e-5 relative), so both runs use torch's deterministic
+#: algorithms (those adds sorted), where the two should give the same bytes.
+LM_MESH_TRAIN_LIMIT = 1e-5
+#: The merged shards' mean cross entropy against one shard's and the
+#: library's: f32 sums over 2^17 columns in other orders.
+LM_MESH_CE_LIMIT = 1e-5
 
 #: Inputs of the attention kernels' checks: q and k at 1.5 x a unit normal,
 #: so the scores have a standard deviation of 2.25 at any head dim and the
@@ -2730,8 +2773,10 @@ def sharded_moe(torch, bt, build, moe, sharding, configs, gen) -> tuple[dict, di
     K3's kernels-line entry at the a2a's largest sort."""
     import dataclasses
 
+    from repro_torch.models.lm import init_params
+
     cfg = configs.get_config(SHARDED_MOE["arch"])
-    p = moe.init_moe(moe.MoE(cfg, torch.bfloat16, "cuda"), gen)
+    p = init_params(moe.MoE(cfg, torch.bfloat16, "cuda"), gen)
     p.requires_grad_(True)
     ctx = dataclasses.replace(sharding.local_ctx("cuda"), sp=True)
     x = torch.randn((SHARDED_MOE["batch"], SHARDED_MOE["seq"], cfg.d_model), generator=gen,
@@ -2864,6 +2909,258 @@ def phase_sharded(torch, args, bt, gen, run_pipeline, random_trace, trace_max_va
     pool_k2 = line["pool"][str(args.n)]["launches"]
     return {"k1": {**k1, "pipeline_shard_map_launches": pool_k2["row_sort"]}, "k3": k3,
             "k2_pipeline_shard_map_launches": pool_k2["tournament"]}
+
+
+def lm_mesh_train(torch, np, args, ctx) -> dict:
+    """Granite's train step on the (1, 1) mesh against the step without a
+    mesh: ``LM_MESH["train"]`` steps of each from ``--seed`` on the same
+    ``TokenPipeline`` batches, both in torch's deterministic mode; loss and
+    gradient norm within ``LM_MESH_TRAIN_LIMIT`` relative at every step; K5,
+    K5b and K3 held to their launches per step on both (counters zeroed just
+    before each run, read just after)."""
+    from repro_torch import configs, models
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.kernels import build
+    from repro_torch.train.optimizer import AdamWConfig, init_opt_state
+    from repro_torch.train.train_step import build_train_step, shard_batch
+
+    run = LM_MESH["train"]
+    cfg = configs.get_config(run["arch"])
+    moe_layers = cfg.num_layers - cfg.moe.first_dense_layers
+    per_step = {"flash_attention": 2 * cfg.num_layers, "flash_attention_bwd": cfg.num_layers,
+                "row_sort_kv": 2 * moe_layers, "decode_attention": 0}
+
+    def train(c):
+        torch.cuda.empty_cache()
+        _reset_peak(torch)
+        model = models.build(cfg, ctx=c, device="cuda").requires_grad_(True)
+        model.init(torch.Generator(device="cuda").manual_seed(args.seed))
+        opt_cfg = AdamWConfig(lr=run["lr"])
+        opt_state = init_opt_state(dict(model.named_parameters()), opt_cfg)
+        step = build_train_step(model, opt_cfg)
+        pipe = TokenPipeline(cfg.vocab_size, run["batch"], run["seq"], seed=args.seed)
+        recs = []
+        torch.cuda.synchronize()
+        build.reset_launches()
+        for i in range(run["steps"]):
+            batch = {k: torch.from_numpy(v).cuda() for k, v in shard_batch(pipe.next_batch(), c).items()}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            opt_state, met = step(opt_state, batch)
+            torch.cuda.synchronize()
+            recs.append({"step": i, "ms": (time.perf_counter() - t0) * 1e3, "loss": float(met["loss"]),
+                         "grad_norm": float(met["grad_norm"])})
+        launches = dict(build.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        del model, opt_state, step
+        torch.cuda.empty_cache()
+        for name, n in per_step.items():
+            if launches[name] != n * run["steps"]:
+                fail(f"lm_mesh train ({'mesh' if c else 'no mesh'}): {name} launched {launches[name]} times, "
+                     f"want {n * run['steps']}")
+        if not all(np.isfinite([r["loss"], r["grad_norm"]]).all() for r in recs):
+            fail("lm_mesh train: a loss or gradient norm is not finite")
+        return {"steps": recs, "step_ms_median_after_first": float(np.median([r["ms"] for r in recs[1:]])),
+                "peak_allocated_bytes": peak, "launches": {k: launches[k] for k in per_step}}
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        plain = train(None)
+        mesh = train(ctx)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    worst = 0.0
+    for a, b in zip(plain["steps"], mesh["steps"]):
+        for key in ("loss", "grad_norm"):
+            rel = abs(a[key] - b[key]) / abs(a[key])
+            worst = max(worst, rel)
+            if rel > LM_MESH_TRAIN_LIMIT:
+                fail(f"lm_mesh train step {a['step']}: {key} {b[key]} on the (1, 1) mesh, {a[key]} without")
+    return {"arch": cfg.name, "layers": cfg.num_layers, "config": run, "tokens_per_step": run["batch"] * run["seq"],
+            "deterministic_algorithms": True, "no_mesh": plain, "mesh_1x1": mesh, "max_rel_diff": worst, "limit": LM_MESH_TRAIN_LIMIT}
+
+
+def lm_mesh_serve(torch, args) -> dict:
+    """``python -m repro_torch.launch.serve`` in process at Mistral-Nemo-12B's
+    full width and depth, without a mesh and with ``--mesh 1x1`` (the
+    phase's one-rank NCCL group): greedy tokens equal; ms per decode step
+    (the graph's replay between two synchronisations, median); K5 launches
+    counted (zeroed before each run, read after), K6 as the captured
+    graph's kernel nodes times its replays."""
+    import contextlib
+    import io
+
+    from repro_torch.kernels import build
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.serve import engine as engine_mod
+
+    sv = LM_MESH["serve"]
+    argv = ["--arch", LM_MESH["serve_arch"], "--device", "cuda", "--seed", str(args.seed),
+            "--requests", str(sv["requests"]), "--slots", str(sv["slots"]), "--max-len", str(sv["max_len"]),
+            "--max-tokens", str(sv["max_tokens"])]
+    orig = engine_mod.Engine._decode
+    out = {}
+    for name, extra in (("no_mesh", []), ("mesh_1x1", ["--mesh", "1x1"])):
+        times, engines = [], []
+
+        def timed(self):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits = orig(self)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            if not engines:
+                engines.append(self)
+            return logits
+
+        engine_mod.Engine._decode = timed
+        try:
+            torch.cuda.empty_cache()
+            _reset_peak(torch)
+            build.reset_launches()
+            log = io.StringIO()
+            with contextlib.redirect_stdout(log):
+                finished = serve_cli.main(argv + extra)
+            torch.cuda.synchronize()
+            launches = dict(build.LAUNCHES)
+        finally:
+            engine_mod.Engine._decode = orig
+        eng = engines[0]
+        if eng.decode_graph is None:
+            fail(f"lm_mesh serve ({name}): the engine did not capture its decode step")
+        nodes = build.graph_kernel_nodes(eng.decode_graph, ["decode_partial", "flash_fwd", "flash_fwd_bf16"])
+        k6 = launches["decode_attention"] + nodes["decode_partial"] * eng.decode_steps
+        if launches["flash_attention"] < 1 or k6 < 1:
+            fail(f"lm_mesh serve ({name}): K5 launched {launches['flash_attention']} times, K6 {k6}")
+        out[name] = {"tokens": sorted((r.rid, r.out) for r in finished), "decode_steps": eng.decode_steps,
+                     "ms_per_decode_step_median": float(sorted(times)[len(times) // 2]) * 1e3,
+                     "peak_allocated_bytes": torch.cuda.max_memory_allocated(),
+                     "launches": {"flash_attention": launches["flash_attention"], "decode_attention": k6},
+                     "printed": log.getvalue().splitlines()[0]}
+        del engines, eng, finished
+        torch.cuda.empty_cache()
+    if out["no_mesh"]["tokens"] != out["mesh_1x1"]["tokens"]:
+        fail("lm_mesh serve: the (1, 1) mesh's greedy tokens differ from the engine's without a mesh")
+    first = [toks[:4] for _, toks in out["no_mesh"]["tokens"]]
+    for v in out.values():
+        del v["tokens"]
+    return {"arch": LM_MESH["serve_arch"], "argv": argv, "tokens_equal": True, "first_tokens": first, **out}
+
+
+def lm_mesh_k6(torch, da, gen) -> tuple[dict, dict]:
+    """K6 with its lse at Mistral-Nemo-12B's decode shape against its plain
+    version (output within ``attn_limit``, lse within ``lse_limit`` of f32, the
+    output the same bytes as without the lse); then the sequence-sharded
+    decode's math at tp = 4 on one card: the cache cut into four chunks of
+    ``S / 4`` positions, K6 with lse on each with its chunk-local lengths
+    (some 0), merged by ``merge_partials``, against whole-cache K6
+    (``attn_limit``).  Graph ms of K6 without and with the lse at the whole
+    shape and with the lse at the chunk shape, and of the four chunks and
+    the merge together.  Returns the line's entry and the K6 row's ``lse``."""
+    k = LM_MESH["k6"]
+    q = randn(torch, gen, k["q"], torch.bfloat16, QK_SCALE)
+    kc = randn(torch, gen, (2, *k["cache"]), torch.bfloat16, QK_SCALE)[-1]
+    vc = randn(torch, gen, (2, *k["cache"]), torch.bfloat16)[-1]
+    lengths = torch.tensor(k["lengths"], dtype=torch.int32, device="cuda")
+    o, lse = da.decode_attention(q, kc, vc, lengths, return_lse=True)
+    po, plse = da.decode_attention_plain(q, kc, vc, lengths, return_lse=True)
+    err = allclose_err(o, po, "K6 with lse")
+    lse_err = float((lse - plse).abs().max())
+    if not lse_err <= lse_limit(torch.float32):  # K6's math is f32 at any input type
+        fail(f"K6's lse differs from the plain logsumexp by {lse_err}")
+    if not torch.equal(o, da.decode_attention(q, kc, vc, lengths)):
+        fail("K6's output differs with and without its lse")
+    S, C = k["cache"][1], k["chunks"]
+    chunk = S // C
+    starts = [c * chunk for c in range(C)]
+    local = [(lengths - s).clamp(0, chunk).to(torch.int32) for s in starts]
+    if not any((lc == 0).any() for lc in local):
+        fail("lm_mesh k6: no chunk is empty")
+
+    def chunks():
+        parts = [da.decode_attention(q, kc[:, s:s + chunk], vc[:, s:s + chunk], lc, return_lse=True)
+                 for s, lc in zip(starts, local)]
+        return da.merge_partials(torch.stack([p[0] for p in parts]), torch.stack([p[1] for p in parts]))
+
+    merged = chunks().to(torch.bfloat16)
+    merge_err = allclose_err(merged, o, "the four chunks merged against whole-cache K6")
+    plain_err = allclose_err(merged, po, "the four chunks merged against the plain version")
+    c1 = 1
+    entry = {"q": list(k["q"]), "cache": list(k["cache"]), "lengths": k["lengths"], "dtype": "bfloat16",
+             "max_abs_err": err, "lse_max_abs_err": lse_err, "lse_limit": lse_limit(torch.float32),
+             "chunks": C, "chunk_lengths": [lc.tolist() for lc in local],
+             "merged_vs_whole_max_abs_err": merge_err, "merged_vs_plain_max_abs_err": plain_err}
+    row = {"shape": {"q": list(k["q"]), "cache": list(k["cache"]), "lengths": k["lengths"]},
+           "graph_ms_without_lse": graph_ms(lambda: da.decode_attention(q, kc, vc, lengths)),
+           "graph_ms": graph_ms(lambda: da.decode_attention(q, kc, vc, lengths, return_lse=True)),
+           "chunk": {"cache": [k["cache"][0], chunk, *k["cache"][2:]], "lengths": local[c1].tolist(),
+                     "graph_ms": graph_ms(lambda: da.decode_attention(
+                         q, kc[:, chunk:2 * chunk], vc[:, chunk:2 * chunk], local[c1], return_lse=True))},
+           "four_chunks_and_merge_graph_ms": graph_ms(chunks), "max_abs_err": err, "lse_max_abs_err": lse_err}
+    torch.cuda.synchronize()
+    return entry, row
+
+
+def lm_mesh_ce(torch, gen) -> dict:
+    """The vocab-parallel cross entropy at Mistral-Nemo-12B's vocabulary:
+    f32 logits of 2 x 2,048 tokens cut into four vocab shards, each shard's
+    ``vocab_stats`` merged by ``merge_vocab_stats``, against the one-shard
+    ``cross_entropy`` and ``torch.nn.functional.cross_entropy``, within
+    ``LM_MESH_CE_LIMIT`` relative."""
+    import torch.nn.functional as F
+
+    from repro_torch.models.layers import cross_entropy, merge_vocab_stats, vocab_stats
+
+    c = LM_MESH["ce"]
+    logits = torch.randn((c["batch"], c["seq"], c["vocab"]), generator=gen, device="cuda") * 3.0
+    labels = torch.randint(0, c["vocab"], (c["batch"], c["seq"]), generator=gen, device="cuda")
+    v = c["vocab"] // c["shards"]
+    stats = torch.stack([vocab_stats(logits[..., s * v:(s + 1) * v], labels, s * v) for s in range(c["shards"])])
+    lse, gold = merge_vocab_stats(stats)
+    sharded = float((lse - gold).mean())
+    one = float(cross_entropy(logits, labels))
+    lib = float(F.cross_entropy(logits.reshape(-1, c["vocab"]), labels.reshape(-1)))
+    errs = {"vs_one_shard": abs(sharded - one) / abs(one), "vs_library": abs(sharded - lib) / abs(lib)}
+    if not all(e <= LM_MESH_CE_LIMIT for e in errs.values()):
+        fail(f"the vocab-parallel cross entropy {sharded} against {one} / {lib}")
+    del logits, labels, stats
+    torch.cuda.empty_cache()
+    return {**c, "loss": sharded, "one_shard": one, "library": lib, "rel_err": errs, "limit": LM_MESH_CE_LIMIT}
+
+
+def phase_lm_mesh(torch, np, args, da, gen) -> dict:
+    """The LM on a (data, model) mesh at one rank (a one-rank NCCL process
+    group through a ``file://`` rendezvous, destroyed after; no CPU
+    stand-in): granite's train step on the (1, 1) mesh against the step
+    without one, Mistral served through ``launch.serve --mesh 1x1`` against
+    the CLI without a mesh; then K6 with its lse and the four-chunk merge,
+    and the vocab-parallel cross entropy.  Emits the ``lm_mesh`` line;
+    returns K6's ``lse`` row and the launches for the kernels line."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.distributed.compat import make_mesh
+    from repro_torch.distributed.sharding import ShardCtx
+
+    t0 = time.perf_counter()
+    torch.cuda.set_device(0)
+    line = {"phase": "lm_mesh"}
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/rendezvous", rank=0, world_size=1)
+        try:
+            line.update(backend=dist.get_backend(), world_size=dist.get_world_size())
+            ctx = ShardCtx(mesh=make_mesh((1, 1), ("data", "model")), tp="model", fsdp=None, dp=("data",))
+            line["train"] = lm_mesh_train(torch, np, args, ctx)
+            line["serve"] = lm_mesh_serve(torch, args)
+        finally:
+            dist.destroy_process_group()
+    line["k6_lse"], k6_row = lm_mesh_k6(torch, da, gen)
+    line["vocab_parallel_ce"] = lm_mesh_ce(torch, gen)
+    line["phase_s"] = time.perf_counter() - t0
+    emit(line)
+    return {"k6_lse": k6_row, "train_launches": line["train"]["mesh_1x1"]["launches"],
+            "serve_launches": line["serve"]["mesh_1x1"]["launches"]}
 
 
 def ptxas_line(build) -> dict:
@@ -3041,6 +3338,7 @@ def main() -> int:
     dense = phase_train(torch, np, args, TRAIN_DENSE, "train_dense", plain_check=False)
     phase_train_resume(torch, args)
     sharded = phase_sharded(torch, args, bt, gen, run_pipeline, random_trace, trace_max_value)
+    lm_mesh = phase_lm_mesh(torch, np, args, da, gen)
     rows[0]["sharded"] = sharded["k1"]
     rows[1]["sharded"] = {"site": "core/mergesort.py merge_runs_flat (pipeline, pool_backend=shard_map)",
                           "launches": sharded["k2_pipeline_shard_map_launches"]}
@@ -3049,9 +3347,16 @@ def main() -> int:
     k5_row["train_launches_per_step"] = {"granite": train["k5_per_step"], "mistral_8_layers": dense["k5_per_step"]}
     k5b = k5b_row(fa, fb, torch, gen, train["k5b_shape"], train["k5b_launches"], train["k5b_per_step"])
     k5b["dense"] = k5b_row(fa, fb, torch, gen, dense["k5b_shape"], dense["k5b_launches"], dense["k5b_per_step"])
+    k6_row = next(r for r in rows if r["name"] == "decode_attention")
+    k6_row["lse"] = {**lm_mesh["k6_lse"], "lm_mesh_serve_launches": lm_mesh["serve_launches"]["decode_attention"]}
+    k5_row["lm_mesh_launches"] = {"train": lm_mesh["train_launches"]["flash_attention"],
+                                  "serve": lm_mesh["serve_launches"]["flash_attention"]}
+    next(r for r in rows if r["name"] == "row_sort_kv")["lm_mesh_train_launches"] = \
+        lm_mesh["train_launches"]["row_sort_kv"]
     rows.append({"name": "flash_attention_bwd", "route": "cuda",
                  "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
-                 "replaces": "src/repro/models/attention.py:181", "tpu_kernel": False, **k5b})
+                 "replaces": "src/repro/models/attention.py:181", "tpu_kernel": False, **k5b,
+                 "lm_mesh_train_launches": lm_mesh["train_launches"]["flash_attention_bwd"]})
 
     emit({"kernels": rows})
     emit(ptxas_line(build))

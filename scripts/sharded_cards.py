@@ -25,7 +25,19 @@ a failed check exits non-zero before that.
    every rank: dropped equal, aux within 1e-5, the output chunk and every
    gradient of ``sum(y^2) + aux`` within ``chip_smoke.MOE_A2A_LIMIT``; forward
    and backward ms (median of three) beside ``moe_layer``'s on ``seq``
-   tokens on one card.
+   tokens on one card;
+4. ``lm_train`` (two lines) -- the LM (``--lm-arch``, default Mistral-Nemo-12B
+   at all 40 layers, which one card cannot train) on a ``(1, R)`` mesh and a
+   ``(R/2, 2)`` mesh with FSDP over data, ``LM_STEPS`` AdamW steps of B
+   ``--lm-batch`` x ``--lm-seq`` tokens: step seconds, tokens/s, each rank's
+   peak memory, the losses of the two meshes beside each other;
+5. ``lm_serve`` -- the LM served at ``(1, R)`` (the sequence-sharded cache,
+   the decode step captured with its NCCL collectives) and by each rank
+   alone on its card, 8 requests of 64-511 prompt tokens, 32 greedy tokens
+   each: ms per decode step of both, how many requests' tokens are equal.
+
+``--phases sort`` or ``--phases lm`` runs one group; ``--lm-smoke`` the LM
+phases at the smoke config (a rehearsal with ``--device cpu``).
 """
 
 from __future__ import annotations
@@ -38,6 +50,8 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
+#: AdamW steps of each ``lm_train`` mesh (the first includes the warm-up).
+LM_STEPS = 3
 
 
 def _check(ok: bool, msg: str) -> None:
@@ -131,11 +145,12 @@ def phase_moe(torch, dist, args, dev, rank: int, world: int) -> dict:
     from repro_torch.distributed.compat import make_mesh
     from repro_torch.models import moe
     from repro_torch.models.convert import params_from_reference
+    from repro_torch.models.lm import init_params
 
     cfg = configs.get_config(chip_smoke.SHARDED_MOE["arch"])
     dt = torch.bfloat16
     gen = torch.Generator(device=dev).manual_seed(args.seed)
-    full = moe.init_moe(moe.MoE(cfg, dt, dev), gen).requires_grad_(True)
+    full = init_params(moe.MoE(cfg, dt, dev), gen).requires_grad_(True)
     part = moe.MoE(cfg, dt, dev, tp_size=world)
     part.load_state_dict(params_from_reference(full.state_dict(), tp_rank=rank, tp_size=world))
     part.requires_grad_(True)
@@ -176,6 +191,125 @@ def phase_moe(torch, dist, args, dev, rank: int, world: int) -> dict:
             "a2a_fwd_bwd_ms": a2a_s * 1e3, "moe_layer_one_card_fwd_bwd_ms": local_s * 1e3}
 
 
+def lm_config(configs, args):
+    import dataclasses
+
+    cfg = configs.get_smoke_config(args.lm_arch) if args.lm_smoke else configs.get_config(args.lm_arch)
+    return dataclasses.replace(cfg, dtype=args.lm_dtype) if args.lm_dtype else cfg
+
+
+def phase_lm_train(torch, dist, args, dev, rank: int, world: int) -> list[dict]:
+    """Mistral-Nemo-12B at all 40 layers, bf16, trained ``LM_STEPS`` AdamW
+    steps at ``--mesh 1xR`` and at ``(R/2)x2`` (FSDP over data) on the same
+    ``TokenPipeline`` batches (B ``--lm-batch`` x ``--lm-seq``): each mesh's
+    steps ms, tokens/s over the ranks and every rank's peak memory; the two
+    meshes' losses beside each other."""
+    import numpy as np
+
+    from repro_torch import configs, models
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.distributed.compat import make_mesh
+    from repro_torch.distributed.sharding import ShardCtx
+    from repro_torch.train.optimizer import AdamWConfig, init_opt_state
+    from repro_torch.train.train_step import build_train_step, shard_batch
+
+    cfg = lm_config(configs, args)
+    lines = []
+    for shape in ((1, world), (world // 2, 2)):
+        ctx = ShardCtx(mesh=make_mesh(shape, ("data", "model"), dev.type), tp="model",
+                       fsdp=None if shape[0] == 1 else "data", dp=("data",))
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        model = models.build(cfg, ctx=ctx, device=dev).requires_grad_(True)
+        model.init(torch.Generator(device=dev).manual_seed(args.seed))
+        opt_cfg = AdamWConfig(lr=3e-4)
+        state = init_opt_state(dict(model.named_parameters()), opt_cfg)
+        step = build_train_step(model, opt_cfg)
+        pipe = TokenPipeline(cfg.vocab_size, args.lm_batch, args.lm_seq, seed=args.seed)
+        recs = []
+        for i in range(LM_STEPS):
+            batch = {k: torch.from_numpy(v).to(dev) for k, v in shard_batch(pipe.next_batch(), ctx).items()}
+            dist.barrier()
+            t0 = time.perf_counter()
+            state, met = step(state, batch)
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            dist.barrier()
+            recs.append({"step": i, "s": time.perf_counter() - t0, "loss": float(met["loss"]),
+                         "grad_norm": float(met["grad_norm"])})
+        _check(all(np.isfinite([r["loss"], r["grad_norm"]]).all() for r in recs), f"{shape}: a loss is not finite")
+        peak = torch.tensor([torch.cuda.max_memory_allocated() if dev.type == "cuda" else 0], device=dev)
+        peaks = [torch.zeros_like(peak) for _ in range(world)]
+        dist.all_gather(peaks, peak)
+        med = float(np.median([r["s"] for r in recs[1:]]))
+        tokens = args.lm_batch * args.lm_seq
+        lines.append({"phase": "lm_train", "arch": cfg.name, "layers": cfg.num_layers, "mesh": list(shape),
+                      "fsdp": ctx.fsdp, "batch": args.lm_batch, "seq": args.lm_seq, "steps": recs,
+                      "params_per_rank": sum(p.numel() for p in model.parameters()),
+                      "step_s_median_after_first": med, "tokens_per_s": tokens / med,
+                      "peak_device_bytes_per_rank": [int(p) for p in peaks]})
+        del model, state, step
+    a, b = (ln["steps"] for ln in lines)
+    lines[-1]["loss_rel_diff_vs_first_mesh"] = [abs(x["loss"] - y["loss"]) / abs(x["loss"]) for x, y in zip(a, b)]
+    return lines
+
+
+def phase_lm_serve(torch, dist, args, dev, rank: int, world: int) -> dict:
+    """Mistral-Nemo-12B at full width and depth, bf16, served at ``--mesh
+    1xR`` (the sequence-sharded cache, the decode step captured with its
+    NCCL collectives) and by each rank alone on its card: the same 8
+    requests, greedy; ms per decode step of both; the tokens compared."""
+    import numpy as np
+
+    from repro_torch import configs, models
+    from repro_torch.distributed.compat import make_mesh
+    from repro_torch.distributed.sharding import ShardCtx
+    from repro_torch.serve.engine import Engine, Request
+
+    cfg = lm_config(configs, args)
+    rng = np.random.default_rng(args.seed)
+    prompts = [rng.integers(0, cfg.vocab_size, size=int(rng.integers(64, 512))).tolist() for _ in range(8)]
+    out = {}
+    for name, ctx in (("one_card", None),
+                      ("mesh", ShardCtx(mesh=make_mesh((1, world), ("data", "model"), dev.type), tp="model",
+                                        fsdp=None, dp=()))):
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        model = models.build(cfg, ctx=ctx, device=dev)
+        model.init(torch.Generator(device=dev).manual_seed(args.seed))
+        eng = Engine(model, slots=4, max_len=1024, device=dev)
+        for i, p in enumerate(prompts):
+            eng.add(Request(rid=i, prompt=p, max_tokens=32))
+        times = []
+        orig = eng._decode
+
+        def timed():
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits = orig()
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            return logits
+
+        eng._decode = timed
+        dist.barrier()
+        finished = eng.run()
+        out[name] = {"tokens": sorted((r.rid, r.out) for r in finished),
+                     "ms_per_decode_step_median": sorted(times)[len(times) // 2] * 1e3,
+                     "decode_steps": len(times), "captured": eng.decode_graph is not None}
+        del eng, model
+    same = [a == b for a, b in zip(out["one_card"]["tokens"], out["mesh"]["tokens"])]
+    first_diff = [next((i for i, (x, y) in enumerate(zip(a[1], b[1])) if x != y), None)
+                  for a, b in zip(out["one_card"]["tokens"], out["mesh"]["tokens"])]
+    for v in out.values():
+        del v["tokens"]
+    return {"phase": "lm_serve", "arch": cfg.name, "tp": world, "requests": len(prompts),
+            "requests_with_equal_tokens": sum(same), "first_differing_token": first_diff, **out}
+
+
 def run_rank(rank: int, world: int, rdv: str, args) -> None:
     sys.path[:0] = [str(ROOT / "src"), str(ROOT)]
     import torch
@@ -190,11 +324,18 @@ def run_rank(rank: int, world: int, rdv: str, args) -> None:
     dist.init_process_group("nccl" if dev.type == "cuda" else "gloo", init_method=f"file://{rdv}",
                             rank=rank, world_size=world)
     try:
-        lines = [phase_sort(torch, dist, args, dev, rank, world), phase_pool(torch, dist, args, dev, world),
-                 phase_moe(torch, dist, args, dev, rank, world)]
-        if rank == 0:
-            for line in lines:
-                print(json.dumps(line), flush=True)
+        phases = []
+        if "sort" in args.phases:
+            phases += [lambda: [phase_sort(torch, dist, args, dev, rank, world)],
+                       lambda: [phase_pool(torch, dist, args, dev, world)],
+                       lambda: [phase_moe(torch, dist, args, dev, rank, world)]]
+        if "lm" in args.phases:
+            phases += [lambda: phase_lm_train(torch, dist, args, dev, rank, world),
+                       lambda: [phase_lm_serve(torch, dist, args, dev, rank, world)]]
+        for phase in phases:
+            for line in phase():
+                if rank == 0:
+                    print(json.dumps(line), flush=True)
     finally:
         dist.destroy_process_group()
 
@@ -206,6 +347,12 @@ def main() -> int:
     ap.add_argument("--seq", type=int, default=2048, help="MoE tokens a rank")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
+    ap.add_argument("--phases", nargs="+", choices=("sort", "lm"), default=["sort", "lm"])
+    ap.add_argument("--lm-arch", default="mistral-nemo-12b")
+    ap.add_argument("--lm-smoke", action="store_true", help="the LM phases at the arch's smoke config")
+    ap.add_argument("--lm-dtype", choices=("float32", "bfloat16"), default=None, help="default: the config's")
+    ap.add_argument("--lm-batch", type=int, default=2)
+    ap.add_argument("--lm-seq", type=int, default=2048)
     args = ap.parse_args()
     import torch
     import torch.multiprocessing as mp
@@ -220,7 +367,7 @@ def main() -> int:
         from repro_torch.kernels import build
 
         smi = chip_smoke.smi_line()
-        build.build_kernels(["row_sort", "tournament", "row_sort_kv"])  # once, before the ranks load them
+        build.build_kernels()  # once, before the ranks load them
     with tempfile.TemporaryDirectory() as tmp:
         mp.spawn(run_rank, args=(args.ranks, f"{tmp}/rendezvous", args), nprocs=args.ranks, join=True)
     if args.device == "cuda":

@@ -1,6 +1,6 @@
-"""Sharding vocabulary on ``torch.distributed``: axis roles, the per-layer
-FSDP gather, the egress pool's mesh, and the collectives the sharded paths
-differentiate through.
+"""Sharding vocabulary on ``torch.distributed``: axis roles, the layouts,
+the per-layer FSDP gather, the egress pool's mesh, and the collectives the
+sharded paths differentiate through.
 
 Counterpart of :mod:`repro.distributed.sharding`.  Axis roles are the
 reference's: ``tp`` (tensor parallel, "model": heads, FFN hidden, experts),
@@ -9,21 +9,39 @@ The port is SPMD, one rank per device (:mod:`.compat`): a
 :class:`ShardCtx` names the axes of a
 :class:`~torch.distributed.device_mesh.DeviceMesh`, and a collective over an
 axis is a ``torch.distributed`` call on that axis's process group
-(:meth:`ShardCtx.group`).  The ``spec_*`` and ``constraint`` helpers, which
-place activations for XLA's partitioner, come with the LM's sharded layers.
+(:meth:`ShardCtx.group`).
+
+Layouts.  A spec is a tuple with one entry per dimension: an axis name, a
+tuple of axis names (their product, row-major), or None (whole), as the
+reference's ``PartitionSpec``; ``spec_batch``, ``spec_resid``, ``spec_full``
+and ``spec_w2`` are the reference's, and :func:`shard_leaf` cuts a whole
+tensor to one rank's block of it.  The reference's ``constraint``, which asks
+XLA's partitioner for a layout, has no counterpart in SPMD: the layout
+changes it implies are explicit collectives here.  Under sequence
+parallelism (``sp``) the residual is T-sharded over tp (``spec_resid``):
+:func:`gather_seq` all-gathers T before a block's norm (``spec_full``) and
+:func:`scatter_seq` reduce-scatters a row-parallel output back (Megatron-SP);
+without it a row-parallel output is summed with :func:`all_reduce_sum`.
 
 Gradients.  Every rank calls ``backward`` on its own loss.  A sharded output
 enters each rank's loss with that rank's part, a replicated one (a
-:func:`psum`, gpipe's outputs, the MoE's aux) with the whole value, which the
-backward then counts once; a parameter replicated over ranks gets the sum of
-the ranks' gradients.  That is what the reference's ``jax.grad`` of the whole
-program gives, and each collective's backward below is the transpose that
-makes it so.
+:func:`psum`, gpipe's outputs, the MoE's aux, the LM's loss) with the whole
+value, which the backward then counts once; a parameter replicated over ranks
+gets the sum of the ranks' gradients.  That is what the reference's
+``jax.grad`` of the whole program gives, and each collective's backward below
+is the transpose that makes it so.  It follows that the cotangent of an
+activation every tp rank holds whole (a block's normed input, which each rank
+multiplies by its column shard) is held as the ranks' partial sums: the
+column-parallel entry needs no collective either way, the sum is taken where
+a row-parallel output's all-reduce or :func:`gather_seq`'s reduce-scatter
+transposes it, and a replicated parameter's partial gradients are summed
+over tp as over dp (:func:`replicated_axes`).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 import torch.distributed as dist
@@ -67,6 +85,88 @@ class ShardCtx:
         if self.axis_size(name) == 1:
             return 0
         return self.mesh.get_local_rank(name)
+
+    @property
+    def dp_size(self) -> int:
+        return math.prod(self.axis_size(a) for a in self.dp)
+
+    def groups(self, axes) -> list:
+        """The process groups of the axes in ``axes`` of size > 1."""
+        return [self.group(a) for a in axes if a is not None and self.axis_size(a) > 1]
+
+    # -- layouts (the reference's spec helpers) ---------------------------------
+    def spec_batch(self, *rest) -> tuple:
+        return (self.dp_axis, *rest)
+
+    def spec_resid(self) -> tuple:
+        """(B, T, D) residual stream: T sharded over tp under SP."""
+        return (self.dp_axis, self.tp if self.sp else None, None)
+
+    def spec_full(self) -> tuple:
+        """(B, T, D) with the whole T: a block's internal activations."""
+        return (self.dp_axis, None, None)
+
+    def spec_w2(self, contract_tp: bool) -> tuple:
+        """(in, out) weight: tp on out, or on in for a row-parallel one."""
+        return (self.tp, self.fsdp) if contract_tp else (self.fsdp, self.tp)
+
+    def coords(self) -> dict:
+        """Axis name -> (this rank's index, axis size), for :func:`shard_leaf`."""
+        names = (self.mesh.mesh_dim_names or ()) if self.mesh is not None else ()
+        return {a: (self.axis_index(a), self.axis_size(a)) for a in names}
+
+
+# ---------------------------------------------------------------------------
+# Layouts
+# ---------------------------------------------------------------------------
+
+
+def _block(entry, coords: dict) -> tuple[int, int]:
+    """(index, count) of one spec entry: its axes' product, row-major."""
+    axes = entry if isinstance(entry, tuple) else (entry,)
+    idx, n = 0, 1
+    for a in axes:
+        i, size = coords.get(a, (0, 1))
+        idx, n = idx * size + i, n * size
+    return idx, n
+
+
+def shard_leaf(x: torch.Tensor, spec: tuple, coords: dict) -> torch.Tensor:
+    """This rank's block of the whole tensor ``x`` under ``spec``; ``coords``
+    maps an axis name to (index, size) (:meth:`ShardCtx.coords`, or given
+    by hand).  A dimension that its axes' product does not divide raises."""
+    for dim, entry in enumerate(spec):
+        if entry is None:
+            continue
+        i, n = _block(entry, coords)
+        if n == 1:
+            continue
+        if x.shape[dim] % n:
+            raise ValueError(f"dim {dim} of {tuple(x.shape)} is not divisible by {n} ({entry})")
+        size = x.shape[dim] // n
+        x = x.narrow(dim, i * size, size)
+    return x.contiguous()
+
+
+def gather_leaf(ctx: ShardCtx, x: torch.Tensor, spec: tuple) -> torch.Tensor:
+    """The whole tensor from every rank's block under ``spec`` (no
+    gradient): :func:`shard_leaf`'s inverse, an all-gather per sharded
+    axis.  Every rank of the mesh takes part and gets the whole tensor."""
+    for dim, entry in enumerate(spec):
+        if entry is None:
+            continue
+        for a in reversed(entry if isinstance(entry, tuple) else (entry,)):
+            if ctx.axis_size(a) > 1:
+                x = _all_gather_dim0(x.movedim(dim, 0), ctx.group(a)).movedim(0, dim)
+    return x
+
+
+def replicated_axes(ctx: ShardCtx, spec: tuple) -> list[str]:
+    """The dp and tp axes a leaf of layout ``spec`` is replicated over: the
+    ones its gradient is summed over after ``backward``.  An fsdp axis in the
+    spec is not among them (:func:`fsdp_gather`'s reduce-scatter sums it)."""
+    used = {a for e in spec if e is not None for a in (e if isinstance(e, tuple) else (e,))}
+    return [a for a in (*ctx.dp, ctx.tp) if a is not None and a not in used and ctx.axis_size(a) > 1]
 
 
 # ---------------------------------------------------------------------------
@@ -149,6 +249,59 @@ class _GatherDim(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return _reduce_scatter_dim0(g.movedim(ctx.dim, 0), ctx.group).movedim(0, ctx.dim), None, None
+
+
+class _ScatterDim(torch.autograd.Function):
+    """Tiled reduce-scatter (sum) along ``dim``; backward the all-gather."""
+
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return _reduce_scatter_dim0(x.movedim(dim, 0), group).movedim(0, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_gather_dim0(g.movedim(ctx.dim, 0), ctx.group).movedim(0, ctx.dim), None, None
+
+
+class _GatherStack(torch.autograd.Function):
+    """All-gather into a new leading axis of the group's size; backward the
+    rank's own slice (each rank holds the whole cotangent of a replicated
+    result, as :func:`psum`'s backward assumes)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.rank = dist.get_rank(group)
+        return _all_gather_dim0(x[None], group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g[ctx.rank], None
+
+
+def gather_seq(x: torch.Tensor, ctx: ShardCtx, dim: int = 1) -> torch.Tensor:
+    """Megatron-SP's ``spec_resid`` -> ``spec_full``: all-gather the
+    T-sharded ``x`` over tp along ``dim``; the backward reduce-scatters the
+    ranks' partial cotangents.  The identity at tp = 1."""
+    if ctx.tp_size == 1:
+        return x
+    return _GatherDim.apply(x, ctx.group(ctx.tp), dim)
+
+
+def scatter_seq(x: torch.Tensor, ctx: ShardCtx, dim: int = 1) -> torch.Tensor:
+    """A row-parallel partial output back to ``spec_resid``: reduce-scatter
+    (sum) over tp along ``dim``; the backward all-gathers the cotangent.
+    The identity at tp = 1."""
+    if ctx.tp_size == 1:
+        return x
+    return _ScatterDim.apply(x, ctx.group(ctx.tp), dim)
+
+
+def gather_stack(x: torch.Tensor, group) -> torch.Tensor:
+    """Every rank's ``x`` stacked on a new leading axis (the group's size),
+    replicated; the backward keeps this rank's slice of the cotangent.  For
+    small statistics (the vocab-parallel cross entropy's, K6's partials)."""
+    return _GatherStack.apply(x, group)
 
 
 def _map(fn, tree, dims):

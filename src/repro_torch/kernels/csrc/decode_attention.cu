@@ -11,6 +11,14 @@
 // reference and the plain version do.  Inputs are float32 or bfloat16; D is
 // 32, 64 or 128; any G.
 //
+// Where the caller asks for it (a non-null lse), the merge pass also writes
+// each (slot, head)'s natural-log logsumexp of its scaled, masked scores,
+// f32 (B, H): its running max plus the log of its denominator, in the same
+// launch.  The sequence-sharded decode merges the chunks of several ranks by
+// these weights.  A slot of length 0 writes -1e30 + log(S), which is -1e30
+// in f32: beside any chunk with a visible position its weight exp(lse - max)
+// is exactly 0, as the reference's -1e30 masking gives it.
+//
 // The cache is read in place, in the model's (B, S, KV, D) layout, through
 // the strides it is given (a layer's slice of the stacked cache is a pointer
 // offset): the TPU wrapper's transpose to (B*KV, S, D) would copy the whole
@@ -292,8 +300,8 @@ template <typename T, int D>
 __global__ void __launch_bounds__(THREADS)
 decode_merge(const float* __restrict__ part_acc,
              const float* __restrict__ part_ml, const int* __restrict__ lengths,
-             T* __restrict__ out, int S, int KV, int G, int nsplit,
-             int block_s, Args a) {
+             T* __restrict__ out, float* __restrict__ lse, int S, int KV, int G,
+             int nsplit, int block_s, Args a) {
   constexpr int PER = D / 32;
   __shared__ float s_m[WARPS], s_l[WARPS], s_acc[WARPS][D];
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -342,6 +350,8 @@ decode_merge(const float* __restrict__ part_acc,
 #pragma unroll
   for (int w = 0; w < WARPS; ++w) l += s_l[w];
   const float den = l == 0.f ? 1.f : l;
+  if (lse != nullptr && lane == 0)
+    lse[(long long)b * gridDim.x + h] = m + logf(l);
   T* o = out + b * a.o_b + h * a.o_h + lane * PER;
 #pragma unroll
   for (int i = 0; i < PER; ++i) {
@@ -354,8 +364,9 @@ decode_merge(const float* __restrict__ part_acc,
 
 template <typename T, int D>
 int launch_d(const void* q, const void* kc, const void* vc, const int* lengths,
-             void* out, float* part_acc, float* part_ml, int B, int S, int H,
-             int KV, int block_s, const Args& a, float scale, cudaStream_t st) {
+             void* out, float* lse, float* part_acc, float* part_ml, int B,
+             int S, int H, int KV, int block_s, const Args& a, float scale,
+             cudaStream_t st) {
   const int G = H / KV;
   const int nsplit = (S + block_s - 1) / block_s;
   decode_partial<T, D><<<dim3(nsplit, KV, B), THREADS, 0, st>>>(
@@ -365,16 +376,16 @@ int launch_d(const void* q, const void* kc, const void* vc, const int* lengths,
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   decode_merge<T, D><<<dim3(H, B), THREADS, 0, st>>>(
-      part_acc, part_ml, lengths, static_cast<T*>(out), S, KV, G, nsplit,
+      part_acc, part_ml, lengths, static_cast<T*>(out), lse, S, KV, G, nsplit,
       block_s, a);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch(const void* q, const void* kc, const void* vc, const void* lengths,
-           void* out, void* part_acc, void* part_ml, int B, int S, int H,
-           int KV, int D, int block_s, const long long* st10, float scale,
-           void* stream) {
+           void* out, void* lse, void* part_acc, void* part_ml, int B, int S,
+           int H, int KV, int D, int block_s, const long long* st10,
+           float scale, void* stream) {
   if (B <= 0) return 0;
   if (S <= 0 || KV <= 0 || H % KV || block_s <= 0 || B > 65535 || KV > 65535 ||
       H > 65535)
@@ -382,16 +393,17 @@ int launch(const void* q, const void* kc, const void* vc, const void* lengths,
   const Args a{st10[0], st10[1], st10[2], st10[3], st10[4],
                st10[5], st10[6], st10[7], st10[8], st10[9]};
   const int* len = static_cast<const int*>(lengths);
+  float* ls = static_cast<float*>(lse);
   float* pa = static_cast<float*>(part_acc);
   float* pm = static_cast<float*>(part_ml);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 32:
-      return launch_d<T, 32>(q, kc, vc, len, out, pa, pm, B, S, H, KV, block_s, a, scale, s);
+      return launch_d<T, 32>(q, kc, vc, len, out, ls, pa, pm, B, S, H, KV, block_s, a, scale, s);
     case 64:
-      return launch_d<T, 64>(q, kc, vc, len, out, pa, pm, B, S, H, KV, block_s, a, scale, s);
+      return launch_d<T, 64>(q, kc, vc, len, out, ls, pa, pm, B, S, H, KV, block_s, a, scale, s);
     case 128:
-      return launch_d<T, 128>(q, kc, vc, len, out, pa, pm, B, S, H, KV, block_s, a, scale, s);
+      return launch_d<T, 128>(q, kc, vc, len, out, ls, pa, pm, B, S, H, KV, block_s, a, scale, s);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -402,25 +414,25 @@ int launch(const void* q, const void* kc, const void* vc, const void* lengths,
 extern "C" {
 
 // strides: 10 element strides -- q (b, h), kcache (b, s, h), vcache (b, s, h),
-// out (b, h).  part_acc holds B*KV*nsplit*G*D floats and part_ml
-// B*KV*nsplit*G*2, nsplit = ceil(S / block_s); only the visible blocks'
-// entries are written and read.
+// out (b, h).  lse is null or (B, H) contiguous f32.  part_acc holds
+// B*KV*nsplit*G*D floats and part_ml B*KV*nsplit*G*2, nsplit =
+// ceil(S / block_s); only the visible blocks' entries are written and read.
 int decode_attention_f32(const void* q, const void* kc, const void* vc,
-                         const void* lengths, void* out, void* part_acc,
-                         void* part_ml, int B, int S, int H, int KV, int D,
-                         int block_s, const long long* strides, float scale,
-                         void* stream) {
-  return launch<float>(q, kc, vc, lengths, out, part_acc, part_ml, B, S, H, KV,
-                       D, block_s, strides, scale, stream);
+                         const void* lengths, void* out, void* lse,
+                         void* part_acc, void* part_ml, int B, int S, int H,
+                         int KV, int D, int block_s, const long long* strides,
+                         float scale, void* stream) {
+  return launch<float>(q, kc, vc, lengths, out, lse, part_acc, part_ml, B, S, H,
+                       KV, D, block_s, strides, scale, stream);
 }
 
 int decode_attention_bf16(const void* q, const void* kc, const void* vc,
-                          const void* lengths, void* out, void* part_acc,
-                          void* part_ml, int B, int S, int H, int KV, int D,
-                          int block_s, const long long* strides, float scale,
-                          void* stream) {
-  return launch<__nv_bfloat16>(q, kc, vc, lengths, out, part_acc, part_ml, B,
-                               S, H, KV, D, block_s, strides, scale, stream);
+                          const void* lengths, void* out, void* lse,
+                          void* part_acc, void* part_ml, int B, int S, int H,
+                          int KV, int D, int block_s, const long long* strides,
+                          float scale, void* stream) {
+  return launch<__nv_bfloat16>(q, kc, vc, lengths, out, lse, part_acc, part_ml,
+                               B, S, H, KV, D, block_s, strides, scale, stream);
 }
 
 }  // extern "C"

@@ -16,6 +16,15 @@ mean of v over the cache, as in the reference.
 :func:`decode_attention` takes the plain version only for a tensor on the
 CPU; for a CUDA tensor it launches the kernel or raises, and adds one to
 ``LAUNCHES["decode_attention"]``.
+
+With ``return_lse=True`` K6 also returns each (slot, head)'s natural-log
+logsumexp of its scaled, masked scores, float32 ``(B, H)``, written by the
+kernel's merge pass in the same launch; without it the kernel writes nothing
+more.  The sequence-sharded decode runs K6 on each rank's chunk of the cache
+and merges the chunks' ``(out, lse)`` with :func:`merge_partials`.  A slot of
+length 0 has the lse ``-1e30 + log(S)``, which is ``-1e30`` in float32 (the
+reference's masking gives the same), so beside a chunk with a visible
+position its weight ``exp(lse - max)`` is exactly 0.
 """
 
 from __future__ import annotations
@@ -38,17 +47,19 @@ BLOCK_S = 128
 
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
-# (q, kc, vc, lengths, out, part_acc, part_ml, B, S, H, KV, D, block_s,
-#  strides[10], scale, stream)
+# (q, kc, vc, lengths, out, lse or null, part_acc, part_ml, B, S, H, KV, D,
+#  block_s, strides[10], scale, stream)
 build.register("decode_attention", "decode_attention.cu", {
-    f"decode_attention_{sfx}": [build.PTR] * 7 + [build.INT] * 6
+    f"decode_attention_{sfx}": [build.PTR] * 8 + [build.INT] * 6
     + [build.PTR, build.F32, build.PTR]
     for sfx in _SUFFIX.values()
 })
 
 
-def decode_attention_plain(q, kcache, vcache, lengths, *, scale: float | None = None):
-    """K6's plain version: a masked softmax over the whole cache, in f32."""
+def decode_attention_plain(q, kcache, vcache, lengths, *, scale: float | None = None,
+                           return_lse: bool = False):
+    """K6's plain version: a masked softmax over the whole cache, in f32;
+    with ``return_lse`` also the logsumexp of the masked scores, (B, H) f32."""
     B, H, d = q.shape
     S, KV = kcache.shape[1], kcache.shape[2]
     G = H // KV
@@ -58,8 +69,25 @@ def decode_attention_plain(q, kcache, vcache, lengths, *, scale: float | None = 
     visible = torch.arange(S, device=q.device)[None, :] < lengths.to(q.device)[:, None]
     s = s.masked_fill(~visible[:, None, None, :], NEG_INF)
     p = torch.softmax(s, dim=-1)
-    out = torch.einsum("bkgs,bskd->bkgd", p, vcache.float())
-    return out.reshape(B, H, d).to(q.dtype)
+    out = torch.einsum("bkgs,bskd->bkgd", p, vcache.float()).reshape(B, H, d).to(q.dtype)
+    if return_lse:
+        return out, torch.logsumexp(s, dim=-1).reshape(B, H)
+    return out
+
+
+def merge_partials(outs, lses) -> torch.Tensor:
+    """Merge K6's results over chunks of one cache: ``outs`` (C, B, H, d),
+    each chunk's normalised output, and ``lses`` (C, B, H), its logsumexp.
+    Returns the attention over the whole cache, (B, H, d) float32: the
+    chunks weighted by ``exp(lse - max lse)``, which is the reference's
+    ``_decode_body`` merge (its pmax, then the psums of ``o * w`` and
+    ``l * w``) written with normalised partials.  A chunk with no visible
+    position (lse -1e30) weighs exactly 0 beside one with a visible
+    position."""
+    lses = lses.float()
+    w = torch.exp(lses - lses.amax(dim=0, keepdim=True))
+    num = (w[..., None] * outs.float()).sum(0)
+    return num / w.sum(0)[..., None]
 
 
 def _check(q, kcache, vcache, lengths) -> None:
@@ -84,12 +112,14 @@ def _check(q, kcache, vcache, lengths) -> None:
         raise ValueError(f"decode_attention: unsupported device {q.device}")
 
 
-def decode_attention(q, kcache, vcache, lengths, *, scale: float | None = None):
+def decode_attention(q, kcache, vcache, lengths, *, scale: float | None = None,
+                     return_lse: bool = False):
     """K6: q (B, H, d); caches (B, S, KV, d); lengths (B,) int32 visible
-    counts.  Returns (B, H, d) in q's type."""
+    counts.  Returns (B, H, d) in q's type, and with ``return_lse`` also the
+    logsumexp (B, H) float32."""
     _check(q, kcache, vcache, lengths)
     if q.device.type == "cpu":
-        return decode_attention_plain(q, kcache, vcache, lengths, scale=scale)
+        return decode_attention_plain(q, kcache, vcache, lengths, scale=scale, return_lse=return_lse)
     B, H, d = q.shape
     S, KV = kcache.shape[1], kcache.shape[2]
     if d not in HEAD_DIMS:
@@ -103,8 +133,9 @@ def decode_attention(q, kcache, vcache, lengths, *, scale: float | None = None):
     _check_aligned(q, kcache, vcache, op="decode_attention")
     scale = d**-0.5 if scale is None else scale
     out = torch.empty((B, H, d), dtype=q.dtype, device=q.device)
+    lse = torch.empty((B, H), dtype=torch.float32, device=q.device) if return_lse else None
     if B == 0:
-        return out
+        return (out, lse) if return_lse else out
     G = H // KV
     nsplit = -(-S // BLOCK_S)
     part_acc = torch.empty((B, KV, nsplit, G, d), dtype=torch.float32, device=q.device)
@@ -119,8 +150,9 @@ def decode_attention(q, kcache, vcache, lengths, *, scale: float | None = None):
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), kcache.data_ptr(), vcache.data_ptr(), lengths.data_ptr(),
-                 out.data_ptr(), part_acc.data_ptr(), part_ml.data_ptr(),
+                 out.data_ptr(), None if lse is None else lse.data_ptr(),
+                 part_acc.data_ptr(), part_ml.data_ptr(),
                  B, S, H, KV, d, BLOCK_S, strides, float(scale), stream)
     build.check_launch(err, "decode_attention")
     LAUNCHES["decode_attention"] += 1
-    return out
+    return (out, lse) if return_lse else out

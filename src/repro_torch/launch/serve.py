@@ -6,9 +6,14 @@
 ``--arch`` takes the dense ``mistral-nemo-12b`` and the MoE
 ``granite-moe-3b-a800m`` and ``deepseek-moe-16b``.
 
-Counterpart of ``repro.launch.serve`` on one device (no ``--mesh``): the
-weights are drawn from ``--seed`` on the device, prompts of 2-11 tokens from
-numpy's ``default_rng(seed)``.
+Counterpart of ``repro.launch.serve``: the weights are drawn from
+``--seed`` on the device, prompts of 2-11 tokens from numpy's
+``default_rng(seed)``.  Without ``--mesh`` it serves from one device;
+``--mesh 1xM`` serves the model sharded over tp (the ``model`` axis), one
+process a device under ``torchrun --nproc-per-node=M`` (:mod:`.mesh`),
+with the sequence-sharded KV cache; every rank holds every slot and samples
+the same token, and rank 0 prints.  A data axis above 1 is refused: the
+engine does not shard its slots over data ranks as the reference's does.
 """
 
 from __future__ import annotations
@@ -18,11 +23,13 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .. import models, resolve_device
 from ..configs import get_config, get_smoke_config
 from ..serve.engine import Engine, Request
 from ..serve.sampler import SampleConfig
+from .mesh import mesh_context, rank_device
 
 
 def main(argv=None) -> list[Request]:
@@ -30,6 +37,7 @@ def main(argv=None) -> list[Request]:
     ap.add_argument("--arch", required=True)
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--mesh", default=None, help="1xM (default: one device, no process group)")
     ap.add_argument("--slots", type=int, default=4)
     ap.add_argument("--max-len", type=int, default=128)
     ap.add_argument("--requests", type=int, default=8)
@@ -43,7 +51,15 @@ def main(argv=None) -> list[Request]:
     if cfg.is_encdec:
         raise SystemExit("the serve CLI takes decoder-only archs")
     dev = resolve_device(args.device)
-    model = models.build(cfg, device=dev)
+    if args.mesh is not None:
+        dev = rank_device(dev)
+    with mesh_context(args.mesh, dev, train=False) as ctx:
+        return _serve(args, cfg, ctx, dev)
+
+
+def _serve(args, cfg, ctx, dev) -> list[Request]:
+    lead = ctx is None or dist.get_rank() == 0
+    model = models.build(cfg, ctx=ctx, device=dev)
     model.init(torch.Generator(device=dev).manual_seed(args.seed))
 
     eng = Engine(
@@ -63,6 +79,8 @@ def main(argv=None) -> list[Request]:
         torch.cuda.synchronize(dev)
     dt = time.perf_counter() - t0
     tokens = sum(len(r.out) for r in finished)
+    if not lead:
+        return finished
     print(f"served {len(finished)} requests, {tokens} tokens "
           f"in {dt:.2f}s ({tokens/dt:.1f} tok/s) on {dev}")
     for r in finished[:4]:

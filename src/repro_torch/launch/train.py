@@ -7,9 +7,13 @@
 ``--arch`` takes the dense ``mistral-nemo-12b`` and the MoE
 ``granite-moe-3b-a800m`` and ``deepseek-moe-16b``.
 
-Counterpart of ``repro.launch.train`` on one device: the reference's flags
-without ``--mesh``, plus ``--device`` (default ``cuda``; it raises without a
-card unless asked for ``cpu``) and ``--dtype`` (default the config's).  It
+Counterpart of ``repro.launch.train``: the reference's flags, plus
+``--device`` (default ``cuda``; it raises without a card unless asked for
+``cpu``) and ``--dtype`` (default the config's).  Without ``--mesh`` it trains on
+one device; ``--mesh DxM`` (or ``PxDxM``) trains the model sharded over a
+``(data, model)`` mesh, one process a device under ``torchrun
+--nproc-per-node=D*M`` (:mod:`.mesh`): tp over ``model``, FSDP over ``data``
+when it is more than 1, each rank its rows of every global batch.  It
 resumes from the newest checkpoint in ``--ckpt-dir`` (parameters, optimizer
 state and data cursor), writes checkpoints asynchronously every
 ``--ckpt-every`` steps and at the end, logs loss, gradient norm and learning
@@ -17,9 +21,11 @@ rate every ``--log-every`` steps and flags straggler steps.  The weights are
 drawn from ``--seed`` on the device.
 
 Checkpoints hold the reference's trees (parameters stacked under ``layers``,
-:func:`~repro_torch.models.convert.params_to_reference`), so each CLI
-resumes from the other's directory.  A directory written before the port
-saved that tree (flat ``layers.<i>.`` state-dict names) resumes as well.
+:func:`~repro_torch.models.convert.params_to_reference`), whole whatever the
+mesh: on a mesh the shards are all-gathered and rank 0 writes, and every
+rank resumes by cutting its shard.  So each CLI resumes from the other's
+directory, at any mesh.  A directory written before the port saved that
+tree (flat ``layers.<i>.`` state-dict names) resumes as well.
 """
 
 from __future__ import annotations
@@ -29,6 +35,8 @@ import dataclasses
 
 import torch
 
+import torch.distributed as dist
+
 from .. import models, resolve_device
 from ..configs import get_config, get_smoke_config
 from ..data.tokens import TokenPipeline
@@ -36,7 +44,8 @@ from ..distributed.collectives import StragglerMonitor, make_int8_compressor
 from ..models.convert import opt_state_from_reference, opt_state_to_reference, params_from_reference, params_to_reference
 from ..train.checkpoint import AsyncCheckpointer, CheckpointManager
 from ..train.optimizer import AdamWConfig, init_opt_state
-from ..train.train_step import build_train_step
+from ..train.train_step import build_train_step, shard_batch
+from .mesh import mesh_context, rank_device
 
 
 def main(argv=None) -> list[dict]:
@@ -46,6 +55,7 @@ def main(argv=None) -> list[dict]:
     ap.add_argument("--arch", required=True)
     ap.add_argument("--smoke", action="store_true", help="use the reduced same-family config")
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--mesh", default=None, help="DxM or PxDxM (default: one device, no process group)")
     ap.add_argument("--dtype", choices=["float32", "bfloat16"], default=None)
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--batch", type=int, default=8)
@@ -63,7 +73,23 @@ def main(argv=None) -> list[dict]:
     if args.dtype:
         cfg = dataclasses.replace(cfg, dtype=args.dtype)
     dev = resolve_device(args.device)
-    model = models.build(cfg, device=dev).requires_grad_(True)
+    if args.mesh is not None:
+        dev = rank_device(dev)
+    with mesh_context(args.mesh, dev, train=True) as ctx:
+        return _train(args, cfg, ctx, dev)
+
+
+def _cut(ctx) -> dict:
+    """This rank's ``params_from_reference`` coordinates."""
+    if ctx is None:
+        return {}
+    return {"tp_rank": ctx.axis_index(ctx.tp), "tp_size": ctx.tp_size,
+            "fsdp_rank": ctx.axis_index(ctx.fsdp), "fsdp_size": ctx.axis_size(ctx.fsdp)}
+
+
+def _train(args, cfg, ctx, dev) -> list[dict]:
+    lead = ctx is None or dist.get_rank() == 0
+    model = models.build(cfg, ctx=ctx, device=dev).requires_grad_(True)
 
     opt_cfg = AdamWConfig(lr=args.lr, warmup_steps=min(100, args.steps // 10 + 1), total_steps=args.steps)
     pipe = TokenPipeline(cfg.vocab_size, args.batch, args.seq, seed=args.seed)
@@ -72,26 +98,29 @@ def main(argv=None) -> list[dict]:
     ckpt = None
     if args.ckpt_dir:
         mgr = CheckpointManager(args.ckpt_dir, keep=3)
-        ckpt = AsyncCheckpointer(mgr)
+        if ctx is not None:
+            dist.barrier()  # every rank has read the directory before rank 0 writes to it
+        ckpt = AsyncCheckpointer(mgr) if lead else None
         if mgr.latest_step() is not None:
             state, manifest = mgr.restore()
             params, opt = state["params"], state["opt"]
             if isinstance(params.get("layers"), dict):  # the reference's stacked tree
-                params, opt = params_from_reference(params), opt_state_from_reference(opt)
+                params, opt = params_from_reference(params, **_cut(ctx)), opt_state_from_reference(opt, **_cut(ctx))
             model.load_state_dict(params)
             opt_state = {"m": {k: v.to(dev) for k, v in opt["m"].items()},
                          "v": {k: v.to(dev) for k, v in opt["v"].items()},
                          "step": opt["step"].to(device=dev, dtype=torch.int32)}
             pipe = TokenPipeline.restore(cfg.vocab_size, args.batch, args.seq, state["data"])
             start_step = manifest["step"]
-            print(f"resumed from step {start_step}")
+            if lead:
+                print(f"resumed from step {start_step}")
     if start_step == 0:
         model.init(torch.Generator(device=dev).manual_seed(args.seed))
         opt_state = init_opt_state(dict(model.named_parameters()), opt_cfg)
 
     hook = None
     if args.compress_grads:
-        compress, init_res = make_int8_compressor()
+        compress, init_res = make_int8_compressor(ctx, model.param_specs() if ctx is not None else None)
         res_holder = {"r": None}
 
         def hook(grads):
@@ -104,12 +133,19 @@ def main(argv=None) -> list[dict]:
     mon = StragglerMonitor()
 
     def snapshot():
-        return {"params": params_to_reference(model.state_dict()), "opt": opt_state_to_reference(opt_state),
-                "data": pipe.state()}
+        """The whole reference tree (gathered by every rank on a mesh)."""
+        return {"params": params_to_reference(model.state_dict(), ctx),
+                "opt": opt_state_to_reference(opt_state, ctx), "data": pipe.state()}
+
+    def save(step):
+        snap = snapshot()
+        if ckpt is not None:
+            ckpt.save(step, snap)
 
     records = []
     for step in range(start_step, args.steps):
-        batch = {k: torch.from_numpy(v).to(dev) for k, v in pipe.next_batch().items()}
+        rows = shard_batch(pipe.next_batch(), ctx, args.microbatches)
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in rows.items()}
         mon.start()
         opt_state, metrics = step_fn(opt_state, batch)
         if dev.type == "cuda":
@@ -118,16 +154,20 @@ def main(argv=None) -> list[dict]:
         rec = {"step": step, "loss": float(metrics["loss"]), "grad_norm": float(metrics["grad_norm"]),
                "lr": float(metrics["lr"]), "straggler": straggler}
         records.append(rec)
-        if step % args.log_every == 0 or step == args.steps - 1:
+        if lead and (step % args.log_every == 0 or step == args.steps - 1):
             print(f"step {step:5d} loss {rec['loss']:.4f} gnorm {rec['grad_norm']:.3f} "
                   f"lr {rec['lr']:.2e}" + ("  [straggler]" if straggler else ""), flush=True)
-        if ckpt and (step + 1) % args.ckpt_every == 0:
-            ckpt.save(step + 1, snapshot())
-    if ckpt:
+        if args.ckpt_dir and (step + 1) % args.ckpt_every == 0:
+            save(step + 1)
+    if args.ckpt_dir:
         if args.steps % args.ckpt_every:  # not already saved by the loop
-            ckpt.save(args.steps, snapshot())
-        ckpt.close()
-    print("timing:", mon.summary())
+            save(args.steps)
+        if ckpt is not None:
+            ckpt.close()
+        if ctx is not None:
+            dist.barrier()  # the checkpoint is on disk before any rank returns
+    if lead:
+        print("timing:", mon.summary())
     return records
 
 

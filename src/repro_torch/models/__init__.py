@@ -7,9 +7,10 @@ from .lm import LM
 __all__ = ["LM", "build"]
 
 
-def build(cfg, device="cuda"):
+def build(cfg, ctx=None, device="cuda"):
     """Model factory: the decoder-only LM on ``device`` (default ``"cuda"``;
-    raises without a card unless asked for ``"cpu"``)."""
+    raises without a card unless asked for ``"cpu"``), this rank's shard of
+    it with a ``ShardCtx``."""
     if cfg.is_encdec:
         raise NotImplementedError(f"{cfg.name}: the encoder-decoder model is a later slice of the port")
-    return LM(cfg, device=device)
+    return LM(cfg, ctx, device=device)

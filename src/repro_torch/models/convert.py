@@ -13,12 +13,25 @@ included, or CPU tensors (a reference checkpoint restored by
 bit for bit.  :func:`params_to_reference` and :func:`opt_state_to_reference`
 go the other way (tensors stacked back into ``layers``), which is the tree
 the training CLI checkpoints, so either package's CLI resumes the other's.
+
+On a mesh every leaf is cut by its layout (:func:`repro_torch.models.lm.leaf_spec`,
+the reference's ``spec_*``): ``params_from_reference(tree, tp_rank=,
+tp_size=, fsdp_rank=, fsdp_size=)`` gives one rank's shard, and
+``params_to_reference(state, ctx)`` all-gathers a rank's shards back to the
+whole tree (every rank of the mesh takes part).  :func:`merge_shards`
+joins a full grid of shard states in one process.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from ..distributed.sharding import ShardCtx, gather_leaf, shard_leaf
+from .lm import leaf_spec
+
+#: Axis names of the layouts :func:`params_from_reference` cuts by.
+_ROLES = ShardCtx(tp="model", fsdp="data")
 
 
 def _tensor(a) -> torch.Tensor:
@@ -39,21 +52,18 @@ def _flatten(tree, prefix: str, out: dict) -> None:
         out[prefix[:-1]] = _tensor(tree)
 
 
-_EXPERT_SLABS = ("w_in", "w_gate", "w_out")
-
-
-def params_from_reference(tree: dict, *, tp_rank: int = 0, tp_size: int = 1,
-                          stage: int | None = None) -> dict[str, torch.Tensor]:
+def params_from_reference(tree: dict, *, tp_rank: int = 0, tp_size: int = 1, fsdp_rank: int = 0,
+                          fsdp_size: int = 1, stage: int | None = None) -> dict[str, torch.Tensor]:
     """A state dict for :class:`repro_torch.models.lm.LM` (``load_state_dict``)
     from the reference's parameter tree.
 
-    One rank's shard of it, for the sharded paths: ``tp_size > 1`` keeps tp
-    rank ``tp_rank``'s expert slabs (the 3-D ``w_in``, ``w_gate`` and
-    ``w_out`` of an MoE, ``padded_experts / tp_size`` of them, the
-    reference's ``P(tp, ...)`` shard; an MLP's weights are 2-D and stay
-    whole); ``stage`` keeps pipeline stage ``stage``'s slice ``[stage :
-    stage + 1]`` of every leaf of a stacked stage tree (the ``P(axis)``
-    shard ``distributed.pp.gpipe`` takes)."""
+    One rank's shard of it, for the sharded paths: every leaf is cut by its
+    layout to tp rank ``tp_rank`` of ``tp_size`` and fsdp rank ``fsdp_rank``
+    of ``fsdp_size`` (heads, FFN hidden, expert slabs and vocabulary over tp,
+    the block matrices' D over fsdp; norms and the router stay whole);
+    ``stage`` keeps pipeline stage ``stage``'s slice ``[stage : stage + 1]``
+    of every leaf of a stacked stage tree (the ``P(axis)`` shard
+    ``distributed.pp.gpipe`` takes)."""
     state: dict[str, torch.Tensor] = {}
     for key, sub in tree.items():
         if key == "layers":
@@ -67,27 +77,44 @@ def params_from_reference(tree: dict, *, tp_rank: int = 0, tp_size: int = 1,
                     state[f"layers.{i}.{name}"] = v[i].clone()
         else:
             _flatten(sub, f"{key}.", state)
-    if stage is None and tp_size == 1:
+    if stage is None and tp_size == 1 and fsdp_size == 1:
         return state
-    return {name: _shard(name, v, tp_rank, tp_size, stage) for name, v in state.items()}
+    coords = {"model": (tp_rank, tp_size), "data": (fsdp_rank, fsdp_size)}
+    out = {}
+    for name, v in state.items():
+        if stage is not None:
+            v = v[stage : stage + 1]
+        try:
+            out[name] = shard_leaf(v, leaf_spec(name, v.dim(), _ROLES), coords).clone()
+        except ValueError as e:
+            raise ValueError(f"{name}: {e}") from None
+    return out
 
 
-def _shard(name: str, v: torch.Tensor, tp_rank: int, tp_size: int, stage: int | None) -> torch.Tensor:
-    if stage is not None:
-        v = v[stage : stage + 1]
-    if tp_size > 1 and name.rsplit(".", 1)[-1] in _EXPERT_SLABS and v.dim() == 3:
-        if v.shape[0] % tp_size:
-            raise ValueError(f"{name}: {v.shape[0]} expert slabs not divisible by tp={tp_size}")
-        e = v.shape[0] // tp_size
-        v = v[tp_rank * e : (tp_rank + 1) * e]
-    return v.clone()
+def merge_shards(states, *, tp_size: int = 1, fsdp_size: int = 1) -> dict[str, torch.Tensor]:
+    """The whole state dict from every rank's shard: ``states[t][f]`` is
+    :func:`params_from_reference`'s state at tp rank ``t`` and fsdp rank
+    ``f`` (the inverse of the cut, in one process)."""
+    out = {}
+    for name, v in states[0][0].items():
+        spec = leaf_spec(name, v.dim(), _ROLES)
+
+        def join(parts, axis):
+            dim = spec.index(axis) if axis in spec else None
+            return parts[0] if dim is None else torch.cat(parts, dim)
+
+        out[name] = join([join([states[t][f][name] for f in range(fsdp_size)], "data") for t in range(tp_size)],
+                         "model")
+    return out
 
 
-def opt_state_from_reference(state: dict) -> dict:
+def opt_state_from_reference(state: dict, **shard) -> dict:
     """The port's AdamW state (:func:`repro_torch.train.optimizer.init_opt_state`
     layout: ``m`` and ``v`` keyed by state-dict name, ``step`` an int32
-    scalar) from the reference's ``{"m", "v", "step"}`` tree."""
-    return {"m": params_from_reference(state["m"]), "v": params_from_reference(state["v"]),
+    scalar) from the reference's ``{"m", "v", "step"}`` tree; ``shard``
+    (``tp_rank=``, ``tp_size=``, ``fsdp_rank=``, ``fsdp_size=``) cuts the
+    moments as :func:`params_from_reference` cuts the parameters."""
+    return {"m": params_from_reference(state["m"], **shard), "v": params_from_reference(state["v"], **shard),
             "step": _tensor(state["step"]).to(torch.int32).reshape(())}
 
 
@@ -106,11 +133,15 @@ def _nest(flat: dict[str, torch.Tensor]) -> dict:
     return root
 
 
-def params_to_reference(state: dict[str, torch.Tensor]) -> dict:
+def params_to_reference(state: dict[str, torch.Tensor], ctx: ShardCtx | None = None) -> dict:
     """The reference's parameter tree from a state dict of
     :class:`repro_torch.models.lm.LM`: ``layers.<i>.<name>`` stacked into
     ``layers.<name>`` of depth L.  The stacked leaves are new tensors; the
-    others are the state dict's own, detached."""
+    others are the state dict's own, detached.  With a ``ctx`` of a mesh,
+    ``state`` is this rank's shard and every leaf is all-gathered whole
+    first (every rank of the mesh must call it)."""
+    if ctx is not None and ctx.mesh is not None:
+        state = {name: gather_leaf(ctx, v.detach(), leaf_spec(name, v.dim(), ctx)) for name, v in state.items()}
     per_layer: dict[str, dict[int, torch.Tensor]] = {}
     rest: dict[str, torch.Tensor] = {}
     for name, v in state.items():
@@ -127,7 +158,9 @@ def params_to_reference(state: dict[str, torch.Tensor]) -> dict:
     return tree
 
 
-def opt_state_to_reference(state: dict) -> dict:
-    """The reference's ``{"m", "v", "step"}`` AdamW tree from the port's."""
-    return {"m": params_to_reference(state["m"]), "v": params_to_reference(state["v"]),
+def opt_state_to_reference(state: dict, ctx: ShardCtx | None = None) -> dict:
+    """The reference's ``{"m", "v", "step"}`` AdamW tree from the port's (a
+    rank's shards gathered whole with a ``ctx``, as
+    :func:`params_to_reference`)."""
+    return {"m": params_to_reference(state["m"], ctx), "v": params_to_reference(state["v"], ctx),
             "step": state["step"].detach().clone()}

@@ -24,9 +24,28 @@ The cache is a dict of tensors updated *in place* by ``prefill`` and
 ``decode_step`` (the reference returns a new one); both also return it.
 The other families (SSM, RWKV, hybrid) and precomputed-embedding inputs raise
 ``NotImplementedError`` naming the slice that ports them.
+
+On a mesh (``LM(cfg, ctx)``, a :class:`~repro_torch.distributed.sharding.ShardCtx`
+of a ``(data, model)`` or ``(pod, data, model)`` DeviceMesh) the model is
+SPMD, one rank a device, and allocates only the rank's shard of every leaf
+(:func:`leaf_spec`, the reference's ``spec_*``): heads, FFN hidden, experts
+and vocabulary over tp; with an ``fsdp`` axis the non-contracting D of each
+block matrix, all-gathered inside the layer loop one block at a time under
+the block's checkpoint (the recompute gathers again, as the reference's
+``jax.checkpoint`` does).  Every entry point takes this rank's rows of the
+batch (its dp shard).  With ``ctx.sp`` the training forward keeps the
+residual T-sharded over tp (Megatron-SP: :func:`gather_seq` before each
+norm, :func:`scatter_seq` after each row-parallel output) and an MoE
+dispatches over all_to_all (``moe_layer_a2a``); training an MoE at tp > 1
+without it raises, as the reference does.  Prefill and decode run the layout
+without sequence parallelism, as a serving context has it.  The cache is
+sequence-sharded over tp (``(L, B, max_len / tp, KV, hd)`` a rank, the
+reference's ``cache_specs``).  ``ctx=None`` is the one-device model.
 """
 
 from __future__ import annotations
+
+import types
 
 import torch
 from torch import nn
@@ -34,10 +53,11 @@ from torch.utils.checkpoint import checkpoint
 
 from .. import resolve_device
 from ..configs.base import ModelConfig
+from ..distributed.sharding import (ShardCtx, fsdp_gather, gather_seq, gather_stack, psum, shard_leaf)
 from . import attention as attn_mod
 from . import mlp as mlp_mod
 from . import moe as moe_mod
-from .layers import cross_entropy, dense_init, embed_tokens, lm_logits, rms_norm
+from .layers import cross_entropy, embed_tokens, lm_logits, rms_norm, spec_embed, spec_lm_head, spec_norm
 
 
 def block_kind(cfg: ModelConfig) -> str:
@@ -59,6 +79,61 @@ _LATER = {
 }
 
 
+def leaf_spec(name: str, ndim: int, ctx: ShardCtx) -> tuple:
+    """The layout of the parameter ``name`` (a state-dict name of
+    :class:`LM`, or of one of its modules) with ``ndim`` dimensions: the
+    reference's ``spec_*`` entry for it, in ``ctx``'s axis names.  A leaf
+    none of them names (a norm's scale, a test's own tree) is replicated."""
+    parts = name.split(".")
+    leaf, parent = parts[-1], parts[-2] if len(parts) > 1 else ""
+    if parent == "embed":
+        table = spec_embed(ctx)
+    elif parent == "head":
+        table = spec_lm_head(ctx)
+    elif parent == "attn":
+        table = attn_mod.spec_attn(ctx)
+    elif leaf in ("w_in", "w_gate", "w_out") and ndim == 3 or leaf == "router":
+        table = moe_mod.spec_moe(ctx)
+    elif leaf in ("w_in", "w_gate", "w_out", "b_in", "b_out"):
+        table = mlp_mod.spec_mlp(ctx)
+    else:
+        table = spec_norm()
+    spec = table.get(leaf, (None,) * ndim)
+    return spec if len(spec) == ndim else (None,) * ndim
+
+
+def _whole_shape(shape, spec: tuple, ctx: ShardCtx) -> tuple:
+    return tuple(n * (ctx.axis_size(a) if isinstance(a, str) else 1) for n, a in zip(shape, spec))
+
+
+@torch.no_grad()
+def init_params(module: nn.Module, generator: torch.Generator, ctx: ShardCtx | None = None) -> nn.Module:
+    """Draw every weight of ``module`` (an :class:`LM`, or one of its
+    attention, MLP or MoE modules) from ``generator`` with the reference's
+    distributions, leaf by leaf in the module's order: embedding
+    N(0,1)*0.02, a matrix N(0,1)*d_in^-1/2 (``wo`` (H*hd)^-1/2, ``w_out``
+    d_ff^-1/2; an expert slab's d_in is its middle axis), norms ones,
+    biases zeros.  Each leaf is drawn whole, in f32, and cut to the rank's
+    shard (:func:`leaf_spec`), so every mesh holds the same model as one
+    device."""
+    ctx = ctx if ctx is not None else ShardCtx()
+    coords = ctx.coords() if ctx.mesh is not None else {}
+    for name, p in module.named_parameters():
+        leaf = name.rsplit(".", 1)[-1]
+        if leaf == "scale":
+            p.fill_(1.0)
+        elif leaf.startswith("b"):
+            p.zero_()
+        else:
+            spec = leaf_spec(name, p.dim(), ctx)
+            whole = _whole_shape(p.shape, spec, ctx)
+            scale = 0.02 if leaf == "table" else whole[p.dim() - 2] ** -0.5
+            draw = torch.randn(whole, generator=generator, device=p.device, dtype=torch.float32)
+            p.copy_(shard_leaf(draw.mul_(scale), spec, coords))
+            del draw
+    return module
+
+
 class Norm(nn.Module):
     def __init__(self, d: int, device):
         super().__init__()
@@ -78,30 +153,36 @@ class Head(nn.Module):
 
 
 class Block(nn.Module):
-    """Attention, then an MoE (``moe``) or an MLP of width ``d_ff``."""
+    """Attention, then an MoE (``moe``) or an MLP of width ``d_ff``; with
+    ``tp`` / ``fsdp`` > 1 this rank's shard of each."""
 
-    def __init__(self, cfg: ModelConfig, dtype, device, *, moe: bool = False, d_ff: int = 0):
+    def __init__(self, cfg: ModelConfig, dtype, device, *, moe: bool = False, d_ff: int = 0,
+                 tp: int = 1, fsdp: int = 1):
         super().__init__()
         self.ln1 = Norm(cfg.d_model, device)
         self.ln2 = Norm(cfg.d_model, device)
-        self.attn = attn_mod.Attention(cfg, dtype, device)
+        self.attn = attn_mod.Attention(cfg, dtype, device, tp=tp, fsdp=fsdp)
         if moe:
-            self.moe = moe_mod.MoE(cfg, dtype, device)
+            self.moe = moe_mod.MoE(cfg, dtype, device, tp_size=tp, fsdp=fsdp)
         else:
-            self.mlp = mlp_mod.MLP(cfg.d_model, d_ff or cfg.d_ff, cfg.mlp_gated, cfg.use_bias, dtype, device)
+            self.mlp = mlp_mod.MLP(cfg.d_model, d_ff or cfg.d_ff, cfg.mlp_gated, cfg.use_bias, dtype, device,
+                                   tp=tp, fsdp=fsdp)
 
-    def ffn(self, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
-        if hasattr(self, "moe"):
-            return moe_mod.moe_layer(self.moe, cfg, h)[0]
-        return mlp_mod.mlp(self.mlp, cfg, h)
+
+def ffn(p, cfg: ModelConfig, h: torch.Tensor, ctx: ShardCtx | None = None) -> torch.Tensor:
+    """A block's MoE (the psum dispatch) or MLP on ``h``, whole over tp."""
+    if hasattr(p, "moe"):
+        return moe_mod.moe_layer(p.moe, cfg, h, ctx)[0]
+    return mlp_mod.mlp(p.mlp, cfg, h, ctx)
 
 
 class LM(nn.Module):
     """The dense or MoE decoder on ``device`` (default ``"cuda"``; raises without a
-    card unless asked for ``"cpu"``).  Parameters are allocated, not drawn:
-    call :meth:`init` or load a state."""
+    card unless asked for ``"cpu"``), on one device or, with ``ctx``, this
+    rank's shard of it.  Parameters are allocated, not drawn: call
+    :meth:`init` or load a state (``convert.params_from_reference``)."""
 
-    def __init__(self, cfg: ModelConfig, device="cuda"):
+    def __init__(self, cfg: ModelConfig, ctx: ShardCtx | None = None, device="cuda"):
         super().__init__()
         kind = block_kind(cfg)
         if kind not in ("dense", "moe"):
@@ -113,18 +194,23 @@ class LM(nn.Module):
             )
         dev = resolve_device(device)
         dt = getattr(torch, cfg.dtype)
-        self.cfg = cfg
-        self.embed = Embed(cfg.padded_vocab, cfg.d_model, dt, dev)
+        self.cfg, self.ctx = cfg, ctx
+        tp = ctx.tp_size if ctx is not None else 1
+        fsdp = ctx.axis_size(ctx.fsdp) if ctx is not None else 1
+        if cfg.padded_vocab % tp:
+            raise ValueError(f"the padded vocabulary {cfg.padded_vocab} does not split over tp={tp}")
+        self.embed = Embed(cfg.padded_vocab // tp, cfg.d_model, dt, dev)
         n_dense = cfg.moe.first_dense_layers if cfg.moe else 0
         if n_dense:
             d_ff = cfg.moe.d_ff_dense or cfg.d_ff
-            self.dense_layers = nn.ModuleList(Block(cfg, dt, dev, d_ff=d_ff) for _ in range(n_dense))
+            self.dense_layers = nn.ModuleList(
+                Block(cfg, dt, dev, d_ff=d_ff, tp=tp, fsdp=fsdp) for _ in range(n_dense))
         self.layers = nn.ModuleList(
-            Block(cfg, dt, dev, moe=kind == "moe") for _ in range(cfg.num_layers - n_dense)
+            Block(cfg, dt, dev, moe=kind == "moe", tp=tp, fsdp=fsdp) for _ in range(cfg.num_layers - n_dense)
         )
         self.ln_f = Norm(cfg.d_model, dev)
         if not cfg.tie_embeddings:
-            self.head = Head(cfg.d_model, cfg.padded_vocab, dt, dev)
+            self.head = Head(cfg.d_model, cfg.padded_vocab // tp, dt, dev)
 
     def _stacks(self):
         """(blocks, k cache name, v cache name), in the order they run."""
@@ -140,120 +226,204 @@ class LM(nn.Module):
     def dtype(self) -> torch.dtype:
         return self.embed.table.dtype
 
+    @property
+    def _tp(self) -> int:
+        return self.ctx.tp_size if self.ctx is not None else 1
+
+    @property
+    def _sp(self) -> bool:
+        """Sequence parallelism in the training forward."""
+        return self.ctx is not None and self.ctx.sp and self._tp > 1
+
+    def param_specs(self) -> dict[str, tuple]:
+        """State-dict name -> layout (:func:`leaf_spec`) of every parameter."""
+        ctx = self.ctx if self.ctx is not None else ShardCtx()
+        return {name: leaf_spec(name, p.dim(), ctx) for name, p in self.named_parameters()}
+
+    def _gathered(self, blk: Block):
+        """``blk`` with its fsdp-sharded weights all-gathered (the
+        reference's ``fsdp_gather`` of one layer), as a namespace of the
+        module's structure; ``blk`` itself without an fsdp axis."""
+        ctx = self.ctx
+        if ctx is None or ctx.fsdp is None or ctx.axis_size(ctx.fsdp) == 1:
+            return blk
+
+        def tree(mod, prefix):
+            out = {n: p for n, p in mod.named_parameters(recurse=False)}
+            dims = {n: _fsdp_dim(leaf_spec(prefix + n, p.dim(), ctx), ctx) for n, p in out.items()}
+            for n, child in mod.named_children():
+                out[n], dims[n] = tree(child, f"{prefix}{n}.")
+            return out, dims
+
+        def ns(t):
+            return types.SimpleNamespace(**{k: ns(v) if isinstance(v, dict) else v for k, v in t.items()})
+
+        return ns(fsdp_gather(ctx, *tree(blk, "")))
+
     # ------------------------------------------------------------------ init
-    @torch.no_grad()
     def init(self, generator: torch.Generator) -> "LM":
-        """Draw every weight from ``generator`` with the reference's
-        distributions: embedding N(0,1)*0.02, dense N(0,1)*d_in^-1/2 (``wo``
-        (H*hd)^-1/2, ``w_out`` d_ff^-1/2), experts as :func:`.moe.init_moe`,
-        norms ones, biases zeros."""
-        draw = torch.randn(self.embed.table.shape, generator=generator,
-                           device=self.device, dtype=torch.float32)
-        self.embed.table.copy_(draw.mul_(0.02))
-        del draw
-        for blocks, _, _ in self._stacks():
-            for blk in blocks:
-                blk.ln1.scale.fill_(1.0)
-                blk.ln2.scale.fill_(1.0)
-                attn_mod.init_attn(blk.attn, self.cfg, generator)
-                if hasattr(blk, "moe"):
-                    moe_mod.init_moe(blk.moe, generator)
-                else:
-                    mlp_mod.init_mlp(blk.mlp, generator)
-        self.ln_f.scale.fill_(1.0)
-        if not self.cfg.tie_embeddings:
-            dense_init(self.head.w, generator)
-        return self
+        """Draw every weight from ``generator`` (:func:`init_params`)."""
+        return init_params(self, generator, self.ctx)
 
     # --------------------------------------------------------------- forward
     def _block(self, blk: Block, x: torch.Tensor, positions: torch.Tensor):
-        """One block, as the reference's ``_attn_mlp_body``: (x, aux)."""
-        c = self.cfg
-        x = x + attn_mod.attention(blk.attn, c, rms_norm(x, blk.ln1.scale, c.norm_eps), positions)
-        h = rms_norm(x, blk.ln2.scale, c.norm_eps)
-        if hasattr(blk, "moe"):
-            y, aux, _ = moe_mod.moe_layer(blk.moe, c, h)
+        """One block, as the reference's ``_attn_mlp_body``: (x, aux).  Under
+        sequence parallelism ``x`` is this rank's T chunk, gathered before
+        each norm; the block's fsdp-sharded weights are gathered here."""
+        c, ctx, sp = self.cfg, self.ctx, self._sp
+        p = self._gathered(blk)
+        xg = gather_seq(x, ctx) if sp else x
+        x = x + attn_mod.attention(p.attn, c, rms_norm(xg, p.ln1.scale, c.norm_eps), positions,
+                                   ctx=ctx, seq_sharded=sp)
+        xg = gather_seq(x, ctx) if sp else x
+        h = rms_norm(xg, p.ln2.scale, c.norm_eps)
+        if hasattr(p, "moe"):
+            if ctx is not None and moe_mod.use_a2a(c, ctx):
+                # the a2a dispatch routes the rank's own T chunk
+                h_loc = rms_norm(x, p.ln2.scale, c.norm_eps)
+                y, aux, _ = moe_mod.moe_layer_a2a(p.moe, c, ctx, h_loc, x_full=h)
+            else:
+                y, aux, _ = moe_mod.moe_layer(p.moe, c, h, ctx)
             return x + y, aux
-        return x + mlp_mod.mlp(blk.mlp, c, h), torch.zeros((), dtype=torch.float32, device=x.device)
+        return x + mlp_mod.mlp(p.mlp, c, h, ctx, seq_sharded=sp), torch.zeros((), dtype=torch.float32,
+                                                                               device=x.device)
 
     def forward(self, tokens: torch.Tensor):
-        """Training/scoring forward over ``tokens`` (B, T): (logits (B, T, V)
-        with the padded vocab sliced off, the MoE stack's summed load-balance
+        """Training/scoring forward over ``tokens`` (B, T), this rank's rows:
+        (logits (B, T, V) -- with the padded vocab sliced off on one device,
+        this rank's vocab shard with the padded columns at -1e30 at tp > 1,
+        as the reference keeps them -- and the MoE stack's summed load-balance
         aux).  The leading dense layers run first; each block is one
         activation checkpoint (non-reentrant), recomputed in the backward."""
-        c = self.cfg
-        x = embed_tokens(self.embed.table, tokens.long())
-        positions = torch.arange(x.shape[1], device=x.device)[None, :]
+        c, ctx, sp = self.cfg, self.ctx, self._sp
+        if self.cfg.moe is not None and self._tp > 1 and not moe_mod.use_a2a(c, ctx):
+            raise ValueError(
+                "training MoE with tp>1 requires the a2a dispatch "
+                "(T % tp == 0 / SP); the psum fallback's gradient path is "
+                "only validated for tp=1"
+            )
+        T = tokens.shape[1]
+        if sp and T % self._tp:
+            raise ValueError(f"sequence parallelism needs T={T} divisible by tp={self._tp}")
+        x = embed_tokens(self.embed.table, tokens.long(), ctx, seq_sharded=sp)
+        positions = torch.arange(T, device=x.device)[None, :]
         aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
         for blocks, _, _ in self._stacks():
             for blk in blocks:
                 x, aux = checkpoint(self._block, blk, x, positions, use_reentrant=False)
                 aux_total = aux_total + aux
+        if sp:
+            x = gather_seq(x, ctx)
         x = rms_norm(x, self.ln_f.scale, c.norm_eps)
         return self._logits(x), aux_total
 
     def loss(self, batch: dict, aux_weight: float = 0.01):
         """``ce + aux_weight * aux`` over ``batch`` ({"tokens", "labels"},
-        (B, T) each): (loss, {"ce", "aux"})."""
+        (B, T) each, this rank's rows): (loss, {"ce", "aux"}).  On a mesh
+        ``ce`` is the mean over the global batch (the dp shards' means
+        summed, equal shards), replicated, as are ``aux`` and the loss."""
         logits, aux = self(batch["tokens"])
-        ce = cross_entropy(logits, batch["labels"])
+        ce = cross_entropy(logits, batch["labels"], ctx=self.ctx)
+        if self.ctx is not None and self.ctx.groups(self.ctx.dp):
+            ce = psum(ce, self.ctx.groups(self.ctx.dp)) / self.ctx.dp_size
         return ce + aux_weight * aux, {"ce": ce, "aux": aux}
 
     # ---------------------------------------------------------------- decode
     def init_cache(self, batch: int, max_len: int) -> dict:
         """Zeros: ``pos`` (B,) int32 and ``k``/``v`` (L, B, S, KV, hd) of each
-        stack (``k_dense``/``v_dense`` for the leading dense layers)."""
+        stack (``k_dense``/``v_dense`` for the leading dense layers).  At tp
+        > 1 this rank's chunk of the sequence, S = ``max_len / tp``."""
         c = self.cfg
+        if max_len % self._tp:
+            raise ValueError(f"max_len={max_len} does not split over tp={self._tp} (the sequence-sharded cache)")
         cache = {"pos": torch.zeros(batch, dtype=torch.int32, device=self.device)}
         for blocks, kn, vn in self._stacks():
-            shape = (len(blocks), batch, max_len, c.num_kv_heads, c.resolved_head_dim)
+            shape = (len(blocks), batch, max_len // self._tp, c.num_kv_heads, c.resolved_head_dim)
             cache[kn] = torch.zeros(shape, dtype=self.dtype, device=self.device)
             cache[vn] = torch.zeros(shape, dtype=self.dtype, device=self.device)
         return cache
 
     def _logits(self, x: torch.Tensor) -> torch.Tensor:
-        """Vocab head; the padded columns are sliced off (one device)."""
+        """Vocab head.  At tp = 1 the padded columns are sliced off; at tp > 1
+        the rank's shard keeps them, masked to -1e30 (the reference's even
+        sharding)."""
         c = self.cfg
         if c.tie_embeddings:
             logits = x @ self.embed.table.T
         else:
             logits = lm_logits(self.head.w, x)
-        return logits[..., : c.vocab_size]
+        if self._tp == 1:
+            return logits[..., : c.vocab_size]
+        vl = logits.shape[-1]
+        cols = self.ctx.axis_index(self.ctx.tp) * vl + torch.arange(vl, device=logits.device)
+        return torch.where(cols < c.vocab_size, logits, torch.full_like(logits, -1e30))
 
     @torch.no_grad()
     def prefill(self, tokens: torch.Tensor, cache: dict):
         """Process a whole prompt ``tokens`` (B, T) into an empty ``cache``:
         k/v of positions [0, T) are written and ``pos`` advances by T.
         Returns (last-position logits (B, V), cache)."""
-        c = self.cfg
-        x = embed_tokens(self.embed.table, tokens.long())
+        c, ctx = self.cfg, self.ctx
+        x = embed_tokens(self.embed.table, tokens.long(), ctx)
         T = x.shape[1]
         positions = torch.arange(T, device=x.device)[None, :]
         for blocks, kn, vn in self._stacks():
             for i, blk in enumerate(blocks):
-                h = rms_norm(x, blk.ln1.scale, c.norm_eps)
-                y, (k, v) = attn_mod.attention(blk.attn, c, h, positions, return_kv=True)
-                cache[kn][i, :, :T] = k
-                cache[vn][i, :, :T] = v
+                p = self._gathered(blk)
+                h = rms_norm(x, p.ln1.scale, c.norm_eps)
+                y, (k, v) = attn_mod.attention(p.attn, c, h, positions, return_kv=True, ctx=ctx)
+                self._write_prefill(cache[kn][i], k)
+                self._write_prefill(cache[vn][i], v)
                 x = x + y
-                x = x + blk.ffn(c, rms_norm(x, blk.ln2.scale, c.norm_eps))
+                x = x + ffn(p, c, rms_norm(x, p.ln2.scale, c.norm_eps), ctx)
         # the norm is per row: normalizing the last position alone is the same
         x = rms_norm(x[:, -1], self.ln_f.scale, c.norm_eps)
         cache["pos"] += T
-        return self._logits(x), cache
+        return self._whole_logits(x), cache
+
+    def _whole_logits(self, x: torch.Tensor) -> torch.Tensor:
+        """:meth:`_logits` with every vocab shard (all-gathered over tp at tp
+        > 1: the padded width, pads at -1e30, as the reference returns)."""
+        logits = self._logits(x)
+        if self._tp == 1:
+            return logits
+        st = gather_stack(logits, self.ctx.group(self.ctx.tp))
+        return st.movedim(0, -2).reshape(*logits.shape[:-1], -1)
+
+    def _write_prefill(self, cache: torch.Tensor, kv: torch.Tensor) -> None:
+        """Write a prompt's k or v (B, T, heads, hd) at positions [0, T) of a
+        layer's cache.  At tp > 1 ``kv`` holds the rank's heads and the cache
+        the rank's chunk of the sequence, every head: the heads are gathered
+        over tp and the rank keeps its positions."""
+        T = kv.shape[1]
+        if self._tp == 1:
+            cache[:, :T] = kv
+            return
+        B, _, kvl, hd = kv.shape
+        whole = gather_stack(kv, self.ctx.group(self.ctx.tp)).permute(1, 2, 0, 3, 4).reshape(B, T, -1, hd)
+        chunk = cache.shape[1]
+        start = self.ctx.axis_index(self.ctx.tp) * chunk
+        n = max(0, min(chunk, T - start))
+        cache[:, :n] = whole[:, start : start + n]
 
     @torch.no_grad()
     def decode_step(self, cache: dict, tokens: torch.Tensor):
         """One decode step.  tokens: (B,) ints.  Returns (logits (B, V), cache)."""
-        c = self.cfg
+        c, ctx = self.cfg, self.ctx
         pos = cache["pos"]
-        x = embed_tokens(self.embed.table, tokens.long())[:, None, :]
+        x = embed_tokens(self.embed.table, tokens.long(), ctx)[:, None, :]
         for blocks, kn, vn in self._stacks():
             for i, blk in enumerate(blocks):
-                h = rms_norm(x, blk.ln1.scale, c.norm_eps)
-                y, _, _ = attn_mod.decode_attention(blk.attn, c, h, cache[kn][i], cache[vn][i], pos)
+                p = self._gathered(blk)
+                h = rms_norm(x, p.ln1.scale, c.norm_eps)
+                y, _, _ = attn_mod.decode_attention(p.attn, c, h, cache[kn][i], cache[vn][i], pos, ctx)
                 x = x + y
-                x = x + blk.ffn(c, rms_norm(x, blk.ln2.scale, c.norm_eps))
+                x = x + ffn(p, c, rms_norm(x, p.ln2.scale, c.norm_eps), ctx)
         x = rms_norm(x, self.ln_f.scale, c.norm_eps)
         cache["pos"] += 1
-        return self._logits(x)[:, 0, :], cache
+        return self._whole_logits(x)[:, 0, :], cache
+
+
+def _fsdp_dim(spec: tuple, ctx: ShardCtx):
+    """The dimension ``ctx.fsdp`` shards in ``spec``, or None."""
+    return spec.index(ctx.fsdp) if ctx.fsdp in spec else None

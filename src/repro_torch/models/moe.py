@@ -27,8 +27,15 @@ reference's, with sequence parallelism): each rank routes its own tokens,
 sends each assignment to the rank owning its expert over an all_to_all,
 groups what it receives into its experts' capacity slots, and returns the
 outputs by the reverse exchange.  Its two grouping sorts run on K3 through
-:func:`stable_argsort`, where the reference calls ``jnp.argsort``.  The psum
-dispatch at tp > 1 comes with the LM's sharded layers.
+:func:`stable_argsort`, where the reference calls ``jnp.argsort``.
+
+At tp > 1 without sequence parallelism :func:`moe_layer` is the reference's
+psum dispatch (``_dispatch_body``): every tp rank routes the same tokens,
+dispatches the assignments of its own ``padded_experts / tp`` slabs with K3,
+and the ranks sum their outputs and dropped counts.  On a mesh the capacity
+and the load-balance aux are the reference's, over the global batch (the dp
+shards' statistics are summed).  On a tp mesh the shared experts are a
+tp-parallel MLP (``spec_mlp``).
 """
 
 from __future__ import annotations
@@ -41,10 +48,10 @@ import torch.distributed as dist
 from torch import nn
 
 from ..configs.base import ModelConfig
-from ..distributed.sharding import ShardCtx, all_reduce_sum, psum
+from ..distributed.sharding import ShardCtx, all_reduce_sum, gather_seq, psum
 from ..kernels import ops
-from .layers import activation, dense_init
-from .mlp import MLP, init_mlp, mlp
+from .layers import activation
+from .mlp import MLP, mlp, spec_mlp
 
 
 def padded_experts(num_experts: int, multiple: int = 16) -> int:
@@ -54,50 +61,45 @@ def padded_experts(num_experts: int, multiple: int = 16) -> int:
     return -(-num_experts // multiple) * multiple
 
 
+def spec_moe(ctx: ShardCtx, gated: bool = True, shared: bool = True) -> dict:
+    s = {"router": (None, None), "w_in": (ctx.tp, ctx.fsdp, None), "w_out": (ctx.tp, None, ctx.fsdp)}
+    if gated:
+        s["w_gate"] = (ctx.tp, ctx.fsdp, None)
+    if shared:
+        s["shared"] = spec_mlp(ctx)
+    return s
+
+
 class MoE(nn.Module):
     """Router (f32, ``(D, num_experts)``) and expert slabs ``(E, ...)`` at
     the padded expert count, in the reference's layout; ``shared`` is the
-    always-on MLP of width ``num_shared * d_expert``.  With ``tp_size > 1``
-    the module holds one tp rank's ``E / tp_size`` slabs
-    (:func:`moe_layer_a2a`; ``convert.params_from_reference(tree,
-    tp_rank=r, tp_size=tp)``)."""
+    always-on MLP of width ``num_shared * d_expert``.  With ``tp_size`` /
+    ``fsdp`` > 1 the module holds one rank's shard of each (``spec_moe``:
+    ``E / tp_size`` slabs, D cut over fsdp, the shared MLP tp-parallel;
+    ``convert.params_from_reference(tree, tp_rank=r, tp_size=tp, ...)``)."""
 
-    def __init__(self, cfg: ModelConfig, dtype, device, tp_size: int = 1):
+    def __init__(self, cfg: ModelConfig, dtype, device, tp_size: int = 1, fsdp: int = 1):
         super().__init__()
         require_full_f32(device)
         m = cfg.moe
         D, Fe, E = cfg.d_model, m.d_expert, padded_experts(m.num_experts)
         if E % tp_size:
             raise ValueError(f"{E} padded experts not divisible by tp={tp_size}")
+        if D % fsdp:
+            raise ValueError(f"d_model {D} does not split over fsdp={fsdp}")
         E //= tp_size
 
         def param(*shape, dt=dtype):
             return nn.Parameter(torch.empty(shape, dtype=dt, device=device), requires_grad=False)
 
         self.router = param(D, m.num_experts, dt=torch.float32)
-        self.w_in = param(E, D, Fe)
-        self.w_out = param(E, Fe, D)
+        self.w_in = param(E, D // fsdp, Fe)
+        self.w_out = param(E, Fe, D // fsdp)
         if cfg.mlp_gated:
-            self.w_gate = param(E, D, Fe)
+            self.w_gate = param(E, D // fsdp, Fe)
         if m.num_shared:
-            self.shared = MLP(D, m.num_shared * Fe, cfg.mlp_gated, cfg.use_bias, dtype, device)
-
-
-@torch.no_grad()
-def init_moe(p: MoE, generator: torch.Generator) -> MoE:
-    """The reference's distributions: router N(0,1) * D^-1/2 in f32, ``w_in``
-    and ``w_gate`` N(0,1) * D^-1/2, ``w_out`` N(0,1) * d_expert^-1/2, each
-    drawn in f32 and cast; the shared MLP as any MLP."""
-    dense_init(p.router, generator)
-    for w, fan_in in ((p.w_in, p.w_in.shape[1]), (p.w_out, p.w_out.shape[1]),
-                      (getattr(p, "w_gate", None), p.w_in.shape[1])):
-        if w is not None:
-            draw = torch.randn(w.shape, generator=generator, device=w.device, dtype=torch.float32)
-            w.copy_(draw.mul_(fan_in**-0.5))
-            del draw
-    if hasattr(p, "shared"):
-        init_mlp(p.shared, generator)
-    return p
+            self.shared = MLP(D, m.num_shared * Fe, cfg.mlp_gated, cfg.use_bias, dtype, device,
+                              tp=tp_size, fsdp=fsdp)
 
 
 def require_full_f32(device) -> None:
@@ -147,42 +149,57 @@ class Dispatch:
     dropped: torch.Tensor  # () assignments over their expert's capacity
 
 
-def dispatch(eid: torch.Tensor, num_slabs: int, capacity: int) -> Dispatch:
-    """Range-partition the assignments ``eid`` (n*k,) into ``num_slabs``
-    expert buffers of ``capacity`` slots: sort by expert id (stable), rank
-    within the expert's group, keep ranks below the capacity.  At tp = 1
-    every expert is local, so the key is the expert id itself."""
-    order = stable_argsort(eid, num_slabs)
-    sk = eid[order]
+def dispatch(eid: torch.Tensor, num_slabs: int, capacity: int, first: int = 0) -> Dispatch:
+    """Range-partition the assignments ``eid`` (n*k,) into the ``num_slabs``
+    expert buffers of experts ``[first, first + num_slabs)``, ``capacity``
+    slots each: sort by local expert id (stable; another rank's experts
+    key ``num_slabs`` and sort last), rank within the expert's group, keep
+    ranks below the capacity.  ``dropped`` counts the local assignments over
+    capacity.  At tp = 1 every expert is local and the key is the id."""
+    key = eid - first if first else eid
+    key = torch.where((key >= 0) & (key < num_slabs), key, num_slabs)
+    order = stable_argsort(key, num_slabs)
+    sk = key[order]
     rank = _rank_in_group(sk)
-    live = rank < capacity
+    mine = sk < num_slabs
+    live = mine & (rank < capacity)
     slot = torch.where(live, sk * capacity + rank, num_slabs * capacity)
-    return Dispatch(order=order, slot=slot, dropped=(~live).sum())
+    return Dispatch(order=order, slot=slot, dropped=(mine & ~live).sum())
 
 
-def moe_layer(p: MoE, cfg: ModelConfig, x: torch.Tensor):
+def moe_layer(p: MoE, cfg: ModelConfig, x: torch.Tensor, ctx: ShardCtx | None = None):
     """x (B, T, D) -> (output (B, T, D), Switch load-balance aux, dropped
-    assignment count), as the reference's ``moe_layer`` at tp = 1.  On the
-    card, TF32 must stay off (:func:`require_full_f32`, checked when the
-    :class:`MoE` is built)."""
+    assignment count), as the reference's ``moe_layer``.  On a ``ctx`` the
+    tokens are this rank's dp shard (whole over tp) and ``p`` its shard:
+    capacity, aux and dropped are the reference's over the global batch,
+    and at tp > 1 each rank runs its own slabs and the ranks sum (the psum
+    dispatch).  On the card, TF32 must stay off (:func:`require_full_f32`,
+    checked when the :class:`MoE` is built)."""
     m = cfg.moe
     B, T, D = x.shape
     n, k = B * T, m.top_k
     xf = x.reshape(n, D)
+    dp_groups = ctx.groups(ctx.dp) if ctx is not None else []
+    dp_size = ctx.dp_size if ctx is not None else 1
 
     logits = xf.float() @ p.router  # full f32: see require_full_f32
     probs = torch.softmax(logits, dim=-1)
     topk_p, topk_idx = route(probs, k)
 
-    # Switch-style load-balance aux: E * sum_e f_e * p_e
+    # Switch-style load-balance aux: E * sum_e f_e * p_e, over the global batch
     me = probs.mean(0)
     counts = torch.zeros(m.num_experts, dtype=torch.float32, device=x.device)
     counts.index_add_(0, topk_idx.reshape(-1), torch.ones(n * k, device=x.device))
-    aux = m.num_experts * (me * counts / (n * k)).sum()
+    if dp_groups:
+        me, counts = psum(me, dp_groups) / dp_size, psum(counts, dp_groups)
+    aux = m.num_experts * (me * counts / (n * dp_size * k)).sum()
 
     E = p.w_in.shape[0]
-    C = max(int(n * m.top_k / m.num_experts * m.capacity_factor), 1)
-    d = dispatch(topk_idx.reshape(n * k), E, C)
+    tp = ctx.tp_size if ctx is not None else 1
+    if E * tp != padded_experts(m.num_experts):
+        raise ValueError(f"{E} expert slabs on a rank of tp={tp}; want {padded_experts(m.num_experts)} / {tp}")
+    C = max(int(n * dp_size * m.top_k / m.num_experts * m.capacity_factor), 1)
+    d = dispatch(topk_idx.reshape(n * k), E, C, ctx.axis_index(ctx.tp) * E if tp > 1 else 0)
 
     # gather token vectors into (E, C, D) buffers; an empty slot reads token
     # (slot mod n) times 0.  Each gather's backward adds rows with index_add
@@ -212,10 +229,17 @@ def moe_layer(p: MoE, cfg: ModelConfig, x: torch.Tensor):
     src = torch.where(kept, slot_of, torch.arange(n * k, device=x.device) % (E * C))
     out = (y.reshape(E * C, D).index_select(0, src) * kept[:, None].to(y.dtype)).view(n, k, D).float().sum(1)
 
+    dropped = d.dropped
+    if tp > 1:
+        # merge the expert-range shards' contributions (the psum dispatch)
+        out = all_reduce_sum(out, ctx.group(ctx.tp))
+        dropped = psum(dropped, ctx.group(ctx.tp))
+    if dp_groups:
+        dropped = psum(dropped, dp_groups)
     out = out.reshape(B, T, D).to(x.dtype)
     if m.num_shared:
-        out = out + mlp(p.shared, cfg, x)
-    return out, aux, d.dropped
+        out = out + mlp(p.shared, cfg, x, ctx)
+    return out, aux, dropped
 
 
 class _A2A(torch.autograd.Function):
@@ -353,7 +377,9 @@ def moe_layer_a2a(p: MoE, cfg: ModelConfig, ctx: ShardCtx, x: torch.Tensor,
     T, D), the full-T activation, feeds the shared experts, which each rank
     runs with the whole shared MLP on its own T chunk.  Returns (this rank's
     output (B_loc, T_loc, D), aux as the mean over every dp x tp shard,
-    dropped as their sum), the last two replicated.  The token payloads'
+    dropped as their sum), the last two replicated.  The shared experts run
+    tp-parallel on ``x_full`` (``x`` gathered over T when it is not given)
+    and are reduce-scattered back over T.  The token payloads'
     cotangents cross the fabric in bf16, as the reference's do, so an f32
     layer's gradients are within bf16 rounding of ``moe_layer``'s.  On the
     card, TF32 must stay off (:func:`require_full_f32`)."""
@@ -383,8 +409,6 @@ def moe_layer_a2a(p: MoE, cfg: ModelConfig, ctx: ShardCtx, x: torch.Tensor,
         dropped = psum(dropped, groups)
     y = out.reshape(x.shape).to(x.dtype)
     if m.num_shared:
-        if x_full is not None:
-            t0 = ctx.axis_index(ctx.tp) * T
-            x = x_full[:, t0 : t0 + T]
-        y = y + mlp(p.shared, cfg, x)
+        xf = x_full if x_full is not None else gather_seq(x, ctx)
+        y = y + mlp(p.shared, cfg, xf, ctx, seq_sharded=True)
     return y, aux, dropped

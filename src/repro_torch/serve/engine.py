@@ -22,6 +22,13 @@ copies the next tokens in, replays the graph and samples the logits outside
 it.  A failed capture raises; nothing falls back to the eager step.  On the
 CPU the step runs eagerly.  Prefill stays eager: a graph per prompt length
 would be one capture per request.
+
+A model on a mesh (``LM(cfg, ctx)``) is served the same way on every rank:
+each holds every slot, its chunk of the sequence-sharded cache and its
+shard of the weights; the decode step's collectives (NCCL on the card) are
+captured inside the graph, which reads nothing back to the host.  The
+greedy sampler gives every rank the same token; a sampled token is rank
+0's, broadcast to the others.
 """
 
 from __future__ import annotations
@@ -31,6 +38,7 @@ from collections import deque
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .. import resolve_device
 from ..kernels import build
@@ -150,7 +158,11 @@ class Engine:
         self._admit()
         if not any(r is not None for r in self.active):
             return 0
-        toks = sample(self._decode(), self.generator, self.sample_cfg).tolist()
+        toks = sample(self._decode(), self.generator, self.sample_cfg)
+        ctx = getattr(self.model, "ctx", None)
+        if ctx is not None and self.sample_cfg.temperature > 0 and dist.get_world_size() > 1:
+            dist.broadcast(toks, src=0)
+        toks = toks.tolist()
         for s, req in enumerate(self.active):
             if req is None:
                 continue

@@ -19,6 +19,10 @@ the scanned stack carries a leading layer axis.  So each ``layers.<i>``
 norm scale and bias is decayed (rank 1 here, rank 2 stacked there), while
 ``ln_f`` and deepseek's unstacked ``dense_layers`` are not
 (:func:`reference_rank`).
+
+On a mesh each rank updates its own shard; the clip's global norm sums the
+squares of every shard, counting a leaf replicated over ranks once
+(:func:`global_norm` with ``ctx`` and ``specs``).
 """
 
 from __future__ import annotations
@@ -27,6 +31,8 @@ import dataclasses
 import math
 
 import torch
+
+from ..distributed.sharding import psum, replicated_axes
 
 
 @dataclasses.dataclass(frozen=True)
@@ -72,8 +78,18 @@ def init_opt_state(params: dict, cfg: AdamWConfig) -> dict:
     }
 
 
-def global_norm(grads: dict) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in grads.values()))
+def global_norm(grads: dict, ctx=None, specs: dict | None = None) -> torch.Tensor:
+    """sqrt of the sum of every gradient's squares.  On a mesh (``ctx`` and
+    the leaves' ``specs``) each rank sums its shards, a leaf replicated over
+    an axis only on that axis's rank 0, and the ranks' sums are added."""
+    if ctx is None or ctx.mesh is None:
+        return torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in grads.values()))
+    mine = [g for name, g in grads.items()
+            if all(ctx.axis_index(a) == 0 for a in replicated_axes(ctx, specs[name]))]
+    dev = next(iter(grads.values())).device
+    sq = sum((torch.sum(torch.square(g.float())) for g in mine), torch.zeros((), device=dev))
+    axes = [a for a in ctx.mesh.mesh_dim_names if ctx.axis_size(a) > 1]
+    return torch.sqrt(psum(sq, [ctx.group(a) for a in axes]) if axes else sq)
 
 
 def _row_chunks(n_rows: int, row_elems: int, limit_bytes: int):
@@ -84,12 +100,14 @@ def _row_chunks(n_rows: int, row_elems: int, limit_bytes: int):
 
 
 @torch.no_grad()
-def apply_updates(params: dict, grads: dict, state: dict, cfg: AdamWConfig):
+def apply_updates(params: dict, grads: dict, state: dict, cfg: AdamWConfig, ctx=None, specs=None):
     """One AdamW step on ``params`` (name -> tensor) with ``grads`` (the same
     names).  Updates the parameters and ``state``'s moments in place; returns
-    ``(params, state, {"grad_norm", "lr"})``."""
+    ``(params, state, {"grad_norm", "lr"})``.  On a mesh (``ctx``, the
+    leaves' ``specs``) ``params`` are this rank's shards and the clip's norm
+    is the global one."""
     step = state["step"] + 1
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, ctx, specs)
     scale = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-9), max=1.0)
     lr = lr_schedule(cfg, step).to(gnorm.device)
     b1, b2 = cfg.b1, cfg.b2

@@ -14,6 +14,15 @@ With one microbatch the gradients keep the parameters' type, as the
 reference's ``jax.value_and_grad`` gives them.  ``grad_compressor`` is
 an optional ``grads -> grads`` hook applied before the optimizer (the int8
 error-feedback compressor plugs in here).
+
+On a mesh (a model built with a ``ShardCtx``) every rank runs the step on
+its rows of the batch (:func:`shard_batch`) and its shard of the
+parameters.  Each rank's loss is the global mean, so the gradient of a
+sharded leaf is whole on its rank, and a leaf replicated over a dp or tp
+axis gets the sum of the ranks' gradients over that axis by an all-reduce
+after ``backward`` (an fsdp leaf comes reduce-scattered from the gather's
+transpose); then the compressor, the global-norm clip over every shard and
+AdamW on each rank's shard.
 """
 
 from __future__ import annotations
@@ -21,8 +30,38 @@ from __future__ import annotations
 from typing import Callable
 
 import torch
+import torch.distributed as dist
 
+from ..distributed.sharding import replicated_axes, shard_leaf
 from .optimizer import AdamWConfig, apply_updates
+
+
+def shard_batch(batch: dict, ctx, microbatches: int = 1) -> dict:
+    """This rank's rows of a global ``batch`` (arrays or tensors, rows
+    first): microbatch ``i`` of the result is this rank's dp shard of the
+    global microbatch ``i`` (rows ``[i * B/m, (i + 1) * B/m)``), as the
+    reference splits the batch and then shards each microbatch over dp."""
+    if ctx is None or ctx.dp_size == 1:
+        return batch
+    out = {}
+    for k, x in batch.items():
+        B = x.shape[0]
+        if B % (microbatches * ctx.dp_size):
+            raise ValueError(f"a batch of B={B} rows does not split into {microbatches} microbatches "
+                             f"over dp={ctx.dp_size}")
+        t = torch.as_tensor(x)
+        parts = [shard_leaf(mb, ctx.spec_batch(), ctx.coords()) for mb in t.chunk(microbatches)]
+        out[k] = torch.cat(parts) if isinstance(x, torch.Tensor) else torch.cat(parts).numpy()
+    return out
+
+
+def sync_grads(grads: dict, ctx, specs: dict) -> dict:
+    """Sum each gradient over the axes its leaf is replicated on
+    (:func:`~repro_torch.distributed.sharding.replicated_axes`), in place."""
+    for name, g in grads.items():
+        for a in replicated_axes(ctx, specs[name]):
+            dist.all_reduce(g, group=ctx.group(a))
+    return grads
 
 
 def build_train_step(
@@ -37,6 +76,8 @@ def build_train_step(
     if not all(p.requires_grad for p in params.values()):
         raise ValueError("the model is frozen: call model.requires_grad_(True) before building a train step")
     names, leaves = list(params), list(params.values())
+    ctx = getattr(model, "ctx", None)
+    specs = model.param_specs() if ctx is not None else None
 
     def loss_and_grads(mb: dict):
         loss, metrics = model.loss(mb, aux_weight=aux_weight)
@@ -63,9 +104,11 @@ def build_train_step(
             grads = {k: g / microbatches for k, g in grads.items()}
             loss = loss / microbatches
             metrics = {}
+        if ctx is not None:
+            grads = sync_grads({k: g.contiguous() for k, g in grads.items()}, ctx, specs)
         if grad_compressor is not None:
             grads = grad_compressor(grads)
-        _, opt_state, opt_metrics = apply_updates(params, grads, opt_state, opt_cfg)
+        _, opt_state, opt_metrics = apply_updates(params, grads, opt_state, opt_cfg, ctx=ctx, specs=specs)
         return opt_state, {"loss": loss, **opt_metrics, **metrics}
 
     return train_step

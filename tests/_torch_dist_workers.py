@@ -1,17 +1,26 @@
 """Workers of the port's multi-rank parity tests (``test_torch_sharded_sort.py``,
-``test_torch_distributed.py``).
+``test_torch_distributed.py``, ``test_torch_lm_sharded.py``).
 
 Two kinds, both writing numpy arrays to ``.npz`` files that the tests compare:
 
-* ``ref_sort`` / ``ref_dist`` run the JAX package's sharded functions on 8
-  fake CPU devices.  They run in a subprocess started with
-  ``XLA_FLAGS=--xla_force_host_platform_device_count=8`` (the flag must not
+* ``ref_sort`` / ``ref_dist`` / ``ref_lm_grads`` / ``ref_lm_rest`` run the
+  JAX package's sharded functions on fake CPU devices (``ref_cli`` its
+  training CLI).  They run in a subprocess started by
+  :func:`start_reference` with
+  ``XLA_FLAGS=--xla_force_host_platform_device_count=N`` (the flag must not
   reach the test process):
   ``python tests/_torch_dist_workers.py ref_sort OUT.npz``.
-* ``sort_rank`` / ``dist_rank`` run one gloo rank of the port each, started
-  by :func:`spawn_ranks` (``torch.multiprocessing.spawn``, a ``file://``
-  rendezvous in the test's temporary directory, so parallel test workers
-  never share a port); rank ``r`` writes ``rank{r}.npz``.
+* ``sort_rank`` / ``dist_rank`` / ``lm_rank`` (and the CLI legs
+  ``cli_*``) run one gloo rank of the port each, started by
+  :func:`start_ranks` (``torch.multiprocessing.start_processes``, a
+  ``file://`` rendezvous in the run's own directory, so parallel test
+  workers never share a port); rank ``r`` writes ``rank{r}.npz`` and its
+  output to ``rank{r}.log``.
+
+Every run is bounded: :func:`join_ranks` and :func:`finish_reference` wait
+up to a deadline, and on overrun kill every rank (or the subprocess) and
+fail the test with their output, so a hung rank fails one test, never the
+whole suite.
 
 The inputs are made here from numpy seeds, so both sides see the same
 arrays; each side computes its own splitters, mesh and results.  Imports of
@@ -21,10 +30,20 @@ jax, ``repro`` and ``repro_torch`` stay inside the functions of their side.
 from __future__ import annotations
 
 import dataclasses
+import os
+import shutil
+import subprocess
 import sys
+import time
 from pathlib import Path
 
 import numpy as np
+
+ROOT = Path(__file__).resolve().parents[1]
+
+#: Wall-clock limits of one multi-rank run and one reference subprocess (s).
+RANKS_DEADLINE = 240
+REFERENCE_DEADLINE = 300
 
 WORLD = 8
 N_SORT = 8 * 4096
@@ -282,7 +301,7 @@ def dist_rank(rank: int, world: int, rdv: str, out_dir: str) -> None:
     from repro_torch import configs
     from repro_torch.distributed.compat import make_mesh
     from repro_torch.distributed.pp import gpipe, sequential_reference
-    from repro_torch.distributed.sharding import ShardCtx, fsdp_gather
+    from repro_torch.distributed.sharding import ShardCtx, fsdp_gather, shard_leaf
     from repro_torch.models import moe
     from repro_torch.models.convert import params_from_reference
 
@@ -335,9 +354,8 @@ def dist_rank(rank: int, world: int, rdv: str, out_dir: str) -> None:
         cfg = moe_cfg(configs.get_smoke_config(MOE_ARCH))
         ctx = ShardCtx(mesh=mesh, tp="model", fsdp=None, dp=("data",), sp=True)
         tree = moe_params(cfg)
-        dpi, tpi = ctx.axis_index("data"), ctx.axis_index("model")
-        T_loc = MOE_T // ctx.tp_size
-        x = moe_input(cfg.d_model)[dpi : dpi + 1, tpi * T_loc : (tpi + 1) * T_loc]
+        tpi = ctx.axis_index("model")
+        x = shard_leaf(torch.from_numpy(moe_input(cfg.d_model)), ctx.spec_resid(), ctx.coords()).numpy()
         for name in ("y", "aux"):
             p = moe.MoE(cfg, torch.float32, "cpu", tp_size=ctx.tp_size)
             p.load_state_dict(params_from_reference(tree, tp_rank=tpi, tp_size=ctx.tp_size))
@@ -358,14 +376,550 @@ def dist_rank(rank: int, world: int, rdv: str, out_dir: str) -> None:
         dist.destroy_process_group()
 
 
-def spawn_ranks(fn, out_dir: Path, world: int = WORLD) -> list:
-    """Run ``fn(rank, world, rendezvous, out_dir)`` on ``world`` gloo ranks
-    and load each rank's npz."""
+# -- the LM on a (data, model) mesh ---------------------------------------------------
+
+LM_MESH = (2, 2)  # (data, model); rank = 2 * data + model
+LM_TRAIN = [  # name, arch, sequence parallelism; fsdp over data
+    ("mistral_sp0", "mistral-nemo-12b", False),
+    ("mistral_sp1", "mistral-nemo-12b", True),
+    ("granite_sp1", "granite-moe-3b-a800m", True),
+]
+#: The reference's loss and gradients of a case are the ones of another case
+#: whose parameters and batch it shares (the reference LM with SP on is the
+#: same function; only the partitioner's layout differs).
+REF_SAME = {"mistral_sp1": "mistral_sp0"}
+LM_B, LM_T = 4, 16
+SERVE = dict(arch="deepseek-moe-16b", B=4, T=14, max_len=32, steps=4)
+PREFILL = dict(arch="granite-moe-3b-a800m", B=4, T=8, max_len=16)
+OPT = dict(lr=1e-3, warmup_steps=1, total_steps=10, grad_clip=0.1)
+#: The training CLI legs: the reference's flags (REF_CLI), the port's adds its own.
+REF_CLI = ["--smoke", "--batch", "4", "--seq", "16", "--ckpt-every", "2", "--log-every", "100",
+           "--arch", "mistral-nemo-12b", "--steps", "4"]
+CLI = REF_CLI + ["--dtype", "float32", "--device", "cpu"]
+#: The serving CLI legs: deepseek's f32 smoke model (4 kv heads, 16 padded
+#: experts: both split over tp = 4), 6 requests on 4 slots, so two slots are
+#: refilled; the cache of 32 positions is 8 a rank at tp = 4.
+SERVE_CLI = ["--arch", "deepseek-moe-16b", "--smoke", "--device", "cpu", "--requests", "6",
+             "--max-tokens", "6", "--max-len", "32"]
+SERVE_MODES = {"greedy": [], "sampled": ["--temperature", "0.8"]}
+ARCHS = ("mistral-nemo-12b", "granite-moe-3b-a800m", "deepseek-moe-16b")
+#: Rank 0's gathered mistral_sp0 gradient, for the reference's int8 compressor.
+INT8_IN = "int8_in.npz"
+
+
+def flatten(tree, prefix: str = "") -> dict:
+    """Nested dicts and lists -> {"a/b/#0/c": leaf}."""
+    if isinstance(tree, dict):
+        return {k2: v2 for k, v in tree.items() for k2, v2 in flatten(v, f"{prefix}{k}/").items()}
+    if isinstance(tree, (list, tuple)):
+        return {k2: v2 for i, v in enumerate(tree) for k2, v2 in flatten(v, f"{prefix}#{i}/").items()}
+    return {prefix[:-1]: np.asarray(tree)}
+
+
+def unflatten(flat: dict):
+    root: dict = {}
+    for key, v in flat.items():
+        *path, leaf = key.split("/")
+        node = root
+        for p in path:
+            node = node.setdefault(p, {})
+        node[leaf] = v
+
+    def fix(node):
+        if not isinstance(node, dict):
+            return node
+        if node and all(k.startswith("#") for k in node):
+            return [fix(node[f"#{i}"]) for i in range(len(node))]
+        return {k: fix(v) for k, v in node.items()}
+
+    return fix(root)
+
+
+def lm_inputs(out: Path) -> None:
+    """Write the cases' inputs to ``out``: each smoke LM's parameters (f32,
+    numpy draws at the reference's scales, norm scales near 1) as the
+    reference's tree, and the token batches.  Runs in the test process."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.models.convert import params_to_reference
+    from repro_torch.models.lm import LM
+
+    rng = np.random.default_rng(7)
+    res = {}
+    for arch in ARCHS:
+        cfg = dataclasses.replace(configs.get_smoke_config(arch), dtype="float32")
+        state = {}
+        for name, p in LM(cfg, device="cpu").named_parameters():
+            leaf = name.rsplit(".", 1)[-1]
+            if leaf == "scale":
+                v = 1.0 + 0.1 * rng.standard_normal(p.shape)
+            elif leaf.startswith("b"):
+                v = np.zeros(p.shape)
+            else:
+                v = rng.standard_normal(p.shape) * (0.02 if leaf == "table" else p.shape[-2] ** -0.5)
+            state[name] = torch.from_numpy(v.astype(np.float32))
+        for k, v in flatten(params_to_reference(state)).items():
+            res[f"{arch}/params/{k}"] = v
+        res[f"{arch}/tokens"] = rng.integers(0, cfg.vocab_size, (3, LM_B, LM_T)).astype(np.int32)
+        res[f"{arch}/labels"] = rng.integers(0, cfg.vocab_size, (3, LM_B, LM_T)).astype(np.int32)
+    res["serve/prompt"] = rng.integers(0, 512, (SERVE["B"], SERVE["T"])).astype(np.int32)
+    res["prefill/prompt"] = rng.integers(0, 512, (PREFILL["B"], PREFILL["T"])).astype(np.int32)
+    np.savez(out, **res)
+
+
+def lm_tree(inputs: dict, arch: str) -> dict:
+    pre = f"{arch}/params/"
+    return unflatten({k[len(pre):]: v for k, v in inputs.items() if k.startswith(pre)})
+
+
+def ref_lm(out: str, part: str) -> None:
+    """The reference's side of ``test_torch_lm_sharded.py`` on a (2, 2) mesh
+    of fake devices, in two parts that run side by side: ``grads`` (the
+    loss and gradients, then the int8 compressor on the port's gradient,
+    once rank 0 has written it) and ``rest`` (the MoE's training error,
+    prefill, the sequence-sharded decode, two AdamW steps, the
+    context-parallel flag)."""
+    import jax
+    import jax.numpy as jnp
+
+    from repro import models
+    from repro.configs import get_smoke_config
+    from repro.distributed.compat import make_mesh
+    from repro.distributed.collectives import make_int8_compressor
+    from repro.distributed.sharding import ShardCtx, local_ctx
+    from repro.models.attention import use_context_parallel
+    from repro.train.optimizer import AdamWConfig, init_opt_state
+    from repro.train.train_step import build_train_step
+
+    d = Path(out).parent
+    inputs = dict(np.load(d / "inputs.npz"))
+    mesh = make_mesh(LM_MESH, ("data", "model"))
+    res = {}
+
+    def cfg_of(arch):
+        return dataclasses.replace(get_smoke_config(arch), dtype="float32")
+
+    def params_of(arch):
+        return jax.tree.map(jnp.asarray, lm_tree(inputs, arch))
+
+    def batch_of(arch, i):
+        return {"tokens": jnp.asarray(inputs[f"{arch}/tokens"][i]), "labels": jnp.asarray(inputs[f"{arch}/labels"][i])}
+
+    if part == "grads":
+        for name, arch, sp in LM_TRAIN:
+            if name in REF_SAME:  # the same function of the parameters and the batch: SP is a layout
+                res.update({f"{name}/{k.split('/', 1)[1]}": v for k, v in res.items()
+                            if k.startswith(f"{REF_SAME[name]}/")})
+                continue
+            ctx = ShardCtx(mesh=mesh, tp="model", fsdp="data", dp=("data",), sp=sp)
+            model = models.build(cfg_of(arch), ctx)
+            (loss, met), g = jax.jit(jax.value_and_grad(model.loss, has_aux=True))(params_of(arch), batch_of(arch, 0))
+            res[f"{name}/loss"], res[f"{name}/ce"], res[f"{name}/aux"] = (np.asarray(x) for x in (loss, met["ce"],
+                                                                                                  met["aux"]))
+            for k, v in flatten(g).items():
+                res[f"{name}/grad/{k}"] = v
+
+        # the reference's int8 compressor (eager) on the port's gathered gradient
+        _wait_ready(d, INT8_IN, "")
+        grads = dict(np.load(d / INT8_IN))
+        compress, init = make_int8_compressor(local_ctx())
+        res.update({f"int8/{k}": np.asarray(v) for k, v in compress(grads, init(grads))[0].items()})
+    else:
+        serve_ctx = ShardCtx(mesh=mesh, tp="model", fsdp=None, dp=("data",))
+        arch = PREFILL["arch"]
+        model = models.build(cfg_of(arch), ShardCtx(mesh=mesh, tp="model", fsdp="data", dp=("data",)))
+        try:
+            jax.jit(model.loss)(params_of(arch), batch_of(arch, 0))  # raises while tracing
+        except ValueError as e:
+            res["granite_sp0/train_error"] = np.array(str(e))
+        model = models.build(cfg_of(arch), serve_ctx)
+        cache = model.init_cache(PREFILL["B"], PREFILL["max_len"])
+        logits, _ = jax.jit(model.prefill)(params_of(arch), {"tokens": jnp.asarray(inputs["prefill/prompt"])}, cache)
+        res["prefill/logits"] = np.asarray(logits)
+
+        arch = SERVE["arch"]
+        model = models.build(cfg_of(arch), serve_ctx)
+        params = params_of(arch)
+        cache = model.init_cache(SERVE["B"], SERVE["max_len"])
+        logits, cache = jax.jit(model.prefill)(params, {"tokens": jnp.asarray(inputs["serve/prompt"])}, cache)
+        step = jax.jit(model.decode_step)
+        for i in range(SERVE["steps"] + 1):
+            res[f"serve/logits{i}"] = np.asarray(logits)
+            tok = jnp.argmax(logits, axis=-1).astype(jnp.int32)
+            res[f"serve/tokens{i}"] = np.asarray(tok)
+            if i < SERVE["steps"]:
+                logits, cache = step(params, cache, tok)
+
+        arch = "mistral-nemo-12b"
+        model = models.build(cfg_of(arch), ShardCtx(mesh=mesh, tp="model", fsdp="data", dp=("data",)))
+        opt = AdamWConfig(**OPT)
+        params = params_of(arch)
+        state = init_opt_state(params, opt)
+        step = jax.jit(build_train_step(model, opt))
+        for i in range(2):
+            params, state, met = step(params, state, batch_of(arch, i + 1))
+            res[f"adamw/loss{i}"], res[f"adamw/grad_norm{i}"] = np.asarray(met["loss"]), np.asarray(met["grad_norm"])
+        for k, v in flatten(params).items():
+            res[f"adamw/params/{k}"] = v
+
+        mesh14 = make_mesh((1, 4), ("data", "model"))
+        res["cp/use_context_parallel"] = np.array(use_context_parallel(
+            cfg_of("mistral-nemo-12b"), ShardCtx(mesh=mesh14, tp="model", fsdp=None, dp=("data",), sp=True)))
+    np.savez(out, **res)
+
+
+def ref_cli(out: str) -> None:
+    """The reference's training CLI: four steps into ``cli_r`` (the 2x2 mesh
+    resumes it), then it resumes a copy of the 2x2 run's ``cli_a`` from
+    step 2; the records of both legs to ``out``."""
+    d, res = Path(out).parent, {}
+    _ref_cli_leg(d, "ref_r", "cli_r", True, res)
+    _wait_ready(d, "cli_a")
+    _ref_cli_leg(d, "resume_ref_a", "cli_a_ref", False, res)
+    np.savez(out, **res)
+
+
+def _ref_cli_leg(d: Path, leg: str, ckpt: str, first: bool, res: dict) -> None:
+    """The reference's training CLI (``--mesh 1x1``, its smoke config in
+    f32) into the directory ``d / ckpt``, its jitted step wrapped to record
+    each step's loss and gradient norm into ``res`` under ``leg/``; a first
+    leg sets its step-4 checkpoint aside and marks the directory ready, as
+    :func:`_cli_leg` does."""
+    import jax
+
+    from repro.configs import get_smoke_config
+    from repro.launch import train as ref_cli
+
+    records = []
+
+    def recording_jit(fn, **kw):
+        step = jax.jit(fn, **kw)
+
+        def call(params, opt_state, batch):
+            out = step(params, opt_state, batch)
+            records.append([float(out[2][k]) for k in ("loss", "grad_norm")])
+            return out
+        return call
+
+    class _Jax:  # the CLI module's view of jax, with the step's jit recording
+        jit = staticmethod(recording_jit)
+
+        def __getattr__(self, name):
+            return getattr(jax, name)
+
+    saved = ref_cli.jax, ref_cli.get_smoke_config, sys.argv
+    ref_cli.jax = _Jax()
+    ref_cli.get_smoke_config = lambda arch: dataclasses.replace(get_smoke_config(arch), dtype="float32")
+    sys.argv = ["train", *REF_CLI, "--ckpt-dir", str(d / ckpt)]
+    try:
+        ref_cli.main()
+    finally:
+        ref_cli.jax, ref_cli.get_smoke_config, sys.argv = saved
+    rec = np.array(records)
+    res[f"{leg}/step"] = np.arange(4 - len(rec), 4)
+    res[f"{leg}/loss"], res[f"{leg}/grad_norm"] = rec[:, 0], rec[:, 1]
+    if first:
+        _set_aside(d / ckpt)
+
+
+def _lm_ctx(mesh, **kw):
+    from repro_torch.distributed.sharding import ShardCtx
+
+    return ShardCtx(mesh=mesh, tp="model", dp=("data",), **kw)
+
+
+def _cut(ctx) -> dict:
+    return {"tp_rank": ctx.axis_index(ctx.tp), "tp_size": ctx.tp_size,
+            "fsdp_rank": ctx.axis_index(ctx.fsdp), "fsdp_size": ctx.axis_size(ctx.fsdp)}
+
+
+def lm_rank(rank: int, world: int, rdv: str, out_dir: str) -> None:
+    """The LM cases on one rank of the (2, 2) mesh, then the training CLI at
+    ``--mesh 2x2``: four steps into ``cli_a`` (which :func:`cli_one`
+    resumes at 1x1), then it resumes :func:`cli_one`'s ``cli_b``."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import configs
+    from repro_torch.distributed.collectives import make_int8_compressor
+    from repro_torch.distributed.compat import make_mesh
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models.convert import params_from_reference, params_to_reference
+    from repro_torch.models.lm import LM
+    from repro_torch.train.optimizer import AdamWConfig, init_opt_state
+    from repro_torch.train.train_step import build_train_step, shard_batch, sync_grads
+
+    _init(rank, world, rdv)
+    try:
+        inputs = dict(np.load(Path(out_dir).parent / "inputs.npz"))
+        mesh = make_mesh(LM_MESH, ("data", "model"), device_type="cpu")
+        res = {}
+
+        def cfg_of(arch):
+            return dataclasses.replace(configs.get_smoke_config(arch), dtype="float32")
+
+        def model_of(arch, ctx):
+            model = LM(cfg_of(arch), ctx, device="cpu")
+            model.load_state_dict(params_from_reference(lm_tree(inputs, arch), **_cut(ctx)))
+            return model
+
+        def batch_of(arch, i, ctx):
+            b = {"tokens": inputs[f"{arch}/tokens"][i], "labels": inputs[f"{arch}/labels"][i]}
+            return {k: torch.from_numpy(v) for k, v in shard_batch(b, ctx).items()}
+
+        for name, arch, sp in LM_TRAIN:
+            ctx = _lm_ctx(mesh, fsdp="data", sp=sp)
+            model = model_of(arch, ctx).requires_grad_(True)
+            loss, met = model.loss(batch_of(arch, 0, ctx))
+            names = [n for n, _ in model.named_parameters()]
+            grads = torch.autograd.grad(loss, [p for _, p in model.named_parameters()])
+            grads = sync_grads(dict(zip(names, grads)), ctx, model.param_specs())
+            whole = params_to_reference(grads, ctx)
+            res[f"{name}/loss"], res[f"{name}/ce"], res[f"{name}/aux"] = (x.detach().numpy() for x in (
+                loss, met["ce"], met["aux"]))
+            if rank == 0:
+                for k, v in flatten(whole).items():
+                    res[f"{name}/grad/{k}"] = v
+            if name == "mistral_sp0":  # the int8 compressor on the shards of the reduced gradient
+                compress, init_res = make_int8_compressor(ctx, model.param_specs())
+                packed = params_to_reference(compress(grads, init_res(grads))[0], ctx)
+                if rank == 0:
+                    res.update({f"int8/{k}": v for k, v in flatten(packed).items()})
+                    # the reference's compressor takes this gradient in ref_lm's grads part
+                    np.savez(Path(out_dir) / "int8_in.tmp.npz", **flatten(whole))
+                    (Path(out_dir) / "int8_in.tmp.npz").rename(Path(out_dir).parent / INT8_IN)
+
+        arch = PREFILL["arch"]
+        model = model_of(arch, _lm_ctx(mesh, fsdp="data"))
+        try:
+            model.loss(batch_of(arch, 0, model.ctx))
+        except ValueError as e:
+            res["granite_sp0/train_error"] = np.array(str(e))
+        serve_ctx = _lm_ctx(mesh, fsdp=None)
+        model = model_of(arch, serve_ctx)
+        rows = shard_batch({"p": inputs["prefill/prompt"]}, serve_ctx)["p"]
+        cache = model.init_cache(rows.shape[0], PREFILL["max_len"])
+        res["prefill/logits"] = model.prefill(torch.from_numpy(rows), cache)[0].numpy()
+
+        arch = SERVE["arch"]
+        model = model_of(arch, serve_ctx)
+        rows = shard_batch({"p": inputs["serve/prompt"]}, serve_ctx)["p"]
+        cache = model.init_cache(rows.shape[0], SERVE["max_len"])
+        logits, cache = model.prefill(torch.from_numpy(rows), cache)
+        for i in range(SERVE["steps"] + 1):
+            res[f"serve/logits{i}"] = logits.numpy()
+            tok = torch.argmax(logits, dim=-1)
+            res[f"serve/tokens{i}"] = tok.numpy()
+            if i < SERVE["steps"]:
+                logits, cache = model.decode_step(cache, tok)
+
+        mesh14 = make_mesh((1, 4), ("data", "model"), device_type="cpu")
+        try:
+            LM(cfg_of("mistral-nemo-12b"), _lm_ctx(mesh14, fsdp=None, sp=True), device="cpu")
+        except NotImplementedError as e:
+            res["cp/error"] = np.array(str(e))
+
+        arch = "mistral-nemo-12b"
+        ctx = _lm_ctx(mesh, fsdp="data")
+        model = model_of(arch, ctx).requires_grad_(True)
+        opt = AdamWConfig(**OPT)
+        state = init_opt_state(dict(model.named_parameters()), opt)
+        step = build_train_step(model, opt)
+        for i in range(2):
+            state, met = step(state, batch_of(arch, i + 1, ctx))
+            res[f"adamw/loss{i}"], res[f"adamw/grad_norm{i}"] = float(met["loss"]), float(met["grad_norm"])
+        whole = params_to_reference(model.state_dict(), ctx)
+        if rank == 0:
+            for k, v in flatten(whole).items():
+                res[f"adamw/params/{k}"] = v
+
+        _cli_leg(out_dir, "cli_a", "cli_a", "2x2", True, rank, spare="cli_a_ref")
+        _wait_ready(Path(out_dir).parent, "cli_b")
+        _cli_leg(out_dir, "resume_b", "cli_b", "2x2", False, rank)
+        res.update(_serve_legs("1x4"))
+        try:
+            _serve_legs("2x2")
+        except SystemExit as e:
+            res["serve_2x2/error"] = np.array(str(e))
+        _wait_ready(Path(out_dir).parent, "cli_r")
+        _cli_leg(out_dir, "resume_r", "cli_r", "2x2", False, rank)
+        np.savez(Path(out_dir) / f"rank{rank}.npz", **res)
+    finally:
+        dist.destroy_process_group()
+
+
+def _cli_leg(out_dir: str, leg: str, ckpt: str, mesh: str, first: bool, rank: int,
+             spare: str | None = None) -> None:
+    """The training CLI, four steps at ``--mesh mesh`` checkpointing every
+    two, into the directory ``ckpt``; rank 0 writes its records to
+    ``{leg}.npz``.  A first leg sets its step-4 checkpoint aside, so that
+    another run resumes from step 2 (with ``spare``, a copy of the directory
+    under that name for a second run), and then marks it ready."""
+    from repro_torch.launch import train as train_cli
+
+    d = Path(out_dir).parent / ckpt
+    recs = train_cli.main(CLI + ["--mesh", mesh, "--ckpt-dir", str(d)])
+    if rank == 0:
+        np.savez(Path(out_dir) / f"{leg}.npz", **{k: np.array([r[k] for r in recs])
+                                                  for k in ("step", "loss", "grad_norm")})
+        if first:
+            _set_aside(d, spare)
+
+
+def _set_aside(d: Path, spare: str | None = None) -> None:
+    """Move the step-4 checkpoint of ``d`` into ``d/aside`` (not a step_*
+    name: the managers ignore it), copy the rest to ``spare``, and mark
+    ``d`` ready."""
+    (d / "aside").mkdir()
+    (d / "step_0000000004").rename(d / "aside" / "step_0000000004")
+    if spare is not None:
+        shutil.copytree(d, d.parent / spare, ignore=shutil.ignore_patterns("aside"))
+    (d / "aside" / "ready").touch()
+
+
+def _wait_ready(base: Path, ckpt: str, mark: str = "aside/ready") -> None:
+    """Wait for another run's first leg to mark ``base / ckpt`` ready (or
+    for the file ``base / ckpt / mark``)."""
+    ready = Path(base) / ckpt / mark
+    deadline = time.monotonic() + RANKS_DEADLINE
+    while not ready.exists():
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"{ready} never appeared")
+        time.sleep(0.05)
+
+
+def cli_one(rank: int, world: int, rdv: str, out_dir: str) -> None:
+    """One rank at ``--mesh 1x1``: four steps into ``cli_b`` (the 2x2 mesh
+    resumes it), then it resumes the 2x2 run's ``cli_a`` from step 2; then
+    the serving CLI without a mesh."""
+    import torch.distributed as dist
+
+    _init(rank, world, rdv)
+    try:
+        _cli_leg(out_dir, "cli_b", "cli_b", "1x1", True, rank)
+        _wait_ready(Path(out_dir).parent, "cli_a")
+        _cli_leg(out_dir, "resume_a", "cli_a", "1x1", False, rank)
+    finally:
+        dist.destroy_process_group()
+    np.savez(Path(out_dir) / f"rank{rank}.npz", **_serve_legs(None))
+
+
+def _serve_legs(mesh: str | None) -> dict:
+    """The serving CLI (``SERVE_CLI``, f32) at ``--mesh mesh`` (None: no
+    mesh) in each of ``SERVE_MODES``: ``serve_<mode>/tokens``, the requests'
+    tokens by request id."""
+    from repro_torch import configs
+    from repro_torch.launch import serve as serve_cli
+
+    saved = serve_cli.get_smoke_config
+    serve_cli.get_smoke_config = lambda arch: dataclasses.replace(configs.get_smoke_config(arch), dtype="float32")
+    res = {}
+    try:
+        for mode, flags in SERVE_MODES.items():
+            finished = serve_cli.main(SERVE_CLI + flags + ([] if mesh is None else ["--mesh", mesh]))
+            res[f"serve_{mode}/tokens"] = np.array([r.out for r in sorted(finished, key=lambda r: r.rid)])
+    finally:
+        serve_cli.get_smoke_config = saved
+    return res
+
+
+# -- bounded runs --------------------------------------------------------------------
+
+
+def _rank_main(rank: int, name: str, world: int, rdv: str, out_dir: str) -> None:
+    """A spawned rank: its output to ``rank{r}.log``, then ``name``'s worker."""
+    log = open(Path(out_dir) / f"rank{rank}.log", "w")
+    os.dup2(log.fileno(), 1)
+    os.dup2(log.fileno(), 2)
+    globals()[name](rank, world, rdv, out_dir)
+
+
+def start_ranks(fn, out_dir: Path, world: int = WORLD):
+    """Start ``fn(rank, world, rendezvous, out_dir)`` on ``world`` gloo ranks
+    without waiting (:func:`join_ranks` waits).  ``out_dir`` is this run's
+    own directory."""
     import torch.multiprocessing as mp
 
-    mp.spawn(fn, args=(world, str(out_dir / "rendezvous"), str(out_dir)), nprocs=world, join=True)
-    return [dict(np.load(out_dir / f"rank{r}.npz")) for r in range(world)]
+    out_dir.mkdir(parents=True, exist_ok=True)
+    pc = mp.start_processes(_rank_main, args=(fn.__name__, world, str(out_dir / "rendezvous"), str(out_dir)),
+                            nprocs=world, join=False, start_method="spawn")
+    pc.out_dir, pc.world, pc.deadline = out_dir, world, time.monotonic() + RANKS_DEADLINE
+    return pc
+
+
+def _logs(out_dir: Path, world: int) -> str:
+    parts = []
+    for r in range(world):
+        f = out_dir / f"rank{r}.log"
+        parts.append(f"--- rank {r} ---\n" + (f.read_text()[-4000:] if f.exists() else "(no output)"))
+    return "\n".join(parts)
+
+
+def join_ranks(pc) -> list:
+    """Wait for :func:`start_ranks`' ranks up to their deadline and load
+    each rank's npz.  A rank that fails, or a run past the deadline, kills
+    every rank and raises AssertionError with the ranks' output."""
+    from torch.multiprocessing import ProcessExitedException, ProcessRaisedException
+
+    try:
+        while not pc.join(timeout=max(0.05, min(1.0, pc.deadline - time.monotonic()))):
+            if time.monotonic() > pc.deadline:
+                raise TimeoutError(f"the ranks ran past {RANKS_DEADLINE} s")
+    except (ProcessRaisedException, ProcessExitedException, TimeoutError) as e:
+        for p in pc.processes:
+            if p.is_alive():
+                p.kill()
+            p.join(10)
+        raise AssertionError(f"{e}\n{_logs(pc.out_dir, pc.world)}") from None
+    return [dict(np.load(pc.out_dir / f"rank{r}.npz")) for r in range(pc.world)]
+
+
+def spawn_ranks(fn, out_dir: Path, world: int = WORLD) -> list:
+    """Run ``fn(rank, world, rendezvous, out_dir)`` on ``world`` gloo ranks,
+    bounded by ``RANKS_DEADLINE``, and load each rank's npz."""
+    return join_ranks(start_ranks(fn, out_dir, world))
+
+
+def start_reference(name: str, out: Path, devices: int = WORLD) -> subprocess.Popen:
+    """Start ``python _torch_dist_workers.py name out`` on ``devices`` fake
+    CPU devices."""
+    env = {**os.environ, "JAX_PLATFORMS": "cpu", "PYTHONPATH": str(ROOT / "src"),
+           "XLA_FLAGS": f"--xla_force_host_platform_device_count={devices}"}
+    proc = subprocess.Popen([sys.executable, str(Path(__file__)), name, str(out)], env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    proc.deadline = time.monotonic() + REFERENCE_DEADLINE
+    return proc
+
+
+def finish_reference(proc: subprocess.Popen) -> None:
+    """Wait for :func:`start_reference`'s subprocess up to its deadline; kill
+    it on overrun; raise AssertionError with its output unless it ended
+    well."""
+    try:
+        log, _ = proc.communicate(timeout=max(1.0, proc.deadline - time.monotonic()))
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        log, _ = proc.communicate()
+        raise AssertionError(f"the reference ran past {REFERENCE_DEADLINE} s:\n{log[-4000:]}") from None
+    assert proc.returncode == 0, log[-8000:]
+
+
+def run_both(ref_name: str, rank_fn, d: Path, devices: int = WORLD, world: int = WORLD):
+    """The reference subprocess and the port's ranks side by side, both
+    bounded: (the reference's npz, every rank's npz)."""
+    ref = start_reference(ref_name, d / "ref.npz", devices)
+    try:
+        ranks = spawn_ranks(rank_fn, d, world)
+    except BaseException:
+        ref.kill()
+        ref.communicate()
+        raise
+    finish_reference(ref)
+    return dict(np.load(d / "ref.npz")), ranks
 
 
 if __name__ == "__main__":
-    {"ref_sort": ref_sort, "ref_dist": ref_dist}[sys.argv[1]](sys.argv[2])
+    {"ref_sort": ref_sort, "ref_dist": ref_dist, "ref_cli": ref_cli,
+     "ref_lm_grads": lambda out: ref_lm(out, "grads"), "ref_lm_rest": lambda out: ref_lm(out, "rest"),
+     }[sys.argv[1]](sys.argv[2])

@@ -18,6 +18,8 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_threads  # noqa: F401  (one intra-op thread a worker)
+
 from repro.configs import get_smoke_config
 from repro.distributed.sharding import local_ctx
 from repro.kernels.decode_attention import decode_attention as ref_decode_attention

@@ -26,6 +26,8 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_threads  # noqa: F401  (one intra-op thread a worker)
+
 from repro.models import attention as ref_attn
 from repro_torch import configs
 from repro_torch.kernels import build
@@ -36,6 +38,7 @@ from repro_torch.kernels.flash_attention_bwd import (
     flash_attention_bwd_plain,
 )
 from repro_torch.models import attention as attn_mod
+from repro_torch.models.lm import init_params
 
 GRAD_TOL = dict(atol=2e-5, rtol=1e-4)
 FWD_TOL = dict(atol=1e-5, rtol=1e-5)
@@ -161,7 +164,7 @@ def test_attention_takes_the_autograd_path_only_under_grad():
     """Serve (frozen weights, no_grad) calls K5 without the logsumexp; a
     trainable projection sends the attention through the Function."""
     cfg = dataclasses.replace(configs.get_smoke_config("mistral-nemo-12b"), dtype="float32")
-    p = attn_mod.init_attn(attn_mod.Attention(cfg, torch.float32, "cpu"), cfg, torch.Generator().manual_seed(0))
+    p = init_params(attn_mod.Attention(cfg, torch.float32, "cpu"), torch.Generator().manual_seed(0))
     x = torch.from_numpy(np.random.default_rng(0).standard_normal((1, 9, cfg.d_model)).astype(np.float32))
     pos = torch.arange(9)[None, :]
     calls = []

@@ -19,6 +19,8 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_threads  # noqa: F401  (one intra-op thread a worker)
+
 from repro.core import partition as ref_part
 from repro.data import scenarios as ref_scen
 from repro.net import control as ref_control

@@ -12,6 +12,8 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_threads  # noqa: F401  (one intra-op thread a worker)
+
 from repro.core import marathon as ref_marathon
 from repro.core import mergesort as ref_ms
 from repro.core import partition as ref_part

@@ -465,6 +465,67 @@ def test_decode_attention_length_zero_and_strided_views(gen, d, G, dtype):
     _assert_attention_close(got[0], mean_v.to(dtype))
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d,G", [(64, 1), (128, 4), (128, 12)])
+def test_decode_attention_lse_equals_plain(gen, d, G, dtype):
+    """K6's lse against the plain logsumexp, in the same launch as the
+    output: length-0 slots (lse -1e30 + log S, which is -1e30 in f32),
+    ragged lengths and a length past S, q and the caches as strided views;
+    the output the same bytes as without the lse.  Then the cache cut into
+    four chunks with their chunk-local lengths, merged by ``merge_partials``,
+    equals the whole cache's attention."""
+    from repro_torch.kernels.decode_attention import merge_partials
+
+    B, S, KV = 4, 777, 2
+    H = KV * G
+    q = _randn(gen, (B, H + 8, d), dtype, QK_SCALE)[:, 4:4 + H]
+    stacked = _randn(gen, (3, B + 1, S, 2 * KV, d), dtype, QK_SCALE)
+    kc, vc = stacked[1, 1:, :, :KV], stacked[2, 1:, :, KV:]
+    lengths = torch.tensor([0, 5, S + 9, 400], dtype=torch.int32, device="cuda")
+    bitonic.reset_launches()
+    got, lse = decode_attention(q, kc, vc, lengths, return_lse=True)
+    assert bitonic.LAUNCHES["decode_attention"] == 1
+    want, want_lse = decode_attention_plain(q, kc, vc, lengths, return_lse=True)
+    assert lse.dtype == torch.float32 and lse.shape == (B, H)
+    torch.testing.assert_close(lse, want_lse, atol=2e-5, rtol=0)
+    assert (lse[0] == -1e30).all()
+    assert torch.equal(got, decode_attention(q, kc, vc, lengths))
+    _assert_attention_close(got, want)
+    chunk = -(-S // 4)
+    parts = [decode_attention(q, kc[:, s:s + chunk], vc[:, s:s + chunk],
+                              (lengths - s).clamp(0, min(chunk, S - s)).to(torch.int32), return_lse=True)
+             for s in range(0, S, chunk)]
+    merged = merge_partials(torch.stack([o for o, _ in parts]), torch.stack([lse for _, lse in parts]))
+    _assert_attention_close(merged[1:].to(dtype), want[1:])
+
+
+def test_mesh_decode_graph_equals_eager_on_one_rank(gen, tmp_path):
+    """The smoke LM on a (1, 1) mesh of a one-rank NCCL group: the engine's
+    captured decode step gives the eager step's tokens and the tokens of the
+    engine without a mesh."""
+    import torch.distributed as dist
+
+    from repro_torch.distributed.compat import make_mesh
+    from repro_torch.distributed.sharding import ShardCtx
+
+    cfg, _, card = _smoke_pair("mistral-nemo-12b")
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/rendezvous", rank=0, world_size=1)
+    try:
+        ctx = ShardCtx(mesh=make_mesh((1, 1), ("data", "model")), tp="model", fsdp=None, dp=())
+        meshed = models.build(cfg, ctx=ctx, device="cuda")
+        meshed.load_state_dict(card.state_dict())
+        prompts = [list(range(3 + i, 3 + i + n)) for i, n in enumerate((6, 3, 9, 2))]
+        outs = []
+        for model, eager in ((meshed, False), (meshed, True), (card, False)):
+            eng = Engine(model, slots=3, max_len=64, device="cuda", _eager=eager)
+            for i, p in enumerate(prompts):
+                eng.add(Request(rid=i, prompt=p, max_tokens=7))
+            outs.append(sorted((r.rid, r.out) for r in eng.run()))
+        assert outs[0] == outs[1] == outs[2]
+    finally:
+        dist.destroy_process_group()
+
+
 @pytest.mark.parametrize("arch", ["mistral-nemo-12b", "granite-moe-3b-a800m", "deepseek-moe-16b"])
 def test_smoke_lm_served_on_card_equals_cpu(gen, arch):
     """The f32 smoke config on the card and on the CPU, same weights: equal
@@ -895,10 +956,11 @@ def test_moe_layer_a2a_at_tp1_equals_moe_layer(nccl):
 
     from repro_torch.distributed import sharding
     from repro_torch.models import moe
+    from repro_torch.models.lm import init_params
 
     for arch in ("granite-moe-3b-a800m", "deepseek-moe-16b"):
         cfg = configs.get_smoke_config(arch)
-        p = moe.init_moe(moe.MoE(cfg, torch.float32, "cuda"), torch.Generator(device="cuda").manual_seed(0))
+        p = init_params(moe.MoE(cfg, torch.float32, "cuda"), torch.Generator(device="cuda").manual_seed(0))
         p.requires_grad_(True)
         ctx = dataclasses.replace(sharding.local_ctx("cuda"), sp=True)
         x = torch.randn((2, 64, cfg.d_model), device="cuda", generator=torch.Generator(device="cuda").manual_seed(1))

@@ -19,6 +19,8 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_threads  # noqa: F401  (one intra-op thread a worker)
+
 from repro_torch import configs, models
 from repro_torch.kernels import build
 from repro_torch.serve.engine import Engine, Request

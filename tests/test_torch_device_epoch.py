@@ -22,6 +22,8 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_threads  # noqa: F401  (one intra-op thread a worker)
+
 try:
     from hypothesis import given, settings, strategies as st
 except ImportError:  # bare interpreter: property tests skip, the rest run

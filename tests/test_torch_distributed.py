@@ -13,15 +13,11 @@ gradient leaf atol 5e-4 / rtol 5e-3 (``moe_a2a_driver.py``), aux within
 1e-5 relative (the same estimator here).
 """
 
-import os
-import subprocess
-import sys
-from pathlib import Path
-
 import numpy as np
 import pytest
 import torch
 
+import _torch_threads  # noqa: F401  (one intra-op thread a worker)
 import _torch_dist_workers as workers
 from repro.distributed import collectives as ref_coll
 from repro.distributed.sharding import local_ctx as ref_local_ctx
@@ -31,24 +27,13 @@ from repro_torch.distributed.compat import make_mesh
 from repro_torch.models import moe
 from repro_torch.models.convert import params_from_reference
 
-ROOT = Path(__file__).resolve().parents[1]
 MESH = (2, 4)  # rank = 4 * row + column, row-major
 
 
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
-    d = tmp_path_factory.mktemp("distributed")
-    env = {**os.environ, "JAX_PLATFORMS": "cpu", "PYTHONPATH": str(ROOT / "src"),
-           "XLA_FLAGS": f"--xla_force_host_platform_device_count={workers.WORLD}"}
-    ref = subprocess.Popen([sys.executable, str(Path(__file__).parent / "_torch_dist_workers.py"),
-                            "ref_dist", str(d / "ref.npz")], env=env, stdout=subprocess.PIPE,
-                           stderr=subprocess.STDOUT, text=True)
-    try:
-        ranks = workers.spawn_ranks(workers.dist_rank, d)
-    finally:
-        log, _ = ref.communicate(timeout=300)
-    assert ref.returncode == 0, log
-    return dict(np.load(d / "ref.npz")), ranks
+    """(the reference's npz, every port rank's npz), both bounded in time."""
+    return workers.run_both("ref_dist", workers.dist_rank, tmp_path_factory.mktemp("distributed"))
 
 
 def _rank(row: int, col: int) -> int:
@@ -132,8 +117,8 @@ MOE_LEAVES = ["x", "router", "w_in", "w_gate", "w_out", "shared.w_in", "shared.w
 @pytest.mark.parametrize("leaf", MOE_LEAVES)
 def test_moe_a2a_gradients(runs, leaf, loss):
     """The gradient of sum(y^2) (the loss of ``moe_a2a_driver.py``) and of aux:
-    ``x`` per rank, the expert slabs per tp rank summed over dp, the router
-    and the shared MLP summed over every rank."""
+    ``x`` per rank, the expert slabs and the tp-parallel shared MLP's shards
+    per tp rank summed over dp, the router summed over every rank."""
     ref, ranks = runs
     key = f"moe/grad_{loss}/{leaf}"
     want = ref[key]
@@ -143,9 +128,10 @@ def test_moe_a2a_gradients(runs, leaf, loss):
                 np.testing.assert_allclose(ranks[_rank(row, col)][key], _moe_slice(want, row, col),
                                            atol=5e-4, rtol=5e-3)
         return
-    if leaf in ("w_in", "w_gate", "w_out"):
+    if leaf.startswith("shared.") or leaf in ("w_in", "w_gate", "w_out"):
+        axis = 1 if leaf in ("shared.w_in", "shared.w_gate") else 0  # the shared MLP's tp dim
         got = np.concatenate([sum(ranks[_rank(row, col)][key] for row in range(MESH[0]))
-                              for col in range(MESH[1])])
+                              for col in range(MESH[1])], axis=axis)
     else:
         got = sum(r[key] for r in ranks)
     np.testing.assert_allclose(got, want, atol=5e-4, rtol=5e-3)
@@ -201,14 +187,16 @@ def test_shard_ctx_without_a_mesh_and_the_helpers_need_a_group():
 
 def test_convert_gives_each_rank_its_shard():
     """``params_from_reference`` cuts the MoE's 3-D expert slabs per tp rank
-    (the shared MLP's 2-D weights stay whole) and a stacked stage tree per
-    pipeline stage; an MoE built for that tp width loads them."""
+    and its shared MLP by its tp-parallel layout (``w_in``'s columns), and a
+    stacked stage tree per pipeline stage; an MoE built for that tp width
+    loads them."""
     cfg = workers.moe_cfg(configs.get_smoke_config(workers.MOE_ARCH))
     tree = workers.moe_params(cfg)
     for r in range(4):
         state = params_from_reference(tree, tp_rank=r, tp_size=4)
         np.testing.assert_array_equal(state["w_gate"].numpy(), tree["w_gate"][4 * r : 4 * r + 4])
-        np.testing.assert_array_equal(state["shared.w_in"].numpy(), tree["shared"]["w_in"])
+        f = tree["shared"]["w_in"].shape[1] // 4
+        np.testing.assert_array_equal(state["shared.w_in"].numpy(), tree["shared"]["w_in"][:, f * r : f * r + f])
         moe.MoE(cfg, torch.float32, "cpu", tp_size=4).load_state_dict(state)
     with pytest.raises(ValueError, match="not divisible by tp=3"):
         moe.MoE(cfg, torch.float32, "cpu", tp_size=3)

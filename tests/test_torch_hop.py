@@ -12,6 +12,8 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_threads  # noqa: F401  (one intra-op thread a worker)
+
 from repro.core import partition as ref_part
 from repro.net import control as ref_control
 from repro.net import engine as ref_engine

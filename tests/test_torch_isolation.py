@@ -13,6 +13,8 @@ from pathlib import Path
 import pytest
 import torch
 
+import _torch_threads  # noqa: F401  (one intra-op thread a worker)
+
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
 SMOKE = ROOT / "chip_smoke.py"
@@ -48,7 +50,10 @@ def test_every_port_module_imports_without_jax_or_reference():
             "repro_torch.data.scenarios", "repro_torch.net.faults",
             "repro_torch.net.scheduler", "repro_torch.core.switchsim",
             "repro_torch.core.distributed", "repro_torch.distributed.compat",
-            "repro_torch.distributed.sharding", "repro_torch.distributed.pp"} <= set(names)
+            "repro_torch.distributed.sharding", "repro_torch.distributed.pp",
+            "repro_torch.launch.mesh", "repro_torch.launch.train", "repro_torch.launch.serve",
+            "repro_torch.models.convert", "repro_torch.train.train_step",
+            "repro_torch.train.optimizer", "repro_torch.distributed.collectives"} <= set(names)
     code = (
         "import importlib, sys\n"
         f"for name in {names!r}:\n"
@@ -126,6 +131,25 @@ def test_serve_entry_points_refuse_a_missing_card(monkeypatch):
         serve.main(["--arch", "mistral-nemo-12b", "--smoke"])
     eng = Engine(model, device="cpu")
     assert eng.cache["k"].device.type == "cpu"
+
+
+def test_mesh_entry_points_refuse_a_missing_card(monkeypatch):
+    """``--mesh`` in both CLIs and ``LM`` on a context default to the card:
+    they raise before any process group starts."""
+    import torch.distributed as dist
+
+    from repro_torch import configs
+    from repro_torch.distributed.sharding import ShardCtx
+    from repro_torch.launch import serve, train
+    from repro_torch.models.lm import LM
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        LM(configs.get_smoke_config("mistral-nemo-12b"), ShardCtx(sp=True))
+    for cli in (serve, train):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            cli.main(["--arch", "mistral-nemo-12b", "--smoke", "--mesh", "1x1"])
+    assert not dist.is_initialized()
 
 
 def test_chip_smoke_fails_without_a_card_or_without_the_port(tmp_path):

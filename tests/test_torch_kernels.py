@@ -17,6 +17,8 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_threads  # noqa: F401  (one intra-op thread a worker)
+
 from repro.kernels import ops as ref_ops
 from repro_torch.kernels import bitonic, build, ops
 

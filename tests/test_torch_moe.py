@@ -19,6 +19,8 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_threads  # noqa: F401  (one intra-op thread a worker)
+
 from repro.configs import get_smoke_config as ref_get_smoke
 from repro.distributed.sharding import local_ctx
 from repro.kernels import ops as ref_ops
@@ -26,6 +28,7 @@ from repro.models import moe as ref_moe
 from repro_torch import configs
 from repro_torch.kernels import bitonic, build, ops
 from repro_torch.models import moe
+from repro_torch.models.lm import init_params
 from repro_torch.models.convert import params_from_reference
 
 MOE_ARCHS = ["granite-moe-3b-a800m", "deepseek-moe-16b"]
@@ -299,7 +302,7 @@ def test_moe_params_and_init():
     cfg = configs.get_smoke_config("granite-moe-3b-a800m")
     cfg = dataclasses.replace(cfg, d_model=256, moe=dataclasses.replace(cfg.moe, num_experts=40))
     assert moe.padded_experts(40) == ref_moe.padded_experts(40) == 48
-    p = moe.init_moe(moe.MoE(cfg, torch.float32, "cpu"), torch.Generator().manual_seed(0))
+    p = init_params(moe.MoE(cfg, torch.float32, "cpu"), torch.Generator().manual_seed(0))
     D, Fe = cfg.d_model, cfg.moe.d_expert
     assert p.router.shape == (D, 40) and p.router.dtype == torch.float32
     assert p.w_in.shape == (48, D, Fe) and p.w_out.shape == (48, Fe, D) and p.w_gate.shape == (48, D, Fe)

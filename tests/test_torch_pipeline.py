@@ -18,6 +18,8 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_threads  # noqa: F401  (one intra-op thread a worker)
+
 from repro.core.mergesort import merge_sort_reference
 from repro.net import egress as ref_egress
 from repro.net import pipeline as ref_pipeline

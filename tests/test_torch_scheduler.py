@@ -19,6 +19,8 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_threads  # noqa: F401  (one intra-op thread a worker)
+
 from repro.data import SCENARIOS, scenario_max_value
 from repro.net import packet as ref_packet
 from repro.net import scheduler as ref_sched

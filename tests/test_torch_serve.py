@@ -23,6 +23,8 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_threads  # noqa: F401  (one intra-op thread a worker)
+
 from repro import models as ref_models
 from repro.configs import ARCHS as REF_ARCHS
 from repro.configs import get_config as ref_get_config

@@ -13,23 +13,19 @@ it).  The pool's gather runs at 4 ranks: each 4-rank half of the world is
 one pool.
 """
 
-import os
-import subprocess
-import sys
-from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+import _torch_threads  # noqa: F401  (one intra-op thread a worker)
 import _torch_dist_workers as workers
 from repro.core import distributed as ref_dist
 from repro_torch.core import distributed as dist_mod
 from repro_torch.net import egress
 from repro_torch.net.pipeline import run_pipeline
 
-ROOT = Path(__file__).resolve().parents[1]
 CASES = list(workers.sort_cases())
 
 
@@ -37,18 +33,7 @@ CASES = list(workers.sort_cases())
 def runs(tmp_path_factory):
     """(the reference's npz, every port rank's npz): the JAX subprocess and
     the gloo ranks run side by side."""
-    d = tmp_path_factory.mktemp("sharded_sort")
-    env = {**os.environ, "JAX_PLATFORMS": "cpu", "PYTHONPATH": str(ROOT / "src"),
-           "XLA_FLAGS": f"--xla_force_host_platform_device_count={workers.WORLD}"}
-    ref = subprocess.Popen([sys.executable, str(Path(__file__).parent / "_torch_dist_workers.py"),
-                            "ref_sort", str(d / "ref.npz")], env=env, stdout=subprocess.PIPE,
-                           stderr=subprocess.STDOUT, text=True)
-    try:
-        ranks = workers.spawn_ranks(workers.sort_rank, d)
-    finally:
-        log, _ = ref.communicate(timeout=300)
-    assert ref.returncode == 0, log
-    return dict(np.load(d / "ref.npz")), ranks
+    return workers.run_both("ref_sort", workers.sort_rank, tmp_path_factory.mktemp("sharded_sort"))
 
 
 @pytest.mark.parametrize("case", CASES)

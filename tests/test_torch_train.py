@@ -42,6 +42,8 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_threads  # noqa: F401  (one intra-op thread a worker)
+
 from repro import models as ref_models
 from repro.configs import get_smoke_config as ref_get_smoke
 from repro.data import packing as ref_packing

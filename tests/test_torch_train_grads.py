@@ -23,6 +23,8 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_threads  # noqa: F401  (one intra-op thread a worker)
+
 from repro.train import optimizer as ref_opt
 from repro.train.train_step import build_train_step as ref_build_train_step
 from repro_torch import configs, models

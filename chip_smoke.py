@@ -156,7 +156,26 @@ Phases, one JSON line each:
    chunk shape; the vocab-parallel cross entropy at 131,072 columns over
    four shards against one shard's and the library's.  The ``kernels``
    line's K6 row gains ``lse``, K5's, K5b's and K3's their launches there;
-12. ``ptxas`` -- every kernel entry's registers, static shared memory and
+12. ``cp`` (after ``lm_mesh``, before the ``kernels`` line) -- context
+   parallelism on one card: K5 (with its lse) and K5b at query offsets 0,
+   64, 100 and 230 (T 70 rows of S 300) against their plain versions in
+   bf16 (head dims 128, 64) and f32 (64, 32), causal, dk and dv of the keys
+   past offset + T exactly zero, an offset of 0 the same bytes as none;
+   starcoder2-15b's attention at tp 8 rank by rank (``CP``: 48 q heads, 4
+   kv heads, T 4,096, 512 rows a rank at offset 512 r): the eight K5 calls
+   concatenated against the whole-T call, the eight K5b calls (dq
+   concatenated, dk and dv summed) against the whole-T K5b, graph ms per
+   rank and whole beside their bounds; then its attention layer at full
+   width in both layouts through the port's rank bodies (context-parallel:
+   each rank's rows projected, K/V concatenated as the all-gather, K5/K5b
+   at the offset, the whole ``wo``; column-split: each rank's heads through
+   its rows of ``wo``, summed) against the one-device layer, output and
+   every gradient (``CP_LAYER_LIMIT``); then
+   starcoder2-15b served whole at full width and depth through
+   ``launch.serve`` (its smoke config first, card against CPU): tokens,
+   ms per decode step, peak memory, K5 and K6 counted.  The ``kernels``
+   line's K5 and K5b rows gain ``q_offset``;
+13. ``ptxas`` -- every kernel entry's registers, static shared memory and
    spills, as the compiler reported them when it built the kernels; a
    spill in any entry fails the run.
 
@@ -258,6 +277,24 @@ LM_MESH_TRAIN_LIMIT = 1e-5
 #: The merged shards' mean cross entropy against one shard's and the
 #: library's: f32 sums over 2^17 columns in other orders.
 LM_MESH_CE_LIMIT = 1e-5
+#: Context parallelism (the ``cp`` phase).  ``offsets``: K5 and K5b at a
+#: query offset against their plain versions, B 2, S 300, T 70 rows a rank
+#: (ragged against the 64-row tiles) at offsets 0, 64 (a tile), 100 (not a
+#: tile) and 230 (the last rows: offset + T = S), 8 q heads over 2 kv heads.
+#: ``starcoder2``: starcoder2-15b's attention at full width (48 q heads, 4 kv
+#: heads, head dim 128, bf16) over T = 4,096 at tp 8, rank by rank on one
+#: card (512 query rows a rank at offset 512 r against the whole K/V) against
+#: the whole-T call, and its attention layer the same way; then the model
+#: served whole through ``launch.serve`` (its 8 default requests).
+CP = dict(offsets=dict(b=2, s=300, t=70, h=8, kv=2, offs=(0, 64, 100, 230)),
+          arch="starcoder2-15b", tp=8, seq=4096)
+#: The layer's output and every gradient, rank by rank against whole: the
+#: ranks' dk/dv partials (context-parallel) or q/k/v cotangents (column
+#: split) are rounded to bf16 and summed (as the collectives' backward sums
+#: them), and autograd sums the eight ranks' bf16 weight gradients, so the
+#: two differ by bf16 roundings (2^-9 relative each) of the partials: held
+#: to a relative L2 error of 1e-2.
+CP_LAYER_LIMIT = 1e-2
 
 #: Inputs of the attention kernels' checks: q and k at 1.5 x a unit normal,
 #: so the scores have a standard deviation of 2.25 at any head dim and the
@@ -3163,6 +3200,299 @@ def phase_lm_mesh(torch, np, args, da, gen) -> dict:
             "serve_launches": line["serve"]["mesh_1x1"]["launches"]}
 
 
+def k5_offset_work(b: int, t: int, s: int, off: int, h: int, kv: int, d: int, itemsize: int,
+                   backward: bool = False) -> tuple[float, float]:
+    """(flops, bytes) of a causal K5 (or with ``backward`` K5b) call on ``t``
+    query rows at offset ``off`` against ``s`` keys: the visible pairs,
+    ``sum_i min(s, off + i + 1)``, and the keys the rows see,
+    ``min(s, off + t)``, read once (K5: q, the seen k and v, o written; K5b:
+    q, o, dO, the lse and the seen k and v read, dq written and dk/dv for
+    every key, the unseen ones as zeros)."""
+    pairs = float(sum(min(s, off + i + 1) for i in range(t)))
+    seen = min(s, off + t)
+    if not backward:
+        return 4.0 * b * h * d * pairs, (2.0 * b * t * h * d + 2.0 * b * seen * kv * d) * itemsize
+    return (10.0 * b * h * d * pairs,
+            (4.0 * b * t * h * d + 2.0 * b * seen * kv * d + 2.0 * b * s * kv * d) * itemsize + 4.0 * b * h * t)
+
+
+def cp_offset_cases(fa, fb, torch, gen) -> list[dict]:
+    """K5 (with its lse) and K5b at query offsets against their plain
+    versions, bf16 and f32, causal; dk and dv of the keys past offset + T
+    exactly zero; and an offset of 0 the same bytes as no offset."""
+    c = CP["offsets"]
+    b, s, t, h, kv = c["b"], c["s"], c["t"], c["h"], c["kv"]
+    rows = []
+    for dt, d in ((torch.bfloat16, 128), (torch.bfloat16, 64), (torch.float32, 64), (torch.float32, 32)):
+        k = randn(torch, gen, (b, s, kv, d), dt, QK_SCALE)
+        v = randn(torch, gen, (b, s, kv, d), dt)
+        for off in c["offs"]:
+            q = randn(torch, gen, (b, t, h, d), dt, QK_SCALE)
+            do = randn(torch, gen, (b, t, h, d), dt)
+            o, lse = fa.flash_attention(q, k, v, return_lse=True, q_offset=off)
+            po, plse = fa.flash_attention_plain(q, k, v, return_lse=True, q_offset=off)
+            err = allclose_err(o, po, f"K5 at q_offset {off}")
+            e_lse = (lse - plse).abs().max().item()
+            if not e_lse <= lse_limit(dt):
+                fail(f"K5's lse at q_offset {off} differs from the plain logsumexp by {e_lse} ({dt})")
+            got = fb.flash_attention_bwd(q, k, v, o, do, lse, q_offset=off)
+            want = fb.flash_attention_bwd_plain(q, k, v, o, do, lse, q_offset=off)
+            errs = []
+            for name, g, w in zip(("dq", "dk", "dv"), got, want):
+                diff = (g.float() - w.float()).abs()
+                if not torch.isfinite(g).all() or (diff > grad_limit(w)).any():
+                    fail(f"K5b {name} at q_offset {off} differs from its plain version by {diff.max().item()} "
+                         f"({dt}, d {d})")
+                errs.append(diff.max().item())
+            unseen = got[1][:, off + t:], got[2][:, off + t:]
+            if any(x.numel() and x.any() for x in unseen):
+                fail(f"K5b at q_offset {off}: dk/dv of keys no row sees are not zero")
+            if off == 0:
+                o0, lse0 = fa.flash_attention(q, k, v, return_lse=True)
+                if not (torch.equal(o0, o) and torch.equal(lse0, lse)) or not all(
+                        torch.equal(x, y) for x, y in zip(fb.flash_attention_bwd(q, k, v, o, do, lse), got)):
+                    fail("K5/K5b at q_offset 0 are not the same bytes as without an offset")
+            rows.append({"dtype": str(dt).replace("torch.", ""), "d": d, "q_offset": off, "t": t, "s": s,
+                         "k5_err": err, "lse_err": e_lse, "k5b_errs": errs,
+                         "zero_keys": max(0, s - off - t)})
+    return rows
+
+
+def cp_starcoder2_kernels(fa, fb, torch, gen) -> tuple[dict, dict]:
+    """starcoder2-15b's attention shapes at tp 8 on one card: the eight
+    ranks' K5 calls (512 query rows at offset 512 r against the whole K/V)
+    concatenated against the whole-T call (output and lse: ``attn_limit``,
+    ``lse_limit``, and whether the bytes are the same), the eight K5b calls'
+    dq concatenated and dk/dv summed against the whole-T K5b (``grad_limit``
+    plus an ulp of each partial), the keys past each rank's rows zero in its
+    dk/dv; graph ms per rank and whole, launches, bounds.  Returns (K5's,
+    K5b's)."""
+    from repro_torch import configs
+    from repro_torch.kernels import build
+
+    cfg = configs.get_config(CP["arch"])
+    tp, T = CP["tp"], CP["seq"]
+    H, KV, d, tl = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim, T // tp
+    dt = torch.bfloat16
+    q = randn(torch, gen, (1, T, H, d), dt, QK_SCALE)
+    k = randn(torch, gen, (1, T, KV, d), dt, QK_SCALE)
+    v = randn(torch, gen, (1, T, KV, d), dt)
+    do = randn(torch, gen, (1, T, H, d), dt)
+    rows = [slice(r * tl, (r + 1) * tl) for r in range(tp)]
+    build.reset_launches()
+    o, lse = fa.flash_attention(q, k, v, return_lse=True)
+    parts = [fa.flash_attention(q[:, sl], k, v, return_lse=True, q_offset=sl.start) for sl in rows]
+    oc, lc = torch.cat([p[0] for p in parts], 1), torch.cat([p[1] for p in parts], -1)
+    k5_launches = build.LAUNCHES["flash_attention"]
+    err = allclose_err(oc, o, "K5 rank by rank against whole T")
+    e_lse = (lc - lse).abs().max().item()
+    if not e_lse <= lse_limit(dt):
+        fail(f"K5's lse rank by rank differs from the whole-T call's by {e_lse}")
+    want = fb.flash_attention_bwd(q, k, v, o, do, lse)
+    got = [fb.flash_attention_bwd(q[:, sl], k, v, p[0], do[:, sl], p[1], q_offset=sl.start)
+           for sl, p in zip(rows, parts)]
+    k5b_launches = build.LAUNCHES["flash_attention_bwd"]
+    for r, (sl, g) in enumerate(zip(rows, got)):
+        if g[1][:, sl.stop:].any() or g[2][:, sl.stop:].any():
+            fail(f"K5b rank {r}: dk/dv of keys past its rows are not zero")
+    errs = {}
+    for i, name in enumerate(("dq", "dk", "dv")):
+        w = want[i]
+        if name == "dq":
+            gsum, slack = torch.cat([g[0] for g in got], 1).float(), 0.0
+        else:
+            gsum = sum(g[i].float() for g in got)
+            slack = sum(g[i].float().abs() for g in got) * 2.0**-8
+        diff = (gsum - w.float()).abs()
+        if not torch.isfinite(gsum).all() or (diff > grad_limit(w) + slack).any():
+            fail(f"K5b {name} rank by rank differs from the whole-T call by {diff.max().item()}")
+        errs[name] = diff.max().item()
+    shape = {"q_whole": [1, T, H, d], "kv": [1, T, KV, d], "tp": tp, "rows_per_rank": tl}
+    k5_ms = [graph_ms(lambda sl=sl: fa.flash_attention(q[:, sl], k, v, return_lse=True, q_offset=sl.start))
+             for sl in rows]
+    whole_ms = graph_ms(lambda: fa.flash_attention(q, k, v, return_lse=True))
+    k5b_ms = [graph_ms(lambda sl=sl, p=p: fb.flash_attention_bwd(q[:, sl], k, v, p[0], do[:, sl], p[1],
+                                                                  q_offset=sl.start))
+              for sl, p in zip(rows, parts)]
+    whole_b_ms = graph_ms(lambda: fb.flash_attention_bwd(q, k, v, o, do, lse))
+    k5_bounds = [attn_bound(*k5_offset_work(1, tl, T, sl.start, H, KV, d, 2))[0] for sl in rows]
+    k5b_bounds = [attn_bound(*k5_offset_work(1, tl, T, sl.start, H, KV, d, 2, backward=True))[0] for sl in rows]
+    k5 = {"shape": shape, "launches": k5_launches, "max_abs_err": err, "lse_err": e_lse,
+          "bytes_equal_whole": bool(torch.equal(oc, o) and torch.equal(lc, lse)),
+          "graph_ms_per_rank": k5_ms, "graph_ms_ranks_sum": sum(k5_ms), "graph_ms_whole": whole_ms,
+          "bound_ms_per_rank": k5_bounds, "bound_ms_whole": attn_bound(*k5_work(1, T, H, KV, d, 2, True))[0]}
+    k5b = {"shape": shape, "launches": k5b_launches, "errs": errs,
+           "dq_bytes_equal_whole": bool(torch.equal(torch.cat([g[0] for g in got], 1), want[0])),
+           "graph_ms_per_rank": k5b_ms, "graph_ms_ranks_sum": sum(k5b_ms), "graph_ms_whole": whole_b_ms,
+           "bound_ms_per_rank": k5b_bounds, "bound_ms_whole": attn_bound(*k5b_work(1, T, H, KV, d, 2, True))[0]}
+    del q, k, v, do, o, lse, parts, got, want
+    torch.cuda.empty_cache()
+    return k5, k5b
+
+
+def cp_starcoder2_layer(torch, gen) -> dict:
+    """starcoder2-15b's attention layer at full width (bf16, weights drawn
+    from the generator) over T = 4,096 at tp 8 on one card, in the two
+    layouts the port runs there, each rank by rank through the port's own
+    rank bodies, against the one-device ``attention`` on the whole
+    sequence: the output and the gradients of x and of every weight
+    (``CP_LAYER_LIMIT``), K5 and K5b launches.  ``context`` (under SP): each
+    rank's rows projected at their global positions (``context_project``),
+    K and V of all ranks concatenated (the all-gather), ``context_rank`` at
+    the rank's query offset through the whole ``wo``.  ``columns`` (no SP):
+    q/k/v projected whole (the gathered columns), ``column_rank`` on the
+    heads holding the rank's columns through its rows of ``wo``, the ranks'
+    partial outputs summed in f32 (the all-reduce) and rounded once."""
+    from repro_torch import configs
+    from repro_torch.kernels import build
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models.lm import init_params
+
+    cfg = configs.get_config(CP["arch"])
+    tp, T = CP["tp"], CP["seq"]
+    tl = T // tp
+    p = init_params(attn_mod.Attention(cfg, torch.bfloat16, "cuda"), torch.Generator(device="cuda").manual_seed(1))
+    p.requires_grad_(True)
+    x = randn(torch, gen, (1, T, cfg.d_model), torch.bfloat16).requires_grad_(True)
+    dy = randn(torch, gen, (1, T, cfg.d_model), torch.bfloat16)
+    pos = torch.arange(T, device="cuda")[None, :]
+    params = dict(p.named_parameters())
+    n = p.wo.shape[0] // tp
+
+    def grads(y):
+        g = torch.autograd.grad(y, [x, *params.values()], dy)
+        return dict(zip(["x", *params], g))
+
+    def context():
+        qkv = [attn_mod.context_project(p, cfg, x[:, r * tl:(r + 1) * tl], pos, r) for r in range(tp)]
+        k, v = torch.cat([t[1] for t in qkv], 1), torch.cat([t[2] for t in qkv], 1)
+        return torch.cat([attn_mod.context_rank(cfg, q, k, v, p.wo, r) for r, (q, _, _) in enumerate(qkv)], 1) + p.bo
+
+    def columns():
+        q, k, v = attn_mod.project_qkv(p, cfg, x, pos)
+        parts = [attn_mod.column_rank(cfg, q, k, v, p.wo[r * n:(r + 1) * n], r, tp).float() for r in range(tp)]
+        return sum(parts).to(x.dtype) + p.bo
+
+    def run(fn):
+        torch.cuda.synchronize()
+        build.reset_launches()
+        t0 = time.perf_counter()
+        y = fn()
+        g = grads(y)
+        torch.cuda.synchronize()
+        launches = {k: build.LAUNCHES[k] for k in ("flash_attention", "flash_attention_bwd")}
+        return y.detach(), g, time.perf_counter() - t0, launches
+
+    grads(attn_mod.attention(p, cfg, x, pos))  # warm-up: cuBLAS and the allocator set up
+    y_w, g_w, whole_s, _ = run(lambda: attn_mod.attention(p, cfg, x, pos))
+    out = {"arch": cfg.name, "tp": tp, "seq": T, "limit": CP_LAYER_LIMIT, "whole_fwd_bwd_s": whole_s}
+    for layout, fn in (("context", context), ("columns", columns)):
+        y, g, secs, launches = run(fn)
+        if launches != {"flash_attention": tp, "flash_attention_bwd": tp}:
+            fail(f"cp layer ({layout}): launches {launches}, want {tp} of K5 and of K5b")
+        err_y = allclose_err(y, y_w.detach(), f"the {layout} layer rank by rank against whole T")
+        rel = {}
+        for name, w in g_w.items():
+            if not torch.isfinite(g[name]).all():
+                fail(f"cp layer ({layout}): the gradient of {name} is not finite")
+            rel[name] = ((g[name].float() - w.float()).norm() / w.float().norm().clamp(min=1e-30)).item()
+            if rel[name] > CP_LAYER_LIMIT:
+                fail(f"cp layer ({layout}): the gradient of {name} rank by rank differs from whole T by "
+                     f"{rel[name]} (relative L2)")
+        out[layout] = {"launches": launches, "y_max_abs_err": err_y, "grad_rel_l2": rel, "ranks_fwd_bwd_s": secs}
+        del y, g
+    del p, x, dy, y_w, g_w
+    torch.cuda.empty_cache()
+    return out
+
+
+def cp_serve(torch, np, args) -> dict:
+    """starcoder2-15b at full width and depth (bf16, weights drawn on the
+    card from ``--seed``) through ``python -m repro_torch.launch.serve`` in
+    process, its 8 default requests (prompts of 2-11 tokens, 16 greedy
+    tokens each): tokens in the vocabulary, every request complete; seconds,
+    ms per decode step (median), peak memory; K5 once a layer a prefill,
+    K6 as the captured graph's kernel nodes times its replays.  Its smoke
+    config first, in f32: the card against the CPU (``serve_parity_small``)."""
+    import contextlib
+    import io
+
+    from repro_torch import configs
+    from repro_torch.kernels import build
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.serve import engine as engine_mod
+
+    small = serve_parity_small(torch, np, CP["arch"])
+    cfg = configs.get_config(CP["arch"])
+    argv = ["--arch", CP["arch"], "--device", "cuda", "--seed", str(args.seed)]
+    orig = engine_mod.Engine._decode
+    times, engines = [], []
+
+    def timed(self):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits = orig(self)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        if not engines:
+            engines.append(self)
+        return logits
+
+    engine_mod.Engine._decode = timed
+    try:
+        torch.cuda.empty_cache()
+        _reset_peak(torch)
+        build.reset_launches()
+        log = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(log):
+            finished = serve_cli.main(argv)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launches = dict(build.LAUNCHES)
+    finally:
+        engine_mod.Engine._decode = orig
+    eng = engines[0]
+    if eng.decode_graph is None:
+        fail("cp serve: the engine did not capture its decode step")
+    k6 = launches["decode_attention"] + build.graph_kernel_nodes(eng.decode_graph, ["decode_partial"])[
+        "decode_partial"] * eng.decode_steps
+    if len(finished) != 8 or any(len(r.out) != 16 or not all(0 <= t < cfg.vocab_size for t in r.out)
+                                 for r in finished):
+        fail("cp serve: a request is incomplete or holds a token outside the vocabulary")
+    if launches["flash_attention"] != cfg.num_layers * len(finished) or k6 < cfg.num_layers:
+        fail(f"cp serve: K5 launched {launches['flash_attention']} times (want {cfg.num_layers} a prefill), K6 {k6}")
+    out = {"arch": cfg.name, "argv": argv, "smoke_parity": small, "requests": len(finished),
+           "tokens": sum(len(r.out) for r in finished), "run_s": run_s, "decode_steps": eng.decode_steps,
+           "ms_per_decode_step_median": float(sorted(times)[len(times) // 2]) * 1e3,
+           "peak_allocated_bytes": torch.cuda.max_memory_allocated(),
+           "launches": {"flash_attention": launches["flash_attention"], "decode_attention": k6},
+           "first_tokens": [r.out[:4] for r in sorted(finished, key=lambda r: r.rid)],
+           "printed": log.getvalue().splitlines()[0]}
+    del engines, eng, finished
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_cp(torch, np, args, fa, fb, gen) -> dict:
+    """Context parallelism on one card: K5 and K5b at query offsets against
+    their plain versions, starcoder2-15b's attention at tp 8 rank by rank
+    (the kernels, then the layer) against the whole sequence, and
+    starcoder2-15b served whole.  Emits the ``cp`` line; returns the K5 and
+    K5b rows' ``q_offset`` entries for the kernels line."""
+    t0 = time.perf_counter()
+    line = {"phase": "cp", "offsets": cp_offset_cases(fa, fb, torch, gen)}
+    line["starcoder2_k5"], line["starcoder2_k5b"] = cp_starcoder2_kernels(fa, fb, torch, gen)
+    line["starcoder2_layer"] = cp_starcoder2_layer(torch, gen)
+    line["starcoder2_serve"] = cp_serve(torch, np, args)
+    line["phase_s"] = time.perf_counter() - t0
+    emit(line)
+    worst = {k: max(r[k] if not isinstance(r[k], list) else max(r[k]) for r in line["offsets"])
+             for k in ("k5_err", "lse_err", "k5b_errs")}
+    return {"k5": {"cases": len(line["offsets"]), "worst": worst, "starcoder2_tp8": line["starcoder2_k5"]},
+            "k5b": {"cases": len(line["offsets"]), "starcoder2_tp8": line["starcoder2_k5b"]}}
+
+
 def ptxas_line(build) -> dict:
     """Registers, static shared memory, stack and spills of every kernel entry
     built in this process, from the compiler's ``-Xptxas -v`` output
@@ -3339,6 +3669,7 @@ def main() -> int:
     phase_train_resume(torch, args)
     sharded = phase_sharded(torch, args, bt, gen, run_pipeline, random_trace, trace_max_value)
     lm_mesh = phase_lm_mesh(torch, np, args, da, gen)
+    cp = phase_cp(torch, np, args, fa, fb, gen)
     rows[0]["sharded"] = sharded["k1"]
     rows[1]["sharded"] = {"site": "core/mergesort.py merge_runs_flat (pipeline, pool_backend=shard_map)",
                           "launches": sharded["k2_pipeline_shard_map_launches"]}
@@ -3351,12 +3682,14 @@ def main() -> int:
     k6_row["lse"] = {**lm_mesh["k6_lse"], "lm_mesh_serve_launches": lm_mesh["serve_launches"]["decode_attention"]}
     k5_row["lm_mesh_launches"] = {"train": lm_mesh["train_launches"]["flash_attention"],
                                   "serve": lm_mesh["serve_launches"]["flash_attention"]}
+    k5_row["q_offset"] = cp["k5"]
     next(r for r in rows if r["name"] == "row_sort_kv")["lm_mesh_train_launches"] = \
         lm_mesh["train_launches"]["row_sort_kv"]
     rows.append({"name": "flash_attention_bwd", "route": "cuda",
                  "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
                  "replaces": "src/repro/models/attention.py:181", "tpu_kernel": False, **k5b,
-                 "lm_mesh_train_launches": lm_mesh["train_launches"]["flash_attention_bwd"]})
+                 "lm_mesh_train_launches": lm_mesh["train_launches"]["flash_attention_bwd"],
+                 "q_offset": cp["k5b"]})
 
     emit({"kernels": rows})
     emit(ptxas_line(build))

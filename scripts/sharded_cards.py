@@ -36,7 +36,22 @@ a failed check exits non-zero before that.
    alone on its card, 8 requests of 64-511 prompt tokens, 32 greedy tokens
    each: ms per decode step of both, how many requests' tokens are equal.
 
-``--phases sort`` or ``--phases lm`` runs one group; ``--lm-smoke`` the LM
+6. ``cp`` (two lines, ``--phases cp``: not in the default run) --
+   starcoder2-15b (``CP_ARCH``: 4 kv heads, which tp 8 does not divide) at
+   ``(1, R)``: ``LM_STEPS`` AdamW steps with sequence parallelism, so the
+   attention runs context-parallel (each rank its T chunk against the
+   gathered K/V, K5/K5b at its query offset), B ``CP_BATCH`` x
+   ``--lm-seq`` tokens: step seconds,
+   tokens/s, losses, every rank's peak memory; then served without SP (the
+   attention's columns split through heads) against each rank alone on its
+   card, as ``lm_serve``.  A card's bytes under the context-parallel layout
+   at tp 8: the attention weights whole on every rank (40 x 81.8M = 3.27B
+   parameters), the MLP, embedding and head cut eight ways (1.59B): 4.86B
+   parameters, 9.7 GB in bf16, as much again for the gradients and 38.9 GB
+   for the f32 AdamW moments, 58 GB before activations -- so the batch is
+   cut (``CP_BATCH``), never the widths.
+
+``--phases sort``, ``lm`` or ``cp`` runs one group; ``--lm-smoke`` the LM
 phases at the smoke config (a rehearsal with ``--device cpu``).
 """
 
@@ -52,6 +67,9 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 #: AdamW steps of each ``lm_train`` mesh (the first includes the warm-up).
 LM_STEPS = 3
+#: The ``cp`` phase's model and global batch (the module docstring says why 1).
+CP_ARCH = "starcoder2-15b"
+CP_BATCH = 1
 
 
 def _check(ok: bool, msg: str) -> None:
@@ -152,7 +170,7 @@ def phase_moe(torch, dist, args, dev, rank: int, world: int) -> dict:
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     full = init_params(moe.MoE(cfg, dt, dev), gen).requires_grad_(True)
     part = moe.MoE(cfg, dt, dev, tp_size=world)
-    part.load_state_dict(params_from_reference(full.state_dict(), tp_rank=rank, tp_size=world))
+    part.load_state_dict(params_from_reference(full.state_dict(), sharding.ShardCtx.grid(model=(rank, world))))
     part.requires_grad_(True)
     ctx = sharding.ShardCtx(mesh=make_mesh((1, world), ("data", "model"), dev.type), tp="model",
                             fsdp=None, dp=("data",), sp=True)
@@ -191,10 +209,12 @@ def phase_moe(torch, dist, args, dev, rank: int, world: int) -> dict:
             "a2a_fwd_bwd_ms": a2a_s * 1e3, "moe_layer_one_card_fwd_bwd_ms": local_s * 1e3}
 
 
-def lm_config(configs, args):
+def lm_config(args, arch: str):
     import dataclasses
 
-    cfg = configs.get_smoke_config(args.lm_arch) if args.lm_smoke else configs.get_config(args.lm_arch)
+    from repro_torch import configs
+
+    cfg = configs.get_smoke_config(arch) if args.lm_smoke else configs.get_config(arch)
     return dataclasses.replace(cfg, dtype=args.lm_dtype) if args.lm_dtype else cfg
 
 
@@ -213,7 +233,7 @@ def phase_lm_train(torch, dist, args, dev, rank: int, world: int) -> list[dict]:
     from repro_torch.train.optimizer import AdamWConfig, init_opt_state
     from repro_torch.train.train_step import build_train_step, shard_batch
 
-    cfg = lm_config(configs, args)
+    cfg = lm_config(args, args.lm_arch)
     lines = []
     for shape in ((1, world), (world // 2, 2)):
         ctx = ShardCtx(mesh=make_mesh(shape, ("data", "model"), dev.type), tp="model",
@@ -255,19 +275,19 @@ def phase_lm_train(torch, dist, args, dev, rank: int, world: int) -> list[dict]:
     return lines
 
 
-def phase_lm_serve(torch, dist, args, dev, rank: int, world: int) -> dict:
-    """Mistral-Nemo-12B at full width and depth, bf16, served at ``--mesh
-    1xR`` (the sequence-sharded cache, the decode step captured with its
-    NCCL collectives) and by each rank alone on its card: the same 8
-    requests, greedy; ms per decode step of both; the tokens compared."""
+def phase_lm_serve(torch, dist, args, dev, rank: int, world: int, cfg) -> dict:
+    """``cfg`` (``lm``: Mistral-Nemo-12B at full width and depth, bf16)
+    served at ``--mesh 1xR`` (the sequence-sharded cache, the decode step
+    captured with its NCCL collectives) and by each rank alone on its card:
+    the same 8 requests, greedy; ms per decode step of both; the tokens
+    compared."""
     import numpy as np
 
-    from repro_torch import configs, models
+    from repro_torch import models
     from repro_torch.distributed.compat import make_mesh
     from repro_torch.distributed.sharding import ShardCtx
     from repro_torch.serve.engine import Engine, Request
 
-    cfg = lm_config(configs, args)
     rng = np.random.default_rng(args.seed)
     prompts = [rng.integers(0, cfg.vocab_size, size=int(rng.integers(64, 512))).tolist() for _ in range(8)]
     out = {}
@@ -310,6 +330,69 @@ def phase_lm_serve(torch, dist, args, dev, rank: int, world: int) -> dict:
             "requests_with_equal_tokens": sum(same), "first_differing_token": first_diff, **out}
 
 
+def phase_cp(torch, dist, args, dev, rank: int, world: int) -> list[dict]:
+    """``CP_ARCH`` at ``(1, R)``: trained with SP (context-parallel
+    attention, checked to be the layout) and served without it (column
+    split) beside each rank alone on its card."""
+    import numpy as np
+
+    from repro_torch import configs, models
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.distributed.compat import make_mesh
+    from repro_torch.distributed.sharding import ShardCtx
+    from repro_torch.kernels import build
+    from repro_torch.models.attention import attn_layout
+    from repro_torch.train.optimizer import AdamWConfig, init_opt_state
+    from repro_torch.train.train_step import build_train_step, shard_batch
+
+    cfg = lm_config(args, CP_ARCH)
+    mesh = make_mesh((1, world), ("data", "model"), dev.type)
+    ctx = ShardCtx(mesh=mesh, tp="model", fsdp=None, dp=("data",), sp=True)
+    _check(attn_layout(cfg, ctx) == "context", f"{cfg.name} at tp {world}: the attention is not context-parallel")
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    model = models.build(cfg, ctx=ctx, device=dev).requires_grad_(True)
+    model.init(torch.Generator(device=dev).manual_seed(args.seed))
+    opt_cfg = AdamWConfig(lr=3e-4)
+    state = init_opt_state(dict(model.named_parameters()), opt_cfg)
+    step = build_train_step(model, opt_cfg)
+    pipe = TokenPipeline(cfg.vocab_size, CP_BATCH, args.lm_seq, seed=args.seed)
+    recs = []
+    build.reset_launches()
+    for i in range(LM_STEPS):
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in shard_batch(pipe.next_batch(), ctx).items()}
+        dist.barrier()
+        t0 = time.perf_counter()
+        state, met = step(state, batch)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        dist.barrier()
+        recs.append({"step": i, "s": time.perf_counter() - t0, "loss": float(met["loss"]),
+                     "grad_norm": float(met["grad_norm"])})
+    launches = dict(build.LAUNCHES)
+    _check(all(np.isfinite([r["loss"], r["grad_norm"]]).all() for r in recs), "cp: a loss is not finite")
+    _check(dev.type == "cpu" or (launches["flash_attention"] == 2 * cfg.num_layers * LM_STEPS
+                                 and launches["flash_attention_bwd"] == cfg.num_layers * LM_STEPS),
+           f"cp: K5/K5b launches {launches}, want 2 and 1 a layer a step")
+    peak = torch.tensor([torch.cuda.max_memory_allocated() if dev.type == "cuda" else 0], device=dev)
+    peaks = [torch.zeros_like(peak) for _ in range(world)]
+    dist.all_gather(peaks, peak)
+    med = float(np.median([r["s"] for r in recs[1:]]))
+    train = {"phase": "cp_train", "arch": cfg.name, "layers": cfg.num_layers, "mesh": [1, world], "sp": True,
+             "layout": "context", "batch": CP_BATCH, "seq": args.lm_seq, "steps": recs,
+             "params_per_rank": sum(p.numel() for p in model.parameters()),
+             "step_s_median_after_first": med, "tokens_per_s": CP_BATCH * args.lm_seq / med,
+             "launches": {k: launches[k] for k in ("flash_attention", "flash_attention_bwd")},
+             "peak_device_bytes_per_rank": [int(p) for p in peaks]}
+    del model, state, step
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    serve = phase_lm_serve(torch, dist, args, dev, rank, world, cfg)
+    serve.update(phase="cp_serve", layout=attn_layout(cfg, ShardCtx(mesh=mesh, tp="model", fsdp=None, dp=())))
+    return [train, serve]
+
+
 def run_rank(rank: int, world: int, rdv: str, args) -> None:
     sys.path[:0] = [str(ROOT / "src"), str(ROOT)]
     import torch
@@ -331,7 +414,9 @@ def run_rank(rank: int, world: int, rdv: str, args) -> None:
                        lambda: [phase_moe(torch, dist, args, dev, rank, world)]]
         if "lm" in args.phases:
             phases += [lambda: phase_lm_train(torch, dist, args, dev, rank, world),
-                       lambda: [phase_lm_serve(torch, dist, args, dev, rank, world)]]
+                       lambda: [phase_lm_serve(torch, dist, args, dev, rank, world, lm_config(args, args.lm_arch))]]
+        if "cp" in args.phases:
+            phases += [lambda: phase_cp(torch, dist, args, dev, rank, world)]
         for phase in phases:
             for line in phase():
                 if rank == 0:
@@ -347,7 +432,7 @@ def main() -> int:
     ap.add_argument("--seq", type=int, default=2048, help="MoE tokens a rank")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
-    ap.add_argument("--phases", nargs="+", choices=("sort", "lm"), default=["sort", "lm"])
+    ap.add_argument("--phases", nargs="+", choices=("sort", "lm", "cp"), default=["sort", "lm"])
     ap.add_argument("--lm-arch", default="mistral-nemo-12b")
     ap.add_argument("--lm-smoke", action="store_true", help="the LM phases at the arch's smoke config")
     ap.add_argument("--lm-dtype", choices=("float32", "bfloat16"), default=None, help="default: the config's")

@@ -57,9 +57,22 @@ class ShardCtx:
     fsdp: str | None = "data"
     dp: tuple[str, ...] = ("data",)
     sp: bool = False  # sequence parallelism: residuals T-sharded over tp
+    #: Without a mesh, ``(axis, index, size)`` of each axis the context
+    #: stands at (:meth:`grid`); no collective runs on such a context.
+    at: tuple = ()
+
+    @classmethod
+    def grid(cls, *, sp: bool = False, **coords) -> "ShardCtx":
+        """A context without a mesh at ``axis=(index, size)`` of each named
+        axis (the default roles: tp ``model``, fsdp ``data``): the layouts
+        and one rank's block of them, to cut or join whole trees in one
+        process."""
+        return cls(sp=sp, at=tuple((a, i, n) for a, (i, n) in coords.items()))
 
     def axis_size(self, name: str | None) -> int:
-        if self.mesh is None or name is None or name not in (self.mesh.mesh_dim_names or ()):
+        if self.mesh is None:
+            return next((n for a, _, n in self.at if a == name), 1)
+        if name is None or name not in (self.mesh.mesh_dim_names or ()):
             return 1
         return self.mesh.size(self.mesh.mesh_dim_names.index(name))
 
@@ -84,6 +97,8 @@ class ShardCtx:
         0 off the mesh."""
         if self.axis_size(name) == 1:
             return 0
+        if self.mesh is None:
+            return next(i for a, i, _ in self.at if a == name)
         return self.mesh.get_local_rank(name)
 
     @property
@@ -112,7 +127,7 @@ class ShardCtx:
 
     def coords(self) -> dict:
         """Axis name -> (this rank's index, axis size), for :func:`shard_leaf`."""
-        names = (self.mesh.mesh_dim_names or ()) if self.mesh is not None else ()
+        names = (self.mesh.mesh_dim_names or ()) if self.mesh is not None else [a for a, _, _ in self.at]
         return {a: (self.axis_index(a), self.axis_size(a)) for a in names}
 
 

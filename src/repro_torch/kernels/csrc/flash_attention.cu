@@ -14,6 +14,12 @@
 // training forward) each row's natural-log logsumexp of its scaled, masked
 // scores goes to a (B, H, T) float32 tensor for the backward (K5b,
 // flash_attention_bwd.cu); without it nothing more is written or read.
+// Context parallelism passes a query offset q_off >= 0: local row i is
+// global row q_off + i of the causal mask, which keeps key j iff
+// q_off + i >= j (a rank's T chunk against the gathered K/V).  It is an
+// argument of both kernels: at q_off = 0 a second build whose offset is the
+// constant 0 was no faster on an H100 than this one, within the spread of
+// one build's runs (scripts/attention_graph_ms.py).
 //
 // What bounds it on an H100: operations.  A causal prefill at T = 1963,
 // D = 128, 32 q heads does 4 * T(T+1)/2 * D * 32 = 31.6 GFLOP while it reads
@@ -99,7 +105,7 @@ __global__ void __launch_bounds__(THREADS)
 flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
           const T* __restrict__ v, T* __restrict__ o, float* __restrict__ lse,
           int T_len, int S, int G, Strides qs, Strides ks, Strides vs,
-          Strides os, float scale, int causal) {
+          Strides os, float scale, int causal, int q_off) {
   constexpr int DP = D + 4;     // padded row of the Q and K tiles
   constexpr int DPT = D / 16;   // output columns per thread: tx + 16 j
   extern __shared__ __align__(16) float smem[];
@@ -133,8 +139,8 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int j = 0; j < DPT; ++j) acc[i][j] = 0.f;
 
-  // Causal: rows below q0 + BQ see no column at or beyond q0 + BQ.
-  const int kend = causal ? min(S, q0 + BQ) : S;
+  // Causal: rows below q0 + BQ see no column at or beyond q_off + q0 + BQ.
+  const int kend = causal ? min(S, q_off + q0 + BQ) : S;
   for (int k0 = 0; k0 < kend; k0 += BK) {
     __syncthreads();  // the last tile's reads are done; Q and m/l are staged
     for (int i = tid; i < BK * D; i += THREADS) {
@@ -173,7 +179,7 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int c = tx + 16 * j, col = k0 + c;
-        const bool vis = col < S && (!causal || row >= col);
+        const bool vis = col < S && (!causal || row + q_off >= col);
         sP[r * (BK + 1) + c] = vis ? sc[i][j] : NEG;
       }
     }
@@ -311,7 +317,8 @@ __global__ void __launch_bounds__(TC_THREADS, 2)
 flash_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
                const bf16* __restrict__ v, bf16* __restrict__ o,
                float* __restrict__ lse, int T_len, int S, int G, Strides qs,
-               Strides ks, Strides vs, Strides os, float scale, int causal) {
+               Strides ks, Strides vs, Strides os, float scale, int causal,
+               int q_off) {
   constexpr int LD = D + 8;     // padded shared row, elements
   constexpr int CH = D / 8;     // 16-byte chunks per row
   constexpr int KS = D / 16;    // k-steps of Q K^T
@@ -345,8 +352,8 @@ flash_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
   };
 
-  // Causal: rows below q0 + BQ see no column at or beyond q0 + BQ.
-  const int kend = causal ? min(S, q0 + BQ) : S;
+  // Causal: rows below q0 + BQ see no column at or beyond q_off + q0 + BQ.
+  const int kend = causal ? min(S, q_off + q0 + BQ) : S;
   const int ntiles = (kend + BK - 1) / BK;
   load_kv(0, 0);
   cp_async_commit();
@@ -400,7 +407,7 @@ flash_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
 
     // Scale in f32, mask the diagonal tile and the ragged end, row max.
-    const bool masked = k0 + BK > S || (causal && k0 + BK - 1 > wrow);
+    const bool masked = k0 + BK > S || (causal && k0 + BK - 1 > q_off + wrow);
     float mx_a = NEG, mx_b = NEG;
 #pragma unroll
     for (int j = 0; j < NT; ++j) {
@@ -410,7 +417,7 @@ flash_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
         if (masked) {
           const int col = k0 + j * 8 + 2 * t4 + (e & 1);
           const int row = e < 2 ? row_a : row_b;
-          if (col >= S || (causal && col > row)) x = NEG;
+          if (col >= S || (causal && col > q_off + row)) x = NEG;
         }
         s[j][e] = x;
       }
@@ -500,7 +507,7 @@ flash_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
 template <int D>
 int launch_bf16_d(const void* q, const void* k, const void* v, void* o,
                   float* lse, int B, int T_len, int S, int H, int G, Strides qs, Strides ks,
-                  Strides vs, Strides os, float scale, int causal,
+                  Strides vs, Strides os, float scale, int causal, int q_off,
                   cudaStream_t st) {
   const size_t smem = tc_smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
@@ -510,7 +517,7 @@ int launch_bf16_d(const void* q, const void* k, const void* v, void* o,
   flash_fwd_bf16<D><<<grid, TC_THREADS, smem, st>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<bf16*>(o), lse, T_len, S, G,
-      qs, ks, vs, os, scale, causal);
+      qs, ks, vs, os, scale, causal, q_off);
   return (int)cudaGetLastError();
 }
 
@@ -521,7 +528,7 @@ int launch_bf16_d(const void* q, const void* k, const void* v, void* o,
 template <typename T, int D>
 int launch_d(const void* q, const void* k, const void* v, void* o, float* lse,
              int B, int T_len, int S, int H, int G, Strides qs, Strides ks,
-             Strides vs, Strides os, float scale, int causal,
+             Strides vs, Strides os, float scale, int causal, int q_off,
              cudaStream_t st) {
   const size_t smem = smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
@@ -531,16 +538,16 @@ int launch_d(const void* q, const void* k, const void* v, void* o, float* lse,
   flash_fwd<T, D><<<grid, THREADS, smem, st>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), lse, T_len, S, G, qs, ks,
-      vs, os, scale, causal);
+      vs, os, scale, causal, q_off);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch(const void* q, const void* k, const void* v, void* o, void* lse,
            int B, int T_len, int S, int H, int KV, int D, const long long* st6,
-           float scale, int causal, void* stream) {
+           float scale, int causal, int q_off, void* stream) {
   if (B <= 0 || T_len <= 0) return 0;
-  if (S <= 0 || KV <= 0 || H % KV) return (int)cudaErrorInvalidValue;
+  if (S <= 0 || KV <= 0 || H % KV || q_off < 0) return (int)cudaErrorInvalidValue;
   if (H > 65535 || B > 65535) return (int)cudaErrorInvalidValue;
   const Strides qs{st6[0], st6[1], st6[2]}, ks{st6[3], st6[4], st6[5]},
       vs{st6[6], st6[7], st6[8]}, os{st6[9], st6[10], st6[11]};
@@ -551,10 +558,10 @@ int launch(const void* q, const void* k, const void* v, void* o, void* lse,
   case DIM:                                                                   \
     if constexpr (sizeof(T) == 2)                                             \
       return launch_bf16_d<DIM>(q, k, v, o, lf, B, T_len, S, H, G, qs, ks, vs, \
-                                os, scale, causal, s);                        \
+                                os, scale, causal, q_off, s);                 \
     else                                                                      \
       return launch_d<T, DIM>(q, k, v, o, lf, B, T_len, S, H, G, qs, ks, vs,  \
-                              os, scale, causal, s);
+                              os, scale, causal, q_off, s);
   switch (D) {
     K5_CASE(32)
     K5_CASE(64)
@@ -572,21 +579,22 @@ extern "C" {
 // strides: 12 element strides, (batch, row, head) of q, k, v and o in turn.
 // lse: null, or a contiguous (B, H, T) float32 tensor that receives each
 // row's natural-log logsumexp of its scaled, masked scores (the backward's
-// input, K5b); serve passes null and writes nothing more.
+// input, K5b); serve passes null and writes nothing more.  q_offset: the
+// global row of q's first row under the causal mask (0 for a whole sequence).
 int flash_attention_f32(const void* q, const void* k, const void* v, void* o,
                         void* lse, int B, int T, int S, int H, int KV, int D,
                         const long long* strides, float scale, int causal,
-                        void* stream) {
+                        int q_offset, void* stream) {
   return launch<float>(q, k, v, o, lse, B, T, S, H, KV, D, strides, scale,
-                       causal, stream);
+                       causal, q_offset, stream);
 }
 
 int flash_attention_bf16(const void* q, const void* k, const void* v, void* o,
                          void* lse, int B, int T, int S, int H, int KV, int D,
                          const long long* strides, float scale, int causal,
-                         void* stream) {
+                         int q_offset, void* stream) {
   return launch<__nv_bfloat16>(q, k, v, o, lse, B, T, S, H, KV, D, strides,
-                               scale, causal, stream);
+                               scale, causal, q_offset, stream);
 }
 
 }  // extern "C"

@@ -10,8 +10,19 @@
 //   delta = rowsum(dO * o),   dv = p^T dO,   dp = dO v^T,
 //   ds = p * (dp - delta),    dq = scale ds k,   dk = scale ds^T q.
 // GQA: kv head h / (H / KV) serves q head h, so dk and dv sum over the G q
-// heads of a kv head.  No float atomics: every output element is written
-// once by the block that owns it, so the result is the same on every run.
+// heads of a kv head.  A query offset q_off >= 0 (context parallelism: a
+// rank's T chunk of queries against the whole gathered K/V) makes local row
+// t global row q_off + t of the causal mask; key tiles that no local row
+// sees (past q_off + T) get no query tile and write zeros, which the K/V
+// gather's reduce-scatter then sums with the other ranks' gradients.  The
+// bf16 dk/dv pass is built twice (template flag OFF): q_off = 0 launches the
+// build whose offset is the constant 0, the code without an offset (the
+// build with the offset as an argument was 1.9% slower at q_off = 0 on an
+// H100, three times the spread of one build's runs; the dq pass's 0.1-0.7%
+// was within or at the edge of it, scripts/attention_graph_ms.py); the
+// other kernels take it as an argument.
+// No float atomics: every output element is written once by the block that
+// owns it, so the result is the same on every run.
 //
 // What bounds it on an H100: operations.  At granite-moe-3b-a800m's training
 // shape (B 4, T = S 2048, H 24, KV 8, D 64, causal) the five products do
@@ -178,7 +189,7 @@ bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__
          const T* __restrict__ dout, const float* __restrict__ lse,
          const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
          int T_len, int S, int H, int G, Strides qs, Strides ks, Strides vs,
-         Strides dos, Strides dks, Strides dvs, float scale, int causal) {
+         Strides dos, Strides dks, Strides dvs, float scale, int causal, int q_off) {
   constexpr int DP = D + 4;
   constexpr int DPT = D / 16;  // output columns per thread: tx + 16 j
   extern __shared__ __align__(16) float smem[];
@@ -203,8 +214,9 @@ bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__
 #pragma unroll
     for (int j = 0; j < DPT; ++j) adk[i][j] = adv[i][j] = 0.f;
 
-  // Causal: a query row t sees key s iff t >= s, so tiles below k0 see none.
-  const int qstart = causal ? k0 : 0;
+  // Causal: a query row t sees key s iff q_off + t >= s, so the tiles below
+  // the one holding row k0 - q_off see none.
+  const int qstart = causal ? max(0, k0 - q_off) / BQ * BQ : 0;
   for (int g = 0; g < G; ++g) {
     const int h = kvh * G + g;
     const T* qb = q + b * qs.b + h * qs.h;
@@ -232,7 +244,7 @@ bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
           const int c = tx + 16 * j, col = k0 + c;
-          const bool vis = row < T_len && col < S && (!causal || row >= col);
+          const bool vis = row < T_len && col < S && (!causal || q_off + row >= col);
           const float p = vis ? expf(sc[i][j] * scale - sL[r]) : 0.f;
           sP[r * PS + c] = p;
           sS[r * PS + c] = p * (dp[i][j] - sD[r]);
@@ -286,7 +298,7 @@ bwd_dq(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v
        const T* __restrict__ dout, const float* __restrict__ lse,
        const float* __restrict__ delta, T* __restrict__ dq, int T_len, int S,
        int G, Strides qs, Strides ks, Strides vs, Strides dos, Strides dqs,
-       float scale, int causal) {
+       float scale, int causal, int q_off) {
   constexpr int DP = D + 4;
   constexpr int DPT = D / 16;
   extern __shared__ __align__(16) float smem[];
@@ -318,8 +330,8 @@ bwd_dq(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v
 #pragma unroll
     for (int j = 0; j < DPT; ++j) acc[i][j] = 0.f;
 
-  // Causal: rows below q0 + BQ see no column at or beyond q0 + BQ.
-  const int kend = causal ? min(S, q0 + BQ) : S;
+  // Causal: rows below q0 + BQ see no column at or beyond q_off + q0 + BQ.
+  const int kend = causal ? min(S, q_off + q0 + BQ) : S;
   for (int k0 = 0; k0 < kend; k0 += BK) {
     __syncthreads();  // the last tile's reads are done; Q, dO, lse, delta staged
     load_tile<T, D>(sK, kb, ks.t, k0, S);
@@ -335,7 +347,7 @@ bwd_dq(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int c = tx + 16 * j, col = k0 + c;
-        const bool vis = row < T_len && col < S && (!causal || row >= col);
+        const bool vis = row < T_len && col < S && (!causal || q_off + row >= col);
         const float p = vis ? expf(sc[i][j] * scale - sL[r]) : 0.f;
         sS[r * PS + c] = p * (dp[i][j] - sD[r]);
       }
@@ -523,14 +535,15 @@ constexpr size_t dkdv_tc_smem_bytes() {  // K, V, two Q and two dO tiles; two ls
   return 6 * 64 * (D + 8) * sizeof(bf16) + 4 * BQ * sizeof(float);
 }
 
-template <int D>
+template <int D, bool OFF>
 __global__ void __launch_bounds__(TC_THREADS, 2)
 bwd_dkdv_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
               const bf16* __restrict__ v, const bf16* __restrict__ dout,
               const float* __restrict__ lse, const float* __restrict__ delta,
               bf16* __restrict__ dk, bf16* __restrict__ dv, int T_len, int S, int H,
               int G, Strides qs, Strides ks, Strides vs, Strides dos, Strides dks,
-              Strides dvs, float scale, int causal) {
+              Strides dvs, float scale, int causal, int q_off_arg) {
+  const int q_off = OFF ? q_off_arg : 0;
   constexpr int LD = D + 8, KS = D / 16, CW = CHUNK_COLS<D>, NT = CW / 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* sK = reinterpret_cast<bf16*>(smem_raw);    // BK x LD, later dk
@@ -547,8 +560,10 @@ bwd_dkdv_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
   load_rows<D>(sK, k + b * ks.b + kvh * ks.h, ks.t, k0, S);
   load_rows<D>(sV, v + b * vs.b + kvh * vs.h, vs.t, k0, S);
 
-  // Causal: a query row t sees key s iff t >= s, so tiles below k0 see none.
-  const int qstart = causal ? k0 : 0;
+  // Causal: a query row t sees key s iff q_off + t >= s, so the tiles below
+  // the one holding row k0 - q_off see none; past the last row, none does
+  // (nq = 0: dk and dv of these keys are written as zeros).
+  const int qstart = !causal ? 0 : OFF ? max(0, k0 - q_off) / BQ * BQ : k0;
   const int nq = qstart < T_len ? (T_len - qstart + BQ - 1) / BQ : 0;
   const int total = G * nq;  // (q head, query tile) pairs, head-major
   auto load_q = [&](int it, int buf) {
@@ -586,7 +601,7 @@ bwd_dkdv_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const float* tl = sL + buf * BQ;
     const float* td = sD + buf * BQ;
     // The diagonal tile and the ragged ends.
-    const bool masked = q0 + BQ > T_len || k0 + BK > S || (causal && q0 < k0 + krow + 16);
+    const bool masked = q0 + BQ > T_len || k0 + BK > S || (causal && q_off + q0 < k0 + krow + 16);
 
 #pragma unroll
     for (int qc = 0; qc < BQ; qc += CW) {
@@ -617,7 +632,7 @@ bwd_dkdv_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
             const int t = q0 + c + (e & 1), key = e < 2 ? key_a : key_b;
-            if (t >= T_len || key >= S || (causal && t < key)) p[e] = 0.f;
+            if (t >= T_len || key >= S || (causal && q_off + t < key)) p[e] = 0.f;
           }
         }
         pf[j >> 1][(j & 1) * 2] = pack_bf16(p[0], p[1]);
@@ -653,7 +668,7 @@ bwd_dq_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
             const bf16* __restrict__ v, const bf16* __restrict__ dout,
             const float* __restrict__ lse, const float* __restrict__ delta,
             bf16* __restrict__ dq, int T_len, int S, int G, Strides qs, Strides ks,
-            Strides vs, Strides dos, Strides dqs, float scale, int causal) {
+            Strides vs, Strides dos, Strides dqs, float scale, int causal, int q_off) {
   constexpr int LD = D + 8, KS = D / 16, CW = CHUNK_COLS<D>, NT = CW / 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* sQ = reinterpret_cast<bf16*>(smem_raw);  // BQ x LD, later dq
@@ -674,8 +689,8 @@ bwd_dq_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
     load_rows<D>(sV + buf * BK * LD, vb, vs.t, k0, S);
   };
 
-  // Causal: rows below q0 + BQ see no column at or beyond q0 + BQ.
-  const int kend = causal ? min(S, q0 + BQ) : S;
+  // Causal: rows below q0 + BQ see no column at or beyond q_off + q0 + BQ.
+  const int kend = causal ? min(S, q_off + q0 + BQ) : S;
   const int ntiles = (kend + BK - 1) / BK;
   load_kv(0, 0);
   cp_async_commit();
@@ -714,7 +729,7 @@ bwd_dq_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
     const bf16* tk = sK + buf * BK * LD;
     const bf16* tv = sV + buf * BK * LD;
-    const bool masked = k0 + BK > S || (causal && k0 + BK - 1 > wrow);
+    const bool masked = k0 + BK > S || (causal && k0 + BK - 1 > q_off + wrow);
 
 #pragma unroll
     for (int kc = 0; kc < BK; kc += CW) {
@@ -738,7 +753,7 @@ bwd_dq_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
             const int col = k0 + kc + j * 8 + 2 * t4 + (e & 1);
-            if (col >= S || (causal && col > (e < 2 ? row_a : row_b))) p[e] = 0.f;
+            if (col >= S || (causal && col > q_off + (e < 2 ? row_a : row_b))) p[e] = 0.f;
           }
         }
         dsf[j >> 1][(j & 1) * 2] = pack_bf16(p[0] * (dp[j][0] - d_a), p[1] * (dp[j][1] - d_a));
@@ -759,24 +774,25 @@ template <int D>
 int launch_bf16_d(const bf16* q, const bf16* k, const bf16* v, const bf16* dout,
                   const float* lse, const float* delta, bf16* dq, bf16* dk, bf16* dv,
                   int B, int T_len, int S, int H, int KV, const Strides* st, float scale,
-                  int causal, cudaStream_t s) {
+                  int causal, int q_off, cudaStream_t s) {
   const int G = H / KV;
   const size_t smem_kv = dkdv_tc_smem_bytes<D>(), smem_q = dq_tc_smem_bytes<D>();
+  auto* dkdv = q_off ? &bwd_dkdv_bf16<D, true> : &bwd_dkdv_bf16<D, false>;
   cudaError_t err = cudaFuncSetAttribute(
-      bwd_dkdv_bf16<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_kv);
+      dkdv, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_kv);
   if (err != cudaSuccess) return (int)err;
   err = cudaFuncSetAttribute(bwd_dq_bf16<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem_q);
   if (err != cudaSuccess) return (int)err;
   // st: q, k, v, o, dO, dq, dk, dv
-  bwd_dkdv_bf16<D><<<dim3((S + BK - 1) / BK, KV, B), TC_THREADS, smem_kv, s>>>(
+  dkdv<<<dim3((S + BK - 1) / BK, KV, B), TC_THREADS, smem_kv, s>>>(
       q, k, v, dout, lse, delta, dk, dv, T_len, S, H, G, st[0], st[1], st[2], st[4],
-      st[6], st[7], scale, causal);
+      st[6], st[7], scale, causal, q_off);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   bwd_dq_bf16<D><<<dim3((T_len + BQ - 1) / BQ, H, B), TC_THREADS, smem_q, s>>>(
       q, k, v, dout, lse, delta, dq, T_len, S, G, st[0], st[1], st[2], st[4], st[5],
-      scale, causal);
+      scale, causal, q_off);
   return (int)cudaGetLastError();
 }
 
@@ -787,7 +803,7 @@ int launch_bf16_d(const bf16* q, const bf16* k, const bf16* v, const bf16* dout,
 template <typename T, int D>
 int launch_d(const T* q, const T* k, const T* v, const T* dout, const float* lse,
              const float* delta, T* dq, T* dk, T* dv, int B, int T_len, int S,
-             int H, int KV, const Strides* st, float scale, int causal,
+             int H, int KV, const Strides* st, float scale, int causal, int q_off,
              cudaStream_t s) {
   const int G = H / KV;
   const size_t smem_kv = dkdv_smem_bytes<D>(), smem_q = dq_smem_bytes<D>();
@@ -800,12 +816,12 @@ int launch_d(const T* q, const T* k, const T* v, const T* dout, const float* lse
   // st: q, k, v, o, dO, dq, dk, dv
   bwd_dkdv<T, D><<<dim3((S + BK - 1) / BK, KV, B), THREADS, smem_kv, s>>>(
       q, k, v, dout, lse, delta, dk, dv, T_len, S, H, G, st[0], st[1], st[2],
-      st[4], st[6], st[7], scale, causal);
+      st[4], st[6], st[7], scale, causal, q_off);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   bwd_dq<T, D><<<dim3((T_len + BQ - 1) / BQ, H, B), THREADS, smem_q, s>>>(
       q, k, v, dout, lse, delta, dq, T_len, S, G, st[0], st[1], st[2], st[4],
-      st[5], scale, causal);
+      st[5], scale, causal, q_off);
   return (int)cudaGetLastError();
 }
 
@@ -813,9 +829,9 @@ template <typename T>
 int launch(const void* q, const void* k, const void* v, const void* o,
            const void* dout, const void* lse, void* delta, void* dq, void* dk,
            void* dv, int B, int T_len, int S, int H, int KV, int D,
-           const long long* st24, float scale, int causal, void* stream) {
+           const long long* st24, float scale, int causal, int q_off, void* stream) {
   if (B <= 0 || T_len <= 0) return 0;
-  if (S <= 0 || KV <= 0 || H % KV) return (int)cudaErrorInvalidValue;
+  if (S <= 0 || KV <= 0 || H % KV || q_off < 0) return (int)cudaErrorInvalidValue;
   if (H > 65535 || B > 65535) return (int)cudaErrorInvalidValue;
   Strides st[8];
   for (int i = 0; i < 8; ++i) st[i] = Strides{st24[3 * i], st24[3 * i + 1], st24[3 * i + 2]};
@@ -835,11 +851,11 @@ int launch(const void* q, const void* k, const void* v, const void* o,
     if constexpr (sizeof(T) == 2)                                              \
       return launch_bf16_d<DIM>(tq, tk, tv, tdo, flse, fdelta, static_cast<T*>(dq), \
                                 static_cast<T*>(dk), static_cast<T*>(dv), B, T_len, \
-                                S, H, KV, st, scale, causal, s);               \
+                                S, H, KV, st, scale, causal, q_off, s);        \
     else                                                                       \
       return launch_d<T, DIM>(tq, tk, tv, tdo, flse, fdelta, static_cast<T*>(dq), \
                               static_cast<T*>(dk), static_cast<T*>(dv), B, T_len, \
-                              S, H, KV, st, scale, causal, s);
+                              S, H, KV, st, scale, causal, q_off, s);
   switch (D) {
     K5B_CASE(32)
     K5B_CASE(64)
@@ -856,15 +872,16 @@ extern "C" {
 
 // strides: 24 element strides, (batch, row, head) of q, k, v, o, dO, dq, dk
 // and dv in turn.  lse: K5's (B, H, T) float32 logsumexp, contiguous; delta:
-// (B, H, T) float32 scratch, contiguous.
+// (B, H, T) float32 scratch, contiguous.  q_offset: the global row of q's
+// first row under the causal mask (0 for a whole sequence).
 int flash_attention_bwd_f32(const void* q, const void* k, const void* v,
                             const void* o, const void* dout, const void* lse,
                             void* delta, void* dq, void* dk, void* dv, int B,
                             int T, int S, int H, int KV, int D,
                             const long long* strides, float scale, int causal,
-                            void* stream) {
+                            int q_offset, void* stream) {
   return launch<float>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, T, S, H, KV,
-                       D, strides, scale, causal, stream);
+                       D, strides, scale, causal, q_offset, stream);
 }
 
 int flash_attention_bwd_bf16(const void* q, const void* k, const void* v,
@@ -872,9 +889,9 @@ int flash_attention_bwd_bf16(const void* q, const void* k, const void* v,
                              void* delta, void* dq, void* dk, void* dv, int B,
                              int T, int S, int H, int KV, int D,
                              const long long* strides, float scale, int causal,
-                             void* stream) {
+                             int q_offset, void* stream) {
   return launch<__nv_bfloat16>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, T,
-                               S, H, KV, D, strides, scale, causal, stream);
+                               S, H, KV, D, strides, scale, causal, q_offset, stream);
 }
 
 }  // extern "C"

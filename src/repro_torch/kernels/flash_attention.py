@@ -12,6 +12,9 @@ adds one to ``LAUNCHES["flash_attention"]``.  With ``return_lse=True`` (the
 training forward) it also returns each row's logsumexp of its scaled, masked
 scores, float32 ``(B, H, T)``, which the backward (K5b,
 :mod:`.flash_attention_bwd`) reads; without it the kernel writes nothing more.
+``q_offset`` (context parallelism) makes row ``i`` of q global row
+``q_offset + i`` of the causal mask: key ``j`` is visible iff ``q_offset + i
+>= j``; the lse is that of the given rows.  Without ``causal`` it is ignored.
 
 Unlike the TPU wrapper, T and S may be any lengths (the kernel checks its
 ragged tails), and no block sizes are taken.  The dtype picks the kernel:
@@ -25,6 +28,7 @@ kernel, which takes any stride.
 from __future__ import annotations
 
 import ctypes
+import operator
 
 import torch
 
@@ -39,16 +43,17 @@ HEAD_DIMS = (32, 64, 128)
 
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
-# (q, k, v, o, lse or null, B, T, S, H, KV, D, strides[12], scale, causal, stream)
+# (q, k, v, o, lse or null, B, T, S, H, KV, D, strides[12], scale, causal,
+#  q_offset, stream)
 build.register("flash_attention", "flash_attention.cu", {
     f"flash_attention_{sfx}": [build.PTR] * 5 + [build.INT] * 6
-    + [build.PTR, build.F32, build.INT, build.PTR]
+    + [build.PTR, build.F32, build.INT, build.INT, build.PTR]
     for sfx in _SUFFIX.values()
 })
 
 
 def flash_attention_plain(q, k, v, *, causal: bool = True, scale: float | None = None,
-                          return_lse: bool = False):
+                          return_lse: bool = False, q_offset: int = 0):
     """K5's plain version: the whole score matrix at once, in f32; with
     ``return_lse`` also each row's logsumexp, float32 ``(B, H, T)``."""
     B, T, H, d = q.shape
@@ -58,7 +63,7 @@ def flash_attention_plain(q, k, v, *, causal: bool = True, scale: float | None =
     qg = q.reshape(B, T, KV, G, d).float() * scale
     s = torch.einsum("btkgd,bskd->bkgts", qg, k.float())
     if causal:
-        rows = torch.arange(T, device=q.device)[:, None]
+        rows = q_offset + torch.arange(T, device=q.device)[:, None]
         cols = torch.arange(S, device=q.device)[None, :]
         s = s.masked_fill(rows < cols, NEG_INF)
     p = torch.softmax(s, dim=-1)
@@ -67,6 +72,14 @@ def flash_attention_plain(q, k, v, *, causal: bool = True, scale: float | None =
     if return_lse:
         return out, torch.logsumexp(s, dim=-1).reshape(B, H, T)
     return out
+
+
+def check_offset(q_offset) -> int:
+    """``q_offset`` as a Python int; a negative one raises."""
+    q_offset = operator.index(q_offset)
+    if q_offset < 0:
+        raise ValueError(f"q_offset must be non-negative, got {q_offset}")
+    return q_offset
 
 
 def _check(q, k, v) -> None:
@@ -102,12 +115,15 @@ def _check_aligned(*tensors, op: str = "flash_attention (bfloat16)") -> None:
 
 
 def flash_attention(q, k, v, *, causal: bool = True, scale: float | None = None,
-                    return_lse: bool = False):
+                    return_lse: bool = False, q_offset: int = 0):
     """K5: q (B, T, H, d); k, v (B, S, KV, d); returns (B, T, H, d) in q's
-    type, and with ``return_lse`` also the rows' logsumexp (B, H, T) f32."""
+    type, and with ``return_lse`` also the rows' logsumexp (B, H, T) f32.
+    ``q_offset``: q's first row is global row ``q_offset`` of the causal mask."""
     _check(q, k, v)
+    q_offset = check_offset(q_offset) if causal else 0
     if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal=causal, scale=scale, return_lse=return_lse)
+        return flash_attention_plain(q, k, v, causal=causal, scale=scale, return_lse=return_lse,
+                                     q_offset=q_offset)
     B, T, H, d = q.shape
     S, KV = k.shape[1], k.shape[2]
     if d not in HEAD_DIMS:
@@ -129,7 +145,7 @@ def flash_attention(q, k, v, *, causal: bool = True, scale: float | None = None,
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                  None if lse is None else lse.data_ptr(),
-                 B, T, S, H, KV, d, strides, float(scale), int(causal), stream)
+                 B, T, S, H, KV, d, strides, float(scale), int(causal), q_offset, stream)
     build.check_launch(err, "flash_attention")
     LAUNCHES["flash_attention"] += 1
     return (out, lse) if return_lse else out

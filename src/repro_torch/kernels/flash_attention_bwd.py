@@ -7,7 +7,9 @@ the forward's output ``o`` and its gradient ``dout`` ``(B, T, H, d)``, and
 K5's per-row logsumexp ``lse`` (float32 ``(B, H, T)``,
 ``flash_attention(..., return_lse=True)``), it returns ``(dq, dk, dv)`` in
 the inputs' type; GQA's dk and dv sum over the q heads of a kv head.  K5's
-causal convention (``row >= col``) and mask value.
+causal convention (``row >= col``), query offset (``q_offset``: q's row ``i``
+is global row ``q_offset + i``; the dk and dv of keys no row sees are zeros)
+and mask value.
 
 The kernel is ``csrc/flash_attention_bwd.cu`` (CUDA C++ for ``sm_90a``: a
 delta pass, a dk/dv pass over key tiles and a dq pass over query tiles, no
@@ -36,7 +38,7 @@ import torch
 
 from . import build
 from .build import LAUNCHES
-from .flash_attention import HEAD_DIMS, NEG_INF, _check, _check_aligned
+from .flash_attention import HEAD_DIMS, NEG_INF, _check, _check_aligned, check_offset
 
 #: Keys per chunk of the plain version (the reference's ``_FLASH_CHUNK``).
 CHUNK = 1024
@@ -47,15 +49,16 @@ KERNELS_PER_CALL = 3
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
 # (q, k, v, o, dout, lse, delta, dq, dk, dv, B, T, S, H, KV, D, strides[24],
-#  scale, causal, stream)
+#  scale, causal, q_offset, stream)
 build.register("flash_attention_bwd", "flash_attention_bwd.cu", {
     f"flash_attention_bwd_{sfx}": [build.PTR] * 10 + [build.INT] * 6
-    + [build.PTR, build.F32, build.INT, build.PTR]
+    + [build.PTR, build.F32, build.INT, build.INT, build.PTR]
     for sfx in _SUFFIX.values()
 })
 
 
-def flash_attention_bwd_plain(q, k, v, o, dout, lse, *, causal: bool = True, scale: float | None = None):
+def flash_attention_bwd_plain(q, k, v, o, dout, lse, *, causal: bool = True, scale: float | None = None,
+                              q_offset: int = 0):
     """K5b's plain version, the reference's ``_flash_bwd`` in torch: keys in
     chunks of :data:`CHUNK` (the last one ragged), f32 throughout."""
     B, T, H, d = q.shape
@@ -75,7 +78,7 @@ def flash_attention_bwd_plain(q, k, v, o, dout, lse, *, causal: bool = True, sca
     dq = torch.zeros_like(qg)
     dk = torch.empty_like(kf)
     dv = torch.empty_like(vf)
-    rows = torch.arange(T, device=q.device)[:, None]
+    rows = q_offset + torch.arange(T, device=q.device)[:, None]
     for s0 in range(0, S, CHUNK):
         kc, vc = kf[:, :, s0:s0 + CHUNK], vf[:, :, s0:s0 + CHUNK]
         s = torch.einsum("bkgtd,bksd->bkgts", qg, kc)
@@ -92,9 +95,11 @@ def flash_attention_bwd_plain(q, k, v, o, dout, lse, *, causal: bool = True, sca
     return (dq.to(q.dtype), dk.permute(0, 2, 1, 3).to(k.dtype), dv.permute(0, 2, 1, 3).to(v.dtype))
 
 
-def flash_attention_bwd(q, k, v, o, dout, lse, *, causal: bool = True, scale: float | None = None):
+def flash_attention_bwd(q, k, v, o, dout, lse, *, causal: bool = True, scale: float | None = None,
+                        q_offset: int = 0):
     """K5b: returns ``(dq, dk, dv)``, each contiguous, in the inputs' type."""
     _check(q, k, v)
+    q_offset = check_offset(q_offset) if causal else 0
     if o.shape != q.shape or dout.shape != q.shape:
         raise ValueError(f"o {tuple(o.shape)} and dout {tuple(dout.shape)} must match q {tuple(q.shape)}")
     B, T, H, d = q.shape
@@ -106,7 +111,7 @@ def flash_attention_bwd(q, k, v, o, dout, lse, *, causal: bool = True, scale: fl
     if not (o.device == dout.device == lse.device == q.device):
         raise ValueError("every input must lie on one device")
     if q.device.type == "cpu":
-        return flash_attention_bwd_plain(q, k, v, o, dout, lse, causal=causal, scale=scale)
+        return flash_attention_bwd_plain(q, k, v, o, dout, lse, causal=causal, scale=scale, q_offset=q_offset)
     if d not in HEAD_DIMS:
         raise ValueError(f"the kernel takes head dims {HEAD_DIMS}, got {d}")
     if S == 0:
@@ -130,7 +135,7 @@ def flash_attention_bwd(q, k, v, o, dout, lse, *, causal: bool = True, scale: fl
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), dout.data_ptr(), lse.data_ptr(),
                  delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                 B, T, S, H, KV, d, strides, float(scale), int(causal), stream)
+                 B, T, S, H, KV, d, strides, float(scale), int(causal), q_offset, stream)
     build.check_launch(err, "flash_attention_bwd")
     LAUNCHES["flash_attention_bwd"] += 1
     return dq, dk, dv

@@ -50,10 +50,11 @@ def mesh_context(spec: str | None, device: torch.device, *, train: bool):
     a mesh), starting the process group it needs and destroying the one it
     started on exit.  Training's context has ``fsdp="data"`` unless the
     data axis is 1 (the reference's ``launch/train.py``), serving's none.
-    Serving takes a mesh of one data rank (``1xM``): the reference shards
-    the engine's slots over the data axes, where the port's engine holds
-    every slot on every rank, so a data axis above 1 is refused rather than
-    have every data rank decode every slot."""
+    Serving takes a mesh of one data rank (``1xM``): the port's engine
+    holds every slot on every rank, so a data axis above 1 is refused rather
+    than have every data rank decode every slot (the reference's serve CLI
+    fails at such a mesh as well: its batch-1 admission prefill does not
+    split over the data axis)."""
     if spec is None:
         yield None
         return

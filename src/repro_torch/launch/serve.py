@@ -11,9 +11,11 @@ Counterpart of ``repro.launch.serve``: the weights are drawn from
 ``default_rng(seed)``.  Without ``--mesh`` it serves from one device;
 ``--mesh 1xM`` serves the model sharded over tp (the ``model`` axis), one
 process a device under ``torchrun --nproc-per-node=M`` (:mod:`.mesh`),
-with the sequence-sharded KV cache; every rank holds every slot and samples
-the same token, and rank 0 prints.  A data axis above 1 is refused: the
-engine does not shard its slots over data ranks as the reference's does.
+with the sequence-sharded KV cache (where M does not divide the kv heads,
+the attention's columns split heads); every rank holds every slot and
+samples the same token, and rank 0 prints.  A data axis above 1 is refused:
+the engine holds every slot on every rank (the reference's CLI fails there
+too: its batch-1 admission prefill does not split over the data axis).
 """
 
 from __future__ import annotations

@@ -13,7 +13,10 @@ Counterpart of ``repro.launch.train``: the reference's flags, plus
 one device; ``--mesh DxM`` (or ``PxDxM``) trains the model sharded over a
 ``(data, model)`` mesh, one process a device under ``torchrun
 --nproc-per-node=D*M`` (:mod:`.mesh`): tp over ``model``, FSDP over ``data``
-when it is more than 1, each rank its rows of every global batch.  It
+when it is more than 1, each rank its rows of every global batch; where
+``M`` does not divide the kv heads the attention's columns split heads
+(sequence parallelism, and with it context parallelism, is not set by the
+CLI, as the reference's sets it not).  It
 resumes from the newest checkpoint in ``--ckpt-dir`` (parameters, optimizer
 state and data cursor), writes checkpoints asynchronously every
 ``--ckpt-every`` steps and at the end, logs loss, gradient norm and learning
@@ -79,14 +82,6 @@ def main(argv=None) -> list[dict]:
         return _train(args, cfg, ctx, dev)
 
 
-def _cut(ctx) -> dict:
-    """This rank's ``params_from_reference`` coordinates."""
-    if ctx is None:
-        return {}
-    return {"tp_rank": ctx.axis_index(ctx.tp), "tp_size": ctx.tp_size,
-            "fsdp_rank": ctx.axis_index(ctx.fsdp), "fsdp_size": ctx.axis_size(ctx.fsdp)}
-
-
 def _train(args, cfg, ctx, dev) -> list[dict]:
     lead = ctx is None or dist.get_rank() == 0
     model = models.build(cfg, ctx=ctx, device=dev).requires_grad_(True)
@@ -105,7 +100,7 @@ def _train(args, cfg, ctx, dev) -> list[dict]:
             state, manifest = mgr.restore()
             params, opt = state["params"], state["opt"]
             if isinstance(params.get("layers"), dict):  # the reference's stacked tree
-                params, opt = params_from_reference(params, **_cut(ctx)), opt_state_from_reference(opt, **_cut(ctx))
+                params, opt = params_from_reference(params, ctx, cfg), opt_state_from_reference(opt, ctx, cfg)
             model.load_state_dict(params)
             opt_state = {"m": {k: v.to(dev) for k, v in opt["m"].items()},
                          "v": {k: v.to(dev) for k, v in opt["v"].items()},
@@ -134,8 +129,8 @@ def _train(args, cfg, ctx, dev) -> list[dict]:
 
     def snapshot():
         """The whole reference tree (gathered by every rank on a mesh)."""
-        return {"params": params_to_reference(model.state_dict(), ctx),
-                "opt": opt_state_to_reference(opt_state, ctx), "data": pipe.state()}
+        return {"params": params_to_reference(model.state_dict(), ctx, cfg),
+                "opt": opt_state_to_reference(opt_state, ctx, cfg), "data": pipe.state()}
 
     def save(step):
         snap = snapshot()

@@ -15,11 +15,17 @@ go the other way (tensors stacked back into ``layers``), which is the tree
 the training CLI checkpoints, so either package's CLI resumes the other's.
 
 On a mesh every leaf is cut by its layout (:func:`repro_torch.models.lm.leaf_spec`,
-the reference's ``spec_*``): ``params_from_reference(tree, tp_rank=,
-tp_size=, fsdp_rank=, fsdp_size=)`` gives one rank's shard, and
-``params_to_reference(state, ctx)`` all-gathers a rank's shards back to the
-whole tree (every rank of the mesh takes part).  :func:`merge_shards`
-joins a full grid of shard states in one process.
+the reference's ``spec_*``): ``params_from_reference(tree, ctx, cfg)``
+gives one rank's shard (``ctx`` a mesh's context, or one rank's
+coordinates without a mesh, :meth:`ShardCtx.grid`), and
+``params_to_reference(state, ctx, cfg)`` all-gathers a rank's shards back
+to the whole tree (every rank of the mesh takes part).  :func:`merge_shards`
+joins a full grid of shard states in one process.  The config is read where
+the layout depends on it: a model whose attention runs context-parallel (kv
+heads that tp does not divide, under the ctx's sequence parallelism) keeps
+its attention leaves whole over tp, and without the config such a cut
+raises.  Checkpoints are the whole tree either way, so a model trained
+context-parallel serves in the column-split layout.
 """
 
 from __future__ import annotations
@@ -27,11 +33,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..configs.base import ModelConfig
 from ..distributed.sharding import ShardCtx, gather_leaf, shard_leaf
 from .lm import leaf_spec
-
-#: Axis names of the layouts :func:`params_from_reference` cuts by.
-_ROLES = ShardCtx(tp="model", fsdp="data")
 
 
 def _tensor(a) -> torch.Tensor:
@@ -52,17 +56,20 @@ def _flatten(tree, prefix: str, out: dict) -> None:
         out[prefix[:-1]] = _tensor(tree)
 
 
-def params_from_reference(tree: dict, *, tp_rank: int = 0, tp_size: int = 1, fsdp_rank: int = 0,
-                          fsdp_size: int = 1, stage: int | None = None) -> dict[str, torch.Tensor]:
+def params_from_reference(tree: dict, ctx: ShardCtx | None = None, cfg: ModelConfig | None = None, *,
+                          stage: int | None = None) -> dict[str, torch.Tensor]:
     """A state dict for :class:`repro_torch.models.lm.LM` (``load_state_dict``)
     from the reference's parameter tree.
 
-    One rank's shard of it, for the sharded paths: every leaf is cut by its
-    layout to tp rank ``tp_rank`` of ``tp_size`` and fsdp rank ``fsdp_rank``
-    of ``fsdp_size`` (heads, FFN hidden, expert slabs and vocabulary over tp,
-    the block matrices' D over fsdp; norms and the router stay whole);
-    ``stage`` keeps pipeline stage ``stage``'s slice ``[stage : stage + 1]``
-    of every leaf of a stacked stage tree (the ``P(axis)`` shard
+    With ``ctx`` (a mesh's, or :meth:`ShardCtx.grid` coordinates) one rank's
+    shard of it, for the sharded paths: every leaf is cut by its layout
+    (:func:`repro_torch.models.lm.leaf_spec`, which reads ``cfg`` for the
+    attention's leaves under sequence parallelism) to the ctx's tp and fsdp
+    coordinates (attention columns, FFN hidden, expert slabs and vocabulary
+    over tp, the block matrices' D over fsdp; norms and the router stay
+    whole, and so does a context-parallel attention over tp); ``stage``
+    keeps pipeline stage ``stage``'s slice ``[stage : stage + 1]`` of every
+    leaf of a stacked stage tree (the ``P(axis)`` shard
     ``distributed.pp.gpipe`` takes)."""
     state: dict[str, torch.Tensor] = {}
     for key, sub in tree.items():
@@ -77,44 +84,46 @@ def params_from_reference(tree: dict, *, tp_rank: int = 0, tp_size: int = 1, fsd
                     state[f"layers.{i}.{name}"] = v[i].clone()
         else:
             _flatten(sub, f"{key}.", state)
-    if stage is None and tp_size == 1 and fsdp_size == 1:
+    ctx = ctx if ctx is not None else ShardCtx()
+    coords = ctx.coords()
+    if stage is None and all(n == 1 for _, n in coords.values()):
         return state
-    coords = {"model": (tp_rank, tp_size), "data": (fsdp_rank, fsdp_size)}
     out = {}
     for name, v in state.items():
         if stage is not None:
             v = v[stage : stage + 1]
         try:
-            out[name] = shard_leaf(v, leaf_spec(name, v.dim(), _ROLES), coords).clone()
+            out[name] = shard_leaf(v, leaf_spec(name, v.dim(), ctx, cfg), coords).clone()
         except ValueError as e:
             raise ValueError(f"{name}: {e}") from None
     return out
 
 
-def merge_shards(states, *, tp_size: int = 1, fsdp_size: int = 1) -> dict[str, torch.Tensor]:
+def merge_shards(states, ctx: ShardCtx, cfg: ModelConfig | None = None) -> dict[str, torch.Tensor]:
     """The whole state dict from every rank's shard: ``states[t][f]`` is
     :func:`params_from_reference`'s state at tp rank ``t`` and fsdp rank
-    ``f`` (the inverse of the cut, in one process)."""
+    ``f`` of ``ctx``'s axis sizes (the inverse of the cut, in one process;
+    ``cfg`` as there)."""
     out = {}
     for name, v in states[0][0].items():
-        spec = leaf_spec(name, v.dim(), _ROLES)
+        spec = leaf_spec(name, v.dim(), ctx, cfg)
 
         def join(parts, axis):
             dim = spec.index(axis) if axis in spec else None
             return parts[0] if dim is None else torch.cat(parts, dim)
 
-        out[name] = join([join([states[t][f][name] for f in range(fsdp_size)], "data") for t in range(tp_size)],
-                         "model")
+        out[name] = join([join([states[t][f][name] for f in range(ctx.axis_size(ctx.fsdp))], ctx.fsdp)
+                          for t in range(ctx.tp_size)], ctx.tp)
     return out
 
 
-def opt_state_from_reference(state: dict, **shard) -> dict:
+def opt_state_from_reference(state: dict, ctx: ShardCtx | None = None, cfg: ModelConfig | None = None) -> dict:
     """The port's AdamW state (:func:`repro_torch.train.optimizer.init_opt_state`
     layout: ``m`` and ``v`` keyed by state-dict name, ``step`` an int32
-    scalar) from the reference's ``{"m", "v", "step"}`` tree; ``shard``
-    (``tp_rank=``, ``tp_size=``, ``fsdp_rank=``, ``fsdp_size=``) cuts the
-    moments as :func:`params_from_reference` cuts the parameters."""
-    return {"m": params_from_reference(state["m"], **shard), "v": params_from_reference(state["v"], **shard),
+    scalar) from the reference's ``{"m", "v", "step"}`` tree; ``ctx`` and
+    ``cfg`` cut the moments as :func:`params_from_reference` cuts the
+    parameters."""
+    return {"m": params_from_reference(state["m"], ctx, cfg), "v": params_from_reference(state["v"], ctx, cfg),
             "step": _tensor(state["step"]).to(torch.int32).reshape(())}
 
 
@@ -133,15 +142,17 @@ def _nest(flat: dict[str, torch.Tensor]) -> dict:
     return root
 
 
-def params_to_reference(state: dict[str, torch.Tensor], ctx: ShardCtx | None = None) -> dict:
+def params_to_reference(state: dict[str, torch.Tensor], ctx: ShardCtx | None = None,
+                        cfg: ModelConfig | None = None) -> dict:
     """The reference's parameter tree from a state dict of
     :class:`repro_torch.models.lm.LM`: ``layers.<i>.<name>`` stacked into
     ``layers.<name>`` of depth L.  The stacked leaves are new tensors; the
     others are the state dict's own, detached.  With a ``ctx`` of a mesh,
     ``state`` is this rank's shard and every leaf is all-gathered whole
-    first (every rank of the mesh must call it)."""
+    first (every rank of the mesh must call it), by the layouts of
+    :func:`params_from_reference` (``cfg`` as there)."""
     if ctx is not None and ctx.mesh is not None:
-        state = {name: gather_leaf(ctx, v.detach(), leaf_spec(name, v.dim(), ctx)) for name, v in state.items()}
+        state = {name: gather_leaf(ctx, v.detach(), leaf_spec(name, v.dim(), ctx, cfg)) for name, v in state.items()}
     per_layer: dict[str, dict[int, torch.Tensor]] = {}
     rest: dict[str, torch.Tensor] = {}
     for name, v in state.items():
@@ -158,9 +169,9 @@ def params_to_reference(state: dict[str, torch.Tensor], ctx: ShardCtx | None = N
     return tree
 
 
-def opt_state_to_reference(state: dict, ctx: ShardCtx | None = None) -> dict:
+def opt_state_to_reference(state: dict, ctx: ShardCtx | None = None, cfg: ModelConfig | None = None) -> dict:
     """The reference's ``{"m", "v", "step"}`` AdamW tree from the port's (a
     rank's shards gathered whole with a ``ctx``, as
     :func:`params_to_reference`)."""
-    return {"m": params_to_reference(state["m"], ctx), "v": params_to_reference(state["v"], ctx),
+    return {"m": params_to_reference(state["m"], ctx, cfg), "v": params_to_reference(state["v"], ctx, cfg),
             "step": state["step"].detach().clone()}

@@ -37,7 +37,12 @@ batch (its dp shard).  With ``ctx.sp`` the training forward keeps the
 residual T-sharded over tp (Megatron-SP: :func:`gather_seq` before each
 norm, :func:`scatter_seq` after each row-parallel output) and an MoE
 dispatches over all_to_all (``moe_layer_a2a``); training an MoE at tp > 1
-without it raises, as the reference does.  Prefill and decode run the layout
+without it raises, as the reference does.  Where tp does not divide the kv
+heads, the attention's layout (:func:`.attention.attn_layout`) cuts its
+columns through heads, or under ``ctx.sp`` runs context-parallel: the
+attention weights tp-replicated, the block's input kept T-sharded through
+the first norm and the attention (each rank its own query rows against the
+gathered K/V), gathered only before the second norm.  Prefill and decode run the layout
 without sequence parallelism, as a serving context has it.  The cache is
 sequence-sharded over tp (``(L, B, max_len / tp, KV, hd)`` a rank, the
 reference's ``cache_specs``).  ``ctx=None`` is the one-device model.
@@ -79,11 +84,13 @@ _LATER = {
 }
 
 
-def leaf_spec(name: str, ndim: int, ctx: ShardCtx) -> tuple:
+def leaf_spec(name: str, ndim: int, ctx: ShardCtx, cfg: ModelConfig | None) -> tuple:
     """The layout of the parameter ``name`` (a state-dict name of
     :class:`LM`, or of one of its modules) with ``ndim`` dimensions: the
     reference's ``spec_*`` entry for it, in ``ctx``'s axis names.  A leaf
-    none of them names (a norm's scale, a test's own tree) is replicated."""
+    none of them names (a norm's scale, a test's own tree) is replicated.
+    An attention leaf's layout reads ``cfg`` under sequence parallelism at
+    tp > 1 (:func:`.attention.spec_attn`), where ``None`` raises."""
     parts = name.split(".")
     leaf, parent = parts[-1], parts[-2] if len(parts) > 1 else ""
     if parent == "embed":
@@ -91,7 +98,7 @@ def leaf_spec(name: str, ndim: int, ctx: ShardCtx) -> tuple:
     elif parent == "head":
         table = spec_lm_head(ctx)
     elif parent == "attn":
-        table = attn_mod.spec_attn(ctx)
+        table = attn_mod.spec_attn(cfg, ctx)
     elif leaf in ("w_in", "w_gate", "w_out") and ndim == 3 or leaf == "router":
         table = moe_mod.spec_moe(ctx)
     elif leaf in ("w_in", "w_gate", "w_out", "b_in", "b_out"):
@@ -117,7 +124,8 @@ def init_params(module: nn.Module, generator: torch.Generator, ctx: ShardCtx | N
     shard (:func:`leaf_spec`), so every mesh holds the same model as one
     device."""
     ctx = ctx if ctx is not None else ShardCtx()
-    coords = ctx.coords() if ctx.mesh is not None else {}
+    coords = ctx.coords()
+    cfg = getattr(module, "cfg", None)
     for name, p in module.named_parameters():
         leaf = name.rsplit(".", 1)[-1]
         if leaf == "scale":
@@ -125,7 +133,7 @@ def init_params(module: nn.Module, generator: torch.Generator, ctx: ShardCtx | N
         elif leaf.startswith("b"):
             p.zero_()
         else:
-            spec = leaf_spec(name, p.dim(), ctx)
+            spec = leaf_spec(name, p.dim(), ctx, cfg)
             whole = _whole_shape(p.shape, spec, ctx)
             scale = 0.02 if leaf == "table" else whole[p.dim() - 2] ** -0.5
             draw = torch.randn(whole, generator=generator, device=p.device, dtype=torch.float32)
@@ -153,15 +161,17 @@ class Head(nn.Module):
 
 
 class Block(nn.Module):
-    """Attention, then an MoE (``moe``) or an MLP of width ``d_ff``; with
-    ``tp`` / ``fsdp`` > 1 this rank's shard of each."""
+    """Attention, then an MoE (``moe``) or an MLP of width ``d_ff``; on a
+    mesh (``ctx``) this rank's shard of each."""
 
     def __init__(self, cfg: ModelConfig, dtype, device, *, moe: bool = False, d_ff: int = 0,
-                 tp: int = 1, fsdp: int = 1):
+                 ctx: ShardCtx | None = None):
         super().__init__()
+        tp = ctx.tp_size if ctx is not None else 1
+        fsdp = ctx.axis_size(ctx.fsdp) if ctx is not None else 1
         self.ln1 = Norm(cfg.d_model, device)
         self.ln2 = Norm(cfg.d_model, device)
-        self.attn = attn_mod.Attention(cfg, dtype, device, tp=tp, fsdp=fsdp)
+        self.attn = attn_mod.Attention(cfg, dtype, device, ctx)
         if moe:
             self.moe = moe_mod.MoE(cfg, dtype, device, tp_size=tp, fsdp=fsdp)
         else:
@@ -196,7 +206,6 @@ class LM(nn.Module):
         dt = getattr(torch, cfg.dtype)
         self.cfg, self.ctx = cfg, ctx
         tp = ctx.tp_size if ctx is not None else 1
-        fsdp = ctx.axis_size(ctx.fsdp) if ctx is not None else 1
         if cfg.padded_vocab % tp:
             raise ValueError(f"the padded vocabulary {cfg.padded_vocab} does not split over tp={tp}")
         self.embed = Embed(cfg.padded_vocab // tp, cfg.d_model, dt, dev)
@@ -204,9 +213,9 @@ class LM(nn.Module):
         if n_dense:
             d_ff = cfg.moe.d_ff_dense or cfg.d_ff
             self.dense_layers = nn.ModuleList(
-                Block(cfg, dt, dev, d_ff=d_ff, tp=tp, fsdp=fsdp) for _ in range(n_dense))
+                Block(cfg, dt, dev, d_ff=d_ff, ctx=ctx) for _ in range(n_dense))
         self.layers = nn.ModuleList(
-            Block(cfg, dt, dev, moe=kind == "moe", tp=tp, fsdp=fsdp) for _ in range(cfg.num_layers - n_dense)
+            Block(cfg, dt, dev, moe=kind == "moe", ctx=ctx) for _ in range(cfg.num_layers - n_dense)
         )
         self.ln_f = Norm(cfg.d_model, dev)
         if not cfg.tie_embeddings:
@@ -238,7 +247,7 @@ class LM(nn.Module):
     def param_specs(self) -> dict[str, tuple]:
         """State-dict name -> layout (:func:`leaf_spec`) of every parameter."""
         ctx = self.ctx if self.ctx is not None else ShardCtx()
-        return {name: leaf_spec(name, p.dim(), ctx) for name, p in self.named_parameters()}
+        return {name: leaf_spec(name, p.dim(), ctx, self.cfg) for name, p in self.named_parameters()}
 
     def _gathered(self, blk: Block):
         """``blk`` with its fsdp-sharded weights all-gathered (the
@@ -250,7 +259,7 @@ class LM(nn.Module):
 
         def tree(mod, prefix):
             out = {n: p for n, p in mod.named_parameters(recurse=False)}
-            dims = {n: _fsdp_dim(leaf_spec(prefix + n, p.dim(), ctx), ctx) for n, p in out.items()}
+            dims = {n: _fsdp_dim(leaf_spec(prefix + n, p.dim(), ctx, self.cfg), ctx) for n, p in out.items()}
             for n, child in mod.named_children():
                 out[n], dims[n] = tree(child, f"{prefix}{n}.")
             return out, dims
@@ -269,10 +278,11 @@ class LM(nn.Module):
     def _block(self, blk: Block, x: torch.Tensor, positions: torch.Tensor):
         """One block, as the reference's ``_attn_mlp_body``: (x, aux).  Under
         sequence parallelism ``x`` is this rank's T chunk, gathered before
-        each norm; the block's fsdp-sharded weights are gathered here."""
+        each norm (a context-parallel attention takes the chunk itself); the
+        block's fsdp-sharded weights are gathered here."""
         c, ctx, sp = self.cfg, self.ctx, self._sp
         p = self._gathered(blk)
-        xg = gather_seq(x, ctx) if sp else x
+        xg = gather_seq(x, ctx) if sp and not attn_mod.use_context_parallel(c, ctx) else x
         x = x + attn_mod.attention(p.attn, c, rms_norm(xg, p.ln1.scale, c.norm_eps), positions,
                                    ctx=ctx, seq_sharded=sp)
         xg = gather_seq(x, ctx) if sp else x
@@ -392,15 +402,18 @@ class LM(nn.Module):
 
     def _write_prefill(self, cache: torch.Tensor, kv: torch.Tensor) -> None:
         """Write a prompt's k or v (B, T, heads, hd) at positions [0, T) of a
-        layer's cache.  At tp > 1 ``kv`` holds the rank's heads and the cache
-        the rank's chunk of the sequence, every head: the heads are gathered
-        over tp and the rank keeps its positions."""
+        layer's cache.  At tp > 1 the cache holds the rank's chunk of the
+        sequence, every head, and ``kv`` the rank's heads (gathered over tp
+        here) or, in the column-split and context-parallel layouts, every
+        head already; the rank keeps its positions."""
         T = kv.shape[1]
         if self._tp == 1:
             cache[:, :T] = kv
             return
         B, _, kvl, hd = kv.shape
-        whole = gather_stack(kv, self.ctx.group(self.ctx.tp)).permute(1, 2, 0, 3, 4).reshape(B, T, -1, hd)
+        whole = kv
+        if kvl < self.cfg.num_kv_heads:
+            whole = gather_stack(kv, self.ctx.group(self.ctx.tp)).permute(1, 2, 0, 3, 4).reshape(B, T, -1, hd)
         chunk = cache.shape[1]
         start = self.ctx.axis_index(self.ctx.tp) * chunk
         n = max(0, min(chunk, T - start))

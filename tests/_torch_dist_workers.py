@@ -1,17 +1,19 @@
 """Workers of the port's multi-rank parity tests (``test_torch_sharded_sort.py``,
-``test_torch_distributed.py``, ``test_torch_lm_sharded.py``).
+``test_torch_distributed.py``, ``test_torch_lm_sharded.py``,
+``test_torch_context_parallel.py``).
 
 Two kinds, both writing numpy arrays to ``.npz`` files that the tests compare:
 
-* ``ref_sort`` / ``ref_dist`` / ``ref_lm_grads`` / ``ref_lm_rest`` run the
-  JAX package's sharded functions on fake CPU devices (``ref_cli`` its
-  training CLI).  They run in a subprocess started by
+* ``ref_sort`` / ``ref_dist`` / ``ref_lm_grads`` / ``ref_lm_rest`` /
+  ``ref_cp_train`` / ``ref_cp_rest`` run the JAX package's sharded functions
+  on fake CPU devices (``ref_cli`` and ``ref_cp_rest`` its CLIs).  They run in a subprocess started by
   :func:`start_reference` with
   ``XLA_FLAGS=--xla_force_host_platform_device_count=N`` (the flag must not
   reach the test process):
   ``python tests/_torch_dist_workers.py ref_sort OUT.npz``.
-* ``sort_rank`` / ``dist_rank`` / ``lm_rank`` (and the CLI legs
-  ``cli_*``) run one gloo rank of the port each, started by
+* ``sort_rank`` / ``dist_rank`` / ``lm_rank`` / ``cp_rank`` /
+  ``cp_fsdp_rank`` (and the CLI legs ``cli_*``) run one gloo rank of the
+  port each, started by
   :func:`start_ranks` (``torch.multiprocessing.start_processes``, a
   ``file://`` rendezvous in the run's own directory, so parallel test
   workers never share a port); rank ``r`` writes ``rank{r}.npz`` and its
@@ -358,7 +360,7 @@ def dist_rank(rank: int, world: int, rdv: str, out_dir: str) -> None:
         x = shard_leaf(torch.from_numpy(moe_input(cfg.d_model)), ctx.spec_resid(), ctx.coords()).numpy()
         for name in ("y", "aux"):
             p = moe.MoE(cfg, torch.float32, "cpu", tp_size=ctx.tp_size)
-            p.load_state_dict(params_from_reference(tree, tp_rank=tpi, tp_size=ctx.tp_size))
+            p.load_state_dict(params_from_reference(tree, ctx))
             p.requires_grad_(True)
             xt = torch.from_numpy(x.copy()).requires_grad_(True)
             y, aux, dropped = moe.moe_layer_a2a(p, cfg, ctx, xt)
@@ -435,7 +437,7 @@ def unflatten(flat: dict):
     return fix(root)
 
 
-def lm_inputs(out: Path) -> None:
+def lm_inputs(out: Path, archs=ARCHS) -> None:
     """Write the cases' inputs to ``out``: each smoke LM's parameters (f32,
     numpy draws at the reference's scales, norm scales near 1) as the
     reference's tree, and the token batches.  Runs in the test process."""
@@ -447,7 +449,7 @@ def lm_inputs(out: Path) -> None:
 
     rng = np.random.default_rng(7)
     res = {}
-    for arch in ARCHS:
+    for arch in archs:
         cfg = dataclasses.replace(configs.get_smoke_config(arch), dtype="float32")
         state = {}
         for name, p in LM(cfg, device="cpu").named_parameters():
@@ -478,8 +480,8 @@ def ref_lm(out: str, part: str) -> None:
     of fake devices, in two parts that run side by side: ``grads`` (the
     loss and gradients, then the int8 compressor on the port's gradient,
     once rank 0 has written it) and ``rest`` (the MoE's training error,
-    prefill, the sequence-sharded decode, two AdamW steps, the
-    context-parallel flag)."""
+    prefill, the sequence-sharded decode, two AdamW steps, and on the
+    (1, 4) mesh with SP context parallelism's flag, loss and gradients)."""
     import jax
     import jax.numpy as jnp
 
@@ -564,8 +566,13 @@ def ref_lm(out: str, part: str) -> None:
             res[f"adamw/params/{k}"] = v
 
         mesh14 = make_mesh((1, 4), ("data", "model"))
-        res["cp/use_context_parallel"] = np.array(use_context_parallel(
-            cfg_of("mistral-nemo-12b"), ShardCtx(mesh=mesh14, tp="model", fsdp=None, dp=("data",), sp=True)))
+        ctx14 = ShardCtx(mesh=mesh14, tp="model", fsdp=None, dp=("data",), sp=True)
+        arch = "mistral-nemo-12b"
+        res["cp/use_context_parallel"] = np.array(use_context_parallel(cfg_of(arch), ctx14))
+        model = models.build(cfg_of(arch), ctx14)
+        (loss, _), g = jax.jit(jax.value_and_grad(model.loss, has_aux=True))(params_of(arch), batch_of(arch, 0))
+        res["cp/loss"] = np.asarray(loss)
+        res.update({f"cp/grad/{k}": v for k, v in flatten(g).items()})
     np.savez(out, **res)
 
 
@@ -629,11 +636,6 @@ def _lm_ctx(mesh, **kw):
     return ShardCtx(mesh=mesh, tp="model", dp=("data",), **kw)
 
 
-def _cut(ctx) -> dict:
-    return {"tp_rank": ctx.axis_index(ctx.tp), "tp_size": ctx.tp_size,
-            "fsdp_rank": ctx.axis_index(ctx.fsdp), "fsdp_size": ctx.axis_size(ctx.fsdp)}
-
-
 def lm_rank(rank: int, world: int, rdv: str, out_dir: str) -> None:
     """The LM cases on one rank of the (2, 2) mesh, then the training CLI at
     ``--mesh 2x2``: four steps into ``cli_a`` (which :func:`cli_one`
@@ -661,7 +663,7 @@ def lm_rank(rank: int, world: int, rdv: str, out_dir: str) -> None:
 
         def model_of(arch, ctx):
             model = LM(cfg_of(arch), ctx, device="cpu")
-            model.load_state_dict(params_from_reference(lm_tree(inputs, arch), **_cut(ctx)))
+            model.load_state_dict(params_from_reference(lm_tree(inputs, arch), ctx, cfg_of(arch)))
             return model
 
         def batch_of(arch, i, ctx):
@@ -675,7 +677,7 @@ def lm_rank(rank: int, world: int, rdv: str, out_dir: str) -> None:
             names = [n for n, _ in model.named_parameters()]
             grads = torch.autograd.grad(loss, [p for _, p in model.named_parameters()])
             grads = sync_grads(dict(zip(names, grads)), ctx, model.param_specs())
-            whole = params_to_reference(grads, ctx)
+            whole = params_to_reference(grads, ctx, model.cfg)
             res[f"{name}/loss"], res[f"{name}/ce"], res[f"{name}/aux"] = (x.detach().numpy() for x in (
                 loss, met["ce"], met["aux"]))
             if rank == 0:
@@ -683,7 +685,7 @@ def lm_rank(rank: int, world: int, rdv: str, out_dir: str) -> None:
                     res[f"{name}/grad/{k}"] = v
             if name == "mistral_sp0":  # the int8 compressor on the shards of the reduced gradient
                 compress, init_res = make_int8_compressor(ctx, model.param_specs())
-                packed = params_to_reference(compress(grads, init_res(grads))[0], ctx)
+                packed = params_to_reference(compress(grads, init_res(grads))[0], ctx, model.cfg)
                 if rank == 0:
                     res.update({f"int8/{k}": v for k, v in flatten(packed).items()})
                     # the reference's compressor takes this gradient in ref_lm's grads part
@@ -714,11 +716,9 @@ def lm_rank(rank: int, world: int, rdv: str, out_dir: str) -> None:
             if i < SERVE["steps"]:
                 logits, cache = model.decode_step(cache, tok)
 
+        # the same four ranks as a (1, 4) mesh: Mistral's 2 kv heads go context-parallel under SP
         mesh14 = make_mesh((1, 4), ("data", "model"), device_type="cpu")
-        try:
-            LM(cfg_of("mistral-nemo-12b"), _lm_ctx(mesh14, fsdp=None, sp=True), device="cpu")
-        except NotImplementedError as e:
-            res["cp/error"] = np.array(str(e))
+        res.update(_lm_grads(inputs, "mistral-nemo-12b", _lm_ctx(mesh14, fsdp=None, sp=True), "cp", rank))
 
         arch = "mistral-nemo-12b"
         ctx = _lm_ctx(mesh, fsdp="data")
@@ -729,7 +729,7 @@ def lm_rank(rank: int, world: int, rdv: str, out_dir: str) -> None:
         for i in range(2):
             state, met = step(state, batch_of(arch, i + 1, ctx))
             res[f"adamw/loss{i}"], res[f"adamw/grad_norm{i}"] = float(met["loss"]), float(met["grad_norm"])
-        whole = params_to_reference(model.state_dict(), ctx)
+        whole = params_to_reference(model.state_dict(), ctx, model.cfg)
         if rank == 0:
             for k, v in flatten(whole).items():
                 res[f"adamw/params/{k}"] = v
@@ -822,6 +822,297 @@ def _serve_legs(mesh: str | None) -> dict:
     finally:
         serve_cli.get_smoke_config = saved
     return res
+
+
+def _lm_grads(inputs: dict, arch: str, ctx, name: str, rank: int, batch: int = 0) -> dict:
+    """The port's loss, ce and aux on this rank and (rank 0) every gradient
+    leaf, summed over its replicated axes and gathered whole, of ``arch``'s
+    inputs on ``ctx``."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.models.convert import params_from_reference, params_to_reference
+    from repro_torch.models.attention import use_context_parallel
+    from repro_torch.models.lm import LM
+    from repro_torch.train.train_step import shard_batch, sync_grads
+
+    cfg = dataclasses.replace(configs.get_smoke_config(arch), dtype="float32")
+    model = LM(cfg, ctx, device="cpu")
+    model.load_state_dict(params_from_reference(lm_tree(inputs, arch), ctx, cfg))
+    model.requires_grad_(True)
+    b = {"tokens": inputs[f"{arch}/tokens"][batch], "labels": inputs[f"{arch}/labels"][batch]}
+    loss, met = model.loss({k: torch.from_numpy(v) for k, v in shard_batch(b, ctx).items()})
+    names = [n for n, _ in model.named_parameters()]
+    grads = torch.autograd.grad(loss, [p for _, p in model.named_parameters()])
+    whole = params_to_reference(sync_grads(dict(zip(names, grads)), ctx, model.param_specs()), ctx, cfg)
+    res = {f"{name}/{k}": v.detach().numpy() for k, v in (("loss", loss), ("ce", met["ce"]), ("aux", met["aux"]))}
+    res[f"{name}/cp"] = np.array(use_context_parallel(cfg, ctx))
+    if rank == 0:
+        res.update({f"{name}/grad/{k}": v for k, v in flatten(whole).items()})
+    return res
+
+
+# -- context parallelism on a (1, 4) mesh ---------------------------------------------
+
+CP_MESH = (1, 4)
+CP_FSDP_MESH = (2, 4)
+CP_ARCHS = ("mistral-nemo-12b", "granite-moe-3b-a800m", "nemotron-4-340b")
+CP_TRAIN = [  # name, arch, sequence parallelism: (C) with SP, (B) without
+    ("mistral_c", "mistral-nemo-12b", True),
+    ("mistral_b", "mistral-nemo-12b", False),
+    ("granite_c", "granite-moe-3b-a800m", True),
+]
+#: Prefill of 14 tokens and 4 greedy steps on a cache of 32 positions (8 a rank).
+CP_SERVE = dict(B=4, T=14, max_len=32, steps=4)
+CP_SERVE_ARCHS = ("mistral-nemo-12b", "nemotron-4-340b")
+#: The serving CLI against the reference's: Mistral's f32 smoke model, the CLIs' defaults.
+CP_SERVE_CLI = ["--arch", "mistral-nemo-12b", "--smoke", "--mesh", "1x4"]
+
+
+def cp_inputs(out: Path) -> None:
+    lm_inputs(out, CP_ARCHS)
+
+
+def ref_cp(out: str, part: str) -> None:
+    """The reference's side of ``test_torch_context_parallel.py``, in two
+    parts that run side by side: ``train`` on 4 fake devices (the (1, 4)
+    mesh's loss and gradients with SP on and off; prefill and greedy decode
+    on its serving context) and ``rest`` on 8 (two AdamW steps on the (2, 4)
+    mesh with FSDP and SP; the serving CLI at ``--mesh 1x4`` on the inputs'
+    weights; the training CLI resuming the port's context-parallel
+    directory)."""
+    import jax
+    import jax.numpy as jnp
+
+    from repro import models
+    from repro.configs import get_smoke_config
+    from repro.distributed.compat import make_mesh
+    from repro.distributed.sharding import ShardCtx
+    from repro.models.attention import use_context_parallel
+    from repro.train.optimizer import AdamWConfig, init_opt_state
+    from repro.train.train_step import build_train_step
+
+    d = Path(out).parent
+    inputs = dict(np.load(d / "inputs.npz"))
+    res = {}
+
+    def cfg_of(arch):
+        return dataclasses.replace(get_smoke_config(arch), dtype="float32")
+
+    def params_of(arch):
+        return jax.tree.map(jnp.asarray, lm_tree(inputs, arch))
+
+    def batch_of(arch, i):
+        return {"tokens": jnp.asarray(inputs[f"{arch}/tokens"][i]), "labels": jnp.asarray(inputs[f"{arch}/labels"][i])}
+
+    if part == "train":
+        mesh = make_mesh(CP_MESH, ("data", "model"))
+        for name, arch, sp in CP_TRAIN:
+            ctx = ShardCtx(mesh=mesh, tp="model", fsdp=None, dp=("data",), sp=sp)
+            res[f"{name}/cp"] = np.array(use_context_parallel(cfg_of(arch), ctx))
+            model = models.build(cfg_of(arch), ctx)
+            (loss, met), g = jax.jit(jax.value_and_grad(model.loss, has_aux=True))(params_of(arch), batch_of(arch, 0))
+            for k, v in (("loss", loss), ("ce", met["ce"]), ("aux", met["aux"])):
+                res[f"{name}/{k}"] = np.asarray(v)
+            res.update({f"{name}/grad/{k}": v for k, v in flatten(g).items()})
+        ctx = ShardCtx(mesh=mesh, tp="model", fsdp=None, dp=("data",))
+        for arch in CP_SERVE_ARCHS:
+            model = models.build(cfg_of(arch), ctx)
+            params = params_of(arch)
+            cache = model.init_cache(CP_SERVE["B"], CP_SERVE["max_len"])
+            prompt = jnp.asarray(inputs[f"{arch}/tokens"][2][:, :CP_SERVE["T"]])
+            logits, cache = jax.jit(model.prefill)(params, {"tokens": prompt}, cache)
+            step = jax.jit(model.decode_step)
+            for i in range(CP_SERVE["steps"] + 1):
+                res[f"serve/{arch}/logits{i}"] = np.asarray(logits)
+                tok = jnp.argmax(logits, axis=-1).astype(jnp.int32)
+                res[f"serve/{arch}/tokens{i}"] = np.asarray(tok)
+                if i < CP_SERVE["steps"]:
+                    logits, cache = step(params, cache, tok)
+    else:
+        arch = "mistral-nemo-12b"
+        mesh = make_mesh(CP_FSDP_MESH, ("data", "model"))
+        ctx = ShardCtx(mesh=mesh, tp="model", fsdp="data", dp=("data",), sp=True)
+        res["adamw/cp"] = np.array(use_context_parallel(cfg_of(arch), ctx))
+        model = models.build(cfg_of(arch), ctx)
+        opt = AdamWConfig(**OPT)
+        params = params_of(arch)
+        state = init_opt_state(params, opt)
+        step = jax.jit(build_train_step(model, opt))
+        for i in range(2):
+            params, state, met = step(params, state, batch_of(arch, i + 1))
+            res[f"adamw/loss{i}"], res[f"adamw/grad_norm{i}"] = np.asarray(met["loss"]), np.asarray(met["grad_norm"])
+        res.update({f"adamw/params/{k}": v for k, v in flatten(params).items()})
+        res.update(_ref_serve_cli(inputs))
+        _wait_ready(d, "cli_c")
+        _ref_cli_leg(d, "resume_ref_c", "cli_c_ref", False, res)
+    np.savez(out, **res)
+
+
+def _ref_serve_cli(inputs: dict) -> dict:
+    """The reference's serving CLI at ``CP_SERVE_CLI`` (f32), its weights the
+    inputs' instead of its PRNG draw: the requests' tokens by request id."""
+    import jax
+    import jax.numpy as jnp
+
+    from repro.configs import get_smoke_config
+    from repro.launch import serve as ref_serve
+    from repro.models.lm import LM as RefLM
+
+    finished = []
+    tree = jax.tree.map(jnp.asarray, lm_tree(inputs, "mistral-nemo-12b"))
+
+    class Engine(ref_serve.Engine):
+        def run(self, *a, **k):
+            out = super().run(*a, **k)
+            finished.extend(out)
+            return out
+
+    saved = ref_serve.get_smoke_config, ref_serve.Engine, RefLM.init, sys.argv
+    ref_serve.get_smoke_config = lambda arch: dataclasses.replace(get_smoke_config(arch), dtype="float32")
+    ref_serve.Engine = Engine
+    RefLM.init = lambda self, key: tree
+    sys.argv = ["serve", *CP_SERVE_CLI]
+    try:
+        ref_serve.main()
+    finally:
+        ref_serve.get_smoke_config, ref_serve.Engine, RefLM.init, sys.argv = saved
+    return {"serve_cli/tokens": np.array([r.out for r in sorted(finished, key=lambda r: r.rid)])}
+
+
+def cp_rank(rank: int, world: int, rdv: str, out_dir: str) -> None:
+    """The port's side on one rank of the (1, 4) mesh: the training cases,
+    prefill and greedy decode with each arch's context-parallel (SP) and
+    column-split modules, the training CLI's loop on the context-parallel
+    layout into ``cli_c`` (four steps, a checkpoint every two), the serving
+    CLI at ``--mesh 1x4``; then rank 0 alone resumes ``cli_c`` at ``--mesh
+    1x1``."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import configs
+    from repro_torch.distributed.compat import make_mesh
+    from repro_torch.models.convert import params_from_reference
+    from repro_torch.models.attention import use_context_parallel
+    from repro_torch.models.lm import LM
+
+    _init(rank, world, rdv)
+    try:
+        inputs = dict(np.load(Path(out_dir).parent / "inputs.npz"))
+        mesh = make_mesh(CP_MESH, ("data", "model"), device_type="cpu")
+        res = {}
+        for name, arch, sp in CP_TRAIN:
+            res.update(_lm_grads(inputs, arch, _lm_ctx(mesh, fsdp=None, sp=sp), name, rank))
+        for arch in CP_SERVE_ARCHS:
+            cfg = dataclasses.replace(configs.get_smoke_config(arch), dtype="float32")
+            for layout, sp in (("c", True), ("b", False)):
+                ctx = _lm_ctx(mesh, fsdp=None, sp=sp)
+                model = LM(cfg, ctx, device="cpu")
+                model.load_state_dict(params_from_reference(lm_tree(inputs, arch), ctx, cfg))
+                res[f"serve/{arch}/{layout}/cp"] = np.array(use_context_parallel(cfg, ctx))
+                cache = model.init_cache(CP_SERVE["B"], CP_SERVE["max_len"])
+                prompt = torch.from_numpy(inputs[f"{arch}/tokens"][2][:, :CP_SERVE["T"]])
+                logits, cache = model.prefill(prompt, cache)
+                for i in range(CP_SERVE["steps"] + 1):
+                    res[f"serve/{arch}/{layout}/logits{i}"] = logits.numpy()
+                    tok = torch.argmax(logits, dim=-1)
+                    res[f"serve/{arch}/{layout}/tokens{i}"] = tok.numpy()
+                    if i < CP_SERVE["steps"]:
+                        logits, cache = model.decode_step(cache, tok)
+        _cp_cli_leg(out_dir, rank, mesh)
+        res.update(_cp_serve_cli(inputs))
+    finally:
+        dist.destroy_process_group()
+    if rank == 0:  # the context-parallel directory resumed on one device
+        _wait_ready(Path(out_dir).parent, "cli_c")
+        _cli_leg(out_dir, "resume_c", "cli_c", "1x1", False, rank)
+    np.savez(Path(out_dir) / f"rank{rank}.npz", **res)
+
+
+def _cp_cli_leg(out_dir: str, rank: int, mesh) -> None:
+    """The training CLI (``CLI``) at ``--mesh 1x4`` with its context
+    swapped for the same mesh under SP, so the attention runs
+    context-parallel (the CLI sets no SP, as the reference's does not):
+    four steps into ``cli_c``, its step-4 checkpoint set aside and a copy
+    ``cli_c_ref`` for the reference's CLI."""
+    import contextlib
+
+    from repro_torch.launch import train as train_cli
+
+    @contextlib.contextmanager
+    def sp_mesh(spec, device, *, train):
+        yield _lm_ctx(mesh, fsdp=None, sp=True)
+
+    saved = train_cli.mesh_context
+    train_cli.mesh_context = sp_mesh
+    try:
+        _cli_leg(out_dir, "cli_c", "cli_c", "1x4", True, rank, spare="cli_c_ref")
+    finally:
+        train_cli.mesh_context = saved
+
+
+def _cp_serve_cli(inputs: dict) -> dict:
+    """The port's serving CLI at ``CP_SERVE_CLI`` (f32, ``--device cpu``), its
+    weights the inputs' (each rank's cut) instead of its generator's draw."""
+    from repro_torch import configs
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.models.convert import params_from_reference
+    from repro_torch.models.lm import LM
+
+    tree = lm_tree(inputs, "mistral-nemo-12b")
+
+    def load(self, generator):
+        self.load_state_dict(params_from_reference(tree, self.ctx, self.cfg))
+        return self
+
+    saved = serve_cli.get_smoke_config, LM.init
+    serve_cli.get_smoke_config = lambda arch: dataclasses.replace(configs.get_smoke_config(arch), dtype="float32")
+    LM.init = load
+    try:
+        finished = serve_cli.main(CP_SERVE_CLI + ["--device", "cpu"])
+    finally:
+        serve_cli.get_smoke_config, LM.init = saved
+    return {"serve_cli/tokens": np.array([r.out for r in sorted(finished, key=lambda r: r.rid)])}
+
+
+def cp_fsdp_rank(rank: int, world: int, rdv: str, out_dir: str) -> None:
+    """Two AdamW steps of ``build_train_step`` on the (2, 4) mesh with FSDP
+    over data and SP (Mistral: its attention context-parallel and cut over
+    fsdp alone); rank 0 writes the parameters gathered whole."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import configs
+    from repro_torch.distributed.compat import make_mesh
+    from repro_torch.models.convert import params_from_reference, params_to_reference
+    from repro_torch.models.attention import use_context_parallel
+    from repro_torch.models.lm import LM
+    from repro_torch.train.optimizer import AdamWConfig, init_opt_state
+    from repro_torch.train.train_step import build_train_step, shard_batch
+
+    _init(rank, world, rdv)
+    try:
+        inputs = dict(np.load(Path(out_dir).parent / "inputs.npz"))
+        arch = "mistral-nemo-12b"
+        cfg = dataclasses.replace(configs.get_smoke_config(arch), dtype="float32")
+        ctx = _lm_ctx(make_mesh(CP_FSDP_MESH, ("data", "model"), device_type="cpu"), fsdp="data", sp=True)
+        model = LM(cfg, ctx, device="cpu")
+        model.load_state_dict(params_from_reference(lm_tree(inputs, arch), ctx, cfg))
+        model.requires_grad_(True)
+        opt = AdamWConfig(**OPT)
+        state = init_opt_state(dict(model.named_parameters()), opt)
+        step = build_train_step(model, opt)
+        res = {"adamw/cp": np.array(use_context_parallel(cfg, ctx))}
+        for i in range(2):
+            b = {"tokens": inputs[f"{arch}/tokens"][i + 1], "labels": inputs[f"{arch}/labels"][i + 1]}
+            state, met = step(state, {k: torch.from_numpy(v) for k, v in shard_batch(b, ctx).items()})
+            res[f"adamw/loss{i}"], res[f"adamw/grad_norm{i}"] = float(met["loss"]), float(met["grad_norm"])
+        whole = params_to_reference(model.state_dict(), ctx, cfg)
+        if rank == 0:
+            res.update({f"adamw/params/{k}": v for k, v in flatten(whole).items()})
+        np.savez(Path(out_dir) / f"rank{rank}.npz", **res)
+    finally:
+        dist.destroy_process_group()
 
 
 # -- bounded runs --------------------------------------------------------------------
@@ -922,4 +1213,5 @@ def run_both(ref_name: str, rank_fn, d: Path, devices: int = WORLD, world: int =
 if __name__ == "__main__":
     {"ref_sort": ref_sort, "ref_dist": ref_dist, "ref_cli": ref_cli,
      "ref_lm_grads": lambda out: ref_lm(out, "grads"), "ref_lm_rest": lambda out: ref_lm(out, "rest"),
+     "ref_cp_train": lambda out: ref_cp(out, "train"), "ref_cp_rest": lambda out: ref_cp(out, "rest"),
      }[sys.argv[1]](sys.argv[2])

@@ -844,6 +844,47 @@ def test_flash_attention_bwd_kernel_equals_plain(gen, T, S, causal, d, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("T,S,off", [(70, 300, 0), (70, 300, 64), (70, 300, 100), (70, 300, 230), (64, 4096, 512),
+                                     (1, 130, 129), (130, 2048, 1000)])
+def test_flash_attention_and_bwd_with_q_offset_equal_plain(gen, T, S, off, d, dtype):
+    """Context parallelism's query offset: K5 (output and lse) and K5b at
+    offsets that are and are not multiples of the 64-row tile, ragged T,
+    offset + T below and at S, against the plain versions; dk and dv of the
+    keys no row sees are exactly 0."""
+    from repro_torch.kernels.flash_attention_bwd import flash_attention_bwd, flash_attention_bwd_plain
+
+    B, H, KV = 2, 6, 2
+    q = _randn(gen, (B, T, H, d), dtype, QK_SCALE)
+    k = _randn(gen, (B, S, KV, d), dtype, QK_SCALE)
+    v = _randn(gen, (B, S, KV, d), dtype)
+    do = _randn(gen, (B, T, H, d), dtype)
+    o, lse = flash_attention(q, k, v, return_lse=True, q_offset=off)
+    po, plse = flash_attention_plain(q, k, v, return_lse=True, q_offset=off)
+    _assert_attention_close(o, po)
+    assert (lse - plse).abs().max().item() <= (2.0**-8 if dtype == torch.bfloat16 else 2e-5)
+    got = flash_attention_bwd(q, k, v, o, do, lse, q_offset=off)
+    want = flash_attention_bwd_plain(q, k, v, o, do, lse, q_offset=off)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        diff = (g.float() - w.float()).abs()
+        assert (diff <= _grad_limit(w)).all(), (name, diff.max().item())
+    assert not got[1][:, off + T:].any() and not got[2][:, off + T:].any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_q_offset_zero_is_the_same_bytes_as_none(gen, dtype):
+    from repro_torch.kernels.flash_attention_bwd import flash_attention_bwd
+
+    q, k, v, do = (_randn(gen, (2, 300, 8, 64), dtype, QK_SCALE) for _ in range(4))
+    k, v = k[:, :, :2], v[:, :, :2]
+    o, lse = flash_attention(q, k, v, return_lse=True)
+    o0, lse0 = flash_attention(q, k, v, return_lse=True, q_offset=0)
+    assert torch.equal(o, o0) and torch.equal(lse, lse0)
+    for a, b in zip(flash_attention_bwd(q, k, v, o, do, lse), flash_attention_bwd(q, k, v, o, do, lse, q_offset=0)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_bwd_takes_a_strided_dout(gen, dtype):
     """dO as a transposed (B, H, T, d) view: rows strided, last axis
     contiguous, read in place."""

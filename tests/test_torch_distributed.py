@@ -193,7 +193,7 @@ def test_convert_gives_each_rank_its_shard():
     cfg = workers.moe_cfg(configs.get_smoke_config(workers.MOE_ARCH))
     tree = workers.moe_params(cfg)
     for r in range(4):
-        state = params_from_reference(tree, tp_rank=r, tp_size=4)
+        state = params_from_reference(tree, sharding.ShardCtx.grid(model=(r, 4)))
         np.testing.assert_array_equal(state["w_gate"].numpy(), tree["w_gate"][4 * r : 4 * r + 4])
         f = tree["shared"]["w_in"].shape[1] // 4
         np.testing.assert_array_equal(state["shared.w_in"].numpy(), tree["shared"]["w_in"][:, f * r : f * r + f])

@@ -10,7 +10,9 @@ the port as 4 gloo ranks (``tests/_torch_dist_workers.py``: ``ref_lm``,
 the token batches).  The mesh
 is (data 2, model 2), rank ``2 * d + m``; training runs with FSDP over data.
 At tp = 2 the smoke configs' kv heads (2 and 4) divide, so no context
-parallelism fires; on a (1, 4) mesh with SP it would, and the port raises.
+parallelism fires; the same four ranks as a (1, 4) mesh with SP run
+Mistral's attention context-parallel (``tests/test_torch_context_parallel.py``
+holds the rest of that layout).
 
 Every rank calls ``backward`` on its own loss (the global mean); the train
 step's all-reduce sums a replicated leaf's gradient over the axes it is
@@ -163,13 +165,19 @@ def test_sequence_sharded_decode_matches_reference(runs):
             np.testing.assert_array_equal(r[f"serve/tokens{i}"], _rows(ref[f"serve/tokens{i}"], rank))
 
 
-def test_context_parallel_layout_raises_not_implemented(runs):
-    """A (1, 4) mesh with SP on Mistral's smoke config (2 kv heads): the
-    reference goes context-parallel, the port names that slice."""
+def test_context_parallel_layout_matches_reference(runs):
+    """A (1, 4) mesh with SP on Mistral's smoke config (2 kv heads): both go
+    context-parallel, and the port's loss and every gradient leaf, gathered
+    whole, are the reference's."""
     _, ref, ranks, _, _ = runs
     assert bool(ref["cp/use_context_parallel"])
     for r in ranks:
-        assert "context parallelism" in str(r["cp/error"])
+        assert bool(r["cp/cp"])
+        np.testing.assert_allclose(r["cp/loss"], ref["cp/loss"], rtol=1e-5, atol=1e-7)
+    want, got = _leaves(ref, "cp/grad/"), _leaves(ranks[0], "cp/grad/")
+    assert set(got) == set(want) and len(want) > 10
+    for k in want:
+        np.testing.assert_allclose(got[k], want[k], atol=1e-5, rtol=1e-4, err_msg=k)
 
 
 def test_two_adamw_steps_match_reference(runs):

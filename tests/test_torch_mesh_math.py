@@ -24,6 +24,7 @@ from repro.configs import get_smoke_config as ref_smoke
 from repro.distributed.sharding import local_ctx
 from repro.kernels.decode_attention import decode_attention_ref
 from repro.models.layers import cross_entropy as ref_cross_entropy
+from repro_torch.distributed.sharding import ShardCtx
 from repro_torch.kernels.decode_attention import decode_attention, decode_attention_plain, merge_partials
 from repro_torch.models.convert import merge_shards, params_from_reference, params_to_reference
 from repro_torch.models.layers import cross_entropy, merge_vocab_stats, vocab_stats
@@ -155,7 +156,7 @@ def test_convert_cut_and_gather_round_trip(arch, tp, fsdp):
     block matrices' D over fsdp, norms and the router whole -- then joined
     and stacked back: the reference's tree bit for bit."""
     tree = _ref_tree(arch)
-    states = [[params_from_reference(tree, tp_rank=t, tp_size=tp, fsdp_rank=f, fsdp_size=fsdp)
+    states = [[params_from_reference(tree, ShardCtx.grid(model=(t, tp), data=(f, fsdp)))
                for f in range(fsdp)] for t in range(tp)]
     shard = states[tp - 1][fsdp - 1]
     whole = params_from_reference(tree)
@@ -168,8 +169,8 @@ def test_convert_cut_and_gather_round_trip(arch, tp, fsdp):
         e, _, f_ = whole["layers.0.moe.w_in"].shape
         assert shard["layers.0.moe.w_in"].shape == (e // tp, D // fsdp, f_)
         assert shard["layers.0.moe.router"].shape == whole["layers.0.moe.router"].shape
-    back = _flat(jax.tree.map(lambda t: t.numpy(), params_to_reference(merge_shards(states, tp_size=tp,
-                                                                                  fsdp_size=fsdp))))
+    joined = merge_shards(states, ShardCtx.grid(model=(0, tp), data=(0, fsdp)))
+    back = _flat(jax.tree.map(lambda t: t.numpy(), params_to_reference(joined)))
     want = _flat(tree)
     assert set(back) == set(want)
     for k in want:

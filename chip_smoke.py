@@ -3,13 +3,16 @@
 
     python3 chip_smoke.py [--n KEYS] [--seed S] [--profile]
 
-Seven main paths: the sort dataplane (``run_pipeline``), the dense LM serve
-path (``Engine`` over Mistral-Nemo-12B), the MoE serve path (``Engine`` over
-granite-moe-3b-a800m), training (AdamW steps of granite-moe-3b-a800m and
-of Mistral-Nemo-12B cut to 8 layers), the sharded fabric at one rank
-(``sort_sharded``, the pool's ``shard_map`` backend, ``moe_layer_a2a``) and
-the LM on a (data, model) mesh at one rank (training and the serve CLI).
-Phases, one JSON line each:
+The main paths: the sort dataplane (``run_pipeline``), the dense LM serve
+path (``Engine`` over Mistral-Nemo-12B), the MoE serve paths (``Engine``
+over granite-moe-3b-a800m and deepseek-moe-16b), training (AdamW steps of
+granite-moe-3b-a800m, of Mistral-Nemo-12B cut to 8 layers and of
+deepseek-moe-16b cut to 10), the sharded fabric at one rank
+(``sort_sharded``, the pool's ``shard_map`` backend, ``moe_layer_a2a``), the
+LM on a (data, model) mesh at one rank (training and the serve CLI),
+attention at any tp, the hybrid Mamba2 + shared-attention LM
+(zamba2-1.2b, served and trained) and the example twins.  Phases, one JSON
+line each:
 
 1. ``device``   -- the card (``nvidia-smi`` name and power limit), torch and
    CUDA versions, and the seconds the seven hand-written kernels took to build
@@ -175,7 +178,37 @@ Phases, one JSON line each:
    ``launch.serve`` (its smoke config first, card against CPU): tokens,
    ms per decode step, peak memory, K5 and K6 counted.  The ``kernels``
    line's K5 and K5b rows gain ``q_offset``;
-13. ``ptxas`` -- every kernel entry's registers, static shared memory and
+13. ``serve_deepseek``, ``train_deepseek`` (after ``cp``, before the
+   ``kernels`` line) -- deepseek-moe-16b at full width and depth (28
+   layers, the first dense with its own ``k_dense``/``v_dense`` cache, 64
+   routed experts top-6 and 2 shared; 32.7 GB of bf16 weights from
+   ``--seed``) served as ``serve_moe`` is (the full-width check with K3
+   plain, then the graph run and the eager run of the same 8 requests:
+   tokens/s, mean and median ms per decode step, peak memory, each cache
+   leaf's bytes, K3 / K5 / K6 launches held exactly); then trained at full
+   width with its dense layer and 9 MoE layers (``TRAIN_DEEPSEEK``: B 2 x
+   2,048, 3 AdamW steps, launches held per step);
+14. ``serve_hybrid``, ``serve_hybrid_attention``, ``train_hybrid`` --
+   zamba2-1.2b: its smoke config in float32 on the card against the CPU
+   (logits within 1e-4, greedy tokens equal, the graph's equal the eager
+   step's), then the full model (38 Mamba2 layers, the shared attention +
+   MLP block 6 times, bf16 from ``--seed``, nothing cut) behind the serve
+   traffic: K5 6 launches a prefill and K6 6 a decode step, held exactly,
+   each request's prefill seconds and SSD chunk length Q (1 for a prime
+   prompt: the inter-chunk loop then runs a host step per token and
+   layer); K5 and K6 held to their plain versions at that run's shapes
+   (head dim 64, 32 heads, MHA); then ``TRAIN_HYBRID`` (B 4 x 2,048, 4
+   AdamW steps, nothing cut: K5 12 / K5b 6 launches a step), its step cut
+   into the Mamba2 blocks, the shared block and AdamW (``train_stages``),
+   and its first step again with the kernels plain.  The ``kernels`` line's
+   K5, K6 and K5b rows gain ``zamba2`` (the shape, launches, times and
+   bound) and K3's, K5's and K6's ``deepseek_serve_launches``;
+15. ``examples`` -- each example twin (``examples/torch_*.py``) once on the
+   card at its reference example's default size, one after the other, its
+   lines (times, the serve twin's sampled tokens and the training twin's
+   losses masked) equal to the same twin's on the CPU, run in background
+   processes started before the serve phases;
+16. ``ptxas`` -- every kernel entry's registers, static shared memory and
    spills, as the compiler reported them when it built the kernels; a
    spill in any entry fails the run.
 
@@ -188,6 +221,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import subprocess
 import sys
 import time
@@ -236,6 +270,41 @@ TRAIN_DENSE = dict(arch=SERVE_ARCH, layers=8, batch=2, seq=2048, steps=4, lr=3e-
 TRAIN_RESUME = dict(arch=MOE_ARCH)
 #: K5b's training shapes: (B, T, S, H, KV, d, causal).
 TRAIN_K5B = {"granite": (4, 2048, 2048, 24, 8, 64, True), "mistral": (2, 2048, 2048, 32, 8, 128, True)}
+
+#: The hybrid and deepseek paths, at ``SERVE``'s traffic: zamba2-1.2b (38
+#: Mamba2 layers and one shared attention + MLP block run after every 6 of
+#: them, 6 times; MHA with 32 heads of 64) served and trained at full width
+#: and depth, nothing cut; deepseek-moe-16b (28 layers, the first dense, 64
+#: routed experts top-6 and 2 shared) served at full width and depth, and
+#: trained at full width with its dense first layer and 9 of its 27 MoE
+#: layers (its 16.4B parameters with AdamW's f32 moments, 12 bytes each,
+#: need about 197 GB; 10 layers peak near 72 GB).
+HYBRID_ARCH = "zamba2-1.2b"
+DEEPSEEK_ARCH = "deepseek-moe-16b"
+TRAIN_HYBRID = dict(arch=HYBRID_ARCH, batch=4, seq=2048, steps=4, lr=3e-4)
+TRAIN_DEEPSEEK = dict(arch=DEEPSEEK_ARCH, layers=10, batch=2, seq=2048, steps=3, lr=3e-4)
+
+#: The example twins (``examples/torch_*.py``), each at its reference
+#: example's default size, on the card in this process and on the CPU in a
+#: background process started before the first phase; ``{dir}`` is a
+#: directory of the run's own.  The distributed sort runs one rank (one
+#: card), in processes of its own (``torch.multiprocessing.spawn``).
+EXAMPLES = (("torch_quickstart.py", ()), ("torch_net_pipeline.py", ()), ("torch_serve_lm.py", ()),
+            ("torch_train_moe.py", ("--ckpt-dir", "{dir}/moe_ckpt")), ("torch_distributed_sort.py", ("--ranks", "1")))
+#: Intra-op threads of a twin's CPU run: one each, three for the training
+#: twin's 120 steps (about 170 s on one thread), so that every CPU run ends
+#: while the card-bound phases before ``examples`` run.
+EXAMPLE_CPU_THREADS = {"torch_train_moe.py": 3}
+#: What two runs of a twin cannot repeat, masked before their lines are
+#: compared: times and the rates and percentages made from them; the serve
+#: twin's sampled tokens and the training twin's bf16 losses (the card and
+#: the CPU draw and round differently); the checkpoint directory.
+EXAMPLE_MASKS = (
+    (r"-?\d+\.\d+% faster", "<pct> faster"), (r"\d+\.\d+s\b", "<s>"),
+    (r"[\d,.]+ (keys|records|jobs)/sec", r"<rate> \1/sec"), (r"[\d.]+ tok/s", "<rate> tok/s"),
+    (r"-> \[[\d, ]*\]", "-> <tokens>"), (r"(loss|aux) -?[\d.]+", r"\1 <x>"), (r"-> -?\d+\.\d+", "-> <x>"),
+    (r"checkpoints at \S+:", "checkpoints at <dir>:"),
+)
 
 #: The sharded phase (M19) on one card, a one-rank NCCL process group: the
 #: range sort at the pipeline phase's input with the reference example's
@@ -310,7 +379,14 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
+#: The run's start on the host clock: every phase line carries ``t_s``, the
+#: seconds since then when it was printed.
+T0 = time.perf_counter()
+
+
 def emit(obj: dict) -> None:
+    if "phase" in obj:
+        obj = {**obj, "t_s": time.perf_counter() - T0}
     print(json.dumps(obj), flush=True)
 
 
@@ -1273,9 +1349,11 @@ def phase_pipeline_network(torch, np, run_pipeline, dev: str, n: int, seed: int)
 #: The reference's fault ladder (``net_bench.py`` ``FAULT_PLANS``) and its
 #: configuration (``FAULT_BENCH`` = ``SCALING_BENCH`` + 4 servers: the 7-hop
 #: tree, 16 x 64, 256-key packets, 8 flows, k = 10, oracle ranges,
-#: ``random_trace``, numpy-ladder servers) at its ``--fault-n`` default of 1M;
-#: then the same ladder on the E2E fabric with its 4 arena servers (no
-#: payload, as the reference's ladder) at the paper's trace size.
+#: ``random_trace``, numpy-ladder servers) at 250k keys, cut from its
+#: ``--fault-n`` default of 1M: there its ``all_degraded`` plan (the plain-sort
+#: baseline through the numpy-ladder servers) took 76 s of the run; then the
+#: same ladder on the E2E fabric with its 4 arena servers (no payload, as the
+#: reference's ladder) at the paper's trace size.
 FAULT_PLANS = (
     ("fault_free", ""),
     ("one_hop_degraded", "degrade:l1n0@0"),
@@ -1288,7 +1366,7 @@ FAULT_PLANS = (
 )
 FAULT_BENCH = dict(topology="tree", branching=2, height=3, num_segments=16, segment_length=64,
                    payload_size=256, num_flows=8, k=10, range_mode="oracle", num_servers=4)
-FAULT_N = 1_000_000
+FAULT_N = 250_000
 FAULT_E2E_N = 100_000_000
 
 #: The reference's multi-tenant sweep (``net_bench.py`` ``MT_*``): J jobs,
@@ -1845,19 +1923,22 @@ class AttnRecorder:
 
 class SyncTimer:
     """Wraps a model method: synchronises the card on entry and exit and adds
-    the wall seconds to ``seconds``; ``after`` sees each call's result."""
+    the wall seconds to ``seconds`` (each call's in ``times``); ``after`` sees
+    each call's result."""
 
     def __init__(self, torch, fn, after=None) -> None:
         self.torch, self.fn, self.after = torch, fn, after
         self.seconds = 0.0
         self.calls = 0
+        self.times: list[float] = []
 
     def __call__(self, *args, **kwargs):
         self.torch.cuda.synchronize()
         t0 = time.perf_counter()
         out = self.fn(*args, **kwargs)
         self.torch.cuda.synchronize()
-        self.seconds += time.perf_counter() - t0
+        self.times.append(time.perf_counter() - t0)
+        self.seconds += self.times[-1]
         self.calls += 1
         if self.after is not None:
             self.after(out)
@@ -2011,8 +2092,21 @@ def full_width_parity(torch, model, gen) -> dict:
     return {"plain": "k5+k6", "logits_max_abs_err": err, "logits_max_abs": scale, "argmax_equal": True}
 
 
+def attention_layers(cfg) -> int:
+    """The attention layers a token passes through: every layer, or the
+    hybrid's shared-block invocations (one after each full segment of
+    ``shared_attn_every`` Mamba2 layers)."""
+    if cfg.family == "hybrid":
+        return cfg.num_layers // cfg.shared_attn_every
+    return 0 if cfg.ssm is not None else cfg.num_layers
+
+
 def phase_serve(torch, np, args, arch: str, phase: str, smoke_archs) -> dict:
-    """One LM serve path at full width; returns what the kernels phase needs."""
+    """One LM serve path at full width; returns what the kernels phase needs.
+    A Mamba2 model's line adds each request's prefill: its tokens, the SSD
+    chunk length Q (the configured chunk shrunk to the largest divisor of
+    the prompt: 1 for a prime one, whose inter-chunk loop then takes a host
+    step per token and layer) and its seconds."""
     from repro_torch import configs, models
     from repro_torch.kernels import bitonic as bt
     from repro_torch.kernels import build
@@ -2024,6 +2118,7 @@ def phase_serve(torch, np, args, arch: str, phase: str, smoke_archs) -> dict:
 
     cfg = configs.get_config(arch)
     moe_layers = cfg.num_layers - cfg.moe.first_dense_layers if cfg.moe else 0
+    attn_layers = attention_layers(cfg)
     t0 = time.perf_counter()
     model = models.build(cfg, device="cuda")
     model.init(torch.Generator(device="cuda").manual_seed(args.seed))
@@ -2039,7 +2134,7 @@ def phase_serve(torch, np, args, arch: str, phase: str, smoke_archs) -> dict:
     for rid in range(SERVE["requests"]):
         plen = int(rng.integers(SERVE["prompt_min"], SERVE["prompt_max"] + 1))
         prompts.append(rng.integers(0, cfg.vocab_size, size=plen).tolist())
-    want = {"flash_attention": cfg.num_layers, "decode_attention": cfg.num_layers,
+    want = {"flash_attention": attn_layers, "decode_attention": attn_layers,
             "row_sort_kv": moe_layers, "row_sort": 0, "tournament": 0, "merge_rows": 0}
 
     def engine_run(eager: bool, after_step=None):
@@ -2082,6 +2177,7 @@ def phase_serve(torch, np, args, arch: str, phase: str, smoke_archs) -> dict:
                 "decode_steps": decode.calls, "decode_tokens": new_tokens, "decode_s": decode.seconds,
                 "decode_tokens_per_s": new_tokens / decode.seconds,
                 "ms_per_decode_step": decode.seconds / decode.calls * 1e3,
+                "ms_per_decode_step_median": float(np.median(decode.times)) * 1e3,
                 "host_s_outside_model": run_s - prefill.seconds - decode.seconds}
 
     def hold(launches: dict, prefills: int, steps: int, what: str) -> None:
@@ -2112,6 +2208,14 @@ def phase_serve(torch, np, args, arch: str, phase: str, smoke_archs) -> dict:
     if launches["flash_attention"] < 1 or launches["decode_attention"] < 1 or (moe_layers and launches["row_sort_kv"] < 1):
         fail(f"a kernel of the {arch} serve path never launched")
     graph_line = rates(prefill, decode, finished, run_s)
+    if cfg.ssm is not None:  # admitted in request order: one prefill each
+        from repro_torch.models.mamba2 import chunk_len
+
+        graph_line["prefill_requests"] = [
+            {"rid": rid, "prefill_tokens": len(p) - 1, "Q": chunk_len(cfg, len(p) - 1),
+             "chunks": (len(p) - 1) // chunk_len(cfg, len(p) - 1), "prefill_s": t}
+            for rid, (p, t) in enumerate(zip(prompts, prefill.times))]
+    cache_bytes = {k: v.numel() * v.element_size() for k, v in eng.cache.items()}
     graph_tokens = sorted((r.rid, r.out) for r in finished)
     first_tokens = [r.out[:4] for r in sorted(finished, key=lambda r: r.rid)]
     if args.profile:
@@ -2135,7 +2239,8 @@ def phase_serve(torch, np, args, arch: str, phase: str, smoke_archs) -> dict:
     line = {"phase": phase, "arch": cfg.name, "layers": cfg.num_layers, "d_model": cfg.d_model,
             "dtype": cfg.dtype, "config": SERVE, "parity_smoke_f32_vs_cpu": parity,
             "parity_full_width_kernels_vs_plain": width, "init_s": init_s,
-            "weight_bytes": weight_bytes, "prompt_lengths": [len(p) for p in prompts],
+            "weight_bytes": weight_bytes, "cache_bytes": cache_bytes, "attention_layers": attn_layers,
+            "prompt_lengths": [len(p) for p in prompts],
             "decode": "cuda_graph", **graph_line, "prefill_tokens": sum(len(p) - 1 for p in prompts),
             "peak_device_bytes": peak, "launches": {k: launches[k] for k in names},
             "decode_graph": {"kernel_nodes": nodes["all"], "per_replay": {k: per_replay[k] for k in names},
@@ -2150,7 +2255,8 @@ def phase_serve(torch, np, args, arch: str, phase: str, smoke_archs) -> dict:
     torch.cuda.empty_cache()
     return {"launches": launches, "k5": k5_in, "k6": k6_in, "k6_lengths": k6_lengths,
             "k3_shape": k3_in.shape, "k3_dtype": k3_in.dtype,
-            "k3_real": (max(len(p) for p in prompts) - 1) * (cfg.moe.top_k if cfg.moe else 0)}
+            "k3_real": (max(len(p) for p in prompts) - 1) * (cfg.moe.top_k if cfg.moe else 0),
+            "per_replay": per_replay, "replays": decode.calls}
 
 
 def phase_serve_profile(torch, eng, rng, cfg) -> None:
@@ -2476,30 +2582,86 @@ def step_profile(torch, step, opt_state, batch) -> dict:
 def train_flops(cfg, batch: int, seq: int) -> float:
     """Model flops of one train step (recompute not counted): 6 per weight of
     every matrix a token passes through (the MoE's router and its top_k
-    experts, not every slab; the head; no embedding lookup) per token, and
+    experts, not every slab; the head; no embedding lookup) per token,
     attention's q.k and p.v at 12 per visible causal (row, col) pair per
-    head dim (4 forward, 8 backward)."""
+    head dim (4 forward, 8 backward), and a Mamba2 layer's SSD products."""
     L, D = cfg.num_layers, cfg.d_model
     H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     attn = 2 * D * H * hd + 2 * D * KV * hd
     ffn = lambda f: D * f * (3 if cfg.mlp_gated else 2)  # noqa: E731
-    if cfg.moe:
+    n_attn = attention_layers(cfg)
+    ssd = 0.0
+    if cfg.ssm is not None:
+        # a Mamba2 layer's projections (z, x, B, C, dt in; out), the shared
+        # block's attention and MLP once an invocation, and the chunked SSD's
+        # products per token and head (C.B over a chunk of Q, its weights
+        # times x.dt, the chunk's end state, the state read by C), 3 x forward
+        from repro_torch.models.mamba2 import chunk_len, dims
+
+        s, d_inner, nh = dims(cfg)
+        Q, N, P = chunk_len(cfg, seq), s.state_dim, s.head_dim
+        mats = L * (D * (2 * d_inner + 2 * s.num_groups * N + nh) + d_inner * D) + n_attn * (attn + ffn(cfg.d_ff))
+        ssd = 3.0 * L * nh * (2 * Q * N + 2 * Q * P + 4 * N * P) * batch * seq
+    elif cfg.moe:
         m = cfg.moe
         moe = D * m.num_experts + m.top_k * ffn(m.d_expert) + (ffn(m.num_shared * m.d_expert) if m.num_shared else 0)
         mats = m.first_dense_layers * (attn + ffn(m.d_ff_dense or cfg.d_ff)) + (L - m.first_dense_layers) * (attn + moe)
     else:
         mats = L * (attn + ffn(cfg.d_ff))
     mats += D * cfg.vocab_size
-    return 6.0 * mats * batch * seq + 12.0 * L * batch * H * hd * seq * (seq + 1) / 2
+    return 6.0 * mats * batch * seq + ssd + 12.0 * n_attn * batch * H * hd * seq * (seq + 1) / 2
+
+
+def hybrid_stages(torch, model, batch, adamw_s: float, step_s: float) -> dict:
+    """A Mamba2 model's step by its parts: one Mamba2 block's forward and
+    backward as training runs it (checkpointed: the backward recomputes the
+    forward) and one shared-block invocation's, each on a fresh (B, T, D)
+    input in the model's dtype between two synchronisations (median of
+    three), times the blocks and invocations of a step; AdamW's stage; and
+    the rest of the step (embedding, final norm, head, loss, the clip)."""
+    from torch.utils.checkpoint import checkpoint
+
+    B, T = batch["tokens"].shape
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    positions = torch.arange(T, device="cuda")[None, :]
+
+    def timed(fn, block) -> float:
+        leaves = [p for p in block.parameters()]
+        times = []
+        for _ in range(3):
+            x = torch.randn(B, T, model.cfg.d_model, generator=gen, device="cuda").to(model.dtype).requires_grad_(True)
+            _sync(torch)
+            t0 = time.perf_counter()
+            y = fn(x)
+            torch.autograd.grad(y, [x] + leaves, torch.ones_like(y))
+            _sync(torch)
+            times.append(time.perf_counter() - t0)
+        return float(sorted(times)[1])
+
+    mamba = timed(lambda x: checkpoint(model._mamba_layer, model.layers[0], x, use_reentrant=False),
+                  model.layers[0])
+    n_mamba, n_shared = model.cfg.num_layers, attention_layers(model.cfg)
+    out = {"mamba_block_s": mamba, "mamba_blocks": n_mamba, "mamba_blocks_s": n_mamba * mamba}
+    shared_s = 0.0
+    if n_shared:
+        shared = timed(lambda x: checkpoint(model._block, model.shared, x, positions, use_reentrant=False)[0],
+                       model.shared)
+        shared_s = n_shared * shared
+        out.update({"shared_invocation_s": shared, "shared_invocations": n_shared, "shared_blocks_s": shared_s})
+    out.update({"adamw_s": adamw_s, "step_s_median": step_s,
+                "rest_s": step_s - n_mamba * mamba - shared_s - adamw_s})
+    return out
 
 
 def phase_train(torch, np, args, run: dict, phase: str, plain_check: bool, dev: str = "cuda") -> dict:
     """One training path at full width: ``run["steps"]`` AdamW steps of the
     model from ``--seed`` on ``TokenPipeline`` batches, the first timed
     apart.  Each step's launches are counted (zeroed just before the step,
-    read just after) and held exactly to K5 2 x layers (the forward and the
-    block's recompute), K5b 1 x layers, K3 2 x MoE layers.  Then one step cut
-    into stages (and with ``--profile`` one profiled), and with
+    read just after) and held exactly to K5 2 x attention layers (the
+    forward and the block's recompute; the hybrid's shared-block
+    invocations), K5b 1 x attention layers, K3 2 x MoE layers.  Then one step
+    cut into stages (a Mamba2 model's also into its blocks:
+    :func:`hybrid_stages`; with ``--profile`` one profiled), and with
     ``plain_check`` the first step again from the same seed with every
     kernel swapped for its plain version: its loss within 1e-2 relative and
     its gradient norm within 5e-2 of the kernels' (bf16: K5 rounds its
@@ -2535,7 +2697,8 @@ def phase_train(torch, np, args, run: dict, phase: str, plain_check: bool, dev: 
     init_s = time.perf_counter() - t0
     n_params = sum(p.numel() for p in model.parameters())
     pipe = TokenPipeline(cfg.vocab_size, run["batch"], run["seq"], seed=args.seed)
-    want = {"flash_attention": 2 * cfg.num_layers, "flash_attention_bwd": cfg.num_layers,
+    attn_layers = attention_layers(cfg)
+    want = {"flash_attention": 2 * attn_layers, "flash_attention_bwd": attn_layers,
             "row_sort_kv": 2 * moe_layers, "row_sort": 0, "tournament": 0, "merge_rows": 0,
             "decode_attention": 0}
     steps, first_batch = [], None
@@ -2574,6 +2737,9 @@ def phase_train(torch, np, args, run: dict, phase: str, plain_check: bool, dev: 
             / BF16_FLOP_PER_S,
             "peak_allocated_bytes": peak, "reserved_bytes": reserved, "launches_per_step": want,
             "steps": steps, "stages": train_stages(torch, model, opt_state, opt_cfg, first_batch)}
+    if cfg.ssm is not None:
+        line["train_stages"] = hybrid_stages(torch, model, first_batch, line["stages"]["optimizer_s"],
+                                             line["step_s_median"])
     if args.profile:
         line["profile"] = step_profile(torch, step, opt_state, first_batch)
     if plain_check:
@@ -3493,6 +3659,112 @@ def phase_cp(torch, np, args, fa, fb, gen) -> dict:
             "k5b": {"cases": len(line["offsets"]), "starcoder2_tp8": line["starcoder2_k5b"]}}
 
 
+def example_argv(extra, run_dir: Path) -> list[str]:
+    return [a.format(dir=run_dir) for a in extra]
+
+
+def start_examples_on_cpu(run_dir: Path) -> list:
+    """Each example twin at its default size with ``--device cpu``, in a
+    background process of its own (niced, ``EXAMPLE_CPU_THREADS`` intra-op
+    threads, no card visible), its standard output to a file under
+    ``run_dir`` (its errors to another); started before the serve phases so
+    that they are done when :func:`phase_examples` reads them.  Returns
+    (script, process, output path, start time) each."""
+    procs = []
+    for script, extra in EXAMPLES:
+        env = dict(os.environ, OMP_NUM_THREADS=str(EXAMPLE_CPU_THREADS.get(script, 1)), CUDA_VISIBLE_DEVICES="",
+                   PYTHONPATH=str(ROOT / "src"))
+        out_dir = run_dir / "cpu"
+        out_dir.mkdir(parents=True, exist_ok=True)
+        path = out_dir / f"{script}.out"
+        with open(path, "w") as f, open(out_dir / f"{script}.err", "w") as err:
+            proc = subprocess.Popen([sys.executable, str(ROOT / "examples" / script), "--device", "cpu",
+                                     *example_argv(extra, out_dir)], stdout=f, stderr=err,
+                                    env=env, cwd=ROOT, preexec_fn=lambda: os.nice(19))
+        procs.append((script, proc, path, time.perf_counter()))
+    return procs
+
+
+def stop_processes(procs) -> None:
+    for _, proc, _, _ in procs:
+        if proc.poll() is None:
+            proc.kill()
+        proc.wait()
+
+
+def masked_lines(text: str) -> list[str]:
+    """``text``'s lines with :data:`EXAMPLE_MASKS` applied, the arena
+    backend's note left out."""
+    import re
+
+    out = []
+    for line in text.splitlines():
+        if line.startswith("note: the arena backend"):
+            continue
+        for pat, rep in EXAMPLE_MASKS:
+            line = re.sub(pat, rep, line)
+        out.append(line)
+    return out
+
+
+def phase_examples(torch, cpu_procs, run_dir: Path) -> dict:
+    """Each example twin once on the card at its reference example's
+    default size, one after the other (their host syncs would wait on each
+    other's kernels on one card): in this process (``main(argv)``, its
+    standard output kept; the launch counters zeroed before and read after),
+    the distributed sort in a subprocess (its ranks are spawned processes;
+    their launches are not seen here).  Each run's lines, masked, must equal
+    its CPU twin's (:func:`start_examples_on_cpu`)."""
+    import contextlib
+    import importlib.util
+    import io
+
+    from repro_torch.kernels import build
+
+    card_dir = run_dir / "cuda"
+    card_dir.mkdir(parents=True, exist_ok=True)
+    sys.path.insert(0, str(ROOT / "examples"))
+    rows = []
+    for (script, extra), (_, cpu_proc, cpu_path, _) in zip(EXAMPLES, cpu_procs):
+        argv = ["--device", "cuda", *example_argv(extra, card_dir)]
+        build.reset_launches()
+        t0 = time.perf_counter()
+        if script == "torch_distributed_sort.py":
+            r = subprocess.run([sys.executable, str(ROOT / "examples" / script), *argv], capture_output=True,
+                               text=True, timeout=600, cwd=ROOT)
+            if r.returncode:
+                fail(f"{script} on the card exited {r.returncode}: {r.stderr[-2000:]}")
+            text, launches = r.stdout, None
+        else:
+            spec = importlib.util.spec_from_file_location(f"_twin_{script[:-3]}", ROOT / "examples" / script)
+            mod = importlib.util.module_from_spec(spec)
+            spec.loader.exec_module(mod)
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                mod.main(argv)
+            torch.cuda.synchronize()
+            text = buf.getvalue()
+            launches = {k: v for k, v in build.LAUNCHES.items() if v}
+        card_s = time.perf_counter() - t0
+        try:
+            cpu_proc.wait(timeout=600)
+        except subprocess.TimeoutExpired:
+            fail(f"{script} on the CPU did not end")
+        cpu_text = cpu_path.read_text()
+        if cpu_proc.returncode:
+            fail(f"{script} on the CPU exited {cpu_proc.returncode}: "
+                 f"{cpu_path.with_suffix('.err').read_text()[-2000:]}")
+        got, want = masked_lines(text), masked_lines(cpu_text)
+        if got != want:
+            fail(f"{script}: the card's lines differ from the CPU's: {got} against {want}")
+        rows.append({"script": f"examples/{script}", "argv": argv, "card_s": card_s, "lines": len(got),
+                     "lines_equal_cpu": True, "launches": launches, "first_lines": text.splitlines()[:3]})
+        torch.cuda.empty_cache()
+    line = {"phase": "examples", "twins": rows}
+    emit(line)
+    return line
+
+
 def ptxas_line(build) -> dict:
     """Registers, static shared memory, stack and spills of every kernel entry
     built in this process, from the compiler's ``-Xptxas -v`` output
@@ -3557,14 +3829,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    from repro_torch.core import mergesort
-    from repro_torch.data.traces import random_trace, trace_max_value
-    from repro_torch.kernels import bitonic as bt
     from repro_torch.kernels import build
-    from repro_torch.kernels import decode_attention as da
-    from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import flash_attention_bwd as fb
-    from repro_torch.net.pipeline import run_pipeline
 
     smi = smi_line()
     t0 = time.perf_counter()
@@ -3573,6 +3838,28 @@ def main() -> int:
           "cuda": torch.version.cuda, "device_name": torch.cuda.get_device_name(0),
           "kernels_built": sorted(build.BUILD_LOGS), "kernel_build_s": build_s,
           "build_wall_s": time.perf_counter() - t0})
+
+    import shutil
+
+    run_dir = ROOT / "build" / "chip_smoke_examples"
+    shutil.rmtree(run_dir, ignore_errors=True)
+    cpu_examples: list = []  # started by run_phases, stopped here whatever happens
+    try:
+        return run_phases(args, np, torch, smi, cpu_examples, run_dir)
+    finally:
+        stop_processes(cpu_examples)
+
+
+def run_phases(args, np, torch, smi: str, cpu_examples, run_dir: Path) -> int:
+    """Every phase after the build, in order; the last lines of the run."""
+    from repro_torch.core import mergesort
+    from repro_torch.data.traces import random_trace, trace_max_value
+    from repro_torch.kernels import bitonic as bt
+    from repro_torch.kernels import build
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_attention_bwd as fb
+    from repro_torch.net.pipeline import run_pipeline
 
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     phase_k1(bt, torch, gen)
@@ -3651,6 +3938,9 @@ def main() -> int:
     rows[0]["device_epoch"] = k1_device_epoch(torch, bt, gen, dev_epoch)
 
     # -- the serve paths -------------------------------------------------------
+    # the example twins' CPU runs overlap the card-bound phases from here on,
+    # not the host-bound dataplane phases above
+    cpu_examples += start_examples_on_cpu(run_dir)
     phase_k3(bt, torch, gen)
     phase_k4(bt, torch, gen)
     phase_k5(fa, torch, gen)
@@ -3670,6 +3960,14 @@ def main() -> int:
     sharded = phase_sharded(torch, args, bt, gen, run_pipeline, random_trace, trace_max_value)
     lm_mesh = phase_lm_mesh(torch, np, args, da, gen)
     cp = phase_cp(torch, np, args, fa, fb, gen)
+
+    # -- deepseek-moe-16b at full width, and the hybrid (zamba2-1.2b) ----------
+    deepseek = phase_serve(torch, np, args, DEEPSEEK_ARCH, "serve_deepseek", [])
+    deepseek_train = phase_train(torch, np, args, TRAIN_DEEPSEEK, "train_deepseek", plain_check=False)
+    hybrid = phase_serve(torch, np, args, HYBRID_ARCH, "serve_hybrid", [HYBRID_ARCH])
+    check_attention_at(torch, hybrid, gen, "serve_hybrid_attention")
+    hybrid_train = phase_train(torch, np, args, TRAIN_HYBRID, "train_hybrid", plain_check=True)
+    phase_examples(torch, cpu_examples, run_dir)
     rows[0]["sharded"] = sharded["k1"]
     rows[1]["sharded"] = {"site": "core/mergesort.py merge_runs_flat (pipeline, pool_backend=shard_map)",
                           "launches": sharded["k2_pipeline_shard_map_launches"]}
@@ -3685,11 +3983,23 @@ def main() -> int:
     k5_row["q_offset"] = cp["k5"]
     next(r for r in rows if r["name"] == "row_sort_kv")["lm_mesh_train_launches"] = \
         lm_mesh["train_launches"]["row_sort_kv"]
+    k5b["zamba2"] = k5b_row(fa, fb, torch, gen, hybrid_train["k5b_shape"], hybrid_train["k5b_launches"],
+                            hybrid_train["k5b_per_step"])
     rows.append({"name": "flash_attention_bwd", "route": "cuda",
                  "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
                  "replaces": "src/repro/models/attention.py:181", "tpu_kernel": False, **k5b,
                  "lm_mesh_train_launches": lm_mesh["train_launches"]["flash_attention_bwd"],
                  "q_offset": cp["k5b"]})
+    keep = ("launches", "max_abs_err", "shape", "dtype", "ms", "plain_ms", "library_ms", "graph_ms",
+            "library_graph_ms", "bound_ms", "bound_by", "flops", "bytes")
+    for row, at in zip((k5_row, k6_row), attention_rows(torch, hybrid, gen)):
+        row["zamba2"] = {k: at[k] for k in keep if k in at}
+        row["zamba2"]["decode_graph_per_replay"] = hybrid["per_replay"][row["name"]]
+    k5_row["zamba2"]["train_launches_per_step"] = hybrid_train["k5_per_step"]
+    for row in rows:
+        if row["name"] in ("flash_attention", "decode_attention", "row_sort_kv"):
+            row["deepseek_serve_launches"] = deepseek["launches"][row["name"]]
+    k5_row["deepseek_train_launches_per_step"] = deepseek_train["k5_per_step"]
 
     emit({"kernels": rows})
     emit(ptxas_line(build))

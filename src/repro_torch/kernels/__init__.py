@@ -6,4 +6,4 @@ Importing the package declares every kernel to :mod:`.build`, so its one
 backward K5b; nothing is compiled until a kernel is first launched or built.
 """
 
-from . import bitonic, build, decode_attention, flash_attention, flash_attention_bwd  # noqa: F401
+from . import bitonic, build, decode_attention, flash_attention, flash_attention_bwd, ops  # noqa: F401

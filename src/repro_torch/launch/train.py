@@ -4,8 +4,9 @@
         --smoke [--device cuda|cpu] [--dtype float32] --steps 100 --batch 8 \
         --seq 128 --ckpt-dir /tmp/ckpt
 
-``--arch`` takes the dense ``mistral-nemo-12b`` and the MoE
-``granite-moe-3b-a800m`` and ``deepseek-moe-16b``.
+``--arch`` takes the dense ``mistral-nemo-12b`` (and the other dense
+configs), the MoE ``granite-moe-3b-a800m`` and ``deepseek-moe-16b``, and
+the hybrid ``zamba2-1.2b`` (one device: no ``--mesh`` above 1x1).
 
 Counterpart of ``repro.launch.train``: the reference's flags, plus
 ``--device`` (default ``cuda``; it raises without a card unless asked for

@@ -1,6 +1,7 @@
-"""The LM stack of the port (counterpart of ``repro.models``): the dense
-and MoE decoders, served (prefill on K5, decode on K6, the MoE dispatch on
-K3) and trained (attention backward on K5b)."""
+"""The LM stack of the port (counterpart of ``repro.models``): the dense,
+MoE, Mamba2 and hybrid (zamba2) decoders, served (prefill on K5, decode on
+K6, the MoE dispatch on K3; the SSD in torch ops, as the reference's is plain
+``jnp``) and trained (attention backward on K5b)."""
 
 from .lm import LM
 

@@ -1,6 +1,8 @@
-"""Decoder-only LM for training and serving: the dense and MoE families.
+"""Decoder-only LM for training and serving: the dense, MoE, Mamba2 and
+hybrid families.
 
-Counterpart of :mod:`repro.models.lm` for ``kind == "dense"`` and ``"moe"``:
+Counterpart of :mod:`repro.models.lm` for ``kind == "dense"``, ``"moe"``,
+``"mamba"`` and ``"hybrid"``.  Dense and MoE:
 a stack of (attention + MLP) or (attention + MoE) blocks; the training
 ``forward``/``loss`` with one activation checkpoint per block (the
 reference's per-layer ``jax.checkpoint``), prefill and one-token decode
@@ -22,8 +24,23 @@ block's recompute runs K5 and the MoE dispatch (K3) a second time.
 
 The cache is a dict of tensors updated *in place* by ``prefill`` and
 ``decode_step`` (the reference returns a new one); both also return it.
-The other families (SSM, RWKV, hybrid) and precomputed-embedding inputs raise
-``NotImplementedError`` naming the slice that ports them.
+
+The Mamba2 kinds (``family="ssm"`` with an ``ssm`` config: ``"mamba"``;
+``family="hybrid"``: zamba2) stack ``layers.<i>.{ln1, mamba}`` blocks
+(:mod:`.mamba2`); the hybrid adds one ``shared`` attention + MLP block (a
+:class:`Block`), run after every full segment of ``shared_attn_every``
+layers and after a short last segment only when ``L % every == 0``, its
+parameters reused by every invocation (their gradient is the sum over the
+invocations).  Training checkpoints each Mamba block and each shared
+invocation.  Their cache holds ``conv`` (L, B, W-1, C) in the model's dtype,
+``ssm`` (L, B, H, N, P) float32 and, for the hybrid, one k/v cache a shared
+invocation, ``shared_k``/``shared_v`` (L // every, B, max_len, KV, hd).
+Prefill starts every Mamba block from zero states, as the reference's does,
+whatever the cache holds.  They run on one device: on a mesh with an axis
+above 1, or under sequence parallelism, they raise ``NotImplementedError``
+(the reference's ``spec_mamba`` layouts are a later slice).  The RWKV6
+family and precomputed-embedding inputs raise ``NotImplementedError``
+naming the slice that ports them.
 
 On a mesh (``LM(cfg, ctx)``, a :class:`~repro_torch.distributed.sharding.ShardCtx`
 of a ``(data, model)`` or ``(pod, data, model)`` DeviceMesh) the model is
@@ -60,6 +77,7 @@ from .. import resolve_device
 from ..configs.base import ModelConfig
 from ..distributed.sharding import (ShardCtx, fsdp_gather, gather_seq, gather_stack, psum, shard_leaf)
 from . import attention as attn_mod
+from . import mamba2
 from . import mlp as mlp_mod
 from . import moe as moe_mod
 from .layers import cross_entropy, embed_tokens, lm_logits, rms_norm, spec_embed, spec_lm_head, spec_norm
@@ -79,9 +97,9 @@ def block_kind(cfg: ModelConfig) -> str:
 
 _LATER = {
     "rwkv": "the RWKV6 stack is a later slice of the port",
-    "mamba": "the Mamba2 stack is a later slice of the port",
-    "hybrid": "the hybrid Mamba2 + shared-attention stack is a later slice of the port",
 }
+#: The kinds whose layers are Mamba2 blocks (:mod:`.mamba2`).
+SSM_KINDS = ("mamba", "hybrid")
 
 
 def leaf_spec(name: str, ndim: int, ctx: ShardCtx, cfg: ModelConfig | None) -> tuple:
@@ -119,18 +137,19 @@ def init_params(module: nn.Module, generator: torch.Generator, ctx: ShardCtx | N
     attention, MLP or MoE modules) from ``generator`` with the reference's
     distributions, leaf by leaf in the module's order: embedding
     N(0,1)*0.02, a matrix N(0,1)*d_in^-1/2 (``wo`` (H*hd)^-1/2, ``w_out``
-    d_ff^-1/2; an expert slab's d_in is its middle axis), norms ones,
-    biases zeros.  Each leaf is drawn whole, in f32, and cut to the rank's
-    shard (:func:`leaf_spec`), so every mesh holds the same model as one
-    device."""
+    d_ff^-1/2; an expert slab's d_in is its middle axis; a Mamba block's
+    ``conv_k`` W^-1/2), norms ones, biases zeros; a Mamba block's
+    ``dt_bias``/``a_log`` zeros, ``d_skip``/``norm_scale`` ones.  Each leaf
+    is drawn whole, in f32, and cut to the rank's shard (:func:`leaf_spec`),
+    so every mesh holds the same model as one device."""
     ctx = ctx if ctx is not None else ShardCtx()
     coords = ctx.coords()
     cfg = getattr(module, "cfg", None)
     for name, p in module.named_parameters():
         leaf = name.rsplit(".", 1)[-1]
-        if leaf == "scale":
+        if leaf == "scale" or leaf in mamba2.ONE_LEAVES:
             p.fill_(1.0)
-        elif leaf.startswith("b"):
+        elif leaf.startswith("b") or leaf in mamba2.ZERO_LEAVES:
             p.zero_()
         else:
             spec = leaf_spec(name, p.dim(), ctx, cfg)
@@ -179,6 +198,15 @@ class Block(nn.Module):
                                    tp=tp, fsdp=fsdp)
 
 
+class MambaLayer(nn.Module):
+    """One layer of the Mamba2 stacks: a norm, then the SSD block."""
+
+    def __init__(self, cfg: ModelConfig, dtype, device):
+        super().__init__()
+        self.ln1 = Norm(cfg.d_model, device)
+        self.mamba = mamba2.Mamba(cfg, dtype, device)
+
+
 def ffn(p, cfg: ModelConfig, h: torch.Tensor, ctx: ShardCtx | None = None) -> torch.Tensor:
     """A block's MoE (the psum dispatch) or MLP on ``h``, whole over tp."""
     if hasattr(p, "moe"):
@@ -187,16 +215,23 @@ def ffn(p, cfg: ModelConfig, h: torch.Tensor, ctx: ShardCtx | None = None) -> to
 
 
 class LM(nn.Module):
-    """The dense or MoE decoder on ``device`` (default ``"cuda"``; raises without a
-    card unless asked for ``"cpu"``), on one device or, with ``ctx``, this
-    rank's shard of it.  Parameters are allocated, not drawn: call
-    :meth:`init` or load a state (``convert.params_from_reference``)."""
+    """The dense, MoE, Mamba2 or hybrid decoder on ``device`` (default
+    ``"cuda"``; raises without a card unless asked for ``"cpu"``), on one
+    device or, with ``ctx``, this rank's shard of it (dense and MoE only).
+    Parameters are allocated, not drawn: call :meth:`init` or load a state
+    (``convert.params_from_reference``)."""
 
     def __init__(self, cfg: ModelConfig, ctx: ShardCtx | None = None, device="cuda"):
         super().__init__()
         kind = block_kind(cfg)
-        if kind not in ("dense", "moe"):
+        if kind in _LATER:
             raise NotImplementedError(f"{cfg.name}: {_LATER[kind]}")
+        if kind in SSM_KINDS and ctx is not None and (
+                ctx.sp or any(ctx.axis_size(a) > 1 for a in (ctx.tp, ctx.fsdp, *ctx.dp))):
+            raise NotImplementedError(
+                f"{cfg.name}: the Mamba2 stacks on a mesh (tp, sequence or FSDP parallelism: the "
+                "reference's spec_mamba layouts) are a later slice of the port"
+            )
         if cfg.input_kind != "tokens":
             raise NotImplementedError(
                 f"{cfg.name}: precomputed-embedding inputs (the vlm/audio stub "
@@ -209,20 +244,41 @@ class LM(nn.Module):
         if cfg.padded_vocab % tp:
             raise ValueError(f"the padded vocabulary {cfg.padded_vocab} does not split over tp={tp}")
         self.embed = Embed(cfg.padded_vocab // tp, cfg.d_model, dt, dev)
-        n_dense = cfg.moe.first_dense_layers if cfg.moe else 0
-        if n_dense:
-            d_ff = cfg.moe.d_ff_dense or cfg.d_ff
-            self.dense_layers = nn.ModuleList(
-                Block(cfg, dt, dev, d_ff=d_ff, ctx=ctx) for _ in range(n_dense))
-        self.layers = nn.ModuleList(
-            Block(cfg, dt, dev, moe=kind == "moe", ctx=ctx) for _ in range(cfg.num_layers - n_dense)
-        )
+        self.kind = kind
+        if kind in SSM_KINDS:
+            self.layers = nn.ModuleList(MambaLayer(cfg, dt, dev) for _ in range(cfg.num_layers))
+            if self._every:
+                self.shared = Block(cfg, dt, dev)
+        else:
+            n_dense = cfg.moe.first_dense_layers if cfg.moe else 0
+            if n_dense:
+                d_ff = cfg.moe.d_ff_dense or cfg.d_ff
+                self.dense_layers = nn.ModuleList(
+                    Block(cfg, dt, dev, d_ff=d_ff, ctx=ctx) for _ in range(n_dense))
+            self.layers = nn.ModuleList(
+                Block(cfg, dt, dev, moe=kind == "moe", ctx=ctx) for _ in range(cfg.num_layers - n_dense)
+            )
         self.ln_f = Norm(cfg.d_model, dev)
         if not cfg.tie_embeddings:
             self.head = Head(cfg.d_model, cfg.padded_vocab // tp, dt, dev)
 
+    @property
+    def _every(self) -> int:
+        """The hybrid's shared-block period (0: no shared block)."""
+        c = self.cfg
+        return c.shared_attn_every if c.family == "hybrid" else 0
+
+    def _shared_after(self, i: int) -> bool:
+        """Whether the shared block runs after Mamba layer ``i``: at the end
+        of each full segment of ``every`` layers (a short last segment has
+        none after it)."""
+        return bool(self._every) and (i + 1) % self._every == 0
+
     def _stacks(self):
-        """(blocks, k cache name, v cache name), in the order they run."""
+        """(blocks, k cache name, v cache name) of the attention stacks, in
+        the order they run (none for the Mamba2 kinds)."""
+        if self.kind in SSM_KINDS:
+            return
         if hasattr(self, "dense_layers"):
             yield self.dense_layers, "k_dense", "v_dense"
         yield self.layers, "k", "v"
@@ -306,6 +362,8 @@ class LM(nn.Module):
         aux).  The leading dense layers run first; each block is one
         activation checkpoint (non-reentrant), recomputed in the backward."""
         c, ctx, sp = self.cfg, self.ctx, self._sp
+        if self.kind in SSM_KINDS:
+            return self._ssm_forward(tokens)
         if self.cfg.moe is not None and self._tp > 1 and not moe_mod.use_a2a(c, ctx):
             raise ValueError(
                 "training MoE with tp>1 requires the a2a dispatch "
@@ -327,6 +385,23 @@ class LM(nn.Module):
         x = rms_norm(x, self.ln_f.scale, c.norm_eps)
         return self._logits(x), aux_total
 
+    def _mamba_layer(self, layer: MambaLayer, x: torch.Tensor) -> torch.Tensor:
+        y, _, _ = mamba2.mamba_block(layer.mamba, self.cfg, rms_norm(x, layer.ln1.scale, self.cfg.norm_eps))
+        return x + y
+
+    def _ssm_forward(self, tokens: torch.Tensor):
+        """The Mamba2 stacks' training forward: one checkpoint a Mamba
+        block and one a shared invocation (the reference's per-layer and
+        per-invocation ``jax.checkpoint``)."""
+        x = embed_tokens(self.embed.table, tokens.long())
+        positions = torch.arange(x.shape[1], device=x.device)[None, :]
+        for i, layer in enumerate(self.layers):
+            x = checkpoint(self._mamba_layer, layer, x, use_reentrant=False)
+            if self._shared_after(i):
+                x, _ = checkpoint(self._block, self.shared, x, positions, use_reentrant=False)
+        x = rms_norm(x, self.ln_f.scale, self.cfg.norm_eps)
+        return self._logits(x), torch.zeros((), dtype=torch.float32, device=x.device)
+
     def loss(self, batch: dict, aux_weight: float = 0.01):
         """``ce + aux_weight * aux`` over ``batch`` ({"tokens", "labels"},
         (B, T) each, this rank's rows): (loss, {"ce", "aux"}).  On a mesh
@@ -342,11 +417,25 @@ class LM(nn.Module):
     def init_cache(self, batch: int, max_len: int) -> dict:
         """Zeros: ``pos`` (B,) int32 and ``k``/``v`` (L, B, S, KV, hd) of each
         stack (``k_dense``/``v_dense`` for the leading dense layers).  At tp
-        > 1 this rank's chunk of the sequence, S = ``max_len / tp``."""
+        > 1 this rank's chunk of the sequence, S = ``max_len / tp``.  The
+        Mamba2 kinds: ``conv``, ``ssm`` and the hybrid's ``shared_k``/``shared_v``
+        (see the module's docstring)."""
         c = self.cfg
         if max_len % self._tp:
             raise ValueError(f"max_len={max_len} does not split over tp={self._tp} (the sequence-sharded cache)")
         cache = {"pos": torch.zeros(batch, dtype=torch.int32, device=self.device)}
+        if self.kind in SSM_KINDS:
+            s, _, nheads = mamba2.dims(c)
+            L = c.num_layers
+            cache["conv"] = torch.zeros(L, batch, s.conv_width - 1, mamba2.conv_channels(c), dtype=self.dtype,
+                                        device=self.device)
+            cache["ssm"] = torch.zeros(L, batch, nheads, s.state_dim, s.head_dim, dtype=torch.float32,
+                                       device=self.device)
+            if self._every:
+                shape = (L // self._every, batch, max_len, c.num_kv_heads, c.resolved_head_dim)
+                cache["shared_k"] = torch.zeros(shape, dtype=self.dtype, device=self.device)
+                cache["shared_v"] = torch.zeros(shape, dtype=self.dtype, device=self.device)
+            return cache
         for blocks, kn, vn in self._stacks():
             shape = (len(blocks), batch, max_len // self._tp, c.num_kv_heads, c.resolved_head_dim)
             cache[kn] = torch.zeros(shape, dtype=self.dtype, device=self.device)
@@ -377,6 +466,8 @@ class LM(nn.Module):
         x = embed_tokens(self.embed.table, tokens.long(), ctx)
         T = x.shape[1]
         positions = torch.arange(T, device=x.device)[None, :]
+        if self.kind in SSM_KINDS:
+            x = self._ssm_prefill(x, positions, cache)
         for blocks, kn, vn in self._stacks():
             for i, blk in enumerate(blocks):
                 p = self._gathered(blk)
@@ -390,6 +481,47 @@ class LM(nn.Module):
         x = rms_norm(x[:, -1], self.ln_f.scale, c.norm_eps)
         cache["pos"] += T
         return self._whole_logits(x), cache
+
+    def _ssm_prefill(self, x: torch.Tensor, positions: torch.Tensor, cache: dict) -> torch.Tensor:
+        """The Mamba2 stacks over a prompt: every block from zero states,
+        its final conv and ssm states written to the cache; the hybrid's
+        shared block writes its k/v at positions [0, T) of its invocation's
+        cache."""
+        c, inv = self.cfg, 0
+        for i, layer in enumerate(self.layers):
+            y, conv, ssm = mamba2.mamba_block(layer.mamba, c, rms_norm(x, layer.ln1.scale, c.norm_eps))
+            cache["conv"][i].copy_(conv)
+            cache["ssm"][i].copy_(ssm)
+            x = x + y
+            if self._shared_after(i):
+                sp = self.shared
+                y, (k, v) = attn_mod.attention(sp.attn, c, rms_norm(x, sp.ln1.scale, c.norm_eps), positions,
+                                               return_kv=True)
+                self._write_prefill(cache["shared_k"][inv], k)
+                self._write_prefill(cache["shared_v"][inv], v)
+                x = x + y
+                x = x + mlp_mod.mlp(sp.mlp, c, rms_norm(x, sp.ln2.scale, c.norm_eps))
+                inv += 1
+        return x
+
+    def _ssm_decode(self, x: torch.Tensor, cache: dict) -> torch.Tensor:
+        """One token through the Mamba2 stacks, every state written back in
+        place (new tensors copied into the cache's storage)."""
+        c, inv = self.cfg, 0
+        for i, layer in enumerate(self.layers):
+            y, conv, ssm = mamba2.mamba_decode(layer.mamba, c, rms_norm(x, layer.ln1.scale, c.norm_eps),
+                                               cache["conv"][i], cache["ssm"][i])
+            cache["conv"][i].copy_(conv)
+            cache["ssm"][i].copy_(ssm)
+            x = x + y
+            if self._shared_after(i):
+                sp = self.shared
+                y, _, _ = attn_mod.decode_attention(sp.attn, c, rms_norm(x, sp.ln1.scale, c.norm_eps),
+                                                    cache["shared_k"][inv], cache["shared_v"][inv], cache["pos"])
+                x = x + y
+                x = x + mlp_mod.mlp(sp.mlp, c, rms_norm(x, sp.ln2.scale, c.norm_eps))
+                inv += 1
+        return x
 
     def _whole_logits(self, x: torch.Tensor) -> torch.Tensor:
         """:meth:`_logits` with every vocab shard (all-gathered over tp at tp
@@ -425,6 +557,8 @@ class LM(nn.Module):
         c, ctx = self.cfg, self.ctx
         pos = cache["pos"]
         x = embed_tokens(self.embed.table, tokens.long(), ctx)[:, None, :]
+        if self.kind in SSM_KINDS:
+            x = self._ssm_decode(x, cache)
         for blocks, kn, vn in self._stacks():
             for i, blk in enumerate(blocks):
                 p = self._gathered(blk)

@@ -1,13 +1,14 @@
 """The in-network sort dataplane on tensors: wire, flows, the hop engines,
 fabrics, control plane, link timing, faults, streaming servers, egress pool,
 the end-to-end ``run_pipeline`` and the multi-tenant scheduler (counterpart
-of ``repro.net``).
+of ``repro.net``, with the same exports).
 
-The package re-exports the control plane (:mod:`.control`, the adaptive
-``"sampled"`` plane included), the link timing model (:mod:`.timing`), the
-fault plane (:mod:`.faults`), the hop engines' registry (:mod:`.engine`) and
-the multi-tenant scheduler (:mod:`.scheduler`); the rest is imported from
-its module.
+The reference's packet-list forms are here too: :func:`interleave` (and
+:data:`INTERLEAVES`) and :func:`jitter_delivery` over lists of
+:class:`Packet`, on the batch forms' schedules; :class:`SwitchHop` runs a
+wire batch (``process_batch``) and refuses the list view.
+``pallas_row_sort`` is the hop's row sort on kernel K1
+(:func:`~repro_torch.net.engine.row_sort_device`).
 """
 
 from .control import (
@@ -17,7 +18,27 @@ from .control import (
     ReservoirSampler,
     ranges_valid,
 )
-from .engine import ENGINES, HOP_ENGINES, passthrough_hop
+from .device_epoch import (
+    DeviceDelivery,
+    device_hop,
+    device_self_check,
+    run_graph_device,
+)
+from .egress import (
+    ServerPool,
+    segment_affinity,
+)
+from .engine import (
+    ENGINES,
+    HOP_ENGINES,
+    HopSpec,
+    HopStats,
+    emission_to_wire,
+    fused_hop,
+    pallas_row_sort,
+    passthrough_hop,
+    run_hop,
+)
 from .faults import (
     FAULT_KINDS,
     HOP_STATES,
@@ -25,6 +46,28 @@ from .faults import (
     Fault,
     FaultPlan,
     parse_fault_plan,
+)
+from .flow import (
+    INTERLEAVES,
+    Flow,
+    interleave,
+    interleave_batch,
+    split_flows,
+)
+from .packet import (
+    DEFAULT_PAYLOAD,
+    UNTAGGED,
+    Packet,
+    depacketize,
+    packetize,
+    segment_streams,
+)
+from .pipeline import (
+    PipelineResult,
+    jitter_delivery,
+    jitter_delivery_batch,
+    plain_stream_sort,
+    run_pipeline,
 )
 from .scheduler import (
     PACKABLE_ENGINES,
@@ -34,6 +77,11 @@ from .scheduler import (
     MultiTenantResult,
     run_job_solo,
     run_jobs,
+)
+from .server import (
+    MERGE_BACKENDS,
+    StreamingServer,
+    stream_sort,
 )
 from .timing import (
     POLICIES,
@@ -45,6 +93,30 @@ from .timing import (
     resequence,
     simulate_link,
 )
+from .topology import (
+    TOPOLOGIES,
+    AggregationTree,
+    HopGraph,
+    HopNode,
+    LeafSpine,
+    SingleSwitch,
+    SwitchHop,
+    leaf_spine_graph,
+    make_topology,
+    run_graph,
+    single_graph,
+    tree_graph,
+)
+from .wire import (
+    WireBatch,
+    concat_batches,
+    merge_round_robin_batches,
+    packetize_batch,
+    ragged_arange,
+    ragged_gather,
+    segment_streams_batch,
+    split_by_flow,
+)
 
 __all__ = [
     "RANGE_MODES",
@@ -52,15 +124,43 @@ __all__ = [
     "ControlPlane",
     "ReservoirSampler",
     "ranges_valid",
-    "ENGINES",
-    "HOP_ENGINES",
-    "passthrough_hop",
     "FAULT_KINDS",
     "HOP_STATES",
     "EpochFaults",
     "Fault",
     "FaultPlan",
     "parse_fault_plan",
+    "DeviceDelivery",
+    "device_hop",
+    "device_self_check",
+    "run_graph_device",
+    "ServerPool",
+    "segment_affinity",
+    "ENGINES",
+    "HOP_ENGINES",
+    "HopSpec",
+    "HopStats",
+    "emission_to_wire",
+    "fused_hop",
+    "pallas_row_sort",
+    "passthrough_hop",
+    "run_hop",
+    "INTERLEAVES",
+    "Flow",
+    "interleave",
+    "interleave_batch",
+    "split_flows",
+    "DEFAULT_PAYLOAD",
+    "UNTAGGED",
+    "Packet",
+    "depacketize",
+    "packetize",
+    "segment_streams",
+    "PipelineResult",
+    "jitter_delivery",
+    "jitter_delivery_batch",
+    "plain_stream_sort",
+    "run_pipeline",
     "PACKABLE_ENGINES",
     "AdmissionController",
     "Job",
@@ -68,6 +168,9 @@ __all__ = [
     "MultiTenantResult",
     "run_job_solo",
     "run_jobs",
+    "MERGE_BACKENDS",
+    "StreamingServer",
+    "stream_sort",
     "POLICIES",
     "LinkSpec",
     "LinkStats",
@@ -76,4 +179,24 @@ __all__ = [
     "merge_reports",
     "resequence",
     "simulate_link",
+    "TOPOLOGIES",
+    "AggregationTree",
+    "HopGraph",
+    "HopNode",
+    "LeafSpine",
+    "SingleSwitch",
+    "SwitchHop",
+    "leaf_spine_graph",
+    "make_topology",
+    "run_graph",
+    "single_graph",
+    "tree_graph",
+    "WireBatch",
+    "concat_batches",
+    "merge_round_robin_batches",
+    "packetize_batch",
+    "ragged_arange",
+    "ragged_gather",
+    "segment_streams_batch",
+    "split_by_flow",
 ]

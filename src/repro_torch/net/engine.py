@@ -176,6 +176,10 @@ def row_sort_device(mat: torch.Tensor, row_len: torch.Tensor) -> torch.Tensor:
     return out.to(torch.int64)
 
 
+#: The reference's name for the hop's row sort (``repro.net.engine.pallas_row_sort``).
+pallas_row_sort = row_sort_device
+
+
 # ---------------------------------------------------------------------------
 # Emission -> wire
 # ---------------------------------------------------------------------------

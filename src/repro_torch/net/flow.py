@@ -15,7 +15,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from .packet import DEFAULT_PAYLOAD, UNTAGGED
+from .packet import DEFAULT_PAYLOAD, UNTAGGED, Packet, packetize
 from .wire import WireBatch, ragged_gather
 
 
@@ -35,6 +35,9 @@ class Flow:
     @property
     def num_packets(self) -> int:
         return -(-int(self.values.numel()) // self.payload_size)
+
+    def packets(self) -> list[Packet]:
+        return packetize(self.values, self.payload_size, flow_id=self.flow_id)
 
 
 def split_flows(
@@ -168,3 +171,49 @@ def interleave_batch(
         torch.full((n,), UNTAGGED, dtype=torch.int64, device=dev),
         flow_sizes=tuple(zip(ids.tolist(), sizes.tolist())),
     )
+
+
+# ---------------------------------------------------------------------------
+# Packet-list views (the reference's list forms, over the same schedules)
+# ---------------------------------------------------------------------------
+
+
+def interleave(
+    flows: list[Flow], mode: str = "round_robin", seed: int = 0, **kw
+) -> list[Packet]:
+    """Merge all flows into one arrival-ordered packet stream (list view of
+    :func:`interleave_batch`: the same schedule, one :class:`Packet` a grant)."""
+    try:
+        schedule = _SCHEDULES[mode]
+    except KeyError:
+        raise ValueError(
+            f"unknown interleave {mode!r}; options: {sorted(_SCHEDULES)}"
+        ) from None
+    counts = np.asarray([f.num_packets for f in flows], dtype=np.int64)
+    F, J = schedule(counts, seed=seed, **kw)
+    per_flow = [f.packets() for f in flows]
+    return [per_flow[f][j] for f, j in zip(F.tolist(), J.tolist())]
+
+
+def round_robin(flows: list[Flow], seed: int = 0) -> list[Packet]:
+    """One packet per flow per turn until all flows drain."""
+    return interleave(flows, "round_robin", seed=seed)
+
+
+def bursty(flows: list[Flow], seed: int = 0, mean_burst: int = 4) -> list[Packet]:
+    """Geometric bursts: a flow holds the link for ~``mean_burst`` packets."""
+    return interleave(flows, "bursty", seed=seed, mean_burst=mean_burst)
+
+
+def weighted_fair(
+    flows: list[Flow], seed: int = 0, weights: list[float] | None = None
+) -> list[Packet]:
+    """Weighted fair queueing: draw the next transmitting flow by weight."""
+    return interleave(flows, "weighted_fair", seed=seed, weights=weights)
+
+
+INTERLEAVES = {
+    "round_robin": round_robin,
+    "bursty": bursty,
+    "weighted_fair": weighted_fair,
+}

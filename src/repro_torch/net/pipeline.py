@@ -51,7 +51,7 @@ from .egress import ServerPool
 from .engine import HopStats
 from .faults import FaultPlan, parse_fault_plan
 from .flow import interleave_batch, split_flows
-from .packet import DEFAULT_PAYLOAD
+from .packet import DEFAULT_PAYLOAD, Packet
 from .server import StreamingServer
 from .topology import make_topology
 from .wire import (
@@ -134,6 +134,18 @@ class PipelineResult:
                 v = _to_numpy(v)
             out[f.name] = v
         return out
+
+
+def jitter_delivery(packets: list[Packet], window: int, seed: int = 0) -> list[Packet]:
+    """Bounded-displacement reorder of a packet list (the list view of
+    :func:`jitter_delivery_batch`): packet ``i`` departs at priority ``i +
+    U[0, window)`` (numpy ``default_rng``), stable ties, so every packet
+    lands less than ``window`` places from where it started."""
+    if window <= 0:
+        return list(packets)
+    rng = np.random.default_rng(seed)
+    pri = np.arange(len(packets), dtype=np.int64) + rng.integers(0, window, len(packets))
+    return [packets[i] for i in np.argsort(pri, kind="stable")]
 
 
 def jitter_delivery_batch(batch: WireBatch, window: int, seed: int = 0) -> WireBatch:

@@ -35,6 +35,37 @@ from .wire import WireBatch, merge_round_robin_batches, split_by_flow
 
 
 @dataclasses.dataclass(frozen=True)
+class SwitchHop:
+    """One programmable switch addressed on its own (the reference's
+    ``SwitchHop``): :meth:`process_batch` runs an arrival batch through a
+    hop engine.  The reference's packet-list view, :meth:`process`, raises:
+    the port moves wire batches only (build one with
+    :func:`~repro_torch.net.flow.interleave_batch` or
+    :func:`~repro_torch.net.wire.packetize_batch`)."""
+
+    name: str
+    num_segments: int
+    segment_length: int
+    max_value: int
+    ranges: torch.Tensor = dataclasses.field(compare=False)
+    faithful: bool = False
+    payload_size: int = DEFAULT_PAYLOAD
+    engine: str | None = None  # None -> "faithful" if faithful else "fused"
+
+    def process_batch(self, batch: WireBatch) -> tuple[WireBatch, HopStats]:
+        """Run the arrival batch through MergeMarathon; re-packetize."""
+        spec = HopSpec(self.num_segments, self.segment_length, self.max_value, self.ranges,
+                       payload_size=self.payload_size)
+        return run_hop(batch, spec, self.name, self.engine or ("faithful" if self.faithful else "fused"))
+
+    def process(self, packets):
+        raise NotImplementedError(
+            "SwitchHop.process takes packet lists, which the port does not move: "
+            "use SwitchHop.process_batch on a WireBatch"
+        )
+
+
+@dataclasses.dataclass(frozen=True)
 class HopNode:
     """One switch in a fabric: an ingress group XOR a tuple of parents."""
 

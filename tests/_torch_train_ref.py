@@ -12,6 +12,7 @@ import torch
 from repro import models as ref_models
 from repro.configs import get_smoke_config as ref_get_smoke
 from repro.distributed.sharding import local_ctx
+from repro.launch import train as ref_train_cli
 from repro_torch import configs, models
 from repro_torch.data.tokens import TokenPipeline
 from repro_torch.models.convert import params_from_reference
@@ -68,3 +69,31 @@ def _port_steps(model, n: int, seed: int, microbatches: int = 1, state=None):
         state, met = step(state, _tb(pipe.next_batch()))
         out.append((float(met["loss"]), float(met["grad_norm"])))
     return state, out
+
+
+def _ref_cli(monkeypatch, argv: list[str]) -> list[dict]:
+    """The reference's training CLI on the float32 smoke config; returns one
+    record per step it ran (its own log rounds them)."""
+    records = []
+
+    def recording_jit(fn, **kw):
+        step = jax.jit(fn, **kw)
+
+        def call(params, opt_state, batch):
+            out = step(params, opt_state, batch)
+            records.append({k: float(out[2][k]) for k in ("loss", "grad_norm", "lr")})
+            return out
+        return call
+
+    class _Jax:  # the module's view of jax, with the step's jit recording
+        jit = staticmethod(recording_jit)
+
+        def __getattr__(self, name):
+            return getattr(jax, name)
+
+    monkeypatch.setattr(ref_train_cli, "jax", _Jax())
+    monkeypatch.setattr(ref_train_cli, "get_smoke_config",
+                        lambda arch: dataclasses.replace(ref_get_smoke(arch), dtype="float32"))
+    monkeypatch.setattr("sys.argv", ["train", *argv])
+    ref_train_cli.main()
+    return records

@@ -1,6 +1,6 @@
-"""The port stands alone: ``repro_torch`` and ``chip_smoke.py`` import no jax
-and nothing of the reference package, and the entry points never fall back
-to the CPU on their own."""
+"""The port stands alone: ``repro_torch``, ``chip_smoke.py`` and the example
+twins (``examples/torch_*.py``) import no jax and nothing of the reference
+package, and the entry points never fall back to the CPU on their own."""
 
 import importlib
 import pkgutil
@@ -53,7 +53,8 @@ def test_every_port_module_imports_without_jax_or_reference():
             "repro_torch.distributed.sharding", "repro_torch.distributed.pp",
             "repro_torch.launch.mesh", "repro_torch.launch.train", "repro_torch.launch.serve",
             "repro_torch.models.convert", "repro_torch.train.train_step",
-            "repro_torch.train.optimizer", "repro_torch.distributed.collectives"} <= set(names)
+            "repro_torch.train.optimizer", "repro_torch.distributed.collectives",
+            "repro_torch.models.mamba2", "repro_torch.configs.paper_sort"} <= set(names)
     code = (
         "import importlib, sys\n"
         f"for name in {names!r}:\n"
@@ -69,7 +70,8 @@ def test_every_port_module_imports_without_jax_or_reference():
     )
 
 
-@pytest.mark.parametrize("path", sorted(str(p.relative_to(ROOT)) for p in PORT.rglob("*.py")) + ["chip_smoke.py"])
+@pytest.mark.parametrize("path", sorted(str(p.relative_to(ROOT)) for p in PORT.rglob("*.py")) + ["chip_smoke.py"]
+                         + sorted(str(p.relative_to(ROOT)) for p in (ROOT / "examples").glob("torch_*.py")))
 def test_source_has_no_jax_or_reference_import(path):
     text = (ROOT / path).read_text()
     for pat in FORBIDDEN:

@@ -51,7 +51,6 @@ from repro.data import synthetic as ref_synthetic
 from repro.data.tokens import TokenPipeline as RefTokenPipeline
 from repro.distributed import collectives as ref_coll
 from repro.distributed.sharding import local_ctx
-from repro.launch import train as ref_train_cli
 from repro.models import layers as ref_layers
 from repro.train import optimizer as ref_opt
 from repro.train.checkpoint import CheckpointManager as RefCheckpointManager
@@ -68,7 +67,7 @@ from repro_torch.train import optimizer as opt
 from repro_torch.train.checkpoint import AsyncCheckpointer, CheckpointManager
 from repro_torch.train.train_step import build_train_step
 
-from _torch_train_ref import _close, _close_tree, _jb, _port, _port_steps, _ref, _tb
+from _torch_train_ref import _close, _close_tree, _jb, _port, _port_steps, _ref, _ref_cli, _tb
 
 # -- data and helpers --------------------------------------------------------------
 
@@ -461,34 +460,6 @@ def test_reference_tree_round_trip_is_bit_exact(arch):
             assert g.dtype == getattr(torch, w.dtype.name) and g.shape == w.shape
             assert np.array_equal(_bits(g), _bits(w))
     assert any(w.dtype.name == "bfloat16" for w in jax.tree.leaves(tree))
-
-
-def _ref_cli(monkeypatch, argv: list[str]) -> list[dict]:
-    """The reference's training CLI on the float32 smoke config; returns one
-    record per step it ran (its own log rounds them)."""
-    records = []
-
-    def recording_jit(fn, **kw):
-        step = jax.jit(fn, **kw)
-
-        def call(params, opt_state, batch):
-            out = step(params, opt_state, batch)
-            records.append({k: float(out[2][k]) for k in ("loss", "grad_norm", "lr")})
-            return out
-        return call
-
-    class _Jax:  # the module's view of jax, with the step's jit recording
-        jit = staticmethod(recording_jit)
-
-        def __getattr__(self, name):
-            return getattr(jax, name)
-
-    monkeypatch.setattr(ref_train_cli, "jax", _Jax())
-    monkeypatch.setattr(ref_train_cli, "get_smoke_config",
-                        lambda arch: dataclasses.replace(ref_get_smoke(arch), dtype="float32"))
-    monkeypatch.setattr("sys.argv", ["train", *argv])
-    ref_train_cli.main()
-    return records
 
 
 @pytest.mark.parametrize("writer", ["reference", "port"])

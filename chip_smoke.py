@@ -11,11 +11,11 @@ deepseek-moe-16b cut to 10), the sharded fabric at one rank
 (``sort_sharded``, the pool's ``shard_map`` backend, ``moe_layer_a2a``), the
 LM on a (data, model) mesh at one rank (training and the serve CLI),
 attention at any tp, the hybrid Mamba2 + shared-attention LM
-(zamba2-1.2b, served and trained) and the example twins.  Phases, one JSON
-line each:
+(zamba2-1.2b, served and trained), the RWKV6 LM (rwkv6-1.6b, served and
+trained) and the example twins.  Phases, one JSON line each:
 
 1. ``device``   -- the card (``nvidia-smi`` name and power limit), torch and
-   CUDA versions, and the seconds the seven hand-written kernels took to build
+   CUDA versions, and the seconds the nine hand-written kernels took to build
    from ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per source, in
    parallel);
 2. ``k1``, ``k2`` -- kernels K1 (row sort) and K2 (tournament merge) against
@@ -203,12 +203,34 @@ line each:
    and its first step again with the kernels plain.  The ``kernels`` line's
    K5, K6 and K5b rows gain ``zamba2`` (the shape, launches, times and
    bound) and K3's, K5's and K6's ``deepseek_serve_launches``;
-15. ``examples`` -- each example twin (``examples/torch_*.py``) once on the
+15. ``k7``, ``serve_rwkv``, ``train_rwkv`` -- RWKV6's WKV recurrence: K7
+   (forward) and K7b (backward) against their plain versions at T 1, 7 and
+   64 with B x H 1 and 6 and at the training shape (B 4, T 2,048, H 32),
+   decays exp(-exp(w)) for w in [-8, 3], nonzero u and s0 (limit
+   ``wkv_limit``); K7 at T 1 in place on a layer's and on a slot's slice of
+   a stacked (L, B, H, 64, 64) cache; an r whose last axis is not
+   contiguous refused; K7b's three passes counted as the kernel nodes of
+   one captured call; eager, graph (24 calls replayed) and plain ms at the
+   training shape beside the float32 bound.  Then rwkv6-1.6b: its smoke
+   config in float32 on the card against the CPU (logits within 1e-4,
+   greedy tokens equal, the graph's equal the eager step's), the full model
+   (24 layers, d_model 2,048, 32 heads of 64, vocab 65,536, bf16 from
+   ``--seed``, nothing cut) through the ``Engine`` at the serve traffic: K7
+   24 launches a prefill and 24 kernel nodes a decode replay, held exactly,
+   each request's prefill seconds, each cache leaf's bytes; a prefill and 4
+   steps with K7 plain against the kernel (``full_width_parity``).  Then
+   ``TRAIN_RWKV`` (B 4 x 2,048, 4 AdamW steps, nothing cut: K7 48 / K7b 24
+   launches a step, held exactly), its step cut into the RWKV6 blocks, AdamW
+   and the rest, and the first step at the cut shape B 1 x 256 with the
+   kernels and with K7 and K7b plain.  The ``kernels`` line gains K7's
+   (with its serve shapes, prefill and decode) and K7b's rows (``library_ms``
+   null: no single PyTorch call computes the recurrence);
+16. ``examples`` -- each example twin (``examples/torch_*.py``) once on the
    card at its reference example's default size, one after the other, its
    lines (times, the serve twin's sampled tokens and the training twin's
    losses masked) equal to the same twin's on the CPU, run in background
    processes started before the serve phases;
-16. ``ptxas`` -- every kernel entry's registers, static shared memory and
+17. ``ptxas`` -- every kernel entry's registers, static shared memory and
    spills, as the compiler reported them when it built the kernels; a
    spill in any entry fails the run.
 
@@ -241,6 +263,9 @@ ROOT = Path(__file__).resolve().parent
 #: more, the two selects of the int32 values.
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOP_PER_S = 989e12
+#: The WKV recurrence (K7, K7b) is float32 on the CUDA cores: 67e12 flop/s
+#: of float32 outside the tensor cores (the same data sheet), an FMA two.
+F32_FLOP_PER_S = 67e12
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
 OPS_PER_COMPARE_EXCHANGE = {4: 2, 8: 6}
 OPS_PER_KV_COMPARE_EXCHANGE = {4: 4, 8: 8}
@@ -283,6 +308,29 @@ HYBRID_ARCH = "zamba2-1.2b"
 DEEPSEEK_ARCH = "deepseek-moe-16b"
 TRAIN_HYBRID = dict(arch=HYBRID_ARCH, batch=4, seq=2048, steps=4, lr=3e-4)
 TRAIN_DEEPSEEK = dict(arch=DEEPSEEK_ARCH, layers=10, batch=2, seq=2048, steps=3, lr=3e-4)
+
+#: RWKV6 (rwkv6-1.6b: 24 layers, d_model 2,048, 32 heads of 64, vocab 65,536)
+#: served at ``SERVE``'s traffic and trained at full width and depth, nothing
+#: cut.  Its plain-kernel check runs the first step at the cut shape
+#: ``plain_batch`` x ``plain_seq`` (B 1 x 256), with the kernels and then with
+#: K7 and K7b plain: the plain WKV is a host loop of T steps a layer (its
+#: backward keeps every step's state), which at B 4 x 2,048 would take
+#: minutes.
+#: That check runs on a float32 model (``plain_dtype``) of 4 layers
+#: (``plain_layers``).  At the initial weights (every decay near 0.9975) the
+#: gradient grows some 25,000x from the last layer's WKV to the first's, so
+#: the backward is ill-conditioned: on an H100 K7 and K7b agreed with their
+#: plain versions to 1e-6 relative on every one of the 24 layers' own inputs,
+#: yet the two steps' gradient norms came out 1,177 and 1,697 in float32
+#: (5,898 and 12,366 in bf16), each deterministic; at 4 layers they agree to
+#: rounding.
+RWKV_ARCH = "rwkv6-1.6b"
+TRAIN_RWKV = dict(arch=RWKV_ARCH, batch=4, seq=2048, steps=4, lr=3e-4, plain_batch=1, plain_seq=256,
+                  plain_dtype="float32", plain_layers=4)
+#: K7's and K7b's checks (the ``k7`` phase): (B, T, H) with T 1, 7 and 64 and
+#: B x H 1 and 6, then the training shape.
+K7_SMALL = tuple((b, t, h) for t in (1, 7, 64) for b, h in ((1, 1), (2, 3)))
+K7_TRAIN = (4, 2048, 32)
 
 #: The example twins (``examples/torch_*.py``), each at its reference
 #: example's default size, on the card in this process and on the CPU in a
@@ -581,10 +629,10 @@ class LargestShape:
         self.dtype = None
         self.numel = -1
 
-    def __call__(self, x, *rest):
+    def __call__(self, x, *rest, **kw):
         if x.numel() > self.numel:
             self.shape, self.dtype, self.numel = tuple(x.shape), x.dtype, x.numel()
-        return self.orig(x, *rest)
+        return self.orig(x, *rest, **kw)
 
     def __enter__(self):
         setattr(self.module, self.attr, self)
@@ -2031,7 +2079,12 @@ def full_width_parity(torch, model, gen) -> dict:
     steps) through the kernels and through their plain versions.
 
     Dense: K5 and K6 plain; the logits within 5% of their scale, every
-    argmax equal.  MoE: K3 plain; every dispatch (order, slots, dropped)
+    argmax equal.  RWKV6: K7 plain, on a float32 copy of the model (the
+    same weights): the logits within 1e-3 of their scale, every argmax
+    equal; the bf16 model's own difference is recorded beside it, not held
+    (its bf16 roundings of the WKV's output, one place apart on the two
+    sides, grow over 24 layers to some 9% of the logits' scale at the
+    initial weights).  MoE: K3 plain; every dispatch (order, slots, dropped)
     and every logit identical.  K5 and K6 stay on their kernels there: the
     router's strict top-k flips near-ties on a bf16 rounding one place
     apart, so a plain attention path routes some tokens elsewhere (PERF.md
@@ -2040,36 +2093,60 @@ def full_width_parity(torch, model, gen) -> dict:
     from repro_torch.kernels import bitonic as bt
     from repro_torch.kernels import flash_attention as fa_mod
     from repro_torch.kernels.decode_attention import decode_attention_plain
+    from repro_torch.kernels.wkv import wkv_plain
     from repro_torch.models import attention as attn_mod
     from repro_torch.models import moe as moe_mod
+    from repro_torch.models import rwkv6 as rwkv_mod
 
     is_moe = model.cfg.moe is not None
+    is_rwkv = model.cfg.rwkv is not None
     toks = torch.randint(0, model.cfg.vocab_size, (1, 64), generator=gen, device="cuda")
 
-    def run(plain: bool):
-        saved = (attn_mod.flash_attention, attn_mod.decode_attention_kernel, bt.sort_rows_kv)
+    def run(plain: bool, net=model):
+        saved = (attn_mod.flash_attention, attn_mod.decode_attention_kernel, bt.sort_rows_kv, rwkv_mod.wkv)
         if plain and is_moe:
             bt.sort_rows_kv = bt.sort_rows_kv_plain
+        elif plain and is_rwkv:
+            rwkv_mod.wkv = wkv_plain
         elif plain:
             attn_mod.flash_attention = fa_mod.flash_attention_plain
             attn_mod.decode_attention_kernel = decode_attention_plain
         try:
             with MoERecorder(moe_mod, keep=True) as rec:
-                cache = model.init_cache(1, 128)
-                logits, cache = model.prefill(toks, cache)
+                cache = net.init_cache(1, 128)
+                logits, cache = net.prefill(toks, cache)
                 seq = [logits.float()]
                 tok = toks[:, -1]
                 for _ in range(4):
-                    logits, cache = model.decode_step(cache, tok)
+                    logits, cache = net.decode_step(cache, tok)
                     seq.append(logits.float())
                     tok = logits.argmax(-1)
         finally:
-            attn_mod.flash_attention, attn_mod.decode_attention_kernel, bt.sort_rows_kv = saved
+            attn_mod.flash_attention, attn_mod.decode_attention_kernel, bt.sort_rows_kv, rwkv_mod.wkv = saved
         out = torch.stack(seq)
         if not torch.isfinite(out).all():
             fail("full-width logits are not finite")
         return out, rec
 
+    if is_rwkv:
+        import dataclasses
+
+        from repro_torch import models as models_mod
+
+        bf16_err = (run(False)[0] - run(True)[0]).abs().max().item()
+        f32 = models_mod.build(dataclasses.replace(model.cfg, dtype="float32"), device="cuda")
+        f32.load_state_dict(model.state_dict())
+        kern, _ = run(False, f32)
+        plain, _ = run(True, f32)
+        del f32
+        torch.cuda.empty_cache()
+        err, scale = (kern - plain).abs().max().item(), plain.abs().max().item()
+        if err > 1e-3 * scale or not torch.equal(kern.argmax(-1), plain.argmax(-1)):
+            fail(f"full-width float32 logits through K7 differ from the plain path by {err} (scale {scale}) "
+                 "or in an argmax")
+        return {"plain": "k7", "dtype": "float32 copy of the bf16 weights", "logits_max_abs_err": err,
+                "logits_max_abs": scale, "limit": "1e-3 of the logits' largest magnitude", "argmax_equal": True,
+                "bf16_logits_max_abs_err": bf16_err}
     kern, krec = run(False)
     plain, prec = run(True)
     err = (kern - plain).abs().max().item()
@@ -2093,12 +2170,17 @@ def full_width_parity(torch, model, gen) -> dict:
 
 
 def attention_layers(cfg) -> int:
-    """The attention layers a token passes through: every layer, or the
+    """The attention layers a token passes through: every layer, the
     hybrid's shared-block invocations (one after each full segment of
-    ``shared_attn_every`` Mamba2 layers)."""
+    ``shared_attn_every`` Mamba2 layers), or none (Mamba2, RWKV6)."""
     if cfg.family == "hybrid":
         return cfg.num_layers // cfg.shared_attn_every
-    return 0 if cfg.ssm is not None else cfg.num_layers
+    return 0 if cfg.ssm is not None or cfg.rwkv is not None else cfg.num_layers
+
+
+def rwkv_layers(cfg) -> int:
+    """The RWKV6 blocks a token passes through (each runs K7 once)."""
+    return cfg.num_layers if cfg.rwkv is not None else 0
 
 
 def phase_serve(torch, np, args, arch: str, phase: str, smoke_archs) -> dict:
@@ -2112,6 +2194,7 @@ def phase_serve(torch, np, args, arch: str, phase: str, smoke_archs) -> dict:
     from repro_torch.kernels import build
     from repro_torch.models import attention as attn_mod
     from repro_torch.models import moe as moe_mod
+    from repro_torch.models import rwkv6 as rwkv_mod
     from repro_torch.serve.engine import Engine, Request
 
     parity = [serve_parity_small(torch, np, a) for a in smoke_archs]
@@ -2119,6 +2202,7 @@ def phase_serve(torch, np, args, arch: str, phase: str, smoke_archs) -> dict:
     cfg = configs.get_config(arch)
     moe_layers = cfg.num_layers - cfg.moe.first_dense_layers if cfg.moe else 0
     attn_layers = attention_layers(cfg)
+    wkv_layers = rwkv_layers(cfg)
     t0 = time.perf_counter()
     model = models.build(cfg, device="cuda")
     model.init(torch.Generator(device="cuda").manual_seed(args.seed))
@@ -2135,7 +2219,7 @@ def phase_serve(torch, np, args, arch: str, phase: str, smoke_archs) -> dict:
         plen = int(rng.integers(SERVE["prompt_min"], SERVE["prompt_max"] + 1))
         prompts.append(rng.integers(0, cfg.vocab_size, size=plen).tolist())
     want = {"flash_attention": attn_layers, "decode_attention": attn_layers,
-            "row_sort_kv": moe_layers, "row_sort": 0, "tournament": 0, "merge_rows": 0}
+            "row_sort_kv": moe_layers, "wkv": wkv_layers, "row_sort": 0, "tournament": 0, "merge_rows": 0}
 
     def engine_run(eager: bool, after_step=None):
         """One Engine over the 8 requests; the counters zeroed just before
@@ -2182,7 +2266,7 @@ def phase_serve(torch, np, args, arch: str, phase: str, smoke_archs) -> dict:
 
     def hold(launches: dict, prefills: int, steps: int, what: str) -> None:
         for name, per in want.items():
-            n = per * (prefills + steps) if name == "row_sort_kv" else (
+            n = per * (prefills + steps) if name in ("row_sort_kv", "wkv") else (
                 per * prefills if name == "flash_attention" else per * steps)
             if launches[name] != n:
                 fail(f"{arch} {what}: {name} launched {launches[name]} times, want {n} "
@@ -2192,20 +2276,24 @@ def phase_serve(torch, np, args, arch: str, phase: str, smoke_archs) -> dict:
     eng, prefill, decode, finished, run_s, g_launches, peak = engine_run(False)
     entries = ["flash_fwd", "flash_fwd_bf16", "decode_partial", "decode_merge", "chunk_stages",
                "strided_stages", "global_stage", "row_sort_kernel", "tile_merge", "merge_round",
-               "merge_tile", "global_first", "global_cleaner"]
+               "merge_tile", "global_first", "global_cleaner", "wkv_forward"]
     nodes = build.graph_kernel_nodes(eng.decode_graph, entries)
     per_replay = {"flash_attention": nodes["flash_fwd"] + nodes["flash_fwd_bf16"],
                   "decode_attention": nodes["decode_partial"],
                   "row_sort_kv": nodes["chunk_stages"] + nodes["strided_stages"] + nodes["global_stage"],
                   "row_sort": nodes["row_sort_kernel"], "tournament": nodes["tile_merge"] + nodes["merge_round"],
-                  "merge_rows": nodes["merge_tile"] + nodes["global_first"] + nodes["global_cleaner"]}
+                  "merge_rows": nodes["merge_tile"] + nodes["global_first"] + nodes["global_cleaner"],
+                  "wkv": nodes["wkv_forward"]}
     if eng.decode_steps != decode.calls:
         fail(f"{arch}: the engine counted {eng.decode_steps} replays, the timer {decode.calls}")
-    if g_launches["decode_attention"] or (moe_layers and g_launches["row_sort_kv"] != moe_layers * prefill.calls):
+    if g_launches["decode_attention"] or any(g_launches[k] != want[k] * prefill.calls for k in ("row_sort_kv", "wkv")):
         fail(f"{arch}: a decode-step kernel launched outside the graph")
+    if per_replay["wkv"] != wkv_layers:
+        fail(f"{arch}: a decode-graph replay holds {per_replay['wkv']} K7 nodes, want {wkv_layers}")
     launches = {k: g_launches[k] + per_replay[k] * decode.calls for k in want}
     hold(launches, prefill.calls, decode.calls, "graph run")
-    if launches["flash_attention"] < 1 or launches["decode_attention"] < 1 or (moe_layers and launches["row_sort_kv"] < 1):
+    names = [k for k in ("flash_attention", "decode_attention", "row_sort_kv", "wkv") if want[k]]
+    if any(launches[k] < 1 for k in names):
         fail(f"a kernel of the {arch} serve path never launched")
     graph_line = rates(prefill, decode, finished, run_s)
     if cfg.ssm is not None:  # admitted in request order: one prefill each
@@ -2215,6 +2303,9 @@ def phase_serve(torch, np, args, arch: str, phase: str, smoke_archs) -> dict:
             {"rid": rid, "prefill_tokens": len(p) - 1, "Q": chunk_len(cfg, len(p) - 1),
              "chunks": (len(p) - 1) // chunk_len(cfg, len(p) - 1), "prefill_s": t}
             for rid, (p, t) in enumerate(zip(prompts, prefill.times))]
+    elif cfg.rwkv is not None:
+        graph_line["prefill_requests"] = [{"rid": rid, "prefill_tokens": len(p) - 1, "prefill_s": t}
+                                          for rid, (p, t) in enumerate(zip(prompts, prefill.times))]
     cache_bytes = {k: v.numel() * v.element_size() for k, v in eng.cache.items()}
     graph_tokens = sorted((r.rid, r.out) for r in finished)
     first_tokens = [r.out[:4] for r in sorted(finished, key=lambda r: r.rid)]
@@ -2227,15 +2318,17 @@ def phase_serve(torch, np, args, arch: str, phase: str, smoke_archs) -> dict:
     step_lengths = []
     with AttnRecorder(attn_mod, "flash_attention") as k5_in, \
             AttnRecorder(attn_mod, "decode_attention_kernel") as k6_in, \
-            LargestShape(bt, "sort_rows_kv") as k3_in, MoERecorder(moe_mod) as moe_rec:
+            LargestShape(bt, "sort_rows_kv") as k3_in, MoERecorder(moe_mod) as moe_rec, \
+            LargestShape(rwkv_mod, "wkv") as k7_in:
         eng, eprefill, edecode, efinished, erun_s, e_launches, epeak = engine_run(
             True, lambda: step_lengths.append(k6_in.lengths))
     if sorted((r.rid, r.out) for r in efinished) != graph_tokens:
         fail(f"{arch}: the decode graph's tokens differ from the eager step's")
     hold(e_launches, eprefill.calls, edecode.calls, "eager run")
-    lens = torch.stack(step_lengths).sum(dim=1)
-    k6_lengths = step_lengths[int(lens.argmax())].tolist()
-    names = ["flash_attention", "decode_attention"] + (["row_sort_kv"] if moe_layers else [])
+    k6_lengths = None
+    if attn_layers:
+        lens = torch.stack(step_lengths).sum(dim=1)
+        k6_lengths = step_lengths[int(lens.argmax())].tolist()
     line = {"phase": phase, "arch": cfg.name, "layers": cfg.num_layers, "d_model": cfg.d_model,
             "dtype": cfg.dtype, "config": SERVE, "parity_smoke_f32_vs_cpu": parity,
             "parity_full_width_kernels_vs_plain": width, "init_s": init_s,
@@ -2256,6 +2349,7 @@ def phase_serve(torch, np, args, arch: str, phase: str, smoke_archs) -> dict:
     return {"launches": launches, "k5": k5_in, "k6": k6_in, "k6_lengths": k6_lengths,
             "k3_shape": k3_in.shape, "k3_dtype": k3_in.dtype,
             "k3_real": (max(len(p) for p in prompts) - 1) * (cfg.moe.top_k if cfg.moe else 0),
+            "k7_prefill_shape": k7_in.shape, "slots": SERVE["slots"], "wkv_layers": wkv_layers,
             "per_replay": per_replay, "replays": decode.calls}
 
 
@@ -2507,20 +2601,196 @@ def k5b_row(fa, fb, torch, gen, shape, launches: int, per_step: int) -> dict:
     return row
 
 
+def wkv_limit(want):
+    """Elementwise limit on |K7 or K7b - plain|: both run the recurrence in
+    float32 with the same products, summed in other orders (and K7b's dw and
+    dk against a state recomputed from checkpoints), carried over up to
+    2,048 steps: 1e-5 + 1e-5 of the tensor's largest |want| + 1e-4 |want|.
+    A dropped term (u, a decay, a step of the state) moves them by far more."""
+    w = want.abs()
+    return 1e-5 + 1e-5 * w.max() + 1e-4 * w
+
+
+def wkv_inputs(torch, gen, b: int, t: int, h: int, n: int = 64):
+    """Fresh K7/K7b inputs: r, k, v and dy unit normals, decays exp(-exp(w))
+    for w uniform on [-8, 3] (0.9997 down to 2e-9), u a unit normal and s0
+    half of one: none of the terms is zero."""
+    r, k, v, dy = (torch.randn(b, t, h, n, generator=gen, device="cuda") for _ in range(4))
+    w = torch.exp(-torch.exp(torch.rand(b, t, h, n, generator=gen, device="cuda") * 11 - 8))
+    u = torch.randn(h, n, generator=gen, device="cuda")
+    s0 = torch.randn(b, h, n, n, generator=gen, device="cuda") * 0.5
+    return r, k, v, w, u, s0, dy
+
+
+def held(name: str, got, want, what: str) -> float:
+    """The largest |got - want|; fails beyond ``wkv_limit``."""
+    import torch
+
+    if got.shape != want.shape or not bool(torch.isfinite(got).all()):
+        fail(f"{name} ({what}): shape {tuple(got.shape)} against {tuple(want.shape)}, or a non-finite value")
+    diff = (got - want).abs()
+    if (diff > wkv_limit(want)).any():
+        fail(f"{name} ({what}) differs from its plain version by {diff.max().item()} "
+             f"(largest {want.abs().max().item()})")
+    return diff.max().item()
+
+
+def check_k7(wk, torch, gen, b: int, t: int, h: int) -> tuple[dict, tuple]:
+    """K7 and K7b against their plain versions on fresh inputs: the largest
+    error of each output, and the inputs."""
+    ins = wkv_inputs(torch, gen, b, t, h)
+    r, k, v, w, u, s0, dy = ins
+    what = f"B {b}, T {t}, H {h}"
+    errs = {}
+    for name, got, want in zip(("y", "state"), wk.wkv(r, k, v, w, u, s0), wk.wkv_plain(r, k, v, w, u, s0)):
+        errs[name] = held(f"K7 {name}", got, want, what)
+    got = wk.wkv_bwd(r, k, v, w, u, s0, dy)
+    want = wk.wkv_bwd_plain(r, k, v, w, u, s0, dy)
+    for name, g, w_ in zip(("dr", "dk", "dv", "dw", "du"), got, want):
+        errs[name] = held(f"K7b {name}", g, w_, what)
+    del got, want
+    return errs, ins
+
+
+def k7_in_place(wk, torch, gen) -> dict:
+    """K7 at T 1 in place on two slices of a stacked (L, B, H, 64, 64) cache:
+    a layer's (every slot) and one slot of a layer (the engine's view: batch
+    stride L's, 1 row), against the plain version on copies; the other
+    slices keep their bytes."""
+    cache = torch.randn(5, 4, 32, 64, 64, generator=gen, device="cuda")
+    out = {}
+    for label, index, b in (("layer", (2,), 4), ("slot", (3, slice(1, 2)), 1)):
+        r, k, v, w, u, _, _ = wkv_inputs(torch, gen, b, 1, 32)
+        before = cache.clone()
+        state = cache[index]
+        want_y, want_s = wk.wkv_plain(r, k, v, w, u, state.clone())
+        y, s = wk.wkv(r, k, v, w, u, state, in_place=True)
+        torch.cuda.synchronize()
+        if s.data_ptr() != state.data_ptr():
+            fail("K7 in place returned another tensor than the given state")
+        out[label] = {"y": held("K7 y", y, want_y, f"in place, {label}"),
+                      "state": held("K7 state", cache[index], want_s, f"in place, {label}")}
+        before[index] = cache[index]
+        if not torch.equal(before, cache):
+            fail(f"K7 in place ({label}) wrote outside its slice of the cache")
+    return out
+
+
+def k7_work(b: int, t: int, h: int, n: int = 64, backward: bool = False) -> tuple[float, float]:
+    """(flops, bytes) of one K7 or K7b call.  K7: 5 flops per state element
+    and step (the read's FMA, the update's multiply and FMA); r, k, v, w, u,
+    s0 read once, y and the state written once.  K7b: 14 (the state
+    recomputed, 3; G's update, 3; the reads of dr, dk, dv and dw, an FMA
+    each); r, k, v, w, dy, u, s0 read once, dr, dk, dv, dw and du written
+    once (the checkpoints are the design's own traffic, not counted)."""
+    seq = 4.0 * b * t * h * n
+    state = 4.0 * b * h * n * n
+    if backward:
+        return 14.0 * b * t * h * n * n, 9 * seq + state + 2 * 4.0 * h * n
+    return 5.0 * b * t * h * n * n, 5 * seq + 2 * state + 4.0 * h * n
+
+
+def f32_bound(flops: float, bytes_: float) -> tuple[float, str]:
+    """The least time on an H100 at float32 CUDA-core rate: ms and the
+    larger of the two terms."""
+    ops_ms = flops / F32_FLOP_PER_S * 1e3
+    bytes_ms = bytes_ / HBM_BYTES_PER_S * 1e3
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+
+
+def phase_k7(wk, torch, gen) -> dict:
+    """K7 and K7b against their plain versions (``K7_SMALL``, the training
+    shape ``K7_TRAIN``; limits ``wkv_limit``), K7 in place on cache slices,
+    the stride check that raises, and K7b's kernel nodes a call; then the
+    times at the training shape for the kernels line."""
+    from repro_torch.kernels import build
+
+    worst: dict[str, float] = {}
+    for b, t, h in K7_SMALL:
+        errs, _ = check_k7(wk, torch, gen, b, t, h)
+        worst = {k: max(worst.get(k, 0.0), e) for k, e in errs.items()}
+    in_place = k7_in_place(wk, torch, gen)
+    r, k, v, w, u, s0, dy = wkv_inputs(torch, gen, 2, 5, 3)
+    try:
+        wk.wkv(r.transpose(1, 3).contiguous().transpose(1, 3), k, v, w, u, s0)
+    except ValueError:
+        pass
+    else:
+        fail("K7 took an r whose last axis is not contiguous")
+    train_errs, (r, k, v, w, u, s0, dy) = check_k7(wk, torch, gen, *K7_TRAIN)
+    bwd = lambda: wk.wkv_bwd(r, k, v, w, u, s0, dy)  # noqa: E731
+    graph, _ = build.capture(bwd)
+    nodes = build.graph_kernel_nodes(graph, ["wkv_grad_r", "wkv_grad_kw", "wkv_grad_v"])
+    graph.reset()
+    ours = nodes["wkv_grad_r"] + nodes["wkv_grad_kw"] + nodes["wkv_grad_v"]
+    if ours != wk.KERNELS_PER_CALL or any(nodes[e] != 1 for e in ("wkv_grad_r", "wkv_grad_kw", "wkv_grad_v")):
+        fail(f"a K7b call put {nodes} kernels on the card, want each pass once ({wk.KERNELS_PER_CALL})")
+    b, t, h = K7_TRAIN
+    rows = {}
+    for name, kern, plain, backward in (
+            ("wkv", lambda: wk.wkv(r, k, v, w, u, s0), lambda: wk.wkv_plain(r, k, v, w, u, s0), False),
+            ("wkv_bwd", bwd, lambda: wk.wkv_bwd_plain(r, k, v, w, u, s0, dy), True)):
+        flops, bytes_ = k7_work(b, t, h, backward=backward)
+        b_ms, b_by = f32_bound(flops, bytes_)
+        ms = cuda_ms(kern)
+        rows[name] = {"shape": {"r": [b, t, h, 64], "state": [b, h, 64, 64]}, "dtype": "float32",
+                      "ms": ms, "graph_ms": graph_ms(kern), "plain_ms": cuda_ms(plain, 3),
+                      "library_ms": None,
+                      "library_note": "no single PyTorch call computes the WKV recurrence (or its gradient)",
+                      "bound_ms": b_ms, "bound_by": b_by, "bound_share": b_ms / ms, "flops": flops,
+                      "bytes": bytes_}
+        torch.cuda.empty_cache()
+    rows["wkv"]["max_abs_err"] = max(train_errs[k] for k in ("y", "state"))
+    rows["wkv_bwd"]["max_abs_err"] = max(train_errs[k] for k in ("dr", "dk", "dv", "dw", "du"))
+    rows["wkv_bwd"].update(kernels_per_call=ours, graph_kernel_nodes_per_call=nodes["all"],
+                           checkpoint_steps=wk.CHECKPOINT_STEPS,
+                           checkpoint_bytes=4 * b * h * -(-t // wk.CHECKPOINT_STEPS) * 64 * 64)
+    del r, k, v, w, u, s0, dy
+    torch.cuda.empty_cache()
+    emit({"phase": "k7", "small_shapes": [list(x) for x in K7_SMALL], "max_abs_err_small": worst,
+          "in_place_t1": in_place, "training_shape": list(K7_TRAIN), "max_abs_err_training": train_errs,
+          "k7b_kernel_nodes": nodes, "stride_check_raises": True,
+          "limit": "1e-5 + 1e-5 max|plain| + 1e-4 |plain|, elementwise"})
+    return rows
+
+
+def k7_serve_times(wk, torch, gen, serve: dict) -> dict:
+    """K7 at the serve run's shapes: its largest prefill (B 1) and the decode
+    step (B = slots, T 1, in place on a layer of a stacked cache), each
+    against its plain version, eager and graph ms beside the bound."""
+    out = {}
+    b, t, h, n = serve["k7_prefill_shape"]
+    cache = torch.zeros(4, serve["slots"], h, n, n, device="cuda")
+    for label, (bb, tt) in (("prefill", (b, t)), ("decode", (serve["slots"], 1))):
+        errs, (r, k, v, w, u, s0, _) = check_k7(wk, torch, gen, bb, tt, h)
+        state = cache[1] if label == "decode" else s0
+        kern = lambda: wk.wkv(r, k, v, w, u, state, in_place=label == "decode")  # noqa: E731
+        flops, bytes_ = k7_work(bb, tt, h)
+        b_ms, b_by = f32_bound(flops, bytes_)
+        out[label] = {"shape": [bb, tt, h, n], "max_abs_err": max(errs["y"], errs["state"]), "ms": cuda_ms(kern),
+                      "graph_ms": graph_ms(kern), "plain_ms": cuda_ms(lambda: wk.wkv_plain(r, k, v, w, u, s0), 3),
+                      "bound_ms": b_ms, "bound_by": b_by}
+    torch.cuda.empty_cache()
+    return out
+
+
 class PlainKernels:
     """Swaps every kernel of the training path for its plain version (K5 and
-    K5b in ``models.attention``, K3 in ``kernels.bitonic``): a check-only
-    route for one step, never a fallback."""
+    K5b in ``models.attention``, K3 in ``kernels.bitonic``, K7 and K7b in
+    ``models.rwkv6``): a check-only route for one step, never a fallback."""
 
     def __init__(self) -> None:
         from repro_torch.kernels import bitonic as bt
         from repro_torch.kernels import flash_attention as fa_mod
         from repro_torch.kernels import flash_attention_bwd as fb_mod
+        from repro_torch.kernels import wkv as wkv_mod
         from repro_torch.models import attention as attn_mod
+        from repro_torch.models import rwkv6 as rwkv_mod
 
         self.swaps = [(attn_mod, "flash_attention", fa_mod.flash_attention_plain),
                       (attn_mod, "flash_attention_bwd", fb_mod.flash_attention_bwd_plain),
-                      (bt, "sort_rows_kv", bt.sort_rows_kv_plain)]
+                      (bt, "sort_rows_kv", bt.sort_rows_kv_plain),
+                      (rwkv_mod, "wkv", wkv_mod.wkv_plain), (rwkv_mod, "wkv_bwd", wkv_mod.wkv_bwd_plain)]
         self.saved = [getattr(m, a) for m, a, _ in self.swaps]
 
     def __enter__(self):
@@ -2584,7 +2854,9 @@ def train_flops(cfg, batch: int, seq: int) -> float:
     every matrix a token passes through (the MoE's router and its top_k
     experts, not every slab; the head; no embedding lookup) per token,
     attention's q.k and p.v at 12 per visible causal (row, col) pair per
-    head dim (4 forward, 8 backward), and a Mamba2 layer's SSD products."""
+    head dim (4 forward, 8 backward), a Mamba2 layer's SSD products, and an
+    RWKV6 layer's WKV at 12 per state element a token and head (its read
+    and its update, an FMA each, 3 x forward)."""
     L, D = cfg.num_layers, cfg.d_model
     H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     attn = 2 * D * H * hd + 2 * D * KV * hd
@@ -2602,6 +2874,13 @@ def train_flops(cfg, batch: int, seq: int) -> float:
         Q, N, P = chunk_len(cfg, seq), s.state_dim, s.head_dim
         mats = L * (D * (2 * d_inner + 2 * s.num_groups * N + nh) + d_inner * D) + n_attn * (attn + ffn(cfg.d_ff))
         ssd = 3.0 * L * nh * (2 * Q * N + 2 * Q * P + 4 * N * P) * batch * seq
+    elif cfg.rwkv is not None:
+        # the time mix's five D x D projections and low-rank mixers (decay
+        # and the five token-shift mixes, in and out), the channel mix
+        r = cfg.rwkv
+        hs, H = r.head_size, D // r.head_size
+        mats = L * (5 * D * D + 2 * D * r.decay_lora + 10 * D * r.mix_lora + 2 * D * cfg.d_ff + D * D)
+        ssd = 12.0 * L * H * hs * hs * batch * seq
     elif cfg.moe:
         m = cfg.moe
         moe = D * m.num_experts + m.top_k * ffn(m.d_expert) + (ffn(m.num_shared * m.d_expert) if m.num_shared else 0)
@@ -2612,13 +2891,14 @@ def train_flops(cfg, batch: int, seq: int) -> float:
     return 6.0 * mats * batch * seq + ssd + 12.0 * n_attn * batch * H * hd * seq * (seq + 1) / 2
 
 
-def hybrid_stages(torch, model, batch, adamw_s: float, step_s: float) -> dict:
-    """A Mamba2 model's step by its parts: one Mamba2 block's forward and
+def recurrent_stages(torch, model, batch, adamw_s: float, step_s: float) -> dict:
+    """A Mamba2 or RWKV6 model's step by its parts: one block's forward and
     backward as training runs it (checkpointed: the backward recomputes the
-    forward) and one shared-block invocation's, each on a fresh (B, T, D)
-    input in the model's dtype between two synchronisations (median of
-    three), times the blocks and invocations of a step; AdamW's stage; and
-    the rest of the step (embedding, final norm, head, loss, the clip)."""
+    forward; an RWKV6 block runs K7 twice and K7b once) and one
+    shared-block invocation's, each on a fresh (B, T, D) input in the
+    model's dtype between two synchronisations (median of three), times the
+    blocks and invocations of a step; AdamW's stage; and the rest of the
+    step (embedding, final norm, head, loss, the clip)."""
     from torch.utils.checkpoint import checkpoint
 
     B, T = batch["tokens"].shape
@@ -2638,10 +2918,10 @@ def hybrid_stages(torch, model, batch, adamw_s: float, step_s: float) -> dict:
             times.append(time.perf_counter() - t0)
         return float(sorted(times)[1])
 
-    mamba = timed(lambda x: checkpoint(model._mamba_layer, model.layers[0], x, use_reentrant=False),
-                  model.layers[0])
-    n_mamba, n_shared = model.cfg.num_layers, attention_layers(model.cfg)
-    out = {"mamba_block_s": mamba, "mamba_blocks": n_mamba, "mamba_blocks_s": n_mamba * mamba}
+    kind, layer_fn = ("rwkv", model._rwkv_layer) if model.kind == "rwkv" else ("mamba", model._mamba_layer)
+    block = timed(lambda x: checkpoint(layer_fn, model.layers[0], x, use_reentrant=False), model.layers[0])
+    n_blocks, n_shared = model.cfg.num_layers, attention_layers(model.cfg)
+    out = {f"{kind}_block_s": block, f"{kind}_blocks": n_blocks, f"{kind}_blocks_s": n_blocks * block}
     shared_s = 0.0
     if n_shared:
         shared = timed(lambda x: checkpoint(model._block, model.shared, x, positions, use_reentrant=False)[0],
@@ -2649,7 +2929,7 @@ def hybrid_stages(torch, model, batch, adamw_s: float, step_s: float) -> dict:
         shared_s = n_shared * shared
         out.update({"shared_invocation_s": shared, "shared_invocations": n_shared, "shared_blocks_s": shared_s})
     out.update({"adamw_s": adamw_s, "step_s_median": step_s,
-                "rest_s": step_s - n_mamba * mamba - shared_s - adamw_s})
+                "rest_s": step_s - n_blocks * block - shared_s - adamw_s})
     return out
 
 
@@ -2659,14 +2939,20 @@ def phase_train(torch, np, args, run: dict, phase: str, plain_check: bool, dev: 
     apart.  Each step's launches are counted (zeroed just before the step,
     read just after) and held exactly to K5 2 x attention layers (the
     forward and the block's recompute; the hybrid's shared-block
-    invocations), K5b 1 x attention layers, K3 2 x MoE layers.  Then one step
-    cut into stages (a Mamba2 model's also into its blocks:
-    :func:`hybrid_stages`; with ``--profile`` one profiled), and with
-    ``plain_check`` the first step again from the same seed with every
-    kernel swapped for its plain version: its loss within 1e-2 relative and
-    its gradient norm within 5e-2 of the kernels' (bf16: K5 rounds its
-    probabilities to bf16 where the plain one keeps f32, and the router's
-    top-k flips near-ties on such a difference)."""
+    invocations), K5b 1 x attention layers, K3 2 x MoE layers, K7 2 x and
+    K7b 1 x RWKV6 layers.  Then one step cut into stages (a Mamba2 or RWKV6
+    model's also into its blocks: :func:`recurrent_stages`; with
+    ``--profile`` one profiled), and with ``plain_check`` the first step
+    again from the same seed with every kernel swapped for its plain
+    version: its loss within 1e-2 relative and its gradient norm within
+    5e-2 of the kernels' (bf16: K5 rounds its probabilities to bf16 where
+    the plain one keeps f32, and the router's top-k flips near-ties on such
+    a difference).  A run with ``plain_batch`` makes that check at the cut
+    shape ``plain_batch`` x ``plain_seq`` instead: the first step of that
+    shape with the kernels, then with them plain, each from the same seed,
+    on a fresh model of ``plain_dtype`` and ``plain_layers`` (the trained
+    model freed first), within 1e-3 (loss) and 1e-2 (gradient norm)
+    relative in float32."""
     import dataclasses
 
     from repro_torch import configs, models
@@ -2698,9 +2984,10 @@ def phase_train(torch, np, args, run: dict, phase: str, plain_check: bool, dev: 
     n_params = sum(p.numel() for p in model.parameters())
     pipe = TokenPipeline(cfg.vocab_size, run["batch"], run["seq"], seed=args.seed)
     attn_layers = attention_layers(cfg)
+    wkv_layers = rwkv_layers(cfg)
     want = {"flash_attention": 2 * attn_layers, "flash_attention_bwd": attn_layers,
-            "row_sort_kv": 2 * moe_layers, "row_sort": 0, "tournament": 0, "merge_rows": 0,
-            "decode_attention": 0}
+            "row_sort_kv": 2 * moe_layers, "wkv": 2 * wkv_layers, "wkv_bwd": wkv_layers,
+            "row_sort": 0, "tournament": 0, "merge_rows": 0, "decode_attention": 0}
     steps, first_batch = [], None
     with AttnRecorder(attn_mod, "flash_attention_bwd") as k5b_in, MoERecorder(moe_mod) as moe_rec:
         for i in range(run["steps"]):
@@ -2737,41 +3024,75 @@ def phase_train(torch, np, args, run: dict, phase: str, plain_check: bool, dev: 
             / BF16_FLOP_PER_S,
             "peak_allocated_bytes": peak, "reserved_bytes": reserved, "launches_per_step": want,
             "steps": steps, "stages": train_stages(torch, model, opt_state, opt_cfg, first_batch)}
-    if cfg.ssm is not None:
-        line["train_stages"] = hybrid_stages(torch, model, first_batch, line["stages"]["optimizer_s"],
-                                             line["step_s_median"])
+    if cfg.ssm is not None or cfg.rwkv is not None:
+        line["train_stages"] = recurrent_stages(torch, model, first_batch, line["stages"]["optimizer_s"],
+                                                line["step_s_median"])
     if args.profile:
         line["profile"] = step_profile(torch, step, opt_state, first_batch)
     if plain_check:
-        with torch.no_grad():
-            model.init(torch.Generator(device=dev).manual_seed(args.seed))
-            for part in ("m", "v"):
-                for t in opt_state[part].values():
-                    t.zero_()
-            opt_state["step"].zero_()
-        build.reset_launches()
-        with PlainKernels():
-            _, met = step(opt_state, first_batch)
-            _sync(torch)
-        if any(build.LAUNCHES[k] for k in ("flash_attention", "flash_attention_bwd", "row_sort_kv")):
-            fail(f"{phase}: the plain-kernel step launched a kernel")
+        limits = {"loss": 1e-2, "grad_norm": 5e-2}
+        if run.get("plain_dtype"):
+            del model, opt_state, step
+            if dev == "cuda":
+                torch.cuda.empty_cache()
+            cut_cfg = dataclasses.replace(cfg, dtype=run["plain_dtype"],
+                                          num_layers=run.get("plain_layers", cfg.num_layers))
+            model = models.build(cut_cfg, device=dev).requires_grad_(True)
+            opt_state = init_opt_state(dict(model.named_parameters()), opt_cfg)
+            step = build_train_step(model, opt_cfg)
+            limits = {"loss": 1e-3, "grad_norm": 1e-2}
+
+        def first_step(batch, plain: bool):
+            with torch.no_grad():
+                model.init(torch.Generator(device=dev).manual_seed(args.seed))
+                for part in ("m", "v"):
+                    for t in opt_state[part].values():
+                        t.zero_()
+                opt_state["step"].zero_()
+            build.reset_launches()
+            if not plain:
+                _, met = step(opt_state, batch)
+                _sync(torch)
+                return met
+            with PlainKernels():
+                _, met = step(opt_state, batch)
+                _sync(torch)
+            if any(build.LAUNCHES[k] for k in ("flash_attention", "flash_attention_bwd", "row_sort_kv", "wkv",
+                                                "wkv_bwd")):
+                fail(f"{phase}: the plain-kernel step launched a kernel")
+            return met
+
+        want_loss, want_gnorm, cut = steps[0]["loss"], steps[0]["grad_norm"], None
+        if run.get("plain_batch"):
+            cut = {"batch": run["plain_batch"], "seq": run["plain_seq"],
+                   "layers": run.get("plain_layers", cfg.num_layers), "dtype": run.get("plain_dtype", cfg.dtype)}
+            cut_pipe = TokenPipeline(cfg.vocab_size, cut["batch"], cut["seq"], seed=args.seed)
+            first_batch = {k: torch.from_numpy(v).to(dev) for k, v in cut_pipe.next_batch().items()}
+            met = first_step(first_batch, plain=False)
+            want_loss, want_gnorm = float(met["loss"]), float(met["grad_norm"])
+        met = first_step(first_batch, plain=True)
         loss, gnorm = float(met["loss"]), float(met["grad_norm"])
-        d_loss = abs(loss - steps[0]["loss"]) / abs(steps[0]["loss"])
-        d_gnorm = abs(gnorm - steps[0]["grad_norm"]) / steps[0]["grad_norm"]
-        if not (d_loss <= 1e-2 and d_gnorm <= 5e-2):
+        d_loss = abs(loss - want_loss) / abs(want_loss)
+        d_gnorm = abs(gnorm - want_gnorm) / want_gnorm
+        if not (d_loss <= limits["loss"] and d_gnorm <= limits["grad_norm"]):
             fail(f"{phase}: the plain-kernel step gives loss {loss} / grad norm {gnorm}, the kernels "
-                 f"{steps[0]['loss']} / {steps[0]['grad_norm']}")
+                 f"{want_loss} / {want_gnorm}")
         line["plain_kernels_first_step"] = {"loss": loss, "grad_norm": gnorm, "loss_rel_diff": d_loss,
-                                            "grad_norm_rel_diff": d_gnorm, "limits": {"loss": 1e-2,
-                                                                                     "grad_norm": 5e-2}}
+                                            "grad_norm_rel_diff": d_gnorm, "limits": limits}
+        if cut:
+            line["plain_kernels_first_step"].update(cut_shape=cut, kernels_loss=want_loss,
+                                                    kernels_grad_norm=want_gnorm)
     emit(line)
     del model, opt_state, step, first_batch, moe_rec
     if dev == "cuda":
         torch.cuda.empty_cache()
-    b, t, h, d = k5b_in.q_shape
-    return {"k5b_shape": (b, t, k5b_in.kv_shape[1], h, k5b_in.kv_shape[2], d, k5b_in.causal),
-            "k5b_launches": want["flash_attention_bwd"] * run["steps"],
-            "k5b_per_step": want["flash_attention_bwd"], "k5_per_step": want["flash_attention"]}
+    out = {"k5_per_step": want["flash_attention"], "k5b_per_step": want["flash_attention_bwd"],
+           "k5b_launches": want["flash_attention_bwd"] * run["steps"],
+           "k7_per_step": want["wkv"], "k7b_per_step": want["wkv_bwd"], "k7b_launches": want["wkv_bwd"] * run["steps"]}
+    if attn_layers:
+        b, t, h, d = k5b_in.q_shape
+        out["k5b_shape"] = (b, t, k5b_in.kv_shape[1], h, k5b_in.kv_shape[2], d, k5b_in.causal)
+    return out
 
 
 def phase_train_resume(torch, args, dev: str = "cuda") -> None:
@@ -3859,6 +4180,7 @@ def run_phases(args, np, torch, smi: str, cpu_examples, run_dir: Path) -> int:
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import flash_attention_bwd as fb
+    from repro_torch.kernels import wkv as wk
     from repro_torch.net.pipeline import run_pipeline
 
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
@@ -3967,6 +4289,11 @@ def run_phases(args, np, torch, smi: str, cpu_examples, run_dir: Path) -> int:
     hybrid = phase_serve(torch, np, args, HYBRID_ARCH, "serve_hybrid", [HYBRID_ARCH])
     check_attention_at(torch, hybrid, gen, "serve_hybrid_attention")
     hybrid_train = phase_train(torch, np, args, TRAIN_HYBRID, "train_hybrid", plain_check=True)
+
+    # -- RWKV6 (rwkv6-1.6b), its WKV on K7 and K7b -------------------------------
+    k7_rows = phase_k7(wk, torch, gen)
+    rwkv = phase_serve(torch, np, args, RWKV_ARCH, "serve_rwkv", [RWKV_ARCH])
+    rwkv_train = phase_train(torch, np, args, TRAIN_RWKV, "train_rwkv", plain_check=True)
     phase_examples(torch, cpu_examples, run_dir)
     rows[0]["sharded"] = sharded["k1"]
     rows[1]["sharded"] = {"site": "core/mergesort.py merge_runs_flat (pipeline, pool_backend=shard_map)",
@@ -4000,6 +4327,17 @@ def run_phases(args, np, torch, smi: str, cpu_examples, run_dir: Path) -> int:
         if row["name"] in ("flash_attention", "decode_attention", "row_sort_kv"):
             row["deepseek_serve_launches"] = deepseek["launches"][row["name"]]
     k5_row["deepseek_train_launches_per_step"] = deepseek_train["k5_per_step"]
+    rows.append({"name": "wkv", "route": "cuda", "source": "src/repro_torch/kernels/csrc/wkv.cu",
+                 "replaces": "src/repro/models/rwkv6.py:138", "tpu_kernel": False,
+                 "launches": rwkv["launches"]["wkv"], **k7_rows["wkv"],
+                 "serve": {"launches": rwkv["launches"]["wkv"], "per_prefill": rwkv["wkv_layers"],
+                           "decode_graph_per_replay": rwkv["per_replay"]["wkv"], "replays": rwkv["replays"],
+                           **k7_serve_times(wk, torch, gen, rwkv)},
+                 "train_launches_per_step": rwkv_train["k7_per_step"]})
+    rows.append({"name": "wkv_bwd", "route": "cuda", "source": "src/repro_torch/kernels/csrc/wkv_bwd.cu",
+                 "replaces": "src/repro/models/rwkv6.py:148", "tpu_kernel": False,
+                 "launches": rwkv_train["k7b_launches"], **k7_rows["wkv_bwd"],
+                 "train_launches_per_step": rwkv_train["k7b_per_step"]})
 
     emit({"kernels": rows})
     emit(ptxas_line(build))

@@ -4,9 +4,9 @@ Counterpart of :mod:`repro.data.synthetic`: :func:`batch_shapes` gives the
 shapes and types of one training batch, :func:`make_batch` materializes
 them from an explicit ``torch.Generator`` (the reference draws from a
 ``jax.random`` key; the two give other numbers from one seed).  The
-reference's ``input_specs`` (``ShapeDtypeStruct`` stand-ins for a sharded
-dry run) names a mesh: it waits for the sharded slice of the port (M19).
-[vlm]/[audio] archs get precomputed embeddings (the modality frontend is a
+reference's ``input_specs`` turns those shapes into ``jax.ShapeDtypeStruct``
+stand-ins for tracing without data; :func:`batch_shapes` is what the port
+needs of it (torch traces nothing ahead of a call).  [vlm]/[audio] archs get precomputed embeddings (the modality frontend is a
 stub).
 """
 

@@ -1,11 +1,14 @@
-"""Public wrappers around the bitonic kernels, with the reference's guards.
+"""Public wrappers around the kernels, with the reference's guards.
 
 Counterpart of :mod:`repro.kernels.ops` for the four bitonic kernels: the
 sort dataplane's row sort and tournament (K1, K2), the MoE dispatch's
-key-value sort (K3) and the row merge (K4).  The device of the tensor decides what runs: a CUDA tensor
-launches the Hopper kernel (:mod:`repro_torch.kernels.bitonic`), a CPU
-tensor takes its plain torch version.  There is no ``interpret=`` and no
-x64 scope: torch keeps int64 keys as they are.
+key-value sort (K3) and the row merge (K4), and for flash attention (K5).
+The device of the tensor decides what runs: a CUDA tensor launches the
+Hopper kernel (:mod:`repro_torch.kernels.bitonic`,
+:mod:`repro_torch.kernels.flash_attention`), a CPU tensor takes its plain
+torch version.  There is no ``interpret=`` and no x64 scope: torch keeps
+int64 keys as they are; and no tile sizes (the reference's ``block_q``,
+``block_k`` and row tiles are the TPU grid's).
 """
 
 from __future__ import annotations
@@ -13,6 +16,7 @@ from __future__ import annotations
 import torch
 
 from . import bitonic
+from . import flash_attention as _flash
 
 
 def _check_sort_keys(x: torch.Tensor, op: str) -> None:
@@ -23,6 +27,21 @@ def _check_sort_keys(x: torch.Tensor, op: str) -> None:
             f"{op} sorts integer keys only, got dtype {x.dtype}; the bitonic "
             "network needs an integer pad sentinel"
         )
+
+
+def blockwise_sort(x: torch.Tensor, block: int) -> torch.Tensor:
+    """MergeMarathon segment emission: sort consecutive ``block`` chunks of a
+    1-D stream on K1.  ``block`` must be a power of two dividing ``x.numel()``
+    (ragged tails are padded by the caller with the dtype max)."""
+    (n,) = x.shape
+    if block & (block - 1) or n % block:
+        raise ValueError(f"n={n} block={block}: need pow2 block dividing n")
+    return bitonic.sort_rows(x.reshape(n // block, block)).reshape(n)
+
+
+def sort_rows(x: torch.Tensor) -> torch.Tensor:
+    """Sort each row of (rows, B) on K1; B a power of two."""
+    return bitonic.sort_rows(x)
 
 
 def sort_rows_padded(x: torch.Tensor) -> torch.Tensor:
@@ -70,3 +89,8 @@ def argsort_padded(keys: torch.Tensor):
     vp = torch.arange(m, dtype=torch.int32, device=keys.device)[None, :]
     ks, vs = sort_rows_kv(kp, vp)
     return ks[0, :n], vs[0, :n]
+
+
+def flash_attention(q, k, v, *, causal: bool = True, scale: float | None = None) -> torch.Tensor:
+    """Flash attention on K5: q (B, T, H, d) against k, v (B, S, KV, d)."""
+    return _flash.flash_attention(q, k, v, causal=causal, scale=scale)

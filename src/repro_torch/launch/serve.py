@@ -4,8 +4,9 @@
         [--smoke] [--device cuda|cpu] [--requests 8] [--slots 4] [--max-tokens 16]
 
 ``--arch`` takes the dense ``mistral-nemo-12b`` (and the other dense
-configs), the MoE ``granite-moe-3b-a800m`` and ``deepseek-moe-16b``, and
-the hybrid ``zamba2-1.2b`` (one device: no ``--mesh`` above 1x1).
+configs), the MoE ``granite-moe-3b-a800m`` and ``deepseek-moe-16b``, the
+hybrid ``zamba2-1.2b`` and the RWKV6 ``rwkv6-1.6b`` (the last two on one
+device: no ``--mesh`` above 1x1).
 
 Counterpart of ``repro.launch.serve``: the weights are drawn from
 ``--seed`` on the device, prompts of 2-11 tokens from numpy's

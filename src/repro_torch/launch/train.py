@@ -5,8 +5,9 @@
         --seq 128 --ckpt-dir /tmp/ckpt
 
 ``--arch`` takes the dense ``mistral-nemo-12b`` (and the other dense
-configs), the MoE ``granite-moe-3b-a800m`` and ``deepseek-moe-16b``, and
-the hybrid ``zamba2-1.2b`` (one device: no ``--mesh`` above 1x1).
+configs), the MoE ``granite-moe-3b-a800m`` and ``deepseek-moe-16b``, the
+hybrid ``zamba2-1.2b`` and the RWKV6 ``rwkv6-1.6b`` (the last two on one
+device: no ``--mesh`` above 1x1).
 
 Counterpart of ``repro.launch.train``: the reference's flags, plus
 ``--device`` (default ``cuda``; it raises without a card unless asked for

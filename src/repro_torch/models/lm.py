@@ -1,8 +1,8 @@
-"""Decoder-only LM for training and serving: the dense, MoE, Mamba2 and
-hybrid families.
+"""Decoder-only LM for training and serving: the dense, MoE, Mamba2,
+hybrid and RWKV6 families.
 
 Counterpart of :mod:`repro.models.lm` for ``kind == "dense"``, ``"moe"``,
-``"mamba"`` and ``"hybrid"``.  Dense and MoE:
+``"mamba"``, ``"hybrid"`` and ``"rwkv"``.  Dense and MoE:
 a stack of (attention + MLP) or (attention + MoE) blocks; the training
 ``forward``/``loss`` with one activation checkpoint per block (the
 reference's per-layer ``jax.checkpoint``), prefill and one-token decode
@@ -38,9 +38,20 @@ invocation, ``shared_k``/``shared_v`` (L // every, B, max_len, KV, hd).
 Prefill starts every Mamba block from zero states, as the reference's does,
 whatever the cache holds.  They run on one device: on a mesh with an axis
 above 1, or under sequence parallelism, they raise ``NotImplementedError``
-(the reference's ``spec_mamba`` layouts are a later slice).  The RWKV6
-family and precomputed-embedding inputs raise ``NotImplementedError``
-naming the slice that ports them.
+(the reference's ``spec_mamba`` layouts are a later slice).
+
+The RWKV6 kind (``rwkv``) stacks ``layers.<i>.{ln1, ln2, rwkv}`` blocks
+(:mod:`.rwkv6`): a time mix and a channel mix, each after its norm.
+Training checkpoints each block and starts every time mix from a zero
+shift and state (``rwkv_chunked=True`` runs the reference's chunked form
+there instead of K7).  Its cache holds ``tm_shift`` and ``cm_shift`` (L, B,
+D) in the model's dtype and ``wkv`` (L, B, H, 64, 64) float32.  Prefill
+starts every block from zero states, whatever the cache holds, and K7 writes
+each layer's final state straight into its slice of ``wkv``; the decode step
+runs K7 at T = 1 on that slice in place.  On a mesh with an axis above 1, or
+under sequence parallelism, it raises ``NotImplementedError`` (the
+reference's ``spec_rwkv`` layouts are a later slice).  Precomputed-embedding
+inputs raise ``NotImplementedError`` naming the slice that ports them.
 
 On a mesh (``LM(cfg, ctx)``, a :class:`~repro_torch.distributed.sharding.ShardCtx`
 of a ``(data, model)`` or ``(pod, data, model)`` DeviceMesh) the model is
@@ -80,6 +91,7 @@ from . import attention as attn_mod
 from . import mamba2
 from . import mlp as mlp_mod
 from . import moe as moe_mod
+from . import rwkv6
 from .layers import cross_entropy, embed_tokens, lm_logits, rms_norm, spec_embed, spec_lm_head, spec_norm
 
 
@@ -95,11 +107,11 @@ def block_kind(cfg: ModelConfig) -> str:
     return "dense"
 
 
-_LATER = {
-    "rwkv": "the RWKV6 stack is a later slice of the port",
-}
 #: The kinds whose layers are Mamba2 blocks (:mod:`.mamba2`).
 SSM_KINDS = ("mamba", "hybrid")
+#: The recurrent kinds (no attention stack), by the reference's layouts of
+#: their blocks, which the port does not cut over a mesh yet.
+RECURRENT_SPECS = {"mamba": "spec_mamba", "hybrid": "spec_mamba", "rwkv": "spec_rwkv"}
 
 
 def leaf_spec(name: str, ndim: int, ctx: ShardCtx, cfg: ModelConfig | None) -> tuple:
@@ -139,25 +151,37 @@ def init_params(module: nn.Module, generator: torch.Generator, ctx: ShardCtx | N
     N(0,1)*0.02, a matrix N(0,1)*d_in^-1/2 (``wo`` (H*hd)^-1/2, ``w_out``
     d_ff^-1/2; an expert slab's d_in is its middle axis; a Mamba block's
     ``conv_k`` W^-1/2), norms ones, biases zeros; a Mamba block's
-    ``dt_bias``/``a_log`` zeros, ``d_skip``/``norm_scale`` ones.  Each leaf
-    is drawn whole, in f32, and cut to the rank's shard (:func:`leaf_spec`),
-    so every mesh holds the same model as one device."""
+    ``dt_bias``/``a_log`` zeros, ``d_skip``/``norm_scale`` ones; an RWKV
+    block's constants (``rwkv6.FILL_LEAVES``: ``ln_scale`` ones, the ``mu_*``
+    0.5, ``w0`` -6, ``bonus`` and ``mb_*`` zeros) and its low-rank ``wa``,
+    ``wb``, ``ma_*`` N(0,1)*0.01.  Each leaf is drawn whole, in f32, and cut
+    to the rank's shard (:func:`leaf_spec`), so every mesh holds the same
+    model as one device."""
     ctx = ctx if ctx is not None else ShardCtx()
     coords = ctx.coords()
     cfg = getattr(module, "cfg", None)
-    for name, p in module.named_parameters():
-        leaf = name.rsplit(".", 1)[-1]
-        if leaf == "scale" or leaf in mamba2.ONE_LEAVES:
-            p.fill_(1.0)
-        elif leaf.startswith("b") or leaf in mamba2.ZERO_LEAVES:
-            p.zero_()
-        else:
-            spec = leaf_spec(name, p.dim(), ctx, cfg)
-            whole = _whole_shape(p.shape, spec, ctx)
-            scale = 0.02 if leaf == "table" else whole[p.dim() - 2] ** -0.5
-            draw = torch.randn(whole, generator=generator, device=p.device, dtype=torch.float32)
-            p.copy_(shard_leaf(draw.mul_(scale), spec, coords))
-            del draw
+    for prefix, owner in module.named_modules():
+        rwkv = isinstance(owner, rwkv6.RWKV)
+        for leaf, p in owner.named_parameters(recurse=False):
+            name = f"{prefix}.{leaf}" if prefix else leaf
+            if rwkv and leaf in rwkv6.FILL_LEAVES:
+                p.fill_(rwkv6.FILL_LEAVES[leaf])
+            elif leaf == "scale" or leaf in mamba2.ONE_LEAVES:
+                p.fill_(1.0)
+            elif leaf.startswith("b") or leaf in mamba2.ZERO_LEAVES:
+                p.zero_()
+            else:
+                spec = leaf_spec(name, p.dim(), ctx, cfg)
+                whole = _whole_shape(p.shape, spec, ctx)
+                if leaf == "table":
+                    scale = 0.02
+                elif rwkv and leaf in rwkv6.SMALL_LEAVES:
+                    scale = rwkv6.SMALL_SCALE
+                else:
+                    scale = whole[p.dim() - 2] ** -0.5
+                draw = torch.randn(whole, generator=generator, device=p.device, dtype=torch.float32)
+                p.copy_(shard_leaf(draw.mul_(scale), spec, coords))
+                del draw
     return module
 
 
@@ -198,6 +222,17 @@ class Block(nn.Module):
                                    tp=tp, fsdp=fsdp)
 
 
+class RWKVLayer(nn.Module):
+    """One layer of the RWKV6 stack: a norm and the time mix, a norm and the
+    channel mix (one :class:`.rwkv6.RWKV` holds both mixes' leaves)."""
+
+    def __init__(self, cfg: ModelConfig, dtype, device):
+        super().__init__()
+        self.ln1 = Norm(cfg.d_model, device)
+        self.ln2 = Norm(cfg.d_model, device)
+        self.rwkv = rwkv6.RWKV(cfg, dtype, device)
+
+
 class MambaLayer(nn.Module):
     """One layer of the Mamba2 stacks: a norm, then the SSD block."""
 
@@ -215,22 +250,23 @@ def ffn(p, cfg: ModelConfig, h: torch.Tensor, ctx: ShardCtx | None = None) -> to
 
 
 class LM(nn.Module):
-    """The dense, MoE, Mamba2 or hybrid decoder on ``device`` (default
+    """The dense, MoE, Mamba2, hybrid or RWKV6 decoder on ``device`` (default
     ``"cuda"``; raises without a card unless asked for ``"cpu"``), on one
     device or, with ``ctx``, this rank's shard of it (dense and MoE only).
     Parameters are allocated, not drawn: call :meth:`init` or load a state
-    (``convert.params_from_reference``)."""
+    (``convert.params_from_reference``).  ``rwkv_chunked`` is the
+    reference's option of the same name (the RWKV6 training forward's
+    chunked form)."""
 
-    def __init__(self, cfg: ModelConfig, ctx: ShardCtx | None = None, device="cuda"):
+    def __init__(self, cfg: ModelConfig, ctx: ShardCtx | None = None, device="cuda", rwkv_chunked: bool = False):
         super().__init__()
         kind = block_kind(cfg)
-        if kind in _LATER:
-            raise NotImplementedError(f"{cfg.name}: {_LATER[kind]}")
-        if kind in SSM_KINDS and ctx is not None and (
+        if kind in RECURRENT_SPECS and ctx is not None and (
                 ctx.sp or any(ctx.axis_size(a) > 1 for a in (ctx.tp, ctx.fsdp, *ctx.dp))):
+            stack = "RWKV6 stack" if kind == "rwkv" else "Mamba2 stacks"
             raise NotImplementedError(
-                f"{cfg.name}: the Mamba2 stacks on a mesh (tp, sequence or FSDP parallelism: the "
-                "reference's spec_mamba layouts) are a later slice of the port"
+                f"{cfg.name}: the {stack} on a mesh (tp, sequence or FSDP parallelism: the "
+                f"reference's {RECURRENT_SPECS[kind]} layouts) are a later slice of the port"
             )
         if cfg.input_kind != "tokens":
             raise NotImplementedError(
@@ -245,7 +281,10 @@ class LM(nn.Module):
             raise ValueError(f"the padded vocabulary {cfg.padded_vocab} does not split over tp={tp}")
         self.embed = Embed(cfg.padded_vocab // tp, cfg.d_model, dt, dev)
         self.kind = kind
-        if kind in SSM_KINDS:
+        self.rwkv_chunked = rwkv_chunked
+        if kind == "rwkv":
+            self.layers = nn.ModuleList(RWKVLayer(cfg, dt, dev) for _ in range(cfg.num_layers))
+        elif kind in SSM_KINDS:
             self.layers = nn.ModuleList(MambaLayer(cfg, dt, dev) for _ in range(cfg.num_layers))
             if self._every:
                 self.shared = Block(cfg, dt, dev)
@@ -276,8 +315,8 @@ class LM(nn.Module):
 
     def _stacks(self):
         """(blocks, k cache name, v cache name) of the attention stacks, in
-        the order they run (none for the Mamba2 kinds)."""
-        if self.kind in SSM_KINDS:
+        the order they run (none for the recurrent kinds)."""
+        if self.kind in RECURRENT_SPECS:
             return
         if hasattr(self, "dense_layers"):
             yield self.dense_layers, "k_dense", "v_dense"
@@ -364,6 +403,8 @@ class LM(nn.Module):
         c, ctx, sp = self.cfg, self.ctx, self._sp
         if self.kind in SSM_KINDS:
             return self._ssm_forward(tokens)
+        if self.kind == "rwkv":
+            return self._rwkv_forward(tokens)
         if self.cfg.moe is not None and self._tp > 1 and not moe_mod.use_a2a(c, ctx):
             raise ValueError(
                 "training MoE with tp>1 requires the a2a dispatch "
@@ -402,6 +443,27 @@ class LM(nn.Module):
         x = rms_norm(x, self.ln_f.scale, self.cfg.norm_eps)
         return self._logits(x), torch.zeros((), dtype=torch.float32, device=x.device)
 
+    def _rwkv_layer(self, layer: RWKVLayer, x: torch.Tensor) -> torch.Tensor:
+        """One RWKV6 block of the training forward, from a zero shift and a
+        zero state (the reference's ``body``)."""
+        c = self.cfg
+        hs, H = rwkv6.dims(c)
+        z_shift = torch.zeros(x.shape[0], c.d_model, dtype=x.dtype, device=x.device)
+        z_state = torch.zeros(x.shape[0], H, hs, hs, dtype=torch.float32, device=x.device)
+        mix = rwkv6.rwkv_time_mix_chunked if self.rwkv_chunked else rwkv6.rwkv_time_mix
+        y, _, _ = mix(layer.rwkv, c, rms_norm(x, layer.ln1.scale, c.norm_eps), z_shift, z_state)
+        x = x + y
+        y, _ = rwkv6.rwkv_channel_mix(layer.rwkv, c, rms_norm(x, layer.ln2.scale, c.norm_eps), z_shift)
+        return x + y
+
+    def _rwkv_forward(self, tokens: torch.Tensor):
+        """The RWKV6 stack's training forward: one checkpoint a block."""
+        x = embed_tokens(self.embed.table, tokens.long())
+        for layer in self.layers:
+            x = checkpoint(self._rwkv_layer, layer, x, use_reentrant=False)
+        x = rms_norm(x, self.ln_f.scale, self.cfg.norm_eps)
+        return self._logits(x), torch.zeros((), dtype=torch.float32, device=x.device)
+
     def loss(self, batch: dict, aux_weight: float = 0.01):
         """``ce + aux_weight * aux`` over ``batch`` ({"tokens", "labels"},
         (B, T) each, this rank's rows): (loss, {"ce", "aux"}).  On a mesh
@@ -418,12 +480,20 @@ class LM(nn.Module):
         """Zeros: ``pos`` (B,) int32 and ``k``/``v`` (L, B, S, KV, hd) of each
         stack (``k_dense``/``v_dense`` for the leading dense layers).  At tp
         > 1 this rank's chunk of the sequence, S = ``max_len / tp``.  The
-        Mamba2 kinds: ``conv``, ``ssm`` and the hybrid's ``shared_k``/``shared_v``
-        (see the module's docstring)."""
+        Mamba2 kinds: ``conv``, ``ssm`` and the hybrid's ``shared_k``/``shared_v``;
+        RWKV6: ``tm_shift``, ``cm_shift`` and ``wkv`` (see the module's
+        docstring)."""
         c = self.cfg
         if max_len % self._tp:
             raise ValueError(f"max_len={max_len} does not split over tp={self._tp} (the sequence-sharded cache)")
         cache = {"pos": torch.zeros(batch, dtype=torch.int32, device=self.device)}
+        if self.kind == "rwkv":
+            hs, H = rwkv6.dims(c)
+            L = c.num_layers
+            cache["tm_shift"] = torch.zeros(L, batch, c.d_model, dtype=self.dtype, device=self.device)
+            cache["cm_shift"] = torch.zeros(L, batch, c.d_model, dtype=self.dtype, device=self.device)
+            cache["wkv"] = torch.zeros(L, batch, H, hs, hs, dtype=torch.float32, device=self.device)
+            return cache
         if self.kind in SSM_KINDS:
             s, _, nheads = mamba2.dims(c)
             L = c.num_layers
@@ -468,6 +538,8 @@ class LM(nn.Module):
         positions = torch.arange(T, device=x.device)[None, :]
         if self.kind in SSM_KINDS:
             x = self._ssm_prefill(x, positions, cache)
+        if self.kind == "rwkv":
+            x = self._rwkv_cached(x, cache, fresh=True)
         for blocks, kn, vn in self._stacks():
             for i, blk in enumerate(blocks):
                 p = self._gathered(blk)
@@ -502,6 +574,27 @@ class LM(nn.Module):
                 x = x + y
                 x = x + mlp_mod.mlp(sp.mlp, c, rms_norm(x, sp.ln2.scale, c.norm_eps))
                 inv += 1
+        return x
+
+    def _rwkv_cached(self, x: torch.Tensor, cache: dict, fresh: bool) -> torch.Tensor:
+        """The RWKV6 stack against the cache: a prompt's prefill (``fresh``:
+        every layer's shifts and ``wkv`` slice zeroed first, whatever the
+        cache held) or a decode step.  K7 writes each layer's final state
+        over its ``wkv`` slice; the new shifts are copied in after the old
+        ones are read."""
+        c = self.cfg
+        for i, layer in enumerate(self.layers):
+            tm_shift, cm_shift, state = cache["tm_shift"][i], cache["cm_shift"][i], cache["wkv"][i]
+            if fresh:
+                for t in (tm_shift, cm_shift, state):
+                    t.zero_()
+            y, tms, _ = rwkv6.rwkv_time_mix(layer.rwkv, c, rms_norm(x, layer.ln1.scale, c.norm_eps), tm_shift,
+                                            state, in_place=True)
+            tm_shift.copy_(tms)
+            x = x + y
+            y, cms = rwkv6.rwkv_channel_mix(layer.rwkv, c, rms_norm(x, layer.ln2.scale, c.norm_eps), cm_shift)
+            cm_shift.copy_(cms)
+            x = x + y
         return x
 
     def _ssm_decode(self, x: torch.Tensor, cache: dict) -> torch.Tensor:
@@ -559,6 +652,8 @@ class LM(nn.Module):
         x = embed_tokens(self.embed.table, tokens.long(), ctx)[:, None, :]
         if self.kind in SSM_KINDS:
             x = self._ssm_decode(x, cache)
+        if self.kind == "rwkv":
+            x = self._rwkv_cached(x, cache, fresh=False)
         for blocks, kn, vn in self._stacks():
             for i, blk in enumerate(blocks):
                 p = self._gathered(blk)

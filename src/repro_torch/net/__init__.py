@@ -6,7 +6,7 @@ of ``repro.net``, with the same exports).
 The reference's packet-list forms are here too: :func:`interleave` (and
 :data:`INTERLEAVES`) and :func:`jitter_delivery` over lists of
 :class:`Packet`, on the batch forms' schedules; :class:`SwitchHop` runs a
-wire batch (``process_batch``) and refuses the list view.
+wire batch (``process_batch``) or a packet list (``process``).
 ``pallas_row_sort`` is the hop's row sort on kernel K1
 (:func:`~repro_torch.net.engine.row_sort_device`).
 """

@@ -65,6 +65,23 @@ def depacketize(packets: list[Packet], device="cuda") -> torch.Tensor:
     return torch.cat([p.payload for p in packets])
 
 
+def merge_round_robin(streams: list[list[Packet]]) -> list[Packet]:
+    """Interleave packet streams one packet per stream per turn -- the fair
+    link-scheduling order used both for storage flows sharing an ingress
+    link and for switch uplinks feeding the next hop."""
+    out: list[Packet] = []
+    heads = [0] * len(streams)
+    while True:
+        progressed = False
+        for i, q in enumerate(streams):
+            if heads[i] < len(q):
+                out.append(q[heads[i]])
+                heads[i] += 1
+                progressed = True
+        if not progressed:
+            return out
+
+
 def segment_streams(
     packets: list[Packet], num_segments: int, device="cuda"
 ) -> list[torch.Tensor]:

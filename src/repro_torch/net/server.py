@@ -37,7 +37,7 @@ import torch
 
 from .. import resolve_device
 from ..core.mergesort import merge_runs, merge_runs_batched, merge_runs_flat
-from ..core.runs import RunArena, merge_passes
+from ..core.runs import RunArena, merge_passes, run_starts
 from ..obs.trace import NULL_TRACER
 from .packet import Packet
 from .wire import WireBatch, ragged_gather
@@ -456,3 +456,7 @@ def stream_sort(
         server.ingest(p)
     return server.finish()
 
+
+def plain_runs_upper_bound(values: torch.Tensor, k: int) -> int:
+    """Passes a switchless server would need on the raw stream (baseline)."""
+    return merge_passes(int(run_starts(torch.as_tensor(values)).numel()), k)

@@ -30,7 +30,7 @@ import torch
 
 from ..obs.trace import NULL_TRACER
 from .engine import HopSpec, HopStats, passthrough_hop, run_hop
-from .packet import DEFAULT_PAYLOAD
+from .packet import DEFAULT_PAYLOAD, Packet
 from .wire import WireBatch, merge_round_robin_batches, split_by_flow
 
 
@@ -38,10 +38,10 @@ from .wire import WireBatch, merge_round_robin_batches, split_by_flow
 class SwitchHop:
     """One programmable switch addressed on its own (the reference's
     ``SwitchHop``): :meth:`process_batch` runs an arrival batch through a
-    hop engine.  The reference's packet-list view, :meth:`process`, raises:
-    the port moves wire batches only (build one with
-    :func:`~repro_torch.net.flow.interleave_batch` or
-    :func:`~repro_torch.net.wire.packetize_batch`)."""
+    hop engine; :meth:`process` is the reference's packet-list boundary
+    view of it.  The reference's ``backend`` (its block sort's "numpy" or
+    "pallas") has no counterpart: the port's block sort is K1 on the card
+    and its plain version on the CPU, by the tensors' device."""
 
     name: str
     num_segments: int
@@ -58,11 +58,12 @@ class SwitchHop:
                        payload_size=self.payload_size)
         return run_hop(batch, spec, self.name, self.engine or ("faithful" if self.faithful else "fused"))
 
-    def process(self, packets):
-        raise NotImplementedError(
-            "SwitchHop.process takes packet lists, which the port does not move: "
-            "use SwitchHop.process_batch on a WireBatch"
-        )
+    def process(self, packets: list[Packet]) -> tuple[list[Packet], HopStats]:
+        """Packet-list boundary view of :meth:`process_batch`: the packets
+        become one wire batch on the hop's own device (``ranges.device``),
+        and the hop's output becomes packets again."""
+        out, stats = self.process_batch(WireBatch.from_packets(packets, device=self.ranges.device))
+        return out.to_packets(), stats
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,7 +1,8 @@
-"""The port's CUDA kernels on the card: K1-K6 and the attention backward K5b
-against their plain torch versions, the launch counters, a small pipeline
-against its CPU run, and the smoke LMs (dense and MoE) served and trained on
-the card against the same weights on the CPU.
+"""The port's CUDA kernels on the card: K1-K6, the attention backward K5b
+and RWKV6's WKV forward and backward K7/K7b against their plain torch
+versions, the launch counters, a small pipeline against its CPU run, and the
+smoke LMs (dense, MoE, RWKV6) served and trained on the card against the
+same weights on the CPU.
 
 Marked ``cuda``; every test skips with a reason where no card is present.
 Run them on a machine with an NVIDIA card with
@@ -1022,3 +1023,102 @@ def test_moe_layer_a2a_at_tp1_equals_moe_layer(nccl):
         torch.testing.assert_close(ya, yb, atol=1e-5, rtol=1e-5)
         for k in gb:
             assert (ga[k] - gb[k]).abs().max() <= 2**-7 * gb[k].abs().max(), (arch, k)
+
+
+# -- RWKV6's WKV: K7 and K7b ------------------------------------------------------------------
+
+
+def _wkv_inputs(gen, B, T, H, N=64):
+    """r, k, v, dy unit normals, decays exp(-exp(w)) for w on [-8, 3], u and
+    s0 nonzero (``chip_smoke.wkv_inputs``)."""
+    from repro_torch.kernels import wkv
+
+    r, k, v, dy = (torch.randn(B, T, H, N, generator=gen, device="cuda") for _ in range(4))
+    w = torch.exp(-torch.exp(torch.rand(B, T, H, N, generator=gen, device="cuda") * 11 - 8))
+    u = torch.randn(H, N, generator=gen, device="cuda")
+    s0 = torch.randn(B, H, N, N, generator=gen, device="cuda") * 0.5
+    return wkv, (r, k, v, w, u, s0), dy
+
+
+def _wkv_close(got, want):
+    """``chip_smoke.wkv_limit``: 1e-5 + 1e-5 max|want| + 1e-4 |want|."""
+    assert got.shape == want.shape and torch.isfinite(got).all()
+    assert ((got - want).abs() <= 1e-5 + 1e-5 * want.abs().max() + 1e-4 * want.abs()).all()
+
+
+@pytest.mark.parametrize("B,T,H", [(1, 1, 1), (1, 7, 1), (1, 64, 1), (2, 1, 3), (2, 7, 3), (2, 64, 3),
+                                   (4, 2048, 32)])
+def test_wkv_kernels_equal_plain(gen, B, T, H):
+    """K7 and K7b against their plain versions at the ``k7`` phase's shapes
+    (the training shape last); one launch each a call (K7b's ``LAUNCHES``
+    counts calls: three passes a call)."""
+    wkv, ins, dy = _wkv_inputs(gen, B, T, H)
+    build.reset_launches()
+    for g, w in zip(wkv.wkv(*ins), wkv.wkv_plain(*ins)):
+        _wkv_close(g, w)
+    for g, w in zip(wkv.wkv_bwd(*ins, dy), wkv.wkv_bwd_plain(*ins, dy)):
+        _wkv_close(g, w)
+    assert build.LAUNCHES["wkv"] == 1 and build.LAUNCHES["wkv_bwd"] == 1
+
+
+def test_wkv_in_place_on_a_cache_slice_and_the_stride_check(gen):
+    """K7 at T 1 in place on a layer's slice and on a slot's slice of a
+    stacked (L, B, H, 64, 64) cache: the plain version's y and state, the
+    other slices untouched; an r whose last axis is not contiguous raises."""
+    wkv, _, _ = _wkv_inputs(gen, 1, 1, 1)
+    cache = torch.randn(5, 4, 32, 64, 64, generator=gen, device="cuda")
+    for index, B in (((2,), 4), ((3, slice(1, 2)), 1)):
+        _, (r, k, v, w, u, _), _ = _wkv_inputs(gen, B, 1, 32)
+        before = cache.clone()
+        want_y, want_s = wkv.wkv_plain(r, k, v, w, u, cache[index].clone())
+        y, s = wkv.wkv(r, k, v, w, u, cache[index], in_place=True)
+        assert s.data_ptr() == cache[index].data_ptr()
+        _wkv_close(y, want_y)
+        _wkv_close(cache[index], want_s)
+        before[index] = cache[index]
+        assert torch.equal(before, cache)
+    _, (r, k, v, w, u, s0), _ = _wkv_inputs(gen, 2, 5, 3)
+    with pytest.raises(ValueError, match="last axis contiguous"):
+        wkv.wkv(r.transpose(1, 3).contiguous().transpose(1, 3), k, v, w, u, s0)
+
+
+def test_wkv_function_gradients_equal_plain_autograd(gen):
+    """``WKVFn`` (K7 forward, K7b backward) against autograd through the
+    plain loop: every input's gradient."""
+    from repro_torch.models.rwkv6 import WKVFn
+
+    wkv, (r, k, v, w, u, s0), dy = _wkv_inputs(gen, 2, 40, 3)
+    grads = []
+    for fn in (lambda *a: WKVFn.apply(*a, s0)[0], lambda *a: wkv.wkv_plain(*a, s0)[0]):
+        leaves = [t.clone().requires_grad_(True) for t in (r, k, v, w, u)]
+        grads.append(torch.autograd.grad(fn(*leaves), leaves, dy))
+    for g, want in zip(*grads):
+        _wkv_close(g, want)
+
+
+def test_rwkv_smoke_decode_graph_launches_k7_once_a_layer(gen):
+    """rwkv6's smoke LM (f32) on the card: its decode step captured in a CUDA
+    graph holds one K7 node a layer, and the graph's logits and cache equal
+    the eager step's and the CPU's."""
+    import dataclasses
+
+    cfg = dataclasses.replace(configs.get_smoke_config("rwkv6-1.6b"), dtype="float32")
+    host = models.build(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+    card = models.build(cfg, device="cuda")
+    card.load_state_dict(host.state_dict())
+    toks = torch.randint(0, cfg.vocab_size, (3, 9), generator=torch.Generator().manual_seed(1))
+    hc, cc = host.init_cache(3, 16), card.init_cache(3, 16)
+    host.prefill(toks, hc)
+    card.prefill(toks.cuda(), cc)
+    step_tok = torch.zeros(3, dtype=torch.int64, device="cuda")
+    graph, (logits, _) = build.capture(lambda: card.decode_step(cc, step_tok))
+    assert build.graph_kernel_nodes(graph, ["wkv_forward"])["wkv_forward"] == cfg.num_layers
+    # the capture's warm-up ran one real step: replay the same on the CPU
+    want, hc = host.decode_step(hc, torch.zeros(3, dtype=torch.int64))
+    nxt = want.argmax(-1)
+    step_tok.copy_(nxt)
+    graph.replay()
+    want, hc = host.decode_step(hc, nxt)
+    torch.testing.assert_close(logits.cpu(), want, atol=1e-4, rtol=1e-4)
+    for name in hc:
+        torch.testing.assert_close(cc[name].cpu(), hc[name], atol=1e-4, rtol=1e-4)

@@ -31,15 +31,21 @@ import torch
 
 import _torch_threads  # noqa: F401  (one intra-op thread a worker)
 
+import jax.numpy as jnp
+
 import repro.kernels
+import repro.kernels.ops
 import repro.net
 from repro.configs import paper_sort as ref_paper_sort
+from repro.core.partition import set_ranges as ref_set_ranges
 from repro.net import flow as ref_flow
+from repro.net import packet as ref_packet
 from repro.net import pipeline as ref_pipeline
+from repro.net import server as ref_server
 from repro_torch import kernels, net
 from repro_torch.configs import paper_sort
 from repro_torch.core.partition import set_ranges
-from repro_torch.net import engine, flow, pipeline, wire
+from repro_torch.net import engine, flow, packet, pipeline, server, wire
 
 ROOT = Path(__file__).resolve().parents[1]
 EXAMPLES = ROOT / "examples"
@@ -102,6 +108,11 @@ def test_jitter_delivery_matches_reference(window):
 
 
 def test_switch_hop_runs_a_batch_and_refuses_the_list_view():
+    """The name is older than the list view: ``SwitchHop.process_batch`` is
+    ``run_hop`` on the batch, and ``process`` (the reference's two calls,
+    ``WireBatch.from_packets`` on the hop's device and ``to_packets``) gives
+    the reference's ``process`` packet for packet, stats too, on interleaved
+    flows; an empty list gives an empty list."""
     vals = torch.from_numpy(np.random.default_rng(2).integers(0, 4096, 2000).astype(np.int64))
     batch = wire.packetize_batch(vals, 64)
     ranges = set_ranges(4096, 8, device="cpu")
@@ -110,8 +121,66 @@ def test_switch_hop_runs_a_batch_and_refuses_the_list_view():
     got, stats = hop.process_batch(batch)
     want, want_stats = net.run_hop(batch, spec, "s0", "fused")
     assert torch.equal(got.values, want.values) and stats == want_stats
-    with pytest.raises(NotImplementedError, match="process_batch"):
-        hop.process([])
+    ref_flows, flows = _flows(n=3000, seed=5)
+    ref_hop = repro.net.SwitchHop("s0", 8, 16, 1 << 20, ref_set_ranges(1 << 20, 8))
+    hop = net.SwitchHop("s0", 8, 16, 1 << 20, set_ranges(1 << 20, 8, device="cpu"))
+    want, want_stats = ref_hop.process(ref_flow.interleave(ref_flows, seed=2))
+    got, stats = hop.process(flow.interleave(flows, seed=2))
+    _same_packets(got, want)
+    for field in ("arrivals", "load_imbalance", "emitted_runs", "mean_run_len", "recirculations"):
+        assert getattr(stats, field) == getattr(want_stats, field), field
+    assert np.array_equal(stats.segment_loads.numpy(), want_stats.segment_loads)
+    assert hop.process([])[0] == [] and ref_hop.process([])[0] == []
+
+
+def test_merge_round_robin_matches_reference():
+    """``net.packet.merge_round_robin`` on streams of unequal lengths (one
+    empty) gives the reference's order."""
+    rng = np.random.default_rng(3)
+    vals = [rng.integers(0, 1 << 20, n).astype(np.int64) for n in (700, 0, 100, 333)]
+    ref_streams = [ref_packet.packetize(v, 64, flow_id=i) for i, v in enumerate(vals)]
+    streams = [packet.packetize(torch.from_numpy(v), 64, flow_id=i) for i, v in enumerate(vals)]
+    _same_packets(packet.merge_round_robin(streams), ref_packet.merge_round_robin(ref_streams))
+    assert packet.merge_round_robin([]) == ref_packet.merge_round_robin([]) == []
+
+
+@pytest.mark.parametrize("n,k", [(0, 10), (1, 10), (5000, 2), (5000, 10), (20000, 64)])
+def test_plain_runs_upper_bound_matches_reference(n, k):
+    vals = np.random.default_rng(n).integers(0, 50, n).astype(np.int64)
+    vals[: n // 3] = np.sort(vals[: n // 3])  # long runs as well as short ones
+    assert server.plain_runs_upper_bound(torch.from_numpy(vals), k) == ref_server.plain_runs_upper_bound(vals, k)
+
+
+def test_ops_sorts_match_reference():
+    """``ops.blockwise_sort`` and ``ops.sort_rows`` (K1's plain version on the
+    CPU) against the reference's (Pallas in interpret mode), int32 keys;
+    a block that does not divide the stream raises as the reference's does."""
+    x = np.random.default_rng(9).integers(-1000, 1000, 4096).astype(np.int32)
+    for block in (8, 64, 512):
+        want = np.asarray(repro.kernels.ops.blockwise_sort(jnp.asarray(x), block))
+        assert np.array_equal(kernels.ops.blockwise_sort(torch.from_numpy(x), block).numpy(), want)
+    rows = x.reshape(16, 256)
+    assert np.array_equal(kernels.ops.sort_rows(torch.from_numpy(rows)).numpy(),
+                          np.asarray(repro.kernels.ops.sort_rows(jnp.asarray(rows))))
+    for bad in (48, 8192):
+        with pytest.raises(ValueError, match="pow2 block dividing n"):
+            kernels.ops.blockwise_sort(torch.from_numpy(x), bad)
+        with pytest.raises(ValueError, match="pow2 block dividing n"):
+            repro.kernels.ops.blockwise_sort(jnp.asarray(x), bad)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_ops_flash_attention_matches_reference(causal):
+    """``ops.flash_attention`` (K5's plain version on the CPU) against the
+    reference's Pallas kernel in interpret mode: f32, GQA 2 q heads a kv
+    head, T = S = 128 at blocks of 64; within 1e-5."""
+    rng = np.random.default_rng(4)
+    q = rng.standard_normal((1, 128, 4, 64)).astype(np.float32)
+    k, v = (rng.standard_normal((1, 128, 2, 64)).astype(np.float32) for _ in range(2))
+    want = repro.kernels.ops.flash_attention(*(jnp.asarray(a) for a in (q, k, v)), causal=causal,
+                                             block_q=64, block_k=64)
+    got = kernels.ops.flash_attention(*(torch.from_numpy(a) for a in (q, k, v)), causal=causal)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5, rtol=1e-5)
 
 
 # -- the example twins ---------------------------------------------------------------------

@@ -54,7 +54,8 @@ def test_every_port_module_imports_without_jax_or_reference():
             "repro_torch.launch.mesh", "repro_torch.launch.train", "repro_torch.launch.serve",
             "repro_torch.models.convert", "repro_torch.train.train_step",
             "repro_torch.train.optimizer", "repro_torch.distributed.collectives",
-            "repro_torch.models.mamba2", "repro_torch.configs.paper_sort"} <= set(names)
+            "repro_torch.models.mamba2", "repro_torch.configs.paper_sort",
+            "repro_torch.models.rwkv6", "repro_torch.kernels.wkv"} <= set(names)
     code = (
         "import importlib, sys\n"
         f"for name in {names!r}:\n"

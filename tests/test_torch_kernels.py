@@ -262,7 +262,8 @@ def test_cpu_calls_never_launch_or_build():
     ops.merge_tournament(torch.sort(x, dim=1).values)
     assert bitonic.LAUNCHES is build.LAUNCHES
     assert set(build.LAUNCHES) == {"row_sort", "tournament", "row_sort_kv", "merge_rows",
-                                   "flash_attention", "decode_attention", "flash_attention_bwd"}
+                                   "flash_attention", "decode_attention", "flash_attention_bwd",
+                                   "wkv", "wkv_bwd"}
     assert not any(build.LAUNCHES.values())
     assert build._LIBS == {}
 

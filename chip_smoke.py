@@ -205,13 +205,16 @@ trained) and the example twins.  Phases, one JSON line each:
    bound) and K3's, K5's and K6's ``deepseek_serve_launches``;
 15. ``k7``, ``serve_rwkv``, ``train_rwkv`` -- RWKV6's WKV recurrence: K7
    (forward) and K7b (backward) against their plain versions at T 1, 7 and
-   64 with B x H 1 and 6 and at the training shape (B 4, T 2,048, H 32),
-   decays exp(-exp(w)) for w in [-8, 3], nonzero u and s0 (limit
-   ``wkv_limit``); K7 at T 1 in place on a layer's and on a slot's slice of
-   a stacked (L, B, H, 64, 64) cache; an r whose last axis is not
-   contiguous refused; K7b's three passes counted as the kernel nodes of
-   one captured call; eager, graph (24 calls replayed) and plain ms at the
-   training shape beside the float32 bound.  Then rwkv6-1.6b: its smoke
+   64 with B x H 1 and 6, at the ragged shapes ``K7_RAGGED`` (T off the
+   chunk and both checkpoint intervals, both of K7's chunked configurations)
+   and at the training shape (B 4, T 2,048, H 32), decays exp(-exp(w)) for
+   w in [-8, 3], nonzero u and s0 (limit ``wkv_limit``); two K7b calls at
+   the training shape equal byte for byte; K7 at T 1 in place on a layer's
+   and on a slot's slice of a stacked (L, B, H, 64, 64) cache; an r whose
+   last axis is not contiguous refused; K7b's two passes counted as the
+   kernel nodes of one captured call; eager, graph (24 calls replayed) and
+   plain ms at the training shape beside the float32 bound, with each
+   call's ``wkv.launch_plan``.  Then rwkv6-1.6b: its smoke
    config in float32 on the card against the CPU (logits within 1e-4,
    greedy tokens equal, the graph's equal the eager step's), the full model
    (24 layers, d_model 2,048, 32 heads of 64, vocab 65,536, bf16 from
@@ -328,8 +331,11 @@ RWKV_ARCH = "rwkv6-1.6b"
 TRAIN_RWKV = dict(arch=RWKV_ARCH, batch=4, seq=2048, steps=4, lr=3e-4, plain_batch=1, plain_seq=256,
                   plain_dtype="float32", plain_layers=4)
 #: K7's and K7b's checks (the ``k7`` phase): (B, T, H) with T 1, 7 and 64 and
-#: B x H 1 and 6, then the training shape.
+#: B x H 1 and 6; shapes the kernels' tiling makes ragged (T off K7's
+#: 16-step chunk and K7b's 32- and 4-step checkpoint intervals, B x H 15,
+#: 32 and 75, on K7's narrow configuration); the training shape (the wide).
 K7_SMALL = tuple((b, t, h) for t in (1, 7, 64) for b, h in ((1, 1), (2, 3)))
+K7_RAGGED = ((3, 37, 5), (1, 1963, 32), (2, 100, 3), (3, 65, 25))
 K7_TRAIN = (4, 2048, 32)
 
 #: The example twins (``examples/torch_*.py``), each at its reference
@@ -2635,9 +2641,10 @@ def held(name: str, got, want, what: str) -> float:
     return diff.max().item()
 
 
-def check_k7(wk, torch, gen, b: int, t: int, h: int) -> tuple[dict, tuple]:
+def check_k7(wk, torch, gen, b: int, t: int, h: int, same_bytes: bool = False) -> tuple[dict, tuple]:
     """K7 and K7b against their plain versions on fresh inputs: the largest
-    error of each output, and the inputs."""
+    error of each output, and the inputs.  With ``same_bytes`` a second K7b
+    call must give the first one's bytes."""
     ins = wkv_inputs(torch, gen, b, t, h)
     r, k, v, w, u, s0, dy = ins
     what = f"B {b}, T {t}, H {h}"
@@ -2645,6 +2652,8 @@ def check_k7(wk, torch, gen, b: int, t: int, h: int) -> tuple[dict, tuple]:
     for name, got, want in zip(("y", "state"), wk.wkv(r, k, v, w, u, s0), wk.wkv_plain(r, k, v, w, u, s0)):
         errs[name] = held(f"K7 {name}", got, want, what)
     got = wk.wkv_bwd(r, k, v, w, u, s0, dy)
+    if same_bytes and not all(torch.equal(a, c) for a, c in zip(got, wk.wkv_bwd(r, k, v, w, u, s0, dy))):
+        fail(f"two K7b calls ({what}) gave different bytes")
     want = wk.wkv_bwd_plain(r, k, v, w, u, s0, dy)
     for name, g, w_ in zip(("dr", "dk", "dv", "dw", "du"), got, want):
         errs[name] = held(f"K7b {name}", g, w_, what)
@@ -2699,14 +2708,17 @@ def f32_bound(flops: float, bytes_: float) -> tuple[float, str]:
 
 
 def phase_k7(wk, torch, gen) -> dict:
-    """K7 and K7b against their plain versions (``K7_SMALL``, the training
-    shape ``K7_TRAIN``; limits ``wkv_limit``), K7 in place on cache slices,
-    the stride check that raises, and K7b's kernel nodes a call; then the
-    times at the training shape for the kernels line."""
+    """K7 and K7b against their plain versions (``K7_SMALL``, ``K7_RAGGED``,
+    the training shape ``K7_TRAIN``; limits ``wkv_limit``; K7b's bytes equal
+    over two calls at the training shape), K7 in place on cache slices, the
+    stride check that raises, and K7b's kernel nodes a call; then the times
+    at the training shape for the kernels line."""
+    import dataclasses
+
     from repro_torch.kernels import build
 
     worst: dict[str, float] = {}
-    for b, t, h in K7_SMALL:
+    for b, t, h in K7_SMALL + K7_RAGGED:
         errs, _ = check_k7(wk, torch, gen, b, t, h)
         worst = {k: max(worst.get(k, 0.0), e) for k, e in errs.items()}
     in_place = k7_in_place(wk, torch, gen)
@@ -2717,15 +2729,17 @@ def phase_k7(wk, torch, gen) -> dict:
         pass
     else:
         fail("K7 took an r whose last axis is not contiguous")
-    train_errs, (r, k, v, w, u, s0, dy) = check_k7(wk, torch, gen, *K7_TRAIN)
+    train_errs, (r, k, v, w, u, s0, dy) = check_k7(wk, torch, gen, *K7_TRAIN, same_bytes=True)
     bwd = lambda: wk.wkv_bwd(r, k, v, w, u, s0, dy)  # noqa: E731
-    graph, _ = build.capture(bwd)
-    nodes = build.graph_kernel_nodes(graph, ["wkv_grad_r", "wkv_grad_kw", "wkv_grad_v"])
-    graph.reset()
-    ours = nodes["wkv_grad_r"] + nodes["wkv_grad_kw"] + nodes["wkv_grad_v"]
-    if ours != wk.KERNELS_PER_CALL or any(nodes[e] != 1 for e in ("wkv_grad_r", "wkv_grad_kw", "wkv_grad_v")):
-        fail(f"a K7b call put {nodes} kernels on the card, want each pass once ({wk.KERNELS_PER_CALL})")
     b, t, h = K7_TRAIN
+    plan = wk.launch_plan(b, t, h)
+    passes = [p.kernel for p in plan.backward]
+    graph, _ = build.capture(bwd)
+    nodes = build.graph_kernel_nodes(graph, passes)
+    graph.reset()
+    ours = sum(nodes[e] for e in passes)
+    if ours != wk.KERNELS_PER_CALL or any(nodes[e] != 1 for e in passes):
+        fail(f"a K7b call put {nodes} kernels on the card, want each pass once ({wk.KERNELS_PER_CALL})")
     rows = {}
     for name, kern, plain, backward in (
             ("wkv", lambda: wk.wkv(r, k, v, w, u, s0), lambda: wk.wkv_plain(r, k, v, w, u, s0), False),
@@ -2742,15 +2756,16 @@ def phase_k7(wk, torch, gen) -> dict:
         torch.cuda.empty_cache()
     rows["wkv"]["max_abs_err"] = max(train_errs[k] for k in ("y", "state"))
     rows["wkv_bwd"]["max_abs_err"] = max(train_errs[k] for k in ("dr", "dk", "dv", "dw", "du"))
+    rows["wkv"]["plan"] = dataclasses.asdict(plan.forward)
     rows["wkv_bwd"].update(kernels_per_call=ours, graph_kernel_nodes_per_call=nodes["all"],
-                           checkpoint_steps=wk.CHECKPOINT_STEPS,
-                           checkpoint_bytes=4 * b * h * -(-t // wk.CHECKPOINT_STEPS) * 64 * 64)
+                           plan=[dataclasses.asdict(p) for p in plan.backward],
+                           checkpoint_steps=list(plan.checkpoint_steps), checkpoint_bytes=plan.scratch_bytes)
     del r, k, v, w, u, s0, dy
     torch.cuda.empty_cache()
-    emit({"phase": "k7", "small_shapes": [list(x) for x in K7_SMALL], "max_abs_err_small": worst,
-          "in_place_t1": in_place, "training_shape": list(K7_TRAIN), "max_abs_err_training": train_errs,
-          "k7b_kernel_nodes": nodes, "stride_check_raises": True,
-          "limit": "1e-5 + 1e-5 max|plain| + 1e-4 |plain|, elementwise"})
+    emit({"phase": "k7", "small_shapes": [list(x) for x in K7_SMALL], "ragged_shapes": [list(x) for x in K7_RAGGED],
+          "max_abs_err_small_and_ragged": worst, "in_place_t1": in_place, "training_shape": list(K7_TRAIN),
+          "max_abs_err_training": train_errs, "k7b_same_bytes_twice": True, "k7b_kernel_nodes": nodes,
+          "stride_check_raises": True, "limit": "1e-5 + 1e-5 max|plain| + 1e-4 |plain|, elementwise"})
     return rows
 
 
@@ -2758,6 +2773,8 @@ def k7_serve_times(wk, torch, gen, serve: dict) -> dict:
     """K7 at the serve run's shapes: its largest prefill (B 1) and the decode
     step (B = slots, T 1, in place on a layer of a stacked cache), each
     against its plain version, eager and graph ms beside the bound."""
+    import dataclasses
+
     out = {}
     b, t, h, n = serve["k7_prefill_shape"]
     cache = torch.zeros(4, serve["slots"], h, n, n, device="cuda")
@@ -2769,7 +2786,8 @@ def k7_serve_times(wk, torch, gen, serve: dict) -> dict:
         b_ms, b_by = f32_bound(flops, bytes_)
         out[label] = {"shape": [bb, tt, h, n], "max_abs_err": max(errs["y"], errs["state"]), "ms": cuda_ms(kern),
                       "graph_ms": graph_ms(kern), "plain_ms": cuda_ms(lambda: wk.wkv_plain(r, k, v, w, u, s0), 3),
-                      "bound_ms": b_ms, "bound_by": b_by}
+                      "bound_ms": b_ms, "bound_by": b_by,
+                      "plan": dataclasses.asdict(wk.launch_plan(bb, tt, h).forward)}
     torch.cuda.empty_cache()
     return out
 

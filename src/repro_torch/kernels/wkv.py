@@ -12,15 +12,32 @@ bonus ``u`` ``(H, N)`` and an initial state ``s0`` ``(B, H, N, N)``, each
 
 :func:`wkv` returns ``(y (B, T, H, N), the final state (B, H, N, N))``; with
 ``in_place=True`` the final state is written over ``s0`` (the decode step
-passes its layer's slice of the cache), which the kernel allows: each block
-reads its whole state before writing any of it.  :func:`wkv_bwd` returns
-``(dr, dk, dv, dw, du)`` from the same inputs and ``dy``; the final state
-gets no gradient, nor does ``s0``.
+passes its layer's slice of the cache).  :func:`wkv_bwd` returns ``(dr, dk,
+dv, dw, du)`` from the same inputs and ``dy``; the final state gets no
+gradient, nor does ``s0``.
 
-The kernels are ``csrc/wkv.cu`` (K7, one launch) and ``csrc/wkv_bwd.cu`` (K7b,
-:data:`KERNELS_PER_CALL` launches: dr and the state checkpoints forward in
-time, dk and dw backward from the checkpoints, dv backward; ``du`` summed over
-the batch from per-(b, h) partials by a torch reduction, no float atomics).
+The kernels (``csrc/wkv.cu``, ``csrc/wkv_bwd.cu``) run the recurrence on the
+float32 CUDA cores, each thread carrying a small register tile of a state
+through the whole sequence; :func:`launch_plan` gives every launch's shape.
+
+* K7, one launch: a (b, h)'s 64 columns split over 2 or 8 blocks (column j
+  of the state and y_t[j] depend on column j alone), chosen from B H so that
+  the grid holds :data:`MIN_FORWARD_BLOCKS` blocks where it can: 256 at the
+  training shape and at a B 1 prefill of 32 heads; a single step (T = 1,
+  the decode step) runs a kernel of its own on 2 blocks a (b, h).  Each
+  block reads and writes only its own columns of ``s0`` and the final
+  state, and each thread its own tile, read before any of it is written: so
+  the state may be written in place, over a slot's or a layer's slice of a
+  cache.
+* K7b, :data:`KERNELS_PER_CALL` launches: dr, ``du``'s per-(b, h) partials and
+  the checkpoints forward in time (two blocks a (b, h), its rows split), then
+  dk, dv and dw backward in time (one block a (b, h)), the states recomputed
+  from checkpoints every :data:`CHECKPOINT_STEPS` steps in device memory and
+  every :data:`SUBCHECKPOINT_STEPS` in shared memory, never by dividing by a
+  decay.  No float atomics: each output element is written once by its
+  owner, every sum runs in a fixed order, and ``du`` is summed over the
+  batch by a torch reduction, so a call gives the same bytes every run.
+
 The head size is 64 (:data:`HEAD_SIZES`); r, k, v, w and dy need their last
 axis contiguous and the states their inner (N, N) contiguous, any other
 strides: the wrappers raise on anything else and never copy.
@@ -34,6 +51,7 @@ CUDA tensors they launch the kernel or raise, and add one to
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
 
 import torch
 
@@ -43,17 +61,72 @@ from .build import LAUNCHES
 #: Head sizes the kernels are written for (rwkv6-1.6b and its smoke config).
 HEAD_SIZES = (64,)
 
-#: Kernels one K7b call launches: the dr, dk/dw and dv passes.
-KERNELS_PER_CALL = 3
+#: Kernels one K7b call launches: ``wkv_grad_r`` and ``wkv_grad_kvw``.
+KERNELS_PER_CALL = 2
 
-#: Steps between K7b's state checkpoints (``csrc/wkv_bwd.cu``).
-(CHECKPOINT_STEPS,) = build.source_constants("wkv_bwd.cu", "CK")
+#: K7's threads a block, and its two chunked configurations: (columns a
+#: block, a thread's tile rows x columns), wide first.  A single step takes
+#: the wide one's.
+(FORWARD_THREADS,) = build.source_constants("wkv.cu", "THREADS")
+FORWARD_CONFIGS = tuple((cols, (rows, tcols)) for cols, rows, tcols in (
+    build.source_constants("wkv.cu", f"{size}_COLS", f"{size}_TILE_R", f"{size}_TILE_C")
+    for size in ("WIDE", "NARROW")))
 
-# (r, k, v, w, u, s0, y, s_out, B, T, H, strides[19], stream)
-build.register("wkv", "wkv.cu", {"wkv_forward_f32": [build.PTR] * 8 + [build.INT] * 3 + [build.PTR] * 2})
+#: K7b: steps between the state checkpoints in device memory and in shared
+#: memory, its tile, and each pass's threads a block (and pass 1's rows).
+(CHECKPOINT_STEPS, SUBCHECKPOINT_STEPS, _TILE, _GRAD_R_THREADS, _GRAD_R_ROWS, _GRAD_KVW_THREADS) = \
+    build.source_constants("wkv_bwd.cu", "CK", "SK", "TILE", "FWD_THREADS", "FWD_ROWS", "BWD_THREADS")
+
+#: K7's grid aims at this many blocks (about two on each of an H100's 132
+#: SMs): the widest configuration that reaches it, else the narrowest.
+MIN_FORWARD_BLOCKS = 256
+
+# (r, k, v, w, u, s0, y, s_out, B, T, H, groups, strides[19], stream)
+build.register("wkv", "wkv.cu", {"wkv_forward_f32": [build.PTR] * 8 + [build.INT] * 4 + [build.PTR] * 2})
 # (r, k, v, w, u, s0, dy, dr, dk, dv, dw, du_part, ckpt, B, T, H, strides[29], stream)
 build.register("wkv_bwd", "wkv_bwd.cu",
                {"wkv_backward_f32": [build.PTR] * 13 + [build.INT] * 3 + [build.PTR] * 2})
+
+
+@dataclass(frozen=True)
+class Launch:
+    """One kernel launch: its entry, blocks, threads a block, a thread's tile
+    of the state (rows, columns), and how many blocks split one (b, h)'s
+    rows and columns."""
+
+    kernel: str
+    grid: int
+    threads: int
+    tile: tuple[int, int]
+    row_groups: int
+    column_groups: int
+
+
+@dataclass(frozen=True)
+class Plan:
+    """K7's launch, K7b's two, and K7b's checkpoints: the steps between them
+    in device memory and in shared memory, the device-memory states and the
+    scratch they take."""
+
+    forward: Launch
+    backward: tuple[Launch, Launch]
+    checkpoint_steps: tuple[int, int]
+    checkpoints: int
+    scratch_bytes: int
+
+
+def launch_plan(B: int, T: int, H: int, N: int = 64) -> Plan:
+    """The launches of a K7 and a K7b call on ``(B, T, H, N)`` inputs, as the
+    wrappers make them (the C entry points run the same shapes)."""
+    bh = B * H
+    cols, tile = FORWARD_CONFIGS[0] if T == 1 else next(
+        ((c, t) for c, t in FORWARD_CONFIGS if bh * (N // c) >= MIN_FORWARD_BLOCKS), FORWARD_CONFIGS[-1])
+    forward = Launch("wkv_forward", bh * (N // cols), FORWARD_THREADS, tile, 1, N // cols)
+    rows = N // _GRAD_R_ROWS
+    backward = (Launch("wkv_grad_r", bh * rows, _GRAD_R_THREADS, (_TILE, _TILE), rows, 1),
+                Launch("wkv_grad_kvw", bh, _GRAD_KVW_THREADS, (_TILE, _TILE), 1, 1))
+    checkpoints = bh * max(0, -(-T // CHECKPOINT_STEPS) - 1)
+    return Plan(forward, backward, (CHECKPOINT_STEPS, SUBCHECKPOINT_STEPS), checkpoints, checkpoints * N * N * 4)
 
 
 def _check(r, k, v, w, u, s0, dy=None) -> None:
@@ -138,12 +211,13 @@ def wkv(r, k, v, w, u, s0, *, in_place: bool = False):
         if not in_place:
             s_out.copy_(s0)
         return y, s_out
+    groups = launch_plan(B, T, H, N).forward.column_groups
     strides = (ctypes.c_longlong * 19)(*_seq_strides(r, k, v, w, y), *s0.stride()[:2], *s_out.stride()[:2])
     fn = build.function("wkv", "wkv_forward_f32")
     with torch.cuda.device(r.device):
         stream = torch.cuda.current_stream(r.device).cuda_stream
         err = fn(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(), s0.data_ptr(),
-                 y.data_ptr(), s_out.data_ptr(), B, T, H, strides, stream)
+                 y.data_ptr(), s_out.data_ptr(), B, T, H, groups, strides, stream)
     build.check_launch(err, "wkv")
     LAUNCHES["wkv"] += 1
     return y, s_out
@@ -160,8 +234,7 @@ def wkv_bwd(r, k, v, w, u, s0, dy):
     if B == 0 or T == 0:
         return dr, dk, dv, dw, torch.zeros((H, N), dtype=torch.float32, device=r.device)
     du_part = torch.empty((B, H, N), dtype=torch.float32, device=r.device)
-    nck = -(-T // CHECKPOINT_STEPS)
-    ckpt = torch.empty((B * H, nck, N, N), dtype=torch.float32, device=r.device)
+    ckpt = torch.empty((launch_plan(B, T, H, N).checkpoints, N, N), dtype=torch.float32, device=r.device)
     strides = (ctypes.c_longlong * 29)(*_seq_strides(r, k, v, w, dy, dr, dk, dv, dw), *s0.stride()[:2])
     fn = build.function("wkv_bwd", "wkv_backward_f32")
     with torch.cuda.device(r.device):

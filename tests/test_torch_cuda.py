@@ -1047,11 +1047,13 @@ def _wkv_close(got, want):
 
 
 @pytest.mark.parametrize("B,T,H", [(1, 1, 1), (1, 7, 1), (1, 64, 1), (2, 1, 3), (2, 7, 3), (2, 64, 3),
-                                   (4, 2048, 32)])
+                                   (3, 37, 5), (1, 1963, 32), (2, 100, 3), (3, 65, 25), (4, 2048, 32)])
 def test_wkv_kernels_equal_plain(gen, B, T, H):
-    """K7 and K7b against their plain versions at the ``k7`` phase's shapes
-    (the training shape last); one launch each a call (K7b's ``LAUNCHES``
-    counts calls: three passes a call)."""
+    """K7 and K7b against their plain versions at the ``k7`` phase's shapes:
+    the small ones (T 1: the single-step kernel), the ragged ones (T off the
+    16-step chunk and the 32- and 4-step checkpoint intervals) and the
+    training shape last (the wide configuration); one launch each a call (K7b's ``LAUNCHES`` counts
+    calls: two passes a call)."""
     wkv, ins, dy = _wkv_inputs(gen, B, T, H)
     build.reset_launches()
     for g, w in zip(wkv.wkv(*ins), wkv.wkv_plain(*ins)):
@@ -1080,6 +1082,19 @@ def test_wkv_in_place_on_a_cache_slice_and_the_stride_check(gen):
     _, (r, k, v, w, u, s0), _ = _wkv_inputs(gen, 2, 5, 3)
     with pytest.raises(ValueError, match="last axis contiguous"):
         wkv.wkv(r.transpose(1, 3).contiguous().transpose(1, 3), k, v, w, u, s0)
+
+
+def test_wkv_bwd_same_bytes_and_two_kernels_a_call(gen):
+    """Two K7b calls at the training shape give the same bytes (no float
+    atomics, fixed summation orders), and a captured call holds each of the
+    plan's two passes once."""
+    wkv, ins, dy = _wkv_inputs(gen, 4, 2048, 32)
+    first = wkv.wkv_bwd(*ins, dy)
+    assert all(torch.equal(a, b) for a, b in zip(first, wkv.wkv_bwd(*ins, dy)))
+    passes = [p.kernel for p in wkv.launch_plan(4, 2048, 32).backward]
+    graph, _ = build.capture(lambda: wkv.wkv_bwd(*ins, dy))
+    nodes = build.graph_kernel_nodes(graph, passes)
+    assert [nodes[p] for p in passes] == [1, 1] and len(passes) == wkv.KERNELS_PER_CALL
 
 
 def test_wkv_function_gradients_equal_plain_autograd(gen):

@@ -216,6 +216,62 @@ def test_wkv_wrapper_checks_and_never_copies():
     assert y0.shape == (B, 0, H, N) and torch.equal(s_0, s0) and s_0.data_ptr() != s0.data_ptr()
 
 
+@pytest.mark.parametrize("B,T,H", [(1, 1963, 32), (4, 2048, 32)])
+def test_launch_plan_fills_the_card(B, T, H):
+    """A B 1 prefill of 32 heads and the training shape launch K7 on at
+    least 256 blocks (about two on each SM of an H100); the blocks split
+    each (b, h)'s columns, and each block's tiles cover its columns."""
+    plan = wkv_mod.launch_plan(B, T, H)
+    fwd = plan.forward
+    assert fwd.grid >= 256 and fwd.grid == B * H * fwd.column_groups and fwd.row_groups == 1
+    (rows, cols) = fwd.tile
+    assert (64 // rows) * (64 // fwd.column_groups // cols) == fwd.threads
+    r_pass, kvw_pass = plan.backward
+    assert r_pass.grid == B * H * r_pass.row_groups and kvw_pass.grid == B * H
+    assert (64 // r_pass.row_groups // r_pass.tile[0]) * (64 // r_pass.tile[1]) == r_pass.threads
+    assert (64 // kvw_pass.tile[0]) * (64 // kvw_pass.tile[1]) == kvw_pass.threads
+
+
+@pytest.mark.parametrize("B,T,H,checkpoints", [(4, 2048, 32, 4 * 32 * 63), (3, 65, 25, 3 * 25 * 2),
+                                               (2, 32, 3, 0), (1, 1, 1, 0)])
+def test_launch_plan_checkpoints(B, T, H, checkpoints):
+    """K7b keeps one 64 x 64 state a (b, h) every ``CHECKPOINT_STEPS`` steps
+    after the first segment (which starts from s0): at the training shape
+    126 MiB, within 128 MiB."""
+    plan = wkv_mod.launch_plan(B, T, H)
+    assert plan.checkpoints == checkpoints and plan.scratch_bytes == checkpoints * 64 * 64 * 4
+    assert plan.scratch_bytes <= 128 * 2**20
+
+
+def test_launch_plan_constants_equal_the_sources():
+    """The plan's configurations, threads, tiles and checkpoint steps are
+    the ``constexpr`` values of ``wkv.cu`` and ``wkv_bwd.cu`` (every B H
+    takes one of K7's two chunked configurations, a single step the wide
+    one's); K7b launches its two passes."""
+    fwd_src = dict(zip(("CH", "THREADS"), kbuild.source_constants("wkv.cu", "CH", "THREADS")))
+    configs_src = [tuple(kbuild.source_constants("wkv.cu", f"{n}_COLS", f"{n}_TILE_R", f"{n}_TILE_C"))
+                   for n in ("WIDE", "NARROW")]
+    ck, sk, tile, r_threads, r_rows, kvw_threads = kbuild.source_constants(
+        "wkv_bwd.cu", "CK", "SK", "TILE", "FWD_THREADS", "FWD_ROWS", "BWD_THREADS")
+    seen = set()
+    for bh in range(1, 257):
+        plan = wkv_mod.launch_plan(1, 100, bh)
+        cols = 64 // plan.forward.column_groups
+        seen.add((cols, *plan.forward.tile))
+        assert plan.forward.threads == fwd_src["THREADS"]
+        assert plan.checkpoint_steps == (ck, sk) == (wkv_mod.CHECKPOINT_STEPS, wkv_mod.SUBCHECKPOINT_STEPS)
+        r_pass, kvw_pass = plan.backward
+        assert (r_pass.threads, 64 // r_pass.row_groups, kvw_pass.threads) == (r_threads, r_rows, kvw_threads)
+        assert r_pass.tile == kvw_pass.tile == (tile, tile)
+    assert seen == set(configs_src)
+    for B in (1, 4):  # a single step takes the wide configuration's blocks and tiles
+        step = wkv_mod.launch_plan(B, 1, 32).forward
+        assert (64 // step.column_groups, *step.tile) == configs_src[0] and step.grid == B * 32 * step.column_groups
+    assert [p.kernel for p in plan.backward] == ["wkv_grad_r", "wkv_grad_kvw"]
+    assert len(plan.backward) == wkv_mod.KERNELS_PER_CALL == 2
+    assert ck % fwd_src["CH"] == 0 and ck % sk == 0
+
+
 def test_chunked_time_mix_matches_reference():
     """The chunked form at T 64, chunk 16: output, shift and state against
     the reference's ``rwkv_time_mix_chunked`` (its floor ``-20 / Q`` binds

@@ -12,7 +12,9 @@ deepseek-moe-16b cut to 10), the sharded fabric at one rank
 LM on a (data, model) mesh at one rank (training and the serve CLI),
 attention at any tp, the hybrid Mamba2 + shared-attention LM
 (zamba2-1.2b, served and trained), the RWKV6 LM (rwkv6-1.6b, served and
-trained) and the example twins.  Phases, one JSON line each:
+trained), the encoder-decoder LM (whisper-small, served and trained), the
+LM on precomputed embeddings (llava-next-34b, served at full width and
+depth, trained at 4 of 60 layers) and the example twins.  Phases, one JSON line each:
 
 1. ``device``   -- the card (``nvidia-smi`` name and power limit), torch and
    CUDA versions, and the seconds the nine hand-written kernels took to build
@@ -65,7 +67,7 @@ trained) and the example twins.  Phases, one JSON line each:
    ``row_sort_kv_plan``; K4 at 2^14 and 2^17 elements);
 6. ``k5``, ``k6`` -- the attention kernels K5 (flash attention) and K6
    (decode attention) against their plain torch versions: head dims 32, 64,
-   128, GQA groups 1, 3 and 4, causal or not, ragged T, S != T, strided
+   128, GQA groups 1, 3, 4 and 7, causal or not, ragged T, S != T, strided
    q/k/v views, Mistral's 1963-token prefill, lengths 1..S (K6 also G 7
    and 12, and slots of length 0), float32 and bfloat16, on inputs whose
    softmax is peaked (limits: ``attn_limit``);
@@ -105,7 +107,7 @@ trained) and the example twins.  Phases, one JSON line each:
    1 x 32 and its measured launches per call;
 9. ``k5b``, ``train``, ``train_dense``, ``train_resume`` (before the
    ``kernels`` line) -- the attention backward K5b and K5's lse against
-   their plain versions (head dims 32, 64, 128 x G 1, 3, 4, causal or not,
+   their plain versions (head dims 32, 64, 128 x G 1, 3, 4, 7, causal or not,
    T and S of 1, 63, 130 and mixed, f32 and bf16; the training shapes,
    a transposed dO, a non-causal T != S; limits ``grad_limit`` and
    ``lse_limit``); granite-moe-3b-a800m at full width and depth and
@@ -228,12 +230,41 @@ trained) and the example twins.  Phases, one JSON line each:
    kernels and with K7 and K7b plain.  The ``kernels`` line gains K7's
    (with its serve shapes, prefill and decode) and K7b's rows (``library_ms``
    null: no single PyTorch call computes the recurrence);
-16. ``examples`` -- each example twin (``examples/torch_*.py``) once on the
+16. ``serve_encdec``, ``train_encdec``, ``serve_embeds``, ``train_embeds``
+   (after ``train_rwkv``) -- whisper-small at full width and depth (12 + 12
+   layers, bf16 from ``--seed``): its smoke config on the card against the
+   CPU (logits within 1e-4, tokens equal, the captured decode step's equal
+   the eager step's), the full model through K5 and K6 against their plain
+   versions on a float32 copy of its weights (1e-3 of the logits' scale,
+   the bf16 model's difference recorded), then ``SERVE_ENCDEC`` (one
+   prefill of 4 x 1,500 frames and the 4-token start-of-transcript prompt,
+   64 greedy steps) through the captured decode step and through the eager
+   step, tokens equal: K5 36 launches a prefill (encoder, decoder self and
+   cross) and K6 24 kernel nodes a replay (self and cross), held exactly;
+   prefill seconds, median ms a decode step, peak memory, the cache's bytes
+   and the shapes K5 and K6 ran at; then ``TRAIN_ENCDEC`` (B 8 x (1,500
+   frames + 448 tokens), 4 AdamW steps: K5 72 / K5b 36 a step, held) and
+   its first step at 2 + 2 layers in float32 with the kernels and with
+   them plain.  llava-next-34b at full width and depth from embeddings
+   (60 layers, 68.8 GB of bf16 from ``--seed``): its smoke config (heads
+   widened to K5's 32, G 7) on the card against the CPU, the full model's
+   K5 and K6 against their plain versions (``full_width_parity``, bf16),
+   then ``SERVE_EMBEDS`` (a prefill of 576-2,880 embedding rows into each
+   of 4 slots, 32 greedy token steps of all 4 through the captured decode
+   step and the eager one, tokens equal: K5 60 a prefill, K6 60 nodes a
+   replay, held), then ``TRAIN_EMBEDS`` (4 of 60 layers, B 1 x 2,048, 3
+   steps).  The ``kernels`` line's K5, K6 and K5b rows gain ``whisper``
+   (K5: the encoder's and the training cross-attention's shapes; K6: the
+   self and the cross cache; K5b: the encoder's and the cross shape) and
+   ``llava`` (G 7: the largest prefill, the decode step, the training
+   shape), each with launches, eager and graph ms, the plain and SDPA
+   times and a bound of T x S pairs without the causal mask;
+17. ``examples`` -- each example twin (``examples/torch_*.py``) once on the
    card at its reference example's default size, one after the other, its
    lines (times, the serve twin's sampled tokens and the training twin's
    losses masked) equal to the same twin's on the CPU, run in background
    processes started before the serve phases;
-17. ``ptxas`` -- every kernel entry's registers, static shared memory and
+18. ``ptxas`` -- every kernel entry's registers, static shared memory and
    spills, as the compiler reported them when it built the kernels; a
    spill in any entry fails the run.
 
@@ -246,6 +277,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import subprocess
 import sys
@@ -337,6 +369,35 @@ TRAIN_RWKV = dict(arch=RWKV_ARCH, batch=4, seq=2048, steps=4, lr=3e-4, plain_bat
 K7_SMALL = tuple((b, t, h) for t in (1, 7, 64) for b, h in ((1, 1), (2, 3)))
 K7_RAGGED = ((3, 37, 5), (1, 1963, 32), (2, 100, 3), (3, 65, 25))
 K7_TRAIN = (4, 2048, 32)
+
+#: The encoder-decoder (whisper-small: 12 encoder and 12 decoder layers, d
+#: 768, 12 heads of 64 MHA, d_ff 3,072, vocab 51,865; bf16 from ``--seed``)
+#: at full width and depth, nothing cut.  ``frames`` 1,500 and ``max_len``
+#: 448 are the public openai/whisper-small config's max_source_positions and
+#: max_target_positions (a 30 s window after the conv frontend's stride 2).
+#: Served: 4 sequences of 1,500 frames, the 4-token start-of-transcript
+#: prompt (<|startoftranscript|> <|en|> <|transcribe|> <|notimestamps|>), 64
+#: greedy steps through the captured decode step.  Trained: B 8 x (1,500
+#: frames + 448 tokens), 4 AdamW steps; the plain-kernel check at 2 + 2
+#: layers in float32, B 2, at the same lengths.
+ENCDEC_ARCH = "whisper-small"
+SERVE_ENCDEC = dict(batch=4, frames=1500, max_len=448, new_tokens=64, prompt=(50258, 50259, 50359, 50363))
+TRAIN_ENCDEC = dict(arch=ENCDEC_ARCH, batch=8, frames=1500, seq=448, steps=4, lr=3e-4, plain_batch=2,
+                    plain_seq=448, plain_dtype="float32", plain_layers=2)
+#: The embeddings inputs (llava-next-34b's backbone: 60 layers, d 7,168, 56
+#: heads over 8 kv heads of 128, G 7, gated d_ff 20,480, vocab 64,000; 68.8 GB
+#: of bf16 from ``--seed``), served at full width and depth: one request a
+#: slot, each a prompt of 1-5 of LLaVA-NeXT's 576-row anyres tiles (576-2,880
+#: embedding rows, the count from ``default_rng(seed)``), then 32 greedy token
+#: steps of the 4 slots through the captured decode step.  Trained at full
+#: width with 4 of its 60 layers (all 60 with AdamW's f32 moments need some
+#: 413 GB), B 1 x 2,048 embedding rows, 3 AdamW steps.
+EMBEDS_ARCH = "llava-next-34b"
+SERVE_EMBEDS = dict(slots=4, max_len=4096, tile=576, tiles=(1, 5), new_tokens=32)
+TRAIN_EMBEDS = dict(arch=EMBEDS_ARCH, layers=4, batch=1, seq=2048, steps=3, lr=3e-4)
+#: Embeddings are drawn as ``data.synthetic.make_batch`` draws them: N(0, 1)
+#: x 0.02, the scale of the token table's rows.
+EMBED_SCALE = 0.02
 
 #: The example twins (``examples/torch_*.py``), each at its reference
 #: example's default size, on the card in this process and on the CPU in a
@@ -1797,11 +1858,16 @@ def attn_bound(flops: float, bytes_: float) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def k5_work(b: int, t: int, h: int, kv: int, d: int, itemsize: int, causal: bool) -> tuple[float, float]:
-    """(flops, bytes) of one K5 call: 2 flops per multiply-add of q.k and
-    of p.v over the visible (row, col) pairs; q, k, v read once, o written."""
-    pairs = t * (t + 1) / 2 if causal else t * t
-    return 4.0 * b * h * d * pairs, (2.0 * b * t * h * d + 2.0 * b * t * kv * d) * itemsize
+def k5_work(b: int, t: int, h: int, kv: int, d: int, itemsize: int, causal: bool,
+            s: int | None = None) -> tuple[float, float]:
+    """(flops, bytes) of one K5 call of T query rows against S keys (``s``,
+    default T): 2 flops per multiply-add of q.k and of p.v over the visible
+    (row, col) pairs, T (T + 1) / 2 under the causal mask (T = S) and T x S
+    without it; q and o of T rows, k and v of S rows, each read or written
+    once."""
+    s = t if s is None else s
+    pairs = t * (t + 1) / 2 if causal else t * s
+    return 4.0 * b * h * d * pairs, (2.0 * b * t * h * d + 2.0 * b * s * kv * d) * itemsize
 
 
 def k6_work(lengths: list[int], h: int, kv: int, d: int, itemsize: int) -> tuple[float, float]:
@@ -1871,8 +1937,8 @@ def check_k6(da, torch, gen, q_shape, cache_shape, dt, lengths, layers: int = 2)
 
 
 def phase_k5(fa, torch, gen) -> None:
-    """Head dims 32, 64, 128 x G 1, 3, 4 x T 1, 7, 64, 130, 1000, causal or
-    not; then Mistral-Nemo-12B's largest prefill (q 1 x 1963 x 32 x 128),
+    """Head dims 32, 64, 128 x G 1, 3, 4, 7 (llava-next-34b's 56 / 8) x T 1,
+    7, 64, 130, 1000, causal or not; then Mistral-Nemo-12B's largest prefill (q 1 x 1963 x 32 x 128),
     S != T non-causal, q/k/v as strided views of one fused projection, and
     the bf16 wrapper raising on a row stride its 16-byte copies cannot
     take.  float32 and bfloat16, limits ``attn_limit``."""
@@ -1881,7 +1947,7 @@ def phase_k5(fa, torch, gen) -> None:
     for name in worst:
         dt = getattr(torch, name)
         for d in (32, 64, 128):
-            for g in (1, 3, 4):
+            for g in (1, 3, 4, 7):
                 for t in (1, 7, 64, 130, 1000):
                     for causal in (True, False):
                         kv = 2
@@ -1942,29 +2008,54 @@ def phase_k6(da, torch, gen) -> None:
 
 
 class AttnRecorder:
-    """Pass-through for an attention wrapper as the model calls it: keeps the
-    largest q shape (K5), or the lengths tensor of the latest call (K6: the
-    model makes a fresh one per call and never writes it again), and copies
-    no data: no device work and no host sync inside the timed run."""
+    """Pass-through for an attention wrapper as the model calls it: counts
+    the calls by (q shape, k shape, causal) and keeps each such shape's
+    latest lengths tensor (K6: the model makes a fresh one per call and
+    never writes it again); copies no data: no device work and no host sync
+    inside the timed run."""
 
     def __init__(self, module, attr: str) -> None:
         self.module, self.attr = module, attr
         self.orig = getattr(module, attr)
-        self.q_shape: tuple[int, ...] = ()
-        self.kv_shape: tuple[int, ...] = ()
         self.dtype = None
-        self.causal = True
-        self.lengths = None
-        self.numel = -1
+        self.calls: dict = {}
+        self.shape_lengths: dict = {}
 
     def __call__(self, q, k, v, *args, **kwargs):
-        if q.numel() > self.numel:
-            self.q_shape, self.kv_shape, self.dtype = tuple(q.shape), tuple(k.shape), q.dtype
-            self.numel = q.numel()
-        if args:
-            self.lengths = args[0]
-        self.causal = kwargs.get("causal", True)
+        key = (tuple(q.shape), tuple(k.shape), bool(kwargs.get("causal", True)))
+        self.dtype = q.dtype
+        self.calls[key] = self.calls.get(key, 0) + 1
+        if args:  # re-inserted, so the last entry is the latest call's
+            self.shape_lengths.pop(key, None)
+            self.shape_lengths[key] = args[0]
         return self.orig(q, k, v, *args, **kwargs)
+
+    @property
+    def largest(self) -> tuple:
+        """The (q shape, k shape, causal) of the first call with the most
+        q elements."""
+        return max(self.calls, key=lambda key: math.prod(key[0]))
+
+    @property
+    def q_shape(self) -> tuple:
+        return self.largest[0]
+
+    @property
+    def kv_shape(self) -> tuple:
+        return self.largest[1]
+
+    @property
+    def causal(self) -> bool:
+        return self.largest[2]
+
+    @property
+    def lengths(self):
+        """The lengths tensor of the latest call that took one, or None."""
+        return next(reversed(self.shape_lengths.values()), None)
+
+    def shapes(self) -> dict:
+        """(B, T, S, H, KV, d, causal) -> calls, of a (B, T, H, d) q."""
+        return {(q[0], q[1], k[1], q[2], k[2], q[3], c): n for (q, k, c), n in self.calls.items()}
 
     def __enter__(self):
         setattr(self.module, self.attr, self)
@@ -2081,16 +2172,18 @@ def same_dispatch(torch, a, b) -> bool:
 
 
 def full_width_parity(torch, model, gen) -> dict:
-    """The full-width model on a short prompt (1 x 64 tokens, 4 decode
-    steps) through the kernels and through their plain versions.
+    """The full-width model on a short prompt (1 x 64 tokens, or embedding
+    rows; the encoder-decoder's decoder prompt after ``SERVE_ENCDEC``'s
+    frames) and 4 decode steps through the kernels and through their plain
+    versions.
 
     Dense: K5 and K6 plain; the logits within 5% of their scale, every
-    argmax equal.  RWKV6: K7 plain, on a float32 copy of the model (the
-    same weights): the logits within 1e-3 of their scale, every argmax
-    equal; the bf16 model's own difference is recorded beside it, not held
-    (its bf16 roundings of the WKV's output, one place apart on the two
-    sides, grow over 24 layers to some 9% of the logits' scale at the
-    initial weights).  MoE: K3 plain; every dispatch (order, slots, dropped)
+    argmax equal.  RWKV6 (K7 plain) and the encoder-decoder (K5 and K6
+    plain): on a float32 copy of the model (the same weights), the logits
+    within 1e-3 of their scale, every argmax equal; the bf16 model's own
+    difference is recorded beside it, not held (RWKV6's bf16 roundings of
+    the WKV's output, one place apart on the two sides, grow over 24 layers
+    to some 9% of the logits' scale at the initial weights).  MoE: K3 plain; every dispatch (order, slots, dropped)
     and every logit identical.  K5 and K6 stay on their kernels there: the
     router's strict top-k flips near-ties on a bf16 rounding one place
     apart, so a plain attention path routes some tokens elsewhere (PERF.md
@@ -2106,7 +2199,14 @@ def full_width_parity(torch, model, gen) -> dict:
 
     is_moe = model.cfg.moe is not None
     is_rwkv = model.cfg.rwkv is not None
+    is_encdec = model.cfg.is_encdec
     toks = torch.randint(0, model.cfg.vocab_size, (1, 64), generator=gen, device="cuda")
+    prompt, frames = toks, SERVE_ENCDEC["frames"]  # the models cast embeddings to their type
+    if is_encdec:
+        prompt = {"enc_embeds": torch.randn(1, frames, model.cfg.d_model, generator=gen, device="cuda") * EMBED_SCALE,
+                  "tokens": toks}
+    elif model.cfg.input_kind == "embeds":  # 64 embedding rows, then tokens
+        prompt = torch.randn(1, 64, model.cfg.d_model, generator=gen, device="cuda") * EMBED_SCALE
 
     def run(plain: bool, net=model):
         saved = (attn_mod.flash_attention, attn_mod.decode_attention_kernel, bt.sort_rows_kv, rwkv_mod.wkv)
@@ -2119,8 +2219,8 @@ def full_width_parity(torch, model, gen) -> dict:
             attn_mod.decode_attention_kernel = decode_attention_plain
         try:
             with MoERecorder(moe_mod, keep=True) as rec:
-                cache = net.init_cache(1, 128)
-                logits, cache = net.prefill(toks, cache)
+                cache = net.init_cache(1, 128, frames) if is_encdec else net.init_cache(1, 128)
+                logits, cache = net.prefill(prompt, cache)
                 seq = [logits.float()]
                 tok = toks[:, -1]
                 for _ in range(4):
@@ -2134,7 +2234,7 @@ def full_width_parity(torch, model, gen) -> dict:
             fail("full-width logits are not finite")
         return out, rec
 
-    if is_rwkv:
+    if is_rwkv or is_encdec:
         import dataclasses
 
         from repro_torch import models as models_mod
@@ -2148,9 +2248,10 @@ def full_width_parity(torch, model, gen) -> dict:
         torch.cuda.empty_cache()
         err, scale = (kern - plain).abs().max().item(), plain.abs().max().item()
         if err > 1e-3 * scale or not torch.equal(kern.argmax(-1), plain.argmax(-1)):
-            fail(f"full-width float32 logits through K7 differ from the plain path by {err} (scale {scale}) "
-                 "or in an argmax")
-        return {"plain": "k7", "dtype": "float32 copy of the bf16 weights", "logits_max_abs_err": err,
+            fail(f"full-width float32 logits through the kernels differ from the plain path by {err} "
+                 f"(scale {scale}) or in an argmax")
+        return {"plain": "k7" if is_rwkv else "k5+k6", "dtype": "float32 copy of the bf16 weights",
+                "logits_max_abs_err": err,
                 "logits_max_abs": scale, "limit": "1e-3 of the logits' largest magnitude", "argmax_equal": True,
                 "bf16_logits_max_abs_err": bf16_err}
     kern, krec = run(False)
@@ -2178,7 +2279,11 @@ def full_width_parity(torch, model, gen) -> dict:
 def attention_layers(cfg) -> int:
     """The attention layers a token passes through: every layer, the
     hybrid's shared-block invocations (one after each full segment of
-    ``shared_attn_every`` Mamba2 layers), or none (Mamba2, RWKV6)."""
+    ``shared_attn_every`` Mamba2 layers), none (Mamba2, RWKV6), or the
+    encoder-decoder's encoder layers and its decoder's self- and
+    cross-attentions (36 for whisper-small)."""
+    if cfg.is_encdec:
+        return cfg.encoder_layers + 2 * cfg.num_layers
     if cfg.family == "hybrid":
         return cfg.num_layers // cfg.shared_attn_every
     return 0 if cfg.ssm is not None or cfg.rwkv is not None else cfg.num_layers
@@ -2390,49 +2495,52 @@ def check_attention_at(torch, serve: dict, gen, phase: str) -> None:
     torch.cuda.empty_cache()
 
 
-def attention_rows(torch, serve: dict, gen) -> list[dict]:
-    """The kernels-line rows of K5 and K6 at the serve run's largest inputs."""
+def k5_row_at(torch, gen, q_shape, kv_shape, dt, causal: bool, launches) -> dict:
+    """A K5 kernels-line row at one shape: K5 against its plain version on
+    fresh peaked inputs, eager and graph ms of K5, its plain version and
+    ``scaled_dot_product_attention`` (``enable_gqa``), the bound of T x S
+    (or T (T + 1) / 2 causal) pairs."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+
+    b, t, h, d = q_shape
+    s, kv = kv_shape[1], kv_shape[2]
+    err, (q, k, v) = check_k5(fa, torch, gen, q_shape, kv_shape, dt, causal)
+    flops, bytes_ = k5_work(b, t, h, kv, d, q.element_size(), causal, s)
+    b_ms, b_by = attn_bound(flops, bytes_)
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    row = {"launches": launches, "max_abs_err": err,
+           "shape": {"q": list(q_shape), "kv": list(kv_shape), "causal": causal},
+           "dtype": str(dt).replace("torch.", ""),
+           **timings(lambda: fa.flash_attention(q, k, v, causal=causal),
+                     lambda: fa.flash_attention_plain(q, k, v, causal=causal),
+                     lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal, enable_gqa=True)),
+           "bound_ms": b_ms, "bound_by": b_by, "flops": flops, "bytes": bytes_}
+    del q, k, v, qt, kt, vt
+    torch.cuda.empty_cache()
+    return row
+
+
+def k6_row_at(torch, gen, q_shape, cache_shape, dt, lengths: list[int], launches) -> dict:
+    """A K6 kernels-line row at one shape: K6 against its plain version,
+    eager and graph ms of K6, its plain version and SDPA with the lengths'
+    mask, cycling over 8 layers' caches so that no launch finds its cache in
+    L2; the bound of the visible rows."""
     import itertools
 
     import torch.nn.functional as F
 
     from repro_torch.kernels import decode_attention as da
-    from repro_torch.kernels import flash_attention as fa
 
-    rows = []
-    k5 = serve["k5"]
-    b, t, h, d = k5.q_shape
-    kv = k5.kv_shape[2]
-    dt = k5.dtype
-    err, (q, k, v) = check_k5(fa, torch, gen, k5.q_shape, k5.kv_shape, dt, k5.causal)
-    name = str(dt).replace("torch.", "")
-    flops, bytes_ = k5_work(b, t, h, kv, d, q.element_size(), k5.causal)
+    b, h, d = q_shape
+    s, kv = cache_shape[1], cache_shape[2]
+    layers = 8
+    lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    err, (q, kc, vc) = check_k6(da, torch, gen, q_shape, cache_shape, dt, lens, layers)
+    flops, bytes_ = k6_work(lengths, h, kv, d, q.element_size())
     b_ms, b_by = attn_bound(flops, bytes_)
-    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
-    rows.append({
-        "name": "flash_attention", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
-        "replaces": "src/repro/kernels/flash_attention.py:85",
-        "launches": serve["launches"]["flash_attention"], "max_abs_err": err,
-        "shape": {"q": list(k5.q_shape), "kv": list(k5.kv_shape), "causal": k5.causal}, "dtype": name,
-        **timings(lambda: fa.flash_attention(q, k, v, causal=k5.causal),
-                  lambda: fa.flash_attention_plain(q, k, v, causal=k5.causal),
-                  lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=k5.causal, enable_gqa=True)),
-        "bound_ms": b_ms, "bound_by": b_by, "flops": flops, "bytes": bytes_,
-    })
-    del q, k, v, qt, kt, vt
-
-    k6 = serve["k6"]
-    b, h, d = k6.q_shape
-    _, s, kv, _ = k6.kv_shape
-    dt = k6.dtype
-    name = str(dt).replace("torch.", "")
-    layers = 8  # cycle over 8 layers' caches so that no launch finds its cache in L2
-    lengths = torch.tensor(serve["k6_lengths"], dtype=torch.int32, device="cuda")
-    err, (q, kc, vc) = check_k6(da, torch, gen, k6.q_shape, k6.kv_shape, dt, lengths, layers)
-    flops, bytes_ = k6_work(serve["k6_lengths"], h, kv, d, q.element_size())
-    b_ms, b_by = attn_bound(flops, bytes_)
-    mask = (torch.arange(s, device="cuda")[None, :] < lengths[:, None])[:, None, None, :]
+    mask = (torch.arange(s, device="cuda")[None, :] < lens[:, None])[:, None, None, :]
     qs = q[:, :, None, :]
 
     def cycling(fn):
@@ -2443,22 +2551,32 @@ def attention_rows(torch, serve: dict, gen) -> list[dict]:
             return fn(kc[i], vc[i])
         return run
 
-    rows.append({
-        "name": "decode_attention", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
-        "replaces": "src/repro/kernels/decode_attention.py:74",
-        "launches": serve["launches"]["decode_attention"], "max_abs_err": err,
-        "shape": {"q": list(k6.q_shape), "cache": list(k6.kv_shape), "lengths": serve["k6_lengths"]},
-        "dtype": name, "block_s": da.BLOCK_S,
-        **timings(cycling(lambda kk, vv: da.decode_attention(q, kk, vv, lengths)),
-                  cycling(lambda kk, vv: da.decode_attention_plain(q, kk, vv, lengths)),
-                  cycling(lambda kk, vv: F.scaled_dot_product_attention(
-                      qs, kk.transpose(1, 2), vv.transpose(1, 2), attn_mask=mask, enable_gqa=True))),
-        "bound_ms": b_ms, "bound_by": b_by, "flops": flops, "bytes": bytes_,
-    })
+    row = {"launches": launches, "max_abs_err": err,
+           "shape": {"q": list(q_shape), "cache": list(cache_shape), "lengths": lengths},
+           "dtype": str(dt).replace("torch.", ""), "block_s": da.BLOCK_S,
+           **timings(cycling(lambda kk, vv: da.decode_attention(q, kk, vv, lens)),
+                     cycling(lambda kk, vv: da.decode_attention_plain(q, kk, vv, lens)),
+                     cycling(lambda kk, vv: F.scaled_dot_product_attention(
+                         qs, kk.transpose(1, 2), vv.transpose(1, 2), attn_mask=mask, enable_gqa=True))),
+           "bound_ms": b_ms, "bound_by": b_by, "flops": flops, "bytes": bytes_}
     del q, kc, vc
     torch.cuda.empty_cache()
-    return rows
+    return row
+
+
+def attention_rows(torch, serve: dict, gen) -> list[dict]:
+    """The kernels-line rows of K5 and K6 at the serve run's largest inputs."""
+    k5, k6 = serve["k5"], serve["k6"]
+    return [{"name": "flash_attention", "route": "cuda",
+             "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+             "replaces": "src/repro/kernels/flash_attention.py:85",
+             **k5_row_at(torch, gen, k5.q_shape, k5.kv_shape, k5.dtype, k5.causal,
+                         serve["launches"]["flash_attention"])},
+            {"name": "decode_attention", "route": "cuda",
+             "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
+             "replaces": "src/repro/kernels/decode_attention.py:74",
+             **k6_row_at(torch, gen, k6.q_shape, k6.kv_shape, k6.dtype, serve["k6_lengths"],
+                         serve["launches"]["decode_attention"])}]
 
 
 # -- the training paths -----------------------------------------------------------
@@ -2522,7 +2640,7 @@ def check_k5b(fa, fb, torch, gen, q_shape, kv_shape, dt, causal: bool, strided_d
 
 def phase_k5b(fa, fb, torch, gen) -> None:
     """K5b (and K5's lse) against their plain versions: head dims 32, 64,
-    128 x G 1, 3, 4 x (T, S) in (1, 1), (63, 63), (130, 130), (7, 130),
+    128 x G 1, 3, 4, 7 x (T, S) in (1, 1), (63, 63), (130, 130), (7, 130),
     (130, 7), causal or not, B 2, float32 and bfloat16; then the training
     shapes in bf16, causal (granite-moe-3b-a800m: B 4, T = S 2048, H 24,
     KV 8, d 64; Mistral-Nemo-12B: B 2, T = S 2048, H 32, KV 8, d 128), the
@@ -2540,7 +2658,7 @@ def phase_k5b(fa, fb, torch, gen) -> None:
     for name in worst:
         dt = getattr(torch, name)
         for d in (32, 64, 128):
-            for g in (1, 3, 4):
+            for g in (1, 3, 4, 7):
                 for t, s in ((1, 1), (63, 63), (130, 130), (7, 130), (130, 7)):
                     for causal in (True, False):
                         errs, e_lse, _ = check_k5b(fa, fb, torch, gen, (2, t, 2 * g, d), (2, s, 2, d), dt, causal)
@@ -2566,13 +2684,17 @@ def phase_k5b(fa, fb, torch, gen) -> None:
           "training_shapes": big, "k5_output_unchanged_by_lse": True})
 
 
-def k5b_work(b: int, t: int, h: int, kv: int, d: int, itemsize: int, causal: bool) -> tuple[float, float]:
-    """(flops, bytes) of one K5b call: five products (s, dp, dv, dq, dk) of
-    2 flops per multiply-add over the visible (row, col) pairs; q, k, v, o,
-    dO and the lse read once, dq, dk, dv written once."""
-    pairs = t * (t + 1) / 2 if causal else t * t
+def k5b_work(b: int, t: int, h: int, kv: int, d: int, itemsize: int, causal: bool,
+             s: int | None = None) -> tuple[float, float]:
+    """(flops, bytes) of one K5b call of T query rows against S keys (``s``,
+    default T): five products (s, dp, dv, dq, dk) of 2 flops per
+    multiply-add over the visible (row, col) pairs (as :func:`k5_work`
+    counts them); q, o, dO, the lse and dq of T rows, k, v, dk and dv of S
+    rows, each read or written once."""
+    s = t if s is None else s
+    pairs = t * (t + 1) / 2 if causal else t * s
     return (10.0 * b * h * d * pairs,
-            (4.0 * b * t * h * d + 4.0 * b * t * kv * d) * itemsize + 4.0 * b * h * t)
+            (4.0 * b * t * h * d + 4.0 * b * s * kv * d) * itemsize + 4.0 * b * h * t)
 
 
 def k5b_row(fa, fb, torch, gen, shape, launches: int, per_step: int) -> dict:
@@ -2586,7 +2708,7 @@ def k5b_row(fa, fb, torch, gen, shape, launches: int, per_step: int) -> dict:
     b, t, s, h, kv, d, causal = shape
     errs, _, (q, k, v, o, do, lse) = check_k5b(fa, fb, torch, gen, (b, t, h, d), (b, s, kv, d),
                                                torch.bfloat16, causal)
-    flops, bytes_ = k5b_work(b, t, h, kv, d, q.element_size(), causal)
+    flops, bytes_ = k5b_work(b, t, h, kv, d, q.element_size(), causal, s)
     b_ms, b_by = attn_bound(flops, bytes_)
     qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
     ot = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal, enable_gqa=True)
@@ -2834,7 +2956,8 @@ def train_stages(torch, model, opt_state, opt_cfg, batch) -> dict:
     loss, _ = model.loss(batch)
     _sync(torch)
     t1 = time.perf_counter()
-    grads = dict(zip(params, torch.autograd.grad(loss, list(params.values()))))
+    grads = {k: torch.zeros_like(params[k]) if g is None else g
+             for k, g in zip(params, torch.autograd.grad(loss, list(params.values()), allow_unused=True))}
     _sync(torch)
     t2 = time.perf_counter()
     apply_updates(params, grads, opt_state, opt_cfg)
@@ -2867,18 +2990,27 @@ def step_profile(torch, step, opt_state, batch) -> dict:
     return {**fields, "device_ms_by_part": parts}
 
 
-def train_flops(cfg, batch: int, seq: int) -> float:
+def train_flops(cfg, batch: int, seq: int, frames: int = 0) -> float:
     """Model flops of one train step (recompute not counted): 6 per weight of
     every matrix a token passes through (the MoE's router and its top_k
     experts, not every slab; the head; no embedding lookup) per token,
     attention's q.k and p.v at 12 per visible causal (row, col) pair per
     head dim (4 forward, 8 backward), a Mamba2 layer's SSD products, and an
     RWKV6 layer's WKV at 12 per state element a token and head (its read
-    and its update, an FMA each, 3 x forward)."""
+    and its update, an FMA each, 3 x forward).  The encoder-decoder: the
+    encoder's matrices per frame, the decoder's (with the cross-attention's
+    q and o) per token and its cross k and v per frame and decoder layer;
+    T x S pairs where there is no causal mask."""
     L, D = cfg.num_layers, cfg.d_model
     H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     attn = 2 * D * H * hd + 2 * D * KV * hd
     ffn = lambda f: D * f * (3 if cfg.mlp_gated else 2)  # noqa: E731
+    if cfg.is_encdec:
+        enc, dec, Le = batch * frames, batch * seq, cfg.encoder_layers
+        mats = Le * (attn + ffn(cfg.d_ff)) * enc + L * (attn + 2 * D * H * hd + ffn(cfg.d_ff)) * dec \
+            + L * 2 * D * KV * hd * enc + D * cfg.vocab_size * dec
+        pairs = Le * frames * frames + L * (seq * (seq + 1) / 2 + seq * frames)
+        return 6.0 * mats + 12.0 * batch * H * hd * pairs
     n_attn = attention_layers(cfg)
     ssd = 0.0
     if cfg.ssm is not None:
@@ -2951,10 +3083,41 @@ def recurrent_stages(torch, model, batch, adamw_s: float, step_s: float) -> dict
     return out
 
 
+def batch_source(torch, cfg, batch: int, seq: int, seed: int, dev: str, frames: int = 0):
+    """A function giving the next training batch on ``dev``: a token model's
+    from ``TokenPipeline(seed)``; the encoder-decoder's ``enc_embeds`` (B,
+    ``frames``, D), ``tokens`` and ``labels`` (B, ``seq``), an embeddings
+    model's ``embeds`` (B, ``seq``, D) and ``labels``, drawn from ``seed``
+    on the device as ``data.synthetic.make_batch`` draws them (embeddings N(0,
+    1) x ``EMBED_SCALE`` in the model's type, ids uniform in the
+    vocabulary)."""
+    from repro_torch.data.tokens import TokenPipeline
+
+    if not cfg.is_encdec and cfg.input_kind == "tokens":
+        pipe = TokenPipeline(cfg.vocab_size, batch, seq, seed=seed)
+        return lambda: {k: torch.from_numpy(v).to(dev) for k, v in pipe.next_batch().items()}
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    dt = getattr(torch, cfg.dtype)
+
+    def rows(n):
+        return (torch.randn(batch, n, cfg.d_model, generator=gen, device=dev) * EMBED_SCALE).to(dt)
+
+    def ids():
+        return torch.randint(0, cfg.vocab_size, (batch, seq), generator=gen, device=dev, dtype=torch.int32)
+
+    def draw() -> dict:
+        out = {"enc_embeds": rows(frames), "tokens": ids()} if cfg.is_encdec else {"embeds": rows(seq)}
+        out["labels"] = ids()
+        return out
+
+    return draw
+
+
 def phase_train(torch, np, args, run: dict, phase: str, plain_check: bool, dev: str = "cuda") -> dict:
     """One training path at full width: ``run["steps"]`` AdamW steps of the
-    model from ``--seed`` on ``TokenPipeline`` batches, the first timed
-    apart.  Each step's launches are counted (zeroed just before the step,
+    model from ``--seed`` on ``TokenPipeline`` batches (an embeddings
+    model's from :func:`batch_source`, ``run["frames"]`` encoder frames a
+    row for the encoder-decoder), the first timed apart.  Each step's launches are counted (zeroed just before the step,
     read just after) and held exactly to K5 2 x attention layers (the
     forward and the block's recompute; the hybrid's shared-block
     invocations), K5b 1 x attention layers, K3 2 x MoE layers, K7 2 x and
@@ -2974,7 +3137,6 @@ def phase_train(torch, np, args, run: dict, phase: str, plain_check: bool, dev: 
     import dataclasses
 
     from repro_torch import configs, models
-    from repro_torch.data.tokens import TokenPipeline
     from repro_torch.kernels import build
     from repro_torch.models import attention as attn_mod
     from repro_torch.models import moe as moe_mod
@@ -2987,6 +3149,7 @@ def phase_train(torch, np, args, run: dict, phase: str, plain_check: bool, dev: 
         reduced = {"num_layers": f"{cfg.num_layers} -> {run['layers']} (AdamW's f32 moments of every layer do "
                                  "not fit one card)"}
         cfg = dataclasses.replace(cfg, num_layers=run["layers"])
+    frames = run.get("frames", 0)
     moe_layers = cfg.num_layers - cfg.moe.first_dense_layers if cfg.moe else 0
     if dev == "cuda":
         torch.cuda.empty_cache()
@@ -3000,7 +3163,7 @@ def phase_train(torch, np, args, run: dict, phase: str, plain_check: bool, dev: 
     _sync(torch)
     init_s = time.perf_counter() - t0
     n_params = sum(p.numel() for p in model.parameters())
-    pipe = TokenPipeline(cfg.vocab_size, run["batch"], run["seq"], seed=args.seed)
+    next_batch = batch_source(torch, cfg, run["batch"], run["seq"], args.seed, dev, frames)
     attn_layers = attention_layers(cfg)
     wkv_layers = rwkv_layers(cfg)
     want = {"flash_attention": 2 * attn_layers, "flash_attention_bwd": attn_layers,
@@ -3009,7 +3172,7 @@ def phase_train(torch, np, args, run: dict, phase: str, plain_check: bool, dev: 
     steps, first_batch = [], None
     with AttnRecorder(attn_mod, "flash_attention_bwd") as k5b_in, MoERecorder(moe_mod) as moe_rec:
         for i in range(run["steps"]):
-            batch = {k: torch.from_numpy(v).to(dev) for k, v in pipe.next_batch().items()}
+            batch = next_batch()
             first_batch = first_batch or batch
             n_moe = len(moe_rec.dropped)
             _sync(torch)
@@ -3032,16 +3195,19 @@ def phase_train(torch, np, args, run: dict, phase: str, plain_check: bool, dev: 
     peak, reserved = _peak(torch), _reserved(torch)
     rest = [r["s"] for r in steps[1:]]
     tokens = run["batch"] * run["seq"]
+    flops = train_flops(cfg, run["batch"], run["seq"], frames)
     line = {"phase": phase, "arch": cfg.name, "layers": cfg.num_layers, "d_model": cfg.d_model,
             "dtype": cfg.dtype, "reduced": reduced, "params": n_params, "config": run,
             "optimizer": dataclasses.asdict(opt_cfg), "init_s": init_s, "first_step_s": steps[0]["s"],
             "step_s_median": float(np.median(rest)), "step_s_min": min(rest), "step_s_max": max(rest),
             "tokens_per_step": tokens, "tokens_per_s": tokens / float(np.median(rest)),
-            "model_flops_per_step": train_flops(cfg, run["batch"], run["seq"]),
-            "model_flops_utilization": train_flops(cfg, run["batch"], run["seq"]) / float(np.median(rest))
-            / BF16_FLOP_PER_S,
+            "model_flops_per_step": flops,
+            "model_flops_utilization": flops / float(np.median(rest)) / BF16_FLOP_PER_S,
             "peak_allocated_bytes": peak, "reserved_bytes": reserved, "launches_per_step": want,
             "steps": steps, "stages": train_stages(torch, model, opt_state, opt_cfg, first_batch)}
+    if frames:
+        line.update(frames_per_step=run["batch"] * frames,
+                    frames_per_s=run["batch"] * frames / float(np.median(rest)))
     if cfg.ssm is not None or cfg.rwkv is not None:
         line["train_stages"] = recurrent_stages(torch, model, first_batch, line["stages"]["optimizer_s"],
                                                 line["step_s_median"])
@@ -3055,6 +3221,8 @@ def phase_train(torch, np, args, run: dict, phase: str, plain_check: bool, dev: 
                 torch.cuda.empty_cache()
             cut_cfg = dataclasses.replace(cfg, dtype=run["plain_dtype"],
                                           num_layers=run.get("plain_layers", cfg.num_layers))
+            if cfg.is_encdec:
+                cut_cfg = dataclasses.replace(cut_cfg, encoder_layers=run.get("plain_layers", cfg.encoder_layers))
             model = models.build(cut_cfg, device=dev).requires_grad_(True)
             opt_state = init_opt_state(dict(model.named_parameters()), opt_cfg)
             step = build_train_step(model, opt_cfg)
@@ -3084,8 +3252,7 @@ def phase_train(torch, np, args, run: dict, phase: str, plain_check: bool, dev: 
         if run.get("plain_batch"):
             cut = {"batch": run["plain_batch"], "seq": run["plain_seq"],
                    "layers": run.get("plain_layers", cfg.num_layers), "dtype": run.get("plain_dtype", cfg.dtype)}
-            cut_pipe = TokenPipeline(cfg.vocab_size, cut["batch"], cut["seq"], seed=args.seed)
-            first_batch = {k: torch.from_numpy(v).to(dev) for k, v in cut_pipe.next_batch().items()}
+            first_batch = batch_source(torch, model.cfg, cut["batch"], cut["seq"], args.seed, dev, frames)()
             met = first_step(first_batch, plain=False)
             want_loss, want_gnorm = float(met["loss"]), float(met["grad_norm"])
         met = first_step(first_batch, plain=True)
@@ -3108,8 +3275,9 @@ def phase_train(torch, np, args, run: dict, phase: str, plain_check: bool, dev: 
            "k5b_launches": want["flash_attention_bwd"] * run["steps"],
            "k7_per_step": want["wkv"], "k7b_per_step": want["wkv_bwd"], "k7b_launches": want["wkv_bwd"] * run["steps"]}
     if attn_layers:
-        b, t, h, d = k5b_in.q_shape
-        out["k5b_shape"] = (b, t, k5b_in.kv_shape[1], h, k5b_in.kv_shape[2], d, k5b_in.causal)
+        shapes = k5b_in.shapes()
+        out["k5b_shape"] = max(shapes, key=lambda sh: sh[0] * sh[1] * sh[3] * sh[5])
+        out["k5b_shapes"] = {sh: n // run["steps"] for sh, n in shapes.items()}
     return out
 
 
@@ -3998,6 +4166,288 @@ def phase_cp(torch, np, args, fa, fb, gen) -> dict:
             "k5b": {"cases": len(line["offsets"]), "starcoder2_tp8": line["starcoder2_k5b"]}}
 
 
+# -- the encoder-decoder (whisper-small) and the embeddings inputs (llava) ----------
+
+
+def capture_decode(torch, model, cache: dict, batch: int):
+    """``model.decode_step`` over ``cache`` and a (batch,) token buffer
+    captured into one CUDA graph, as the serve ``Engine`` captures it: the
+    capture's warm-up step is a real one, so every cache leaf is zeroed
+    after it.  Returns (graph, token buffer, logits buffer)."""
+    from repro_torch.kernels import build
+
+    tokens = torch.zeros(batch, dtype=torch.int64, device="cuda")
+    graph, (logits, _) = build.capture(lambda: model.decode_step(cache, tokens), "cuda")
+    for leaf in cache.values():
+        leaf.zero_()
+    return graph, tokens, logits
+
+
+def decode_loop(torch, model, cache: dict, logits, steps: int, graph=None):
+    """``steps`` greedy decode steps from ``logits`` (B, V): the eager step,
+    or the captured ``graph`` (``capture_decode``'s triple) replayed; each
+    step between two synchronisations.  Returns (the tokens (B, steps + 1)
+    on the host, each step's seconds, whether every logit was finite)."""
+    out, times, finite = [], [], []
+    for _ in range(steps):
+        tok = logits.argmax(-1)
+        out.append(tok)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if graph is None:
+            logits, _ = model.decode_step(cache, tok)
+        else:
+            graph[1].copy_(tok)
+            graph[0].replay()
+            logits = graph[2]
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        finite.append(torch.isfinite(logits).all())
+    out.append(logits.argmax(-1))
+    return torch.stack(out, 1).cpu(), times, bool(torch.stack(finite).all())
+
+
+def embeddings_parity_small(torch, np, arch: str) -> dict:
+    """The smoke config of an embeddings model (``arch``: the
+    encoder-decoder, 2 rows of 37 frames and a 4-token prompt; the
+    embeddings LM, 2 x 9 embedding rows, its heads of 16 widened to 14 of 32
+    over 2 kv heads, K5's head dim and llava's G 7) in float32, the card against the
+    CPU on the same weights: prefill and 6 greedy steps, logits within 1e-4
+    and tokens equal; on the card the captured decode step's tokens equal to
+    the eager step's."""
+    import dataclasses
+
+    from repro_torch import configs, models
+
+    cfg = dataclasses.replace(configs.get_smoke_config(arch), dtype="float32")
+    if cfg.resolved_head_dim not in (32, 64, 128):  # llava's smoke heads of 16: K5 takes 32, 64, 128
+        cfg = dataclasses.replace(cfg, num_heads=14, num_kv_heads=2, head_dim=32)  # and llava's G 7
+    host = models.build(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+    card = models.build(cfg, device="cuda")
+    card.load_state_dict(host.state_dict())
+    rng = np.random.default_rng(0)
+    B, frames, steps = 2, 37, 6
+    if cfg.is_encdec:
+        prompt = {"enc_embeds": torch.from_numpy(rng.standard_normal((B, frames, cfg.d_model)).astype(np.float32)),
+                  "tokens": torch.from_numpy(rng.integers(0, cfg.vocab_size, size=(B, 4)))}
+    else:
+        prompt = torch.from_numpy(rng.standard_normal((B, 9, cfg.d_model)).astype(np.float32))
+
+    def run(model, dev: str, graph: bool):
+        cache = model.init_cache(B, 16, frames) if cfg.is_encdec else model.init_cache(B, 16)
+        g = capture_decode(torch, model, cache, B) if graph else None
+        x = {k: v.to(dev) for k, v in prompt.items()} if cfg.is_encdec else prompt.to(dev)
+        logits, _ = model.prefill(x, cache)
+        seq = [logits.to("cpu", torch.float32, copy=True)]
+        for _ in range(steps):
+            tok = logits.argmax(-1)
+            if g is None:
+                logits, _ = model.decode_step(cache, tok)
+            else:
+                g[1].copy_(tok)
+                g[0].replay()
+                logits = g[2]
+            seq.append(logits.to("cpu", torch.float32, copy=True))
+        return torch.stack(seq)
+
+    want, eager, graph = run(host, "cpu", False), run(card, "cuda", False), run(card, "cuda", True)
+    err = (eager - want).abs().max().item()
+    if err > 1e-4 or not torch.equal(eager.argmax(-1), want.argmax(-1)):
+        fail(f"{arch} smoke model on the card differs from the CPU by {err} or in a greedy token")
+    if not torch.equal(graph.argmax(-1), eager.argmax(-1)):
+        fail(f"{arch} smoke model's decode graph gives other greedy tokens than its eager step")
+    return {"arch": arch, "logits_max_abs_err": err, "graph_vs_eager_max_abs_err": (graph - eager).abs().max().item(),
+            "decode_steps": steps, "tokens_equal": True, "graph_tokens_equal_eager": True}
+
+
+def serve_counts(build, graph, launches: dict, steps: int, k5: int, k6: int, what: str) -> dict:
+    """Hold a serve run's launches: K5 ``k5`` (its prefills), K6 ``k6`` a
+    decode step, as kernel nodes of the captured step times its replays
+    (``graph``) or as launches of the eager steps; no other kernel."""
+    per_replay = None
+    if graph is not None:
+        nodes = build.graph_kernel_nodes(graph[0], ["flash_fwd", "flash_fwd_bf16", "decode_partial", "decode_merge"])
+        per_replay = {"flash_attention": nodes["flash_fwd"] + nodes["flash_fwd_bf16"],
+                      "decode_attention": nodes["decode_partial"], "decode_merge": nodes["decode_merge"],
+                      "kernel_nodes": nodes["all"]}
+        if per_replay["flash_attention"] or per_replay["decode_attention"] != k6 or launches["decode_attention"]:
+            fail(f"{what}: a replay holds {per_replay} kernel nodes and {launches['decode_attention']} K6 "
+                 f"launches ran outside the graph; want {k6} K6 nodes")
+        got = {"flash_attention": launches["flash_attention"], "decode_attention": k6 * steps}
+    else:
+        got = {"flash_attention": launches["flash_attention"], "decode_attention": launches["decode_attention"]}
+    if got != {"flash_attention": k5, "decode_attention": k6 * steps}:
+        fail(f"{what}: K5 / K6 launched {got}, want {k5} / {k6 * steps}")
+    others = {k: n for k, n in launches.items() if k not in ("flash_attention", "decode_attention") and n}
+    if others:
+        fail(f"{what}: another kernel launched: {others}")
+    return {"launches": got, "decode_graph_per_replay": per_replay}
+
+
+def phase_serve_encdec(torch, np, args) -> dict:
+    """whisper-small served at full width and depth: its smoke config on the
+    card against the CPU, the full model's kernels against their plain
+    versions on a float32 copy (:func:`full_width_parity`), then
+    ``SERVE_ENCDEC``'s batch (one prefill: the encoder over 4 x 1,500
+    frames, the cross K/V of every decoder layer, the 4-token prompt) and 64
+    greedy steps through the captured decode step, and the same through the
+    eager step (tokens equal).  K5 36 launches a prefill (encoder, decoder
+    self and cross), K6 24 kernel nodes a replay (self and cross), held
+    exactly.  Prefill ms, median ms a decode step, peak memory; the shapes
+    K5 and K6 ran at, for the kernels line."""
+    from repro_torch import configs, models
+    from repro_torch.kernels import build
+    from repro_torch.models import attention as attn_mod
+
+    parity = embeddings_parity_small(torch, np, ENCDEC_ARCH)
+    cfg = configs.get_config(ENCDEC_ARCH)
+    run = SERVE_ENCDEC
+    B, S, steps = run["batch"], run["frames"], run["new_tokens"]
+    t0 = time.perf_counter()
+    model = models.build(cfg, device="cuda")
+    model.init(torch.Generator(device="cuda").manual_seed(args.seed))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    weight_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    gen = torch.Generator(device="cuda").manual_seed(args.seed + 1)
+    width = full_width_parity(torch, model, gen)
+    batch = {"enc_embeds": (torch.randn(B, S, cfg.d_model, generator=gen, device="cuda") * EMBED_SCALE).to(model.dtype),
+             "tokens": torch.tensor([run["prompt"]] * B, device="cuda")}
+    cache = model.init_cache(B, run["max_len"], S)
+    graph = capture_decode(torch, model, cache, B)
+    k5, k6 = attention_layers(cfg), 2 * cfg.num_layers
+
+    def serve(eager: bool) -> tuple[dict, object]:
+        for leaf in cache.values():
+            leaf.zero_()
+        _sync(torch)
+        torch.cuda.reset_peak_memory_stats()
+        build.reset_launches()
+        t = time.perf_counter()
+        logits, _ = model.prefill(batch, cache)
+        _sync(torch)
+        prefill_s = time.perf_counter() - t
+        toks, times, finite = decode_loop(torch, model, cache, logits, steps, None if eager else graph)
+        launches = dict(build.LAUNCHES)
+        if not finite or not bool(torch.isfinite(logits).all()):
+            fail("the whisper-small serve run produced non-finite logits")
+        if not ((toks >= 0) & (toks < cfg.vocab_size)).all():
+            fail("the whisper-small serve run gave a token out of the vocabulary")
+        held = serve_counts(build, None if eager else graph, launches, steps, k5, k6,
+                            f"whisper-small {'eager' if eager else 'graph'} run")
+        return {"prefill_s": prefill_s, "prefill_frames_per_s": B * S / prefill_s,
+                "decode_steps": steps, "ms_per_decode_step_median": float(np.median(times)) * 1e3,
+                "ms_per_decode_step_mean": float(np.mean(times)) * 1e3,
+                "decode_tokens_per_s": B * steps / sum(times), "peak_device_bytes": torch.cuda.max_memory_allocated(),
+                **held}, toks
+
+    graph_line, graph_toks = serve(False)
+    with AttnRecorder(attn_mod, "flash_attention") as k5_in, AttnRecorder(attn_mod, "decode_attention_kernel") as k6_in:
+        eager_line, eager_toks = serve(True)
+    if not torch.equal(graph_toks, eager_toks):
+        fail("whisper-small: the decode graph's tokens differ from the eager step's")
+    k6_shapes = {("cross" if k[1][1] == S else "self"): (k[0], k[1], k6_in.shape_lengths[k].tolist())
+                 for k in k6_in.calls}
+    emit({"phase": "serve_encdec", "arch": cfg.name, "encoder_layers": cfg.encoder_layers,
+          "layers": cfg.num_layers, "d_model": cfg.d_model, "dtype": cfg.dtype, "config": run,
+          "parity_smoke_f32_vs_cpu": parity, "parity_full_width_kernels_vs_plain": width, "init_s": init_s,
+          "weight_bytes": weight_bytes, "cache_bytes": {k: v.numel() * v.element_size() for k, v in cache.items()},
+          "attention_layers": k5, "decode": "cuda_graph", **graph_line, "eager": eager_line,
+          "k5_shapes": {str(list(sh)): n for sh, n in k5_in.shapes().items()},
+          "k6_shapes": {k: {"q": list(q), "cache": list(c), "lengths": ln} for k, (q, c, ln) in k6_shapes.items()},
+          "graph_tokens_equal_eager": True, "first_tokens": graph_toks[:, :8].tolist()})
+    del model, cache, graph, batch
+    torch.cuda.empty_cache()
+    return {"launches": graph_line["launches"], "per_replay": graph_line["decode_graph_per_replay"],
+            "k5_shapes": k5_in.shapes(), "k6_shapes": k6_shapes, "dtype": torch.bfloat16}
+
+
+def phase_serve_embeds(torch, np, args) -> dict:
+    """llava-next-34b served at full width and depth from embeddings: its
+    smoke config (G 4) on the card against the CPU, the full model's K5 and
+    K6 against their plain versions (``full_width_parity``, a 64-row
+    embeddings prompt), then one request a slot (``SERVE_EMBEDS``: 1-5 tiles
+    of 576 embedding rows each), each prefilled at B 1 into its slot of the
+    4-slot cache, and 32 greedy token steps of every slot through the
+    captured decode step, then the same through the eager step (tokens
+    equal).  K5 60 launches a prefill, K6 60 kernel nodes a replay (G 7),
+    held exactly.  Each prefill's seconds, median ms a decode step, peak
+    memory, the cache's bytes; the shapes for the kernels line."""
+    from repro_torch import configs, models
+    from repro_torch.kernels import build
+    from repro_torch.models import attention as attn_mod
+
+    parity = embeddings_parity_small(torch, np, EMBEDS_ARCH)
+    cfg = configs.get_config(EMBEDS_ARCH)
+    run = SERVE_EMBEDS
+    slots, steps = run["slots"], run["new_tokens"]
+    t0 = time.perf_counter()
+    model = models.build(cfg, device="cuda")
+    model.init(torch.Generator(device="cuda").manual_seed(args.seed))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    weight_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    gen = torch.Generator(device="cuda").manual_seed(args.seed + 1)
+    width = full_width_parity(torch, model, gen)
+    torch.cuda.empty_cache()
+    tiles = np.random.default_rng(args.seed).integers(run["tiles"][0], run["tiles"][1] + 1, size=slots)
+    prompts = [(torch.randn(1, int(n) * run["tile"], cfg.d_model, generator=gen, device="cuda") * EMBED_SCALE)
+               .to(model.dtype) for n in tiles]
+    cache = model.init_cache(slots, run["max_len"])
+    graph = capture_decode(torch, model, cache, slots)
+    L = cfg.num_layers
+
+    def serve(eager: bool) -> tuple[dict, object]:
+        for leaf in cache.values():
+            leaf.zero_()
+        _sync(torch)
+        torch.cuda.reset_peak_memory_stats()
+        build.reset_launches()
+        firsts, prefill_s = [], []
+        for s, p in enumerate(prompts):
+            view = {name: leaf[s:s + 1] if name == "pos" else leaf[:, s:s + 1] for name, leaf in cache.items()}
+            t = time.perf_counter()
+            logits, _ = model.prefill(p, view)
+            _sync(torch)
+            prefill_s.append(time.perf_counter() - t)
+            firsts.append(logits)
+        logits = torch.cat(firsts)
+        toks, times, finite = decode_loop(torch, model, cache, logits, steps, None if eager else graph)
+        launches = dict(build.LAUNCHES)
+        if not finite or not bool(torch.isfinite(logits).all()):
+            fail("the llava-next-34b serve run produced non-finite logits")
+        if not ((toks >= 0) & (toks < cfg.vocab_size)).all():
+            fail("the llava-next-34b serve run gave a token out of the vocabulary")
+        held = serve_counts(build, None if eager else graph, launches, steps, L * slots, L,
+                            f"llava-next-34b {'eager' if eager else 'graph'} run")
+        rows = sum(p.shape[1] for p in prompts)
+        return {"prefill_requests": [{"slot": s, "rows": p.shape[1], "prefill_s": t}
+                                     for s, (p, t) in enumerate(zip(prompts, prefill_s))],
+                "prefill_s": sum(prefill_s), "prefill_rows_per_s": rows / sum(prefill_s),
+                "decode_steps": steps, "ms_per_decode_step_median": float(np.median(times)) * 1e3,
+                "ms_per_decode_step_mean": float(np.mean(times)) * 1e3,
+                "decode_tokens_per_s": slots * steps / sum(times),
+                "peak_device_bytes": torch.cuda.max_memory_allocated(), **held}, toks
+
+    graph_line, graph_toks = serve(False)
+    with AttnRecorder(attn_mod, "flash_attention") as k5_in, AttnRecorder(attn_mod, "decode_attention_kernel") as k6_in:
+        eager_line, eager_toks = serve(True)
+    if not torch.equal(graph_toks, eager_toks):
+        fail("llava-next-34b: the decode graph's tokens differ from the eager step's")
+    (k6_key,) = k6_in.calls
+    k5_shape = max(k5_in.shapes(), key=lambda sh: sh[1])
+    emit({"phase": "serve_embeds", "arch": cfg.name, "layers": cfg.num_layers, "d_model": cfg.d_model,
+          "heads": cfg.num_heads, "kv_heads": cfg.num_kv_heads, "dtype": cfg.dtype, "config": run,
+          "parity_smoke_f32_vs_cpu": parity, "parity_full_width_kernels_vs_plain": width, "init_s": init_s,
+          "weight_bytes": weight_bytes, "cache_bytes": {k: v.numel() * v.element_size() for k, v in cache.items()},
+          "tiles": tiles.tolist(), "decode": "cuda_graph", **graph_line, "eager": eager_line,
+          "graph_tokens_equal_eager": True, "first_tokens": graph_toks[:, :8].tolist()})
+    del model, cache, graph, prompts
+    torch.cuda.empty_cache()
+    return {"launches": graph_line["launches"], "per_replay": graph_line["decode_graph_per_replay"],
+            "k5_shape": k5_shape, "k6": (k6_key[0], k6_key[1], k6_in.shape_lengths[k6_key].tolist())}
+
+
 def example_argv(extra, run_dir: Path) -> list[str]:
     return [a.format(dir=run_dir) for a in extra]
 
@@ -4312,6 +4762,12 @@ def run_phases(args, np, torch, smi: str, cpu_examples, run_dir: Path) -> int:
     k7_rows = phase_k7(wk, torch, gen)
     rwkv = phase_serve(torch, np, args, RWKV_ARCH, "serve_rwkv", [RWKV_ARCH])
     rwkv_train = phase_train(torch, np, args, TRAIN_RWKV, "train_rwkv", plain_check=True)
+
+    # -- the encoder-decoder (whisper-small), the embeddings inputs (llava-next-34b)
+    encdec = phase_serve_encdec(torch, np, args)
+    encdec_train = phase_train(torch, np, args, TRAIN_ENCDEC, "train_encdec", plain_check=True)
+    embeds = phase_serve_embeds(torch, np, args)
+    embeds_train = phase_train(torch, np, args, TRAIN_EMBEDS, "train_embeds", plain_check=False)
     phase_examples(torch, cpu_examples, run_dir)
     rows[0]["sharded"] = sharded["k1"]
     rows[1]["sharded"] = {"site": "core/mergesort.py merge_runs_flat (pipeline, pool_backend=shard_map)",
@@ -4356,6 +4812,36 @@ def run_phases(args, np, torch, smi: str, cpu_examples, run_dir: Path) -> int:
                  "replaces": "src/repro/models/rwkv6.py:148", "tpu_kernel": False,
                  "launches": rwkv_train["k7b_launches"], **k7_rows["wkv_bwd"],
                  "train_launches_per_step": rwkv_train["k7b_per_step"]})
+
+    bf16 = torch.bfloat16
+    k5b_row_ = next(r for r in rows if r["name"] == "flash_attention_bwd")
+
+    def k5_at(sh, launches):
+        b, t, s, h, kv, d, causal = sh
+        return k5_row_at(torch, gen, (b, t, h, d), (b, s, kv, d), bf16, causal, launches)
+
+    def attn_kind(sh) -> str:
+        return "cross" if sh[1] != sh[2] else "decoder_self" if sh[6] else "encoder"
+
+    # every bf16 shape whisper's K5 and K5b ran at, with its launches: a
+    # prefill's (serve), a train step's (K5 twice a K5b call: the forward and
+    # the recompute) and the whole training run's (K5b)
+    k5_row["whisper"] = {"serve": {attn_kind(sh): k5_at(sh, n) for sh, n in encdec["k5_shapes"].items()},
+                         "train": {attn_kind(sh): k5_at(sh, 2 * n) for sh, n in encdec_train["k5b_shapes"].items()},
+                         "serve_launches_per_prefill": encdec["launches"]["flash_attention"],
+                         "train_launches_per_step": encdec_train["k5_per_step"]}
+    k6_row["whisper"] = {name: k6_row_at(torch, gen, q, c, bf16, lengths, encdec["launches"]["decode_attention"])
+                         for name, (q, c, lengths) in sorted(encdec["k6_shapes"].items())}
+    k6_row["whisper"]["decode_graph_per_replay"] = encdec["per_replay"]["decode_attention"]
+    k5b_row_["whisper"] = {attn_kind(sh): k5b_row(fa, fb, torch, gen, sh, n * TRAIN_ENCDEC["steps"], n)
+                           for sh, n in encdec_train["k5b_shapes"].items()}
+    k5_row["llava"] = {**k5_at(embeds["k5_shape"], embeds["launches"]["flash_attention"]),
+                       "train_launches_per_step": embeds_train["k5_per_step"]}
+    q, c, lengths = embeds["k6"]
+    k6_row["llava"] = {**k6_row_at(torch, gen, q, c, bf16, lengths, embeds["launches"]["decode_attention"]),
+                       "decode_graph_per_replay": embeds["per_replay"]["decode_attention"]}
+    k5b_row_["llava"] = k5b_row(fa, fb, torch, gen, embeds_train["k5b_shape"], embeds_train["k5b_launches"],
+                                embeds_train["k5b_per_step"])
 
     emit({"kernels": rows})
     emit(ptxas_line(build))

@@ -6,7 +6,9 @@
 ``--arch`` takes the dense ``mistral-nemo-12b`` (and the other dense
 configs), the MoE ``granite-moe-3b-a800m`` and ``deepseek-moe-16b``, the
 hybrid ``zamba2-1.2b`` and the RWKV6 ``rwkv6-1.6b`` (the last two on one
-device: no ``--mesh`` above 1x1).
+device: no ``--mesh`` above 1x1).  The encoder-decoder (``whisper-small``)
+and the embeddings model (``llava-next-34b``) are refused, as the
+reference's CLI refuses the first and its engine prefills tokens alone.
 
 Counterpart of ``repro.launch.serve``: the weights are drawn from
 ``--seed`` on the device, prompts of 2-11 tokens from numpy's
@@ -54,6 +56,8 @@ def main(argv=None) -> list[Request]:
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     if cfg.is_encdec:
         raise SystemExit("the serve CLI takes decoder-only archs")
+    if cfg.input_kind != "tokens":
+        raise SystemExit("the serve CLI takes token prompts: its Engine has no embeddings prefill")
     dev = resolve_device(args.device)
     if args.mesh is not None:
         dev = rank_device(dev)

@@ -7,7 +7,9 @@
 ``--arch`` takes the dense ``mistral-nemo-12b`` (and the other dense
 configs), the MoE ``granite-moe-3b-a800m`` and ``deepseek-moe-16b``, the
 hybrid ``zamba2-1.2b`` and the RWKV6 ``rwkv6-1.6b`` (the last two on one
-device: no ``--mesh`` above 1x1).
+device: no ``--mesh`` above 1x1).  The embeddings models (``whisper-small``,
+``llava-next-34b``) are refused up front: the token pipeline carries no
+embeddings (the reference's CLI fails at its first step).
 
 Counterpart of ``repro.launch.train``: the reference's flags, plus
 ``--device`` (default ``cuda``; it raises without a card unless asked for
@@ -75,6 +77,8 @@ def main(argv=None) -> list[dict]:
     args = ap.parse_args(argv)
 
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    if cfg.is_encdec or cfg.input_kind != "tokens":
+        raise SystemExit(f"{cfg.name} trains on embeddings: the token pipeline carries no embeddings")
     if args.dtype:
         cfg = dataclasses.replace(cfg, dtype=args.dtype)
     dev = resolve_device(args.device)

@@ -11,7 +11,11 @@ reference's custom-VJP ``_sdpa_flash``: its forward is K5 with the rows'
 logsumexp, its backward the kernel K5b
 (:mod:`repro_torch.kernels.flash_attention_bwd`); on the CPU both run their
 plain versions.  Serve runs under ``no_grad`` and calls K5 without the
-logsumexp.
+logsumexp.  Cross-attention (the encoder-decoder, :mod:`.encdec`):
+:func:`project_cross_kv` projects the encoder's K/V once, and
+``attention(kv=...)`` and ``decode_attention(cross=True)`` project q alone
+against them, K5 non-causal over every encoder position and K6 with every
+position visible.
 
 On a tp mesh the reference's three layouts (``attn_layout``):
 
@@ -146,24 +150,38 @@ class Attention(nn.Module):
 
 
 def project_qkv(p: Attention, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor,
-                ctx: ShardCtx | None = None):
+                ctx: ShardCtx | None = None, q_only: bool = False):
     """q (B, T, H, hd), k and v (B, T, KV, hd) of the heads ``p`` holds, at
     ``positions`` (B, T); with a ``ctx`` (the ``"columns"`` layout) the
-    rank's columns are gathered over tp first, every head."""
+    rank's columns are gathered over tp first, every head.  ``q_only``
+    projects q alone (K/V given: cross-attention) and returns ``(q, None,
+    None)``."""
     B, T, _ = x.shape
     hd = cfg.resolved_head_dim
-    q, k, v = x @ p.wq, x @ p.wk, x @ p.wv
+    names = ("q",) if q_only else ("q", "k", "v")
+    out = []
+    for n in names:
+        t = x @ getattr(p, f"w{n}")
+        if cfg.use_bias:
+            t = t + getattr(p, f"b{n}")
+        if ctx is not None:
+            t = gather_seq(t, ctx, dim=-1)
+        t = t.reshape(B, T, -1, hd)
+        if cfg.use_rope and n != "v":
+            t = apply_rope(t, positions, cfg.rope_theta)
+        out.append(t)
+    return (out[0], None, None) if q_only else tuple(out)
+
+
+def project_cross_kv(p: Attention, cfg: ModelConfig, enc: torch.Tensor):
+    """Encoder-side K/V (B, S, KV, hd) for cross-attention (the reference's
+    ``project_cross_kv``): no positions."""
+    B, S, _ = enc.shape
+    KV, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+    k, v = enc @ p.wk, enc @ p.wv
     if cfg.use_bias:
-        q, k, v = q + p.bq, k + p.bk, v + p.bv
-    if ctx is not None:
-        q, k, v = (gather_seq(t, ctx, dim=-1) for t in (q, k, v))
-    q = q.reshape(B, T, -1, hd)
-    k = k.reshape(B, T, -1, hd)
-    v = v.reshape(B, T, -1, hd)
-    if cfg.use_rope:
-        q = apply_rope(q, positions, cfg.rope_theta)
-        k = apply_rope(k, positions, cfg.rope_theta)
-    return q, k, v
+        k, v = k + p.bk, v + p.bv
+    return k.reshape(B, S, KV, hd), v.reshape(B, S, KV, hd)
 
 
 def _sdpa(q, k, v, causal: bool, q_offset: int = 0):
@@ -173,12 +191,13 @@ def _sdpa(q, k, v, causal: bool, q_offset: int = 0):
     return flash_attention(q, k, v, causal=causal, q_offset=q_offset)
 
 
-def context_project(p: Attention, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor, rank: int):
+def context_project(p: Attention, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor, rank: int,
+                    q_only: bool = False):
     """Rank ``rank``'s rows of the ``"context"`` layout projected: ``x``
     (B, T_loc, D) holds global rows ``[rank * T_loc, (rank + 1) * T_loc)``,
     at those of the whole sequence's ``positions``; every head."""
     T = x.shape[1]
-    return project_qkv(p, cfg, x, positions[..., rank * T:(rank + 1) * T])
+    return project_qkv(p, cfg, x, positions[..., rank * T:(rank + 1) * T], q_only=q_only)
 
 
 def context_rank(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, wo: torch.Tensor,
@@ -226,7 +245,8 @@ def attention(p: Attention, cfg: ModelConfig, x: torch.Tensor, positions: torch.
     """Full-sequence attention (training, prefill) on K5; under autograd
     through :class:`FlashAttentionFn` (backward on K5b).  ``positions`` are
     the global positions of the whole sequence.  ``kv`` overrides K/V
-    (already projected, (B,S,KV,hd), the heads the layout attends with);
+    (already projected, (B,S,KV,hd), the heads the layout attends with:
+    cross-attention), and then only q is projected;
     ``return_kv`` also returns the projected K/V for the cache: the rank's
     heads in the ``"heads"`` layout, every head in the others.
 
@@ -239,19 +259,20 @@ def attention(p: Attention, cfg: ModelConfig, x: torch.Tensor, positions: torch.
     B, T, _ = x.shape
     tp = ctx.tp_size if ctx is not None else 1
     layout = attn_layout(cfg, ctx)
+    q_only = kv is not None
     if layout == "context" and seq_sharded:
         r = ctx.axis_index(ctx.tp)
-        q, k, v = context_project(p, cfg, x, positions, r)
+        q, k, v = context_project(p, cfg, x, positions, r, q_only)
         k, v = (gather_seq(k, ctx), gather_seq(v, ctx)) if kv is None else kv
         out = context_rank(cfg, q, k, v, p.wo, r, causal)
     elif layout == "columns":
-        q, k, v = project_qkv(p, cfg, x, positions, ctx)
+        q, k, v = project_qkv(p, cfg, x, positions, ctx, q_only)
         if kv is not None:
             k, v = kv
         out = column_rank(cfg, q, k, v, p.wo, ctx.axis_index(ctx.tp), tp, causal)
         out = scatter_seq(out, ctx) if seq_sharded else all_reduce_sum(out, ctx.group(ctx.tp))
     else:
-        q, k, v = project_qkv(p, cfg, x, positions)
+        q, k, v = project_qkv(p, cfg, x, positions, q_only=q_only)
         if kv is not None:
             k, v = kv
         out = _sdpa(q, k, v, causal).reshape(B, T, -1) @ p.wo
@@ -265,7 +286,8 @@ def attention(p: Attention, cfg: ModelConfig, x: torch.Tensor, positions: torch.
 
 
 def decode_attention(p: Attention, cfg: ModelConfig, x: torch.Tensor, kcache: torch.Tensor,
-                     vcache: torch.Tensor, pos: torch.Tensor, ctx: ShardCtx | None = None):
+                     vcache: torch.Tensor, pos: torch.Tensor, ctx: ShardCtx | None = None, *,
+                     cross: bool = False):
     """One decode step on K6.  x: (B, 1, D); caches (B, S, KV, hd); pos (B,)
     int32, the new token's position.
 
@@ -274,27 +296,38 @@ def decode_attention(p: Attention, cfg: ModelConfig, x: torch.Tensor, kcache: to
     drops it), then attends over positions ``<= pos``: K6 with ``lengths =
     pos + 1``.  Returns ``(out (B, 1, D), kcache, vcache)``.  At tp > 1 the
     caches are this rank's chunk of the sequence (:func:`_decode_sharded`).
-    """
+
+    ``cross`` (cross-attention against the encoder's K/V): q alone is
+    projected and nothing is written; the caller passes ``pos`` = S - 1, as
+    the reference does, so every position is visible (lengths S, a device
+    tensor: no host read)."""
     if ctx is not None and ctx.tp_size > 1:
+        if cross:
+            raise NotImplementedError("cross-attention on a sequence-sharded cache is a later slice of the port")
         return _decode_sharded(p, cfg, x, kcache, vcache, pos, ctx)
     B = x.shape[0]
     H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     S = kcache.shape[1]
     x0 = x[:, 0]
-    q, knew, vnew = x0 @ p.wq, x0 @ p.wk, x0 @ p.wv
+    q = x0 @ p.wq
     if cfg.use_bias:
-        q, knew, vnew = q + p.bq, knew + p.bk, vnew + p.bv
+        q = q + p.bq
     q = q.reshape(B, H, hd)
-    knew = knew.reshape(B, KV, hd)
-    vnew = vnew.reshape(B, KV, hd)
     if cfg.use_rope:
         q = apply_rope(q[:, None], pos[:, None], cfg.rope_theta)[:, 0]
-        knew = apply_rope(knew[:, None], pos[:, None], cfg.rope_theta)[:, 0]
-    rows = torch.arange(B, device=x.device)
-    slot = pos.clamp(max=S - 1).long()
-    keep = (pos < S)[:, None, None]
-    kcache[rows, slot] = torch.where(keep, knew.to(kcache.dtype), kcache[rows, slot])
-    vcache[rows, slot] = torch.where(keep, vnew.to(vcache.dtype), vcache[rows, slot])
+    if not cross:
+        knew, vnew = x0 @ p.wk, x0 @ p.wv
+        if cfg.use_bias:
+            knew, vnew = knew + p.bk, vnew + p.bv
+        knew = knew.reshape(B, KV, hd)
+        vnew = vnew.reshape(B, KV, hd)
+        if cfg.use_rope:
+            knew = apply_rope(knew[:, None], pos[:, None], cfg.rope_theta)[:, 0]
+        rows = torch.arange(B, device=x.device)
+        slot = pos.clamp(max=S - 1).long()
+        keep = (pos < S)[:, None, None]
+        kcache[rows, slot] = torch.where(keep, knew.to(kcache.dtype), kcache[rows, slot])
+        vcache[rows, slot] = torch.where(keep, vnew.to(vcache.dtype), vcache[rows, slot])
     lengths = (pos + 1).clamp(max=S).to(torch.int32)
     out = decode_attention_kernel(q, kcache, vcache, lengths)
     y = out.reshape(B, H * hd).to(x.dtype) @ p.wo

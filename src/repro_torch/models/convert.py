@@ -2,16 +2,17 @@
 tree <-> this port's module state, its ``init_opt_state`` tree <-> the
 port's optimizer state.
 
-The reference keeps layer parameters stacked ``(L, ...)`` under ``layers``;
-the port has one module per layer, so the stack is cut into
-``layers.<i>.<...>``.  Every other leaf keeps its path, joined by dots; a
+The reference keeps layer parameters stacked ``(L, ...)`` under ``layers``
+(the encoder-decoder's under ``encoder`` and ``decoder``); the port has one
+module per layer, so each stack is cut into ``layers.<i>.<...>``
+(``encoder.<i>.<...>``, ``decoder.<i>.<...>``).  Every other leaf keeps its path, joined by dots; a
 list (deepseek-moe's ``dense_layers``, one dict per layer) contributes its
 index, ``dense_layers.<i>.<...>``.  Leaves
 are numpy arrays (``jax.tree.map(numpy.asarray, params)``), bfloat16 ones
 included, or CPU tensors (a reference checkpoint restored by
 :class:`repro_torch.train.checkpoint.CheckpointManager`); values are copied
 bit for bit.  :func:`params_to_reference` and :func:`opt_state_to_reference`
-go the other way (tensors stacked back into ``layers``), which is the tree
+go the other way (tensors stacked back into each stack), which is the tree
 the training CLI checkpoints, so either package's CLI resumes the other's.
 
 On a mesh every leaf is cut by its layout (:func:`repro_torch.models.lm.leaf_spec`,
@@ -35,7 +36,7 @@ import torch
 
 from ..configs.base import ModelConfig
 from ..distributed.sharding import ShardCtx, gather_leaf, shard_leaf
-from .lm import leaf_spec
+from .lm import STACKS, leaf_spec
 
 
 def _tensor(a) -> torch.Tensor:
@@ -73,15 +74,15 @@ def params_from_reference(tree: dict, ctx: ShardCtx | None = None, cfg: ModelCon
     ``distributed.pp.gpipe`` takes)."""
     state: dict[str, torch.Tensor] = {}
     for key, sub in tree.items():
-        if key == "layers":
+        if key in STACKS:
             flat: dict[str, torch.Tensor] = {}
             _flatten(sub, "", flat)
             n = {v.shape[0] for v in flat.values()}
             if len(n) != 1:
-                raise ValueError(f"stacked layer leaves disagree on depth: {sorted(n)}")
+                raise ValueError(f"stacked {key} leaves disagree on depth: {sorted(n)}")
             for i in range(n.pop()):
                 for name, v in flat.items():
-                    state[f"layers.{i}.{name}"] = v[i].clone()
+                    state[f"{key}.{i}.{name}"] = v[i].clone()
         else:
             _flatten(sub, f"{key}.", state)
     ctx = ctx if ctx is not None else ShardCtx()
@@ -153,19 +154,19 @@ def params_to_reference(state: dict[str, torch.Tensor], ctx: ShardCtx | None = N
     :func:`params_from_reference` (``cfg`` as there)."""
     if ctx is not None and ctx.mesh is not None:
         state = {name: gather_leaf(ctx, v.detach(), leaf_spec(name, v.dim(), ctx, cfg)) for name, v in state.items()}
-    per_layer: dict[str, dict[int, torch.Tensor]] = {}
+    per_layer: dict[str, dict[str, dict[int, torch.Tensor]]] = {}
     rest: dict[str, torch.Tensor] = {}
     for name, v in state.items():
         head, _, tail = name.partition(".")
-        if head == "layers":
+        if head in STACKS:
             i, _, leaf = tail.partition(".")
-            per_layer.setdefault(leaf, {})[int(i)] = v.detach()
+            per_layer.setdefault(head, {}).setdefault(leaf, {})[int(i)] = v.detach()
         else:
             rest[name] = v.detach()
     tree = _nest(rest)
-    if per_layer:
-        stacked = {leaf: torch.stack([by_i[i] for i in range(len(by_i))]) for leaf, by_i in per_layer.items()}
-        tree["layers"] = _nest(stacked)
+    for head, leaves in per_layer.items():
+        stacked = {leaf: torch.stack([by_i[i] for i in range(len(by_i))]) for leaf, by_i in leaves.items()}
+        tree[head] = _nest(stacked)
     return tree
 
 

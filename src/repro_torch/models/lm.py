@@ -50,8 +50,14 @@ starts every block from zero states, whatever the cache holds, and K7 writes
 each layer's final state straight into its slice of ``wkv``; the decode step
 runs K7 at T = 1 on that slice in place.  On a mesh with an axis above 1, or
 under sequence parallelism, it raises ``NotImplementedError`` (the
-reference's ``spec_rwkv`` layouts are a later slice).  Precomputed-embedding
-inputs raise ``NotImplementedError`` naming the slice that ports them.
+reference's ``spec_rwkv`` layouts are a later slice).
+
+A dense or MoE model with ``input_kind == "embeds"`` (llava-next: the
+vision tiling is a stub) takes precomputed (B, T, D) embeddings in
+``forward``, ``loss`` (``batch["embeds"]``) and ``prefill``, cast to the
+model's type (:meth:`LM.embed_inputs`); its decode step embeds tokens.  On
+a mesh with an axis above 1, or for the recurrent kinds, such inputs raise
+``NotImplementedError`` naming the later slice.
 
 On a mesh (``LM(cfg, ctx)``, a :class:`~repro_torch.distributed.sharding.ShardCtx`
 of a ``(data, model)`` or ``(pod, data, model)`` DeviceMesh) the model is
@@ -112,6 +118,18 @@ SSM_KINDS = ("mamba", "hybrid")
 #: The recurrent kinds (no attention stack), by the reference's layouts of
 #: their blocks, which the port does not cut over a mesh yet.
 RECURRENT_SPECS = {"mamba": "spec_mamba", "hybrid": "spec_mamba", "rwkv": "spec_rwkv"}
+
+
+#: The reference's scanned stacks (per-layer leaves with a leading layer
+#: axis), cut into one module a layer here: ``layers.<i>``, and the
+#: encoder-decoder's ``encoder.<i>`` and ``decoder.<i>``.
+STACKS = ("layers", "encoder", "decoder")
+
+
+def on_mesh(ctx: ShardCtx | None) -> bool:
+    """Whether ``ctx`` cuts anything: an axis above 1, or sequence
+    parallelism."""
+    return ctx is not None and (ctx.sp or any(ctx.axis_size(a) > 1 for a in (ctx.tp, ctx.fsdp, *ctx.dp)))
 
 
 def leaf_spec(name: str, ndim: int, ctx: ShardCtx, cfg: ModelConfig | None) -> tuple:
@@ -261,17 +279,16 @@ class LM(nn.Module):
     def __init__(self, cfg: ModelConfig, ctx: ShardCtx | None = None, device="cuda", rwkv_chunked: bool = False):
         super().__init__()
         kind = block_kind(cfg)
-        if kind in RECURRENT_SPECS and ctx is not None and (
-                ctx.sp or any(ctx.axis_size(a) > 1 for a in (ctx.tp, ctx.fsdp, *ctx.dp))):
+        if kind in RECURRENT_SPECS and on_mesh(ctx):
             stack = "RWKV6 stack" if kind == "rwkv" else "Mamba2 stacks"
             raise NotImplementedError(
                 f"{cfg.name}: the {stack} on a mesh (tp, sequence or FSDP parallelism: the "
                 f"reference's {RECURRENT_SPECS[kind]} layouts) are a later slice of the port"
             )
-        if cfg.input_kind != "tokens":
+        if cfg.input_kind != "tokens" and (kind in RECURRENT_SPECS or on_mesh(ctx)):
+            where = "on a mesh" if on_mesh(ctx) else f"to the {kind} kind"
             raise NotImplementedError(
-                f"{cfg.name}: precomputed-embedding inputs (the vlm/audio stub "
-                "frontends) are a later slice of the port"
+                f"{cfg.name}: precomputed-embedding inputs {where} are a later slice of the port"
             )
         dev = resolve_device(device)
         dt = getattr(torch, cfg.dtype)
@@ -321,6 +338,13 @@ class LM(nn.Module):
         if hasattr(self, "dense_layers"):
             yield self.dense_layers, "k_dense", "v_dense"
         yield self.layers, "k", "v"
+
+    @property
+    def loss_unreached(self) -> tuple[str, ...]:
+        """The parameters :meth:`loss` does not reach: an untied
+        ``input_kind == "embeds"`` model's token table (its batches are
+        embeddings; only :meth:`decode_step` looks tokens up)."""
+        return ("embed.table",) if self.cfg.input_kind == "embeds" and not self.cfg.tie_embeddings else ()
 
     @property
     def device(self) -> torch.device:
@@ -393,8 +417,18 @@ class LM(nn.Module):
         return x + mlp_mod.mlp(p.mlp, c, h, ctx, seq_sharded=sp), torch.zeros((), dtype=torch.float32,
                                                                                device=x.device)
 
+    def embed_inputs(self, inputs: torch.Tensor, seq_sharded: bool = False) -> torch.Tensor:
+        """The residual stream's input (the reference's ``embed_inputs``):
+        token ids (B, T) looked up in the table (:func:`embed_tokens`), or an
+        ``input_kind == "embeds"`` model's precomputed embeddings (B, T, D)
+        cast to the model's type."""
+        if self.cfg.input_kind == "tokens":
+            return embed_tokens(self.embed.table, inputs.long(), self.ctx, seq_sharded=seq_sharded)
+        return inputs.to(self.dtype)
+
     def forward(self, tokens: torch.Tensor):
-        """Training/scoring forward over ``tokens`` (B, T), this rank's rows:
+        """Training/scoring forward over ``tokens`` (B, T), this rank's rows
+        (an embeddings model's (B, T, D) embeddings):
         (logits (B, T, V) -- with the padded vocab sliced off on one device,
         this rank's vocab shard with the padded columns at -1e30 at tp > 1,
         as the reference keeps them -- and the MoE stack's summed load-balance
@@ -414,7 +448,7 @@ class LM(nn.Module):
         T = tokens.shape[1]
         if sp and T % self._tp:
             raise ValueError(f"sequence parallelism needs T={T} divisible by tp={self._tp}")
-        x = embed_tokens(self.embed.table, tokens.long(), ctx, seq_sharded=sp)
+        x = self.embed_inputs(tokens, seq_sharded=sp)
         positions = torch.arange(T, device=x.device)[None, :]
         aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
         for blocks, _, _ in self._stacks():
@@ -466,10 +500,11 @@ class LM(nn.Module):
 
     def loss(self, batch: dict, aux_weight: float = 0.01):
         """``ce + aux_weight * aux`` over ``batch`` ({"tokens", "labels"},
-        (B, T) each, this rank's rows): (loss, {"ce", "aux"}).  On a mesh
-        ``ce`` is the mean over the global batch (the dp shards' means
-        summed, equal shards), replicated, as are ``aux`` and the loss."""
-        logits, aux = self(batch["tokens"])
+        (B, T) each, this rank's rows; an embeddings model's {"embeds",
+        "labels"}): (loss, {"ce", "aux"}).  On a mesh ``ce`` is the mean over
+        the global batch (the dp shards' means summed, equal shards),
+        replicated, as are ``aux`` and the loss."""
+        logits, aux = self(batch["embeds"] if self.cfg.input_kind == "embeds" else batch["tokens"])
         ce = cross_entropy(logits, batch["labels"], ctx=self.ctx)
         if self.ctx is not None and self.ctx.groups(self.ctx.dp):
             ce = psum(ce, self.ctx.groups(self.ctx.dp)) / self.ctx.dp_size
@@ -529,11 +564,12 @@ class LM(nn.Module):
 
     @torch.no_grad()
     def prefill(self, tokens: torch.Tensor, cache: dict):
-        """Process a whole prompt ``tokens`` (B, T) into an empty ``cache``:
-        k/v of positions [0, T) are written and ``pos`` advances by T.
-        Returns (last-position logits (B, V), cache)."""
+        """Process a whole prompt ``tokens`` (B, T) (an embeddings model's
+        (B, T, D) embeddings) into an empty ``cache``: k/v of positions [0,
+        T) are written and ``pos`` advances by T.  Returns (last-position
+        logits (B, V), cache)."""
         c, ctx = self.cfg, self.ctx
-        x = embed_tokens(self.embed.table, tokens.long(), ctx)
+        x = self.embed_inputs(tokens)
         T = x.shape[1]
         positions = torch.arange(T, device=x.device)[None, :]
         if self.kind in SSM_KINDS:
@@ -646,7 +682,8 @@ class LM(nn.Module):
 
     @torch.no_grad()
     def decode_step(self, cache: dict, tokens: torch.Tensor):
-        """One decode step.  tokens: (B,) ints.  Returns (logits (B, V), cache)."""
+        """One decode step.  tokens: (B,) ints (an embeddings model decodes
+        tokens too).  Returns (logits (B, V), cache)."""
         c, ctx = self.cfg, self.ctx
         pos = cache["pos"]
         x = embed_tokens(self.embed.table, tokens.long(), ctx)[:, None, :]

@@ -21,7 +21,9 @@ step, by prefill and by the slot reset) and the logits -- and every step
 copies the next tokens in, replays the graph and samples the logits outside
 it.  A failed capture raises; nothing falls back to the eager step.  On the
 CPU the step runs eagerly.  Prefill stays eager: a graph per prompt length
-would be one capture per request.
+would be one capture per request.  The engine serves decoder-only token
+models: the encoder-decoder and an embeddings model raise, as the
+reference's engine prefills ``{"tokens": ...}`` alone.
 
 A model on a mesh (``LM(cfg, ctx)``) is served the same way on every rank:
 each holds every slot, its chunk of the sequence-sharded cache and its
@@ -74,6 +76,9 @@ class Engine:
         _eager: bool = False,
     ):
         self.device = resolve_device(device)
+        if model.cfg.is_encdec or model.cfg.input_kind != "tokens":
+            raise ValueError(f"{model.cfg.name}: the Engine prefills token prompts of a decoder-only model, as the "
+                             "reference's does (its prefill batch carries tokens alone)")
         if model.device.type != self.device.type:
             raise ValueError(f"the model lies on {model.device}, the engine runs on {self.device}")
         self.model = model

@@ -15,8 +15,8 @@ chunking never changes a value).
 
 Weight decay follows the reference leaf by leaf: it decays a leaf iff its
 rank is at least 2 *in the reference's tree*, where every per-layer leaf of
-the scanned stack carries a leading layer axis.  So each ``layers.<i>``
-norm scale and bias is decayed (rank 1 here, rank 2 stacked there), while
+a scanned stack carries a leading layer axis.  So each ``layers.<i>`` (and
+``encoder.<i>``, ``decoder.<i>``) norm scale and bias is decayed (rank 1 here, rank 2 stacked there), while
 ``ln_f`` and deepseek's unstacked ``dense_layers`` are not
 (:func:`reference_rank`).
 
@@ -33,6 +33,7 @@ import math
 import torch
 
 from ..distributed.sharding import psum, replicated_axes
+from ..models.lm import STACKS
 
 
 @dataclasses.dataclass(frozen=True)
@@ -52,8 +53,9 @@ class AdamWConfig:
 
 def reference_rank(name: str, p: torch.Tensor) -> int:
     """The rank of leaf ``name`` in the reference's tree: one more than here
-    for the scanned stack's per-layer leaves (``layers.<i>.*``)."""
-    return p.dim() + (1 if name.startswith("layers.") else 0)
+    for the scanned stacks' per-layer leaves (``layers.<i>.*``, the
+    encoder-decoder's ``encoder.<i>.*`` and ``decoder.<i>.*``)."""
+    return p.dim() + (1 if name.partition(".")[0] in STACKS else 0)
 
 
 def lr_schedule(cfg: AdamWConfig, step) -> torch.Tensor:

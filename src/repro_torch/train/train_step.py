@@ -75,14 +75,20 @@ def build_train_step(
     params = dict(model.named_parameters())
     if not all(p.requires_grad for p in params.values()):
         raise ValueError("the model is frozen: call model.requires_grad_(True) before building a train step")
-    names, leaves = list(params), list(params.values())
     ctx = getattr(model, "ctx", None)
     specs = model.param_specs() if ctx is not None else None
 
+    # the leaves the model's loss does not reach (an embeddings model's token
+    # table) get a zero gradient, as the reference's jax.grad gives them; any
+    # other leaf cut off from the loss still fails in autograd
+    unreached = set(getattr(model, "loss_unreached", ()))
+    reached = [p for name, p in params.items() if name not in unreached]
+
     def loss_and_grads(mb: dict):
         loss, metrics = model.loss(mb, aux_weight=aux_weight)
-        grads = torch.autograd.grad(loss, leaves)
-        return loss.detach(), {k: v.detach() for k, v in metrics.items()}, dict(zip(names, grads))
+        got = iter(torch.autograd.grad(loss, reached))
+        grads = {name: torch.zeros_like(p) if name in unreached else next(got) for name, p in params.items()}
+        return loss.detach(), {k: v.detach() for k, v in metrics.items()}, grads
 
     def train_step(opt_state: dict, batch: dict):
         if microbatches == 1:

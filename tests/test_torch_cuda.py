@@ -148,7 +148,8 @@ def test_wrappers_count_launches_and_check_inputs(gen):
     bitonic.merge_tournament(torch.sort(x, dim=1).values)
     bitonic.sort_rows(x[:, :1].contiguous())  # one-key rows: nothing to launch
     assert bitonic.LAUNCHES == {"row_sort": 1, "tournament": 1, "row_sort_kv": 0, "merge_rows": 0,
-                                "flash_attention": 0, "decode_attention": 0, "flash_attention_bwd": 0}
+                                "flash_attention": 0, "decode_attention": 0, "flash_attention_bwd": 0,
+                                "wkv": 0, "wkv_bwd": 0}
     with pytest.raises(ValueError, match="contiguous"):
         bitonic.sort_rows(x.t())
     with pytest.raises(TypeError):
@@ -1137,3 +1138,97 @@ def test_rwkv_smoke_decode_graph_launches_k7_once_a_layer(gen):
     torch.testing.assert_close(logits.cpu(), want, atol=1e-4, rtol=1e-4)
     for name in hc:
         torch.testing.assert_close(cc[name].cpu(), hc[name], atol=1e-4, rtol=1e-4)
+
+
+# -- the encoder-decoder and the embeddings inputs: GQA group 7, cross shapes --------------
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,T,S,H,KV,d,causal", [
+    (1, 576, 576, 56, 8, 128, True),    # llava-next-34b: one 576-row tile, G 7
+    (2, 130, 130, 14, 2, 64, True), (2, 63, 130, 7, 1, 32, False),
+    (2, 100, 1500, 12, 12, 64, False),  # whisper-small's cross-attention: T rows against 1,500 frames
+])
+def test_gqa_group_seven_and_cross_lengths_k5_and_k5b(gen, B, T, S, H, KV, d, causal, dtype):
+    """K5 (output) and K5b against their plain versions at G 7 (llava's 56
+    query heads over 8) and at whisper's non-causal T != S."""
+    q = _randn(gen, (B, T, H, d), dtype, QK_SCALE)
+    k = _randn(gen, (B, S, KV, d), dtype, QK_SCALE)
+    v = _randn(gen, (B, S, KV, d), dtype)
+    _assert_attention_close(flash_attention(q, k, v, causal=causal), flash_attention_plain(q, k, v, causal=causal))
+    _check_k5b(gen, B, T, S, H, KV, d, dtype, causal)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,H,KV,d,full", [(4, 4096, 56, 8, 128, False), (3, 999, 14, 2, 64, False),
+                                             (4, 1500, 12, 12, 64, True), (2, 1500, 7, 1, 32, True)])
+def test_gqa_group_seven_and_cross_lengths_k6(gen, B, S, H, KV, d, full, dtype):
+    """K6 at G 7 and at whisper's cross-attention cache (1,500 frames, which
+    K6's 128-row blocks do not divide), every position visible (``full``)
+    or ragged lengths, the last layer's slice of stacked caches."""
+    q = _randn(gen, (B, H, d), dtype, QK_SCALE)
+    kc = _randn(gen, (2, B, S, KV, d), dtype, QK_SCALE)[1]
+    vc = _randn(gen, (2, B, S, KV, d), dtype)[1]
+    if full:
+        lengths = torch.full((B,), S, dtype=torch.int32, device="cuda")
+    else:
+        lengths = torch.randint(1, S + 1, (B,), generator=gen, device="cuda", dtype=torch.int32)
+    _assert_attention_close(decode_attention(q, kc, vc, lengths), decode_attention_plain(q, kc, vc, lengths))
+
+
+@pytest.mark.parametrize("arch", ["whisper-small", "llava-next-34b"])
+def test_embeddings_models_decode_graph_equals_eager_and_cpu(gen, arch):
+    """The smoke encoder-decoder (2 rows of 37 frames, a 4-token prompt) and
+    the smoke embeddings LM (2 x 9 embedding rows, 14 heads of 32 over 2:
+    G 7) in float32: prefill on the
+    card against the CPU, then the decode step captured into a CUDA graph
+    (its warm-up step undone by zeroing the cache) replayed six times against
+    the eager step, token for token; the graph holds one K6 node an
+    attention of the step (the encoder-decoder's self and cross) and no
+    K5."""
+    import dataclasses
+
+    cfg = dataclasses.replace(configs.get_smoke_config(arch), dtype="float32")
+    if not cfg.is_encdec:  # llava's smoke heads of 16: K5 takes 32, 64, 128 (and llava's G 7)
+        cfg = dataclasses.replace(cfg, num_heads=14, num_kv_heads=2, head_dim=32)
+    host = models.build(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+    card = models.build(cfg, device="cuda")
+    card.load_state_dict(host.state_dict())
+    rng = np.random.default_rng(2)
+    if cfg.is_encdec:
+        prompt = {"enc_embeds": torch.from_numpy(rng.standard_normal((2, 37, cfg.d_model)).astype(np.float32)),
+                  "tokens": torch.from_numpy(rng.integers(0, cfg.vocab_size, size=(2, 4)))}
+    else:
+        prompt = torch.from_numpy(rng.standard_normal((2, 9, cfg.d_model)).astype(np.float32))
+
+    def cache_of(model):
+        return model.init_cache(2, 16, 37) if cfg.is_encdec else model.init_cache(2, 16)
+
+    def on(dev):
+        return {k: v.to(dev) for k, v in prompt.items()} if cfg.is_encdec else prompt.to(dev)
+
+    want, _ = host.prefill(on("cpu"), cache_of(host))
+    outs = []
+    for graph in (False, True):
+        cache = cache_of(card)
+        tok = torch.zeros(2, dtype=torch.int64, device="cuda")
+        if graph:
+            g, (buf, _) = build.capture(lambda: card.decode_step(cache, tok))
+            nodes = build.graph_kernel_nodes(g, ["decode_partial", "flash_fwd"])
+            k6 = 2 * cfg.num_layers if cfg.is_encdec else cfg.num_layers
+            assert nodes["decode_partial"] == k6 and nodes["flash_fwd"] == 0
+            for leaf in cache.values():
+                leaf.zero_()
+        logits, _ = card.prefill(on("cuda"), cache)
+        torch.testing.assert_close(logits.cpu(), want, atol=1e-4, rtol=1e-4)
+        seq = []
+        for _ in range(6):
+            tok.copy_(logits.argmax(-1))
+            seq.append(tok.cpu())
+            if graph:
+                g.replay()
+                logits = buf
+            else:
+                logits, _ = card.decode_step(cache, tok)
+        outs.append(torch.stack(seq))
+    assert torch.equal(outs[0], outs[1])

@@ -55,7 +55,8 @@ def test_every_port_module_imports_without_jax_or_reference():
             "repro_torch.models.convert", "repro_torch.train.train_step",
             "repro_torch.train.optimizer", "repro_torch.distributed.collectives",
             "repro_torch.models.mamba2", "repro_torch.configs.paper_sort",
-            "repro_torch.models.rwkv6", "repro_torch.kernels.wkv"} <= set(names)
+            "repro_torch.models.rwkv6", "repro_torch.kernels.wkv",
+            "repro_torch.models.encdec"} <= set(names)
     code = (
         "import importlib, sys\n"
         f"for name in {names!r}:\n"
@@ -134,6 +135,23 @@ def test_serve_entry_points_refuse_a_missing_card(monkeypatch):
         serve.main(["--arch", "mistral-nemo-12b", "--smoke"])
     eng = Engine(model, device="cpu")
     assert eng.cache["k"].device.type == "cpu"
+
+
+@pytest.mark.parametrize("arch", ["whisper-small", "llava-next-34b"])
+def test_encdec_and_embeddings_models_refuse_a_missing_card(monkeypatch, arch):
+    """``build`` of the encoder-decoder and of the embeddings model defaults
+    to the card too; asked for ``"cpu"`` it builds there."""
+    from repro_torch import configs, models
+    from repro_torch.models.encdec import EncDecLM
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = configs.get_smoke_config(arch)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        models.build(cfg)
+    if cfg.is_encdec:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            EncDecLM(cfg)
+    assert models.build(cfg, device="cpu").device.type == "cpu"
 
 
 def test_mesh_entry_points_refuse_a_missing_card(monkeypatch):

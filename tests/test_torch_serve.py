@@ -345,8 +345,34 @@ def test_serve_cli_runs_moe_on_cpu(capsys):
 
 @pytest.mark.parametrize("arch", ["llava-next-34b", "whisper-small"])
 def test_other_families_raise_not_implemented(arch):
-    with pytest.raises(NotImplementedError, match="later slice"):
-        models.build(configs.get_smoke_config(arch), device="cpu")
+    """The encoder-decoder and the embeddings model build on one device;
+    on a mesh above 1x1 (tp 2 here) they are a later slice."""
+    from repro_torch.distributed.sharding import ShardCtx
+
+    cfg = configs.get_smoke_config(arch)
+    assert models.build(cfg, device="cpu").cfg.name == arch
+    with pytest.raises(NotImplementedError, match="mesh.* later slice"):
+        models.build(cfg, ctx=ShardCtx.grid(model=(0, 2)), device="cpu")
+
+
+@pytest.mark.parametrize("arch", ["llava-next-34b", "whisper-small"])
+@pytest.mark.parametrize("entry", ["engine", "serve_cli", "train_cli"])
+def test_families_the_reference_cannot_serve_or_train_are_refused(entry, arch):
+    """The reference's engine prefills tokens alone, its serve CLI refuses
+    the encoder-decoder and its training CLI's token pipeline carries no
+    embeddings: the port refuses all three up front for both families."""
+    from repro_torch.launch import train as train_cli
+
+    argv = ["--arch", arch, "--smoke", "--device", "cpu"]
+    if entry == "engine":
+        with pytest.raises(ValueError, match="token prompts of a decoder-only model"):
+            Engine(models.build(configs.get_smoke_config(arch), device="cpu"), device="cpu")
+    elif entry == "serve_cli":
+        with pytest.raises(SystemExit, match="decoder-only|token prompts"):
+            serve_cli.main(argv)
+    else:
+        with pytest.raises(SystemExit, match="token pipeline carries no embeddings"):
+            train_cli.main(argv + ["--steps", "1"])
 
 
 def test_training_forward_is_not_ported(pair32):

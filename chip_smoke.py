@@ -445,13 +445,27 @@ MOE_A2A_LIMIT = 8 * 2**-8
 #: 1x1`` (its default prompts of 2-11 tokens); K6 with its lse at Mistral's
 #: decode shape (``attention_rows``'s largest step) and the sequence-sharded
 #: decode's math at tp = 4 on that cache; the vocab-parallel cross entropy at
-#: Mistral's 131,072 vocabulary over four shards.
+#: Mistral's 131,072 vocabulary over four shards.  Since the recurrent kinds
+#: run on a mesh, zamba2-1.2b and rwkv6-1.6b at full width and depth as well
+#: (``recurrent``): their train steps at B 2 x 2,048 on the (1, 1) mesh
+#: against no mesh, and each through ``launch.serve --mesh 1x1`` against the
+#: CLI without a mesh.
 LM_MESH = dict(
     train=dict(arch=MOE_ARCH, batch=4, seq=2048, steps=3, lr=3e-4),
     serve_arch=SERVE_ARCH, serve=dict(requests=8, slots=4, max_len=256, max_tokens=16),
+    recurrent=dict(archs=(HYBRID_ARCH, RWKV_ARCH), batch=2, seq=2048, steps=3, lr=3e-4),
     k6=dict(q=(4, 32, 128), cache=(4, 4096, 8, 128), lengths=[1850, 1995, 1015, 860], chunks=4),
     ce=dict(vocab=131_072, batch=2, seq=2048, shards=4),
 )
+#: The kernels of the recurrent models at a rank's shapes at tp 4 (four
+#: cards of a host; one card holds the shapes): K7 and K7b at rwkv6-1.6b's
+#: training shape with 32 / 4 heads and K7 at its decode step (4 slots); the
+#: WKV rank by rank (four calls on 8 heads each against the whole 32-head
+#: call); K5 and K5b at zamba2-1.2b's shared block with 8 of its 32 heads;
+#: K6 with its lse on one tp-4 chunk (the first, full, of S / 4 positions)
+#: of zamba2's sequence-sharded cache at ``LM_MESH["k6"]``'s lengths.
+TP4 = dict(tp=4, wkv=(4, 2048, 32), wkv_slots=4, attn=(4, 2048, 32, 64),
+           k6=dict(q=(4, 32, 64), cache=(4, 4096, 32, 64), lengths=[1850, 1995, 1015, 860]))
 #: The (1, 1) mesh runs the same operations as no mesh (no collective at one
 #: rank).  The card's atomic adds (the MoE gathers' and the embedding's
 #: backward) are not reproducible from run to run (they moved a first step's
@@ -2495,11 +2509,12 @@ def check_attention_at(torch, serve: dict, gen, phase: str) -> None:
     torch.cuda.empty_cache()
 
 
-def k5_row_at(torch, gen, q_shape, kv_shape, dt, causal: bool, launches) -> dict:
+def k5_row_at(torch, gen, q_shape, kv_shape, dt, causal: bool, launches=None) -> dict:
     """A K5 kernels-line row at one shape: K5 against its plain version on
     fresh peaked inputs, eager and graph ms of K5, its plain version and
     ``scaled_dot_product_attention`` (``enable_gqa``), the bound of T x S
-    (or T (T + 1) / 2 causal) pairs."""
+    (or T (T + 1) / 2 causal) pairs; ``launches`` where a path's run
+    counted them."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as fa
@@ -2510,7 +2525,7 @@ def k5_row_at(torch, gen, q_shape, kv_shape, dt, causal: bool, launches) -> dict
     flops, bytes_ = k5_work(b, t, h, kv, d, q.element_size(), causal, s)
     b_ms, b_by = attn_bound(flops, bytes_)
     qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
-    row = {"launches": launches, "max_abs_err": err,
+    row = {**({} if launches is None else {"launches": launches}), "max_abs_err": err,
            "shape": {"q": list(q_shape), "kv": list(kv_shape), "causal": causal},
            "dtype": str(dt).replace("torch.", ""),
            **timings(lambda: fa.flash_attention(q, k, v, causal=causal),
@@ -2697,10 +2712,12 @@ def k5b_work(b: int, t: int, h: int, kv: int, d: int, itemsize: int, causal: boo
             (4.0 * b * t * h * d + 4.0 * b * s * kv * d) * itemsize + 4.0 * b * h * t)
 
 
-def k5b_row(fa, fb, torch, gen, shape, launches: int, per_step: int) -> dict:
+def k5b_row(fa, fb, torch, gen, shape, launches: int | None = None, per_step: int | None = None) -> dict:
     """A K5b kernels-line row at a training shape: eager ms, graph ms, the
     plain twin's ms, and the backward of ``scaled_dot_product_attention``
-    (``enable_gqa``) timed on its own (its forward is outside the window)."""
+    (``enable_gqa``) timed on its own (its forward is outside the window);
+    ``launches`` and ``launches_per_train_step`` where a path's run counted
+    them."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import build
@@ -2719,7 +2736,8 @@ def k5b_row(fa, fb, torch, gen, shape, launches: int, per_step: int) -> dict:
         fail(f"a K5b call put {nodes} kernels on the card, want {fb.KERNELS_PER_CALL}")
     row = {"shape": {"q": [b, t, h, d], "kv": [b, s, kv, d], "causal": causal}, "dtype": "bfloat16",
            "design": "mma.sync bf16", "kernels_per_call": nodes,
-           "launches": launches, "launches_per_train_step": per_step, "max_abs_err": max(errs),
+           **({} if launches is None else {"launches": launches, "launches_per_train_step": per_step}),
+           "max_abs_err": max(errs),
            "ms": cuda_ms(kern), "graph_ms": graph_ms(kern),
            "plain_ms": cuda_ms(lambda: fb.flash_attention_bwd_plain(q, k, v, o, do, lse, causal=causal), 3),
            "library_ms": cuda_ms(lambda: torch.autograd.grad(ot, (qt, kt, vt), dot, retain_graph=True)),
@@ -3069,7 +3087,8 @@ def recurrent_stages(torch, model, batch, adamw_s: float, step_s: float) -> dict
         return float(sorted(times)[1])
 
     kind, layer_fn = ("rwkv", model._rwkv_layer) if model.kind == "rwkv" else ("mamba", model._mamba_layer)
-    block = timed(lambda x: checkpoint(layer_fn, model.layers[0], x, use_reentrant=False), model.layers[0])
+    block = timed(lambda x: checkpoint(layer_fn, model.layers[0], x, positions, use_reentrant=False)[0],
+                  model.layers[0])
     n_blocks, n_shared = model.cfg.num_layers, attention_layers(model.cfg)
     out = {f"{kind}_block_s": block, f"{kind}_blocks": n_blocks, f"{kind}_blocks_s": n_blocks * block}
     shared_s = 0.0
@@ -3621,24 +3640,33 @@ def phase_sharded(torch, args, bt, gen, run_pipeline, random_trace, trace_max_va
             "k2_pipeline_shard_map_launches": pool_k2["tournament"]}
 
 
-def lm_mesh_train(torch, np, args, ctx) -> dict:
-    """Granite's train step on the (1, 1) mesh against the step without a
-    mesh: ``LM_MESH["train"]`` steps of each from ``--seed`` on the same
-    ``TokenPipeline`` batches, both in torch's deterministic mode; loss and
-    gradient norm within ``LM_MESH_TRAIN_LIMIT`` relative at every step; K5,
-    K5b and K3 held to their launches per step on both (counters zeroed just
-    before each run, read just after)."""
+def lm_mesh_per_step(cfg) -> dict:
+    """The kernel launches of one train step of ``cfg`` (each block's
+    recompute runs its forward kernels a second time): K5 twice and K5b once
+    an attention layer or shared invocation, K3 twice an MoE layer, K7 twice
+    and K7b once an RWKV6 block, K6 never."""
+    attn = attention_layers(cfg)
+    moe_layers = cfg.num_layers - cfg.moe.first_dense_layers if cfg.moe is not None else 0
+    return {"flash_attention": 2 * attn, "flash_attention_bwd": attn, "row_sort_kv": 2 * moe_layers,
+            "wkv": 2 * rwkv_layers(cfg), "wkv_bwd": rwkv_layers(cfg), "decode_attention": 0}
+
+
+def lm_mesh_train(torch, np, args, ctx, run: dict) -> dict:
+    """``run["arch"]``'s train step on the (1, 1) mesh against the step
+    without a mesh: ``run["steps"]`` steps of each from ``--seed`` on the
+    same ``TokenPipeline`` batches, both in torch's deterministic mode; loss
+    and gradient norm within ``LM_MESH_TRAIN_LIMIT`` relative at every step;
+    every kernel of the path held to its launches per step on both
+    (``lm_mesh_per_step``; counters zeroed just before each run, read just
+    after)."""
     from repro_torch import configs, models
     from repro_torch.data.tokens import TokenPipeline
     from repro_torch.kernels import build
     from repro_torch.train.optimizer import AdamWConfig, init_opt_state
     from repro_torch.train.train_step import build_train_step, shard_batch
 
-    run = LM_MESH["train"]
     cfg = configs.get_config(run["arch"])
-    moe_layers = cfg.num_layers - cfg.moe.first_dense_layers
-    per_step = {"flash_attention": 2 * cfg.num_layers, "flash_attention_bwd": cfg.num_layers,
-                "row_sort_kv": 2 * moe_layers, "decode_attention": 0}
+    per_step = lm_mesh_per_step(cfg)
 
     def train(c):
         torch.cuda.empty_cache()
@@ -3666,8 +3694,8 @@ def lm_mesh_train(torch, np, args, ctx) -> dict:
         torch.cuda.empty_cache()
         for name, n in per_step.items():
             if launches[name] != n * run["steps"]:
-                fail(f"lm_mesh train ({'mesh' if c else 'no mesh'}): {name} launched {launches[name]} times, "
-                     f"want {n * run['steps']}")
+                fail(f"lm_mesh train {cfg.name} ({'mesh' if c else 'no mesh'}): {name} launched "
+                     f"{launches[name]} times, want {n * run['steps']}")
         if not all(np.isfinite([r["loss"], r["grad_norm"]]).all() for r in recs):
             fail("lm_mesh train: a loss or gradient norm is not finite")
         return {"steps": recs, "step_ms_median_after_first": float(np.median([r["ms"] for r in recs[1:]])),
@@ -3685,18 +3713,21 @@ def lm_mesh_train(torch, np, args, ctx) -> dict:
             rel = abs(a[key] - b[key]) / abs(a[key])
             worst = max(worst, rel)
             if rel > LM_MESH_TRAIN_LIMIT:
-                fail(f"lm_mesh train step {a['step']}: {key} {b[key]} on the (1, 1) mesh, {a[key]} without")
+                fail(f"lm_mesh train {cfg.name} step {a['step']}: {key} {b[key]} on the (1, 1) mesh, "
+                     f"{a[key]} without")
     return {"arch": cfg.name, "layers": cfg.num_layers, "config": run, "tokens_per_step": run["batch"] * run["seq"],
             "deterministic_algorithms": True, "no_mesh": plain, "mesh_1x1": mesh, "max_rel_diff": worst, "limit": LM_MESH_TRAIN_LIMIT}
 
 
-def lm_mesh_serve(torch, args) -> dict:
-    """``python -m repro_torch.launch.serve`` in process at Mistral-Nemo-12B's
-    full width and depth, without a mesh and with ``--mesh 1x1`` (the
-    phase's one-rank NCCL group): greedy tokens equal; ms per decode step
-    (the graph's replay between two synchronisations, median); K5 launches
-    counted (zeroed before each run, read after), K6 as the captured
-    graph's kernel nodes times its replays."""
+def lm_mesh_serve(torch, args, arch: str = LM_MESH["serve_arch"]) -> dict:
+    """``python -m repro_torch.launch.serve`` in process at ``arch``'s full
+    width and depth (Mistral-Nemo-12B; zamba2-1.2b and rwkv6-1.6b), without
+    a mesh and with ``--mesh 1x1`` (the phase's one-rank NCCL group): greedy
+    tokens equal; ms per decode step (the graph's replay between two
+    synchronisations, median); K5 and K7 launches counted (zeroed before
+    each run, read after), K6 and K7 in the decode step as the captured
+    graph's kernel nodes times its replays; each kernel of the arch's path
+    launched at least once."""
     import contextlib
     import io
 
@@ -3705,7 +3736,10 @@ def lm_mesh_serve(torch, args) -> dict:
     from repro_torch.serve import engine as engine_mod
 
     sv = LM_MESH["serve"]
-    argv = ["--arch", LM_MESH["serve_arch"], "--device", "cuda", "--seed", str(args.seed),
+    from repro_torch import configs
+
+    cfg = configs.get_config(arch)
+    argv = ["--arch", arch, "--device", "cuda", "--seed", str(args.seed),
             "--requests", str(sv["requests"]), "--slots", str(sv["slots"]), "--max-len", str(sv["max_len"]),
             "--max-tokens", str(sv["max_tokens"])]
     orig = engine_mod.Engine._decode
@@ -3738,23 +3772,25 @@ def lm_mesh_serve(torch, args) -> dict:
         eng = engines[0]
         if eng.decode_graph is None:
             fail(f"lm_mesh serve ({name}): the engine did not capture its decode step")
-        nodes = build.graph_kernel_nodes(eng.decode_graph, ["decode_partial", "flash_fwd", "flash_fwd_bf16"])
-        k6 = launches["decode_attention"] + nodes["decode_partial"] * eng.decode_steps
-        if launches["flash_attention"] < 1 or k6 < 1:
-            fail(f"lm_mesh serve ({name}): K5 launched {launches['flash_attention']} times, K6 {k6}")
+        nodes = build.graph_kernel_nodes(eng.decode_graph, ["decode_partial", "wkv_forward"])
+        counted = {"flash_attention": launches["flash_attention"],
+                   "decode_attention": launches["decode_attention"] + nodes["decode_partial"] * eng.decode_steps,
+                   "wkv": launches["wkv"] + nodes["wkv_forward"] * eng.decode_steps}
+        path = ("wkv",) if cfg.rwkv is not None else ("flash_attention", "decode_attention")
+        if any(counted[k] < 1 for k in path) or any(counted[k] for k in counted if k not in path):
+            fail(f"lm_mesh serve {arch} ({name}): launches {counted}, want each of {path} and no other")
         out[name] = {"tokens": sorted((r.rid, r.out) for r in finished), "decode_steps": eng.decode_steps,
                      "ms_per_decode_step_median": float(sorted(times)[len(times) // 2]) * 1e3,
                      "peak_allocated_bytes": torch.cuda.max_memory_allocated(),
-                     "launches": {"flash_attention": launches["flash_attention"], "decode_attention": k6},
-                     "printed": log.getvalue().splitlines()[0]}
+                     "launches": {k: counted[k] for k in path}, "printed": log.getvalue().splitlines()[0]}
         del engines, eng, finished
         torch.cuda.empty_cache()
     if out["no_mesh"]["tokens"] != out["mesh_1x1"]["tokens"]:
-        fail("lm_mesh serve: the (1, 1) mesh's greedy tokens differ from the engine's without a mesh")
+        fail(f"lm_mesh serve {arch}: the (1, 1) mesh's greedy tokens differ from the engine's without a mesh")
     first = [toks[:4] for _, toks in out["no_mesh"]["tokens"]]
     for v in out.values():
         del v["tokens"]
-    return {"arch": LM_MESH["serve_arch"], "argv": argv, "tokens_equal": True, "first_tokens": first, **out}
+    return {"arch": arch, "argv": argv, "tokens_equal": True, "first_tokens": first, **out}
 
 
 def lm_mesh_k6(torch, da, gen) -> tuple[dict, dict]:
@@ -3811,6 +3847,117 @@ def lm_mesh_k6(torch, da, gen) -> tuple[dict, dict]:
     return entry, row
 
 
+def tp4_wkv_rows(wk, torch, gen) -> dict:
+    """K7 and K7b at a tp-4 rank's share of rwkv6-1.6b's heads
+    (``TP4["wkv"]``, 8 heads) and K7 at its decode step, each against its
+    plain version (``wkv_limit``) with eager and graph ms beside the bound;
+    then the WKV rank by rank: four K7 calls on heads ``[8 r, 8 r + 8)`` of
+    the 32-head inputs, concatenated over heads, against the whole 32-head
+    call (``wkv_limit``).  No launch count: nothing here runs a tp-4 path
+    (``scripts/sharded_cards.py`` counts a rank's launches on four cards)."""
+    import dataclasses
+
+    tp, (b, t, h) = TP4["tp"], TP4["wkv"]
+    hl = h // tp
+    errs, (r, k, v, w, u, s0, dy) = check_k7(wk, torch, gen, b, t, hl)
+    plan = wk.launch_plan(b, t, hl)
+    out = {}
+    for name, kern, plain, backward in (
+            ("wkv", lambda: wk.wkv(r, k, v, w, u, s0), lambda: wk.wkv_plain(r, k, v, w, u, s0), False),
+            ("wkv_bwd", lambda: wk.wkv_bwd(r, k, v, w, u, s0, dy),
+             lambda: wk.wkv_bwd_plain(r, k, v, w, u, s0, dy), True)):
+        flops, bytes_ = k7_work(b, t, hl, backward=backward)
+        b_ms, b_by = f32_bound(flops, bytes_)
+        ms = cuda_ms(kern)
+        out[name] = {"tp": tp, "shape": {"r": [b, t, hl, 64], "state": [b, hl, 64, 64]}, "dtype": "float32",
+                     "max_abs_err": max(errs[e] for e in (("dr", "dk", "dv", "dw", "du") if backward
+                                                          else ("y", "state"))),
+                     "ms": ms, "graph_ms": graph_ms(kern), "plain_ms": cuda_ms(plain, 3), "library_ms": None,
+                     "bound_ms": b_ms, "bound_by": b_by, "bound_share": b_ms / ms, "flops": flops, "bytes": bytes_,
+                     "plan": ([dataclasses.asdict(p) for p in plan.backward] if backward
+                              else dataclasses.asdict(plan.forward))}
+    del r, k, v, w, u, s0, dy
+    # the decode step at a rank's heads, in place on a layer of a stacked cache
+    slots = TP4["wkv_slots"]
+    errs, (r, k, v, w, u, s0, _) = check_k7(wk, torch, gen, slots, 1, hl)
+    cache = torch.zeros(4, slots, hl, 64, 64, device="cuda")
+    kern = lambda: wk.wkv(r, k, v, w, u, cache[1], in_place=True)  # noqa: E731
+    flops, bytes_ = k7_work(slots, 1, hl)
+    b_ms, b_by = f32_bound(flops, bytes_)
+    out["wkv"]["decode"] = {"shape": [slots, 1, hl, 64], "max_abs_err": max(errs["y"], errs["state"]),
+                            "ms": cuda_ms(kern), "graph_ms": graph_ms(kern),
+                            "plain_ms": cuda_ms(lambda: wk.wkv_plain(r, k, v, w, u, s0), 3),
+                            "bound_ms": b_ms, "bound_by": b_by,
+                            "plan": dataclasses.asdict(wk.launch_plan(slots, 1, hl).forward)}
+    # rank by rank against the whole call
+    r, k, v, w, u, s0, _ = wkv_inputs(torch, gen, b, t, h)
+    y, state = wk.wkv(r, k, v, w, u, s0)
+
+    def ranks():
+        parts = [wk.wkv(*(x[:, :, i * hl:(i + 1) * hl].contiguous() for x in (r, k, v, w)),
+                        u[i * hl:(i + 1) * hl].contiguous(), s0[:, i * hl:(i + 1) * hl].contiguous())
+                 for i in range(tp)]
+        return torch.cat([p[0] for p in parts], dim=2), torch.cat([p[1] for p in parts], dim=1)
+
+    ry, rs = ranks()
+    out["wkv"]["rank_by_rank"] = {
+        "ranks": tp, "heads_per_rank": hl, "whole_shape": [b, t, h, 64],
+        "max_abs_err_y": held("K7 rank by rank y", ry, y, "tp 4 against the whole call"),
+        "max_abs_err_state": held("K7 rank by rank state", rs, state, "tp 4 against the whole call"),
+        "limit": "wkv_limit of the whole call", "whole_graph_ms": graph_ms(lambda: wk.wkv(r, k, v, w, u, s0)),
+        "four_ranks_graph_ms": graph_ms(ranks, calls=4)}
+    del r, k, v, w, u, s0, y, state, ry, rs, cache
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp4_attention_rows(fa, fb, da, torch, gen) -> dict:
+    """K5 and K5b at a tp-4 rank's share of zamba2-1.2b's shared block
+    (``TP4["attn"]``: 8 of 32 heads, causal, bf16) through ``k5_row_at`` and
+    ``k5b_row``; K6 with its lse on the first tp-4 chunk of zamba2's
+    sequence-sharded decode cache (``TP4["k6"]``: S / 4 positions, every kv
+    head, chunk-local lengths) against its plain version (output within
+    ``attn_limit``, lse within ``lse_limit`` of f32), eager and graph ms
+    beside the bound and SDPA's with the lengths' mask.  No launch count:
+    nothing here runs a tp-4 path (``scripts/sharded_cards.py`` counts a
+    rank's launches on four cards)."""
+    import torch.nn.functional as F
+
+    tp, (b, t, h, d) = TP4["tp"], TP4["attn"]
+    hl = h // tp
+    bf16 = torch.bfloat16
+    out = {"flash_attention": {**k5_row_at(torch, gen, (b, t, hl, d), (b, t, hl, d), bf16, True), "tp": tp},
+           "flash_attention_bwd": {**k5b_row(fa, fb, torch, gen, (b, t, t, hl, hl, d, True)), "tp": tp}}
+    k6 = TP4["k6"]
+    chunk = k6["cache"][1] // tp
+    q = randn(torch, gen, k6["q"], bf16, QK_SCALE)
+    cache = (k6["cache"][0], chunk, *k6["cache"][2:])
+    kc = randn(torch, gen, (2, *cache), bf16, QK_SCALE)[-1]
+    vc = randn(torch, gen, (2, *cache), bf16)[-1]
+    lengths = [min(n, chunk) for n in k6["lengths"]]
+    lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    o, lse = da.decode_attention(q, kc, vc, lens, return_lse=True)
+    po, plse = da.decode_attention_plain(q, kc, vc, lens, return_lse=True)
+    err = allclose_err(o, po, "K6 with lse on a tp-4 chunk")
+    lse_err = float((lse - plse).abs().max())
+    if not lse_err <= lse_limit(torch.float32):
+        fail(f"K6's lse on a tp-4 chunk differs from the plain logsumexp by {lse_err}")
+    flops, bytes_ = k6_work(lengths, k6["q"][1], cache[2], d, 2)
+    b_ms, b_by = attn_bound(flops, bytes_)
+    mask = (torch.arange(chunk, device="cuda")[None, :] < lens[:, None])[:, None, None, :]
+    kern = lambda: da.decode_attention(q, kc, vc, lens, return_lse=True)  # noqa: E731
+    lib = lambda: F.scaled_dot_product_attention(q[:, :, None, :], kc.transpose(1, 2), vc.transpose(1, 2),  # noqa: E731
+                                                 attn_mask=mask, enable_gqa=True)
+    out["decode_attention"] = {
+        "tp": tp, "shape": {"q": list(k6["q"]), "cache": list(cache), "lengths": lengths}, "dtype": "bfloat16",
+        "lse": True, "max_abs_err": err, "lse_max_abs_err": lse_err,
+        **timings(kern, lambda: da.decode_attention_plain(q, kc, vc, lens, return_lse=True), lib),
+        "bound_ms": b_ms, "bound_by": b_by, "flops": flops, "bytes": bytes_}
+    del q, kc, vc, o, lse, po, plse
+    torch.cuda.empty_cache()
+    return out
+
+
 def lm_mesh_ce(torch, gen) -> dict:
     """The vocab-parallel cross entropy at Mistral-Nemo-12B's vocabulary:
     f32 logits of 2 x 2,048 tokens cut into four vocab shards, each shard's
@@ -3843,7 +3990,8 @@ def phase_lm_mesh(torch, np, args, da, gen) -> dict:
     group through a ``file://`` rendezvous, destroyed after; no CPU
     stand-in): granite's train step on the (1, 1) mesh against the step
     without one, Mistral served through ``launch.serve --mesh 1x1`` against
-    the CLI without a mesh; then K6 with its lse and the four-chunk merge,
+    the CLI without a mesh, and the same two checks for zamba2-1.2b and
+    rwkv6-1.6b (``LM_MESH["recurrent"]``); then K6 with its lse and the four-chunk merge,
     and the vocab-parallel cross entropy.  Emits the ``lm_mesh`` line;
     returns K6's ``lse`` row and the launches for the kernels line."""
     import tempfile
@@ -3861,8 +4009,11 @@ def phase_lm_mesh(torch, np, args, da, gen) -> dict:
         try:
             line.update(backend=dist.get_backend(), world_size=dist.get_world_size())
             ctx = ShardCtx(mesh=make_mesh((1, 1), ("data", "model")), tp="model", fsdp=None, dp=("data",))
-            line["train"] = lm_mesh_train(torch, np, args, ctx)
+            line["train"] = lm_mesh_train(torch, np, args, ctx, LM_MESH["train"])
             line["serve"] = lm_mesh_serve(torch, args)
+            rec = LM_MESH["recurrent"]
+            line["recurrent"] = {arch: {"train": lm_mesh_train(torch, np, args, ctx, {**rec, "arch": arch}),
+                                        "serve": lm_mesh_serve(torch, args, arch)} for arch in rec["archs"]}
         finally:
             dist.destroy_process_group()
     line["k6_lse"], k6_row = lm_mesh_k6(torch, da, gen)
@@ -3870,7 +4021,10 @@ def phase_lm_mesh(torch, np, args, da, gen) -> dict:
     line["phase_s"] = time.perf_counter() - t0
     emit(line)
     return {"k6_lse": k6_row, "train_launches": line["train"]["mesh_1x1"]["launches"],
-            "serve_launches": line["serve"]["mesh_1x1"]["launches"]}
+            "serve_launches": line["serve"]["mesh_1x1"]["launches"],
+            "recurrent": {arch: {"train": v["train"]["mesh_1x1"]["launches"],
+                                 "serve": v["serve"]["mesh_1x1"]["launches"]}
+                          for arch, v in line["recurrent"].items()}}
 
 
 def k5_offset_work(b: int, t: int, s: int, off: int, h: int, kv: int, d: int, itemsize: int,
@@ -4835,6 +4989,21 @@ def run_phases(args, np, torch, smi: str, cpu_examples, run_dir: Path) -> int:
     k6_row["whisper"]["decode_graph_per_replay"] = encdec["per_replay"]["decode_attention"]
     k5b_row_["whisper"] = {attn_kind(sh): k5b_row(fa, fb, torch, gen, sh, n * TRAIN_ENCDEC["steps"], n)
                            for sh, n in encdec_train["k5b_shapes"].items()}
+    # the recurrent models on a mesh: their (1, 1) runs' launches, and their
+    # kernels at a tp-4 rank's shapes
+    wkv_row, wkv_bwd_row = (next(r for r in rows if r["name"] == n) for n in ("wkv", "wkv_bwd"))
+    rec = lm_mesh["recurrent"]
+    wkv_row["lm_mesh_launches"] = {"train": rec[RWKV_ARCH]["train"]["wkv"], "serve": rec[RWKV_ARCH]["serve"]["wkv"]}
+    wkv_bwd_row["lm_mesh_train_launches"] = rec[RWKV_ARCH]["train"]["wkv_bwd"]
+    k5_row["zamba2"]["lm_mesh_launches"] = {"train": rec[HYBRID_ARCH]["train"]["flash_attention"],
+                                            "serve": rec[HYBRID_ARCH]["serve"]["flash_attention"]}
+    k6_row["zamba2"]["lm_mesh_serve_launches"] = rec[HYBRID_ARCH]["serve"]["decode_attention"]
+    tp4_wkv = tp4_wkv_rows(wk, torch, gen)
+    wkv_row["tp4"], wkv_bwd_row["tp4"] = tp4_wkv["wkv"], tp4_wkv["wkv_bwd"]
+    tp4_attn = tp4_attention_rows(fa, fb, da, torch, gen)
+    k5_row["zamba2_tp4"] = tp4_attn["flash_attention"]
+    k5b_row_["zamba2_tp4"] = tp4_attn["flash_attention_bwd"]
+    k6_row["zamba2_tp4_chunk"] = tp4_attn["decode_attention"]
     k5_row["llava"] = {**k5_at(embeds["k5_shape"], embeds["launches"]["flash_attention"]),
                        "train_launches_per_step": embeds_train["k5_per_step"]}
     q, c, lengths = embeds["k6"]

@@ -26,15 +26,26 @@ a failed check exits non-zero before that.
    gradient of ``sum(y^2) + aux`` within ``chip_smoke.MOE_A2A_LIMIT``; forward
    and backward ms (median of three) beside ``moe_layer``'s on ``seq``
    tokens on one card;
-4. ``lm_train`` (two lines) -- the LM (``--lm-arch``, default Mistral-Nemo-12B
-   at all 40 layers, which one card cannot train) on a ``(1, R)`` mesh and a
+4. ``lm_train`` (two lines an arch) -- each LM of ``--lm-arch`` (default
+   Mistral-Nemo-12B at all 40 layers, which one card cannot train; the
+   hybrid ``zamba2-1.2b`` and the RWKV6 ``rwkv6-1.6b`` as well, their
+   blocks cut by heads over tp) on a ``(1, R)`` mesh and a
    ``(R/2, 2)`` mesh with FSDP over data, ``LM_STEPS`` AdamW steps of B
    ``--lm-batch`` x ``--lm-seq`` tokens: step seconds, tokens/s, each rank's
-   peak memory, the losses of the two meshes beside each other;
-5. ``lm_serve`` -- the LM served at ``(1, R)`` (the sequence-sharded cache,
-   the decode step captured with its NCCL collectives) and by each rank
-   alone on its card, 8 requests of 64-511 prompt tokens, 32 greedy tokens
-   each: ms per decode step of both, how many requests' tokens are equal.
+   peak memory, the losses of the two meshes beside each other; rank 0's
+   kernel launches a step, and one more step under ``torch.profiler``: the
+   NCCL kernels' share of the kernel time, the share of the wall with a
+   kernel running, the costliest kernels;
+5. ``lm_serve`` (a line an arch) -- the LM served at ``(1, R)`` (the
+   sequence-sharded cache, or the recurrent states cut by heads; the decode
+   step captured with its NCCL collectives) and by each rank alone on its
+   card, 8 requests of 64-511 prompt tokens, 32 greedy tokens each: ms per
+   decode step of both, how many requests' tokens are equal, rank 0's
+   kernel launches on the mesh's run; the logits of both and of the
+   one-card model in float32 on the same weights (the distance between
+   the one-card model and that copy is the dtype's rounding) on the first
+   prompt, and where a request's tokens part, at that position: each
+   pair's largest difference beside the gap between the two tokens.
 
 6. ``cp`` (two lines, ``--phases cp``: not in the default run) --
    starcoder2-15b (``CP_ARCH``: 4 kv heads, which tp 8 does not divide) at
@@ -51,13 +62,15 @@ a failed check exits non-zero before that.
    for the f32 AdamW moments, 58 GB before activations -- so the batch is
    cut (``CP_BATCH``), never the widths.
 
-``--phases sort``, ``lm`` or ``cp`` runs one group; ``--lm-smoke`` the LM
-phases at the smoke config (a rehearsal with ``--device cpu``).
+``--phases sort``, ``lm`` or ``cp`` runs one group, ``--lm-phases train``
+or ``serve`` one of the lm group's; ``--lm-smoke`` the LM phases at the
+smoke config (a rehearsal with ``--device cpu``).
 """
 
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import sys
 import tempfile
@@ -218,22 +231,63 @@ def lm_config(args, arch: str):
     return dataclasses.replace(cfg, dtype=args.lm_dtype) if args.lm_dtype else cfg
 
 
-def phase_lm_train(torch, dist, args, dev, rank: int, world: int) -> list[dict]:
-    """Mistral-Nemo-12B at all 40 layers, bf16, trained ``LM_STEPS`` AdamW
+def _profiled_step(torch, dist, dev, fn) -> dict | None:
+    """``fn()`` (one more train step) under ``torch.profiler`` on every rank:
+    rank 0's wall seconds (the profiler's host cost included), its kernels'
+    summed device ms, the NCCL kernels' share of them (a collective's time
+    includes its wait for the slowest rank), the share of the wall in which
+    some kernel ran, and the eight costliest kernels.  None on the CPU or
+    where the profiler saw no kernel."""
+    if dev.type != "cuda":
+        return None
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    dist.barrier()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    dist.barrier()
+    # device-side ranges of user annotations (NCCL names each call's) repeat their kernels' time
+    kernels = [e for e in prof.events()
+               if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False)]
+    if not kernels:
+        return None
+    busy, end = 0.0, float("-inf")
+    for start, stop in sorted((e.time_range.start, e.time_range.end) for e in kernels):
+        busy += max(0.0, stop - max(start, end))
+        end = max(end, stop)
+    by_name: dict[str, float] = {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+    total = sum(by_name.values())
+    nccl = sum(ms for name, ms in by_name.items() if "nccl" in name.lower())
+    return {"wall_s": wall, "kernels": len(kernels), "kernel_ms": total, "nccl_kernel_ms": nccl,
+            "nccl_share_of_kernel_ms": nccl / total, "busy_share_of_wall": busy / 1e6 / wall,
+            "top_kernels_ms": sorted(((ms, name[:80]) for name, ms in by_name.items()), reverse=True)[:8]}
+
+
+def phase_lm_train(torch, dist, args, dev, rank: int, world: int, arch: str) -> list[dict]:
+    """``arch`` (default Mistral-Nemo-12B at all 40 layers), bf16, trained ``LM_STEPS`` AdamW
     steps at ``--mesh 1xR`` and at ``(R/2)x2`` (FSDP over data) on the same
     ``TokenPipeline`` batches (B ``--lm-batch`` x ``--lm-seq``): each mesh's
     steps ms, tokens/s over the ranks and every rank's peak memory; the two
-    meshes' losses beside each other."""
+    meshes' losses beside each other; rank 0's kernel launches a step
+    (counted from zero before the steps) and one more step profiled
+    (:func:`_profiled_step`)."""
     import numpy as np
 
-    from repro_torch import configs, models
+    from repro_torch import models
     from repro_torch.data.tokens import TokenPipeline
     from repro_torch.distributed.compat import make_mesh
     from repro_torch.distributed.sharding import ShardCtx
+    from repro_torch.kernels import build
     from repro_torch.train.optimizer import AdamWConfig, init_opt_state
     from repro_torch.train.train_step import build_train_step, shard_batch
 
-    cfg = lm_config(args, args.lm_arch)
+    cfg = lm_config(args, arch)
     lines = []
     for shape in ((1, world), (world // 2, 2)):
         ctx = ShardCtx(mesh=make_mesh(shape, ("data", "model"), dev.type), tp="model",
@@ -248,6 +302,7 @@ def phase_lm_train(torch, dist, args, dev, rank: int, world: int) -> list[dict]:
         step = build_train_step(model, opt_cfg)
         pipe = TokenPipeline(cfg.vocab_size, args.lm_batch, args.lm_seq, seed=args.seed)
         recs = []
+        build.reset_launches()
         for i in range(LM_STEPS):
             batch = {k: torch.from_numpy(v).to(dev) for k, v in shard_batch(pipe.next_batch(), ctx).items()}
             dist.barrier()
@@ -258,7 +313,10 @@ def phase_lm_train(torch, dist, args, dev, rank: int, world: int) -> list[dict]:
             dist.barrier()
             recs.append({"step": i, "s": time.perf_counter() - t0, "loss": float(met["loss"]),
                          "grad_norm": float(met["grad_norm"])})
+        launches = {k: n // LM_STEPS for k, n in build.LAUNCHES.items() if n}
         _check(all(np.isfinite([r["loss"], r["grad_norm"]]).all() for r in recs), f"{shape}: a loss is not finite")
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in shard_batch(pipe.next_batch(), ctx).items()}
+        profile = _profiled_step(torch, dist, dev, lambda: step(state, batch))
         peak = torch.tensor([torch.cuda.max_memory_allocated() if dev.type == "cuda" else 0], device=dev)
         peaks = [torch.zeros_like(peak) for _ in range(world)]
         dist.all_gather(peaks, peak)
@@ -268,7 +326,8 @@ def phase_lm_train(torch, dist, args, dev, rank: int, world: int) -> list[dict]:
                       "fsdp": ctx.fsdp, "batch": args.lm_batch, "seq": args.lm_seq, "steps": recs,
                       "params_per_rank": sum(p.numel() for p in model.parameters()),
                       "step_s_median_after_first": med, "tokens_per_s": tokens / med,
-                      "peak_device_bytes_per_rank": [int(p) for p in peaks]})
+                      "peak_device_bytes_per_rank": [int(p) for p in peaks],
+                      "launches_per_step_rank0": launches, "profiled_step_rank0": profile})
         del model, state, step
     a, b = (ln["steps"] for ln in lines)
     lines[-1]["loss_rel_diff_vs_first_mesh"] = [abs(x["loss"] - y["loss"]) / abs(x["loss"]) for x, y in zip(a, b)]
@@ -277,20 +336,31 @@ def phase_lm_train(torch, dist, args, dev, rank: int, world: int) -> list[dict]:
 
 def phase_lm_serve(torch, dist, args, dev, rank: int, world: int, cfg) -> dict:
     """``cfg`` (``lm``: Mistral-Nemo-12B at full width and depth, bf16)
-    served at ``--mesh 1xR`` (the sequence-sharded cache, the decode step
-    captured with its NCCL collectives) and by each rank alone on its card:
-    the same 8 requests, greedy; ms per decode step of both; the tokens
-    compared."""
+    served at ``--mesh 1xR`` (the sequence-sharded cache, or the recurrent
+    states cut by heads; the decode step captured with its NCCL collectives)
+    and by each rank alone on its card: the same 8 requests, greedy; ms per
+    decode step of both; the tokens compared; rank 0's kernel launches on
+    the mesh's run (counted from zero before it; a captured decode step's
+    kernel nodes times its replays).  Then the logits, against the one-card
+    model in float32 on the same (rounded) weights, whose distance from the
+    one-card logits is the model dtype's rounding: the first prompt's
+    prefill logits of all three, and for each request whose tokens part,
+    the three models' prefill logits at that position (its prompt and the
+    tokens both runs share), each pair's largest difference beside the gap
+    between the two tokens."""
+    import dataclasses
+
     import numpy as np
 
     from repro_torch import models
     from repro_torch.distributed.compat import make_mesh
     from repro_torch.distributed.sharding import ShardCtx
+    from repro_torch.kernels import build
     from repro_torch.serve.engine import Engine, Request
 
     rng = np.random.default_rng(args.seed)
     prompts = [rng.integers(0, cfg.vocab_size, size=int(rng.integers(64, 512))).tolist() for _ in range(8)]
-    out = {}
+    out, held, launches = {}, {}, {}
     for name, ctx in (("one_card", None),
                       ("mesh", ShardCtx(mesh=make_mesh((1, world), ("data", "model"), dev.type), tp="model",
                                         fsdp=None, dp=()))):
@@ -316,18 +386,71 @@ def phase_lm_serve(torch, dist, args, dev, rank: int, world: int, cfg) -> dict:
 
         eng._decode = timed
         dist.barrier()
+        build.reset_launches()
         finished = eng.run()
+        if name == "mesh":
+            launches = {k: n for k, n in build.LAUNCHES.items() if n}
+            if eng.decode_graph is not None:
+                nodes = build.graph_kernel_nodes(eng.decode_graph, ["decode_partial", "wkv_forward"])
+                launches["graph_nodes_per_decode_step"] = nodes
+                for key, entry in (("decode_attention", "decode_partial"), ("wkv", "wkv_forward")):
+                    if nodes[entry]:
+                        launches[key] = launches.get(key, 0) + nodes[entry] * eng.decode_steps
         out[name] = {"tokens": sorted((r.rid, r.out) for r in finished),
                      "ms_per_decode_step_median": sorted(times)[len(times) // 2] * 1e3,
                      "decode_steps": len(times), "captured": eng.decode_graph is not None}
-        del eng, model
-    same = [a == b for a, b in zip(out["one_card"]["tokens"], out["mesh"]["tokens"])]
-    first_diff = [next((i for i, (x, y) in enumerate(zip(a[1], b[1])) if x != y), None)
-                  for a, b in zip(out["one_card"]["tokens"], out["mesh"]["tokens"])]
+        # free the captured graph (its NCCL collectives) before the group goes
+        eng._decode = orig
+        if eng.decode_graph is not None:
+            eng.decode_graph.reset()
+        del eng, finished
+        gc.collect()
+        held[name] = model
+    if cfg.dtype != "float32":
+        f32 = models.build(dataclasses.replace(cfg, dtype="float32"), device=dev)
+        with torch.no_grad():
+            for (k, p), (k1, p1) in zip(f32.named_parameters(), held["one_card"].named_parameters(), strict=True):
+                _check(k == k1 and p.shape == p1.shape, f"the float32 copy's {k} is not the model's {k1}")
+                p.copy_(p1)
+        held["float32"] = f32
+
+    def logits_at(tokens: list[int]) -> dict:
+        with torch.no_grad():
+            return {name: m.prefill(torch.tensor([tokens], device=dev), m.init_cache(1, 1024))[0][0, :cfg.vocab_size]
+                    .float().cpu() for name, m in held.items()}
+
+    def compare(lg: dict, a: int | None = None, b: int | None = None) -> dict:
+        one, mesh = lg["one_card"], lg["mesh"]
+        top2 = one.topk(2).values
+        res = {"mesh_vs_one_card_max_abs": float((mesh - one).abs().max()), "one_card_std": float(one.std()),
+               "one_card_top2_gap": float(top2[0] - top2[1]), "argmax_equal": bool(mesh.argmax() == one.argmax())}
+        if "float32" in lg:
+            res["one_card_vs_float32_max_abs"] = float((one - lg["float32"]).abs().max())
+        if a is not None:
+            res.update({"tokens": [a, b], "argmax": {k: int(v.argmax()) for k, v in lg.items()},
+                        **{f"gap_{k}": float(v[a] - v[b]) for k, v in lg.items()}})
+        return res
+
+    first = compare(logits_at(prompts[0]))
+    # rank 0's tokens on every rank, so that all ranks make the same prefill calls
+    toks = [dict(out[k]["tokens"]) for k in ("one_card", "mesh")]
+    dist.broadcast_object_list(toks, src=0)
+    one_toks, mesh_toks = toks
+    same, parted = 0, []
+    for rid, p in enumerate(prompts):
+        a_out, b_out = one_toks[rid], mesh_toks[rid]
+        at = next((i for i, (x, y) in enumerate(zip(a_out, b_out)) if x != y), None)
+        if at is None:
+            same += a_out == b_out
+            continue
+        parted.append({"rid": rid, "at": at, **compare(logits_at(p + a_out[:at]), a_out[at], b_out[at])})
     for v in out.values():
         del v["tokens"]
-    return {"phase": "lm_serve", "arch": cfg.name, "tp": world, "requests": len(prompts),
-            "requests_with_equal_tokens": sum(same), "first_differing_token": first_diff, **out}
+    del held
+    gc.collect()
+    return {"phase": "lm_serve", "arch": cfg.name, "dtype": str(cfg.dtype), "tp": world, "requests": len(prompts),
+            "requests_with_equal_tokens": same, "first_prompt_prefill_logits": first, "parted": parted,
+            "launches_mesh_rank0": launches, **out}
 
 
 def phase_cp(torch, dist, args, dev, rank: int, world: int) -> list[dict]:
@@ -413,14 +536,21 @@ def run_rank(rank: int, world: int, rdv: str, args) -> None:
                        lambda: [phase_pool(torch, dist, args, dev, world)],
                        lambda: [phase_moe(torch, dist, args, dev, rank, world)]]
         if "lm" in args.phases:
-            phases += [lambda: phase_lm_train(torch, dist, args, dev, rank, world),
-                       lambda: [phase_lm_serve(torch, dist, args, dev, rank, world, lm_config(args, args.lm_arch))]]
+            for arch in args.lm_arch:
+                if "train" in args.lm_phases:
+                    phases.append(lambda arch=arch: phase_lm_train(torch, dist, args, dev, rank, world, arch))
+                if "serve" in args.lm_phases:
+                    phases.append(lambda arch=arch: [phase_lm_serve(torch, dist, args, dev, rank, world,
+                                                                    lm_config(args, arch))])
         if "cp" in args.phases:
             phases += [lambda: phase_cp(torch, dist, args, dev, rank, world)]
         for phase in phases:
             for line in phase():
                 if rank == 0:
                     print(json.dumps(line), flush=True)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        dist.barrier()
     finally:
         dist.destroy_process_group()
 
@@ -433,7 +563,10 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     ap.add_argument("--phases", nargs="+", choices=("sort", "lm", "cp"), default=["sort", "lm"])
-    ap.add_argument("--lm-arch", default="mistral-nemo-12b")
+    ap.add_argument("--lm-arch", nargs="+", default=["mistral-nemo-12b"],
+                    help="the lm phases' archs, one after the other")
+    ap.add_argument("--lm-phases", nargs="+", choices=("train", "serve"), default=["train", "serve"],
+                    help="the lm group's phases, for each arch")
     ap.add_argument("--lm-smoke", action="store_true", help="the LM phases at the arch's smoke config")
     ap.add_argument("--lm-dtype", choices=("float32", "bfloat16"), default=None, help="default: the config's")
     ap.add_argument("--lm-batch", type=int, default=2)

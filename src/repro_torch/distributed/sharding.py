@@ -312,6 +312,95 @@ def scatter_seq(x: torch.Tensor, ctx: ShardCtx, dim: int = 1) -> torch.Tensor:
     return _ScatterDim.apply(x, ctx.group(ctx.tp), dim)
 
 
+def tp_sum(x: torch.Tensor, ctx: ShardCtx | None, seq_sharded: bool = False) -> torch.Tensor:
+    """A row-parallel layer's partial output summed over tp: an
+    :func:`all_reduce_sum`, or with ``seq_sharded`` (sequence parallelism)
+    a :func:`scatter_seq` over T.  The identity off a mesh or at tp = 1."""
+    if ctx is None or ctx.tp_size == 1:
+        return x
+    return scatter_seq(x, ctx) if seq_sharded else all_reduce_sum(x, ctx.group(ctx.tp))
+
+
+def _tp_on(ctx: ShardCtx | None) -> bool:
+    return ctx is not None and ctx.tp_size > 1
+
+
+def gather_cols(x: torch.Tensor, ctx: ShardCtx | None) -> torch.Tensor:
+    """``x``'s last axis, cut over tp, all-gathered (backward: the
+    reduce-scatter).  The identity off a mesh or at tp = 1."""
+    return gather_seq(x, ctx, dim=-1) if _tp_on(ctx) else x
+
+
+def scatter_cols(x: torch.Tensor, ctx: ShardCtx | None) -> torch.Tensor:
+    """A row-parallel partial output summed over tp into this rank's
+    ``1 / tp`` of its last axis (a reduce-scatter; backward: the
+    all-gather).  The identity off a mesh or at tp = 1."""
+    return scatter_seq(x, ctx, dim=-1) if _tp_on(ctx) else x
+
+
+def rank_cols(x: torch.Tensor, ctx: ShardCtx | None) -> torch.Tensor:
+    """This rank's ``1 / tp`` of ``x``'s last axis, a view; ``x`` off a mesh
+    or at tp = 1."""
+    if not _tp_on(ctx):
+        return x
+    n = x.shape[-1] // ctx.tp_size
+    return x.narrow(-1, ctx.axis_index(ctx.tp) * n, n)
+
+
+def _cols_to_seq(x: torch.Tensor, group, tp: int) -> torch.Tensor:
+    B, T, n = x.shape
+    send = x.reshape(B, tp, T // tp, n).movedim(1, 0).contiguous()
+    recv = torch.empty_like(send)
+    dist.all_to_all_single(recv, send, group=group)
+    return recv.permute(1, 2, 0, 3).reshape(B, T // tp, tp * n)
+
+
+def _seq_to_cols(x: torch.Tensor, group, tp: int) -> torch.Tensor:
+    B, t, D = x.shape
+    send = x.reshape(B, t, tp, D // tp).permute(2, 0, 1, 3).contiguous()
+    recv = torch.empty_like(send)
+    dist.all_to_all_single(recv, send, group=group)
+    return recv.movedim(0, 1).reshape(B, tp * t, D // tp)
+
+
+class _ColsToSeq(torch.autograd.Function):
+    """(B, T, D / tp) on each rank -> its T chunk (B, T / tp, D), one
+    all_to_all; backward the inverse exchange."""
+
+    @staticmethod
+    def forward(ctx, x, group, tp):
+        ctx.group, ctx.tp = group, tp
+        return _cols_to_seq(x, group, tp)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _seq_to_cols(g, ctx.group, ctx.tp), None, None
+
+
+def cols_to_seq(x: torch.Tensor, ctx: ShardCtx | None) -> torch.Tensor:
+    """A (B, T, D / tp) activation whose columns are cut over tp to the
+    rank's T chunk of the whole (B, T / tp, D), ``spec_resid`` under
+    sequence parallelism: an all_to_all of ``1 / tp`` of the bytes.  The
+    identity off a mesh or at tp = 1."""
+    return _ColsToSeq.apply(x, ctx.group(ctx.tp), ctx.tp_size) if _tp_on(ctx) else x
+
+
+def rank_heads(nheads: int, ctx: ShardCtx | None) -> tuple[int, int, bool]:
+    """The heads ``[h0, h1)`` a block cut over tp by heads runs on this rank,
+    and whether tp cuts through a head (``cut``): its ``nheads / tp`` heads,
+    or where tp does not divide them every head (its columns then cut
+    through a head: it gathers them, :func:`gather_cols`, runs every head
+    and keeps its own columns, :func:`rank_cols`).  ``(0, nheads, False)``
+    off a mesh and at tp = 1."""
+    if not _tp_on(ctx):
+        return 0, nheads, False
+    tp = ctx.tp_size
+    if nheads % tp:
+        return 0, nheads, True
+    h0 = ctx.axis_index(ctx.tp) * (nheads // tp)
+    return h0, h0 + nheads // tp, False
+
+
 def gather_stack(x: torch.Tensor, group) -> torch.Tensor:
     """Every rank's ``x`` stacked on a new leading axis (the group's size),
     replicated; the backward keeps this rank's slice of the cotangent.  For

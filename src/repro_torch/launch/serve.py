@@ -5,8 +5,7 @@
 
 ``--arch`` takes the dense ``mistral-nemo-12b`` (and the other dense
 configs), the MoE ``granite-moe-3b-a800m`` and ``deepseek-moe-16b``, the
-hybrid ``zamba2-1.2b`` and the RWKV6 ``rwkv6-1.6b`` (the last two on one
-device: no ``--mesh`` above 1x1).  The encoder-decoder (``whisper-small``)
+hybrid ``zamba2-1.2b`` and the RWKV6 ``rwkv6-1.6b``.  The encoder-decoder (``whisper-small``)
 and the embeddings model (``llava-next-34b``) are refused, as the
 reference's CLI refuses the first and its engine prefills tokens alone.
 
@@ -16,7 +15,8 @@ Counterpart of ``repro.launch.serve``: the weights are drawn from
 ``--mesh 1xM`` serves the model sharded over tp (the ``model`` axis), one
 process a device under ``torchrun --nproc-per-node=M`` (:mod:`.mesh`),
 with the sequence-sharded KV cache (where M does not divide the kv heads,
-the attention's columns split heads); every rank holds every slot and
+the attention's columns split heads), a recurrent model's states cut by
+heads; every rank holds every slot and
 samples the same token, and rank 0 prints.  A data axis above 1 is refused:
 the engine holds every slot on every rank (the reference's CLI fails there
 too: its batch-1 admission prefill does not split over the data axis).

@@ -6,8 +6,7 @@
 
 ``--arch`` takes the dense ``mistral-nemo-12b`` (and the other dense
 configs), the MoE ``granite-moe-3b-a800m`` and ``deepseek-moe-16b``, the
-hybrid ``zamba2-1.2b`` and the RWKV6 ``rwkv6-1.6b`` (the last two on one
-device: no ``--mesh`` above 1x1).  The embeddings models (``whisper-small``,
+hybrid ``zamba2-1.2b`` and the RWKV6 ``rwkv6-1.6b``.  The embeddings models (``whisper-small``,
 ``llava-next-34b``) are refused up front: the token pipeline carries no
 embeddings (the reference's CLI fails at its first step).
 

@@ -53,7 +53,7 @@ import torch
 from torch import nn
 
 from ..configs.base import ModelConfig
-from ..distributed.sharding import ShardCtx, all_reduce_sum, gather_seq, gather_stack, scatter_seq
+from ..distributed.sharding import ShardCtx, all_reduce_sum, gather_seq, gather_stack, tp_sum
 from ..kernels.decode_attention import decode_attention as decode_attention_kernel
 from ..kernels.decode_attention import merge_partials
 from ..kernels.flash_attention import flash_attention
@@ -269,15 +269,14 @@ def attention(p: Attention, cfg: ModelConfig, x: torch.Tensor, positions: torch.
         q, k, v = project_qkv(p, cfg, x, positions, ctx, q_only)
         if kv is not None:
             k, v = kv
-        out = column_rank(cfg, q, k, v, p.wo, ctx.axis_index(ctx.tp), tp, causal)
-        out = scatter_seq(out, ctx) if seq_sharded else all_reduce_sum(out, ctx.group(ctx.tp))
+        out = tp_sum(column_rank(cfg, q, k, v, p.wo, ctx.axis_index(ctx.tp), tp, causal), ctx, seq_sharded)
     else:
         q, k, v = project_qkv(p, cfg, x, positions, q_only=q_only)
         if kv is not None:
             k, v = kv
         out = _sdpa(q, k, v, causal).reshape(B, T, -1) @ p.wo
-        if layout == "heads" and tp > 1:
-            out = scatter_seq(out, ctx) if seq_sharded else all_reduce_sum(out, ctx.group(ctx.tp))
+        if layout == "heads":
+            out = tp_sum(out, ctx, seq_sharded)
     if cfg.use_bias:
         out = out + p.bo
     if return_kv:

@@ -36,9 +36,7 @@ invocation.  Their cache holds ``conv`` (L, B, W-1, C) in the model's dtype,
 ``ssm`` (L, B, H, N, P) float32 and, for the hybrid, one k/v cache a shared
 invocation, ``shared_k``/``shared_v`` (L // every, B, max_len, KV, hd).
 Prefill starts every Mamba block from zero states, as the reference's does,
-whatever the cache holds.  They run on one device: on a mesh with an axis
-above 1, or under sequence parallelism, they raise ``NotImplementedError``
-(the reference's ``spec_mamba`` layouts are a later slice).
+whatever the cache holds.
 
 The RWKV6 kind (``rwkv``) stacks ``layers.<i>.{ln1, ln2, rwkv}`` blocks
 (:mod:`.rwkv6`): a time mix and a channel mix, each after its norm.
@@ -48,9 +46,7 @@ there instead of K7).  Its cache holds ``tm_shift`` and ``cm_shift`` (L, B,
 D) in the model's dtype and ``wkv`` (L, B, H, 64, 64) float32.  Prefill
 starts every block from zero states, whatever the cache holds, and K7 writes
 each layer's final state straight into its slice of ``wkv``; the decode step
-runs K7 at T = 1 on that slice in place.  On a mesh with an axis above 1, or
-under sequence parallelism, it raises ``NotImplementedError`` (the
-reference's ``spec_rwkv`` layouts are a later slice).
+runs K7 at T = 1 on that slice in place.
 
 A dense or MoE model with ``input_kind == "embeds"`` (llava-next: the
 vision tiling is a stub) takes precomputed (B, T, D) embeddings in
@@ -80,6 +76,18 @@ gathered K/V), gathered only before the second norm.  Prefill and decode run the
 without sequence parallelism, as a serving context has it.  The cache is
 sequence-sharded over tp (``(L, B, max_len / tp, KV, hd)`` a rank, the
 reference's ``cache_specs``).  ``ctx=None`` is the one-device model.
+
+The recurrent kinds run on a mesh too, by the reference's ``spec_mamba``
+and ``spec_rwkv`` (:func:`.mamba2.spec_mamba`, :func:`.rwkv6.spec_rwkv`):
+each block's heads and inner columns over tp, its projections' D over fsdp;
+under sequence parallelism the residual stays T-sharded between blocks and
+is gathered before each mixer (the recurrence needs the whole T), whose
+row-parallel output is reduce-scattered back.  The hybrid's shared block
+runs the attention layouts above.  Their caches are cut as the reference's
+``cache_specs``: ``ssm`` and ``wkv`` by heads over tp (whole where tp does
+not divide the heads), ``tm_shift``/``cm_shift`` whole, ``shared_k``/
+``shared_v`` sequence-sharded; ``conv`` holds the rank's channels (the
+reference keeps it whole on every rank).
 """
 
 from __future__ import annotations
@@ -92,7 +100,8 @@ from torch.utils.checkpoint import checkpoint
 
 from .. import resolve_device
 from ..configs.base import ModelConfig
-from ..distributed.sharding import (ShardCtx, fsdp_gather, gather_seq, gather_stack, psum, shard_leaf)
+from ..distributed.sharding import (ShardCtx, fsdp_gather, gather_seq, gather_stack, psum, rank_heads,
+                                    shard_leaf)
 from . import attention as attn_mod
 from . import mamba2
 from . import mlp as mlp_mod
@@ -115,9 +124,8 @@ def block_kind(cfg: ModelConfig) -> str:
 
 #: The kinds whose layers are Mamba2 blocks (:mod:`.mamba2`).
 SSM_KINDS = ("mamba", "hybrid")
-#: The recurrent kinds (no attention stack), by the reference's layouts of
-#: their blocks, which the port does not cut over a mesh yet.
-RECURRENT_SPECS = {"mamba": "spec_mamba", "hybrid": "spec_mamba", "rwkv": "spec_rwkv"}
+#: The recurrent kinds (no attention stack).
+RECURRENT_KINDS = (*SSM_KINDS, "rwkv")
 
 
 #: The reference's scanned stacks (per-layer leaves with a leading layer
@@ -135,10 +143,12 @@ def on_mesh(ctx: ShardCtx | None) -> bool:
 def leaf_spec(name: str, ndim: int, ctx: ShardCtx, cfg: ModelConfig | None) -> tuple:
     """The layout of the parameter ``name`` (a state-dict name of
     :class:`LM`, or of one of its modules) with ``ndim`` dimensions: the
-    reference's ``spec_*`` entry for it, in ``ctx``'s axis names.  A leaf
-    none of them names (a norm's scale, a test's own tree) is replicated.
-    An attention leaf's layout reads ``cfg`` under sequence parallelism at
-    tp > 1 (:func:`.attention.spec_attn`), where ``None`` raises."""
+    reference's ``spec_*`` entry for it, in ``ctx``'s axis names (keyed on
+    the leaf's parent: ``wb`` and ``wo`` are Mamba's, RWKV6's and the
+    attention's own).  A leaf none of them names (a norm's scale, a test's
+    own tree) is replicated.  An attention leaf's layout reads ``cfg`` under
+    sequence parallelism at tp > 1 (:func:`.attention.spec_attn`), a Mamba2
+    or RWKV6 leaf's at any tp > 1; there ``None`` raises."""
     parts = name.split(".")
     leaf, parent = parts[-1], parts[-2] if len(parts) > 1 else ""
     if parent == "embed":
@@ -147,6 +157,10 @@ def leaf_spec(name: str, ndim: int, ctx: ShardCtx, cfg: ModelConfig | None) -> t
         table = spec_lm_head(ctx)
     elif parent == "attn":
         table = attn_mod.spec_attn(cfg, ctx)
+    elif parent == "mamba":
+        table = mamba2.spec_mamba(cfg, ctx)
+    elif parent == "rwkv":
+        table = rwkv6.spec_rwkv(cfg, ctx)
     elif leaf in ("w_in", "w_gate", "w_out") and ndim == 3 or leaf == "router":
         table = moe_mod.spec_moe(ctx)
     elif leaf in ("w_in", "w_gate", "w_out", "b_in", "b_out"):
@@ -242,22 +256,24 @@ class Block(nn.Module):
 
 class RWKVLayer(nn.Module):
     """One layer of the RWKV6 stack: a norm and the time mix, a norm and the
-    channel mix (one :class:`.rwkv6.RWKV` holds both mixes' leaves)."""
+    channel mix (one :class:`.rwkv6.RWKV` holds both mixes' leaves); on a
+    mesh this rank's shard."""
 
-    def __init__(self, cfg: ModelConfig, dtype, device):
+    def __init__(self, cfg: ModelConfig, dtype, device, ctx: ShardCtx | None = None):
         super().__init__()
         self.ln1 = Norm(cfg.d_model, device)
         self.ln2 = Norm(cfg.d_model, device)
-        self.rwkv = rwkv6.RWKV(cfg, dtype, device)
+        self.rwkv = rwkv6.RWKV(cfg, dtype, device, ctx)
 
 
 class MambaLayer(nn.Module):
-    """One layer of the Mamba2 stacks: a norm, then the SSD block."""
+    """One layer of the Mamba2 stacks: a norm, then the SSD block; on a
+    mesh this rank's shard."""
 
-    def __init__(self, cfg: ModelConfig, dtype, device):
+    def __init__(self, cfg: ModelConfig, dtype, device, ctx: ShardCtx | None = None):
         super().__init__()
         self.ln1 = Norm(cfg.d_model, device)
-        self.mamba = mamba2.Mamba(cfg, dtype, device)
+        self.mamba = mamba2.Mamba(cfg, dtype, device, ctx)
 
 
 def ffn(p, cfg: ModelConfig, h: torch.Tensor, ctx: ShardCtx | None = None) -> torch.Tensor:
@@ -270,7 +286,7 @@ def ffn(p, cfg: ModelConfig, h: torch.Tensor, ctx: ShardCtx | None = None) -> to
 class LM(nn.Module):
     """The dense, MoE, Mamba2, hybrid or RWKV6 decoder on ``device`` (default
     ``"cuda"``; raises without a card unless asked for ``"cpu"``), on one
-    device or, with ``ctx``, this rank's shard of it (dense and MoE only).
+    device or, with ``ctx``, this rank's shard of it.
     Parameters are allocated, not drawn: call :meth:`init` or load a state
     (``convert.params_from_reference``).  ``rwkv_chunked`` is the
     reference's option of the same name (the RWKV6 training forward's
@@ -279,13 +295,7 @@ class LM(nn.Module):
     def __init__(self, cfg: ModelConfig, ctx: ShardCtx | None = None, device="cuda", rwkv_chunked: bool = False):
         super().__init__()
         kind = block_kind(cfg)
-        if kind in RECURRENT_SPECS and on_mesh(ctx):
-            stack = "RWKV6 stack" if kind == "rwkv" else "Mamba2 stacks"
-            raise NotImplementedError(
-                f"{cfg.name}: the {stack} on a mesh (tp, sequence or FSDP parallelism: the "
-                f"reference's {RECURRENT_SPECS[kind]} layouts) are a later slice of the port"
-            )
-        if cfg.input_kind != "tokens" and (kind in RECURRENT_SPECS or on_mesh(ctx)):
+        if cfg.input_kind != "tokens" and (kind in RECURRENT_KINDS or on_mesh(ctx)):
             where = "on a mesh" if on_mesh(ctx) else f"to the {kind} kind"
             raise NotImplementedError(
                 f"{cfg.name}: precomputed-embedding inputs {where} are a later slice of the port"
@@ -300,11 +310,11 @@ class LM(nn.Module):
         self.kind = kind
         self.rwkv_chunked = rwkv_chunked
         if kind == "rwkv":
-            self.layers = nn.ModuleList(RWKVLayer(cfg, dt, dev) for _ in range(cfg.num_layers))
+            self.layers = nn.ModuleList(RWKVLayer(cfg, dt, dev, ctx) for _ in range(cfg.num_layers))
         elif kind in SSM_KINDS:
-            self.layers = nn.ModuleList(MambaLayer(cfg, dt, dev) for _ in range(cfg.num_layers))
+            self.layers = nn.ModuleList(MambaLayer(cfg, dt, dev, ctx) for _ in range(cfg.num_layers))
             if self._every:
-                self.shared = Block(cfg, dt, dev)
+                self.shared = Block(cfg, dt, dev, ctx=ctx)
         else:
             n_dense = cfg.moe.first_dense_layers if cfg.moe else 0
             if n_dense:
@@ -333,7 +343,7 @@ class LM(nn.Module):
     def _stacks(self):
         """(blocks, k cache name, v cache name) of the attention stacks, in
         the order they run (none for the recurrent kinds)."""
-        if self.kind in RECURRENT_SPECS:
+        if self.kind in RECURRENT_KINDS:
             return
         if hasattr(self, "dense_layers"):
             yield self.dense_layers, "k_dense", "v_dense"
@@ -368,7 +378,7 @@ class LM(nn.Module):
         ctx = self.ctx if self.ctx is not None else ShardCtx()
         return {name: leaf_spec(name, p.dim(), ctx, self.cfg) for name, p in self.named_parameters()}
 
-    def _gathered(self, blk: Block):
+    def _gathered(self, blk: nn.Module):
         """``blk`` with its fsdp-sharded weights all-gathered (the
         reference's ``fsdp_gather`` of one layer), as a namespace of the
         module's structure; ``blk`` itself without an fsdp axis."""
@@ -414,8 +424,7 @@ class LM(nn.Module):
             else:
                 y, aux, _ = moe_mod.moe_layer(p.moe, c, h, ctx)
             return x + y, aux
-        return x + mlp_mod.mlp(p.mlp, c, h, ctx, seq_sharded=sp), torch.zeros((), dtype=torch.float32,
-                                                                               device=x.device)
+        return x + mlp_mod.mlp(p.mlp, c, h, ctx, seq_sharded=sp), self._zero_aux(x)
 
     def embed_inputs(self, inputs: torch.Tensor, seq_sharded: bool = False) -> torch.Tensor:
         """The residual stream's input (the reference's ``embed_inputs``):
@@ -433,12 +442,11 @@ class LM(nn.Module):
         this rank's vocab shard with the padded columns at -1e30 at tp > 1,
         as the reference keeps them -- and the MoE stack's summed load-balance
         aux).  The leading dense layers run first; each block is one
-        activation checkpoint (non-reentrant), recomputed in the backward."""
+        activation checkpoint (non-reentrant), recomputed in the backward:
+        the Mamba2 kinds' one a Mamba block and one a shared invocation, the
+        RWKV6 kind's one a block (the reference's per-layer and
+        per-invocation ``jax.checkpoint``)."""
         c, ctx, sp = self.cfg, self.ctx, self._sp
-        if self.kind in SSM_KINDS:
-            return self._ssm_forward(tokens)
-        if self.kind == "rwkv":
-            return self._rwkv_forward(tokens)
         if self.cfg.moe is not None and self._tp > 1 and not moe_mod.use_a2a(c, ctx):
             raise ValueError(
                 "training MoE with tp>1 requires the a2a dispatch "
@@ -451,52 +459,64 @@ class LM(nn.Module):
         x = self.embed_inputs(tokens, seq_sharded=sp)
         positions = torch.arange(T, device=x.device)[None, :]
         aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
-        for blocks, _, _ in self._stacks():
-            for blk in blocks:
-                x, aux = checkpoint(self._block, blk, x, positions, use_reentrant=False)
-                aux_total = aux_total + aux
+        for body, blk in self._train_blocks():
+            x, aux = checkpoint(body, blk, x, positions, use_reentrant=False)
+            aux_total = aux_total + aux
         if sp:
             x = gather_seq(x, ctx)
         x = rms_norm(x, self.ln_f.scale, c.norm_eps)
         return self._logits(x), aux_total
 
-    def _mamba_layer(self, layer: MambaLayer, x: torch.Tensor) -> torch.Tensor:
-        y, _, _ = mamba2.mamba_block(layer.mamba, self.cfg, rms_norm(x, layer.ln1.scale, self.cfg.norm_eps))
-        return x + y
+    def _train_blocks(self):
+        """(body, module) of each block of the training forward, in order;
+        a body is ``(module, x, positions) -> (x, aux)``."""
+        if self.kind in SSM_KINDS:
+            for i, layer in enumerate(self.layers):
+                yield self._mamba_layer, layer
+                if self._shared_after(i):
+                    yield self._block, self.shared
+        elif self.kind == "rwkv":
+            for layer in self.layers:
+                yield self._rwkv_layer, layer
+        else:
+            for blocks, _, _ in self._stacks():
+                for blk in blocks:
+                    yield self._block, blk
 
-    def _ssm_forward(self, tokens: torch.Tensor):
-        """The Mamba2 stacks' training forward: one checkpoint a Mamba
-        block and one a shared invocation (the reference's per-layer and
-        per-invocation ``jax.checkpoint``)."""
-        x = embed_tokens(self.embed.table, tokens.long())
-        positions = torch.arange(x.shape[1], device=x.device)[None, :]
-        for i, layer in enumerate(self.layers):
-            x = checkpoint(self._mamba_layer, layer, x, use_reentrant=False)
-            if self._shared_after(i):
-                x, _ = checkpoint(self._block, self.shared, x, positions, use_reentrant=False)
-        x = rms_norm(x, self.ln_f.scale, self.cfg.norm_eps)
-        return self._logits(x), torch.zeros((), dtype=torch.float32, device=x.device)
+    def _zero_aux(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.zeros((), dtype=torch.float32, device=x.device)
 
-    def _rwkv_layer(self, layer: RWKVLayer, x: torch.Tensor) -> torch.Tensor:
+    def _mamba_layer(self, layer: MambaLayer, x: torch.Tensor, positions: torch.Tensor):
+        """One Mamba2 block of the training forward (the reference's
+        ``body``): under sequence parallelism ``x`` is this rank's T chunk,
+        gathered before the norm, and the block's output reduce-scattered
+        back."""
+        c, ctx, sp = self.cfg, self.ctx, self._sp
+        p = self._gathered(layer)
+        xg = gather_seq(x, ctx) if sp else x
+        y, _, _ = mamba2.mamba_block(p.mamba, c, rms_norm(xg, p.ln1.scale, c.norm_eps), ctx=ctx, seq_sharded=sp)
+        return x + y, self._zero_aux(x)
+
+    def _rwkv_layer(self, layer: RWKVLayer, x: torch.Tensor, positions: torch.Tensor):
         """One RWKV6 block of the training forward, from a zero shift and a
-        zero state (the reference's ``body``)."""
-        c = self.cfg
-        hs, H = rwkv6.dims(c)
-        z_shift = torch.zeros(x.shape[0], c.d_model, dtype=x.dtype, device=x.device)
-        z_state = torch.zeros(x.shape[0], H, hs, hs, dtype=torch.float32, device=x.device)
+        zero state (the reference's ``body``), each mix's input gathered
+        over T and its output reduce-scattered back under sequence
+        parallelism."""
+        c, ctx, sp = self.cfg, self.ctx, self._sp
+        p = self._gathered(layer)
+        hs, _ = rwkv6.dims(c)
+        h0, h1, _ = rank_heads(rwkv6.dims(c)[1], ctx)
+        B = x.shape[0]
+        z_shift = torch.zeros(B, c.d_model, dtype=x.dtype, device=x.device)
+        z_state = torch.zeros(B, h1 - h0, hs, hs, dtype=torch.float32, device=x.device)
         mix = rwkv6.rwkv_time_mix_chunked if self.rwkv_chunked else rwkv6.rwkv_time_mix
-        y, _, _ = mix(layer.rwkv, c, rms_norm(x, layer.ln1.scale, c.norm_eps), z_shift, z_state)
+        xg = gather_seq(x, ctx) if sp else x
+        y, _, _ = mix(p.rwkv, c, rms_norm(xg, p.ln1.scale, c.norm_eps), z_shift, z_state, ctx=ctx, seq_sharded=sp)
         x = x + y
-        y, _ = rwkv6.rwkv_channel_mix(layer.rwkv, c, rms_norm(x, layer.ln2.scale, c.norm_eps), z_shift)
-        return x + y
-
-    def _rwkv_forward(self, tokens: torch.Tensor):
-        """The RWKV6 stack's training forward: one checkpoint a block."""
-        x = embed_tokens(self.embed.table, tokens.long())
-        for layer in self.layers:
-            x = checkpoint(self._rwkv_layer, layer, x, use_reentrant=False)
-        x = rms_norm(x, self.ln_f.scale, self.cfg.norm_eps)
-        return self._logits(x), torch.zeros((), dtype=torch.float32, device=x.device)
+        xg = gather_seq(x, ctx) if sp else x
+        y, _ = rwkv6.rwkv_channel_mix(p.rwkv, c, rms_norm(xg, p.ln2.scale, c.norm_eps), z_shift, ctx=ctx,
+                                      seq_sharded=sp)
+        return x + y, self._zero_aux(x)
 
     def loss(self, batch: dict, aux_weight: float = 0.01):
         """``ce + aux_weight * aux`` over ``batch`` ({"tokens", "labels"},
@@ -517,27 +537,29 @@ class LM(nn.Module):
         > 1 this rank's chunk of the sequence, S = ``max_len / tp``.  The
         Mamba2 kinds: ``conv``, ``ssm`` and the hybrid's ``shared_k``/``shared_v``;
         RWKV6: ``tm_shift``, ``cm_shift`` and ``wkv`` (see the module's
-        docstring)."""
+        docstring; on a mesh the rank's heads and channels)."""
         c = self.cfg
-        if max_len % self._tp:
+        if (self._every or self.kind not in RECURRENT_KINDS) and max_len % self._tp:
             raise ValueError(f"max_len={max_len} does not split over tp={self._tp} (the sequence-sharded cache)")
         cache = {"pos": torch.zeros(batch, dtype=torch.int32, device=self.device)}
         if self.kind == "rwkv":
-            hs, H = rwkv6.dims(c)
+            hs, _ = rwkv6.dims(c)
+            h0, h1, _ = rank_heads(rwkv6.dims(c)[1], self.ctx)
             L = c.num_layers
             cache["tm_shift"] = torch.zeros(L, batch, c.d_model, dtype=self.dtype, device=self.device)
             cache["cm_shift"] = torch.zeros(L, batch, c.d_model, dtype=self.dtype, device=self.device)
-            cache["wkv"] = torch.zeros(L, batch, H, hs, hs, dtype=torch.float32, device=self.device)
+            cache["wkv"] = torch.zeros(L, batch, h1 - h0, hs, hs, dtype=torch.float32, device=self.device)
             return cache
         if self.kind in SSM_KINDS:
-            s, _, nheads = mamba2.dims(c)
+            s = c.ssm
+            h0, h1, _ = rank_heads(mamba2.dims(c)[2], self.ctx)
             L = c.num_layers
-            cache["conv"] = torch.zeros(L, batch, s.conv_width - 1, mamba2.conv_channels(c), dtype=self.dtype,
-                                        device=self.device)
-            cache["ssm"] = torch.zeros(L, batch, nheads, s.state_dim, s.head_dim, dtype=torch.float32,
+            cache["conv"] = torch.zeros(L, batch, s.conv_width - 1, mamba2.conv_channels(c, self.ctx),
+                                        dtype=self.dtype, device=self.device)
+            cache["ssm"] = torch.zeros(L, batch, h1 - h0, s.state_dim, s.head_dim, dtype=torch.float32,
                                        device=self.device)
             if self._every:
-                shape = (L // self._every, batch, max_len, c.num_kv_heads, c.resolved_head_dim)
+                shape = (L // self._every, batch, max_len // self._tp, c.num_kv_heads, c.resolved_head_dim)
                 cache["shared_k"] = torch.zeros(shape, dtype=self.dtype, device=self.device)
                 cache["shared_v"] = torch.zeros(shape, dtype=self.dtype, device=self.device)
             return cache
@@ -568,47 +590,68 @@ class LM(nn.Module):
         (B, T, D) embeddings) into an empty ``cache``: k/v of positions [0,
         T) are written and ``pos`` advances by T.  Returns (last-position
         logits (B, V), cache)."""
-        c, ctx = self.cfg, self.ctx
+        c = self.cfg
         x = self.embed_inputs(tokens)
         T = x.shape[1]
         positions = torch.arange(T, device=x.device)[None, :]
         if self.kind in SSM_KINDS:
-            x = self._ssm_prefill(x, positions, cache)
+            x = self._ssm_cached(x, cache, positions)
         if self.kind == "rwkv":
             x = self._rwkv_cached(x, cache, fresh=True)
         for blocks, kn, vn in self._stacks():
             for i, blk in enumerate(blocks):
-                p = self._gathered(blk)
-                h = rms_norm(x, p.ln1.scale, c.norm_eps)
-                y, (k, v) = attn_mod.attention(p.attn, c, h, positions, return_kv=True, ctx=ctx)
-                self._write_prefill(cache[kn][i], k)
-                self._write_prefill(cache[vn][i], v)
-                x = x + y
-                x = x + ffn(p, c, rms_norm(x, p.ln2.scale, c.norm_eps), ctx)
+                x = self._attn_prefill(blk, x, positions, cache[kn][i], cache[vn][i])
         # the norm is per row: normalizing the last position alone is the same
         x = rms_norm(x[:, -1], self.ln_f.scale, c.norm_eps)
         cache["pos"] += T
         return self._whole_logits(x), cache
 
-    def _ssm_prefill(self, x: torch.Tensor, positions: torch.Tensor, cache: dict) -> torch.Tensor:
-        """The Mamba2 stacks over a prompt: every block from zero states,
-        its final conv and ssm states written to the cache; the hybrid's
-        shared block writes its k/v at positions [0, T) of its invocation's
-        cache."""
-        c, inv = self.cfg, 0
+    def _attn_prefill(self, blk: Block, x: torch.Tensor, positions: torch.Tensor, kcache: torch.Tensor,
+                      vcache: torch.Tensor) -> torch.Tensor:
+        """One attention block over a prompt, its k/v written at positions
+        [0, T) of its layer's caches."""
+        c, ctx = self.cfg, self.ctx
+        p = self._gathered(blk)
+        h = rms_norm(x, p.ln1.scale, c.norm_eps)
+        y, (k, v) = attn_mod.attention(p.attn, c, h, positions, return_kv=True, ctx=ctx)
+        self._write_prefill(kcache, k)
+        self._write_prefill(vcache, v)
+        x = x + y
+        return x + ffn(p, c, rms_norm(x, p.ln2.scale, c.norm_eps), ctx)
+
+    def _attn_decode(self, blk: Block, x: torch.Tensor, kcache: torch.Tensor, vcache: torch.Tensor,
+                     pos: torch.Tensor) -> torch.Tensor:
+        """One attention block's decode step on its layer's caches."""
+        c, ctx = self.cfg, self.ctx
+        p = self._gathered(blk)
+        y, _, _ = attn_mod.decode_attention(p.attn, c, rms_norm(x, p.ln1.scale, c.norm_eps), kcache, vcache, pos, ctx)
+        x = x + y
+        return x + ffn(p, c, rms_norm(x, p.ln2.scale, c.norm_eps), ctx)
+
+    def _ssm_cached(self, x: torch.Tensor, cache: dict, positions: torch.Tensor | None = None) -> torch.Tensor:
+        """The Mamba2 stacks against the cache: a prompt's prefill (given
+        ``positions``: every block from zero states, its final conv and ssm
+        states written to the cache, the hybrid's shared block writing its
+        k/v at positions [0, T) of its invocation's cache) or a decode step
+        (every state written back in place: new tensors copied into the
+        cache's storage)."""
+        c, ctx, inv = self.cfg, self.ctx, 0
         for i, layer in enumerate(self.layers):
-            y, conv, ssm = mamba2.mamba_block(layer.mamba, c, rms_norm(x, layer.ln1.scale, c.norm_eps))
+            p = self._gathered(layer)
+            h = rms_norm(x, p.ln1.scale, c.norm_eps)
+            if positions is None:
+                y, conv, ssm = mamba2.mamba_decode(p.mamba, c, h, cache["conv"][i], cache["ssm"][i], ctx=ctx)
+            else:
+                y, conv, ssm = mamba2.mamba_block(p.mamba, c, h, ctx=ctx)
             cache["conv"][i].copy_(conv)
             cache["ssm"][i].copy_(ssm)
             x = x + y
             if self._shared_after(i):
-                sp = self.shared
-                y, (k, v) = attn_mod.attention(sp.attn, c, rms_norm(x, sp.ln1.scale, c.norm_eps), positions,
-                                               return_kv=True)
-                self._write_prefill(cache["shared_k"][inv], k)
-                self._write_prefill(cache["shared_v"][inv], v)
-                x = x + y
-                x = x + mlp_mod.mlp(sp.mlp, c, rms_norm(x, sp.ln2.scale, c.norm_eps))
+                kc, vc = cache["shared_k"][inv], cache["shared_v"][inv]
+                if positions is None:
+                    x = self._attn_decode(self.shared, x, kc, vc, cache["pos"])
+                else:
+                    x = self._attn_prefill(self.shared, x, positions, kc, vc)
                 inv += 1
         return x
 
@@ -618,38 +661,20 @@ class LM(nn.Module):
         cache held) or a decode step.  K7 writes each layer's final state
         over its ``wkv`` slice; the new shifts are copied in after the old
         ones are read."""
-        c = self.cfg
+        c, ctx = self.cfg, self.ctx
         for i, layer in enumerate(self.layers):
+            p = self._gathered(layer)
             tm_shift, cm_shift, state = cache["tm_shift"][i], cache["cm_shift"][i], cache["wkv"][i]
             if fresh:
                 for t in (tm_shift, cm_shift, state):
                     t.zero_()
-            y, tms, _ = rwkv6.rwkv_time_mix(layer.rwkv, c, rms_norm(x, layer.ln1.scale, c.norm_eps), tm_shift,
-                                            state, in_place=True)
+            y, tms, _ = rwkv6.rwkv_time_mix(p.rwkv, c, rms_norm(x, p.ln1.scale, c.norm_eps), tm_shift, state,
+                                            in_place=True, ctx=ctx)
             tm_shift.copy_(tms)
             x = x + y
-            y, cms = rwkv6.rwkv_channel_mix(layer.rwkv, c, rms_norm(x, layer.ln2.scale, c.norm_eps), cm_shift)
+            y, cms = rwkv6.rwkv_channel_mix(p.rwkv, c, rms_norm(x, p.ln2.scale, c.norm_eps), cm_shift, ctx=ctx)
             cm_shift.copy_(cms)
             x = x + y
-        return x
-
-    def _ssm_decode(self, x: torch.Tensor, cache: dict) -> torch.Tensor:
-        """One token through the Mamba2 stacks, every state written back in
-        place (new tensors copied into the cache's storage)."""
-        c, inv = self.cfg, 0
-        for i, layer in enumerate(self.layers):
-            y, conv, ssm = mamba2.mamba_decode(layer.mamba, c, rms_norm(x, layer.ln1.scale, c.norm_eps),
-                                               cache["conv"][i], cache["ssm"][i])
-            cache["conv"][i].copy_(conv)
-            cache["ssm"][i].copy_(ssm)
-            x = x + y
-            if self._shared_after(i):
-                sp = self.shared
-                y, _, _ = attn_mod.decode_attention(sp.attn, c, rms_norm(x, sp.ln1.scale, c.norm_eps),
-                                                    cache["shared_k"][inv], cache["shared_v"][inv], cache["pos"])
-                x = x + y
-                x = x + mlp_mod.mlp(sp.mlp, c, rms_norm(x, sp.ln2.scale, c.norm_eps))
-                inv += 1
         return x
 
     def _whole_logits(self, x: torch.Tensor) -> torch.Tensor:
@@ -684,20 +709,15 @@ class LM(nn.Module):
     def decode_step(self, cache: dict, tokens: torch.Tensor):
         """One decode step.  tokens: (B,) ints (an embeddings model decodes
         tokens too).  Returns (logits (B, V), cache)."""
-        c, ctx = self.cfg, self.ctx
-        pos = cache["pos"]
-        x = embed_tokens(self.embed.table, tokens.long(), ctx)[:, None, :]
+        c = self.cfg
+        x = embed_tokens(self.embed.table, tokens.long(), self.ctx)[:, None, :]
         if self.kind in SSM_KINDS:
-            x = self._ssm_decode(x, cache)
+            x = self._ssm_cached(x, cache)
         if self.kind == "rwkv":
             x = self._rwkv_cached(x, cache, fresh=False)
         for blocks, kn, vn in self._stacks():
             for i, blk in enumerate(blocks):
-                p = self._gathered(blk)
-                h = rms_norm(x, p.ln1.scale, c.norm_eps)
-                y, _, _ = attn_mod.decode_attention(p.attn, c, h, cache[kn][i], cache[vn][i], pos, ctx)
-                x = x + y
-                x = x + ffn(p, c, rms_norm(x, p.ln2.scale, c.norm_eps), ctx)
+                x = self._attn_decode(blk, x, cache[kn][i], cache[vn][i], cache["pos"])
         x = rms_norm(x, self.ln_f.scale, c.norm_eps)
         cache["pos"] += 1
         return self._whole_logits(x)[:, 0, :], cache

@@ -13,7 +13,7 @@ import torch
 from torch import nn
 
 from ..configs.base import ModelConfig
-from ..distributed.sharding import ShardCtx, all_reduce_sum, scatter_seq
+from ..distributed.sharding import ShardCtx, tp_sum
 from .layers import activation
 
 
@@ -61,9 +61,7 @@ def mlp(p: MLP, cfg: ModelConfig, x: torch.Tensor, ctx: ShardCtx | None = None, 
     if hasattr(p, "b_in"):
         h = h + p.b_in
     h = act(h) * (x @ p.w_gate) if hasattr(p, "w_gate") else act(h)
-    out = h @ p.w_out
-    if ctx is not None and ctx.tp_size > 1:
-        out = scatter_seq(out, ctx) if seq_sharded else all_reduce_sum(out, ctx.group(ctx.tp))
+    out = tp_sum(h @ p.w_out, ctx, seq_sharded)
     if hasattr(p, "b_out"):
         out = out + p.b_out
     return out

@@ -16,6 +16,23 @@ as the reference's does) and the initial state gets no gradient.
 log decay floored at ``-20 / Q`` and T a multiple of the chunk.  It runs no
 kernel.
 
+On a tp mesh (``ctx``) the block is the reference's ``spec_rwkv``
+(:func:`spec_rwkv`): ``wr wk wv wg`` and ``cm_wk``/``cm_wr`` column-parallel,
+``wo`` and ``cm_wv`` row-parallel, ``w0``, ``wb`` and the ``mb_*`` cut over D
+by tp, ``bonus`` by heads where tp divides them, the ``mu_*`` and
+``ln_scale`` whole.  Every projection contracts the whole D, so the five
+small ``mb_*`` (mix LoRA x D) are all-gathered over tp and each token-shift
+mix is computed whole on every rank; r, k, v, g and the decay are then the
+rank's D columns, its heads, and K7/K7b run those heads with their state
+(the group norm is per head: no collective).  The channel mix's gate
+``sigmoid(xr @ cm_wr)`` is the rank's D columns: the ranks' partial
+``k @ cm_wv`` is reduce-scattered to those columns, multiplied, and the
+product all-gathered (under sequence parallelism exchanged to the rank's T
+chunk by one all_to_all), the bytes of one all-reduce.  Where tp does not
+divide the heads, a rank's columns cut through a head: it all-gathers its r,
+k, v and w columns, runs every head (its state holds every head), and keeps
+its columns after the group norm.
+
 On the card the float32 products must run in full float32
 (``torch.backends.cuda.matmul.allow_tf32`` False, torch's default): the
 module refuses to be built on a card with TF32 on.
@@ -28,6 +45,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..configs.base import ModelConfig
+from ..distributed.sharding import (ShardCtx, cols_to_seq, gather_cols, rank_cols, rank_heads, scatter_cols,
+                                    tp_sum)
 from ..kernels.wkv import wkv, wkv_bwd
 from .moe import require_full_f32
 
@@ -51,18 +70,47 @@ def dims(cfg: ModelConfig):
     return hs, cfg.d_model // hs
 
 
+def spec_rwkv(cfg: ModelConfig | None, ctx: ShardCtx) -> dict:
+    """The reference's ``spec_rwkv``, ``bonus`` cut by heads only where tp
+    divides them (``h_tp``).  ``cfg`` is read at tp > 1, where ``None``
+    raises."""
+    tp = ctx.tp_size
+    if tp > 1 and cfg is None:
+        raise ValueError("the RWKV6 block's layout at tp > 1 needs the model's config")
+    h_tp = ctx.tp if tp == 1 or dims(cfg)[1] % tp == 0 else None
+    col, row = (ctx.fsdp, ctx.tp), (ctx.tp, ctx.fsdp)
+    s = {"mu_x": (None,), "wr": col, "wk": col, "wv": col, "wg": col, "wo": row, "w0": (ctx.tp,),
+         "wa": (ctx.fsdp, None), "wb": (None, ctx.tp), "bonus": (h_tp, None), "ln_scale": (None,),
+         "cm_mu_k": (None,), "cm_mu_r": (None,), "cm_wk": col, "cm_wv": row, "cm_wr": col}
+    for c in MIX:
+        s[f"mu_{c}"] = (None,)
+        s[f"ma_{c}"] = (ctx.fsdp, None)
+        s[f"mb_{c}"] = (None, ctx.tp)
+    return s
+
+
 class RWKV(nn.Module):
     """The block's parameters under the reference's leaf names, in its
     (d_in, d_out) layout: ``mu_*``, ``cm_mu_*``, ``w0``, ``ln_scale`` (D,) and
     ``bonus`` (H, 64) in float32; ``wr wk wv wg wo`` (D x D), ``wa`` (D x
     decay_lora), ``wb``, ``ma_*`` (D x mix_lora), ``mb_*``, ``cm_wk`` (D x F),
-    ``cm_wv`` (F x D) and ``cm_wr`` in the model's dtype."""
+    ``cm_wv`` (F x D) and ``cm_wr`` in the model's dtype; on a mesh (``ctx``)
+    this rank's shard of each (:func:`spec_rwkv`), D cut over fsdp."""
 
-    def __init__(self, cfg: ModelConfig, dtype, device):
+    def __init__(self, cfg: ModelConfig, dtype, device, ctx: ShardCtx | None = None):
         super().__init__()
         require_full_f32(device)
+        tp = ctx.tp_size if ctx is not None else 1
+        fsdp = ctx.axis_size(ctx.fsdp) if ctx is not None else 1
         D, Fd = cfg.d_model, cfg.d_ff
+        if D % fsdp:
+            raise ValueError(f"d_model {D} does not split over fsdp={fsdp}")
+        if D % tp or Fd % tp:
+            raise ValueError(f"{cfg.name}: d_model {D} or d_ff {Fd} does not split over tp={tp}")
         hs, H = dims(cfg)
+        h0, h1, _ = rank_heads(H, ctx)
+        Hl = h1 - h0
+        Din, Dt, Ft = D // fsdp, D // tp, Fd // tp
         r = cfg.rwkv
 
         def param(*shape, dt=dtype):
@@ -70,21 +118,22 @@ class RWKV(nn.Module):
 
         f32 = torch.float32
         self.mu_x = param(D, dt=f32)
-        self.wr, self.wk, self.wv, self.wg, self.wo = (param(D, D) for _ in range(5))
-        self.w0 = param(D, dt=f32)
-        self.wa = param(D, r.decay_lora)
-        self.wb = param(r.decay_lora, D)
-        self.bonus = param(H, hs, dt=f32)
+        self.wr, self.wk, self.wv, self.wg = (param(Din, Dt) for _ in range(4))
+        self.wo = param(Dt, Din)
+        self.w0 = param(Dt, dt=f32)
+        self.wa = param(Din, r.decay_lora)
+        self.wb = param(r.decay_lora, Dt)
+        self.bonus = param(Hl, hs, dt=f32)
         self.ln_scale = param(D, dt=f32)
         self.cm_mu_k = param(D, dt=f32)
         self.cm_mu_r = param(D, dt=f32)
-        self.cm_wk = param(D, Fd)
-        self.cm_wv = param(Fd, D)
-        self.cm_wr = param(D, D)
+        self.cm_wk = param(Din, Ft)
+        self.cm_wv = param(Ft, Din)
+        self.cm_wr = param(Din, Dt)
         for c in MIX:
             setattr(self, f"mu_{c}", param(D, dt=f32))
-            setattr(self, f"ma_{c}", param(D, r.mix_lora))
-            setattr(self, f"mb_{c}", param(r.mix_lora, D))
+            setattr(self, f"ma_{c}", param(Din, r.mix_lora))
+            setattr(self, f"mb_{c}", param(r.mix_lora, Dt))
 
 
 class WKVFn(torch.autograd.Function):
@@ -123,13 +172,14 @@ def _shifted(x: torch.Tensor, x_prev_last: torch.Tensor) -> torch.Tensor:
     return torch.cat([x_prev_last[:, None], x[:, :-1]], dim=1)
 
 
-def _ddlerp(p: RWKV, x: torch.Tensor, x_prev: torch.Tensor) -> dict:
-    """Data-dependent token shift: one lerp per r/k/v/g/w channel set."""
+def _ddlerp(p: RWKV, x: torch.Tensor, x_prev: torch.Tensor, ctx: ShardCtx | None = None) -> dict:
+    """Data-dependent token shift: one lerp per r/k/v/g/w channel set, each
+    whole (the ``mb_*`` gathered over tp)."""
     dx = x_prev - x
     xx = x + dx * p.mu_x.to(x.dtype)
     out = {}
     for c in MIX:
-        adj = torch.tanh(xx @ getattr(p, f"ma_{c}")) @ getattr(p, f"mb_{c}")
+        adj = torch.tanh(xx @ getattr(p, f"ma_{c}")) @ gather_cols(getattr(p, f"mb_{c}"), ctx)
         out[c] = x + dx * (getattr(p, f"mu_{c}").to(x.dtype) + adj)
     return out
 
@@ -150,57 +200,76 @@ def _group_norm(x: torch.Tensor, scale: torch.Tensor, eps: float, H: int) -> tor
     return (xh.reshape(B, T, D) * scale).to(x.dtype)
 
 
-def _project(p: RWKV, cfg: ModelConfig, x: torch.Tensor, x_prev_last: torch.Tensor):
-    """r, k, v (B, T, H, hs) float32, g in ``x``'s dtype, the decay w (B, T,
-    H, hs) float32."""
+def _project(p: RWKV, cfg: ModelConfig, x: torch.Tensor, x_prev_last: torch.Tensor, ctx: ShardCtx | None):
+    """r, k, v (B, T, H, hs) float32 of the heads the rank runs, g in
+    ``x``'s dtype (the rank's D columns), the decay w (B, T, H, hs)
+    float32."""
     hs, H = dims(cfg)
+    h0, h1, cut = rank_heads(H, ctx)
     B, T, _ = x.shape
-    m = _ddlerp(p, x, _shifted(x, x_prev_last))
-    r = (m["r"] @ p.wr).reshape(B, T, H, hs).float()
-    k = (m["k"] @ p.wk).reshape(B, T, H, hs).float()
-    v = (m["v"] @ p.wv).reshape(B, T, H, hs).float()
-    return r, k, v, m["g"] @ p.wg, _decay(p, m["w"]).reshape(B, T, H, hs)
+    m = _ddlerp(p, x, _shifted(x, x_prev_last), ctx)
+    r, k, v = (m[c] @ getattr(p, f"w{c}") for c in "rkv")
+    w = _decay(p, m["w"])
+    if cut:  # K7 reads rows whose last axis is contiguous
+        r, k, v, w = (gather_cols(t, ctx).contiguous() for t in (r, k, v, w))
+    r, k, v, w = (t.reshape(B, T, h1 - h0, hs).float() for t in (r, k, v, w))
+    return r, k, v, m["g"] @ p.wg, w
 
 
-def _output(p: RWKV, cfg: ModelConfig, y: torch.Tensor, g: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """The WKV's f32 output (B, T, D) cast to ``x``'s dtype, group-normed,
-    gated by silu(g), through ``wo``."""
-    y = _group_norm(y.to(x.dtype), p.ln_scale, GROUP_NORM_EPS, dims(cfg)[1])
-    return ((y * F.silu(g)) @ p.wo).to(x.dtype)
+def _output(p: RWKV, cfg: ModelConfig, y: torch.Tensor, g: torch.Tensor, x: torch.Tensor, ctx: ShardCtx | None,
+            seq_sharded: bool) -> torch.Tensor:
+    """The WKV's f32 output (B, T, H * hs) cast to ``x``'s dtype,
+    group-normed, gated by silu(g), through ``wo``; at tp > 1 (the rank's
+    heads, or every head of which it keeps its columns) summed over tp,
+    reduce-scattered over T with ``seq_sharded``."""
+    hs, H = dims(cfg)
+    h0, h1, cut = rank_heads(H, ctx)
+    y = _group_norm(y.to(x.dtype), p.ln_scale[h0 * hs:h1 * hs], GROUP_NORM_EPS, h1 - h0)
+    if cut:
+        y = rank_cols(y, ctx)
+    return tp_sum((y * F.silu(g)) @ p.wo, ctx, seq_sharded).to(x.dtype)
 
 
 def rwkv_time_mix(p: RWKV, cfg: ModelConfig, x: torch.Tensor, x_prev_last: torch.Tensor, state: torch.Tensor,
-                  *, in_place: bool = False):
+                  *, in_place: bool = False, ctx: ShardCtx | None = None, seq_sharded: bool = False):
     """x (B, T, D); ``x_prev_last`` (B, D) the carried shift; ``state`` (B, H,
-    hs, hs) float32.  Returns (out, new shift ``x[:, -1]``, new state); with
-    ``in_place`` the new state is ``state``, overwritten by K7."""
-    B, T, D = x.shape
-    r, k, v, g, w = _project(p, cfg, x, x_prev_last)
+    hs, hs) float32 (on a mesh the rank's heads).  Returns (out, new shift
+    ``x[:, -1]``, new state); with ``in_place`` the new state is ``state``,
+    overwritten by K7.  ``out`` is whole, or the rank's T chunk with
+    ``seq_sharded``."""
+    B, T, _ = x.shape
+    r, k, v, g, w = _project(p, cfg, x, x_prev_last, ctx)
     y, new_state = _wkv(r, k, v, w, p.bonus, state, in_place)
-    return _output(p, cfg, y.reshape(B, T, D), g, x), x[:, -1], new_state
+    return _output(p, cfg, y.reshape(B, T, -1), g, x, ctx, seq_sharded), x[:, -1], new_state
 
 
-def rwkv_channel_mix(p: RWKV, cfg: ModelConfig, x: torch.Tensor, x_prev_last: torch.Tensor):
-    """Returns (out, new shift ``x[:, -1]``)."""
+def rwkv_channel_mix(p: RWKV, cfg: ModelConfig, x: torch.Tensor, x_prev_last: torch.Tensor, *,
+                     ctx: ShardCtx | None = None, seq_sharded: bool = False):
+    """Returns (out, new shift ``x[:, -1]``); at tp > 1 the ranks' partial
+    ``k @ cm_wv`` reduce-scattered to the gate's columns, the product
+    all-gathered (exchanged to the rank's T chunk with ``seq_sharded``)."""
     dx = _shifted(x, x_prev_last) - x
     xk = x + dx * p.cm_mu_k.to(x.dtype)
     xr = x + dx * p.cm_mu_r.to(x.dtype)
-    kv = torch.square(F.relu(xk @ p.cm_wk)) @ p.cm_wv
-    return (torch.sigmoid(xr @ p.cm_wr) * kv).to(x.dtype), x[:, -1]
+    kv = scatter_cols(torch.square(F.relu(xk @ p.cm_wk)) @ p.cm_wv, ctx)
+    out = torch.sigmoid(xr @ p.cm_wr) * kv
+    out = cols_to_seq(out, ctx) if seq_sharded else gather_cols(out, ctx)
+    return out.to(x.dtype), x[:, -1]
 
 
 def rwkv_time_mix_chunked(p: RWKV, cfg: ModelConfig, x: torch.Tensor, x_prev_last: torch.Tensor,
-                          state: torch.Tensor, chunk: int = 128):
+                          state: torch.Tensor, chunk: int = 128, *, ctx: ShardCtx | None = None,
+                          seq_sharded: bool = False):
     """The reference's parallel form: within a chunk of Q steps the WKV is a
     masked product with cumulative-decay weights, the state carried once a
     chunk.  T must be a multiple of Q = min(chunk, T)."""
-    hs, H = dims(cfg)
-    B, T, D = x.shape
+    B, T, _ = x.shape
     Q = min(chunk, T)
     if T % Q:
         raise ValueError(f"T={T} % chunk={Q}")
     nc = T // Q
-    r, k, v, g, w = _project(p, cfg, x, x_prev_last)
+    r, k, v, g, w = _project(p, cfg, x, x_prev_last, ctx)
+    H, hs = r.shape[2:]
     u = p.bonus
     # log decay, floored so that the factorized exp(+-cum) stays in f32 range
     lw = torch.clamp(torch.log(torch.clamp(w, min=1e-38)), min=-20.0 / Q)
@@ -221,5 +290,5 @@ def rwkv_time_mix_chunked(p: RWKV, cfg: ModelConfig, x: torch.Tensor, x_prev_las
     for n in range(nc):
         y_inter.append(torch.einsum("bqhs,bhsp->bqhp", a[:, n], s))
         s = torch.exp(total[:, n])[..., None] * s + s_chunk[:, n]
-    y = (y_intra + torch.stack(y_inter, dim=1)).reshape(B, T, D)
-    return _output(p, cfg, y, g, x), x[:, -1], s
+    y = (y_intra + torch.stack(y_inter, dim=1)).reshape(B, T, H * hs)
+    return _output(p, cfg, y, g, x, ctx, seq_sharded), x[:, -1], s

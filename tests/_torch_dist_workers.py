@@ -1,18 +1,18 @@
 """Workers of the port's multi-rank parity tests (``test_torch_sharded_sort.py``,
 ``test_torch_distributed.py``, ``test_torch_lm_sharded.py``,
-``test_torch_context_parallel.py``).
+``test_torch_context_parallel.py``, ``test_torch_recurrent_sharded.py``).
 
 Two kinds, both writing numpy arrays to ``.npz`` files that the tests compare:
 
 * ``ref_sort`` / ``ref_dist`` / ``ref_lm_grads`` / ``ref_lm_rest`` /
-  ``ref_cp_train`` / ``ref_cp_rest`` run the JAX package's sharded functions
+  ``ref_cp_train`` / ``ref_cp_rest`` / ``ref_rec_grads`` / ``ref_rec_rest`` run the JAX package's sharded functions
   on fake CPU devices (``ref_cli`` and ``ref_cp_rest`` its CLIs).  They run in a subprocess started by
   :func:`start_reference` with
   ``XLA_FLAGS=--xla_force_host_platform_device_count=N`` (the flag must not
   reach the test process):
   ``python tests/_torch_dist_workers.py ref_sort OUT.npz``.
 * ``sort_rank`` / ``dist_rank`` / ``lm_rank`` / ``cp_rank`` /
-  ``cp_fsdp_rank`` (and the CLI legs ``cli_*``) run one gloo rank of the
+  ``cp_fsdp_rank`` / ``rec_rank`` (and the CLI legs ``cli_*``, ``rec_one``) run one gloo rank of the
   port each, started by
   :func:`start_ranks` (``torch.multiprocessing.start_processes``, a
   ``file://`` rendezvous in the run's own directory, so parallel test
@@ -750,16 +750,16 @@ def lm_rank(rank: int, world: int, rdv: str, out_dir: str) -> None:
 
 
 def _cli_leg(out_dir: str, leg: str, ckpt: str, mesh: str, first: bool, rank: int,
-             spare: str | None = None) -> None:
-    """The training CLI, four steps at ``--mesh mesh`` checkpointing every
-    two, into the directory ``ckpt``; rank 0 writes its records to
-    ``{leg}.npz``.  A first leg sets its step-4 checkpoint aside, so that
-    another run resumes from step 2 (with ``spare``, a copy of the directory
-    under that name for a second run), and then marks it ready."""
+             spare: str | None = None, cli: list[str] = CLI) -> None:
+    """The training CLI (``cli``), four steps at ``--mesh mesh``
+    checkpointing every two, into the directory ``ckpt``; rank 0 writes its
+    records to ``{leg}.npz``.  A first leg sets its step-4 checkpoint aside,
+    so that another run resumes from step 2 (with ``spare``, a copy of the
+    directory under that name for a second run), and then marks it ready."""
     from repro_torch.launch import train as train_cli
 
     d = Path(out_dir).parent / ckpt
-    recs = train_cli.main(CLI + ["--mesh", mesh, "--ckpt-dir", str(d)])
+    recs = train_cli.main(cli + ["--mesh", mesh, "--ckpt-dir", str(d)])
     if rank == 0:
         np.savez(Path(out_dir) / f"{leg}.npz", **{k: np.array([r[k] for r in recs])
                                                   for k in ("step", "loss", "grad_norm")})
@@ -805,10 +805,10 @@ def cli_one(rank: int, world: int, rdv: str, out_dir: str) -> None:
     np.savez(Path(out_dir) / f"rank{rank}.npz", **_serve_legs(None))
 
 
-def _serve_legs(mesh: str | None) -> dict:
-    """The serving CLI (``SERVE_CLI``, f32) at ``--mesh mesh`` (None: no
-    mesh) in each of ``SERVE_MODES``: ``serve_<mode>/tokens``, the requests'
-    tokens by request id."""
+def _serve_legs(mesh: str | None, cli: list[str] = SERVE_CLI) -> dict:
+    """The serving CLI (``cli``, f32) at ``--mesh mesh`` (None: no mesh) in
+    each of ``SERVE_MODES``: ``serve_<mode>/tokens``, the requests' tokens by
+    request id."""
     from repro_torch import configs
     from repro_torch.launch import serve as serve_cli
 
@@ -817,7 +817,7 @@ def _serve_legs(mesh: str | None) -> dict:
     res = {}
     try:
         for mode, flags in SERVE_MODES.items():
-            finished = serve_cli.main(SERVE_CLI + flags + ([] if mesh is None else ["--mesh", mesh]))
+            finished = serve_cli.main(cli + flags + ([] if mesh is None else ["--mesh", mesh]))
             res[f"serve_{mode}/tokens"] = np.array([r.out for r in sorted(finished, key=lambda r: r.rid)])
     finally:
         serve_cli.get_smoke_config = saved
@@ -1115,6 +1115,333 @@ def cp_fsdp_rank(rank: int, world: int, rdv: str, out_dir: str) -> None:
         dist.destroy_process_group()
 
 
+# -- the recurrent LMs on a mesh ------------------------------------------------------
+
+#: The recurrent models: the zamba2 and rwkv6 smoke configs in f32, and
+#: zamba2's as the ``mamba`` kind with SSD heads of 128 (2 heads, 2 groups: at
+#: tp 4 its d_inner columns cut through a head).
+REC_MODELS = {"zamba2": ("zamba2-1.2b", {}), "rwkv6": ("rwkv6-1.6b", {}),
+              "mamba128": ("zamba2-1.2b", {"family": "ssm", "ssm_head_dim": 128})}
+REC_TRAIN = [  # name, model, mesh, sequence parallelism (FSDP over data where it is 2)
+    ("zamba2_2x2", "zamba2", (2, 2), False),
+    ("rwkv6_2x2", "rwkv6", (2, 2), False),
+    ("zamba2_1x4", "zamba2", (1, 4), True),
+    ("rwkv6_1x4", "rwkv6", (1, 4), True),
+    ("mamba128_1x4", "mamba128", (1, 4), False),
+]
+REC_B, REC_T = 4, 32  # T 32: two chunks of the Mamba2 smoke chunk 16
+#: Serving: 6 requests of 8 prompt tokens on 5 slots (none a stack's depth,
+#: R2), 5 tokens each but every odd request 4, so a slot is refilled while
+#: the others decode; a cache of 32 positions (8 a rank at tp 4).
+REC_SERVE = dict(requests=6, prompt=8, steps=5, slots=5, max_len=32)
+#: The CLIs: the training CLI at 2x2 and 1x1 (a checkpoint every 2 steps),
+#: the serving CLI at 1x4 and without a mesh (8 requests on 5 slots).
+REC_CLI = ["--smoke", "--batch", "4", "--seq", "32", "--ckpt-every", "2", "--log-every", "100", "--steps", "4",
+           "--dtype", "float32", "--device", "cpu"]
+REC_SERVE_CLI = ["--smoke", "--device", "cpu", "--requests", "8", "--slots", "5", "--max-tokens", "6",
+                 "--max-len", "32"]
+REC_CLI_ARCHS = ("zamba2", "rwkv6")
+REC_INT8 = "rec_int8_in.npz"
+
+
+def rec_cfg(name: str, get_smoke_config):
+    """``name``'s config (:data:`REC_MODELS`) from either package's getter."""
+    arch, over = REC_MODELS[name]
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
+    if "family" in over:
+        cfg = dataclasses.replace(cfg, family=over["family"],
+                                  ssm=dataclasses.replace(cfg.ssm, head_dim=over["ssm_head_dim"]))
+    return cfg
+
+
+def _rec_leaf(name: str, shape, rng) -> np.ndarray:
+    """One leaf of the inputs' weights: norm scales, ``d_skip`` and
+    ``ln_scale`` near 1; ``dt_bias`` and ``a_log`` N(0, 0.5); RWKV6's
+    leaves about the reference's init, perturbed as ``_torch_rwkv_ref.py``
+    does: the token-shift mixes 0.5 + N(0, 0.1), ``w0`` uniform on [-6, 3]
+    (decays from 0.9975 down to 2e-9), ``bonus`` and the ``mb_*`` N(0, 0.1),
+    ``wa``, ``wb`` and the ``ma_*`` N(0, 0.01); the table N(0, 0.02), any
+    other matrix N(0, 1) / sqrt(d_in) (``conv_k`` over its width)."""
+    leaf = name.rsplit(".", 1)[-1]
+    if leaf in ("scale", "ln_scale", "norm_scale", "d_skip"):
+        return 1.0 + 0.1 * rng.standard_normal(shape)
+    if leaf.startswith(("mu_", "cm_mu_")):
+        return 0.5 + 0.1 * rng.standard_normal(shape)
+    if leaf == "w0":
+        return rng.uniform(-6.0, 3.0, shape)
+    if leaf in ("dt_bias", "a_log"):
+        return 0.5 * rng.standard_normal(shape)
+    if leaf == "bonus" or leaf.startswith("mb_"):
+        return 0.1 * rng.standard_normal(shape)
+    if ".rwkv." in name and (leaf in ("wa", "wb") or leaf.startswith("ma_")):
+        return 0.01 * rng.standard_normal(shape)
+    if len(shape) == 1:  # biases
+        return np.zeros(shape)
+    return rng.standard_normal(shape) * (0.02 if leaf == "table" else shape[0] ** -0.5)
+
+
+def rec_inputs(out: Path) -> None:
+    """Write each recurrent model's weights (the reference's tree, f32) and
+    token batches to ``out``, and the serving prompts.  Runs in the test
+    process."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.models.convert import params_to_reference
+    from repro_torch.models.lm import LM
+
+    rng = np.random.default_rng(11)
+    res = {}
+    for name in REC_MODELS:
+        cfg = rec_cfg(name, configs.get_smoke_config)
+        state = {n: torch.from_numpy(_rec_leaf(n, p.shape, rng).astype(np.float32))
+                 for n, p in LM(cfg, device="cpu").named_parameters()}
+        res.update({f"{name}/params/{k}": v for k, v in flatten(params_to_reference(state)).items()})
+        res[f"{name}/tokens"] = rng.integers(0, cfg.vocab_size, (3, REC_B, REC_T)).astype(np.int32)
+        res[f"{name}/labels"] = rng.integers(0, cfg.vocab_size, (3, REC_B, REC_T)).astype(np.int32)
+        res[f"{name}/prompts"] = rng.integers(0, cfg.vocab_size, (REC_SERVE["requests"], REC_SERVE["prompt"]))
+    np.savez(out, **res)
+
+
+def rec_max_tokens(i: int) -> int:
+    """Request ``i``'s token budget in the engine's run (:data:`REC_SERVE`)."""
+    return REC_SERVE["steps"] - i % 2
+
+
+def ref_rec(out: str, part: str) -> None:
+    """The reference's side of ``test_torch_recurrent_sharded.py`` on 4 fake
+    devices, in two parts that run side by side: ``grads`` (the loss and
+    gradients of each model once, on the (2, 2) mesh with FSDP, mamba128 on
+    the (1, 4) mesh: the reference's loss is the same function on either
+    mesh, SP a layout; then its int8 compressor on the port's zamba2
+    gradient) and ``rest`` (two AdamW steps on the (2, 2) mesh with FSDP;
+    on the (1, 4) serving context each model's prefill of the prompts but
+    their last token and greedy decode from it)."""
+    import jax
+    import jax.numpy as jnp
+
+    from repro import models
+    from repro.configs import get_smoke_config
+    from repro.distributed.compat import make_mesh
+    from repro.distributed.collectives import make_int8_compressor
+    from repro.distributed.sharding import ShardCtx, local_ctx
+    from repro.train.optimizer import AdamWConfig, init_opt_state
+    from repro.train.train_step import build_train_step
+
+    d = Path(out).parent
+    inputs = dict(np.load(d / "inputs.npz"))
+    res = {}
+
+    def params_of(name):
+        pre = f"{name}/params/"
+        return jax.tree.map(jnp.asarray, unflatten({k[len(pre):]: v for k, v in inputs.items() if k.startswith(pre)}))
+
+    def batch_of(name, i):
+        return {"tokens": jnp.asarray(inputs[f"{name}/tokens"][i]), "labels": jnp.asarray(inputs[f"{name}/labels"][i])}
+
+    def ctx_of(mesh, **kw):
+        return ShardCtx(mesh=make_mesh(mesh, ("data", "model")), tp="model", dp=("data",), **kw)
+
+    if part == "grads":
+        for name, mesh in (("zamba2", (2, 2)), ("rwkv6", (2, 2)), ("mamba128", (1, 4))):
+            model = models.build(rec_cfg(name, get_smoke_config), ctx_of(mesh, fsdp="data"))
+            (loss, met), g = jax.jit(jax.value_and_grad(model.loss, has_aux=True))(params_of(name), batch_of(name, 0))
+            res[f"{name}/loss"], res[f"{name}/ce"] = np.asarray(loss), np.asarray(met["ce"])
+            res.update({f"{name}/grad/{k}": v for k, v in flatten(g).items()})
+        _wait_ready(d, REC_INT8, "")
+        grads = dict(np.load(d / REC_INT8))
+        compress, init = make_int8_compressor(local_ctx())
+        res.update({f"int8/{k}": np.asarray(v) for k, v in compress(grads, init(grads))[0].items()})
+    else:
+        opt = AdamWConfig(**OPT)
+        for name in ("zamba2", "rwkv6"):
+            model = models.build(rec_cfg(name, get_smoke_config), ctx_of((2, 2), fsdp="data"))
+            params = params_of(name)
+            state = init_opt_state(params, opt)
+            step = jax.jit(build_train_step(model, opt))
+            for i in range(2):
+                params, state, met = step(params, state, batch_of(name, i + 1))
+                res[f"adamw/{name}/loss{i}"] = np.asarray(met["loss"])
+                res[f"adamw/{name}/grad_norm{i}"] = np.asarray(met["grad_norm"])
+            res.update({f"adamw/{name}/params/{k}": v for k, v in flatten(params).items()})
+        for name in REC_MODELS:
+            model = models.build(rec_cfg(name, get_smoke_config), ctx_of((1, 4), fsdp=None))
+            params = params_of(name)
+            prompts = inputs[f"{name}/prompts"]
+            cache = model.init_cache(prompts.shape[0], REC_SERVE["max_len"])
+            logits, cache = jax.jit(model.prefill)(params, {"tokens": jnp.asarray(prompts[:, :-1])}, cache)
+            res[f"prefill/{name}/logits"] = np.asarray(logits)
+            step = jax.jit(model.decode_step)
+            tok, toks = jnp.asarray(prompts[:, -1].astype(np.int32)), []
+            for _ in range(REC_SERVE["steps"]):
+                logits, cache = step(params, cache, tok)
+                tok = jnp.argmax(logits, axis=-1).astype(jnp.int32)
+                toks.append(np.asarray(tok))
+            res[f"decode/{name}/tokens"] = np.stack(toks, axis=1)
+    np.savez(out, **res)
+
+
+def _rec_model(inputs: dict, name: str, ctx, **kw):
+    """The port's ``name`` on ``ctx`` (None: one device), this rank's shard
+    of the inputs' weights."""
+    from repro_torch import configs
+    from repro_torch.models.convert import params_from_reference
+    from repro_torch.models.lm import LM
+
+    cfg = rec_cfg(name, configs.get_smoke_config)
+    pre = f"{name}/params/"
+    tree = unflatten({k[len(pre):]: v for k, v in inputs.items() if k.startswith(pre)})
+    model = LM(cfg, ctx, device="cpu", **kw)
+    model.load_state_dict(params_from_reference(tree, ctx, cfg))
+    return model
+
+
+def _rec_grads(inputs: dict, name: str, ctx, rank: int, tag: str, **kw) -> dict:
+    """The port's loss on this rank and (rank 0) every gradient leaf, summed
+    over its replicated axes and gathered whole, of the batch ``0`` of
+    ``name`` on ``ctx``; with the rank's reduced gradient under ``grads``."""
+    import torch
+
+    from repro_torch.models.convert import params_to_reference
+    from repro_torch.train.train_step import shard_batch, sync_grads
+
+    model = _rec_model(inputs, name, ctx, **kw).requires_grad_(True)
+    b = {"tokens": inputs[f"{name}/tokens"][0], "labels": inputs[f"{name}/labels"][0]}
+    loss, met = model.loss({k: torch.from_numpy(v) for k, v in shard_batch(b, ctx).items()})
+    names = [n for n, _ in model.named_parameters()]
+    grads = torch.autograd.grad(loss, [p for _, p in model.named_parameters()])
+    grads = dict(zip(names, grads))
+    if ctx is not None:
+        grads = sync_grads(grads, ctx, model.param_specs())
+    res = {f"{tag}/loss": loss.detach().numpy(), f"{tag}/ce": met["ce"].detach().numpy()}
+    whole = params_to_reference(grads, ctx, model.cfg)
+    if rank == 0:
+        res.update({f"{tag}/grad/{k}": v for k, v in flatten(whole).items()})
+    return res, grads, model
+
+
+def rec_rank(rank: int, world: int, rdv: str, out_dir: str) -> None:
+    """The port's side on one of 4 ranks: the training cases on the (2, 2)
+    and (1, 4) meshes (and rwkv6's chunked form on the (1, 4) mesh beside one
+    device), the int8 compressor, two AdamW steps, prefill on both serving
+    meshes, the ``Engine`` at tp 4 and the host-read guard over its decode
+    step, the training CLI at ``--mesh 2x2`` (four steps, the step-4
+    checkpoint set aside for :func:`rec_one`) and the serving CLI at
+    ``--mesh 1x4``."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.distributed.collectives import make_int8_compressor
+    from repro_torch.distributed.compat import make_mesh
+    from repro_torch.models.convert import params_to_reference
+    from repro_torch.serve.engine import Engine, Request
+    from repro_torch.train.optimizer import AdamWConfig, init_opt_state
+    from repro_torch.train.train_step import build_train_step, shard_batch
+
+    from _torch_host_reads import NoHostReads
+
+    _init(rank, world, rdv)
+    try:
+        inputs = dict(np.load(Path(out_dir).parent / "inputs.npz"))
+        meshes = {m: make_mesh(m, ("data", "model"), device_type="cpu") for m in ((2, 2), (1, 4))}
+        res = {}
+        for tag, name, mesh, sp in REC_TRAIN:
+            ctx = _lm_ctx(meshes[mesh], fsdp="data" if mesh[0] > 1 else None, sp=sp)
+            out, grads, model = _rec_grads(inputs, name, ctx, rank, tag)
+            res.update(out)
+            if tag == "zamba2_2x2":  # the int8 compressor on the shards of the reduced gradient
+                compress, init_res = make_int8_compressor(ctx, model.param_specs())
+                packed = params_to_reference(compress(grads, init_res(grads))[0], ctx, model.cfg)
+                whole = params_to_reference(grads, ctx, model.cfg)
+                if rank == 0:
+                    res.update({f"int8/{k}": v for k, v in flatten(packed).items()})
+                    np.savez(Path(out_dir) / "rec_int8.tmp.npz", **flatten(whole))
+                    (Path(out_dir) / "rec_int8.tmp.npz").rename(Path(out_dir).parent / REC_INT8)
+        if rank == 0:  # rwkv6 on one device, for the mesh's gradients
+            res.update(_rec_grads(inputs, "rwkv6", None, 0, "rwkv6_one")[0])
+        # rwkv6's chunked form at tp 4 under SP (heads cut) against one device
+        ctx = _lm_ctx(meshes[(1, 4)], fsdp=None, sp=True)
+        res.update(_rec_grads(inputs, "rwkv6", ctx, rank, "chunked_1x4", rwkv_chunked=True)[0])
+        if rank == 0:
+            res.update(_rec_grads(inputs, "rwkv6", None, 0, "chunked_one", rwkv_chunked=True)[0])
+
+        opt = AdamWConfig(**OPT)
+        for name in ("zamba2", "rwkv6"):
+            ctx = _lm_ctx(meshes[(2, 2)], fsdp="data")
+            model = _rec_model(inputs, name, ctx).requires_grad_(True)
+            state = init_opt_state(dict(model.named_parameters()), opt)
+            step = build_train_step(model, opt)
+            for i in range(2):
+                b = {"tokens": inputs[f"{name}/tokens"][i + 1], "labels": inputs[f"{name}/labels"][i + 1]}
+                state, met = step(state, {k: torch.from_numpy(v) for k, v in shard_batch(b, ctx).items()})
+                res[f"adamw/{name}/loss{i}"] = float(met["loss"])
+                res[f"adamw/{name}/grad_norm{i}"] = float(met["grad_norm"])
+            whole = params_to_reference(model.state_dict(), ctx, model.cfg)
+            if rank == 0:
+                res.update({f"adamw/{name}/params/{k}": v for k, v in flatten(whole).items()})
+
+        for name in REC_MODELS:
+            prompts = inputs[f"{name}/prompts"]
+            for mesh in ((2, 2), (1, 4)):
+                ctx = _lm_ctx(meshes[mesh], fsdp=None)
+                model = _rec_model(inputs, name, ctx)
+                rows = shard_batch({"p": prompts[:, :-1]}, ctx)["p"]
+                cache = model.init_cache(rows.shape[0], REC_SERVE["max_len"])
+                res[f"prefill/{name}/{mesh[0]}x{mesh[1]}"] = model.prefill(torch.from_numpy(rows), cache)[0].numpy()
+            # the engine at tp 4 (serving takes one data rank): every slot on every rank
+            ctx = _serve_ctx(meshes[(1, 4)])
+            model = _rec_model(inputs, name, ctx)
+            cache = model.init_cache(2, REC_SERVE["max_len"])
+            with NoHostReads():
+                model.decode_step(cache, torch.tensor([1, 2]))
+            eng = Engine(model, slots=REC_SERVE["slots"], max_len=REC_SERVE["max_len"], device="cpu")
+            for i, p in enumerate(prompts):
+                eng.add(Request(rid=i, prompt=[int(t) for t in p], max_tokens=rec_max_tokens(i)))
+            finished = sorted(eng.run(), key=lambda r: r.rid)
+            res[f"engine/{name}/tokens"] = np.array([r.out + [-1] * (REC_SERVE["steps"] - len(r.out))
+                                                     for r in finished])
+            res[f"engine/{name}/decode_steps"] = np.array(eng.decode_steps)
+
+        for name in REC_CLI_ARCHS:
+            arch = REC_MODELS[name][0]
+            _cli_leg(out_dir, f"cli_{name}", f"cli_{name}", "2x2", True, rank, cli=REC_CLI + ["--arch", arch])
+            for mode, legs in _serve_legs("1x4", REC_SERVE_CLI + ["--arch", arch]).items():
+                res[f"cli/{name}/{mode}"] = legs
+        np.savez(Path(out_dir) / f"rank{rank}.npz", **res)
+    finally:
+        dist.destroy_process_group()
+
+
+def _serve_ctx(mesh):
+    """The serving CLI's context on ``mesh``: tp over ``model``, no fsdp and
+    no batch axis (the engine holds every slot on every rank)."""
+    from repro_torch.distributed.sharding import ShardCtx
+
+    return ShardCtx(mesh=mesh, tp="model", fsdp=None, dp=())
+
+
+def rec_one(rank: int, world: int, rdv: str, out_dir: str) -> None:
+    """One rank: the training CLI at ``--mesh 1x1`` for zamba2 and rwkv6,
+    four steps each, then each resumes the 2x2 run's directory from step 2;
+    then the serving CLI without a mesh."""
+    import torch.distributed as dist
+
+    _init(rank, world, rdv)
+    try:
+        for name in REC_CLI_ARCHS:
+            cli = REC_CLI + ["--arch", REC_MODELS[name][0]]
+            _cli_leg(out_dir, f"one_{name}", f"one_{name}", "1x1", False, rank, cli=cli)
+            _wait_ready(Path(out_dir).parent, f"cli_{name}")
+            _cli_leg(out_dir, f"resume_{name}", f"cli_{name}", "1x1", False, rank, cli=cli)
+    finally:
+        dist.destroy_process_group()
+    res = {}
+    for name in REC_CLI_ARCHS:
+        for mode, legs in _serve_legs(None, REC_SERVE_CLI + ["--arch", REC_MODELS[name][0]]).items():
+            res[f"cli/{name}/{mode}"] = legs
+    np.savez(Path(out_dir) / f"rank{rank}.npz", **res)
+
+
 # -- bounded runs --------------------------------------------------------------------
 
 
@@ -1214,4 +1541,5 @@ if __name__ == "__main__":
     {"ref_sort": ref_sort, "ref_dist": ref_dist, "ref_cli": ref_cli,
      "ref_lm_grads": lambda out: ref_lm(out, "grads"), "ref_lm_rest": lambda out: ref_lm(out, "rest"),
      "ref_cp_train": lambda out: ref_cp(out, "train"), "ref_cp_rest": lambda out: ref_cp(out, "rest"),
+     "ref_rec_grads": lambda out: ref_rec(out, "grads"), "ref_rec_rest": lambda out: ref_rec(out, "rest"),
      }[sys.argv[1]](sys.argv[2])

@@ -260,9 +260,11 @@ def test_serve_cli_runs_zamba2_on_cpu(capsys):
 
 
 def _sizes_ctx(data: int, model: int, **kw):
-    """A ShardCtx whose mesh answers only its axes' sizes (no process group)."""
+    """A ShardCtx whose mesh answers only its axes' sizes, every rank
+    coordinate 0 (no process group)."""
     sizes = {"data": data, "model": model}
-    mesh = types.SimpleNamespace(mesh_dim_names=tuple(sizes), size=lambda i: list(sizes.values())[i])
+    mesh = types.SimpleNamespace(mesh_dim_names=tuple(sizes), size=lambda i: list(sizes.values())[i],
+                                 get_local_rank=lambda name: 0)
     return ShardCtx(mesh=mesh, tp="model", **kw)
 
 
@@ -271,9 +273,20 @@ def _sizes_ctx(data: int, model: int, **kw):
     ShardCtx.grid(model=(0, 1), data=(1, 2)),
 ], ids=["2x2", "tp2", "fsdp2", "sp", "grid_fsdp2"])
 def test_mesh_raises_naming_the_later_slice(ctx):
+    """On a mesh the Mamba2 kinds build, each block this rank's shard of the
+    reference's ``spec_mamba`` (d_inner over tp, D over fsdp; the smoke
+    model's 2 groups cut at tp 2); what stays refused is embedding inputs to
+    them, naming its later slice."""
+    tp, fsdp = ctx.tp_size, ctx.axis_size(ctx.fsdp)
     for variant in ("hybrid", "ssm"):
-        with pytest.raises(NotImplementedError, match="spec_mamba.*later slice"):
-            models.build(pair(variant)[3].cfg, ctx=ctx, device="cpu")
+        cfg = pair(variant)[3].cfg
+        with pytest.raises(NotImplementedError, match="precomputed-embedding inputs.*later slice"):
+            models.build(dataclasses.replace(cfg, input_kind="embeds"), ctx=ctx, device="cpu")
+        blk = models.build(cfg, ctx=ctx, device="cpu").layers[0].mamba
+        s, d_inner, _ = mamba2.dims(cfg)
+        assert blk.wx.shape == (cfg.d_model // fsdp, d_inner // tp)
+        assert blk.wb.shape == (cfg.d_model // fsdp, s.num_groups * s.state_dim // tp)
+        assert blk.conv_k.shape == (s.conv_width, mamba2.conv_channels(cfg))
 
 
 def test_one_by_one_mesh_builds():

@@ -462,9 +462,11 @@ def test_serve_cli_runs_rwkv_on_cpu(capsys):
 
 
 def _sizes_ctx(data: int, model: int, **kw):
-    """A ShardCtx whose mesh answers only its axes' sizes (no process group)."""
+    """A ShardCtx whose mesh answers only its axes' sizes, every rank
+    coordinate 0 (no process group)."""
     sizes = {"data": data, "model": model}
-    mesh = types.SimpleNamespace(mesh_dim_names=tuple(sizes), size=lambda i: list(sizes.values())[i])
+    mesh = types.SimpleNamespace(mesh_dim_names=tuple(sizes), size=lambda i: list(sizes.values())[i],
+                                 get_local_rank=lambda name: 0)
     return ShardCtx(mesh=mesh, tp="model", **kw)
 
 
@@ -473,8 +475,20 @@ def _sizes_ctx(data: int, model: int, **kw):
     ShardCtx.grid(model=(0, 1), data=(1, 2)),
 ], ids=["2x2", "tp2", "fsdp2", "sp", "grid_fsdp2"])
 def test_mesh_raises_naming_the_later_slice(ctx):
-    with pytest.raises(NotImplementedError, match="RWKV6.*spec_rwkv.*later slice"):
-        models.build(pair()[3].cfg, ctx=ctx, device="cpu")
+    """On a mesh the RWKV6 kind builds, each block this rank's shard of the
+    reference's ``spec_rwkv`` (D over tp and fsdp, ``bonus`` and the cache's
+    ``wkv`` by heads); what stays refused is embedding inputs to it, naming
+    its later slice."""
+    tp, fsdp = ctx.tp_size, ctx.axis_size(ctx.fsdp)
+    cfg = pair()[3].cfg
+    with pytest.raises(NotImplementedError, match="precomputed-embedding inputs.*later slice"):
+        models.build(dataclasses.replace(cfg, input_kind="embeds"), ctx=ctx, device="cpu")
+    port = models.build(cfg, ctx=ctx, device="cpu")
+    D, H = cfg.d_model, cfg.d_model // cfg.rwkv.head_size
+    blk = port.layers[0].rwkv
+    assert blk.wr.shape == (D // fsdp, D // tp) and blk.mb_w.shape == (cfg.rwkv.mix_lora, D // tp)
+    assert blk.bonus.shape == (H // tp, 64) and blk.mu_x.shape == (D,)
+    assert port.init_cache(1, 8)["wkv"].shape == (3, 1, H // tp, 64, 64)
 
 
 def test_one_by_one_mesh_builds():

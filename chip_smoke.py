@@ -159,8 +159,11 @@ depth, trained at 4 of 60 layers) and the example twins.  Phases, one JSON line 
    lengths, some 0, K6 with lse on each, ``merge_partials``) against
    whole-cache K6, with K6's graph ms without and with the lse and at the
    chunk shape; the vocab-parallel cross entropy at 131,072 columns over
-   four shards against one shard's and the library's.  The ``kernels``
-   line's K6 row gains ``lse``, K5's, K5b's and K3's their launches there;
+   four shards against one shard's and the library's; whisper-small and
+   llava-next-34b (4 of 60 layers) trained 3 steps at their train phases'
+   shapes on the (1, 1) mesh against no mesh, the same bytes
+   (``families``).  The ``kernels`` line's K6 row gains ``lse``, K5's,
+   K5b's and K3's their launches there;
 12. ``cp`` (after ``lm_mesh``, before the ``kernels`` line) -- context
    parallelism on one card: K5 (with its lse) and K5b at query offsets 0,
    64, 100 and 230 (T 70 rows of S 300) against their plain versions in
@@ -253,12 +256,22 @@ depth, trained at 4 of 60 layers) and the example twins.  Phases, one JSON line 
    of 4 slots, 32 greedy token steps of all 4 through the captured decode
    step and the eager one, tokens equal: K5 60 a prefill, K6 60 nodes a
    replay, held), then ``TRAIN_EMBEDS`` (4 of 60 layers, B 1 x 2,048, 3
-   steps).  The ``kernels`` line's K5, K6 and K5b rows gain ``whisper``
-   (K5: the encoder's and the training cross-attention's shapes; K6: the
-   self and the cross cache; K5b: the encoder's and the cross shape) and
-   ``llava`` (G 7: the largest prefill, the decode step, the training
-   shape), each with launches, eager and graph ms, the plain and SDPA
-   times and a bound of T x S pairs without the causal mask;
+   steps).  Each serve phase runs its graph run again on the (1, 1) mesh
+   (``mesh_1x1``: the model's twin there, built on the meta device and
+   given the model's own tensors), tokens and prefill logits the same bytes
+   as without the mesh, launches held as there.  The ``kernels`` line's K5,
+   K6 and K5b rows gain ``whisper`` (K5: the encoder's and the training
+   cross-attention's shapes; K6: the self and the cross cache; K5b: the
+   encoder's and the cross shape) and ``llava`` (G 7: the largest prefill,
+   the decode step, the training shape), each with launches, eager and
+   graph ms, the plain and SDPA times and a bound of T x S pairs without
+   the causal mask, and ``lm_mesh_launches``: the (1, 1) runs' launches by
+   shape (``AttnRecorder``; K6's as the captured step's calls by shape
+   times its replays); and ``whisper_tp4`` / ``llava_tp4`` (K6:
+   ``*_tp4_chunk``), the same at a tp-4 rank's shapes (whisper's 3 of 12
+   heads, llava's 14 over 2 kv heads; K6 with its lse on a chunk of every
+   head: 112 and 375 positions, 1,024), with no launch count (no run here
+   is tp 4);
 17. ``examples`` -- each example twin (``examples/torch_*.py``) once on the
    card at its reference example's default size, one after the other, its
    lines (times, the serve twin's sampled tokens and the training twin's
@@ -470,8 +483,9 @@ TP4 = dict(tp=4, wkv=(4, 2048, 32), wkv_slots=4, attn=(4, 2048, 32, 64),
 #: rank).  The card's atomic adds (the MoE gathers' and the embedding's
 #: backward) are not reproducible from run to run (they moved a first step's
 #: gradient norm by 1.7e-5 relative), so both runs use torch's deterministic
-#: algorithms (those adds sorted), where the two should give the same bytes.
-LM_MESH_TRAIN_LIMIT = 1e-5
+#: algorithms (those adds sorted), where the two give the same bytes: every
+#: arch of the phase has (granite, zamba2, rwkv6, whisper, llava).
+LM_MESH_TRAIN_LIMIT = 0.0
 #: The merged shards' mean cross entropy against one shard's and the
 #: library's: f32 sums over 2^17 columns in other orders.
 LM_MESH_CE_LIMIT = 1e-5
@@ -2080,6 +2094,21 @@ class AttnRecorder:
         return False
 
 
+def shape_launches(rec: AttnRecorder, launches: dict, per: int = 1) -> list:
+    """``rec``'s calls by shape as ``[[q shape, k shape, causal], calls /
+    per]`` pairs (JSON), their sum held to the wrapper's launch count in
+    ``launches`` (``per``: calls a launch, 2 for a graph capture's warm-up
+    and captured step)."""
+    name = {"flash_attention": "flash_attention", "flash_attention_bwd": "flash_attention_bwd",
+            "decode_attention_kernel": "decode_attention"}[rec.attr]
+    pairs = [[[list(q), list(k), c], n // per] for (q, k, c), n in rec.calls.items()]
+    if sum(n for _, n in pairs) * per != sum(rec.calls.values()):
+        fail(f"{name}: {rec.calls} calls are not {per} a launch")
+    if sum(n for _, n in pairs) != launches[name]:
+        fail(f"{name}: {sum(n for _, n in pairs)} calls by shape, {launches[name]} launches counted")
+    return pairs
+
+
 class SyncTimer:
     """Wraps a model method: synchronises the card on entry and exit and adds
     the wall seconds to ``seconds`` (each call's in ``times``); ``after`` sees
@@ -3087,13 +3116,13 @@ def recurrent_stages(torch, model, batch, adamw_s: float, step_s: float) -> dict
         return float(sorted(times)[1])
 
     kind, layer_fn = ("rwkv", model._rwkv_layer) if model.kind == "rwkv" else ("mamba", model._mamba_layer)
-    block = timed(lambda x: checkpoint(layer_fn, model.layers[0], x, positions, use_reentrant=False)[0],
+    block = timed(lambda x: checkpoint(layer_fn, model.layers[0], x, positions, False, use_reentrant=False)[0],
                   model.layers[0])
     n_blocks, n_shared = model.cfg.num_layers, attention_layers(model.cfg)
     out = {f"{kind}_block_s": block, f"{kind}_blocks": n_blocks, f"{kind}_blocks_s": n_blocks * block}
     shared_s = 0.0
     if n_shared:
-        shared = timed(lambda x: checkpoint(model._block, model.shared, x, positions, use_reentrant=False)[0],
+        shared = timed(lambda x: checkpoint(model._block, model.shared, x, positions, False, use_reentrant=False)[0],
                        model.shared)
         shared_s = n_shared * shared
         out.update({"shared_invocation_s": shared, "shared_invocations": n_shared, "shared_blocks_s": shared_s})
@@ -3654,18 +3683,25 @@ def lm_mesh_per_step(cfg) -> dict:
 def lm_mesh_train(torch, np, args, ctx, run: dict) -> dict:
     """``run["arch"]``'s train step on the (1, 1) mesh against the step
     without a mesh: ``run["steps"]`` steps of each from ``--seed`` on the
-    same ``TokenPipeline`` batches, both in torch's deterministic mode; loss
-    and gradient norm within ``LM_MESH_TRAIN_LIMIT`` relative at every step;
-    every kernel of the path held to its launches per step on both
-    (``lm_mesh_per_step``; counters zeroed just before each run, read just
-    after)."""
+    same batches (``batch_source``: ``TokenPipeline``'s, or the
+    encoder-decoder's frames and tokens, an embeddings model's rows; at
+    ``run["layers"]`` layers where it is given), both in torch's
+deterministic mode; loss and gradient norm within
+    ``LM_MESH_TRAIN_LIMIT`` relative at every step; every kernel of the path
+    held to its launches per step on both (``lm_mesh_per_step``; counters
+    zeroed just before each run, read just after); K5's and K5b's calls by
+    shape (``AttnRecorder``, their sums held to the counts)."""
+    import dataclasses
+
     from repro_torch import configs, models
-    from repro_torch.data.tokens import TokenPipeline
     from repro_torch.kernels import build
+    from repro_torch.models import attention as attn_mod
     from repro_torch.train.optimizer import AdamWConfig, init_opt_state
     from repro_torch.train.train_step import build_train_step, shard_batch
 
     cfg = configs.get_config(run["arch"])
+    if run.get("layers"):
+        cfg = dataclasses.replace(cfg, num_layers=run["layers"])
     per_step = lm_mesh_per_step(cfg)
 
     def train(c):
@@ -3676,19 +3712,22 @@ def lm_mesh_train(torch, np, args, ctx, run: dict) -> dict:
         opt_cfg = AdamWConfig(lr=run["lr"])
         opt_state = init_opt_state(dict(model.named_parameters()), opt_cfg)
         step = build_train_step(model, opt_cfg)
-        pipe = TokenPipeline(cfg.vocab_size, run["batch"], run["seq"], seed=args.seed)
+        next_batch = batch_source(torch, cfg, run["batch"], run["seq"], args.seed, "cuda", run.get("frames", 0))
         recs = []
         torch.cuda.synchronize()
         build.reset_launches()
-        for i in range(run["steps"]):
-            batch = {k: torch.from_numpy(v).cuda() for k, v in shard_batch(pipe.next_batch(), c).items()}
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            opt_state, met = step(opt_state, batch)
-            torch.cuda.synchronize()
-            recs.append({"step": i, "ms": (time.perf_counter() - t0) * 1e3, "loss": float(met["loss"]),
-                         "grad_norm": float(met["grad_norm"])})
+        with AttnRecorder(attn_mod, "flash_attention") as k5_in, \
+                AttnRecorder(attn_mod, "flash_attention_bwd") as k5b_in:
+            for i in range(run["steps"]):
+                batch = shard_batch(next_batch(), c)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                opt_state, met = step(opt_state, batch)
+                torch.cuda.synchronize()
+                recs.append({"step": i, "ms": (time.perf_counter() - t0) * 1e3, "loss": float(met["loss"]),
+                             "grad_norm": float(met["grad_norm"])})
         launches = dict(build.LAUNCHES)
+        shapes = {"flash_attention": shape_launches(k5_in, launches), "flash_attention_bwd": shape_launches(k5b_in, launches)}
         peak = torch.cuda.max_memory_allocated()
         del model, opt_state, step
         torch.cuda.empty_cache()
@@ -3699,7 +3738,8 @@ def lm_mesh_train(torch, np, args, ctx, run: dict) -> dict:
         if not all(np.isfinite([r["loss"], r["grad_norm"]]).all() for r in recs):
             fail("lm_mesh train: a loss or gradient norm is not finite")
         return {"steps": recs, "step_ms_median_after_first": float(np.median([r["ms"] for r in recs[1:]])),
-                "peak_allocated_bytes": peak, "launches": {k: launches[k] for k in per_step}}
+                "peak_allocated_bytes": peak, "launches": {k: launches[k] for k in per_step},
+                "shape_launches": shapes}
 
     torch.use_deterministic_algorithms(True, warn_only=True)
     try:
@@ -3716,7 +3756,8 @@ def lm_mesh_train(torch, np, args, ctx, run: dict) -> dict:
                 fail(f"lm_mesh train {cfg.name} step {a['step']}: {key} {b[key]} on the (1, 1) mesh, "
                      f"{a[key]} without")
     return {"arch": cfg.name, "layers": cfg.num_layers, "config": run, "tokens_per_step": run["batch"] * run["seq"],
-            "deterministic_algorithms": True, "no_mesh": plain, "mesh_1x1": mesh, "max_rel_diff": worst, "limit": LM_MESH_TRAIN_LIMIT}
+            "deterministic_algorithms": True, "no_mesh": plain, "mesh_1x1": mesh, "max_rel_diff": worst,
+            "bit_equal": worst == 0.0, "limit": LM_MESH_TRAIN_LIMIT}
 
 
 def lm_mesh_serve(torch, args, arch: str = LM_MESH["serve_arch"]) -> dict:
@@ -3911,18 +3952,14 @@ def tp4_wkv_rows(wk, torch, gen) -> dict:
     return out
 
 
-def tp4_attention_rows(fa, fb, da, torch, gen) -> dict:
+def tp4_attention_rows(fa, fb, torch, gen) -> dict:
     """K5 and K5b at a tp-4 rank's share of zamba2-1.2b's shared block
     (``TP4["attn"]``: 8 of 32 heads, causal, bf16) through ``k5_row_at`` and
     ``k5b_row``; K6 with its lse on the first tp-4 chunk of zamba2's
     sequence-sharded decode cache (``TP4["k6"]``: S / 4 positions, every kv
-    head, chunk-local lengths) against its plain version (output within
-    ``attn_limit``, lse within ``lse_limit`` of f32), eager and graph ms
-    beside the bound and SDPA's with the lengths' mask.  No launch count:
+    head, chunk-local lengths) through ``k6_lse_row_at``.  No launch count:
     nothing here runs a tp-4 path (``scripts/sharded_cards.py`` counts a
     rank's launches on four cards)."""
-    import torch.nn.functional as F
-
     tp, (b, t, h, d) = TP4["tp"], TP4["attn"]
     hl = h // tp
     bf16 = torch.bfloat16
@@ -3930,31 +3967,99 @@ def tp4_attention_rows(fa, fb, da, torch, gen) -> dict:
            "flash_attention_bwd": {**k5b_row(fa, fb, torch, gen, (b, t, t, hl, hl, d, True)), "tp": tp}}
     k6 = TP4["k6"]
     chunk = k6["cache"][1] // tp
-    q = randn(torch, gen, k6["q"], bf16, QK_SCALE)
     cache = (k6["cache"][0], chunk, *k6["cache"][2:])
-    kc = randn(torch, gen, (2, *cache), bf16, QK_SCALE)[-1]
-    vc = randn(torch, gen, (2, *cache), bf16)[-1]
-    lengths = [min(n, chunk) for n in k6["lengths"]]
+    out["decode_attention"] = {**k6_lse_row_at(torch, gen, k6["q"], cache, [min(n, chunk) for n in k6["lengths"]]),
+                               "tp": tp}
+    return out
+
+
+def k6_lse_row_at(torch, gen, q_shape, cache_shape, lengths: list[int], launches=None) -> dict:
+    """K6 with its lse on one rank's chunk of a sequence-sharded cache
+    (chunk-local ``lengths``) against its plain version (output within
+    ``attn_limit``, lse within ``lse_limit`` of f32), eager and graph ms
+    beside the bound and SDPA's with the lengths' mask; ``launches`` where
+    a path's run counted them."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import decode_attention as da
+
+    bf16 = torch.bfloat16
+    d, chunk = q_shape[2], cache_shape[1]
+    q = randn(torch, gen, q_shape, bf16, QK_SCALE)
+    kc = randn(torch, gen, (2, *cache_shape), bf16, QK_SCALE)[-1]
+    vc = randn(torch, gen, (2, *cache_shape), bf16)[-1]
     lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
     o, lse = da.decode_attention(q, kc, vc, lens, return_lse=True)
     po, plse = da.decode_attention_plain(q, kc, vc, lens, return_lse=True)
-    err = allclose_err(o, po, "K6 with lse on a tp-4 chunk")
+    err = allclose_err(o, po, f"K6 with lse on a chunk of {chunk}")
     lse_err = float((lse - plse).abs().max())
     if not lse_err <= lse_limit(torch.float32):
-        fail(f"K6's lse on a tp-4 chunk differs from the plain logsumexp by {lse_err}")
-    flops, bytes_ = k6_work(lengths, k6["q"][1], cache[2], d, 2)
+        fail(f"K6's lse on a chunk of {chunk} differs from the plain logsumexp by {lse_err}")
+    flops, bytes_ = k6_work(lengths, q_shape[1], cache_shape[2], d, 2)
     b_ms, b_by = attn_bound(flops, bytes_)
     mask = (torch.arange(chunk, device="cuda")[None, :] < lens[:, None])[:, None, None, :]
     kern = lambda: da.decode_attention(q, kc, vc, lens, return_lse=True)  # noqa: E731
     lib = lambda: F.scaled_dot_product_attention(q[:, :, None, :], kc.transpose(1, 2), vc.transpose(1, 2),  # noqa: E731
                                                  attn_mask=mask, enable_gqa=True)
-    out["decode_attention"] = {
-        "tp": tp, "shape": {"q": list(k6["q"]), "cache": list(cache), "lengths": lengths}, "dtype": "bfloat16",
-        "lse": True, "max_abs_err": err, "lse_max_abs_err": lse_err,
-        **timings(kern, lambda: da.decode_attention_plain(q, kc, vc, lens, return_lse=True), lib),
-        "bound_ms": b_ms, "bound_by": b_by, "flops": flops, "bytes": bytes_}
+    row = {**({} if launches is None else {"launches": launches}),
+           "shape": {"q": list(q_shape), "cache": list(cache_shape), "lengths": lengths}, "dtype": "bfloat16",
+           "lse": True, "block_s": da.BLOCK_S, "max_abs_err": err, "lse_max_abs_err": lse_err,
+           **timings(kern, lambda: da.decode_attention_plain(q, kc, vc, lens, return_lse=True), lib),
+           "bound_ms": b_ms, "bound_by": b_by, "flops": flops, "bytes": bytes_}
     del q, kc, vc, o, lse, po, plse
     torch.cuda.empty_cache()
+    return row
+
+
+def tp4_family_rows(fa, fb, torch, gen, embeds: dict, embeds_train: dict) -> dict:
+    """K5, K5b and K6 at a tp-4 rank's shapes of whisper-small (3 of 12
+    heads; ``TRAIN_ENCDEC``'s batch for training, ``SERVE_ENCDEC``'s for
+    serving) and llava-next-34b (14 of 56 q heads over 2 of 8 kv heads, G
+    7), each against its plain version with eager and graph ms, the bound
+    and SDPA's time: K5 at the encoder's, the decoder self-attention's and
+    the cross-attention's shapes, llava's largest prefill; K5b at whisper's
+    three training shapes; K6 with its lse on a tp-4 chunk of every head:
+    whisper's self cache (448 / 4 = 112 positions, the serve run's lengths
+    on rank 0), its cross cache (1,500 / 4 = 375, every length 375: not a
+    multiple of ``BLOCK_S``), llava's cache (4,096 / 4 = 1,024, rank 1's
+    lengths at the serve run's last step).  No launch count: nothing here
+    runs a tp-4 path (``scripts/sharded_cards.py`` counts a rank's launches
+    on four cards)."""
+    from repro_torch import configs
+
+    tp = TP4["tp"]
+    bf16 = torch.bfloat16
+    enc_serve, run = SERVE_ENCDEC, TRAIN_ENCDEC
+    wcfg = configs.get_config(ENCDEC_ARCH)
+    H, d = wcfg.num_heads, wcfg.resolved_head_dim
+    h = H // tp
+    whisper_k5 = {
+        "serve_encoder": ((enc_serve["batch"], enc_serve["frames"], h, d), (enc_serve["batch"], enc_serve["frames"], h, d),
+                          False),
+        "train_encoder": ((run["batch"], run["frames"], h, d), (run["batch"], run["frames"], h, d), False),
+        "train_decoder_self": ((run["batch"], run["seq"], h, d), (run["batch"], run["seq"], h, d), True),
+        "train_cross": ((run["batch"], run["seq"], h, d), (run["batch"], run["frames"], h, d), False)}
+    out = {"whisper": {"tp": tp, "k5": {}, "k5b": {}, "k6": {}}, "llava": {"tp": tp}}
+    for name, (qs, ks, causal) in whisper_k5.items():
+        out["whisper"]["k5"][name] = k5_row_at(torch, gen, qs, ks, bf16, causal)
+    for name in ("train_encoder", "train_decoder_self", "train_cross"):
+        (b, t, _, _), (_, s, kv, _), causal = whisper_k5[name]
+        out["whisper"]["k5b"][name] = k5b_row(fa, fb, torch, gen, (b, t, s, h, kv, d, causal))
+    B = enc_serve["batch"]
+    self_chunk, cross_chunk = enc_serve["max_len"] // tp, enc_serve["frames"] // tp
+    pos = len(enc_serve["prompt"]) + enc_serve["new_tokens"]
+    out["whisper"]["k6"]["self"] = k6_lse_row_at(torch, gen, (B, H, d), (B, self_chunk, H, d),
+                                                 [min(pos, self_chunk)] * B)
+    out["whisper"]["k6"]["cross"] = k6_lse_row_at(torch, gen, (B, H, d), (B, cross_chunk, H, d), [cross_chunk] * B)
+    # llava: 56 q heads over 8 kv heads of 128, a rank's 14 over 2 at prefill
+    b, t, s, hq, kvq, dq, causal = embeds["k5_shape"]
+    out["llava"]["k5_prefill"] = k5_row_at(torch, gen, (b, t, hq // tp, dq), (b, s, kvq // tp, dq), bf16, causal)
+    q, c, lengths = embeds["k6"]
+    chunk = c[1] // tp
+    local = [max(0, min(chunk, n - chunk)) for n in lengths]  # rank 1's positions [chunk, 2 chunk)
+    out["llava"]["k6_rank1_chunk"] = k6_lse_row_at(torch, gen, q, (c[0], chunk, *c[2:]), local)
+    b, t, s, hq, kvq, *rest = embeds_train["k5b_shape"]
+    out["llava"]["k5b_train"] = k5b_row(fa, fb, torch, gen, (b, t, s, hq // tp, kvq // tp, *rest))
     return out
 
 
@@ -3991,31 +4096,28 @@ def phase_lm_mesh(torch, np, args, da, gen) -> dict:
     stand-in): granite's train step on the (1, 1) mesh against the step
     without one, Mistral served through ``launch.serve --mesh 1x1`` against
     the CLI without a mesh, and the same two checks for zamba2-1.2b and
-    rwkv6-1.6b (``LM_MESH["recurrent"]``); then K6 with its lse and the four-chunk merge,
+    rwkv6-1.6b (``LM_MESH["recurrent"]``); whisper-small and llava-next-34b
+    (4 of 60 layers) trained 3 steps at ``TRAIN_ENCDEC``'s and
+    ``TRAIN_EMBEDS``' shapes on the (1, 1) mesh against no mesh, the same
+    bytes (``families``; their serving on the mesh is in ``serve_encdec``
+    and ``serve_embeds``); then K6 with its lse and the four-chunk merge,
     and the vocab-parallel cross entropy.  Emits the ``lm_mesh`` line;
     returns K6's ``lse`` row and the launches for the kernels line."""
-    import tempfile
-
     import torch.distributed as dist
 
-    from repro_torch.distributed.compat import make_mesh
-    from repro_torch.distributed.sharding import ShardCtx
-
     t0 = time.perf_counter()
-    torch.cuda.set_device(0)
     line = {"phase": "lm_mesh"}
-    with tempfile.TemporaryDirectory() as tmp:
-        dist.init_process_group("nccl", init_method=f"file://{tmp}/rendezvous", rank=0, world_size=1)
-        try:
-            line.update(backend=dist.get_backend(), world_size=dist.get_world_size())
-            ctx = ShardCtx(mesh=make_mesh((1, 1), ("data", "model")), tp="model", fsdp=None, dp=("data",))
-            line["train"] = lm_mesh_train(torch, np, args, ctx, LM_MESH["train"])
-            line["serve"] = lm_mesh_serve(torch, args)
-            rec = LM_MESH["recurrent"]
-            line["recurrent"] = {arch: {"train": lm_mesh_train(torch, np, args, ctx, {**rec, "arch": arch}),
-                                        "serve": lm_mesh_serve(torch, args, arch)} for arch in rec["archs"]}
-        finally:
-            dist.destroy_process_group()
+    with one_rank_group(torch) as ctx:
+        line.update(backend=dist.get_backend(), world_size=dist.get_world_size())
+        line["train"] = lm_mesh_train(torch, np, args, ctx, LM_MESH["train"])
+        line["serve"] = lm_mesh_serve(torch, args)
+        rec = LM_MESH["recurrent"]
+        line["recurrent"] = {arch: {"train": lm_mesh_train(torch, np, args, ctx, {**rec, "arch": arch}),
+                                    "serve": lm_mesh_serve(torch, args, arch)} for arch in rec["archs"]}
+        # the encoder-decoder and the embeddings model (served on the mesh in
+        # their own serve phases), trained at their train phases' shapes
+        line["families"] = {run["arch"]: {"train": lm_mesh_train(torch, np, args, ctx, {**run, "steps": 3})}
+                            for run in (TRAIN_ENCDEC, TRAIN_EMBEDS)}
     line["k6_lse"], k6_row = lm_mesh_k6(torch, da, gen)
     line["vocab_parallel_ce"] = lm_mesh_ce(torch, gen)
     line["phase_s"] = time.perf_counter() - t0
@@ -4024,7 +4126,51 @@ def phase_lm_mesh(torch, np, args, da, gen) -> dict:
             "serve_launches": line["serve"]["mesh_1x1"]["launches"],
             "recurrent": {arch: {"train": v["train"]["mesh_1x1"]["launches"],
                                  "serve": v["serve"]["mesh_1x1"]["launches"]}
-                          for arch, v in line["recurrent"].items()}}
+                          for arch, v in line["recurrent"].items()},
+            "families": {arch: v["train"]["mesh_1x1"]["shape_launches"] for arch, v in line["families"].items()}}
+
+
+class one_rank_group:
+    """A one-rank NCCL process group (a ``file://`` rendezvous in a
+    temporary directory) and the (1, 1) mesh's ``ShardCtx`` on it, destroyed
+    on exit; no CPU stand-in."""
+
+    def __init__(self, torch) -> None:
+        self.torch = torch
+
+    def __enter__(self):
+        import tempfile
+
+        import torch.distributed as dist
+
+        from repro_torch.distributed.compat import make_mesh
+        from repro_torch.distributed.sharding import ShardCtx
+
+        self.torch.cuda.set_device(0)
+        self.tmp = tempfile.TemporaryDirectory()
+        dist.init_process_group("nccl", init_method=f"file://{self.tmp.name}/rendezvous", rank=0, world_size=1)
+        return ShardCtx(mesh=make_mesh((1, 1), ("data", "model")), tp="model", fsdp=None, dp=("data",))
+
+    def __exit__(self, *exc):
+        import torch.distributed as dist
+
+        try:
+            dist.destroy_process_group()
+        finally:
+            self.tmp.cleanup()
+        return False
+
+
+def mesh_twin(torch, model, ctx):
+    """``model``'s twin on the mesh ``ctx``: built by ``models.build(cfg,
+    ctx)`` on the meta device and given ``model``'s own tensors
+    (``load_state_dict(assign=True)``: shared, nothing copied), so that a
+    68.8 GB model fits once."""
+    from repro_torch import models
+
+    twin = models.build(model.cfg, ctx=ctx, device="meta")
+    twin.load_state_dict(model.state_dict(), assign=True)
+    return twin
 
 
 def k5_offset_work(b: int, t: int, s: int, off: int, h: int, kv: int, d: int, itemsize: int,
@@ -4323,13 +4469,16 @@ def phase_cp(torch, np, args, fa, fb, gen) -> dict:
 # -- the encoder-decoder (whisper-small) and the embeddings inputs (llava) ----------
 
 
-def capture_decode(torch, model, cache: dict, batch: int):
+def capture_decode(torch, model, cache: dict, batch: int, dev: str = "cuda"):
     """``model.decode_step`` over ``cache`` and a (batch,) token buffer
     captured into one CUDA graph, as the serve ``Engine`` captures it: the
     capture's warm-up step is a real one, so every cache leaf is zeroed
-    after it.  Returns (graph, token buffer, logits buffer)."""
+    after it.  Returns (graph, token buffer, logits buffer); None on the
+    CPU (``dev``), which has no graph."""
     from repro_torch.kernels import build
 
+    if dev != "cuda":
+        return None
     tokens = torch.zeros(batch, dtype=torch.int64, device="cuda")
     graph, (logits, _) = build.capture(lambda: model.decode_step(cache, tokens), "cuda")
     for leaf in cache.values():
@@ -4340,13 +4489,15 @@ def capture_decode(torch, model, cache: dict, batch: int):
 def decode_loop(torch, model, cache: dict, logits, steps: int, graph=None):
     """``steps`` greedy decode steps from ``logits`` (B, V): the eager step,
     or the captured ``graph`` (``capture_decode``'s triple) replayed; each
-    step between two synchronisations.  Returns (the tokens (B, steps + 1)
-    on the host, each step's seconds, whether every logit was finite)."""
+    step between two synchronisations of the card (none on the CPU).
+    Returns (the tokens (B, steps + 1) on the host, each step's seconds,
+    whether every logit was finite)."""
+    sync = torch.cuda.synchronize if logits.is_cuda else (lambda: None)
     out, times, finite = [], [], []
     for _ in range(steps):
         tok = logits.argmax(-1)
         out.append(tok)
-        torch.cuda.synchronize()
+        sync()
         t0 = time.perf_counter()
         if graph is None:
             logits, _ = model.decode_step(cache, tok)
@@ -4354,7 +4505,7 @@ def decode_loop(torch, model, cache: dict, logits, steps: int, graph=None):
             graph[1].copy_(tok)
             graph[0].replay()
             logits = graph[2]
-        torch.cuda.synchronize()
+        sync()
         times.append(time.perf_counter() - t0)
         finite.append(torch.isfinite(logits).all())
     out.append(logits.argmax(-1))
@@ -4414,28 +4565,39 @@ def embeddings_parity_small(torch, np, arch: str) -> dict:
             "decode_steps": steps, "tokens_equal": True, "graph_tokens_equal_eager": True}
 
 
-def serve_counts(build, graph, launches: dict, steps: int, k5: int, k6: int, what: str) -> dict:
-    """Hold a serve run's launches: K5 ``k5`` (its prefills), K6 ``k6`` a
-    decode step, as kernel nodes of the captured step times its replays
-    (``graph``) or as launches of the eager steps; no other kernel."""
+def serve_launches(build, graph, launches: dict, steps: int) -> dict:
+    """A serve run's K5 and K6 launches (the counters ``launches``), K6's
+    as the launches outside the captured step (``graph``, or None) plus its
+    kernel nodes times the ``steps`` replays; and a replay's K5, K6 and K6
+    merge nodes and all its kernel nodes."""
+    got = {"flash_attention": launches["flash_attention"], "decode_attention": launches["decode_attention"]}
     per_replay = None
     if graph is not None:
         nodes = build.graph_kernel_nodes(graph[0], ["flash_fwd", "flash_fwd_bf16", "decode_partial", "decode_merge"])
         per_replay = {"flash_attention": nodes["flash_fwd"] + nodes["flash_fwd_bf16"],
                       "decode_attention": nodes["decode_partial"], "decode_merge": nodes["decode_merge"],
                       "kernel_nodes": nodes["all"]}
-        if per_replay["flash_attention"] or per_replay["decode_attention"] != k6 or launches["decode_attention"]:
-            fail(f"{what}: a replay holds {per_replay} kernel nodes and {launches['decode_attention']} K6 "
-                 f"launches ran outside the graph; want {k6} K6 nodes")
-        got = {"flash_attention": launches["flash_attention"], "decode_attention": k6 * steps}
-    else:
-        got = {"flash_attention": launches["flash_attention"], "decode_attention": launches["decode_attention"]}
+        got["decode_attention"] += per_replay["decode_attention"] * steps
+    return {"launches": got, "decode_graph_per_replay": per_replay}
+
+
+def serve_counts(build, graph, launches: dict, steps: int, k5: int, k6: int, what: str) -> dict:
+    """Hold a serve run's launches (:func:`serve_launches`): K5 ``k5`` (its
+    prefills), K6 ``k6`` a decode step, as kernel nodes of the captured
+    step times its replays (``graph``) or as launches of the eager steps;
+    no other kernel."""
+    held = serve_launches(build, graph, launches, steps)
+    got, per_replay = held["launches"], held["decode_graph_per_replay"]
+    if per_replay is not None and (per_replay["flash_attention"] or per_replay["decode_attention"] != k6
+                                   or launches["decode_attention"]):
+        fail(f"{what}: a replay holds {per_replay} kernel nodes and {launches['decode_attention']} K6 "
+             f"launches ran outside the graph; want {k6} K6 nodes")
     if got != {"flash_attention": k5, "decode_attention": k6 * steps}:
         fail(f"{what}: K5 / K6 launched {got}, want {k5} / {k6 * steps}")
     others = {k: n for k, n in launches.items() if k not in ("flash_attention", "decode_attention") and n}
     if others:
         fail(f"{what}: another kernel launched: {others}")
-    return {"launches": got, "decode_graph_per_replay": per_replay}
+    return held
 
 
 def phase_serve_encdec(torch, np, args) -> dict:
@@ -4471,49 +4633,80 @@ def phase_serve_encdec(torch, np, args) -> dict:
     graph = capture_decode(torch, model, cache, B)
     k5, k6 = attention_layers(cfg), 2 * cfg.num_layers
 
-    def serve(eager: bool) -> tuple[dict, object]:
+    def serve(eager: bool, m=model, g=graph, what: str = "") -> tuple[dict, object]:
         for leaf in cache.values():
             leaf.zero_()
         _sync(torch)
         torch.cuda.reset_peak_memory_stats()
         build.reset_launches()
         t = time.perf_counter()
-        logits, _ = model.prefill(batch, cache)
+        logits, _ = m.prefill(batch, cache)
         _sync(torch)
         prefill_s = time.perf_counter() - t
-        toks, times, finite = decode_loop(torch, model, cache, logits, steps, None if eager else graph)
+        first = logits.clone()
+        toks, times, finite = decode_loop(torch, m, cache, logits, steps, None if eager else g)
         launches = dict(build.LAUNCHES)
         if not finite or not bool(torch.isfinite(logits).all()):
             fail("the whisper-small serve run produced non-finite logits")
         if not ((toks >= 0) & (toks < cfg.vocab_size)).all():
             fail("the whisper-small serve run gave a token out of the vocabulary")
-        held = serve_counts(build, None if eager else graph, launches, steps, k5, k6,
-                            f"whisper-small {'eager' if eager else 'graph'} run")
+        held = serve_counts(build, None if eager else g, launches, steps, k5, k6,
+                            f"whisper-small {what}{'eager' if eager else 'graph'} run")
         return {"prefill_s": prefill_s, "prefill_frames_per_s": B * S / prefill_s,
                 "decode_steps": steps, "ms_per_decode_step_median": float(np.median(times)) * 1e3,
                 "ms_per_decode_step_mean": float(np.mean(times)) * 1e3,
                 "decode_tokens_per_s": B * steps / sum(times), "peak_device_bytes": torch.cuda.max_memory_allocated(),
-                **held}, toks
+                **held}, (toks, first)
 
-    graph_line, graph_toks = serve(False)
+    graph_line, (graph_toks, graph_first) = serve(False)
     with AttnRecorder(attn_mod, "flash_attention") as k5_in, AttnRecorder(attn_mod, "decode_attention_kernel") as k6_in:
-        eager_line, eager_toks = serve(True)
+        eager_line, (eager_toks, _) = serve(True)
     if not torch.equal(graph_toks, eager_toks):
         fail("whisper-small: the decode graph's tokens differ from the eager step's")
+    mesh_line = serve_on_mesh(torch, model, cache, B, graph_toks, graph_first,
+                              lambda m, g: serve(False, m, g, "(1, 1) mesh "), "whisper-small")
     k6_shapes = {("cross" if k[1][1] == S else "self"): (k[0], k[1], k6_in.shape_lengths[k].tolist())
                  for k in k6_in.calls}
     emit({"phase": "serve_encdec", "arch": cfg.name, "encoder_layers": cfg.encoder_layers,
           "layers": cfg.num_layers, "d_model": cfg.d_model, "dtype": cfg.dtype, "config": run,
           "parity_smoke_f32_vs_cpu": parity, "parity_full_width_kernels_vs_plain": width, "init_s": init_s,
           "weight_bytes": weight_bytes, "cache_bytes": {k: v.numel() * v.element_size() for k, v in cache.items()},
-          "attention_layers": k5, "decode": "cuda_graph", **graph_line, "eager": eager_line,
+          "attention_layers": k5, "decode": "cuda_graph", **graph_line, "eager": eager_line, "mesh_1x1": mesh_line,
           "k5_shapes": {str(list(sh)): n for sh, n in k5_in.shapes().items()},
           "k6_shapes": {k: {"q": list(q), "cache": list(c), "lengths": ln} for k, (q, c, ln) in k6_shapes.items()},
           "graph_tokens_equal_eager": True, "first_tokens": graph_toks[:, :8].tolist()})
     del model, cache, graph, batch
     torch.cuda.empty_cache()
     return {"launches": graph_line["launches"], "per_replay": graph_line["decode_graph_per_replay"],
-            "k5_shapes": k5_in.shapes(), "k6_shapes": k6_shapes, "dtype": torch.bfloat16}
+            "mesh_launches": mesh_line["shape_launches"], "k5_shapes": k5_in.shapes(), "k6_shapes": k6_shapes,
+            "dtype": torch.bfloat16}
+
+
+def serve_on_mesh(torch, model, cache: dict, batch: int, want_toks, want_first, serve, arch: str) -> dict:
+    """The serve run again on the (1, 1) mesh: ``model``'s twin there
+    (:func:`mesh_twin`, its tensors shared) with its own captured decode
+    step over the same cache, through ``serve(twin, graph)`` (which holds its
+    launches as the run without a mesh); its greedy tokens and its prefill's
+    logits the same bytes as that run's (``want_toks``, ``want_first``).
+    ``shape_launches``: K5's launches by shape (the prefill's calls) and
+    K6's (the captured step's calls by shape times the replays), their sums
+    held to the run's counts.  The graph is freed before the group."""
+    from repro_torch.models import attention as attn_mod
+
+    with one_rank_group(torch) as ctx:
+        twin = mesh_twin(torch, model, ctx)
+        with AttnRecorder(attn_mod, "decode_attention_kernel") as k6_in:
+            graph = capture_decode(torch, twin, cache, batch)
+        with AttnRecorder(attn_mod, "flash_attention") as k5_in:
+            line, (toks, first) = serve(twin, graph)
+        graph[0].reset()
+        del graph, twin
+    if not torch.equal(toks, want_toks) or not torch.equal(first, want_first):
+        fail(f"{arch}: the (1, 1) mesh's tokens or prefill logits differ from the run without a mesh")
+    per_replay = shape_launches(k6_in, line["decode_graph_per_replay"], per=2)
+    shapes = {"flash_attention": shape_launches(k5_in, line["launches"]),
+              "decode_attention": [[sh, n * line["decode_steps"]] for sh, n in per_replay]}
+    return {**line, "shape_launches": shapes, "tokens_equal_no_mesh": True, "prefill_logits_equal_no_mesh": True}
 
 
 def phase_serve_embeds(torch, np, args) -> dict:
@@ -4551,7 +4744,7 @@ def phase_serve_embeds(torch, np, args) -> dict:
     graph = capture_decode(torch, model, cache, slots)
     L = cfg.num_layers
 
-    def serve(eager: bool) -> tuple[dict, object]:
+    def serve(eager: bool, m=model, g=graph, what: str = "") -> tuple[dict, object]:
         for leaf in cache.values():
             leaf.zero_()
         _sync(torch)
@@ -4561,19 +4754,20 @@ def phase_serve_embeds(torch, np, args) -> dict:
         for s, p in enumerate(prompts):
             view = {name: leaf[s:s + 1] if name == "pos" else leaf[:, s:s + 1] for name, leaf in cache.items()}
             t = time.perf_counter()
-            logits, _ = model.prefill(p, view)
+            logits, _ = m.prefill(p, view)
             _sync(torch)
             prefill_s.append(time.perf_counter() - t)
             firsts.append(logits)
         logits = torch.cat(firsts)
-        toks, times, finite = decode_loop(torch, model, cache, logits, steps, None if eager else graph)
+        first = logits.clone()
+        toks, times, finite = decode_loop(torch, m, cache, logits, steps, None if eager else g)
         launches = dict(build.LAUNCHES)
         if not finite or not bool(torch.isfinite(logits).all()):
             fail("the llava-next-34b serve run produced non-finite logits")
         if not ((toks >= 0) & (toks < cfg.vocab_size)).all():
             fail("the llava-next-34b serve run gave a token out of the vocabulary")
-        held = serve_counts(build, None if eager else graph, launches, steps, L * slots, L,
-                            f"llava-next-34b {'eager' if eager else 'graph'} run")
+        held = serve_counts(build, None if eager else g, launches, steps, L * slots, L,
+                            f"llava-next-34b {what}{'eager' if eager else 'graph'} run")
         rows = sum(p.shape[1] for p in prompts)
         return {"prefill_requests": [{"slot": s, "rows": p.shape[1], "prefill_s": t}
                                      for s, (p, t) in enumerate(zip(prompts, prefill_s))],
@@ -4581,25 +4775,29 @@ def phase_serve_embeds(torch, np, args) -> dict:
                 "decode_steps": steps, "ms_per_decode_step_median": float(np.median(times)) * 1e3,
                 "ms_per_decode_step_mean": float(np.mean(times)) * 1e3,
                 "decode_tokens_per_s": slots * steps / sum(times),
-                "peak_device_bytes": torch.cuda.max_memory_allocated(), **held}, toks
+                "peak_device_bytes": torch.cuda.max_memory_allocated(), **held}, (toks, first)
 
-    graph_line, graph_toks = serve(False)
+    graph_line, (graph_toks, graph_first) = serve(False)
     with AttnRecorder(attn_mod, "flash_attention") as k5_in, AttnRecorder(attn_mod, "decode_attention_kernel") as k6_in:
-        eager_line, eager_toks = serve(True)
+        eager_line, (eager_toks, _) = serve(True)
     if not torch.equal(graph_toks, eager_toks):
         fail("llava-next-34b: the decode graph's tokens differ from the eager step's")
+    graph[0].reset()  # one decode graph at a time beside the 68.8 GB of weights
+    mesh_line = serve_on_mesh(torch, model, cache, slots, graph_toks, graph_first,
+                              lambda m, g: serve(False, m, g, "(1, 1) mesh "), "llava-next-34b")
     (k6_key,) = k6_in.calls
     k5_shape = max(k5_in.shapes(), key=lambda sh: sh[1])
     emit({"phase": "serve_embeds", "arch": cfg.name, "layers": cfg.num_layers, "d_model": cfg.d_model,
           "heads": cfg.num_heads, "kv_heads": cfg.num_kv_heads, "dtype": cfg.dtype, "config": run,
           "parity_smoke_f32_vs_cpu": parity, "parity_full_width_kernels_vs_plain": width, "init_s": init_s,
           "weight_bytes": weight_bytes, "cache_bytes": {k: v.numel() * v.element_size() for k, v in cache.items()},
-          "tiles": tiles.tolist(), "decode": "cuda_graph", **graph_line, "eager": eager_line,
+          "tiles": tiles.tolist(), "decode": "cuda_graph", **graph_line, "eager": eager_line, "mesh_1x1": mesh_line,
           "graph_tokens_equal_eager": True, "first_tokens": graph_toks[:, :8].tolist()})
     del model, cache, graph, prompts
     torch.cuda.empty_cache()
     return {"launches": graph_line["launches"], "per_replay": graph_line["decode_graph_per_replay"],
-            "k5_shape": k5_shape, "k6": (k6_key[0], k6_key[1], k6_in.shape_lengths[k6_key].tolist())}
+            "mesh_launches": mesh_line["shape_launches"], "k5_shape": k5_shape,
+            "k6": (k6_key[0], k6_key[1], k6_in.shape_lengths[k6_key].tolist())}
 
 
 def example_argv(extra, run_dir: Path) -> list[str]:
@@ -5000,7 +5198,7 @@ def run_phases(args, np, torch, smi: str, cpu_examples, run_dir: Path) -> int:
     k6_row["zamba2"]["lm_mesh_serve_launches"] = rec[HYBRID_ARCH]["serve"]["decode_attention"]
     tp4_wkv = tp4_wkv_rows(wk, torch, gen)
     wkv_row["tp4"], wkv_bwd_row["tp4"] = tp4_wkv["wkv"], tp4_wkv["wkv_bwd"]
-    tp4_attn = tp4_attention_rows(fa, fb, da, torch, gen)
+    tp4_attn = tp4_attention_rows(fa, fb, torch, gen)
     k5_row["zamba2_tp4"] = tp4_attn["flash_attention"]
     k5b_row_["zamba2_tp4"] = tp4_attn["flash_attention_bwd"]
     k6_row["zamba2_tp4_chunk"] = tp4_attn["decode_attention"]
@@ -5011,6 +5209,33 @@ def run_phases(args, np, torch, smi: str, cpu_examples, run_dir: Path) -> int:
                        "decode_graph_per_replay": embeds["per_replay"]["decode_attention"]}
     k5b_row_["llava"] = k5b_row(fa, fb, torch, gen, embeds_train["k5b_shape"], embeds_train["k5b_launches"],
                                 embeds_train["k5b_per_step"])
+    # the encoder-decoder and the embeddings model on a mesh: their (1, 1)
+    # runs' launches by shape (the same shapes as without a mesh), and their
+    # kernels at a tp-4 rank's shapes
+    def by_kind(pairs) -> dict:
+        out = {}
+        for (q, k, causal), n in pairs:
+            kind = attn_kind((q[0], q[1], k[1], q[2], k[2], q[3], causal))
+            out[kind] = out.get(kind, 0) + n
+        return out
+
+    fam_train = lm_mesh["families"]
+    k5_row["whisper"]["lm_mesh_launches"] = {"serve": by_kind(encdec["mesh_launches"]["flash_attention"]),
+                                             "train": by_kind(fam_train[ENCDEC_ARCH]["flash_attention"])}
+    k5b_row_["whisper"]["lm_mesh_launches"] = by_kind(fam_train[ENCDEC_ARCH]["flash_attention_bwd"])
+    k6_row["whisper"]["lm_mesh_launches"] = {("cross" if k[1] == SERVE_ENCDEC["frames"] else "self"): n
+                                             for (_, k, _), n in encdec["mesh_launches"]["decode_attention"]}
+    k5_row["llava"]["lm_mesh_launches"] = {"serve": embeds["mesh_launches"]["flash_attention"],
+                                           "train": fam_train[EMBEDS_ARCH]["flash_attention"]}
+    k5b_row_["llava"]["lm_mesh_launches"] = fam_train[EMBEDS_ARCH]["flash_attention_bwd"]
+    k6_row["llava"]["lm_mesh_launches"] = embeds["mesh_launches"]["decode_attention"]
+    fam = tp4_family_rows(fa, fb, torch, gen, embeds, embeds_train)
+    k5_row["whisper_tp4"] = {**fam["whisper"]["k5"], "tp": fam["whisper"]["tp"]}
+    k5b_row_["whisper_tp4"] = {**fam["whisper"]["k5b"], "tp": fam["whisper"]["tp"]}
+    k6_row["whisper_tp4_chunk"] = {**fam["whisper"]["k6"], "tp": fam["whisper"]["tp"]}
+    k5_row["llava_tp4"] = {**fam["llava"]["k5_prefill"], "tp": fam["llava"]["tp"]}
+    k5b_row_["llava_tp4"] = {**fam["llava"]["k5b_train"], "tp": fam["llava"]["tp"]}
+    k6_row["llava_tp4_chunk"] = {**fam["llava"]["k6_rank1_chunk"], "tp": fam["llava"]["tp"]}
 
     emit({"kernels": rows})
     emit(ptxas_line(build))

@@ -29,7 +29,9 @@ a failed check exits non-zero before that.
 4. ``lm_train`` (two lines an arch) -- each LM of ``--lm-arch`` (default
    Mistral-Nemo-12B at all 40 layers, which one card cannot train; the
    hybrid ``zamba2-1.2b`` and the RWKV6 ``rwkv6-1.6b`` as well, their
-   blocks cut by heads over tp) on a ``(1, R)`` mesh and a
+   blocks cut by heads over tp; the encoder-decoder ``whisper-small`` and
+   the embeddings model ``llava-next-34b`` at ``FAMILY_TRAIN``'s shapes) on a
+   ``(1, R)`` mesh and a
    ``(R/2, 2)`` mesh with FSDP over data, ``LM_STEPS`` AdamW steps of B
    ``--lm-batch`` x ``--lm-seq`` tokens: step seconds, tokens/s, each rank's
    peak memory, the losses of the two meshes beside each other; rank 0's
@@ -46,6 +48,8 @@ a failed check exits non-zero before that.
    the one-card model and that copy is the dtype's rounding) on the first
    prompt, and where a request's tokens part, at that position: each
    pair's largest difference beside the gap between the two tokens.
+   ``family_serve`` takes its place for whisper-small and llava-next-34b,
+   which no ``Engine`` drives (:func:`phase_family_serve`).
 
 6. ``cp`` (two lines, ``--phases cp``: not in the default run) --
    starcoder2-15b (``CP_ARCH``: 4 kv heads, which tp 8 does not divide) at
@@ -222,13 +226,28 @@ def phase_moe(torch, dist, args, dev, rank: int, world: int) -> dict:
             "a2a_fwd_bwd_ms": a2a_s * 1e3, "moe_layer_one_card_fwd_bwd_ms": local_s * 1e3}
 
 
-def lm_config(args, arch: str):
+#: The encoder-decoder's and the embeddings model's runs (``lm_train``,
+#: ``family_serve``): whisper-small trained at ``TRAIN_ENCDEC``'s B 8 x (1,500
+#: frames + 448 tokens) and served at ``SERVE_ENCDEC``'s 4 x 1,500 frames;
+#: llava-next-34b trained at 40 of its 60 layers, B 2 x 2,048 embedding rows
+#: (a rank's shard of 40 layers is 5.8B parameters, 69.7 GB with its bf16
+#: gradient and f32 AdamW moments: 44 layers would need 76.4 GB of the 80; B
+#: 2 so that the 2x2 mesh's two data ranks get a row each), served whole at
+#: ``SERVE_EMBEDS``' traffic (``--lm-layers`` cuts the float32 check).
+FAMILY_TRAIN = {"whisper-small": dict(batch=8, seq=448, frames=1500),
+                "llava-next-34b": dict(batch=2, seq=2048, layers=40)}
+
+
+def lm_config(args, arch: str, layers: int | None = None):
     import dataclasses
 
     from repro_torch import configs
 
     cfg = configs.get_smoke_config(arch) if args.lm_smoke else configs.get_config(arch)
-    return dataclasses.replace(cfg, dtype=args.lm_dtype) if args.lm_dtype else cfg
+    if args.lm_dtype:
+        cfg = dataclasses.replace(cfg, dtype=args.lm_dtype)
+    layers = args.lm_layers or (None if args.lm_smoke else layers)
+    return dataclasses.replace(cfg, num_layers=layers) if layers else cfg
 
 
 def _profiled_step(torch, dist, dev, fn) -> dict | None:
@@ -279,15 +298,19 @@ def phase_lm_train(torch, dist, args, dev, rank: int, world: int, arch: str) -> 
     (:func:`_profiled_step`)."""
     import numpy as np
 
+    import chip_smoke
     from repro_torch import models
-    from repro_torch.data.tokens import TokenPipeline
     from repro_torch.distributed.compat import make_mesh
     from repro_torch.distributed.sharding import ShardCtx
     from repro_torch.kernels import build
     from repro_torch.train.optimizer import AdamWConfig, init_opt_state
     from repro_torch.train.train_step import build_train_step, shard_batch
 
-    cfg = lm_config(args, arch)
+    fam = FAMILY_TRAIN.get(arch, {})
+    cfg = lm_config(args, arch, fam.get("layers"))
+    batch_rows, seq, frames = fam.get("batch", args.lm_batch), fam.get("seq", args.lm_seq), fam.get("frames", 0)
+    if args.lm_smoke:
+        frames = min(frames, 36)
     lines = []
     for shape in ((1, world), (world // 2, 2)):
         ctx = ShardCtx(mesh=make_mesh(shape, ("data", "model"), dev.type), tp="model",
@@ -300,11 +323,12 @@ def phase_lm_train(torch, dist, args, dev, rank: int, world: int, arch: str) -> 
         opt_cfg = AdamWConfig(lr=3e-4)
         state = init_opt_state(dict(model.named_parameters()), opt_cfg)
         step = build_train_step(model, opt_cfg)
-        pipe = TokenPipeline(cfg.vocab_size, args.lm_batch, args.lm_seq, seed=args.seed)
+        # every rank draws the global batch from the seed and keeps its rows
+        next_batch = chip_smoke.batch_source(torch, cfg, batch_rows, seq, args.seed, dev, frames)
         recs = []
         build.reset_launches()
         for i in range(LM_STEPS):
-            batch = {k: torch.from_numpy(v).to(dev) for k, v in shard_batch(pipe.next_batch(), ctx).items()}
+            batch = shard_batch(next_batch(), ctx)
             dist.barrier()
             t0 = time.perf_counter()
             state, met = step(state, batch)
@@ -315,15 +339,15 @@ def phase_lm_train(torch, dist, args, dev, rank: int, world: int, arch: str) -> 
                          "grad_norm": float(met["grad_norm"])})
         launches = {k: n // LM_STEPS for k, n in build.LAUNCHES.items() if n}
         _check(all(np.isfinite([r["loss"], r["grad_norm"]]).all() for r in recs), f"{shape}: a loss is not finite")
-        batch = {k: torch.from_numpy(v).to(dev) for k, v in shard_batch(pipe.next_batch(), ctx).items()}
+        batch = shard_batch(next_batch(), ctx)
         profile = _profiled_step(torch, dist, dev, lambda: step(state, batch))
         peak = torch.tensor([torch.cuda.max_memory_allocated() if dev.type == "cuda" else 0], device=dev)
         peaks = [torch.zeros_like(peak) for _ in range(world)]
         dist.all_gather(peaks, peak)
         med = float(np.median([r["s"] for r in recs[1:]]))
-        tokens = args.lm_batch * args.lm_seq
+        tokens = batch_rows * seq
         lines.append({"phase": "lm_train", "arch": cfg.name, "layers": cfg.num_layers, "mesh": list(shape),
-                      "fsdp": ctx.fsdp, "batch": args.lm_batch, "seq": args.lm_seq, "steps": recs,
+                      "fsdp": ctx.fsdp, "batch": batch_rows, "seq": seq, "frames": frames, "steps": recs,
                       "params_per_rank": sum(p.numel() for p in model.parameters()),
                       "step_s_median_after_first": med, "tokens_per_s": tokens / med,
                       "peak_device_bytes_per_rank": [int(p) for p in peaks],
@@ -453,6 +477,98 @@ def phase_lm_serve(torch, dist, args, dev, rank: int, world: int, cfg) -> dict:
             "launches_mesh_rank0": launches, **out}
 
 
+def phase_family_serve(torch, dist, args, dev, rank: int, world: int, cfg) -> dict:
+    """The encoder-decoder or the embeddings model (``cfg``), served by each
+    rank alone on its card and at ``--mesh 1xR`` (the sequence-sharded self
+    and cross caches; the decode step captured with its NCCL collectives),
+    one after the other (llava's whole 68.8 GB and its 17.2 GB shard do not
+    fit one card together): whisper a prefill of ``SERVE_ENCDEC``'s 4 x
+    1,500 frames and 4-token prompt, llava one prompt of 1-5 576-row tiles a
+    slot of 4 (``SERVE_EMBEDS``), then 32 greedy steps of every row; ms per
+    decode step (the graph's replay between two synchronisations, median;
+    ``chip_smoke``'s ``capture_decode`` and ``decode_loop``), the prefill's
+    seconds, each rank's peak memory, rank 0's launches on the mesh's run
+    (``chip_smoke.serve_launches``: a captured step's kernel nodes times its
+    replays), how many rows' tokens are equal, and the first row's prefill
+    logits' largest difference beside the gap between its two best tokens
+    on one card."""
+    import numpy as np
+
+    import chip_smoke
+    from repro_torch import models
+    from repro_torch.distributed.compat import make_mesh
+    from repro_torch.distributed.sharding import ShardCtx
+    from repro_torch.kernels import build
+
+    steps = 32
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 1)
+    dt = getattr(torch, cfg.dtype)
+    if cfg.is_encdec:
+        run = chip_smoke.SERVE_ENCDEC
+        B, frames = run["batch"], 36 if args.lm_smoke else run["frames"]
+        prompt = {"enc_embeds": (torch.randn(B, frames, cfg.d_model, generator=gen, device=dev)
+                                 * chip_smoke.EMBED_SCALE).to(dt),
+                  "tokens": torch.tensor([[t % cfg.vocab_size for t in run["prompt"]]] * B, device=dev)}
+    else:
+        run = chip_smoke.SERVE_EMBEDS
+        B, tile = run["slots"], 8 if args.lm_smoke else run["tile"]
+        tiles = np.random.default_rng(args.seed).integers(run["tiles"][0], run["tiles"][1] + 1, size=B)
+        prompt = [(torch.randn(1, int(n) * tile, cfg.d_model, generator=gen, device=dev)
+                   * chip_smoke.EMBED_SCALE).to(dt) for n in tiles]
+    mesh = ShardCtx(mesh=make_mesh((1, world), ("data", "model"), dev.type), tp="model", fsdp=None, dp=())
+    out, toks, first = {}, {}, {}
+    for name, ctx in (("one_card", None), ("mesh", mesh)):
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        model = models.build(cfg, ctx=ctx, device=dev)
+        model.init(torch.Generator(device=dev).manual_seed(args.seed))
+        if cfg.is_encdec:
+            cache = model.init_cache(B, run["max_len"], frames)
+        else:
+            cache = model.init_cache(B, 256 if args.lm_smoke else run["max_len"])
+        graph = chip_smoke.capture_decode(torch, model, cache, B, dev.type)
+        dist.barrier()
+        build.reset_launches()
+        t0 = time.perf_counter()
+        if cfg.is_encdec:
+            logits, _ = model.prefill(prompt, cache)
+        else:
+            parts = []
+            for s, p in enumerate(prompt):
+                view = {k: v[s:s + 1] if k == "pos" else v[:, s:s + 1] for k, v in cache.items()}
+                parts.append(model.prefill(p, view)[0])
+            logits = torch.cat(parts)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        first[name] = logits[0, :cfg.vocab_size].float().cpu()
+        toks[name], times, finite = chip_smoke.decode_loop(torch, model, cache, logits, steps, graph)
+        _check(finite, f"{cfg.name} ({name}): a decode step's logits are not finite")
+        launches = chip_smoke.serve_launches(build, graph, dict(build.LAUNCHES), steps)
+        if graph is not None:
+            graph[0].reset()  # its NCCL collectives go before the group does
+        peak = torch.tensor([torch.cuda.max_memory_allocated() if dev.type == "cuda" else 0], device=dev)
+        peaks = [torch.zeros_like(peak) for _ in range(world)]
+        dist.all_gather(peaks, peak)
+        out[name] = {"prefill_s": prefill_s, "ms_per_decode_step_median": sorted(times)[len(times) // 2] * 1e3,
+                     "decode_steps": steps, "captured": graph is not None,
+                     "peak_device_bytes_per_rank": [int(p) for p in peaks], "launches_rank0": launches}
+        del model, cache, graph, logits
+        gc.collect()
+    one, mesh_logits = first["one_card"], first["mesh"]
+    top2 = one.topk(2).values
+    same = int((toks["one_card"] == toks["mesh"]).all(dim=1).sum())
+    if cfg.dtype == "float32":
+        _check(same == B, f"{cfg.name} in float32: {B - same} of {B} rows' tokens differ from one card's")
+    return {"phase": "family_serve", "arch": cfg.name, "layers": cfg.num_layers, "dtype": str(cfg.dtype),
+            "tp": world, "rows": B, "rows_with_equal_tokens": same,
+            "first_row_prefill_logits": {"mesh_vs_one_card_max_abs": float((mesh_logits - one).abs().max()),
+                                         "one_card_top2_gap": float(top2[0] - top2[1]),
+                                         "argmax_equal": bool(mesh_logits.argmax() == one.argmax())},
+            "first_tokens": {k: v[:, :8].tolist() for k, v in toks.items()}, **out}
+
+
 def phase_cp(torch, dist, args, dev, rank: int, world: int) -> list[dict]:
     """``CP_ARCH`` at ``(1, R)``: trained with SP (context-parallel
     attention, checked to be the layout) and served without it (column
@@ -540,8 +656,9 @@ def run_rank(rank: int, world: int, rdv: str, args) -> None:
                 if "train" in args.lm_phases:
                     phases.append(lambda arch=arch: phase_lm_train(torch, dist, args, dev, rank, world, arch))
                 if "serve" in args.lm_phases:
-                    phases.append(lambda arch=arch: [phase_lm_serve(torch, dist, args, dev, rank, world,
-                                                                    lm_config(args, arch))])
+                    serve = phase_family_serve if arch in FAMILY_TRAIN else phase_lm_serve
+                    phases.append(lambda arch=arch, serve=serve: [serve(torch, dist, args, dev, rank, world,
+                                                                        lm_config(args, arch))])
         if "cp" in args.phases:
             phases += [lambda: phase_cp(torch, dist, args, dev, rank, world)]
         for phase in phases:
@@ -569,6 +686,9 @@ def main() -> int:
                     help="the lm group's phases, for each arch")
     ap.add_argument("--lm-smoke", action="store_true", help="the LM phases at the arch's smoke config")
     ap.add_argument("--lm-dtype", choices=("float32", "bfloat16"), default=None, help="default: the config's")
+    ap.add_argument("--lm-layers", type=int, default=None,
+                    help="cut every lm phase's model to this many layers (default: llava-next-34b trains at "
+                         "40 of 60, every other model whole)")
     ap.add_argument("--lm-batch", type=int, default=2)
     ap.add_argument("--lm-seq", type=int, default=2048)
     args = ap.parse_args()

@@ -14,8 +14,7 @@ def build(cfg, ctx=None, device="cuda", **kw):
     """Model factory: the encoder-decoder for ``cfg.is_encdec``, else the
     decoder-only LM, on ``device`` (default ``"cuda"``; raises without a
     card unless asked for ``"cpu"``), this rank's shard of it with a
-    ``ShardCtx`` (the encoder-decoder raises on a mesh with an axis above
-    1); ``kw`` are the LM's options (``rwkv_chunked``), as the reference's
+    ``ShardCtx``; ``kw`` are the LM's options (``rwkv_chunked``), as the reference's
     ``build`` passes them."""
     if cfg.is_encdec:
         return EncDecLM(cfg, ctx, device=device, **kw)

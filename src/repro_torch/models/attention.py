@@ -44,7 +44,9 @@ Decode at tp > 1 is the reference's segment pattern: the KV cache is
 sequence-sharded (each rank one contiguous chunk of S/tp positions, every kv
 head), every rank runs K6 with its logsumexp over its chunk for all heads,
 and the chunks merge by their LSE weights
-(:func:`repro_torch.kernels.decode_attention.merge_partials`).
+(:func:`repro_torch.kernels.decode_attention.merge_partials`).  The
+encoder-decoder's cross cache is cut and merged the same way, with nothing
+written.
 """
 
 from __future__ import annotations
@@ -173,15 +175,24 @@ def project_qkv(p: Attention, cfg: ModelConfig, x: torch.Tensor, positions: torc
     return (out[0], None, None) if q_only else tuple(out)
 
 
-def project_cross_kv(p: Attention, cfg: ModelConfig, enc: torch.Tensor):
-    """Encoder-side K/V (B, S, KV, hd) for cross-attention (the reference's
-    ``project_cross_kv``): no positions."""
+def project_cross_kv(p: Attention, cfg: ModelConfig, enc: torch.Tensor, ctx: ShardCtx | None = None):
+    """Encoder-side K/V (B, S, heads, hd) for cross-attention (the
+    reference's ``project_cross_kv``): no positions.  ``enc`` is the
+    encoder's whole output on every rank; the heads are those the layout
+    attends with (:func:`attention`'s ``kv``): the rank's KV/tp under
+    ``"heads"``, every head under ``"columns"`` (the rank's columns gathered
+    over tp) and ``"context"`` (the weights whole)."""
     B, S, _ = enc.shape
-    KV, hd = cfg.num_kv_heads, cfg.resolved_head_dim
-    k, v = enc @ p.wk, enc @ p.wv
-    if cfg.use_bias:
-        k, v = k + p.bk, v + p.bv
-    return k.reshape(B, S, KV, hd), v.reshape(B, S, KV, hd)
+    gather = attn_layout(cfg, ctx) == "columns"
+    out = []
+    for n in ("k", "v"):
+        t = enc @ getattr(p, f"w{n}")
+        if cfg.use_bias:
+            t = t + getattr(p, f"b{n}")
+        if gather:
+            t = gather_seq(t, ctx, dim=-1)
+        out.append(t.reshape(B, S, -1, cfg.resolved_head_dim))
+    return tuple(out)
 
 
 def _sdpa(q, k, v, causal: bool, q_offset: int = 0):
@@ -299,11 +310,10 @@ def decode_attention(p: Attention, cfg: ModelConfig, x: torch.Tensor, kcache: to
     ``cross`` (cross-attention against the encoder's K/V): q alone is
     projected and nothing is written; the caller passes ``pos`` = S - 1, as
     the reference does, so every position is visible (lengths S, a device
-    tensor: no host read)."""
+    tensor: no host read).  At tp > 1 the cross cache is sequence-sharded as
+    the self cache is, and its chunks merge the same way."""
     if ctx is not None and ctx.tp_size > 1:
-        if cross:
-            raise NotImplementedError("cross-attention on a sequence-sharded cache is a later slice of the port")
-        return _decode_sharded(p, cfg, x, kcache, vcache, pos, ctx)
+        return _decode_sharded(p, cfg, x, kcache, vcache, pos, ctx, cross=cross)
     B = x.shape[0]
     H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     S = kcache.shape[1]
@@ -342,17 +352,18 @@ def _gather_heads(t: torch.Tensor, ctx: ShardCtx) -> torch.Tensor:
 
 
 def _decode_sharded(p: Attention, cfg: ModelConfig, x: torch.Tensor, kcache: torch.Tensor,
-                    vcache: torch.Tensor, pos: torch.Tensor, ctx: ShardCtx):
+                    vcache: torch.Tensor, pos: torch.Tensor, ctx: ShardCtx, cross: bool = False):
     """One decode step at tp > 1 on a sequence-sharded cache (the
     reference's ``decode_attention`` with ``_decode_body``).  ``kcache`` /
     ``vcache`` (B, S/tp, KV, hd) hold global positions ``[r * S/tp, (r + 1)
     * S/tp)`` of rank ``r``, every kv head.  q, k_new and v_new come from the
     rank's column shards and are all-gathered to every column (small), or
     under the ``"context"`` layout from the whole weights; the rank owning
-    ``pos`` writes the new token; every rank runs K6 over its chunk with
-    chunk-local lengths ``clip(pos + 1 - start, 0, S/tp)`` and its lse; the
-    partials are all-gathered and merged; the rank's columns of the merged
-    output go through its ``wo`` rows and the ranks sum (under
+    ``pos`` writes the new token (``cross``: q alone, no write); every rank
+    runs K6 over its chunk with chunk-local lengths ``clip(pos + 1 - start,
+    0, S/tp)`` (a cross step's ``pos`` = S - 1: the whole chunk) and its
+    lse; the partials are all-gathered and merged; the rank's columns of the
+    merged output go through its ``wo`` rows and the ranks sum (under
     ``"context"`` every column goes through the whole ``wo``)."""
     B = x.shape[0]
     H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
@@ -361,24 +372,27 @@ def _decode_sharded(p: Attention, cfg: ModelConfig, x: torch.Tensor, kcache: tor
     group = ctx.group(ctx.tp)
     whole = attn_layout(cfg, ctx) == "context"
     x0 = x[:, 0]
-    q, knew, vnew = (x0 @ p.wq, x0 @ p.wk, x0 @ p.wv)
-    if cfg.use_bias:
-        q, knew, vnew = q + p.bq, knew + p.bk, vnew + p.bv
-    if not whole:
-        q, knew, vnew = (_gather_heads(t, ctx) for t in (q, knew, vnew))
-    q = q.reshape(B, H, hd)
-    knew = knew.reshape(B, KV, hd)
-    vnew = vnew.reshape(B, KV, hd)
+    names = ("q",) if cross else ("q", "k", "v")
+    proj = []
+    for n in names:
+        t = x0 @ getattr(p, f"w{n}")
+        if cfg.use_bias:
+            t = t + getattr(p, f"b{n}")
+        proj.append(t if whole else _gather_heads(t, ctx))
+    q = proj[0].reshape(B, H, hd)
     if cfg.use_rope:
         q = apply_rope(q[:, None], pos[:, None], cfg.rope_theta)[:, 0]
-        knew = apply_rope(knew[:, None], pos[:, None], cfg.rope_theta)[:, 0]
     start = r * chunk
-    local = pos - start
-    rows = torch.arange(B, device=x.device)
-    slot = local.clamp(0, chunk - 1).long()
-    owns = ((local >= 0) & (local < chunk))[:, None, None]
-    kcache[rows, slot] = torch.where(owns, knew.to(kcache.dtype), kcache[rows, slot])
-    vcache[rows, slot] = torch.where(owns, vnew.to(vcache.dtype), vcache[rows, slot])
+    if not cross:
+        knew, vnew = (t.reshape(B, KV, hd) for t in proj[1:])
+        if cfg.use_rope:
+            knew = apply_rope(knew[:, None], pos[:, None], cfg.rope_theta)[:, 0]
+        local = pos - start
+        rows = torch.arange(B, device=x.device)
+        slot = local.clamp(0, chunk - 1).long()
+        owns = ((local >= 0) & (local < chunk))[:, None, None]
+        kcache[rows, slot] = torch.where(owns, knew.to(kcache.dtype), kcache[rows, slot])
+        vcache[rows, slot] = torch.where(owns, vnew.to(vcache.dtype), vcache[rows, slot])
     lengths = (pos + 1 - start).clamp(0, chunk).to(torch.int32)
     o, lse = decode_attention_kernel(q, kcache, vcache, lengths, return_lse=True)
     out = merge_partials(gather_stack(o, group), gather_stack(lse, group)).to(x.dtype).reshape(B, H * hd)

@@ -48,12 +48,12 @@ starts every block from zero states, whatever the cache holds, and K7 writes
 each layer's final state straight into its slice of ``wkv``; the decode step
 runs K7 at T = 1 on that slice in place.
 
-A dense or MoE model with ``input_kind == "embeds"`` (llava-next: the
+A model of any kind with ``input_kind == "embeds"`` (llava-next: the
 vision tiling is a stub) takes precomputed (B, T, D) embeddings in
 ``forward``, ``loss`` (``batch["embeds"]``) and ``prefill``, cast to the
-model's type (:meth:`LM.embed_inputs`); its decode step embeds tokens.  On
-a mesh with an axis above 1, or for the recurrent kinds, such inputs raise
-``NotImplementedError`` naming the later slice.
+model's type (:meth:`LM.embed_inputs`; on a mesh every rank's rows of the
+batch, under sequence parallelism cut to the rank's T rows); its decode step
+embeds tokens.
 
 On a mesh (``LM(cfg, ctx)``, a :class:`~repro_torch.distributed.sharding.ShardCtx`
 of a ``(data, model)`` or ``(pod, data, model)`` DeviceMesh) the model is
@@ -67,7 +67,9 @@ batch (its dp shard).  With ``ctx.sp`` the training forward keeps the
 residual T-sharded over tp (Megatron-SP: :func:`gather_seq` before each
 norm, :func:`scatter_seq` after each row-parallel output) and an MoE
 dispatches over all_to_all (``moe_layer_a2a``); training an MoE at tp > 1
-without it raises, as the reference does.  Where tp does not divide the kv
+without it raises, as the reference does.  A T that tp does not divide runs
+without sequence parallelism (the same function as the reference's uneven
+cut), but for an MoE, whose a2a dispatch needs the even cut.  Where tp does not divide the kv
 heads, the attention's layout (:func:`.attention.attn_layout`) cuts its
 columns through heads, or under ``ctx.sp`` runs context-parallel: the
 attention weights tp-replicated, the block's input kept T-sharded through
@@ -145,7 +147,8 @@ def leaf_spec(name: str, ndim: int, ctx: ShardCtx, cfg: ModelConfig | None) -> t
     :class:`LM`, or of one of its modules) with ``ndim`` dimensions: the
     reference's ``spec_*`` entry for it, in ``ctx``'s axis names (keyed on
     the leaf's parent: ``wb`` and ``wo`` are Mamba's, RWKV6's and the
-    attention's own).  A leaf none of them names (a norm's scale, a test's
+    attention's own; the encoder-decoder's cross-attention ``xattn`` is cut
+    as ``attn``).  A leaf none of them names (a norm's scale, a test's
     own tree) is replicated.  An attention leaf's layout reads ``cfg`` under
     sequence parallelism at tp > 1 (:func:`.attention.spec_attn`), a Mamba2
     or RWKV6 leaf's at any tp > 1; there ``None`` raises."""
@@ -155,7 +158,7 @@ def leaf_spec(name: str, ndim: int, ctx: ShardCtx, cfg: ModelConfig | None) -> t
         table = spec_embed(ctx)
     elif parent == "head":
         table = spec_lm_head(ctx)
-    elif parent == "attn":
+    elif parent in ("attn", "xattn"):
         table = attn_mod.spec_attn(cfg, ctx)
     elif parent == "mamba":
         table = mamba2.spec_mamba(cfg, ctx)
@@ -283,78 +286,31 @@ def ffn(p, cfg: ModelConfig, h: torch.Tensor, ctx: ShardCtx | None = None) -> to
     return mlp_mod.mlp(p.mlp, cfg, h, ctx)
 
 
-class LM(nn.Module):
-    """The dense, MoE, Mamba2, hybrid or RWKV6 decoder on ``device`` (default
-    ``"cuda"``; raises without a card unless asked for ``"cpu"``), on one
-    device or, with ``ctx``, this rank's shard of it.
-    Parameters are allocated, not drawn: call :meth:`init` or load a state
-    (``convert.params_from_reference``).  ``rwkv_chunked`` is the
-    reference's option of the same name (the RWKV6 training forward's
-    chunked form)."""
+def model_device(device) -> torch.device:
+    """A model's device: :func:`repro_torch.resolve_device`'s, or the meta
+    device, a skeleton that allocates nothing and whose parameters a state
+    dict then assigns (``load_state_dict(state, assign=True)``: another
+    model's tensors, shared, not copied)."""
+    dev = torch.device(device)
+    return dev if dev.type == "meta" else resolve_device(dev)
 
-    def __init__(self, cfg: ModelConfig, ctx: ShardCtx | None = None, device="cuda", rwkv_chunked: bool = False):
-        super().__init__()
-        kind = block_kind(cfg)
-        if cfg.input_kind != "tokens" and (kind in RECURRENT_KINDS or on_mesh(ctx)):
-            where = "on a mesh" if on_mesh(ctx) else f"to the {kind} kind"
-            raise NotImplementedError(
-                f"{cfg.name}: precomputed-embedding inputs {where} are a later slice of the port"
-            )
-        dev = resolve_device(device)
-        dt = getattr(torch, cfg.dtype)
-        self.cfg, self.ctx = cfg, ctx
-        tp = ctx.tp_size if ctx is not None else 1
-        if cfg.padded_vocab % tp:
-            raise ValueError(f"the padded vocabulary {cfg.padded_vocab} does not split over tp={tp}")
-        self.embed = Embed(cfg.padded_vocab // tp, cfg.d_model, dt, dev)
-        self.kind = kind
-        self.rwkv_chunked = rwkv_chunked
-        if kind == "rwkv":
-            self.layers = nn.ModuleList(RWKVLayer(cfg, dt, dev, ctx) for _ in range(cfg.num_layers))
-        elif kind in SSM_KINDS:
-            self.layers = nn.ModuleList(MambaLayer(cfg, dt, dev, ctx) for _ in range(cfg.num_layers))
-            if self._every:
-                self.shared = Block(cfg, dt, dev, ctx=ctx)
-        else:
-            n_dense = cfg.moe.first_dense_layers if cfg.moe else 0
-            if n_dense:
-                d_ff = cfg.moe.d_ff_dense or cfg.d_ff
-                self.dense_layers = nn.ModuleList(
-                    Block(cfg, dt, dev, d_ff=d_ff, ctx=ctx) for _ in range(n_dense))
-            self.layers = nn.ModuleList(
-                Block(cfg, dt, dev, moe=kind == "moe", ctx=ctx) for _ in range(cfg.num_layers - n_dense)
-            )
-        self.ln_f = Norm(cfg.d_model, dev)
-        if not cfg.tie_embeddings:
-            self.head = Head(cfg.d_model, cfg.padded_vocab // tp, dt, dev)
 
-    @property
-    def _every(self) -> int:
-        """The hybrid's shared-block period (0: no shared block)."""
-        c = self.cfg
-        return c.shared_attn_every if c.family == "hybrid" else 0
+def vocab_shard(cfg: ModelConfig, ctx: ShardCtx | None) -> int:
+    """The rows of the padded vocabulary a rank holds: ``padded_vocab / tp``
+    (the reference's even ``spec_embed`` / ``spec_lm_head``)."""
+    tp = ctx.tp_size if ctx is not None else 1
+    if cfg.padded_vocab % tp:
+        raise ValueError(f"the padded vocabulary {cfg.padded_vocab} does not split over tp={tp}")
+    return cfg.padded_vocab // tp
 
-    def _shared_after(self, i: int) -> bool:
-        """Whether the shared block runs after Mamba layer ``i``: at the end
-        of each full segment of ``every`` layers (a short last segment has
-        none after it)."""
-        return bool(self._every) and (i + 1) % self._every == 0
 
-    def _stacks(self):
-        """(blocks, k cache name, v cache name) of the attention stacks, in
-        the order they run (none for the recurrent kinds)."""
-        if self.kind in RECURRENT_KINDS:
-            return
-        if hasattr(self, "dense_layers"):
-            yield self.dense_layers, "k_dense", "v_dense"
-        yield self.layers, "k", "v"
-
-    @property
-    def loss_unreached(self) -> tuple[str, ...]:
-        """The parameters :meth:`loss` does not reach: an untied
-        ``input_kind == "embeds"`` model's token table (its batches are
-        embeddings; only :meth:`decode_step` looks tokens up)."""
-        return ("embed.table",) if self.cfg.input_kind == "embeds" and not self.cfg.tie_embeddings else ()
+class MeshModel(nn.Module):
+    """What the decoder-only :class:`LM` and the encoder-decoder
+    (:class:`~repro_torch.models.encdec.EncDecLM`) share on one device or,
+    with ``self.ctx``, as one rank of a mesh: the layouts of their leaves,
+    the per-block FSDP gather, the vocab-parallel head and loss, and the
+    write of a prompt's K/V into a sequence-sharded cache.  A subclass sets
+    ``cfg``, ``ctx``, ``embed`` and (untied) ``head``."""
 
     @property
     def device(self) -> torch.device:
@@ -398,18 +354,153 @@ class LM(nn.Module):
 
         return ns(fsdp_gather(ctx, *tree(blk, "")))
 
-    # ------------------------------------------------------------------ init
-    def init(self, generator: torch.Generator) -> "LM":
-        """Draw every weight from ``generator`` (:func:`init_params`)."""
+    def init(self, generator: torch.Generator):
+        """Draw every weight from ``generator`` (:func:`init_params`), this
+        rank's shard of each."""
         return init_params(self, generator, self.ctx)
 
+    def _seq_sharded(self, n: int) -> bool:
+        """Whether a stack over a sequence of ``n`` runs sequence-parallel:
+        under SP at tp > 1 where tp divides ``n``.  Elsewhere every rank
+        holds the stack's whole T of activations (the reference cuts such a
+        T unevenly, near 1/tp a rank: ROADMAP §3); ``loss`` reports which
+        stacks ran sequence-parallel in its metrics."""
+        return self._sp and n % self._tp == 0
+
+    def _rank_rows(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's T rows of ``x`` (B, T, ...) under sequence
+        parallelism (``spec_resid``'s cut of an input every rank holds whole:
+        no collective)."""
+        n = x.shape[1] // self._tp
+        return x.narrow(1, self.ctx.axis_index(self.ctx.tp) * n, n)
+
+    def _logits(self, x: torch.Tensor) -> torch.Tensor:
+        """Vocab head.  At tp = 1 the padded columns are sliced off; at tp > 1
+        the rank's shard keeps them, masked to -1e30 (the reference's even
+        sharding)."""
+        c = self.cfg
+        if c.tie_embeddings:
+            logits = x @ self.embed.table.T
+        else:
+            logits = lm_logits(self.head.w, x)
+        if self._tp == 1:
+            return logits[..., : c.vocab_size]
+        vl = logits.shape[-1]
+        cols = self.ctx.axis_index(self.ctx.tp) * vl + torch.arange(vl, device=logits.device)
+        return torch.where(cols < c.vocab_size, logits, torch.full_like(logits, -1e30))
+
+    def _whole_logits(self, x: torch.Tensor) -> torch.Tensor:
+        """:meth:`_logits` with every vocab shard (all-gathered over tp at tp
+        > 1: the padded width, pads at -1e30, as the reference returns)."""
+        logits = self._logits(x)
+        if self._tp == 1:
+            return logits
+        st = gather_stack(logits, self.ctx.group(self.ctx.tp))
+        return st.movedim(0, -2).reshape(*logits.shape[:-1], -1)
+
+    def _write_prefill(self, cache: torch.Tensor, kv: torch.Tensor) -> None:
+        """Write a prompt's k or v (B, T, heads, hd) at positions [0, T) of a
+        layer's cache.  At tp > 1 the cache holds the rank's chunk of the
+        sequence, every head, and ``kv`` the rank's heads (gathered over tp
+        here) or, in the column-split and context-parallel layouts, every
+        head already; the rank keeps its positions."""
+        T = kv.shape[1]
+        if self._tp == 1:
+            cache[:, :T] = kv
+            return
+        B, _, kvl, hd = kv.shape
+        whole = kv
+        if kvl < self.cfg.num_kv_heads:
+            whole = gather_stack(kv, self.ctx.group(self.ctx.tp)).permute(1, 2, 0, 3, 4).reshape(B, T, -1, hd)
+        chunk = cache.shape[1]
+        start = self.ctx.axis_index(self.ctx.tp) * chunk
+        n = max(0, min(chunk, T - start))
+        cache[:, :n] = whole[:, start : start + n]
+
+    def _mean_ce(self, logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+        """The cross entropy of this rank's rows (vocab-parallel at tp > 1);
+        on a mesh the mean over the global batch (the dp shards' means
+        summed, equal shards), replicated."""
+        ce = cross_entropy(logits, labels, ctx=self.ctx)
+        if self.ctx is not None and self.ctx.groups(self.ctx.dp):
+            ce = psum(ce, self.ctx.groups(self.ctx.dp)) / self.ctx.dp_size
+        return ce
+
+
+class LM(MeshModel):
+    """The dense, MoE, Mamba2, hybrid or RWKV6 decoder on ``device`` (default
+    ``"cuda"``; raises without a card unless asked for ``"cpu"``; ``"meta"``:
+    :func:`model_device`), on one device or, with ``ctx``, this rank's shard
+    of it.
+    Parameters are allocated, not drawn: call :meth:`init` or load a state
+    (``convert.params_from_reference``).  ``rwkv_chunked`` is the
+    reference's option of the same name (the RWKV6 training forward's
+    chunked form)."""
+
+    def __init__(self, cfg: ModelConfig, ctx: ShardCtx | None = None, device="cuda", rwkv_chunked: bool = False):
+        super().__init__()
+        kind = block_kind(cfg)
+        dev = model_device(device)
+        dt = getattr(torch, cfg.dtype)
+        self.cfg, self.ctx = cfg, ctx
+        vocab = vocab_shard(cfg, ctx)
+        self.embed = Embed(vocab, cfg.d_model, dt, dev)
+        self.kind = kind
+        self.rwkv_chunked = rwkv_chunked
+        if kind == "rwkv":
+            self.layers = nn.ModuleList(RWKVLayer(cfg, dt, dev, ctx) for _ in range(cfg.num_layers))
+        elif kind in SSM_KINDS:
+            self.layers = nn.ModuleList(MambaLayer(cfg, dt, dev, ctx) for _ in range(cfg.num_layers))
+            if self._every:
+                self.shared = Block(cfg, dt, dev, ctx=ctx)
+        else:
+            n_dense = cfg.moe.first_dense_layers if cfg.moe else 0
+            if n_dense:
+                d_ff = cfg.moe.d_ff_dense or cfg.d_ff
+                self.dense_layers = nn.ModuleList(
+                    Block(cfg, dt, dev, d_ff=d_ff, ctx=ctx) for _ in range(n_dense))
+            self.layers = nn.ModuleList(
+                Block(cfg, dt, dev, moe=kind == "moe", ctx=ctx) for _ in range(cfg.num_layers - n_dense)
+            )
+        self.ln_f = Norm(cfg.d_model, dev)
+        if not cfg.tie_embeddings:
+            self.head = Head(cfg.d_model, vocab, dt, dev)
+
+    @property
+    def _every(self) -> int:
+        """The hybrid's shared-block period (0: no shared block)."""
+        c = self.cfg
+        return c.shared_attn_every if c.family == "hybrid" else 0
+
+    def _shared_after(self, i: int) -> bool:
+        """Whether the shared block runs after Mamba layer ``i``: at the end
+        of each full segment of ``every`` layers (a short last segment has
+        none after it)."""
+        return bool(self._every) and (i + 1) % self._every == 0
+
+    def _stacks(self):
+        """(blocks, k cache name, v cache name) of the attention stacks, in
+        the order they run (none for the recurrent kinds)."""
+        if self.kind in RECURRENT_KINDS:
+            return
+        if hasattr(self, "dense_layers"):
+            yield self.dense_layers, "k_dense", "v_dense"
+        yield self.layers, "k", "v"
+
+    @property
+    def loss_unreached(self) -> tuple[str, ...]:
+        """The parameters :meth:`loss` does not reach: an untied
+        ``input_kind == "embeds"`` model's token table (its batches are
+        embeddings; only :meth:`decode_step` looks tokens up)."""
+        return ("embed.table",) if self.cfg.input_kind == "embeds" and not self.cfg.tie_embeddings else ()
+
     # --------------------------------------------------------------- forward
-    def _block(self, blk: Block, x: torch.Tensor, positions: torch.Tensor):
-        """One block, as the reference's ``_attn_mlp_body``: (x, aux).  Under
-        sequence parallelism ``x`` is this rank's T chunk, gathered before
-        each norm (a context-parallel attention takes the chunk itself); the
-        block's fsdp-sharded weights are gathered here."""
-        c, ctx, sp = self.cfg, self.ctx, self._sp
+    def _block(self, blk: Block, x: torch.Tensor, positions: torch.Tensor, sp: bool):
+        """One block, as the reference's ``_attn_mlp_body``: (x, aux).  With
+        ``sp`` (sequence parallelism) ``x`` is this rank's T chunk, gathered
+        before each norm (a context-parallel attention takes the chunk
+        itself); the block's fsdp-sharded weights are gathered here."""
+        c, ctx = self.cfg, self.ctx
         p = self._gathered(blk)
         xg = gather_seq(x, ctx) if sp and not attn_mod.use_context_parallel(c, ctx) else x
         x = x + attn_mod.attention(p.attn, c, rms_norm(xg, p.ln1.scale, c.norm_eps), positions,
@@ -427,13 +518,15 @@ class LM(nn.Module):
         return x + mlp_mod.mlp(p.mlp, c, h, ctx, seq_sharded=sp), self._zero_aux(x)
 
     def embed_inputs(self, inputs: torch.Tensor, seq_sharded: bool = False) -> torch.Tensor:
-        """The residual stream's input (the reference's ``embed_inputs``):
-        token ids (B, T) looked up in the table (:func:`embed_tokens`), or an
-        ``input_kind == "embeds"`` model's precomputed embeddings (B, T, D)
-        cast to the model's type."""
+        """The residual stream's input (the reference's ``embed_inputs``, of
+        any kind): token ids (B, T) looked up in the table
+        (:func:`embed_tokens`), or an ``input_kind == "embeds"`` model's
+        precomputed embeddings (B, T, D) cast to the model's type; with
+        ``seq_sharded`` this rank's T rows of either (``spec_resid``)."""
         if self.cfg.input_kind == "tokens":
             return embed_tokens(self.embed.table, inputs.long(), self.ctx, seq_sharded=seq_sharded)
-        return inputs.to(self.dtype)
+        x = inputs.to(self.dtype)
+        return self._rank_rows(x) if seq_sharded else x
 
     def forward(self, tokens: torch.Tensor):
         """Training/scoring forward over ``tokens`` (B, T), this rank's rows
@@ -445,22 +538,27 @@ class LM(nn.Module):
         activation checkpoint (non-reentrant), recomputed in the backward:
         the Mamba2 kinds' one a Mamba block and one a shared invocation, the
         RWKV6 kind's one a block (the reference's per-layer and
-        per-invocation ``jax.checkpoint``)."""
-        c, ctx, sp = self.cfg, self.ctx, self._sp
-        if self.cfg.moe is not None and self._tp > 1 and not moe_mod.use_a2a(c, ctx):
-            raise ValueError(
-                "training MoE with tp>1 requires the a2a dispatch "
-                "(T % tp == 0 / SP); the psum fallback's gradient path is "
-                "only validated for tp=1"
-            )
+        per-invocation ``jax.checkpoint``).  Under sequence parallelism a
+        length T that tp does not divide runs without it (the same function;
+        the reference cuts such a T unevenly), but for an MoE model, whose
+        a2a dispatch needs the even cut, as the reference's does."""
+        c, ctx = self.cfg, self.ctx
         T = tokens.shape[1]
-        if sp and T % self._tp:
-            raise ValueError(f"sequence parallelism needs T={T} divisible by tp={self._tp}")
+        if self.cfg.moe is not None and self._tp > 1:
+            if not moe_mod.use_a2a(c, ctx):
+                raise ValueError(
+                    "training MoE with tp>1 requires the a2a dispatch "
+                    "(T % tp == 0 / SP); the psum fallback's gradient path is "
+                    "only validated for tp=1"
+                )
+            if T % self._tp:
+                raise ValueError(f"the a2a MoE dispatch needs T={T} divisible by tp={self._tp}")
+        sp = self._seq_sharded(T)
         x = self.embed_inputs(tokens, seq_sharded=sp)
         positions = torch.arange(T, device=x.device)[None, :]
         aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
         for body, blk in self._train_blocks():
-            x, aux = checkpoint(body, blk, x, positions, use_reentrant=False)
+            x, aux = checkpoint(body, blk, x, positions, sp, use_reentrant=False)
             aux_total = aux_total + aux
         if sp:
             x = gather_seq(x, ctx)
@@ -469,7 +567,7 @@ class LM(nn.Module):
 
     def _train_blocks(self):
         """(body, module) of each block of the training forward, in order;
-        a body is ``(module, x, positions) -> (x, aux)``."""
+        a body is ``(module, x, positions, sp) -> (x, aux)``."""
         if self.kind in SSM_KINDS:
             for i, layer in enumerate(self.layers):
                 yield self._mamba_layer, layer
@@ -486,23 +584,21 @@ class LM(nn.Module):
     def _zero_aux(self, x: torch.Tensor) -> torch.Tensor:
         return torch.zeros((), dtype=torch.float32, device=x.device)
 
-    def _mamba_layer(self, layer: MambaLayer, x: torch.Tensor, positions: torch.Tensor):
+    def _mamba_layer(self, layer: MambaLayer, x: torch.Tensor, positions: torch.Tensor, sp: bool):
         """One Mamba2 block of the training forward (the reference's
-        ``body``): under sequence parallelism ``x`` is this rank's T chunk,
-        gathered before the norm, and the block's output reduce-scattered
-        back."""
-        c, ctx, sp = self.cfg, self.ctx, self._sp
+        ``body``): with ``sp`` ``x`` is this rank's T chunk, gathered before
+        the norm, and the block's output reduce-scattered back."""
+        c, ctx = self.cfg, self.ctx
         p = self._gathered(layer)
         xg = gather_seq(x, ctx) if sp else x
         y, _, _ = mamba2.mamba_block(p.mamba, c, rms_norm(xg, p.ln1.scale, c.norm_eps), ctx=ctx, seq_sharded=sp)
         return x + y, self._zero_aux(x)
 
-    def _rwkv_layer(self, layer: RWKVLayer, x: torch.Tensor, positions: torch.Tensor):
+    def _rwkv_layer(self, layer: RWKVLayer, x: torch.Tensor, positions: torch.Tensor, sp: bool):
         """One RWKV6 block of the training forward, from a zero shift and a
         zero state (the reference's ``body``), each mix's input gathered
-        over T and its output reduce-scattered back under sequence
-        parallelism."""
-        c, ctx, sp = self.cfg, self.ctx, self._sp
+        over T and its output reduce-scattered back with ``sp``."""
+        c, ctx = self.cfg, self.ctx
         p = self._gathered(layer)
         hs, _ = rwkv6.dims(c)
         h0, h1, _ = rank_heads(rwkv6.dims(c)[1], ctx)
@@ -521,14 +617,15 @@ class LM(nn.Module):
     def loss(self, batch: dict, aux_weight: float = 0.01):
         """``ce + aux_weight * aux`` over ``batch`` ({"tokens", "labels"},
         (B, T) each, this rank's rows; an embeddings model's {"embeds",
-        "labels"}): (loss, {"ce", "aux"}).  On a mesh ``ce`` is the mean over
-        the global batch (the dp shards' means summed, equal shards),
-        replicated, as are ``aux`` and the loss."""
+        "labels"}): (loss, {"ce", "aux", "seq_parallel"}).  On a mesh ``ce``
+        is the mean over the global batch (the dp shards' means summed, equal
+        shards), replicated, as are ``aux`` and the loss.  ``seq_parallel``
+        (a host bool) says whether the stack ran sequence-parallel: not under
+        SP where tp does not divide T (:meth:`_seq_sharded`)."""
         logits, aux = self(batch["embeds"] if self.cfg.input_kind == "embeds" else batch["tokens"])
-        ce = cross_entropy(logits, batch["labels"], ctx=self.ctx)
-        if self.ctx is not None and self.ctx.groups(self.ctx.dp):
-            ce = psum(ce, self.ctx.groups(self.ctx.dp)) / self.ctx.dp_size
-        return ce + aux_weight * aux, {"ce": ce, "aux": aux}
+        ce = self._mean_ce(logits, batch["labels"])
+        sp = torch.tensor(self._seq_sharded(batch["labels"].shape[1]))
+        return ce + aux_weight * aux, {"ce": ce, "aux": aux, "seq_parallel": sp}
 
     # ---------------------------------------------------------------- decode
     def init_cache(self, batch: int, max_len: int) -> dict:
@@ -568,21 +665,6 @@ class LM(nn.Module):
             cache[kn] = torch.zeros(shape, dtype=self.dtype, device=self.device)
             cache[vn] = torch.zeros(shape, dtype=self.dtype, device=self.device)
         return cache
-
-    def _logits(self, x: torch.Tensor) -> torch.Tensor:
-        """Vocab head.  At tp = 1 the padded columns are sliced off; at tp > 1
-        the rank's shard keeps them, masked to -1e30 (the reference's even
-        sharding)."""
-        c = self.cfg
-        if c.tie_embeddings:
-            logits = x @ self.embed.table.T
-        else:
-            logits = lm_logits(self.head.w, x)
-        if self._tp == 1:
-            return logits[..., : c.vocab_size]
-        vl = logits.shape[-1]
-        cols = self.ctx.axis_index(self.ctx.tp) * vl + torch.arange(vl, device=logits.device)
-        return torch.where(cols < c.vocab_size, logits, torch.full_like(logits, -1e30))
 
     @torch.no_grad()
     def prefill(self, tokens: torch.Tensor, cache: dict):
@@ -676,34 +758,6 @@ class LM(nn.Module):
             cm_shift.copy_(cms)
             x = x + y
         return x
-
-    def _whole_logits(self, x: torch.Tensor) -> torch.Tensor:
-        """:meth:`_logits` with every vocab shard (all-gathered over tp at tp
-        > 1: the padded width, pads at -1e30, as the reference returns)."""
-        logits = self._logits(x)
-        if self._tp == 1:
-            return logits
-        st = gather_stack(logits, self.ctx.group(self.ctx.tp))
-        return st.movedim(0, -2).reshape(*logits.shape[:-1], -1)
-
-    def _write_prefill(self, cache: torch.Tensor, kv: torch.Tensor) -> None:
-        """Write a prompt's k or v (B, T, heads, hd) at positions [0, T) of a
-        layer's cache.  At tp > 1 the cache holds the rank's chunk of the
-        sequence, every head, and ``kv`` the rank's heads (gathered over tp
-        here) or, in the column-split and context-parallel layouts, every
-        head already; the rank keeps its positions."""
-        T = kv.shape[1]
-        if self._tp == 1:
-            cache[:, :T] = kv
-            return
-        B, _, kvl, hd = kv.shape
-        whole = kv
-        if kvl < self.cfg.num_kv_heads:
-            whole = gather_stack(kv, self.ctx.group(self.ctx.tp)).permute(1, 2, 0, 3, 4).reshape(B, T, -1, hd)
-        chunk = cache.shape[1]
-        start = self.ctx.axis_index(self.ctx.tp) * chunk
-        n = max(0, min(chunk, T - start))
-        cache[:, :n] = whole[:, start : start + n]
 
     @torch.no_grad()
     def decode_step(self, cache: dict, tokens: torch.Tensor):

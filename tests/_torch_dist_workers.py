@@ -1,18 +1,20 @@
 """Workers of the port's multi-rank parity tests (``test_torch_sharded_sort.py``,
 ``test_torch_distributed.py``, ``test_torch_lm_sharded.py``,
-``test_torch_context_parallel.py``, ``test_torch_recurrent_sharded.py``).
+``test_torch_context_parallel.py``, ``test_torch_recurrent_sharded.py``,
+``test_torch_families_sharded.py``).
 
 Two kinds, both writing numpy arrays to ``.npz`` files that the tests compare:
 
 * ``ref_sort`` / ``ref_dist`` / ``ref_lm_grads`` / ``ref_lm_rest`` /
-  ``ref_cp_train`` / ``ref_cp_rest`` / ``ref_rec_grads`` / ``ref_rec_rest`` run the JAX package's sharded functions
+  ``ref_cp_train`` / ``ref_cp_rest`` / ``ref_rec_grads`` / ``ref_rec_rest`` /
+  ``ref_fam_grads`` / ``ref_fam_rest`` run the JAX package's sharded functions
   on fake CPU devices (``ref_cli`` and ``ref_cp_rest`` its CLIs).  They run in a subprocess started by
   :func:`start_reference` with
   ``XLA_FLAGS=--xla_force_host_platform_device_count=N`` (the flag must not
   reach the test process):
   ``python tests/_torch_dist_workers.py ref_sort OUT.npz``.
 * ``sort_rank`` / ``dist_rank`` / ``lm_rank`` / ``cp_rank`` /
-  ``cp_fsdp_rank`` / ``rec_rank`` (and the CLI legs ``cli_*``, ``rec_one``) run one gloo rank of the
+  ``cp_fsdp_rank`` / ``rec_rank`` / ``fam_rank`` (and the CLI legs ``cli_*``, ``rec_one``) run one gloo rank of the
   port each, started by
   :func:`start_ranks` (``torch.multiprocessing.start_processes``, a
   ``file://`` rendezvous in the run's own directory, so parallel test
@@ -435,6 +437,24 @@ def unflatten(flat: dict):
         return {k: fix(v) for k, v in node.items()}
 
     return fix(root)
+
+
+def shards_at_spec(cfg, ctx):
+    """``cfg``'s model built on the CPU for the rank that ``ctx`` (a context
+    without a process group) stands at, each leaf checked to be the
+    one-device model's leaf cut by its ``leaf_spec``; returns the model."""
+    from repro_torch import models
+    from repro_torch.models.lm import leaf_spec
+
+    whole = {n: tuple(p.shape) for n, p in models.build(cfg, device="cpu").named_parameters()}
+    model = models.build(cfg, ctx=ctx, device="cpu")
+    got = {n: tuple(p.shape) for n, p in model.named_parameters()}
+    assert set(got) == set(whole)
+    for name, shape in got.items():
+        cut = [1 if e is None else int(np.prod([ctx.axis_size(a) for a in (e if isinstance(e, tuple) else (e,))]))
+               for e in leaf_spec(name, len(shape), ctx, cfg)]
+        assert shape == tuple(w // k for w, k in zip(whole[name], cut)), (name, shape, whole[name])
+    return model
 
 
 def lm_inputs(out: Path, archs=ARCHS) -> None:
@@ -1281,19 +1301,23 @@ def ref_rec(out: str, part: str) -> None:
     np.savez(out, **res)
 
 
-def _rec_model(inputs: dict, name: str, ctx, **kw):
-    """The port's ``name`` on ``ctx`` (None: one device), this rank's shard
-    of the inputs' weights."""
-    from repro_torch import configs
+def _port_model(inputs: dict, name: str, cfg, ctx, **kw):
+    """The port's model of ``cfg`` on ``ctx`` (None: one device), this
+    rank's shard of the inputs' weights of ``name``."""
+    from repro_torch import models
     from repro_torch.models.convert import params_from_reference
-    from repro_torch.models.lm import LM
 
-    cfg = rec_cfg(name, configs.get_smoke_config)
     pre = f"{name}/params/"
     tree = unflatten({k[len(pre):]: v for k, v in inputs.items() if k.startswith(pre)})
-    model = LM(cfg, ctx, device="cpu", **kw)
+    model = models.build(cfg, ctx, device="cpu", **kw)
     model.load_state_dict(params_from_reference(tree, ctx, cfg))
     return model
+
+
+def _rec_model(inputs: dict, name: str, ctx, **kw):
+    from repro_torch import configs
+
+    return _port_model(inputs, name, rec_cfg(name, configs.get_smoke_config), ctx, **kw)
 
 
 def _rec_grads(inputs: dict, name: str, ctx, rank: int, tag: str, **kw) -> dict:
@@ -1442,6 +1466,339 @@ def rec_one(rank: int, world: int, rdv: str, out_dir: str) -> None:
     np.savez(Path(out_dir) / f"rank{rank}.npz", **res)
 
 
+# -- the encoder-decoder and the embeddings models on a mesh ---------------------------
+
+#: The models of ``test_torch_families_sharded.py``: whisper-small's smoke
+#: model (4 heads: ``"heads"`` at tp 2 and 4), its variant with 6 heads of 32
+#: (``"heads"`` at tp 2; at tp 4 ``"columns"`` without SP, ``"context"`` with
+#: it), llava-next-34b's smoke model from embeddings (8 q heads over 2 kv
+#: heads: ``"heads"`` at tp 2, ``"columns"``/``"context"`` at tp 4), and the
+#: hybrid (zamba2), Mamba2 and RWKV6 smoke models from embeddings; all f32.
+FAM_MODELS = {"whisper": ("whisper-small", {}),
+              "whisper6": ("whisper-small", {"num_heads": 6, "num_kv_heads": 6, "head_dim": 32}),
+              "llava": ("llava-next-34b", {}),
+              "zamba2": ("zamba2-1.2b", {"input_kind": "embeds"}),
+              "mamba": ("zamba2-1.2b", {"input_kind": "embeds", "family": "ssm"}),
+              "rwkv6": ("rwkv6-1.6b", {"input_kind": "embeds"})}
+FAM_ENCDEC = ("whisper", "whisper6")
+FAM_RECURRENT = ("zamba2", "mamba", "rwkv6")
+#: The models with a ``ragged`` batch (:data:`FAM_RAGGED`).
+FAM_RAGGED_MODELS = ("whisper", "llava")
+#: Batches: B 4 rows of S 24 frames and T 16 tokens (whisper), or of T 16
+#: embedding rows (one Mamba2 smoke chunk); ``ragged``: whisper at S 22 and T
+#: 10, llava at T 10, lengths tp 4 does not divide (the reference cuts them
+#: unevenly under SP; the port runs those stacks without it).
+FAM_B, FAM_S, FAM_T = 4, 24, 16
+FAM_RAGGED = (22, 10)
+FAM_TRAIN = [  # tag, model, mesh, sequence parallelism, batch (FSDP over data where it is 2)
+    ("whisper_2x2", "whisper", (2, 2), False, "0"),
+    ("whisper_1x4", "whisper", (1, 4), False, "0"),
+    ("whisper_1x4_sp", "whisper", (1, 4), True, "0"),
+    ("whisper_ragged_1x4_sp", "whisper", (1, 4), True, "ragged"),
+    ("whisper6_2x2", "whisper6", (2, 2), False, "0"),
+    ("whisper6_1x4", "whisper6", (1, 4), False, "0"),
+    ("whisper6_1x4_sp", "whisper6", (1, 4), True, "0"),
+    ("llava_2x2", "llava", (2, 2), False, "0"),
+    ("llava_1x4", "llava", (1, 4), False, "0"),
+    ("llava_1x4_sp", "llava", (1, 4), True, "0"),
+    ("llava_ragged_1x4_sp", "llava", (1, 4), True, "ragged"),
+    ("zamba2_1x4_sp", "zamba2", (1, 4), True, "0"),
+    ("mamba_1x4", "mamba", (1, 4), False, "0"),
+    ("rwkv6_1x4_sp", "rwkv6", (1, 4), True, "0"),
+]
+#: Serving: whisper's prompt of 5 tokens against 24 frames, the embeddings
+#: models' of 8 rows; 4 greedy steps; caches of 16 positions (4 a rank at tp 4).
+FAM_SERVE = dict(prompt=5, rows=8, steps=4, max_len=16)
+#: The models trained two AdamW steps, and the checkpoint resumed across meshes.
+FAM_ADAMW = ("whisper", "llava")
+
+
+def fam_cfg(name: str, get_smoke_config):
+    """``name``'s config (:data:`FAM_MODELS`) from either package's getter."""
+    arch, over = FAM_MODELS[name]
+    return dataclasses.replace(get_smoke_config(arch), dtype="float32", **over)
+
+
+def _fam_leaf(name: str, shape, rng) -> np.ndarray:
+    """:func:`_rec_leaf`, with the attention's and the MLP's biases N(0, 0.1)
+    (the reference's init leaves them zero, so a dropped bias would pass)."""
+    if name.rsplit(".", 1)[-1] in ("bq", "bk", "bv", "bo", "b_in", "b_out"):
+        return 0.1 * rng.standard_normal(shape)
+    return _rec_leaf(name, shape, rng)
+
+
+def _fam_batch(cfg, rng, s: int, t: int) -> dict:
+    if cfg.is_encdec:
+        return {"enc_embeds": rng.standard_normal((FAM_B, s, cfg.d_model)).astype(np.float32),
+                "tokens": rng.integers(0, cfg.vocab_size, (FAM_B, t)).astype(np.int32),
+                "labels": rng.integers(0, cfg.vocab_size, (FAM_B, t)).astype(np.int32)}
+    return {"embeds": rng.standard_normal((FAM_B, t, cfg.d_model)).astype(np.float32),
+            "labels": rng.integers(0, cfg.vocab_size, (FAM_B, t)).astype(np.int32)}
+
+
+def fam_inputs(out: Path) -> None:
+    """Write each model's weights (the reference's tree), its batches 0-2
+    (whisper and llava also ``ragged``) and its serving prompt to ``out``.  Runs in the
+    test process."""
+    import torch
+
+    from repro_torch import configs, models
+    from repro_torch.models.convert import params_to_reference
+
+    rng = np.random.default_rng(13)
+    res = {}
+    for name in FAM_MODELS:
+        cfg = fam_cfg(name, configs.get_smoke_config)
+        state = {n: torch.from_numpy(_fam_leaf(n, p.shape, rng).astype(np.float32))
+                 for n, p in models.build(cfg, device="cpu").named_parameters()}
+        res.update({f"{name}/params/{k}": v for k, v in flatten(params_to_reference(state)).items()})
+        batches = {str(i): _fam_batch(cfg, rng, FAM_S, FAM_T) for i in range(3)}
+        if name in FAM_RAGGED_MODELS:
+            batches["ragged"] = _fam_batch(cfg, rng, *FAM_RAGGED)
+        for i, b in batches.items():
+            res.update({f"{name}/batch{i}/{k}": v for k, v in b.items()})
+        prompt = _fam_batch(cfg, rng, FAM_S, FAM_SERVE["prompt"] if cfg.is_encdec else FAM_SERVE["rows"])
+        res.update({f"{name}/prompt/{k}": v for k, v in prompt.items() if k != "labels"})
+    np.savez(out, **res)
+
+
+def fam_batch(inputs: dict, name: str, i: str) -> dict:
+    pre = f"{name}/batch{i}/"
+    return {k[len(pre):]: v for k, v in inputs.items() if k.startswith(pre)}
+
+
+def fam_prompt(inputs: dict, name: str) -> dict:
+    pre = f"{name}/prompt/"
+    return {k[len(pre):]: v for k, v in inputs.items() if k.startswith(pre)}
+
+
+def ref_fam(out: str, part: str) -> None:
+    """The reference's side of ``test_torch_families_sharded.py`` on 4 fake
+    devices, in two parts that run side by side: ``grads`` (the loss and
+    gradients of each model on its batch 0, and on ``ragged`` too, on
+    the (2, 2) mesh with FSDP: the reference's loss is the same function on
+    every mesh) and ``rest`` (two AdamW steps of whisper and llava on that
+    mesh; on the (1, 4) serving context each model's prefill of its prompt
+    and greedy steps from it, the caches after the prefill and after the
+    steps)."""
+    import jax
+    import jax.numpy as jnp
+
+    from repro import models
+    from repro.configs import get_smoke_config
+    from repro.distributed.compat import make_mesh
+    from repro.distributed.sharding import ShardCtx
+    from repro.train.optimizer import AdamWConfig, init_opt_state
+    from repro.train.train_step import build_train_step
+
+    inputs = dict(np.load(Path(out).parent / "inputs.npz"))
+    res = {}
+
+    def params_of(name):
+        pre = f"{name}/params/"
+        return jax.tree.map(jnp.asarray, unflatten({k[len(pre):]: v for k, v in inputs.items() if k.startswith(pre)}))
+
+    def ctx_of(mesh, **kw):
+        return ShardCtx(mesh=make_mesh(mesh, ("data", "model")), tp="model", dp=("data",), **kw)
+
+    if part == "grads":
+        for name, i in [(n, "0") for n in FAM_MODELS] + [(n, "ragged") for n in FAM_RAGGED_MODELS]:
+            model = models.build(fam_cfg(name, get_smoke_config), ctx_of((2, 2), fsdp="data"))
+            batch = {k: jnp.asarray(v) for k, v in fam_batch(inputs, name, i).items()}
+            (loss, met), g = jax.jit(jax.value_and_grad(model.loss, has_aux=True))(params_of(name), batch)
+            tag = name if i == "0" else f"{name}_{i}"
+            res[f"{tag}/loss"], res[f"{tag}/ce"] = np.asarray(loss), np.asarray(met["ce"])
+            res.update({f"{tag}/grad/{k}": v for k, v in flatten(g).items()})
+    else:
+        opt = AdamWConfig(**OPT)
+        for name in FAM_ADAMW:
+            model = models.build(fam_cfg(name, get_smoke_config), ctx_of((2, 2), fsdp="data"))
+            params = params_of(name)
+            state = init_opt_state(params, opt)
+            step = jax.jit(build_train_step(model, opt))
+            for i in range(2):
+                batch = {k: jnp.asarray(v) for k, v in fam_batch(inputs, name, str(i + 1)).items()}
+                params, state, met = step(params, state, batch)
+                res[f"adamw/{name}/loss{i}"] = np.asarray(met["loss"])
+                res[f"adamw/{name}/grad_norm{i}"] = np.asarray(met["grad_norm"])
+            res.update({f"adamw/{name}/params/{k}": v for k, v in flatten(params).items()})
+        for name in FAM_MODELS:
+            cfg = fam_cfg(name, get_smoke_config)
+            model = models.build(cfg, ctx_of((1, 4), fsdp=None))
+            params = params_of(name)
+            prompt = {k: jnp.asarray(v) for k, v in fam_prompt(inputs, name).items()}
+            if cfg.is_encdec:
+                cache = model.init_cache(FAM_B, FAM_SERVE["max_len"], FAM_S)
+            else:
+                cache = model.init_cache(FAM_B, FAM_SERVE["max_len"])
+            logits, cache = jax.jit(model.prefill)(params, prompt, cache)
+            res[f"prefill/{name}/logits"] = np.asarray(logits)
+            res.update({f"prefill/{name}/cache/{k}": np.asarray(v) for k, v in cache.items()})
+            step = jax.jit(model.decode_step)
+            tok, toks = jnp.argmax(logits, axis=-1).astype(jnp.int32), []
+            for _ in range(FAM_SERVE["steps"]):
+                toks.append(np.asarray(tok))
+                logits, cache = step(params, cache, tok)
+                tok = jnp.argmax(logits, axis=-1).astype(jnp.int32)
+            toks.append(np.asarray(tok))
+            res[f"decode/{name}/tokens"] = np.stack(toks, axis=1)
+            res.update({f"decode/{name}/cache/{k}": np.asarray(v) for k, v in cache.items()})
+    np.savez(out, **res)
+
+
+def fam_model(inputs: dict, name: str, ctx):
+    from repro_torch import configs
+
+    return _port_model(inputs, name, fam_cfg(name, configs.get_smoke_config), ctx)
+
+
+def fam_grads(inputs: dict, name: str, ctx, batch: str = "0") -> tuple[dict, dict]:
+    """The port's loss and ce and every gradient leaf (summed over its
+    replicated axes, gathered whole: the reference's tree) of ``name`` on
+    ``ctx`` (None: one device) on the batch ``batch``; a leaf the loss does
+    not reach (an embeddings model's table) gets a zero gradient, as
+    ``build_train_step`` gives it."""
+    import torch
+
+    from repro_torch.models.convert import params_to_reference
+    from repro_torch.train.train_step import shard_batch, sync_grads
+
+    model = fam_model(inputs, name, ctx).requires_grad_(True)
+    loss, met = model.loss({k: torch.from_numpy(v) for k, v in shard_batch(fam_batch(inputs, name, batch),
+                                                                          ctx).items()})
+    params = dict(model.named_parameters())
+    grads = torch.autograd.grad(loss, list(params.values()), allow_unused=True)
+    grads = {n: torch.zeros_like(p) if g is None else g for (n, p), g in zip(params.items(), grads)}
+    if ctx is not None:
+        grads = sync_grads(grads, ctx, model.param_specs())
+    out = {k: v.detach().numpy() for k, v in met.items() if k == "ce" or k.startswith("seq_parallel")}
+    out["loss"] = loss.detach().numpy()
+    return out, flatten(params_to_reference(grads, ctx, model.cfg))
+
+
+def fam_serve(inputs: dict, name: str, ctx, full: bool = False) -> dict:
+    """Prefill of ``name``'s prompt (this rank's rows) on ``ctx``: the
+    logits; with ``full`` also :data:`FAM_SERVE`'s greedy steps from it, the
+    first under the host-read guard, their tokens and, but for the
+    recurrent models, every cache leaf after the prefill and after the
+    steps, whole over tp."""
+    import torch
+
+    from repro_torch.distributed.sharding import gather_leaf
+    from repro_torch.train.train_step import shard_batch
+
+    from _torch_host_reads import NoHostReads
+
+    model = fam_model(inputs, name, ctx)
+    cfg = model.cfg
+    prompt = {k: torch.from_numpy(v) for k, v in shard_batch(fam_prompt(inputs, name), ctx).items()}
+    B = next(iter(prompt.values())).shape[0]
+    if cfg.is_encdec:
+        cache = model.init_cache(B, FAM_SERVE["max_len"], FAM_S)
+        logits, cache = model.prefill(prompt, cache)
+    else:
+        cache = model.init_cache(B, FAM_SERVE["max_len"])
+        logits, cache = model.prefill(prompt["embeds"], cache)
+    res = {"logits": logits.numpy()}
+    if not full:
+        return res
+
+    def whole(tag):
+        if name in FAM_RECURRENT:
+            return {}
+        return {f"{tag}/{k}": (gather_leaf(ctx, v, (None, None, ctx.tp, None, None)) if v.dim() == 5 else v).numpy().copy()
+                for k, v in cache.items()}
+
+    res.update(whole("cache"))
+    tok, toks = logits.argmax(-1), []
+    for i in range(FAM_SERVE["steps"]):
+        toks.append(tok)
+        if i == 0:
+            with NoHostReads():
+                logits, cache = model.decode_step(cache, tok)
+        else:
+            logits, cache = model.decode_step(cache, tok)
+        tok = logits.argmax(-1)
+    toks.append(tok)
+    res["tokens"] = torch.stack(toks, 1).numpy()
+    res.update(whole("decode_cache"))
+    return res
+
+
+def fam_rank(rank: int, world: int, rdv: str, out_dir: str) -> None:
+    """The port's side on one of 4 ranks: the training cases
+    (:data:`FAM_TRAIN`), two AdamW steps of whisper and llava at (2, 2) with
+    FSDP, the first step's checkpoint resumed at (1, 4) with SP for the
+    second, and serving on the (2, 2) and (1, 4) serving contexts."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.distributed.compat import make_mesh
+    from repro_torch.models.convert import (opt_state_from_reference, opt_state_to_reference,
+                                            params_from_reference, params_to_reference)
+    from repro_torch.train.checkpoint import CheckpointManager
+    from repro_torch.train.optimizer import AdamWConfig, init_opt_state
+    from repro_torch.train.train_step import build_train_step, shard_batch
+
+    _init(rank, world, rdv)
+    try:
+        inputs = dict(np.load(Path(out_dir).parent / "inputs.npz"))
+        meshes = {m: make_mesh(m, ("data", "model"), device_type="cpu") for m in ((2, 2), (1, 4))}
+        res = {}
+        for tag, name, mesh, sp, batch in FAM_TRAIN:
+            ctx = _lm_ctx(meshes[mesh], fsdp="data" if mesh[0] > 1 else None, sp=sp)
+            out, grads = fam_grads(inputs, name, ctx, batch)
+            res.update({f"{tag}/{k}": v for k, v in out.items()})
+            if rank == 0:
+                res.update({f"{tag}/grad/{k}": v for k, v in grads.items()})
+
+        opt = AdamWConfig(**OPT)
+        for name in FAM_ADAMW:
+            ctx = _lm_ctx(meshes[(2, 2)], fsdp="data")
+            model = fam_model(inputs, name, ctx).requires_grad_(True)
+            state = init_opt_state(dict(model.named_parameters()), opt)
+            step = build_train_step(model, opt)
+            ckpt = Path(out_dir).parent / f"ckpt_{name}"
+            for i in range(2):
+                b = shard_batch(fam_batch(inputs, name, str(i + 1)), ctx)
+                state, met = step(state, {k: torch.from_numpy(v) for k, v in b.items()})
+                res[f"adamw/{name}/loss{i}"] = float(met["loss"])
+                res[f"adamw/{name}/grad_norm{i}"] = float(met["grad_norm"])
+                if i == 0:  # every rank gathers the whole trees; rank 0 writes them
+                    tree = {"params": params_to_reference(model.state_dict(), ctx, model.cfg),
+                            "opt": opt_state_to_reference(state, ctx, model.cfg)}
+                    if rank == 0:
+                        CheckpointManager(ckpt).save(1, tree)
+                    dist.barrier()
+            whole = params_to_reference(model.state_dict(), ctx, model.cfg)
+            if rank == 0:
+                res.update({f"adamw/{name}/params/{k}": v for k, v in flatten(whole).items()})
+            # the step-1 checkpoint resumed on the (1, 4) mesh under SP for the second step
+            ctx = _lm_ctx(meshes[(1, 4)], fsdp=None, sp=True)
+            tree, manifest = CheckpointManager(ckpt).restore(1)
+            model = fam_model(inputs, name, ctx)
+            model.load_state_dict(params_from_reference(tree["params"], ctx, model.cfg))
+            model.requires_grad_(True)
+            state = opt_state_from_reference(tree["opt"], ctx, model.cfg)
+            b = shard_batch(fam_batch(inputs, name, "2"), ctx)
+            state, met = build_train_step(model, opt)(state, {k: torch.from_numpy(v) for k, v in b.items()})
+            res[f"resume/{name}/loss"] = float(met["loss"])
+            res[f"resume/{name}/grad_norm"] = float(met["grad_norm"])
+            res[f"resume/{name}/step"] = int(manifest["step"])
+            whole = params_to_reference(model.state_dict(), ctx, model.cfg)
+            if rank == 0:
+                res.update({f"resume/{name}/params/{k}": v for k, v in flatten(whole).items()})
+
+        for name in FAM_MODELS:
+            for mesh in ((2, 2), (1, 4)):
+                ctx = _lm_ctx(meshes[mesh], fsdp=None)
+                got = fam_serve(inputs, name, ctx, full=mesh == (1, 4))
+                res.update({f"serve/{name}/{mesh[0]}x{mesh[1]}/{k}": v for k, v in got.items()})
+        np.savez(Path(out_dir) / f"rank{rank}.npz", **res)
+    finally:
+        dist.destroy_process_group()
+
+
 # -- bounded runs --------------------------------------------------------------------
 
 
@@ -1542,4 +1899,5 @@ if __name__ == "__main__":
      "ref_lm_grads": lambda out: ref_lm(out, "grads"), "ref_lm_rest": lambda out: ref_lm(out, "rest"),
      "ref_cp_train": lambda out: ref_cp(out, "train"), "ref_cp_rest": lambda out: ref_cp(out, "rest"),
      "ref_rec_grads": lambda out: ref_rec(out, "grads"), "ref_rec_rest": lambda out: ref_rec(out, "rest"),
+     "ref_fam_grads": lambda out: ref_fam(out, "grads"), "ref_fam_rest": lambda out: ref_fam(out, "rest"),
      }[sys.argv[1]](sys.argv[2])

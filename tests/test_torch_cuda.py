@@ -501,6 +501,38 @@ def test_decode_attention_lse_equals_plain(gen, d, G, dtype):
     _assert_attention_close(merged[1:].to(dtype), want[1:])
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_lse_over_a_cross_chunk_of_375(gen, dtype):
+    """whisper-small's cross cache at a tp-4 rank: 1,500 encoder positions
+    over four ranks, a chunk of 375 (not a multiple of ``BLOCK_S``), every
+    row visible on every rank (a cross step's ``pos`` = S - 1) and 12 query
+    heads over 12 kv heads of 64: K6 with its lse against the plain
+    version on each chunk, and the four chunks merged by ``merge_partials``
+    against the whole cache's attention."""
+    from repro_torch.kernels.decode_attention import BLOCK_S, merge_partials
+
+    B, S, H, d, tp = 4, 1500, 12, 64, 4
+    chunk = S // tp
+    assert chunk % BLOCK_S
+    q = _randn(gen, (B, H, d), dtype, QK_SCALE)
+    kc = _randn(gen, (B, S, H, d), dtype, QK_SCALE)
+    vc = _randn(gen, (B, S, H, d), dtype)
+    lengths = torch.full((B,), chunk, dtype=torch.int32, device="cuda")
+    parts = []
+    for r in range(tp):
+        k_r, v_r = kc[:, r * chunk:(r + 1) * chunk], vc[:, r * chunk:(r + 1) * chunk]
+        bitonic.reset_launches()
+        o, lse = decode_attention(q, k_r, v_r, lengths, return_lse=True)
+        assert bitonic.LAUNCHES["decode_attention"] == 1
+        po, plse = decode_attention_plain(q, k_r, v_r, lengths, return_lse=True)
+        torch.testing.assert_close(lse, plse, atol=2e-5, rtol=0)
+        _assert_attention_close(o, po)
+        parts.append((o, lse))
+    merged = merge_partials(torch.stack([o for o, _ in parts]), torch.stack([lse for _, lse in parts]))
+    whole = decode_attention_plain(q, kc, vc, torch.full((B,), S, dtype=torch.int32, device="cuda"))
+    _assert_attention_close(merged.to(dtype), whole)
+
+
 def test_mesh_decode_graph_equals_eager_on_one_rank(gen, tmp_path):
     """The smoke LM on a (1, 1) mesh of a one-rank NCCL group: the engine's
     captured decode step gives the eager step's tokens and the tokens of the

@@ -3,8 +3,8 @@ the vision tiling is a stub) against the JAX package's, on the CPU, at its
 smoke config (3 layers, 8 heads over 2 kv heads: G 4): the training forward,
 the loss and every gradient from ``batch["embeds"]``, one AdamW step, prefill
 from embeddings then greedy token decode steps cache leaf by leaf, the
-host-read guard, and the refusals where embeddings are not ported (the
-recurrent kinds, a mesh).  Where the reference cannot take them (the
+host-read guard, the recurrent kinds from embeddings, and each leaf's shard
+on a mesh (the parity on a mesh is ``test_torch_families_sharded.py``'s).  Where the reference cannot take them (the
 ``Engine``, both CLIs) the refusals are ``test_torch_serve.py``'s.
 
 Tolerances: float32 on both sides 1e-4 (atol and rtol), every gradient leaf
@@ -21,6 +21,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_dist_workers as workers
 import _torch_threads  # noqa: F401  (one intra-op thread a worker)
 
 from repro import models as ref_models
@@ -191,17 +192,37 @@ def test_token_decode_after_embeddings_reads_nothing_on_the_host():
 
 
 @pytest.mark.parametrize("arch", ["zamba2-1.2b", "rwkv6-1.6b"])
-def test_recurrent_kinds_refuse_embeddings(arch):
-    cfg = dataclasses.replace(configs.get_smoke_config(arch), input_kind="embeds")
-    with pytest.raises(NotImplementedError, match="embedding inputs to the .* kind are a later slice"):
-        models.build(cfg, device="cpu")
+def test_recurrent_kinds_take_embeddings(arch):
+    """The reference's ``embed_inputs`` is kind-blind: a recurrent model
+    with ``input_kind == "embeds"`` builds, takes (B, T, D) embeddings in
+    ``prefill`` and decodes tokens (the parity with the reference is
+    ``test_torch_families_sharded.py``'s)."""
+    cfg = dataclasses.replace(configs.get_smoke_config(arch), input_kind="embeds", dtype="float32")
+    model = models.build(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+    cache = model.init_cache(B, 16)
+    x = torch.from_numpy(np.random.default_rng(1).standard_normal((B, T, cfg.d_model)).astype(np.float32)) * 0.02
+    logits, cache = model.prefill(x, cache)
+    logits, cache = model.decode_step(cache, logits.argmax(-1))
+    assert logits.shape == (B, cfg.vocab_size) and bool(torch.isfinite(logits).all())
+    assert cache["pos"].tolist() == [T + 1] * B
 
 
 @pytest.mark.parametrize("ctx", [ShardCtx.grid(model=(0, 2)), ShardCtx.grid(data=(1, 2)), ShardCtx(sp=True)],
                          ids=["tp2", "fsdp2", "sp"])
-def test_embeddings_on_a_mesh_raise_naming_the_later_slice(ctx):
-    with pytest.raises(NotImplementedError, match="embedding inputs on a mesh are a later slice"):
-        models.build(_port_config(), ctx=ctx, device="cpu")
+def test_embeddings_on_a_mesh_build_each_leaf_at_its_spec(ctx):
+    """On a mesh the embeddings model is the rank's shard of every leaf by
+    ``leaf_spec`` (the vocab over tp for the decode step's lookup), its
+    cache sequence-sharded; ``embed_inputs`` under SP keeps the rank's T
+    rows of the embeddings with no collective."""
+    cfg = _port_config()
+    model = workers.shards_at_spec(cfg, ctx)
+    tp = ctx.tp_size
+    assert model.embed.table.shape == (cfg.padded_vocab // tp, cfg.d_model)
+    assert model.init_cache(1, 8)["k"].shape == (3, 1, 8 // tp, 2, 16)
+    x = torch.arange(2 * 8 * cfg.d_model, dtype=torch.float32).reshape(2, 8, cfg.d_model)
+    rows = model.embed_inputs(x, seq_sharded=ctx.tp_size > 1)
+    r = ctx.axis_index(ctx.tp)
+    assert torch.equal(rows, x[:, r * 8 // tp:(r + 1) * 8 // tp])
 
 
 def test_one_by_one_mesh_builds():

@@ -4,7 +4,8 @@ weights of ``_torch_encdec_ref.py`` (biases and norm scales drawn): the
 positions, the encoder, the cross cache, the training forward's logits,
 prefill and six decode steps leaf by leaf, cross-attention at a ragged
 encoder length (S 37 against T 9), the host-read guard over the decode step,
-the parameter trees bit for bit and the factory's refusals.  Training is
+the parameter trees bit for bit, each leaf's shard on a mesh and the
+cache's refusal of a length tp does not divide.  Training is
 ``test_torch_encdec_train.py``'s.
 
 Tolerances: float32 on both sides 1e-4 (atol and rtol); bfloat16 logits and
@@ -19,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_dist_workers as workers
 import _torch_threads  # noqa: F401  (one intra-op thread a worker)
 
 from repro.distributed.sharding import local_ctx
@@ -222,14 +224,36 @@ def test_build_returns_the_encoder_decoder_and_its_init_draws_every_leaf():
 
 @pytest.mark.parametrize("ctx", [ShardCtx.grid(model=(0, 2)), ShardCtx.grid(data=(1, 2)), ShardCtx(sp=True)],
                          ids=["tp2", "fsdp2", "sp"])
-def test_mesh_raises_naming_the_later_slice(ctx):
-    with pytest.raises(NotImplementedError, match="encoder-decoder.*mesh.*later slice"):
-        models.build(port_config(), ctx=ctx, device="cpu")
+def test_mesh_builds_each_leaf_at_its_spec(ctx):
+    """On a mesh each leaf is the rank's shard by ``leaf_spec`` (the
+    reference's ``_spec_block``): the cross-attention's leaves cut as the
+    self-attention's, the vocab over tp, and the caches sequence-sharded."""
+    cfg = port_config()
+    model = workers.shards_at_spec(cfg, ctx)
+    tp, fsdp = ctx.tp_size, ctx.axis_size(ctx.fsdp)
+    specs = model.param_specs()
+    for leaf in ("wq", "wk", "wv", "wo", "bq", "bk", "bv", "bo"):
+        assert specs[f"decoder.1.xattn.{leaf}"] == specs[f"decoder.1.attn.{leaf}"] == specs[f"encoder.0.attn.{leaf}"]
+    assert model.decoder[0].xattn.wk.shape == (cfg.d_model // fsdp, cfg.num_kv_heads * cfg.resolved_head_dim // tp)
+    assert model.head.w.shape == (cfg.d_model, cfg.padded_vocab // tp)
+    assert model.init_cache(1, 8, 12)["xk"].shape == (2, 1, 12 // tp, 4, 32)
 
 
 def test_one_by_one_mesh_builds():
-    model = models.build(port_config(), ctx=ShardCtx.grid(model=(0, 1), data=(0, 1)), device="cpu")
-    assert model.ctx is None and model.init_cache(1, 8, 5)["xk"].shape == (2, 1, 5, 4, 32)
+    ctx = ShardCtx.grid(model=(0, 1), data=(0, 1))
+    model = models.build(port_config(), ctx=ctx, device="cpu")
+    assert model.ctx is ctx and model.init_cache(1, 8, 5)["xk"].shape == (2, 1, 5, 4, 32)
+
+
+@pytest.mark.parametrize("what,n", [("enc_len", 37), ("max_len", 9)])
+def test_cache_length_that_tp_does_not_divide_raises(what, n):
+    """The cache is sequence-sharded over tp; the reference's decode step
+    refuses a length tp does not divide (its ``shard_map``), so the port's
+    cache names the length and tp."""
+    model = models.build(port_config(), ctx=ShardCtx.grid(model=(1, 4)), device="cpu")
+    lens = {"max_len": 8, "enc_len": 12, what: n}
+    with pytest.raises(ValueError, match=f"{what}={n} does not split over tp=4"):
+        model.init_cache(1, lens["max_len"], lens["enc_len"])
 
 
 def test_prefill_refuses_a_cross_cache_of_another_length():

@@ -272,16 +272,17 @@ def _sizes_ctx(data: int, model: int, **kw):
     _sizes_ctx(2, 2), _sizes_ctx(1, 2, fsdp=None), _sizes_ctx(2, 1), _sizes_ctx(1, 1, sp=True),
     ShardCtx.grid(model=(0, 1), data=(1, 2)),
 ], ids=["2x2", "tp2", "fsdp2", "sp", "grid_fsdp2"])
-def test_mesh_raises_naming_the_later_slice(ctx):
+def test_mesh_builds_each_block_shard(ctx):
     """On a mesh the Mamba2 kinds build, each block this rank's shard of the
     reference's ``spec_mamba`` (d_inner over tp, D over fsdp; the smoke
-    model's 2 groups cut at tp 2); what stays refused is embedding inputs to
-    them, naming its later slice."""
+    model's 2 groups cut at tp 2), from token or embedding inputs alike (the
+    embeddings model's leaves are the token model's)."""
     tp, fsdp = ctx.tp_size, ctx.axis_size(ctx.fsdp)
     for variant in ("hybrid", "ssm"):
         cfg = pair(variant)[3].cfg
-        with pytest.raises(NotImplementedError, match="precomputed-embedding inputs.*later slice"):
-            models.build(dataclasses.replace(cfg, input_kind="embeds"), ctx=ctx, device="cpu")
+        embeds = models.build(dataclasses.replace(cfg, input_kind="embeds"), ctx=ctx, device="cpu")
+        assert {n: p.shape for n, p in embeds.named_parameters()} == {
+            n: p.shape for n, p in models.build(cfg, ctx=ctx, device="cpu").named_parameters()}
         blk = models.build(cfg, ctx=ctx, device="cpu").layers[0].mamba
         s, d_inner, _ = mamba2.dims(cfg)
         assert blk.wx.shape == (cfg.d_model // fsdp, d_inner // tp)

@@ -474,15 +474,16 @@ def _sizes_ctx(data: int, model: int, **kw):
     _sizes_ctx(2, 2), _sizes_ctx(1, 2, fsdp=None), _sizes_ctx(2, 1), _sizes_ctx(1, 1, sp=True),
     ShardCtx.grid(model=(0, 1), data=(1, 2)),
 ], ids=["2x2", "tp2", "fsdp2", "sp", "grid_fsdp2"])
-def test_mesh_raises_naming_the_later_slice(ctx):
+def test_mesh_builds_each_block_shard(ctx):
     """On a mesh the RWKV6 kind builds, each block this rank's shard of the
     reference's ``spec_rwkv`` (D over tp and fsdp, ``bonus`` and the cache's
-    ``wkv`` by heads); what stays refused is embedding inputs to it, naming
-    its later slice."""
+    ``wkv`` by heads), from token or embedding inputs alike (the embeddings
+    model's leaves are the token model's)."""
     tp, fsdp = ctx.tp_size, ctx.axis_size(ctx.fsdp)
     cfg = pair()[3].cfg
-    with pytest.raises(NotImplementedError, match="precomputed-embedding inputs.*later slice"):
-        models.build(dataclasses.replace(cfg, input_kind="embeds"), ctx=ctx, device="cpu")
+    embeds = models.build(dataclasses.replace(cfg, input_kind="embeds"), ctx=ctx, device="cpu")
+    assert {n: p.shape for n, p in embeds.named_parameters()} == {
+        n: p.shape for n, p in models.build(cfg, ctx=ctx, device="cpu").named_parameters()}
     port = models.build(cfg, ctx=ctx, device="cpu")
     D, H = cfg.d_model, cfg.d_model // cfg.rwkv.head_size
     blk = port.layers[0].rwkv

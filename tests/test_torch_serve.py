@@ -344,15 +344,17 @@ def test_serve_cli_runs_moe_on_cpu(capsys):
 
 
 @pytest.mark.parametrize("arch", ["llava-next-34b", "whisper-small"])
-def test_other_families_raise_not_implemented(arch):
-    """The encoder-decoder and the embeddings model build on one device;
-    on a mesh above 1x1 (tp 2 here) they are a later slice."""
+def test_other_families_build_on_a_mesh(arch):
+    """The encoder-decoder and the embeddings model build on one device and
+    on a mesh above 1x1 (tp 2 here), each leaf the rank's shard by its
+    ``leaf_spec``."""
+    import _torch_dist_workers as workers
     from repro_torch.distributed.sharding import ShardCtx
 
     cfg = configs.get_smoke_config(arch)
     assert models.build(cfg, device="cpu").cfg.name == arch
-    with pytest.raises(NotImplementedError, match="mesh.* later slice"):
-        models.build(cfg, ctx=ShardCtx.grid(model=(0, 2)), device="cpu")
+    model = workers.shards_at_spec(cfg, ShardCtx.grid(model=(1, 2)))
+    assert model.embed.table.shape[0] == cfg.padded_vocab // 2
 
 
 @pytest.mark.parametrize("arch", ["llava-next-34b", "whisper-small"])

@@ -110,7 +110,13 @@ depth, trained at 4 of 60 layers) and the example twins.  Phases, one JSON line 
    their plain versions (head dims 32, 64, 128 x G 1, 3, 4, 7, causal or not,
    T and S of 1, 63, 130 and mixed, f32 and bf16; the training shapes,
    a transposed dO, a non-causal T != S; limits ``grad_limit`` and
-   ``lse_limit``); granite-moe-3b-a800m at full width and depth and
+   ``lse_limit``); then ``head_dim_192``: K5, K5b and K6 at
+   nemotron-4-340b's head dim 192, which only the bf16 kernels take,
+   against their plain versions (G 1, 3, 4, 7, ragged T and S, causal or
+   not, slots of length 0, strided views; f32 at 192 must raise), and each
+   one's eager and graph ms, plain and library ms and bound at a
+   nemotron-4-340b rank's shapes (tp 16: 6 q heads, 1 kv head, T 4,096,
+   decode 8 slots x 4,096); granite-moe-3b-a800m at full width and depth and
    Mistral-Nemo-12B at 8 of 40 layers (``TRAIN``, ``TRAIN_DENSE``) trained
    on ``TokenPipeline`` batches: tokens/s, ms per step (the first apart),
    peak memory, loss, gradient norm and lr per step, dropped assignments,
@@ -277,7 +283,23 @@ depth, trained at 4 of 60 layers) and the example twins.  Phases, one JSON line 
    lines (times, the serve twin's sampled tokens and the training twin's
    losses masked) equal to the same twin's on the CPU, run in background
    processes started before the serve phases;
-18. ``ptxas`` -- every kernel entry's registers, static shared memory and
+18. ``dryrun`` (after ``examples``) -- the multi-pod dry run
+   (``repro_torch.launch.dryrun``, a fake process group on the meta device,
+   no card) in two parts.  (a) Calibration against the runs above at a
+   one-rank fake world: granite-moe-3b-a800m's ``train`` cell (B 4 x 2,048,
+   f32 moments, AdamW's row chunk as there; no kernel launched, the stand-ins
+   on the meta device) -- its ``argument_bytes`` must
+   equal the bytes of the parameters, moments and batch that phase held, and
+   the predicted peak (arguments + ``temp_bytes``) stands beside that
+   phase's ``torch.cuda.max_memory_allocated()`` with their ratio, its
+   ``flops_per_device`` beside ``train_flops``; one Mistral-Nemo-12B decode
+   step at ``SERVE``'s 4 slots x 4,096 -- its cache and parameter bytes must
+   equal the ``serve`` phase's live cache and weights.  (b) The sweep: every
+   arch x shape on the single-pod (data 16, model 16) mesh, run by the CLI
+   in a background process started just before ``examples``, each cell's
+   seconds; any cell in ``error``, or a skip the reference would not make,
+   fails the run (both meshes: ``--both-meshes`` on the CLI);
+19. ``ptxas`` -- every kernel entry's registers, static shared memory and
    spills, as the compiler reported them when it built the kernels; a
    spill in any entry fails the run.
 
@@ -331,6 +353,9 @@ E2E_HOPS = 7
 SERVE_ARCH = "mistral-nemo-12b"
 MOE_ARCH = "granite-moe-3b-a800m"
 SERVE = dict(slots=4, max_len=4096, requests=8, prompt_min=512, prompt_max=2048, new_tokens=32)
+#: Seconds the dry run's sweep may take past its start (it runs beside the
+#: card's phases).
+DRYRUN_SWEEP_TIMEOUT = 900
 
 #: The training runs, bf16 from ``--seed``, AdamW at lr 3e-4 with
 #: ``AdamWConfig``'s other defaults (f32 moments), one microbatch:
@@ -2504,7 +2529,8 @@ def phase_serve(torch, np, args, arch: str, phase: str, smoke_archs) -> dict:
             "k3_shape": k3_in.shape, "k3_dtype": k3_in.dtype,
             "k3_real": (max(len(p) for p in prompts) - 1) * (cfg.moe.top_k if cfg.moe else 0),
             "k7_prefill_shape": k7_in.shape, "slots": SERVE["slots"], "wkv_layers": wkv_layers,
-            "per_replay": per_replay, "replays": decode.calls}
+            "per_replay": per_replay, "replays": decode.calls, "weight_bytes": weight_bytes,
+            "cache_bytes": cache_bytes}
 
 
 def phase_serve_profile(torch, eng, rng, cfg) -> None:
@@ -2726,6 +2752,71 @@ def phase_k5b(fa, fb, torch, gen) -> None:
           "limits": {"grad": "1e-5 + 2e-5 max|w| + 1e-3 |w| (f32), 1e-5 + 4e-3 max|w| + 1e-2 |w| (bf16)",
                      "lse": {"float32": lse_limit(torch.float32), "bfloat16": lse_limit(torch.bfloat16)}},
           "training_shapes": big, "k5_output_unchanged_by_lse": True})
+
+
+#: nemotron-4-340b's head dim, which only the bfloat16 kernels take, and a
+#: rank's attention at tp 16 (96 / 16 = 6 q heads against 1 kv head): the
+#: training and prefill shape at T 4,096 and a decode step of 8 slots.
+D192_TRAIN = (1, 4096, 4096, 6, 1, 192, True)
+D192_DECODE = ((8, 6, 192), (8, 4096, 1, 192))
+
+
+def phase_head_dim_192(fa, fb, da, torch, gen) -> None:
+    """K5, K5b (with K5's lse) and K6 at head dim 192 in bfloat16 against
+    their plain versions: G 1, 3, 4, 7 x (T, S) in (1, 1), (7, 130), (64,
+    64), (130, 130), (130, 7), (1000, 1000), causal or not, and K6 over
+    caches of 1, 300 and 4096 positions (lengths 1, S and random between)
+    and slots of length 0; q, k, v as strided views of one fused projection;
+    float32 at 192 raises.  Then eager and graph ms of each beside its plain
+    version, the library's and its bound at a nemotron-4-340b rank's shapes
+    (``D192_TRAIN``, ``D192_DECODE``)."""
+    dt, d = torch.bfloat16, 192
+    worst = {"k5": 0.0, "k5b": [0.0, 0.0, 0.0, 0.0], "k6": 0.0}
+    cases = 0
+    for g in (1, 3, 4, 7):
+        for t, s in ((1, 1), (7, 130), (64, 64), (130, 130), (130, 7), (1000, 1000)):
+            for causal in (True, False):
+                err, _ = check_k5(fa, torch, gen, (2, t, 2 * g, d), (2, s, 2, d), dt, causal)
+                worst["k5"] = max(worst["k5"], err)
+                errs, e_lse, _ = check_k5b(fa, fb, torch, gen, (2, t, 2 * g, d), (2, s, 2, d), dt, causal)
+                worst["k5b"] = [max(a, b) for a, b in zip(worst["k5b"], errs + [e_lse])]
+                cases += 2
+        for b, s in ((1, 1), (3, 300), (4, 4096)):
+            lengths = torch.randint(1, s + 1, (b,), generator=gen, device="cuda", dtype=torch.int32)
+            lengths[0] = 1
+            lengths[-1] = s
+            err, _ = check_k6(da, torch, gen, (b, 2 * g, d), (b, s, 2, d), dt, lengths)
+            worst["k6"] = max(worst["k6"], err)
+            cases += 1
+        lengths = torch.tensor([0, 7, 1000, 0], dtype=torch.int32, device="cuda")
+        err, _ = check_k6(da, torch, gen, (4, 2 * g, d), (4, 777, 2, d), dt, lengths)
+        worst["k6"] = max(worst["k6"], err)
+        cases += 1
+    qkv = randn(torch, gen, (2, 150, 12, d), dt, QK_SCALE)  # 8 q heads, 2 + 2 kv heads
+    q, k, v = qkv[:, :, :8], qkv[:, :, 8:10], qkv[:, :, 10:]
+    for causal in (True, False):
+        worst["k5"] = max(worst["k5"], allclose_err(
+            fa.flash_attention(q, k, v, causal=causal),
+            fa.flash_attention_plain(q, k, v, causal=causal), "K5 on strided views (d 192)"))
+        cases += 1
+    x = randn(torch, gen, (1, 8, 2, d), torch.float32)
+    for what, call in (("K5", lambda: fa.flash_attention(x, x, x)),
+                       ("K6", lambda: da.decode_attention(x[:, 0], x, x, torch.ones(1, dtype=torch.int32,
+                                                                                     device="cuda")))):
+        try:
+            call()
+            fail(f"{what} took head dim 192 in float32, which no kernel is built for")
+        except ValueError:
+            pass
+    (b, t, s, h, kv, _, causal), (q6, c6) = D192_TRAIN, D192_DECODE
+    rows = {"flash_attention": k5_row_at(torch, gen, (b, t, h, d), (b, s, kv, d), dt, causal),
+            "flash_attention_bwd": k5b_row(fa, fb, torch, gen, D192_TRAIN),
+            "decode_attention": k6_row_at(torch, gen, q6, c6, dt, [c6[1]] * c6[0], None)}
+    torch.cuda.synchronize()
+    emit({"phase": "head_dim_192", "cases": cases,
+          "max_abs_err": {"k5": worst["k5"], "k5b": dict(zip(("dq", "dk", "dv", "lse"), worst["k5b"])),
+                          "k6": worst["k6"]},
+          "float32_raises": True, "rows": rows})
 
 
 def k5b_work(b: int, t: int, h: int, kv: int, d: int, itemsize: int, causal: bool,
@@ -3186,6 +3277,7 @@ def phase_train(torch, np, args, run: dict, phase: str, plain_check: bool, dev: 
 
     from repro_torch import configs, models
     from repro_torch.kernels import build
+    from repro_torch.obs.costs import part_bytes
     from repro_torch.models import attention as attn_mod
     from repro_torch.models import moe as moe_mod
     from repro_torch.train.optimizer import AdamWConfig, init_opt_state
@@ -3241,6 +3333,9 @@ def phase_train(torch, np, args, run: dict, phase: str, plain_check: bool, dev: 
                 fail(f"{phase} step {i}: loss {rec['loss']} or grad norm {rec['grad_norm']} is not finite")
             steps.append(rec)
     peak, reserved = _peak(torch), _reserved(torch)
+    # what the dry run's calibration holds its arguments and peak to
+    held = part_bytes(params={**dict(model.named_parameters()), **dict(model.named_buffers())},
+                      opt_state=opt_state, batch=first_batch)
     rest = [r["s"] for r in steps[1:]]
     tokens = run["batch"] * run["seq"]
     flops = train_flops(cfg, run["batch"], run["seq"], frames)
@@ -3320,7 +3415,8 @@ def phase_train(torch, np, args, run: dict, phase: str, plain_check: bool, dev: 
     if dev == "cuda":
         torch.cuda.empty_cache()
     out = {"k5_per_step": want["flash_attention"], "k5b_per_step": want["flash_attention_bwd"],
-           "k5b_launches": want["flash_attention_bwd"] * run["steps"],
+           "k5b_launches": want["flash_attention_bwd"] * run["steps"], "argument_bytes": held,
+           "peak_allocated_bytes": peak,
            "k7_per_step": want["wkv"], "k7b_per_step": want["wkv_bwd"], "k7b_launches": want["wkv_bwd"] * run["steps"]}
     if attn_layers:
         shapes = k5b_in.shapes()
@@ -4826,6 +4922,104 @@ def start_examples_on_cpu(run_dir: Path) -> list:
     return procs
 
 
+def start_dryrun_sweep(run_dir: Path) -> tuple:
+    """The dry run of every arch x shape on the single-pod mesh
+    (``python -m repro_torch.launch.dryrun --out``), in a background process
+    (niced, one thread, no card visible): (name, process, output path,
+    start time), as :func:`start_examples_on_cpu` gives them."""
+    run_dir.mkdir(parents=True, exist_ok=True)
+    env = dict(os.environ, OMP_NUM_THREADS="1", CUDA_VISIBLE_DEVICES="", PYTHONPATH=str(ROOT / "src"))
+    path = run_dir / "dryrun_sweep.json"
+    with open(run_dir / "dryrun_sweep.out", "w") as f:
+        proc = subprocess.Popen([sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", "all", "--shape", "all",
+                                 "--out", str(path)], stdout=f, stderr=subprocess.STDOUT, env=env, cwd=ROOT,
+                                preexec_fn=lambda: os.nice(19))
+    return "dryrun", proc, path, time.perf_counter()
+
+
+#: The dry run's calibration cells: granite's ``TRAIN`` cell and one decode
+#: step of ``SERVE``'s slots at its ``max_len``, on a one-rank fake world.
+DRYRUN_TRAIN = dict(seq=TRAIN["seq"], batch=TRAIN["batch"], kind="train")
+DRYRUN_DECODE = dict(seq=SERVE["max_len"], batch=SERVE["slots"], kind="decode")
+
+
+def phase_dryrun(torch, train: dict, serve: dict, sweep: tuple) -> None:
+    """The ``dryrun`` phase (see the module's docstring): the calibration
+    cells traced here against what ``train`` and ``serve`` held, then the
+    background sweep's result."""
+    import torch.distributed as dist
+
+    from repro_torch import configs
+    from repro_torch.kernels import build
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.train.optimizer import AdamWConfig
+
+    if dist.is_initialized():
+        fail("dryrun: a process group is still initialized; the dry run starts its own fake one")
+    t0 = time.perf_counter()
+    build.reset_launches()
+    with dryrun.fake_world(1):
+        mesh = make_mesh((1, 1), ("data", "model"), "cpu")
+        tr = dryrun.lower_cell(MOE_ARCH, "calibration_train", mesh, verbose=False, spec=DRYRUN_TRAIN,
+                               chunk_bytes=AdamWConfig().chunk_threshold_bytes)
+        dec = dryrun.lower_cell(SERVE_ARCH, "calibration_decode", mesh, verbose=False, spec=DRYRUN_DECODE)
+    calib_s = time.perf_counter() - t0
+    launches = dict(build.LAUNCHES)
+    if any(launches.values()):
+        fail(f"dryrun: the meta-device trace launched kernels: {launches}")
+    if tr["memory"]["arguments"] != train["argument_bytes"]:
+        fail(f"dryrun: granite's train arguments {tr['memory']['arguments']} differ from the live tensors' "
+             f"{train['argument_bytes']}")
+    live_cache = sum(serve["cache_bytes"].values())
+    got = dec["memory"]["arguments"]
+    if got["cache"] != live_cache or got["params"] != serve["weight_bytes"]:
+        fail(f"dryrun: Mistral's decode cache / parameters {got['cache']} / {got['params']} differ from the "
+             f"live {live_cache} / {serve['weight_bytes']}")
+    predicted = tr["memory"]["argument_bytes"] + tr["memory"]["temp_bytes"]
+    model_flops = train_flops(configs.get_config(MOE_ARCH), TRAIN["batch"], TRAIN["seq"])
+    calibration = {
+        "train": {"arch": MOE_ARCH, "cell": DRYRUN_TRAIN, "argument_bytes": tr["memory"]["argument_bytes"],
+                  "arguments": tr["memory"]["arguments"], "arguments_equal_live": True,
+                  "temp_bytes": tr["memory"]["temp_bytes"], "predicted_peak_bytes": predicted,
+                  "max_memory_allocated": train["peak_allocated_bytes"],
+                  "predicted_over_measured_peak": predicted / train["peak_allocated_bytes"],
+                  "flops_per_device": tr["flops_per_device"], "train_flops_formula": model_flops,
+                  "flops_over_formula": tr["flops_per_device"] / model_flops, "kernels": tr["kernels"],
+                  "trace_s": tr["trace_s"]},
+        "decode": {"arch": SERVE_ARCH, "cell": DRYRUN_DECODE, "cache_bytes": got["cache"],
+                   "live_cache_bytes": live_cache, "params_bytes": got["params"],
+                   "live_weight_bytes": serve["weight_bytes"], "equal_live": True,
+                   "temp_bytes": dec["memory"]["temp_bytes"], "flops_per_device": dec["flops_per_device"],
+                   "trace_s": dec["trace_s"]},
+        "seconds": calib_s, "launches": launches,
+    }
+    name, proc, path, started = sweep
+    try:
+        proc.wait(timeout=DRYRUN_SWEEP_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        fail(f"dryrun: the sweep did not end within {DRYRUN_SWEEP_TIMEOUT} s")
+    sweep_s = time.perf_counter() - started
+    if proc.returncode or not path.is_file():
+        fail(f"dryrun: the sweep exited {proc.returncode}: "
+             f"{path.with_name('dryrun_sweep.out').read_text()[-3000:]}")
+    cells = json.loads(path.read_text())
+    want_skips = {(a, "long_500k") for a in configs.list_archs() if a not in dryrun.LONG_OK}
+    skips = {(c["arch"], c["shape"]) for c in cells if c["status"] == "skipped"}
+    bad = [c for c in cells if c["status"] not in ("ok", "skipped")]
+    if bad or skips != want_skips or len(cells) != len(configs.list_archs()) * len(dryrun.SHAPES):
+        fail(f"dryrun: the sweep has {len(bad)} cells in error ({[(c['arch'], c['shape']) for c in bad]}), "
+             f"skips {sorted(skips)}")
+    rows = [{k: c.get(k) for k in ("arch", "shape", "status", "trace_s", "microbatches", "flops_per_device",
+                                   "bytes_per_device", "collective_bytes_per_device")}
+            | ({"argument_bytes": c["memory"]["argument_bytes"], "temp_bytes": c["memory"]["temp_bytes"]}
+               if c["status"] == "ok" else {}) for c in cells]
+    emit({"phase": "dryrun", "calibration": calibration,
+          "sweep": {"mesh": {"data": 16, "model": 16}, "wall_s": sweep_s,
+                    "ok": sum(c["status"] == "ok" for c in cells), "skipped": len(skips), "errors": 0,
+                    "trace_s_sum": sum(c.get("trace_s", 0.0) for c in cells), "cells": rows}})
+
+
 def stop_processes(procs) -> None:
     for _, proc, _, _ in procs:
         if proc.poll() is None:
@@ -5096,6 +5290,7 @@ def run_phases(args, np, torch, smi: str, cpu_examples, run_dir: Path) -> int:
 
     # -- the training paths ----------------------------------------------------
     phase_k5b(fa, fb, torch, gen)
+    phase_head_dim_192(fa, fb, da, torch, gen)
     train = phase_train(torch, np, args, TRAIN, "train", plain_check=True)
     dense = phase_train(torch, np, args, TRAIN_DENSE, "train_dense", plain_check=False)
     phase_train_resume(torch, args)
@@ -5120,7 +5315,13 @@ def run_phases(args, np, torch, smi: str, cpu_examples, run_dir: Path) -> int:
     encdec_train = phase_train(torch, np, args, TRAIN_ENCDEC, "train_encdec", plain_check=True)
     embeds = phase_serve_embeds(torch, np, args)
     embeds_train = phase_train(torch, np, args, TRAIN_EMBEDS, "train_embeds", plain_check=False)
+    # the sweep beside the twins' card runs (checks, not timings), after the
+    # host-timed phases, whose clocks it would share the cores with;
+    # appended after the twins: phase_examples pairs EXAMPLES with the list's head
+    sweep = start_dryrun_sweep(run_dir)
+    cpu_examples.append(sweep)
     phase_examples(torch, cpu_examples, run_dir)
+    phase_dryrun(torch, train, serve, sweep)
     rows[0]["sharded"] = sharded["k1"]
     rows[1]["sharded"] = {"site": "core/mergesort.py merge_runs_flat (pipeline, pool_backend=shard_map)",
                           "launches": sharded["k2_pipeline_shard_map_launches"]}

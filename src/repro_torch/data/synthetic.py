@@ -3,11 +3,10 @@
 Counterpart of :mod:`repro.data.synthetic`: :func:`batch_shapes` gives the
 shapes and types of one training batch, :func:`make_batch` materializes
 them from an explicit ``torch.Generator`` (the reference draws from a
-``jax.random`` key; the two give other numbers from one seed).  The
-reference's ``input_specs`` turns those shapes into ``jax.ShapeDtypeStruct``
-stand-ins for tracing without data; :func:`batch_shapes` is what the port
-needs of it (torch traces nothing ahead of a call).  [vlm]/[audio] archs get precomputed embeddings (the modality frontend is a
-stub).
+``jax.random`` key; the two give other numbers from one seed), and
+:func:`input_specs` gives them as meta tensors, the dry run's stand-ins with
+no data (the reference's ``jax.ShapeDtypeStruct``).  [vlm]/[audio] archs get
+precomputed embeddings (the modality frontend is a stub).
 """
 
 from __future__ import annotations
@@ -35,6 +34,11 @@ def batch_shapes(cfg: ModelConfig, batch: int, seq: int) -> dict:
         "tokens": ((batch, seq), torch.int32),
         "labels": ((batch, seq), torch.int32),
     }
+
+
+def input_specs(cfg: ModelConfig, batch: int, seq: int) -> dict:
+    """:func:`batch_shapes` as empty tensors on the meta device."""
+    return {k: torch.empty(shape, dtype=dt, device="meta") for k, (shape, dt) in batch_shapes(cfg, batch, seq).items()}
 
 
 def make_batch(cfg: ModelConfig, batch: int, seq: int, generator: torch.Generator) -> dict:

@@ -22,6 +22,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from ..obs import costs
+
 
 def quantize_int8(x: torch.Tensor, amax: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
     """int8 values and the scale ``max|x| / 127 + 1e-12``; ``amax`` gives
@@ -82,6 +84,7 @@ def make_int8_compressor(ctx=None, specs: dict | None = None):
         for k, g in grads.items():
             for grp in groups(k):
                 amax[k] = amax[k].clone()
+                costs.collective("all-reduce", amax[k])
                 dist.all_reduce(amax[k], op=dist.ReduceOp.MAX, group=grp)
             dg, out_r[k] = compress_decompress(g.float(), residuals[k], amax[k])
             out_g[k] = dg.to(g.dtype)

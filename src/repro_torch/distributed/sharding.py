@@ -47,6 +47,7 @@ import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 
+from ..obs import costs
 from .compat import make_mesh
 
 
@@ -69,7 +70,12 @@ class ShardCtx:
         process."""
         return cls(sp=sp, at=tuple((a, i, n) for a, (i, n) in coords.items()))
 
-    def axis_size(self, name: str | None) -> int:
+    def axis_size(self, name) -> int:
+        """The size of axis ``name``: 1 for None or an axis the mesh lacks;
+        a tuple of axes (the multi-pod ``fsdp``, ``("pod", "data")``) their
+        product."""
+        if isinstance(name, tuple):
+            return math.prod(self.axis_size(a) for a in name)
         if self.mesh is None:
             return next((n for a, _, n in self.at if a == name), 1)
         if name is None or name not in (self.mesh.mesh_dim_names or ()):
@@ -88,15 +94,26 @@ class ShardCtx:
             return None
         return self.dp if len(self.dp) > 1 else self.dp[0]
 
-    def group(self, name: str) -> dist.ProcessGroup:
-        """The process group of the mesh axis ``name`` (this rank's row)."""
+    def group(self, name) -> dist.ProcessGroup:
+        """The process group of the mesh axis ``name`` (this rank's row); of
+        a tuple of axes, their flattened group (rows ordered row-major)."""
+        if isinstance(name, tuple):
+            axes = tuple(a for a in name if self.axis_size(a) > 1)
+            if len(axes) > 1:
+                return self.mesh[axes]._flatten().get_group()
+            name = axes[0] if axes else name[-1]
         return self.mesh.get_group(name)
 
-    def axis_index(self, name: str | None) -> int:
-        """This rank's coordinate along ``name`` (``jax.lax.axis_index``);
-        0 off the mesh."""
+    def axis_index(self, name) -> int:
+        """This rank's coordinate along ``name`` (``jax.lax.axis_index``),
+        row-major over a tuple of axes; 0 off the mesh."""
         if self.axis_size(name) == 1:
             return 0
+        if isinstance(name, tuple):
+            idx = 0
+            for a in name:
+                idx = idx * self.axis_size(a) + self.axis_index(a)
+            return idx
         if self.mesh is None:
             return next(i for a, i, _ in self.at if a == name)
         return self.mesh.get_local_rank(name)
@@ -192,6 +209,7 @@ def replicated_axes(ctx: ShardCtx, spec: tuple) -> list[str]:
 def _reduce(x: torch.Tensor, groups) -> torch.Tensor:
     x = x.contiguous().clone()
     for g in groups:
+        costs.collective("all-reduce", x)
         dist.all_reduce(x, group=g)
     return x
 
@@ -241,6 +259,7 @@ def _all_gather_dim0(x: torch.Tensor, group) -> torch.Tensor:
     world = dist.get_world_size(group)
     out = torch.empty((world * x.shape[0], *x.shape[1:]), dtype=x.dtype, device=x.device)
     gather = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
+    costs.collective("all-gather", x, out)
     gather(out, x.contiguous(), group=group)
     return out
 
@@ -249,6 +268,7 @@ def _reduce_scatter_dim0(x: torch.Tensor, group) -> torch.Tensor:
     world = dist.get_world_size(group)
     out = torch.empty((x.shape[0] // world, *x.shape[1:]), dtype=x.dtype, device=x.device)
     scatter = getattr(dist, "reduce_scatter_single", None) or dist.reduce_scatter_tensor
+    costs.collective("reduce-scatter", x, out)
     scatter(out, x.contiguous(), group=group)
     return out
 
@@ -351,6 +371,7 @@ def _cols_to_seq(x: torch.Tensor, group, tp: int) -> torch.Tensor:
     B, T, n = x.shape
     send = x.reshape(B, tp, T // tp, n).movedim(1, 0).contiguous()
     recv = torch.empty_like(send)
+    costs.collective("all-to-all", send, recv)
     dist.all_to_all_single(recv, send, group=group)
     return recv.permute(1, 2, 0, 3).reshape(B, T // tp, tp * n)
 
@@ -359,6 +380,7 @@ def _seq_to_cols(x: torch.Tensor, group, tp: int) -> torch.Tensor:
     B, t, D = x.shape
     send = x.reshape(B, t, tp, D // tp).permute(2, 0, 1, 3).contiguous()
     recv = torch.empty_like(send)
+    costs.collective("all-to-all", send, recv)
     dist.all_to_all_single(recv, send, group=group)
     return recv.movedim(0, 1).reshape(B, tp * t, D // tp)
 

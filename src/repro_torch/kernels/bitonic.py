@@ -23,7 +23,9 @@ Each has a plain torch version in this module (:func:`sort_rows_plain`,
 :func:`merge_rows_plain`) that runs the same network stage by stage, or for
 K2 the same merge round by round (:func:`co_rank` is its search).  The
 wrapper takes the plain version only for a tensor on the CPU; for a CUDA
-tensor it launches the kernel or raises.  Every launch adds one to
+tensor it launches the kernel or raises.  On the meta device (the dry run,
+which meets K3 alone on the MoE path) :func:`sort_rows_kv` returns empty
+outputs, its work :func:`sort_rows_kv_work`.  Every launch adds one to
 :data:`LAUNCHES` (the record of :mod:`.build`, shared by every kernel of the
 port), so a run can show that it went through the kernels.
 
@@ -36,6 +38,7 @@ from __future__ import annotations
 
 import torch
 
+from ..obs import costs
 from . import build
 from .build import LAUNCHES, reset_launches  # noqa: F401  (the one record of every kernel)
 
@@ -348,7 +351,7 @@ def _check_kernel_input(x: torch.Tensor, op: str) -> None:
         raise ValueError(f"{op} takes a 2-D matrix, got shape {tuple(x.shape)}")
     if not x.is_contiguous():
         raise ValueError(f"{op} takes a contiguous matrix")
-    if x.device.type not in ("cpu", "cuda"):
+    if x.device.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"{op}: unsupported device {x.device}")
 
 
@@ -411,10 +414,29 @@ def _check_same(x: torch.Tensor, y: torch.Tensor, op: str) -> None:
         raise ValueError(f"{op} takes contiguous matrices")
 
 
+#: Integer operations of one K3 compare-exchange by key size in bytes: an
+#: int32 key's compare and select 2 (an int64 key's 6), its int32 value's
+#: select 2 more.
+OPS_PER_KV_COMPARE_EXCHANGE = {4: 4, 8: 8}
+
+
+def sort_rows_kv_work(keys: torch.Tensor, vals: torch.Tensor) -> dict:
+    """One K3 call's work: the compare-exchanges of the stages of
+    :func:`row_sort_kv_plan` (the whole network) over every row, as integer
+    operations (``ops``; no flops); keys and int32 values read and written
+    once."""
+    rows, n = keys.shape
+    stages = sum(len(st) for _, st in row_sort_kv_plan(n))
+    ce = rows * (n // 2) * stages
+    return {"flops": 0.0, "ops": float(ce * OPS_PER_KV_COMPARE_EXCHANGE[keys.element_size()]),
+            "compare_exchanges": float(ce), "bytes": 2.0 * rows * n * (keys.element_size() + 4)}
+
+
+@costs.kernel("row_sort_kv", sort_rows_kv_work)
 def sort_rows_kv(keys: torch.Tensor, vals: torch.Tensor):
     """K3: sort every row of ``keys`` (rows, n) ascending, the int32 ``vals``
     following their keys; n a power of two.  Not stable.  Returns new
-    ``(keys, vals)``."""
+    ``(keys, vals)`` (on the meta device, the dry run's, empty)."""
     _check_kernel_input(keys, "sort_rows_kv")
     if vals.dtype != torch.int32:
         raise TypeError(f"sort_rows_kv takes int32 values, got {vals.dtype}")
@@ -422,6 +444,8 @@ def sort_rows_kv(keys: torch.Tensor, vals: torch.Tensor):
     rows, n = keys.shape
     if not _is_pow2(n):
         raise ValueError(f"row width must be a power of two, got {n}")
+    if keys.device.type == "meta":
+        return torch.empty_like(keys), torch.empty_like(vals)
     if keys.device.type == "cpu":
         return sort_rows_kv_plain(keys, vals)
     if rows == 0 or n == 1:

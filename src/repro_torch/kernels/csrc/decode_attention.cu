@@ -9,7 +9,9 @@
 // -1e30.  A slot whose length is 0 sees every position masked to -1e30, so
 // its softmax is uniform and it writes the mean of v over the cache, as the
 // reference and the plain version do.  Inputs are float32 or bfloat16; D is
-// 32, 64 or 128; any G.
+// 32, 64 or 128, and 192 in bfloat16 (nemotron-4-340b's heads: 24 16-byte
+// chunks a row, so a whole warp takes one row and lanes 24-31 load nothing);
+// any G.
 //
 // Where the caller asks for it (a non-null lse), the merge pass also writes
 // each (slot, head)'s natural-log logsumexp of its scaled, masked scores,
@@ -107,9 +109,11 @@ struct Args {
 template <typename T, int D>
 struct Shape {
   static constexpr int E = 16 / (int)sizeof(T);  // elements per lane load
-  static constexpr int LPR = D / E;              // lanes per row
+  static constexpr int CH = D / E;               // 16-byte chunks a row
+  static constexpr int LPR = 32 % CH == 0 ? CH : 32;  // lanes per row (lanes >= CH idle)
   static constexpr int RPW = 32 / LPR;           // rows per warp load
   static constexpr int RPI = RPW * UNROLL * WARPS;  // rows per block iteration
+  static_assert(CH <= 32, "a row is at most one 16-byte load a lane");
 };
 
 // Heads g0 .. g0 + NQ - 1 of one block's rows [s_begin, s_end): the partial
@@ -124,11 +128,12 @@ __device__ __forceinline__ void heads(
   constexpr int E = Sh::E, LPR = Sh::LPR, RPW = Sh::RPW, RPI = Sh::RPI;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int rg = lane / LPR, c = lane % LPR;
+  const bool live = c < Sh::CH;  // a lane past the row's chunks loads zeros
 
   float qf[NQ][E], acc[NQ][E], m[NQ], l[NQ];
 #pragma unroll
   for (int g = 0; g < NQ; ++g) {
-    unpack(load16(qb + (long long)(g0 + g) * a.q_h), qf[g]);
+    unpack(live ? load16(qb + (long long)(g0 + g) * a.q_h) : make_uint4(0, 0, 0, 0), qf[g]);
 #pragma unroll
     for (int e = 0; e < E; ++e) {
       qf[g][e] *= scale;
@@ -145,8 +150,8 @@ __device__ __forceinline__ void heads(
     for (int u = 0; u < UNROLL; ++u) {
       const int row = it + (warp * UNROLL + u) * RPW + rg;
       ok[u] = row < s_end;
-      kr[u] = ok[u] ? load16(kb + row * a.k_s) : make_uint4(0, 0, 0, 0);
-      vr[u] = ok[u] ? load16(vb + row * a.v_s) : make_uint4(0, 0, 0, 0);
+      kr[u] = ok[u] && live ? load16(kb + row * a.k_s) : make_uint4(0, 0, 0, 0);
+      vr[u] = ok[u] && live ? load16(vb + row * a.v_s) : make_uint4(0, 0, 0, 0);
     }
     float p[UNROLL][NQ];
 #pragma unroll
@@ -212,8 +217,10 @@ __device__ __forceinline__ void heads(
   if (rg == 0) {
 #pragma unroll
     for (int g = 0; g < NQ; ++g) {
+      if (live) {
 #pragma unroll
-      for (int e = 0; e < E; ++e) s_acc[warp][g][c * E + e] = acc[g][e];
+        for (int e = 0; e < E; ++e) s_acc[warp][g][c * E + e] = acc[g][e];
+      }
       if (c == 0) {
         s_ml[warp][g][0] = m[g];
         s_ml[warp][g][1] = l[g];
@@ -336,7 +343,8 @@ decode_merge(const float* __restrict__ part_acc,
       const float2 t = *reinterpret_cast<const float2*>(src);
       x[0] = t.x, x[1] = t.y;
     } else {
-      x[0] = src[0];
+#pragma unroll
+      for (int i = 0; i < PER; ++i) x[i] = src[i];
     }
 #pragma unroll
     for (int i = 0; i < PER; ++i) acc[i] = fmaf(w, x[i], acc[i]);
@@ -404,6 +412,10 @@ int launch(const void* q, const void* kc, const void* vc, const void* lengths,
       return launch_d<T, 64>(q, kc, vc, len, out, ls, pa, pm, B, S, H, KV, block_s, a, scale, s);
     case 128:
       return launch_d<T, 128>(q, kc, vc, len, out, ls, pa, pm, B, S, H, KV, block_s, a, scale, s);
+    case 192:  // bfloat16 only
+      if constexpr (sizeof(T) == 2)
+        return launch_d<T, 192>(q, kc, vc, len, out, ls, pa, pm, B, S, H, KV, block_s, a, scale, s);
+      return (int)cudaErrorInvalidValue;
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -8,7 +8,8 @@
 // accumulator; the mask value is the finite -1e30, so a masked score
 // underflows to exactly 0 and never gives NaN; a row whose l is 0 writes 0.
 // Inputs are float32 or bfloat16, accumulation is float32, the output has
-// the input's type.  D is 32, 64 or 128 (a template argument); T and S are
+// the input's type.  D is 32, 64 or 128 (a template argument), and 192 in
+// bfloat16 (nemotron-4-340b's heads); T and S are
 // any lengths: the ragged tails are bounds-checked here, where the TPU
 // wrapper demanded T % block_q == 0.  On request (a non-null lse pointer, the
 // training forward) each row's natural-log logsumexp of its scaled, masked
@@ -57,6 +58,11 @@
 //   16-byte stores.  Causal key tiles wholly above the diagonal are never
 //   loaded and only tiles that reach the diagonal or the ragged end are
 //   masked; blockIdx.x is reversed so the heaviest query tiles start first.
+//   At D = 192 the accumulator alone is 96 registers a thread, so the Q
+//   fragments are not held: each k-step re-reads its fragment from the Q
+//   tile by ldmatrix (the tile stays in shared memory until the output
+//   replaces it), and the 125 KB of shared memory fit one block an SM
+//   (ptxas: 232 registers, no spill).
 //   cp.async needs 16-byte-aligned rows: the wrapper raises on a base
 //   pointer or a row stride that is not (it never falls back).
 // * float32 (only the smoke configs' type; no full-width path runs it):
@@ -323,6 +329,7 @@ flash_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
   constexpr int CH = D / 8;     // 16-byte chunks per row
   constexpr int KS = D / 16;    // k-steps of Q K^T
   constexpr int NT = BK / 8;    // 8-key n-tiles of a score tile
+  constexpr bool HOLD_Q = D <= 128;  // Q's fragments in registers (see the note)
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* sQ = reinterpret_cast<bf16*>(smem_raw);  // BQ x LD, later the output
   bf16* sK = sQ + BQ * LD;                       // 2 x BK x LD
@@ -361,7 +368,7 @@ flash_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int wrow = q0 + warp * 16;        // first query row of this warp
   const int row_a = wrow + g, row_b = row_a + 8;
   const float sl2 = scale * LOG2E;        // scores in the log2 domain
-  uint32_t qf[KS][4];
+  uint32_t qf[HOLD_Q ? KS : 1][4];
   float acc[CH][4];
 #pragma unroll
   for (int j = 0; j < CH; ++j)
@@ -379,11 +386,12 @@ flash_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
       cp_async_wait<0>();
     }
     __syncthreads();
-    if (it == 0) {
+    auto q_frag = [&](uint32_t (&a)[4], int kk) {
+      ldmatrix_x4(a, smem_u32(sQ + (warp * 16 + (lane & 15)) * LD + kk * 16 + (lane >> 4) * 8));
+    };
+    if (HOLD_Q && it == 0) {
 #pragma unroll
-      for (int kk = 0; kk < KS; ++kk)
-        ldmatrix_x4(qf[kk], smem_u32(sQ + (warp * 16 + (lane & 15)) * LD +
-                                     kk * 16 + (lane >> 4) * 8));
+      for (int kk = 0; kk < KS; ++kk) q_frag(qf[HOLD_Q ? kk : 0], kk);
     }
     const bf16* tk = sK + buf * BK * LD;
     const bf16* tv = sV + buf * BK * LD;
@@ -396,13 +404,16 @@ flash_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
       for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
 #pragma unroll
     for (int kk = 0; kk < KS; ++kk) {
+      uint32_t qr[4];
+      if constexpr (!HOLD_Q) q_frag(qr, kk);
+      const uint32_t(&qa)[4] = HOLD_Q ? qf[HOLD_Q ? kk : 0] : qr;
 #pragma unroll
       for (int nn = 0; nn < NT / 2; ++nn) {
         uint32_t bfr[4];
         const int key = nn * 16 + (lane & 7) + ((lane >> 4) << 3);
         ldmatrix_x4(bfr, smem_u32(tk + key * LD + kk * 16 + ((lane >> 3) & 1) * 8));
-        mma_bf16(s[2 * nn], qf[kk], bfr[0], bfr[1]);
-        mma_bf16(s[2 * nn + 1], qf[kk], bfr[2], bfr[3]);
+        mma_bf16(s[2 * nn], qa, bfr[0], bfr[1]);
+        mma_bf16(s[2 * nn + 1], qa, bfr[2], bfr[3]);
       }
     }
 
@@ -566,6 +577,11 @@ int launch(const void* q, const void* k, const void* v, void* o, void* lse,
     K5_CASE(32)
     K5_CASE(64)
     K5_CASE(128)
+    case 192:  // bfloat16 only
+      if constexpr (sizeof(T) == 2)
+        return launch_bf16_d<192>(q, k, v, o, lf, B, T_len, S, H, G, qs, ks, vs, os, scale, causal,
+                                  q_off, s);
+      return (int)cudaErrorInvalidValue;
     default:
       return (int)cudaErrorInvalidValue;
   }

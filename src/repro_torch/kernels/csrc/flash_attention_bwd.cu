@@ -43,7 +43,8 @@
 //    the key tiles its rows can see and writes dq once.
 // Rows at or beyond T and keys at or beyond S load as zeros and are masked
 // (p = 0, the same as exp(-1e30 - lse)), so T and S are any lengths; D is
-// 32, 64 or 128 (a template argument).  The dtype picks one of two designs:
+// 32, 64 or 128 (a template argument), and 192 in bfloat16 (nemotron-4-340b's
+// heads).  The dtype picks one of two designs:
 //
 // * bfloat16 (the trained models' type): bwd_dkdv_bf16 and bwd_dq_bf16, all
 //   products on the tensor cores with mma.sync.m16n8k16 (bf16 in, f32
@@ -82,6 +83,15 @@
 //     blockIdx.x (the last query tiles see the most keys), the dk/dv pass
 //     keeps it (the first key tiles see the most queries).
 //   - Two blocks fit on an SM (six 64 x (D + 8) tiles: 104 KB at D = 128).
+//   - D = 192: a 16 x 192 f32 accumulator is 96 registers a thread, and the
+//     dk/dv pass holds two.  So that pass splits the output columns: two
+//     blocks take each key tile (blockIdx.x = 2 tile + half), each computes
+//     the whole S^T and dP^T (their k-steps run over all of D) but keeps
+//     and writes only its 96 columns of dk and dv; S^T and dP^T are
+//     computed twice, 1.5x the pass's products.  The dq pass keeps its one
+//     accumulator and re-reads Q's and dO's fragments from their tiles at
+//     each k-step instead of holding them.  151 KB of shared memory a block:
+//     one block an SM (ptxas: dk/dv 231 registers, dq 238, no spill).
 //   q, k, v and dO need 16-byte-aligned rows: the wrapper raises on a base
 //   pointer or a row stride that is not (it never falls back).
 // * float32 (only the smoke configs' type): bwd_dkdv and bwd_dq on the CUDA
@@ -393,7 +403,11 @@ constexpr float LOG2E = 1.4426950408889634f;
 
 // Columns of the score and dp tiles a warp holds at once (see the note).
 template <int D>
-constexpr int CHUNK_COLS = D == 128 ? 32 : 64;
+constexpr int CHUNK_COLS = D >= 128 ? 32 : 64;
+
+// Output columns of dk and dv a dk/dv block holds (see the note).
+template <int D>
+constexpr int DKDV_COLS = D > 128 ? D / 2 : D;
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -489,29 +503,30 @@ __device__ __forceinline__ void mma_abt(float (&acc)[NT][4], const uint32_t (&a)
   }
 }
 
-// acc (16 x D) += a (16 x 16 of k-step kk) x rows [r0 + 16 kk, + 16) of a
-// tile stored [k][n]: B fragments by ldmatrix.trans.
-template <int D>
-__device__ __forceinline__ void mma_ab(float (&acc)[D / 8][4], const uint32_t (&a)[4],
-                                       const bf16* tile, int r0) {
+// acc (16 x DO) += a (16 x 16 of k-step kk) x rows [r0 + 16 kk, + 16),
+// columns [c0, c0 + DO) of a tile stored [k][n]: B fragments by
+// ldmatrix.trans.
+template <int D, int DO = D>
+__device__ __forceinline__ void mma_ab(float (&acc)[DO / 8][4], const uint32_t (&a)[4],
+                                       const bf16* tile, int r0, int c0 = 0) {
   const int lane = threadIdx.x & 31;
   const int r = r0 + (lane & 7) + (((lane >> 3) & 1) << 3);
 #pragma unroll
-  for (int dn = 0; dn < D / 16; ++dn) {
+  for (int dn = 0; dn < DO / 16; ++dn) {
     uint32_t b[4];
-    ldmatrix_x4_trans(b, smem_u32(tile + r * (D + 8) + dn * 16 + (lane >> 4) * 8));
+    ldmatrix_x4_trans(b, smem_u32(tile + r * (D + 8) + c0 + dn * 16 + (lane >> 4) * 8));
     mma_bf16(acc[2 * dn], a, b[0], b[1]);
     mma_bf16(acc[2 * dn + 1], a, b[2], b[3]);
   }
 }
 
-// Writes a warp's 16 x D accumulator times mul as bf16 rows [row0, row0 + 16)
-// of out (rows at or beyond n skipped), staged through the warp's own 16
-// rows of a shared tile for 16-byte stores.
-template <int D>
-__device__ __forceinline__ void store_rows(bf16* stage, const float (&acc)[D / 8][4], float mul,
-                                           bf16* out, long long st, int row0, int n) {
-  constexpr int CH = D / 8, LD = D + 8;
+// Writes a warp's 16 x DO accumulator times mul as bf16 rows [row0, row0 +
+// 16), columns [c0, c0 + DO) of out (rows at or beyond n skipped), staged
+// through the warp's own 16 rows of a shared tile for 16-byte stores.
+template <int D, int DO = D>
+__device__ __forceinline__ void store_rows(bf16* stage, const float (&acc)[DO / 8][4], float mul,
+                                           bf16* out, long long st, int row0, int n, int c0 = 0) {
+  constexpr int CH = DO / 8, LD = D + 8;
   const int lane = threadIdx.x & 31, g = lane >> 2, t4 = lane & 3;
 #pragma unroll
   for (int j = 0; j < CH; ++j) {
@@ -525,7 +540,7 @@ __device__ __forceinline__ void store_rows(bf16* stage, const float (&acc)[D / 8
   for (int c = lane; c < 16 * CH; c += 32) {
     const int r = c / CH, ch = c % CH, t = row0 + r;
     if (t < n)
-      *reinterpret_cast<uint4*>(out + t * st + ch * 8) =
+      *reinterpret_cast<uint4*>(out + t * st + c0 + ch * 8) =
           *reinterpret_cast<const uint4*>(stage + r * LD + ch * 8);
   }
 }
@@ -545,6 +560,7 @@ bwd_dkdv_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
               Strides dvs, float scale, int causal, int q_off_arg) {
   const int q_off = OFF ? q_off_arg : 0;
   constexpr int LD = D + 8, KS = D / 16, CW = CHUNK_COLS<D>, NT = CW / 8;
+  constexpr int DO = DKDV_COLS<D>, SPLIT = D / DO;  // output columns a block
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* sK = reinterpret_cast<bf16*>(smem_raw);    // BK x LD, later dk
   bf16* sV = sK + BK * LD;                         // BK x LD, later dv
@@ -555,7 +571,8 @@ bwd_dkdv_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t4 = lane & 3;
-  const int k0 = blockIdx.x * BK;  // the first key tiles see the most queries
+  const int k0 = blockIdx.x / SPLIT * BK;  // the first key tiles see the most queries
+  const int c0 = blockIdx.x % SPLIT * DO;   // the block's first output column
   const int kvh = blockIdx.y, b = blockIdx.z;
   load_rows<D>(sK, k + b * ks.b + kvh * ks.h, ks.t, k0, S);
   load_rows<D>(sV, v + b * vs.b + kvh * vs.h, vs.t, k0, S);
@@ -577,9 +594,9 @@ bwd_dkdv_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
   if (total > 0) load_q(0, 0);
   cp_async_commit();
 
-  float adk[D / 8][4], adv[D / 8][4];
+  float adk[DO / 8][4], adv[DO / 8][4];
 #pragma unroll
-  for (int j = 0; j < D / 8; ++j)
+  for (int j = 0; j < DO / 8; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) adk[j][e] = adv[j][e] = 0.f;
   const int krow = warp * 16;  // the warp's first key row in the tile
@@ -643,8 +660,8 @@ bwd_dkdv_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
       // dV += P^T dO and dK += dS^T Q over the chunk's query rows.
 #pragma unroll
       for (int kk = 0; kk < CW / 16; ++kk) {
-        mma_ab<D>(adv, pf[kk], to, qc + kk * 16);
-        mma_ab<D>(adk, dsf[kk], tq, qc + kk * 16);
+        mma_ab<D, DO>(adv, pf[kk], to, qc + kk * 16, c0);
+        mma_ab<D, DO>(adk, dsf[kk], tq, qc + kk * 16, c0);
       }
     }
     __syncthreads();  // every warp is done with this buffer before its refill
@@ -653,8 +670,8 @@ bwd_dkdv_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
   __syncthreads();
 
   // The warp read only its own 16 rows of sK and sV: they stage its output.
-  store_rows<D>(sK + krow * LD, adk, scale, dk + b * dks.b + kvh * dks.h, dks.t, k0 + krow, S);
-  store_rows<D>(sV + krow * LD, adv, 1.f, dv + b * dvs.b + kvh * dvs.h, dvs.t, k0 + krow, S);
+  store_rows<D, DO>(sK + krow * LD, adk, scale, dk + b * dks.b + kvh * dks.h, dks.t, k0 + krow, S, c0);
+  store_rows<D, DO>(sV + krow * LD, adv, 1.f, dv + b * dvs.b + kvh * dvs.h, dvs.t, k0 + krow, S, c0);
 }
 
 template <int D>
@@ -670,6 +687,7 @@ bwd_dq_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
             bf16* __restrict__ dq, int T_len, int S, int G, Strides qs, Strides ks,
             Strides vs, Strides dos, Strides dqs, float scale, int causal, int q_off) {
   constexpr int LD = D + 8, KS = D / 16, CW = CHUNK_COLS<D>, NT = CW / 8;
+  constexpr bool HOLD = D <= 128;  // Q's and dO's fragments in registers (see the note)
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* sQ = reinterpret_cast<bf16*>(smem_raw);  // BQ x LD, later dq
   bf16* sO = sQ + BQ * LD;                       // BQ x LD: dO
@@ -703,7 +721,7 @@ bwd_dq_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const float d_a = row_a < T_len ? delta[lrow + row_a] : 0.f;
   const float d_b = row_b < T_len ? delta[lrow + row_b] : 0.f;
   const float sl2 = scale * LOG2E;
-  uint32_t qf[KS][4], of[KS][4];
+  uint32_t qf[HOLD ? KS : 1][4], of[HOLD ? KS : 1][4];
   float acc[D / 8][4];
 #pragma unroll
   for (int j = 0; j < D / 8; ++j)
@@ -720,11 +738,11 @@ bwd_dq_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
       cp_async_wait<0>();
     }
     __syncthreads();
-    if (it == 0) {
+    if (HOLD && it == 0) {
 #pragma unroll
       for (int kk = 0; kk < KS; ++kk) {
-        load_a<D>(qf[kk], sQ, warp * 16, kk);
-        load_a<D>(of[kk], sO, warp * 16, kk);
+        load_a<D>(qf[HOLD ? kk : 0], sQ, warp * 16, kk);
+        load_a<D>(of[HOLD ? kk : 0], sO, warp * 16, kk);
       }
     }
     const bf16* tk = sK + buf * BK * LD;
@@ -741,8 +759,16 @@ bwd_dq_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
         for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
 #pragma unroll
       for (int kk = 0; kk < KS; ++kk) {
-        mma_abt<D, NT>(s, qf[kk], tk, kc, kk);
-        mma_abt<D, NT>(dp, of[kk], tv, kc, kk);
+        if constexpr (HOLD) {
+          mma_abt<D, NT>(s, qf[kk], tk, kc, kk);
+          mma_abt<D, NT>(dp, of[kk], tv, kc, kk);
+        } else {
+          uint32_t a[4];
+          load_a<D>(a, sQ, warp * 16, kk);
+          mma_abt<D, NT>(s, a, tk, kc, kk);
+          load_a<D>(a, sO, warp * 16, kk);
+          mma_abt<D, NT>(dp, a, tv, kc, kk);
+        }
       }
       uint32_t dsf[CW / 16][4];
 #pragma unroll
@@ -785,7 +811,7 @@ int launch_bf16_d(const bf16* q, const bf16* k, const bf16* v, const bf16* dout,
                              (int)smem_q);
   if (err != cudaSuccess) return (int)err;
   // st: q, k, v, o, dO, dq, dk, dv
-  dkdv<<<dim3((S + BK - 1) / BK, KV, B), TC_THREADS, smem_kv, s>>>(
+  dkdv<<<dim3((S + BK - 1) / BK * (D / DKDV_COLS<D>), KV, B), TC_THREADS, smem_kv, s>>>(
       q, k, v, dout, lse, delta, dk, dv, T_len, S, H, G, st[0], st[1], st[2], st[4],
       st[6], st[7], scale, causal, q_off);
   err = cudaGetLastError();
@@ -860,6 +886,12 @@ int launch(const void* q, const void* k, const void* v, const void* o,
     K5B_CASE(32)
     K5B_CASE(64)
     K5B_CASE(128)
+    case 192:  // bfloat16 only
+      if constexpr (sizeof(T) == 2)
+        return launch_bf16_d<192>(tq, tk, tv, tdo, flse, fdelta, static_cast<T*>(dq),
+                                  static_cast<T*>(dk), static_cast<T*>(dv), B, T_len, S, H, KV, st,
+                                  scale, causal, q_off, s);
+      return (int)cudaErrorInvalidValue;
     default:
       return (int)cudaErrorInvalidValue;
   }

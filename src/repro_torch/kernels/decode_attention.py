@@ -15,7 +15,8 @@ mean of v over the cache, as in the reference.
 :func:`decode_attention_plain` computes the same function in plain torch.
 :func:`decode_attention` takes the plain version only for a tensor on the
 CPU; for a CUDA tensor it launches the kernel or raises, and adds one to
-``LAUNCHES["decode_attention"]``.
+``LAUNCHES["decode_attention"]``; on the meta device (the dry run) it
+returns empty outputs, its work :func:`decode_attention_work`.
 
 With ``return_lse=True`` K6 also returns each (slot, head)'s natural-log
 logsumexp of its scaled, masked scores, float32 ``(B, H)``, written by the
@@ -33,9 +34,10 @@ import ctypes
 
 import torch
 
+from ..obs import costs
 from . import build
 from .build import LAUNCHES
-from .flash_attention import HEAD_DIMS, NEG_INF, _check_aligned
+from .flash_attention import NEG_INF, _check_aligned, check_head_dim
 
 #: Cache positions per block of the kernel's first pass.  Mistral-Nemo-12B's
 #: largest smoke step (5,720 visible positions x 8 kv heads) gives 368
@@ -108,22 +110,35 @@ def _check(q, kcache, vcache, lengths) -> None:
                         f"got {q.dtype}, {kcache.dtype}, {vcache.dtype}")
     if not (q.device == kcache.device == vcache.device == lengths.device):
         raise ValueError("q, the caches and lengths must lie on one device")
-    if q.device.type not in ("cpu", "cuda"):
+    if q.device.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"decode_attention: unsupported device {q.device}")
 
 
+def decode_attention_work(q, kcache, vcache, lengths, *, scale: float | None = None,
+                          return_lse: bool = False) -> dict:
+    """One K6 call's work at every cache position visible (the lengths are
+    data; the dry run counts a full cache): 2 flops a multiply-add of q.k and
+    of p.v; the cache's k and v read once, q and the lengths read, the output
+    (and the lse) written."""
+    B, H, d = q.shape
+    S, KV = kcache.shape[1], kcache.shape[2]
+    nbytes = (2 * B * S * KV * d + 2 * B * H * d) * q.element_size() + 4 * B + (4 * B * H if return_lse else 0)
+    return {"flops": 4.0 * B * H * d * S, "bytes": float(nbytes)}
+
+
+@costs.kernel("decode_attention", decode_attention_work)
 def decode_attention(q, kcache, vcache, lengths, *, scale: float | None = None,
                      return_lse: bool = False):
     """K6: q (B, H, d); caches (B, S, KV, d); lengths (B,) int32 visible
     counts.  Returns (B, H, d) in q's type, and with ``return_lse`` also the
-    logsumexp (B, H) float32."""
+    logsumexp (B, H) float32 (on the meta device, the dry run's, empty)."""
     _check(q, kcache, vcache, lengths)
     if q.device.type == "cpu":
         return decode_attention_plain(q, kcache, vcache, lengths, scale=scale, return_lse=return_lse)
     B, H, d = q.shape
     S, KV = kcache.shape[1], kcache.shape[2]
-    if d not in HEAD_DIMS:
-        raise ValueError(f"the kernel takes head dims {HEAD_DIMS}, got {d}")
+    # The card's limits, which the dry run (meta) is held to as well.
+    check_head_dim(d, q.dtype)
     if S == 0:
         raise ValueError("decode_attention needs a cache of at least one position")
     if lengths.dtype != torch.int32 or not lengths.is_contiguous():
@@ -131,9 +146,11 @@ def decode_attention(q, kcache, vcache, lengths, *, scale: float | None = None,
     if any(t.stride(-1) != 1 for t in (q, kcache, vcache)):
         raise ValueError("decode_attention takes tensors whose last axis is contiguous")
     _check_aligned(q, kcache, vcache, op="decode_attention")
-    scale = d**-0.5 if scale is None else scale
     out = torch.empty((B, H, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H), dtype=torch.float32, device=q.device) if return_lse else None
+    if q.device.type == "meta":
+        return (out, lse) if return_lse else out
+    scale = d**-0.5 if scale is None else scale
     if B == 0:
         return (out, lse) if return_lse else out
     G = H // KV

@@ -27,7 +27,8 @@ contiguous.  :func:`flash_attention_bwd_plain` is the port of
 reshapes S into chunks of 1024 and needs S to divide).
 :func:`flash_attention_bwd` takes the plain version only for tensors on the
 CPU; for CUDA tensors it launches the kernel or raises, and adds one to
-``LAUNCHES["flash_attention_bwd"]`` per call.
+``LAUNCHES["flash_attention_bwd"]`` per call; on the meta device (the dry
+run) it returns empty gradients, its work :func:`flash_attention_bwd_work`.
 """
 
 from __future__ import annotations
@@ -36,9 +37,10 @@ import ctypes
 
 import torch
 
+from ..obs import costs
 from . import build
 from .build import LAUNCHES
-from .flash_attention import HEAD_DIMS, NEG_INF, _check, _check_aligned, check_offset
+from .flash_attention import NEG_INF, _check, _check_aligned, check_head_dim, check_offset, visible_pairs
 
 #: Keys per chunk of the plain version (the reference's ``_FLASH_CHUNK``).
 CHUNK = 1024
@@ -95,9 +97,23 @@ def flash_attention_bwd_plain(q, k, v, o, dout, lse, *, causal: bool = True, sca
     return (dq.to(q.dtype), dk.permute(0, 2, 1, 3).to(k.dtype), dv.permute(0, 2, 1, 3).to(v.dtype))
 
 
+def flash_attention_bwd_work(q, k, v, o, dout, lse, *, causal: bool = True, scale: float | None = None,
+                             q_offset: int = 0) -> dict:
+    """One K5b call's work: five products (s, dp, dv, dq, dk) of 2 flops a
+    multiply-add over the visible pairs; q, o, dout, the lse and dq of T
+    rows, k, v, dk and dv of S rows, each read or written once."""
+    B, T, H, d = q.shape
+    S, KV = k.shape[1], k.shape[2]
+    pairs = visible_pairs(T, S, causal, q_offset if causal else 0)
+    nbytes = (4 * B * T * H * d + 4 * B * S * KV * d) * q.element_size() + 4 * B * H * T
+    return {"flops": 10.0 * B * H * d * pairs, "bytes": float(nbytes)}
+
+
+@costs.kernel("flash_attention_bwd", flash_attention_bwd_work)
 def flash_attention_bwd(q, k, v, o, dout, lse, *, causal: bool = True, scale: float | None = None,
                         q_offset: int = 0):
-    """K5b: returns ``(dq, dk, dv)``, each contiguous, in the inputs' type."""
+    """K5b: returns ``(dq, dk, dv)``, each contiguous, in the inputs' type
+    (on the meta device, the dry run's, empty)."""
     _check(q, k, v)
     q_offset = check_offset(q_offset) if causal else 0
     if o.shape != q.shape or dout.shape != q.shape:
@@ -112,8 +128,8 @@ def flash_attention_bwd(q, k, v, o, dout, lse, *, causal: bool = True, scale: fl
         raise ValueError("every input must lie on one device")
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, o, dout, lse, causal=causal, scale=scale, q_offset=q_offset)
-    if d not in HEAD_DIMS:
-        raise ValueError(f"the kernel takes head dims {HEAD_DIMS}, got {d}")
+    # The card's limits, which the dry run (meta) is held to as well.
+    check_head_dim(d, q.dtype)
     if S == 0:
         raise ValueError("flash_attention_bwd needs at least one key")
     if any(t.stride(-1) != 1 for t in (q, k, v, o, dout)):
@@ -122,10 +138,12 @@ def flash_attention_bwd(q, k, v, o, dout, lse, *, causal: bool = True, scale: fl
         raise ValueError("flash_attention_bwd takes a contiguous lse")
     if q.dtype == torch.bfloat16:
         _check_aligned(q, k, v, dout, op="flash_attention_bwd (bfloat16)")
-    scale = d**-0.5 if scale is None else scale
     dq = torch.empty_like(q, memory_format=torch.contiguous_format)
     dk = torch.empty_like(k, memory_format=torch.contiguous_format)
     dv = torch.empty_like(v, memory_format=torch.contiguous_format)
+    if q.device.type == "meta":
+        return dq, dk, dv
+    scale = d**-0.5 if scale is None else scale
     if B == 0 or T == 0:
         return dq, dk.zero_(), dv.zero_()
     delta = torch.empty((B, H, T), dtype=torch.float32, device=q.device)

@@ -45,7 +45,9 @@ strides: the wrappers raise on anything else and never copy.
 :func:`wkv_bwd_plain` is the closed-form backward in two loops (every state
 kept).  The wrappers take the plain versions only for tensors on the CPU; for
 CUDA tensors they launch the kernel or raise, and add one to
-``LAUNCHES["wkv"]`` / ``LAUNCHES["wkv_bwd"]`` per call.
+``LAUNCHES["wkv"]`` / ``LAUNCHES["wkv_bwd"]`` per call; on the meta device
+(the dry run) they return empty outputs, their work :func:`wkv_work` and
+:func:`wkv_bwd_work`.
 """
 
 from __future__ import annotations
@@ -55,6 +57,7 @@ from dataclasses import dataclass
 
 import torch
 
+from ..obs import costs
 from . import build
 from .build import LAUNCHES
 
@@ -197,13 +200,38 @@ def _seq_strides(*ts) -> list[int]:
     return [s for t in ts for s in t.stride()[:3]]
 
 
+def wkv_work(r, k, v, w, u, s0, *, in_place: bool = False) -> dict:
+    """One K7 call's work: 5 flops a state element and step (the read's FMA,
+    the update's multiply and FMA); r, k, v, w, u and s0 read once, y and the
+    state written once."""
+    B, T, H, N = r.shape
+    seq, state = 4.0 * B * T * H * N, 4.0 * B * H * N * N
+    return {"flops": 5.0 * B * T * H * N * N, "bytes": 5 * seq + 2 * state + 4.0 * H * N}
+
+
+def wkv_bwd_work(r, k, v, w, u, s0, dy) -> dict:
+    """One K7b call's work: 14 flops a state element and step (the state
+    recomputed, 3; G's update, 3; the reads of dr, dk, dv and dw, an FMA
+    each); r, k, v, w, dy, u and s0 read once, dr, dk, dv, dw and du written
+    once (its checkpoints are the design's own traffic, not counted)."""
+    B, T, H, N = r.shape
+    seq, state = 4.0 * B * T * H * N, 4.0 * B * H * N * N
+    return {"flops": 14.0 * B * T * H * N * N, "bytes": 9 * seq + state + 2 * 4.0 * H * N}
+
+
+@costs.kernel("wkv", wkv_work)
 def wkv(r, k, v, w, u, s0, *, in_place: bool = False):
     """K7: ``(y, final state)``; with ``in_place`` the final state is ``s0``,
-    overwritten."""
+    overwritten.  On the meta device (the dry run) empty outputs, the state
+    ``s0`` itself with ``in_place``, nothing written."""
     _check(r, k, v, w, u, s0)
     if r.device.type == "cpu":
         return wkv_plain(r, k, v, w, u, s0, in_place=in_place)
-    _check_head_size(r)
+    _check_head_size(r)  # the card's limit, which the dry run (meta) is held to as well
+    if r.device.type == "meta":
+        B, T, H, N = r.shape
+        y = torch.empty((B, T, H, N), dtype=torch.float32, device=r.device)
+        return y, s0 if in_place else torch.empty((B, H, N, N), dtype=torch.float32, device=r.device)
     B, T, H, N = r.shape
     y = torch.empty((B, T, H, N), dtype=torch.float32, device=r.device)
     s_out = s0 if in_place else torch.empty((B, H, N, N), dtype=torch.float32, device=r.device)
@@ -223,12 +251,18 @@ def wkv(r, k, v, w, u, s0, *, in_place: bool = False):
     return y, s_out
 
 
+@costs.kernel("wkv_bwd", wkv_bwd_work)
 def wkv_bwd(r, k, v, w, u, s0, dy):
-    """K7b: ``(dr, dk, dv, dw, du)``, each contiguous float32."""
+    """K7b: ``(dr, dk, dv, dw, du)``, each contiguous float32 (on the meta
+    device, the dry run's, empty)."""
     _check(r, k, v, w, u, s0, dy)
     if r.device.type == "cpu":
         return wkv_bwd_plain(r, k, v, w, u, s0, dy)
-    _check_head_size(r)
+    _check_head_size(r)  # the card's limit, which the dry run (meta) is held to as well
+    if r.device.type == "meta":
+        B, T, H, N = r.shape
+        seqs = tuple(torch.empty((B, T, H, N), dtype=torch.float32, device=r.device) for _ in range(4))
+        return (*seqs, torch.empty((H, N), dtype=torch.float32, device=r.device))
     B, T, H, N = r.shape
     dr, dk, dv, dw = (torch.empty((B, T, H, N), dtype=torch.float32, device=r.device) for _ in range(4))
     if B == 0 or T == 0:

@@ -1,5 +1,6 @@
 """``--mesh`` for the CLIs: the process group, the rank's device and the
-:class:`~repro_torch.distributed.sharding.ShardCtx`.
+:class:`~repro_torch.distributed.sharding.ShardCtx`; and the production
+meshes of the dry run (:func:`make_production_mesh`).
 
 ``--mesh DxM`` is a ``(data, model)`` mesh and ``PxDxM`` a ``(pod, data,
 model)`` one, as the reference's ``parse_mesh`` reads it.  The port is SPMD,
@@ -21,8 +22,20 @@ import tempfile
 import torch
 import torch.distributed as dist
 
-from ..distributed.compat import make_mesh
+from ..distributed.compat import make_mesh  # the reference's launch.mesh.make_mesh too
 from ..distributed.sharding import ShardCtx
+
+
+def make_production_mesh(*, multi_pod: bool = False, device_type: str = "cuda"):
+    """The reference's production meshes: one pod ``(data 16, model 16)``,
+    256 ranks, or two ``(pod 2, data 16, model 16)``, 512.  A ``DeviceMesh``
+    over the process group already started, which must have that many ranks
+    (the dry run's fake one: :func:`repro_torch.launch.dryrun.fake_world`).
+    On 8-card H100 hosts the 16-way ``model`` axis spans two NVLink
+    domains."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return make_mesh(shape, axes, device_type)
 
 
 def parse_mesh(s: str) -> tuple[tuple[int, ...], tuple[str, ...]]:

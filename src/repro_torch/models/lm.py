@@ -175,7 +175,7 @@ def leaf_spec(name: str, ndim: int, ctx: ShardCtx, cfg: ModelConfig | None) -> t
 
 
 def _whole_shape(shape, spec: tuple, ctx: ShardCtx) -> tuple:
-    return tuple(n * (ctx.axis_size(a) if isinstance(a, str) else 1) for n, a in zip(shape, spec))
+    return tuple(n * ctx.axis_size(a) for n, a in zip(shape, spec))
 
 
 @torch.no_grad()

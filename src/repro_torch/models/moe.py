@@ -50,6 +50,7 @@ from torch import nn
 from ..configs.base import ModelConfig
 from ..distributed.sharding import ShardCtx, all_reduce_sum, gather_seq, psum
 from ..kernels import ops
+from ..obs import costs
 from .layers import activation
 from .mlp import MLP, mlp, spec_mlp
 
@@ -263,6 +264,7 @@ class _A2A(torch.autograd.Function):
 def _a2a(x: torch.Tensor, group) -> torch.Tensor:
     x = x.contiguous()
     out = torch.empty_like(x)
+    costs.collective("all-to-all", x, out)
     dist.all_to_all_single(out, x, group=group)
     return out
 

@@ -80,6 +80,13 @@ def init_opt_state(params: dict, cfg: AdamWConfig) -> dict:
     }
 
 
+def opt_state_specs(param_specs: dict) -> dict:
+    """The layouts of :func:`init_opt_state`'s tree from the parameters'
+    (:meth:`LM.param_specs`): each moment as its parameter, the step
+    replicated."""
+    return {"m": param_specs, "v": param_specs, "step": ()}
+
+
 def global_norm(grads: dict, ctx=None, specs: dict | None = None) -> torch.Tensor:
     """sqrt of the sum of every gradient's squares.  On a mesh (``ctx`` and
     the leaves' ``specs``) each rank sums its shards, a leaf replicated over

@@ -33,6 +33,7 @@ import torch
 import torch.distributed as dist
 
 from ..distributed.sharding import replicated_axes, shard_leaf
+from ..obs import costs
 from .optimizer import AdamWConfig, apply_updates
 
 
@@ -60,6 +61,7 @@ def sync_grads(grads: dict, ctx, specs: dict) -> dict:
     (:func:`~repro_torch.distributed.sharding.replicated_axes`), in place."""
     for name, g in grads.items():
         for a in replicated_axes(ctx, specs[name]):
+            costs.collective("all-reduce", g)
             dist.all_reduce(g, group=ctx.group(a))
     return grads
 
@@ -99,14 +101,17 @@ def build_train_step(
                 raise ValueError(f"microbatches={microbatches} does not divide the batch of B={B} rows")
             size = B // microbatches
             grads = {k: torch.zeros(p.shape, dtype=accum_dtype, device=p.device) for k, p in params.items()}
-            loss = 0.0
-            for i in range(microbatches):
-                mb = {k: x[i * size:(i + 1) * size] for k, x in batch.items()}
-                mb_loss, _, mb_grads = loss_and_grads(mb)
-                for k, g in mb_grads.items():
-                    grads[k] += g.to(accum_dtype)
-                del mb_grads
-                loss = loss + mb_loss
+            # a float32 zero (the loss's type), so that every microbatch adds alike
+            loss = torch.zeros((), dtype=torch.float32, device=next(iter(params.values())).device)
+            # the dry run may count the first microbatch for all of them
+            with costs.repeats(microbatches) as runs:
+                for i in range(runs):
+                    mb = {k: x[i * size:(i + 1) * size] for k, x in batch.items()}
+                    mb_loss, mb_metrics, mb_grads = loss_and_grads(mb)
+                    for k, acc in grads.items():  # each gradient freed once added
+                        acc += mb_grads.pop(k).to(accum_dtype)
+                    loss = loss + mb_loss
+                    del mb_loss, mb_metrics
             grads = {k: g / microbatches for k, g in grads.items()}
             loss = loss / microbatches
             metrics = {}

@@ -1,7 +1,7 @@
 """Workers of the port's multi-rank parity tests (``test_torch_sharded_sort.py``,
 ``test_torch_distributed.py``, ``test_torch_lm_sharded.py``,
 ``test_torch_context_parallel.py``, ``test_torch_recurrent_sharded.py``,
-``test_torch_families_sharded.py``).
+``test_torch_families_sharded.py``, ``test_torch_dryrun_ranks.py``).
 
 Two kinds, both writing numpy arrays to ``.npz`` files that the tests compare:
 
@@ -14,7 +14,7 @@ Two kinds, both writing numpy arrays to ``.npz`` files that the tests compare:
   reach the test process):
   ``python tests/_torch_dist_workers.py ref_sort OUT.npz``.
 * ``sort_rank`` / ``dist_rank`` / ``lm_rank`` / ``cp_rank`` /
-  ``cp_fsdp_rank`` / ``rec_rank`` / ``fam_rank`` (and the CLI legs ``cli_*``, ``rec_one``) run one gloo rank of the
+  ``cp_fsdp_rank`` / ``rec_rank`` / ``fam_rank`` / ``dry_rank`` (and the CLI legs ``cli_*``, ``rec_one``) run one gloo rank of the
   port each, started by
   :func:`start_ranks` (``torch.multiprocessing.start_processes``, a
   ``file://`` rendezvous in the run's own directory, so parallel test
@@ -34,6 +34,7 @@ jax, ``repro`` and ``repro_torch`` stay inside the functions of their side.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import os
 import shutil
 import subprocess
@@ -1794,6 +1795,68 @@ def fam_rank(rank: int, world: int, rdv: str, out_dir: str) -> None:
                 ctx = _lm_ctx(meshes[mesh], fsdp=None)
                 got = fam_serve(inputs, name, ctx, full=mesh == (1, 4))
                 res.update({f"serve/{name}/{mesh[0]}x{mesh[1]}/{k}": v for k, v in got.items()})
+        np.savez(Path(out_dir) / f"rank{rank}.npz", **res)
+    finally:
+        dist.destroy_process_group()
+
+
+# -- the dry run against a real step (test_torch_dryrun_ranks.py) -------------------
+
+#: The cells: each arch's smoke config, one train step with SP
+#: (``launch.dryrun.build_ctx``), B 8 x T 32, on a (data 2, model 2) mesh and
+#: on a (pod 2, data 2, model 1) one, whose FSDP runs over the flattened
+#: (pod, data) group as the 512-rank mesh's does.
+DRY = dict(meshes={"flat": ((2, 2), ("data", "model")), "pod": ((2, 2, 1), ("pod", "data", "model"))},
+           batch=8, seq=32, archs=("mistral-nemo-12b", "granite-moe-3b-a800m"))
+
+
+def dry_costs(result: dict, prefix: str) -> dict:
+    """A cost dict's flops, collectives and kernels as flat npz entries."""
+    out = {f"{prefix}/flops": np.float64(result["flops"])}
+    for kind, c in result["per_collective"].items():
+        out[f"{prefix}/coll/{kind}/count"] = np.int64(c["count"])
+        out[f"{prefix}/coll/{kind}/bytes"] = np.int64(c["bytes"])
+    for name, k in result["kernels"].items():
+        out[f"{prefix}/kernel/{name}/calls"] = np.int64(k["calls"])
+        out[f"{prefix}/kernel/{name}/flops"] = np.float64(k["flops"])
+    return out
+
+
+def dry_rank(rank: int, world: int, rdv: str, out_dir: str) -> None:
+    """One gloo rank: each ``DRY`` arch's train step on each ``DRY`` mesh,
+    on this rank's rows of a batch, the step's costs counted
+    (``obs.costs.count``), written as :func:`dry_costs` under
+    ``mesh/arch``."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import configs, models
+    from repro_torch.data.synthetic import make_batch
+    from repro_torch.launch.dryrun import UNCHUNKED, build_ctx, pick_microbatches
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.obs import costs
+    from repro_torch.train.optimizer import AdamWConfig, init_opt_state
+    from repro_torch.train.train_step import build_train_step, shard_batch
+
+    _init(rank, world, rdv)
+    try:
+        res = {}
+        for (name, (dims, axes)), arch in itertools.product(DRY["meshes"].items(), DRY["archs"]):
+            mesh = make_mesh(dims, axes, "cpu")
+            cfg = configs.get_smoke_config(arch)
+            ctx = build_ctx(mesh, DRY["batch"], DRY["seq"], "train")
+            model = models.build(cfg, ctx, device="cpu")
+            model.init(torch.Generator().manual_seed(0))
+            model.requires_grad_(True)
+            opt_cfg = AdamWConfig(chunk_threshold_bytes=UNCHUNKED)
+            mb = pick_microbatches(cfg, DRY["batch"], DRY["seq"], ctx)
+            step = build_train_step(model, opt_cfg, microbatches=mb)
+            state = init_opt_state(dict(model.named_parameters()), opt_cfg)
+            batch = shard_batch(make_batch(cfg, DRY["batch"], DRY["seq"], torch.Generator().manual_seed(1)), ctx, mb)
+            with costs.count() as counter:
+                step(state, batch)
+            res.update(dry_costs(counter.result(), f"{name}/{arch}"))
+            res[f"{name}/{arch}/microbatches"] = np.int64(mb)
         np.savez(Path(out_dir) / f"rank{rank}.npz", **res)
     finally:
         dist.destroy_process_group()

@@ -25,6 +25,7 @@ FORBIDDEN = [
     re.compile(r"^\s*import\s+repro(\.|\s|$|,)", re.M),
     re.compile(r"^\s*from\s+repro(\.|\s)", re.M),
     re.compile(r"importlib\.import_module\(\s*['\"](jax|repro)(\.|['\"])"),
+    re.compile(r"^\s*(import|from)\s+benchmarks\b", re.M),
 ]
 
 
@@ -56,13 +57,13 @@ def test_every_port_module_imports_without_jax_or_reference():
             "repro_torch.train.optimizer", "repro_torch.distributed.collectives",
             "repro_torch.models.mamba2", "repro_torch.configs.paper_sort",
             "repro_torch.models.rwkv6", "repro_torch.kernels.wkv",
-            "repro_torch.models.encdec"} <= set(names)
+            "repro_torch.models.encdec", "repro_torch.launch.dryrun", "repro_torch.obs.costs"} <= set(names)
     code = (
         "import importlib, sys\n"
         f"for name in {names!r}:\n"
         "    importlib.import_module(name)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
-        " or m == 'repro' or m.startswith('repro.'))\n"
+        " or m == 'repro' or m.startswith('repro.') or m == 'benchmarks' or m.startswith('benchmarks.'))\n"
         "assert not bad, bad\n"
         "print(len(sys.modules))\n"
     )
@@ -78,6 +79,32 @@ def test_source_has_no_jax_or_reference_import(path):
     text = (ROOT / path).read_text()
     for pat in FORBIDDEN:
         assert not pat.search(text), f"{path}: {pat.pattern}"
+
+
+def test_dry_run_imports_nothing_of_the_reference_and_starts_no_group():
+    """``repro_torch.launch.dryrun`` (the reference's sets ``XLA_FLAGS`` on
+    import) changes no environment variable and starts no process group
+    until a cell runs; its run of a smoke cell loads no jax either."""
+    code = (
+        "import os, sys\n"
+        "env = dict(os.environ)\n"
+        "import torch.distributed as dist\n"
+        "from repro_torch.launch import dryrun\n"
+        "assert dict(os.environ) == env\n"
+        "assert not dist.is_initialized()\n"
+        "from repro_torch.configs import get_smoke_config\n"
+        "from repro_torch.launch.mesh import make_mesh\n"
+        "with dryrun.fake_world(8):\n"
+        "    r = dryrun.lower_cell('mistral-nemo-12b', 'decode_32k', make_mesh((2, 4), ('data', 'model'), 'cpu'),\n"
+        "                          verbose=False, cfg=get_smoke_config('mistral-nemo-12b'),\n"
+        "                          spec=dict(seq=64, batch=8, kind='decode'))\n"
+        "assert r['status'] == 'ok', r\n"
+        "assert not dist.is_initialized()\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'repro', 'benchmarks'))\n"
+        "assert not bad, bad\n"
+    )
+    subprocess.run([sys.executable, "-c", code], check=True, timeout=300,
+                   env={"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"})
 
 
 def test_scan_patterns_let_repro_torch_through():
